@@ -1,0 +1,110 @@
+"""Device checks and the build of the hand-written CUDA kernels.
+
+Counterpart of ``repro/kernels/backend.py``, which decides between Pallas
+interpret mode and a TPU compile.  Here the decision is by tensor: a CPU
+tensor takes a kernel's plain PyTorch version, a CUDA tensor takes the
+kernel, which needs a Hopper card (compute capability 9.0) because it is
+compiled for ``sm_90a`` only.
+
+Kernels live in ``csrc/<name>.cu`` with a plain C interface.  They are
+compiled with ``nvcc`` at first use into ``build/`` next to this file (a
+directory git ignores), one shared library per source, named by a hash of
+the source and the flags so an edited source is never served stale, and
+loaded with ``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "resolve_device", "on_hopper",
+           "build", "load"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOPPER = (9, 0)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on.  Asking for CUDA where there is
+    none raises: an entry point never quietly drops to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch.cuda."
+                           f"is_available() is False")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    return dev
+
+
+def on_hopper(device: torch.device | None = None) -> bool:
+    return (torch.cuda.is_available()
+            and torch.cuda.get_device_capability(device) == HOPPER)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(path, os.X_OK):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD / f"lib{name}-{digest[:16]}.so"
+
+
+def build(*names: str) -> dict[str, str]:
+    """Compile the named kernels (all ``csrc/*.cu`` if none are named), one
+    ``nvcc`` per source, all started together.  Returns each kernel's
+    compiler log (``-Xptxas -v``: registers, shared memory, spills); an
+    already built library returns an empty log."""
+    names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not on_hopper():
+            raise RuntimeError(f"kernel {name} is compiled for sm_90a and "
+                               f"needs a Hopper card (capability {HOPPER})")
+        build(name)
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib

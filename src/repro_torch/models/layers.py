@@ -1,0 +1,224 @@
+"""Neural building blocks in PyTorch: the dense-attention subset of
+``repro/models/layers.py`` that serving runs.
+
+Functions take and return tensors in the JAX package's layouts, and
+parameters are plain dicts of tensors with the JAX names.  Numerics follow
+the reference step by step: f32 statistics in ``rmsnorm``, f32 rope angles,
+f32 softmax, the finite -1e30 mask, gelu with the tanh approximation
+(``jax.nn.gelu``'s default).
+
+Attention goes through :func:`chunked_attention`: on a CUDA tensor always
+the Hopper flash kernel, whatever the sequence length; on a CPU tensor the
+same dispatch as the reference (the naive oracle for lengths that are not
+a multiple of the chunk, else the kernel's plain version).
+
+The paged decode works on the pools in place and returns them, where the
+JAX version returns updated copies.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import NEG_INF
+from ..kernels.ops import flash_attention
+from .config import ModelConfig
+
+__all__ = ["rmsnorm", "rope", "dense_init", "init_attention",
+           "naive_attention", "chunked_attention", "attention_prefill",
+           "paged_attention_decode", "init_mlp", "mlp_fwd"]
+
+
+# ---------------------------------------------------------------------- #
+# Small pieces
+# ---------------------------------------------------------------------- #
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm: sum of squares in f32, then ``x * scale`` in x's dtype with
+    ``scale = inv.astype(x.dtype) * (1 + w).astype(x.dtype)``."""
+    xf = x.float()
+    ss = (xf * xf).sum(-1)
+    inv = torch.rsqrt(ss / x.shape[-1] + eps)
+    scale = inv[..., None].to(x.dtype) * (1.0 + w).to(x.dtype)
+    return x * scale
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, hd); positions: (..., S).  Rotates the two halves of
+    the head (not interleaved pairs), angles in f32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.bfloat16):
+    """U(-1/sqrt(d_in), 1/sqrt(d_in)) as in the reference, drawn from
+    ``gen`` on its device."""
+    scale = 1.0 / math.sqrt(d_in)
+    u = torch.rand((d_in, d_out), generator=gen, device=gen.device)
+    return ((2.0 * u - 1.0) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------- #
+# Attention
+# ---------------------------------------------------------------------- #
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    D, Q, KV, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, D, Q),
+        "wk": dense_init(gen, D, KV),
+        "wv": dense_init(gen, D, KV),
+        "wo": dense_init(gen, Q, D),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=torch.float32,
+                                  device=gen.device)
+        p["k_norm"] = torch.zeros((hd,), dtype=torch.float32,
+                                  device=gen.device)
+    return p
+
+
+def naive_attention(q, k, v, *, causal: bool, window: int | None,
+                    q_pos, k_pos):
+    """Reference O(S^2)-memory attention.  q:(B,Sq,H,hd) k/v:(B,Sk,Hkv,hd)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                     k.float()) / math.sqrt(hd)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)     # fully-masked rows
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: int | None = None, chunk_q: int = 512,
+                      chunk_k: int = 512, q_offset: int = 0):
+    """Flash attention forward, GQA-aware.  A CUDA tensor of any length
+    goes to the Hopper kernel, which masks the ragged edge itself.  On the
+    CPU, lengths that are not a multiple of the chunk take the naive
+    oracle, as in the reference."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if not q.is_cuda and (Sq % chunk_q or Sk % chunk_k):
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               q_pos=q_pos,
+                               k_pos=torch.arange(Sk, device=q.device))
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+
+
+def _qkv(p, cfg: ModelConfig, x):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if "q_norm" in p:
+        q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
+    return q, k, v
+
+
+def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
+                           block_tables, pos, *, window: int | None = None):
+    """One-token decode against a paged KV pool.
+
+    x: (B,1,D); pool_k/v: (n_blocks, block_size, Hkv, hd), written in
+    place; block_tables: (B, max_blocks) int mapping each slot's logical
+    block to a physical one (0 = the reserved null block, where idle slots
+    write harmlessly); pos: (B,) per-slot token count.  Windowed layers
+    store the full sequence and mask ``pos - idx >= window`` at read.
+    Returns (y, pool_k, pool_v)."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    q, k, v = _qkv(p, cfg, x)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+
+    BS = pool_k.shape[1]
+    block_tables = block_tables.long()
+    bidx = block_tables[torch.arange(B, device=x.device), pos // BS]
+    off = pos % BS
+    pool_k[bidx, off] = k[:, 0].to(pool_k.dtype)
+    pool_v[bidx, off] = v[:, 0].to(pool_v.dtype)
+
+    S = block_tables.shape[1] * BS
+    gk = pool_k[block_tables].reshape(B, S, *pool_k.shape[2:])
+    gv = pool_v[block_tables].reshape(B, S, *pool_v.shape[2:])
+    idx = torch.arange(S, device=x.device)
+    valid = idx[None, :] <= pos[:, None]
+    if window is not None:
+        valid &= pos[:, None] - idx[None, :] < window
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, cfg.n_kv_heads, G, hd)
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                      gk.float()) / math.sqrt(hd)
+    sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", pr, gv.float())
+    o = o.reshape(B, 1, cfg.q_dim).to(x.dtype)
+    return o @ p["wo"], pool_k, pool_v
+
+
+def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
+                      keep_full: bool = False):
+    """Causal self-attention sublayer that also returns the KV cache slice
+    (bf16).  Windowed layers keep the last ``window`` keys (prefill length
+    must then be a multiple of the window) unless ``keep_full``."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    pos = torch.arange(S, device=x.device)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    o = chunked_attention(q, k, v, causal=True, window=window)
+    y = o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    if window is not None and S >= window and not keep_full:
+        if S % window != 0:
+            raise ValueError(
+                f"windowed prefill needs S % window == 0, got "
+                f"S={S} window={window}")
+        ck, cv = k[:, S - window:], v[:, S - window:]
+    else:
+        ck, cv = k, v
+    return y, ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------- #
+# MLP
+# ---------------------------------------------------------------------- #
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    p = {"wi": dense_init(gen, D, F_), "wo": dense_init(gen, F_, D)}
+    if cfg.activation in ("swiglu", "geglu"):
+        p["wg"] = dense_init(gen, D, F_)
+    return p
+
+
+def mlp_fwd(p, cfg: ModelConfig, x):
+    h = x @ p["wi"]
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ p["wg"]) * h
+    elif cfg.activation == "geglu":
+        h = F.gelu(x @ p["wg"], approximate="tanh") * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["wo"]

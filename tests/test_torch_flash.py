@@ -1,0 +1,130 @@
+"""The port's flash-attention forward on the CPU against the JAX package.
+
+On CPU tensors the wrapper runs the kernel's plain version; it is held
+against the Pallas kernel in interpret mode (what ``tests/test_kernels.py``
+runs) on o AND lse, and against ``naive_attention`` at ragged lengths.
+Inputs come from numpy with a seed.  Tolerances are the JAX kernel tests'
+own: 3e-5 absolute in f32, 2e-2 in bf16 (one bf16 ulp of an output near 2
+is 1.6e-2).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_bridge import as_f32
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import flash_attention_fwd as jax_fwd
+from repro.models.layers import naive_attention as jax_naive
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.models import layers as L
+
+TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+
+def _inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s, np.float32)
+            for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd))]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    pt = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, pt
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,Hkv,G,hd,causal,window,q_offset,block,dtype", [
+        (1, 128, 128, 2, 1, 64, True, None, 0, 64, "float32"),
+        (1, 128, 128, 1, 2, 64, False, None, 0, 64, "float32"),
+        (2, 128, 128, 1, 4, 128, True, None, 0, 64, "float32"),
+        (1, 128, 128, 2, 2, 128, False, None, 0, 128, "bfloat16"),
+        (1, 256, 256, 1, 4, 64, True, None, 0, 128, "bfloat16"),
+        (1, 128, 128, 2, 2, 64, True, 48, 0, 64, "float32"),
+        (1, 128, 256, 1, 2, 64, True, None, 128, 64, "float32"),
+        # q positions 200..327 past Sk + window: fully masked rows too
+        (1, 128, 256, 2, 1, 128, True, 64, 200, 64, "bfloat16"),
+    ])
+def test_flash_fwd_matches_pallas_kernel(B, Sq, Sk, Hkv, G, hd, causal,
+                                         window, q_offset, block, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, Hkv * G, Hkv, hd, dtype)
+    o_ref, lse_ref = jax_fwd(jq, jk, jv, causal=causal, window=window,
+                             q_offset=q_offset, block_q=block,
+                             block_k=block, interpret=True)
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    assert fa.flash_attention_fwd.launches == before   # CPU: no kernel
+    assert o.dtype == q.dtype and tuple(o.shape) == tuple(o_ref.shape)
+    assert lse.dtype == torch.float32
+    assert tuple(lse.shape) == tuple(lse_ref.shape) == (B, Hkv, G, Sq)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(as_f32(o), as_f32(o_ref), atol=tol, rtol=0)
+    np.testing.assert_allclose(as_f32(lse), as_f32(lse_ref), atol=tol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)])
+def test_flash_ragged_matches_naive(dtype, causal, window):
+    """Lengths that are no multiple of any block: the plain version (what
+    the kernel computes on the card) and the port's naive oracle against
+    the reference's naive attention."""
+    B, Sq, H, Hkv, hd = 2, 100, 4, 2, 64
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sq, H, Hkv, hd, dtype, seed=1)
+    pos = jnp.arange(Sq)
+    want = as_f32(jax_naive(jq, jk, jv, causal=causal, window=window,
+                            q_pos=pos, k_pos=pos))
+    o, _ = fa.flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                      block_k=64)
+    tpos = torch.arange(Sq)
+    naive = L.naive_attention(q, k, v, causal=causal, window=window,
+                              q_pos=tpos, k_pos=tpos)
+    chunked = L.chunked_attention(q, k, v, causal=causal, window=window)
+    for got in (o, naive, chunked):
+        np.testing.assert_allclose(as_f32(got), want, atol=TOL[dtype],
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None)])
+def test_mha_reference_matches_jax(dtype, causal, window):
+    """The port's naive oracle against the reference's, and the flash
+    forward against it."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, 72, 72, 6, 2, 32, dtype, seed=2)
+    want = as_f32(jax_ref.mha_reference(jq, jk, jv, causal=causal,
+                                        window=window))
+    got = ref.mha_reference(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(as_f32(got), want, atol=TOL[dtype], rtol=0)
+    o, _ = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(as_f32(o), as_f32(got), atol=TOL[dtype],
+                               rtol=0)
+
+
+def _bad(kind):
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    if kind == "rank":
+        return q[0], k, k, None
+    if kind == "head_dim":
+        return q, torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 2, 8), None
+    if kind == "groups":
+        return q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16), None
+    if kind == "dtype":
+        return q.half(), k.half(), k.half(), None
+    if kind == "mixed":
+        return q, k.bfloat16(), k, None
+    if kind == "layout":
+        return q.transpose(1, 2).contiguous().transpose(1, 2), k, k, None
+    if kind == "window":
+        return q, k, k, 0
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind", ["rank", "head_dim", "groups", "dtype",
+                                  "mixed", "layout", "window"])
+def test_flash_wrapper_rejects_bad_inputs(kind):
+    q, k, v, window = _bad(kind)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, k, v, window=window)
