@@ -8,20 +8,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. the card: its name and power limit (nvidia-smi), torch and CUDA versions;
 2. the build of every kernel under src/repro_torch/kernels/csrc (one nvcc
    per source, all started together), timed as set-up;
-3. every kernel against its plain PyTorch version on the card, at the
-   shapes of the models the port serves, with its time beside the plain
-   version's, the library call's (timed only, never used by the port) and
-   its roofline bound; one JSON line per shape;
-4. the main path: ``repro_torch.launch.serve.serve`` on gpt-100m at full
+3. the flash forward kernel against its plain PyTorch version on the card,
+   at the shapes of the models the port serves and trains, with its time
+   beside the plain version's, the library call's (timed only, never used
+   by the port) and its roofline bound; one JSON line per shape;
+4. the two flash backward kernels (dq, dk/dv) the same way, at the same
+   shapes, the library call being SDPA's backward;
+5. the serving path: ``repro_torch.launch.serve.serve`` on gpt-100m at full
    width (12 layers, d 768, random weights from a seed), 8 requests of 512
    prompt tokens and one ragged 300-token request, 16 new tokens each,
    with every launch counter set to 0 just before and read just after;
-5. the answer: the same weights in f32 on the card and on the CPU give the
-   same prefill logits for a ragged prompt.
+6. the serving answer: the same weights in f32 on the card and on the CPU
+   give the same prefill logits for a ragged prompt;
+7. the training path: ``repro_torch.launch.train.train`` on gpt-100m at
+   full width, 5 steps of 8 x 1024 tokens, the counters again set to 0
+   just before and read just after; remat runs each layer's forward twice,
+   so a step launches flash_fwd twice per layer and each backward kernel
+   once;
+8. the training answer: gpt-100m at full width cut to 2 layers, f32
+   weights from one seed, 3 steps on the card and on the CPU: the losses
+   and one attention ``wq`` gradient agree.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -34,6 +45,8 @@ KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 
 # (tolerance on o and lse, the kernel tests' own: f32 3e-5, bf16 2e-2)
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+# (tolerance on dq, dk, dv relative to max|ref|)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 on the tensor
 # cores, f32 on the CUDA cores; HBM3 bandwidth.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -52,8 +65,12 @@ SHAPES = [
     ("ragged", 2, 777, 777, 32, 8, 128, True, None, 0, "float32"),
     ("window", 1, 2048, 2048, 32, 8, 128, True, 512, 0, "bfloat16"),
     ("q_offset", 1, 512, 2048, 12, 12, 64, True, None, 1536, "bfloat16"),
+    ("gpt-100m train", 8, 1024, 1024, 12, 12, 64, True, None, 0, "bfloat16"),
+    ("gpt-100m train", 8, 1024, 1024, 12, 12, 64, True, None, 0, "float32"),
 ]
-MAIN_SHAPE = 0          # the shape the main path gives the kernel
+MAIN_SHAPE = 0          # the shape the serving path gives the forward
+TRAIN_SHAPE = 12        # the shape the training path gives all three
+TRAIN = dict(steps=5, seq=1024, batch=8)
 
 
 def fail(msg: str) -> None:
@@ -75,12 +92,47 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def mask_of(torch, shape):
+    """The (Sq, Sk) keep-mask of a shape, on the card."""
+    _, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
+    qpos = q_offset + torch.arange(Sq, device="cuda")[:, None]
+    kpos = torch.arange(Sk, device="cuda")[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def sdpa_of(torch, shape, mask):
+    """One SDPA call on (B,S,H,hd) inputs: the library yardstick."""
+    _, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
+    plain_causal = causal and window is None and q_offset == 0 and Sq == Sk
+    return lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=None if plain_causal else mask, is_causal=plain_causal,
+        enable_gqa=Hkv != H)
+
+
+def inputs_of(torch, shape, seed=0):
+    """q, k, v and a cotangent do on the card, from a seeded generator."""
+    _, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda").to(getattr(torch, dt))
+            for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd),
+                      (B, Sq, H, hd))]
+
+
+def bound(flops, nbytes, dt):
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def flash_phase(torch, fa, shape) -> dict:
     name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
-    dtype = getattr(torch, dt)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
-               for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    q, k, v, _ = inputs_of(torch, shape)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -90,25 +142,13 @@ def flash_phase(torch, fa, shape) -> dict:
     if not (torch.isfinite(o.float()).all() and err <= TOL[dt]):
         fail(f"flash_fwd {name} {dt}: max abs err {err} > {TOL[dt]}")
 
-    # the library yardstick: one SDPA call on the same inputs (o only)
-    qpos = q_offset + torch.arange(Sq, device="cuda")[:, None]
-    kpos = torch.arange(Sk, device="cuda")[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= qpos - kpos < window
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    plain_causal = causal and window is None and q_offset == 0 and Sq == Sk
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=None if plain_causal else mask,
-        is_causal=plain_causal, enable_gqa=Hkv != H)
-
+    mask = mask_of(torch, shape)
+    sdpa = sdpa_of(torch, shape, mask)
     # the work this run's inputs need: unmasked (q, k) pairs, two products
     flops = 4.0 * B * H * hd * mask.sum().item()
     nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
         * q.element_size() + lse.numel() * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+    bound_ms, bound_by = bound(flops, nbytes, dt)
     rec = {
         "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "Hkv": Hkv,
         "hd": hd, "causal": causal, "window": window, "q_offset": q_offset,
@@ -117,13 +157,128 @@ def flash_phase(torch, fa, shape) -> dict:
             q, k, v, **kw), 20),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_fwd_ref(
             q, k, v, **kw), 3),
-        "library_ms": cuda_ms(torch, sdpa, 20),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": cuda_ms(torch, lambda: sdpa(q, k, v), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
     }
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     print(json.dumps({"flash_fwd": rec}), flush=True)
     return rec
+
+
+def flash_bwd_phase(torch, fa, shape) -> dict:
+    """dq and dk/dv kernels against their plain versions on the same
+    (q, k, v, do, lse, delta); one record per kernel."""
+    name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
+    q, k, v, do = inputs_of(torch, shape)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    delta = fa._delta(o, do, lse)
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    errs = {}
+    for g, w, what in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
+                       (dv, dv_ref, "dv")):
+        err = (g.float() - w.float()).abs().max().item()
+        lim = BWD_TOL[dt] * w.float().abs().max().item()
+        if not (torch.isfinite(g.float()).all() and err <= lim):
+            fail(f"flash bwd {what} {name} {dt}: max abs err {err} > {lim}")
+        errs[what] = err
+
+    # SDPA's backward, same backend as its forward: (fwd + bwd) - fwd
+    mask = mask_of(torch, shape)
+    sdpa = sdpa_of(torch, shape, mask)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    dot = do.transpose(1, 2)
+    fwd_ms = cuda_ms(torch, lambda: sdpa(*leaves), 20)
+    fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa(*leaves), leaves, dot), 20)
+    library_ms = fwd_bwd_ms - fwd_ms
+
+    pairs = B * H * mask.sum().item()
+    esz = q.element_size()
+    ins = (2 * q.numel() + k.numel() + v.numel()) * esz + 2 * lse.numel() * 4
+    out = {}
+    for kern, flops, out_bytes, run, plain, err in (
+            ("flash_bwd_dq", 6.0 * hd * pairs, q.numel() * esz,
+             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
+             errs["dq"]),
+            ("flash_bwd_dkv", 8.0 * hd * pairs, 2 * k.numel() * esz,
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+             lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw),
+             max(errs["dk"], errs["dv"]))):
+        bound_ms, bound_by = bound(flops, ins + out_bytes, dt)
+        rec = {"shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
+               "Hkv": Hkv, "hd": hd, "causal": causal, "window": window,
+               "q_offset": q_offset, "dtype": dt, "max_abs_err": err,
+               "max_abs_err_dq_dk_dv": errs,
+               "kernel_ms": cuda_ms(torch, run, 20),
+               "plain_ms": cuda_ms(torch, plain, 3),
+               "library_ms": library_ms, "sdpa_fwd_ms": fwd_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
+        print(json.dumps({kern: rec}), flush=True)
+        out[kern] = rec
+    return out
+
+
+def reset(fa) -> None:
+    for f in (fa.flash_attention_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        f.launches = 0
+
+
+def counts(fa) -> dict:
+    return {"flash_fwd": fa.flash_attention_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def train_answer(torch, get_config) -> None:
+    """gpt-100m at full width, 2 layers, f32: 3 steps and one gradient on
+    the card against the CPU."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.step import (device_batch, loss_and_grads,
+                                         make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("gpt-100m"), n_layers=2,
+                              pattern=("attn",) * 2)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=3)
+    pipe = DataPipeline(cfg, ShapeSpec("answer", "train", 512, 2))
+    p_cpu = tree_map(lambda t: t.float(),
+                     T.init_model(cfg, seed=0, device="cpu"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), p_cpu)
+        _, grads = loss_and_grads(params, cfg,
+                                  device_batch(pipe.host_batch(0), dev))
+        wq = grads["layers"][0]["attn"]["wq"].cpu()
+        opt = init_opt_state(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, dev)
+        losses = []
+        for i in range(3):
+            params, opt, loss = step(params, opt, pipe.host_batch(i))
+            losses.append(loss.item())
+        runs[dev] = (losses, wq)
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    g_err = (g_gpu - g_cpu).abs().max().item()
+    g_max = g_cpu.abs().max().item()
+    print(json.dumps({"train_f32_card_vs_cpu": {
+        "losses_card": l_gpu, "losses_cpu": l_cpu, "max_rel_loss_diff": rel,
+        "wq_grad_max_abs_diff": g_err, "wq_grad_max_abs": g_max}}),
+        flush=True)
+    if not math.isfinite(rel) or rel > 1e-4:
+        fail(f"f32 training losses differ by {rel} (relative) between card "
+             f"and CPU")
+    if not math.isfinite(g_err) or g_err > 1e-3 * g_max:
+        fail(f"f32 wq gradient differs by {g_err} between card and CPU "
+             f"(max |g| {g_max})")
 
 
 def main() -> None:
@@ -149,6 +304,7 @@ def main() -> None:
     from repro_torch.kernels import backend
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serving import ReqState
@@ -162,14 +318,15 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions
+    # 3-4. kernels against their plain versions
     recs = [flash_phase(torch, fa, s) for s in SHAPES]
+    bwd = [flash_bwd_phase(torch, fa, s) for s in SHAPES]
 
-    # 4. the main path
-    fa.flash_attention_fwd.launches = 0
+    # 5. the serving path
+    reset(fa)
     runs = [serve("gpt-100m", 8, 512, 16, device="cuda"),
             serve("gpt-100m", 1, 300, 16, device="cuda")]
-    launches = fa.flash_attention_fwd.launches
+    serve_counts = counts(fa)
     cfg = get_config("gpt-100m")
     prefills = sum(r["prefills"] for r in runs)
     for r, n in zip(runs, (8, 1)):
@@ -184,11 +341,13 @@ def main() -> None:
             "ttft_wall_p50_ms": r["ttft_wall_p50_s"] * 1e3,
             "ttft_wall_p99_ms": r["ttft_wall_p99_s"] * 1e3,
             "simulated_s": r["report"]["sim_s"]}}), flush=True)
-    if launches != cfg.n_layers * prefills or prefills != 9:
-        fail(f"flash_fwd launched {launches} times for {prefills} prefills "
-             f"of {cfg.n_layers} layers")
+    if serve_counts != {"flash_fwd": cfg.n_layers * prefills,
+                        "flash_bwd_dq": 0, "flash_bwd_dkv": 0} \
+            or prefills != 9:
+        fail(f"serving launched {serve_counts} for {prefills} prefills of "
+             f"{cfg.n_layers} layers")
 
-    # 5. the answer: f32 weights, the card against the CPU
+    # 6. the serving answer: f32 weights, the card against the CPU
     params = T.init_model(cfg, seed=0, device="cuda")
     f32 = lambda t: t.float() if t.is_floating_point() else t
     walk = lambda p, fn: {k: walk(v, fn) if isinstance(v, dict) else
@@ -206,17 +365,51 @@ def main() -> None:
         "max_abs_diff": diff, "max_abs_logit": scale}}), flush=True)
     if not math.isfinite(diff) or diff > 1e-3 * scale:
         fail(f"f32 prefill logits differ by {diff} between card and CPU")
+    del params, p_gpu, p_cpu
 
-    main_rec = recs[MAIN_SHAPE]
+    # 7. the training path
+    reset(fa)
+    torch.cuda.reset_peak_memory_stats()
+    tr = train("gpt-100m", device="cuda", log_every=1, **TRAIN)
+    train_counts = counts(fa)
+    steady = tr["step_ms"][1:]
+    print(json.dumps({"train": {
+        **TRAIN, "losses": tr["losses"], "step_ms": tr["step_ms"],
+        "steady_step_ms_mean": sum(steady) / len(steady),
+        "tokens_per_s": tr["tokens_per_s"], "launches": train_counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}),
+        flush=True)
+    if not all(math.isfinite(x) for x in tr["losses"]) \
+            or len(tr["losses"]) != TRAIN["steps"]:
+        fail(f"training losses {tr['losses']}")
+    per_step = cfg.n_layers * TRAIN["steps"]
+    want = {"flash_fwd": 2 * per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    if train_counts != want:
+        fail(f"training launched {train_counts}, expected {want}")
+
+    # 8. the training answer: f32, the card against the CPU
+    train_answer(torch, get_config)
+
+    main_fwd = recs[MAIN_SHAPE]
+    main_bwd = bwd[TRAIN_SHAPE]
+    sources = {
+        "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
+                      "src/repro/kernels/flash_attention.py:68", main_fwd),
+        "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                         "src/repro/kernels/flash_attention.py:186",
+                         main_bwd["flash_bwd_dq"]),
+        "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                          "src/repro/kernels/flash_attention.py:224",
+                          main_bwd["flash_bwd_dkv"]),
+    }
     print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:68",
-        "launches": launches,
-        "max_abs_err": main_rec["max_abs_err"],
-        "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"]}]}))
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": serve_counts[name] + train_counts[name],
+        "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        for name, (src, rep, rec) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

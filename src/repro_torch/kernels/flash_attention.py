@@ -1,19 +1,25 @@
-"""Flash-attention forward: the Hopper kernel and its plain version.
+"""Flash attention: the Hopper kernels, their plain versions, and the
+differentiable entry point.
 
-Counterpart of ``repro/kernels/flash_attention.py`` (forward only).  The
-kernel (``csrc/flash_fwd.cu``) replaces the Pallas ``_flash_kernel``; see
-the note at the top of that file for its design and what bounds it.
+Counterpart of ``repro/kernels/flash_attention.py``.  Three kernels replace
+the three Pallas kernels there: ``csrc/flash_fwd.cu`` the forward
+``_flash_kernel``, and ``csrc/flash_bwd.cu`` the backward
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``; see the notes at
+the top of those files for their design and what bounds them.
 
-``flash_attention_fwd`` is the wrapper every caller goes through.  It
-takes the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises, and counts the launch in
-``flash_attention_fwd.launches``.
+``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers every
+caller goes through.  They take the plain version only for tensors on the
+CPU; for a CUDA tensor they launch the kernels or raise, and count each
+launch (``flash_attention_fwd.launches``, ``flash_bwd_dq.launches``,
+``flash_bwd_dkv.launches``).  ``FlashAttention`` wires them into a
+``torch.autograd.Function``, the analogue of the reference's custom VJP.
 
 Layouts are the JAX package's: q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd), query
 head ``h`` reads KV head ``h // G`` (G = H // Hkv); outputs o (B,Sq,H,hd)
 in q's dtype and lse (B,Hkv,G,Sq) in f32.  Masked scores are the finite
 ``NEG_INF``, as in the Pallas kernel, which visits every KV block: a row
-with no unmasked key averages V over all keys.
+with no unmasked key averages V over all keys.  The backward masks
+explicitly, so such a row gets zero gradient, as in the Pallas backward.
 """
 from __future__ import annotations
 
@@ -25,12 +31,16 @@ import torch
 from . import backend
 
 __all__ = ["NEG_INF", "DEFAULT_BLOCK_K", "KERNEL_HEAD_DIMS",
-           "KERNEL_MAX_GROUP", "flash_attention_fwd",
-           "flash_attention_fwd_ref"]
+           "KERNEL_BWD_HEAD_DIMS", "KERNEL_MAX_GROUP", "flash_attention_fwd",
+           "flash_attention_fwd_ref", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "FlashAttention",
+           "flash_attention"]
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 512
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_BWD_HEAD_DIMS = (16, 32, 64, 128)   # four f32 tiles in shared memory
 KERNEL_MAX_GROUP = 64          # G query heads must fit the 64-row tile
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -81,10 +91,10 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
     o = acc / l[..., None]
     lse = m + torch.log(l)
     o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
-    return o, lse
+    return o.contiguous(), lse
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, window, head_dims=KERNEL_HEAD_DIMS) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash attention: {name} must be a 4-D tensor")
@@ -109,10 +119,9 @@ def _check(q, k, v, window) -> None:
     if window is not None and window < 1:
         raise ValueError(f"flash attention: window must be None or >= 1, "
                          f"got {window}")
-    if q.is_cuda and (hd not in KERNEL_HEAD_DIMS
-                      or H // Hkv > KERNEL_MAX_GROUP):
+    if q.is_cuda and (hd not in head_dims or H // Hkv > KERNEL_MAX_GROUP):
         raise ValueError(f"flash attention kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS} and at most "
+                         f"{head_dims} and at most "
                          f"{KERNEL_MAX_GROUP} query heads per KV head, got "
                          f"hd={hd} G={H // Hkv}")
 
@@ -156,3 +165,209 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 
 
 flash_attention_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# Backward
+# ---------------------------------------------------------------------- #
+
+def _delta(o, do, lse):
+    """delta = rowsum(do * o) in f32 from the stored o (bf16 on the bf16
+    path, as the reference's einsum at :291 reads it): (B,Hkv,G,Sq)."""
+    B, Sq = o.shape[:2]
+    Hkv, G = lse.shape[1:3]
+    d = (do.float() * o.float()).sum(-1)
+    return d.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1).contiguous()
+
+
+def _bwd_blocks(q, k, v, do, lse, delta, causal, window, q_offset, block_k):
+    """Yield (kj, p, ds) per KV block of ``block_k``, math in f32, with
+    the explicit mask of the Pallas backward: p = where(mask, exp(s - lse),
+    0) and ds = p * (dp - delta) * scale, each (B,Hkv,G,Sq,bk)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, Hkv, G, hd).to(f32)
+    dog = do.reshape(B, Sq, Hkv, G, hd).to(f32)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    for k0 in range(0, Sk, block_k):
+        kj = k[:, k0:k0 + block_k].to(f32)
+        vj = v[:, k0:k0 + block_k].to(f32)
+        k_pos = k0 + torch.arange(kj.shape[1], device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj) * scale
+        mask = _block_mask(q_pos, k_pos, causal, window)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vj)
+        yield kj, p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                     window: int | None = None, q_offset: int = 0,
+                     block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch dq, KV block by KV block (what ``_flash_bwd_dq_kernel``
+    computes): sum over keys of ds k, f32, cast to q's dtype."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    dq = torch.zeros((B, Hkv, H // Hkv, Sq, hd), dtype=torch.float32,
+                     device=q.device)
+    for kj, _, ds in _bwd_blocks(q, k, v, do, lse, delta, causal, window,
+                                 q_offset, block_k):
+        dq += torch.einsum("bhgqk,bkhd->bhgqd", ds, kj)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return dq.to(q.dtype).contiguous()
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                      window: int | None = None, q_offset: int = 0,
+                      block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch (dk, dv), KV block by KV block (what
+    ``_flash_bwd_dkv_kernel`` computes): dv = sum over queries and the G
+    heads of p^T do, dk of ds^T q; f32, cast to k's dtype."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd).float()
+    dog = do.reshape(B, Sq, Hkv, H // Hkv, hd).float()
+    dks, dvs = [], []
+    for _, p, ds in _bwd_blocks(q, k, v, do, lse, delta, causal, window,
+                                q_offset, block_k):
+        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, dog))
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qg))
+    return torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int | None = None, q_offset: int = 0,
+                            block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch backward (what the two Pallas backward kernels
+    compute).  Returns (dq, dk, dv) in the input dtypes."""
+    delta = _delta(o, do, lse)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              block_k=block_k)
+    dq = flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def _check_bwd(q, k, v, o, lse, do, window) -> None:
+    _check(q, k, v, window, KERNEL_BWD_HEAD_DIMS)
+    for name, t in (("o", o), ("do", do)):
+        if (not isinstance(t, torch.Tensor) or t.shape != q.shape
+                or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash attention backward: {name} must be a "
+                             f"contiguous tensor like q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    B, Sq, H, _ = q.shape
+    Hkv = k.shape[2]
+    if (not isinstance(lse, torch.Tensor)
+            or lse.shape != (B, Hkv, H // Hkv, Sq)
+            or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash attention backward: lse must be a "
+                         f"contiguous f32 tensor {(B, Hkv, H // Hkv, Sq)} "
+                         f"on {q.device}")
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = backend.load("flash_bwd")
+    if lib.flash_bwd_dq.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_bwd_dq.argtypes = [ptr] * 7 + [i] * 11 + [ptr]
+        lib.flash_bwd_dkv.argtypes = [ptr] * 8 + [i] * 11 + [ptr]
+        lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = ctypes.c_int
+        lib.flash_bwd_error_string.argtypes = [i]
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_launch(name: str, ptrs, q, k, causal, window, q_offset) -> None:
+    lib = _bwd_lib()
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    err = getattr(lib, name)(
+        *ptrs, B, Sq, Sk, H, Hkv, hd, int(q.dtype == torch.bfloat16),
+        int(causal), window or 0, q_offset, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.flash_bwd_error_string(err).decode()}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                 window: int | None = None, q_offset: int = 0):
+    """Launch the dq kernel on checked CUDA tensors (``flash_attention_bwd``
+    is the wrapper callers use).  Returns dq like q."""
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_bwd_dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 do.data_ptr(), lse.data_ptr(),
+                                 delta.data_ptr(), dq.data_ptr()),
+                q, k, causal, window, q_offset)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                  window: int | None = None, q_offset: int = 0):
+    """Launch the dk/dv kernel on checked CUDA tensors.  Returns (dk, dv)
+    like k."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_bwd_dkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  do.data_ptr(), lse.data_ptr(),
+                                  delta.data_ptr(), dk.data_ptr(),
+                                  dv.data_ptr()),
+                q, k, causal, window, q_offset)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0):
+    """Returns (dq, dk, dv) in the input dtypes.  ``lse``: (B,Hkv,G,Sq) f32
+    from :func:`flash_attention_fwd`; delta = rowsum(do * o) is a torch op
+    on the stored o.  Any Sq and Sk are taken on the card."""
+    _check_bwd(q, k, v, o, lse, do, window)
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, q_offset=q_offset)
+    delta = _delta(o, do, lse)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------- #
+# Differentiable entry point
+# ---------------------------------------------------------------------- #
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the kernels' backward: the analogue of the
+    reference's ``jax.custom_vjp`` (:342-371).  The forward saves
+    (q, k, v, o, lse); the backward recomputes p from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, q_offset: int = 0):
+    """Differentiable flash attention: o (B,Sq,H,hd)."""
+    return FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -1,5 +1,5 @@
 """Neural building blocks in PyTorch: the dense-attention subset of
-``repro/models/layers.py`` that serving runs.
+``repro/models/layers.py`` that serving and training run.
 
 Functions take and return tensors in the JAX package's layouts, and
 parameters are plain dicts of tensors with the JAX names.  Numerics follow
@@ -8,9 +8,10 @@ f32 softmax, the finite -1e30 mask, gelu with the tanh approximation
 (``jax.nn.gelu``'s default).
 
 Attention goes through :func:`chunked_attention`: on a CUDA tensor always
-the Hopper flash kernel, whatever the sequence length; on a CPU tensor the
-same dispatch as the reference (the naive oracle for lengths that are not
-a multiple of the chunk, else the kernel's plain version).
+the Hopper flash kernels (forward, and backward under autograd), whatever
+the sequence length; on a CPU tensor the same dispatch as the reference
+(the naive oracle, differentiated by autograd, for lengths that are not a
+multiple of the chunk, else the kernels' plain versions).
 
 The paged decode works on the pools in place and returns them, where the
 JAX version returns updated copies.
@@ -27,8 +28,9 @@ from ..kernels.ops import flash_attention
 from .config import ModelConfig
 
 __all__ = ["rmsnorm", "rope", "dense_init", "init_attention",
-           "naive_attention", "chunked_attention", "attention_prefill",
-           "paged_attention_decode", "init_mlp", "mlp_fwd"]
+           "naive_attention", "chunked_attention", "attention_fwd",
+           "attention_prefill", "paged_attention_decode", "init_mlp",
+           "mlp_fwd"]
 
 
 # ---------------------------------------------------------------------- #
@@ -112,10 +114,10 @@ def naive_attention(q, k, v, *, causal: bool, window: int | None,
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: int | None = None, chunk_q: int = 512,
                       chunk_k: int = 512, q_offset: int = 0):
-    """Flash attention forward, GQA-aware.  A CUDA tensor of any length
-    goes to the Hopper kernel, which masks the ragged edge itself.  On the
-    CPU, lengths that are not a multiple of the chunk take the naive
-    oracle, as in the reference."""
+    """Differentiable flash attention, GQA-aware.  A CUDA tensor of any
+    length goes to the Hopper kernels, which mask the ragged edge
+    themselves.  On the CPU, lengths that are not a multiple of the chunk
+    take the naive oracle, as in the reference."""
     Sq, Sk = q.shape[1], k.shape[1]
     if not q.is_cuda and (Sq % chunk_q or Sk % chunk_k):
         q_pos = q_offset + torch.arange(Sq, device=q.device)
@@ -135,6 +137,21 @@ def _qkv(p, cfg: ModelConfig, x):
     if "q_norm" in p:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     return q, k, v
+
+
+def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
+                  window: int | None = None, positions=None):
+    """Self-attention sublayer of the training forward (projections,
+    optional q/k norm, rope, attention, out projection).  Cross-attention
+    (``kv_src`` in the reference) comes with the enc-dec architectures."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, torch.arange(S, device=x.device), cfg.rope_theta)
+    o = chunked_attention(q, k, v, causal=causal, window=window)
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"]
 
 
 def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,

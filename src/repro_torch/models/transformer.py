@@ -1,28 +1,38 @@
-"""Model assembly for serving: init, prefill, paged pools, paged decode.
+"""Model assembly: init, the training forward and loss, prefill, paged
+pools, paged decode.
 
-The serving subset of ``repro/models/transformer.py`` for decoder stacks
-of attention layers ("attn" and "local" kinds, dense MLPs).  Parameters are
+The subset of ``repro/models/transformer.py`` for decoder stacks of
+attention layers ("attn" and "local" kinds, dense MLPs).  Parameters are
 a plain dict: ``embed``, ``final_norm``, optional ``lm_head``, and
 ``layers``, one dict per layer in pattern order (the reference stacks the
 layers of each run and scans them; here a Python loop walks them).  Caches
 and pools keep the reference's per-run stacked layout,
 (run, ..., Hkv, hd), so they compare one to one.
+
+The training forward remats each layer and each cross-entropy chunk with
+``torch.utils.checkpoint`` (non-reentrant), where the reference wraps its
+scan bodies in ``jax.checkpoint``; so a backward runs every layer's
+forward, flash attention included, a second time.  Serving runs under
+``torch.inference_mode`` and never goes through the training forward.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
 __all__ = ["NOT_PORTED", "port_check", "init_model", "embed_inputs",
-           "prefill", "paged_arch_check", "init_paged_pools",
-           "scatter_prefill_cache", "decode_step_paged"]
+           "trunk_fwd", "model_fwd", "loss_fn", "prefill",
+           "paged_arch_check", "init_paged_pools", "scatter_prefill_cache",
+           "decode_step_paged"]
 
 NOT_PORTED = ("ROADMAP.md, Queue 1 item 4: MoE, recurrent, enc-dec and "
               "frontend architectures")
@@ -70,7 +80,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 
 # ---------------------------------------------------------------------- #
-# Prefill
+# Train / full-sequence forward
 # ---------------------------------------------------------------------- #
 
 def embed_inputs(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
@@ -90,6 +100,76 @@ def _runs(params, cfg: ModelConfig):
     for kind, n in cfg.runs():
         yield kind, params["layers"][i:i + n]
         i += n
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of saved."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _layer_fwd(p, cfg: ModelConfig, kind: str, x):
+    window = cfg.window if kind == "local" else None
+    if cfg.parallel_block:
+        # parallel residual: both sublayers read x (transformer.py:84-91)
+        xn = L.rmsnorm(x, p["norm1"])
+        return (x + L.attention_fwd(p["attn"], cfg, xn, window=window)
+                + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"])))
+    x = x + L.attention_fwd(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
+                            window=window)
+    return x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+
+
+def trunk_fwd(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
+    """Embeddings + layer stack (each layer rematted) + final norm ->
+    hidden states (B, S, D)."""
+    x = embed_inputs(params, cfg, inputs)
+    for kind, layers in _runs(params, cfg):
+        for p in layers:
+            x = _remat(functools.partial(_layer_fwd, p, cfg, kind), x)
+    return L.rmsnorm(x, params["final_norm"])
+
+
+def model_fwd(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V) f32."""
+    x = trunk_fwd(params, cfg, inputs)
+    return (x @ _head(params, cfg).to(x.dtype)).float()
+
+
+def _ce_chunk(x, labels, head):
+    """Cross-entropy partial sums (nll, count) for one sequence chunk."""
+    logits = (x @ head.to(x.dtype)).float()
+    lse = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict,
+            ce_chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy over the batch (f32 scalar).
+
+    The unembedding and softmax run over sequence chunks of ``ce_chunk``,
+    each rematted, so the (B, S, V) logits are never held whole."""
+    x = trunk_fwd(params, cfg, batch)
+    labels = batch["labels"]
+    head = _head(params, cfg)
+    S = x.shape[1]
+    if S % ce_chunk or S <= ce_chunk:
+        nll, cnt = _ce_chunk(x, labels, head)
+        return nll / torch.clamp_min(cnt, 1.0)
+    nll = cnt = 0.0
+    for s0 in range(0, S, ce_chunk):
+        dn, dc = _remat(_ce_chunk, x[:, s0:s0 + ce_chunk],
+                        labels[:, s0:s0 + ce_chunk], head)
+        nll, cnt = nll + dn, cnt + dc
+    return nll / torch.clamp_min(cnt, 1.0)
+
+
+# ---------------------------------------------------------------------- #
+# Prefill
+# ---------------------------------------------------------------------- #
 
 
 @torch.inference_mode()

@@ -6,10 +6,11 @@ tests/test_torch_cuda.py``.  This file imports no JAX: the card's machine
 has none.  The plain versions are checked against JAX on the CPU in
 ``tests/test_torch_flash.py``.
 
-Tolerances: 3e-5 (f32) and 2e-2 (bf16) absolute, the JAX kernel tests'
-own; the kernel sums in another order than the plain version, and bf16
-outputs may round to the neighbouring value.  TF32 is off for the plain
-version's f32 einsums.
+Tolerances: 3e-5 (f32) and 2e-2 (bf16) absolute on the forward, the JAX
+kernel tests' own; 1e-4 (f32) and 2e-2 (bf16) times max|ref| on the
+backward, as ``chip_smoke.py`` holds them.  The kernels sum in another
+order than the plain versions, and bf16 outputs may round to the
+neighbouring value.  TF32 is off for the plain versions' f32 einsums.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch.serve import serve
+from repro_torch.launch.step import device_batch, loss_and_grads
+from repro_torch.launch.train import train
 from repro_torch.models import transformer as T
 from repro_torch.serving import ReqState
 
@@ -106,3 +109,98 @@ def test_serve_on_card_launches_the_kernel(dev):
     assert all(r.state is ReqState.DONE for r in out["requests"])
     assert out["generated"].shape == (3, 5)
     assert fa.flash_attention_fwd.launches == cfg.n_layers * out["prefills"]
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal,window,q_offset", [
+    (8, 1024, 1024, 12, 12, 64, True, None, 0),    # gpt-100m training
+    (1, 512, 512, 12, 12, 64, True, None, 0),
+    (2, 777, 777, 8, 2, 64, True, None, 0),        # ragged, GQA
+    (1, 256, 256, 32, 4, 64, True, None, 0),       # tinyllama groups
+    (1, 300, 300, 8, 2, 128, True, None, 0),       # qwen3 head dim
+    (1, 200, 333, 4, 4, 32, False, None, 0),       # non-causal, Sq != Sk
+    (1, 384, 384, 4, 2, 64, True, 100, 0),         # sliding window
+    (1, 128, 384, 4, 1, 64, True, None, 256),      # continuation chunk
+    (1, 128, 256, 4, 2, 16, True, 64, 300),        # fully masked rows
+    (1, 96, 96, 6, 3, 32, True, None, 0),          # G = 3 leaves a row idle
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
+                                       window, q_offset, dtype):
+    q, k, v = _inputs(B, Sq, Sk, H, Hkv, hd, dtype, dev)
+    do = _inputs(B, Sq, Sq, H, H, hd, dtype, dev, seed=1)[0]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert torch.isfinite(g.float()).all()
+        tol = BWD_TOL[dtype] * w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+
+
+def test_flash_autograd_on_card_matches_cpu(dev):
+    """FlashAttention under autograd, the card's kernels against the CPU's
+    plain versions on the same f32 inputs, with a non-contiguous do."""
+    q, k, v = _inputs(2, 300, 300, 8, 2, 64, torch.float32, "cpu")
+    w = torch.randn(2, 8, 300, 64, generator=torch.Generator().manual_seed(2))
+    grads = []
+    for d in ("cpu", dev):
+        leaves = [t.to(d).requires_grad_(True) for t in (q, k, v)]
+        o = fa.flash_attention(*leaves)
+        loss = (o * w.to(d).transpose(1, 2)).sum()   # do is a transpose
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+def test_flash_bwd_rejects_what_it_cannot_take(dev):
+    for hd, G, dtype in ((256, 1, torch.float32), (48, 1, torch.float32),
+                         (64, 1, torch.float16), (64, 128, torch.float32)):
+        q = torch.zeros(1, 64, G, hd, device=dev, dtype=dtype)
+        k = torch.zeros(1, 64, 1, hd, device=dev, dtype=dtype)
+        lse = torch.zeros(1, 1, G, 64, device=dev)
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd(q, k, k, q, lse, q)
+    q = torch.zeros(1, 64, 2, 64, device=dev)
+    k = torch.zeros(1, 64, 2, 64, device=dev)
+    lse = torch.zeros(1, 2, 1, 64, device=dev)
+    with pytest.raises(ValueError):                  # o on another device
+        fa.flash_attention_bwd(q, k, k, q.cpu(), lse, q)
+
+
+def test_train_on_card_matches_cpu(dev):
+    """gpt-100m smoke in f32: loss and gradients on the card (flash kernels
+    at S 512) against the CPU (their plain versions)."""
+    cfg = get_config("gpt_100m", smoke=True)
+    params = _f32(T.init_model(cfg, seed=0, device="cpu"), "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 513))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = [loss_and_grads(_f32(params, d), cfg, device_batch(batch, d))
+           for d in ("cpu", dev)]
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
+    for lay_c, lay_g in zip(g_cpu["layers"], g_gpu["layers"]):
+        want, got = lay_c["attn"]["wq"], lay_g["attn"]["wq"].cpu()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-3 * want.abs().max().item())
+
+
+def test_launch_train_on_card(dev):
+    cfg = get_config("gpt_100m")
+    for f in (fa.flash_attention_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        f.launches = 0
+    out = train("gpt-100m", steps=2, seq=512, batch=2, device="cuda")
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    n = cfg.n_layers * 2
+    assert fa.flash_attention_fwd.launches == 2 * n   # remat recomputes
+    assert fa.flash_bwd_dq.launches == fa.flash_bwd_dkv.launches == n

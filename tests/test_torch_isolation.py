@@ -59,7 +59,10 @@ def test_cuda_requested_without_a_card_raises():
     from repro_torch.configs import get_config
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.launch.train import train
     from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptConfig
 
     cfg = get_config("gpt_100m", smoke=True)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -70,3 +73,7 @@ def test_cuda_requested_without_a_card_raises():
         T.init_paged_pools(cfg, 4, 4, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         serve("gpt-100m", 1, 4, 2, smoke=True)        # cuda is the default
+    with pytest.raises(RuntimeError, match="cuda"):
+        train("gpt-100m", 1, smoke=True)              # here too
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(cfg, OptConfig())
