@@ -27,7 +27,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    once;
 8. the training answer: gpt-100m at full width cut to 2 layers, f32
    weights from one seed, 3 steps on the card and on the CPU: the losses
-   and one attention ``wq`` gradient agree.
+   and one attention ``wq`` gradient agree;
+9. the int8 kernels (quantise, dequantise, fused quantise + error
+   feedback) against their plain versions on the card, bit for bit, at
+   edge cases (ties, zero blocks, NaN, F32_MAX, ragged lengths) and at the
+   main-path size, gpt-100m's 109,529,856-element gradient over data = 2,
+   with their times beside the plain versions', the bytes bound and, for
+   the dequant, the library's one-call product;
+10. the multilevel collectives on a 2x2 grid of four ranks sharing the card
+   (gloo, staged through host memory): ``multilevel_psum`` plain, int8
+   and int8 + EF, bit for bit against the same sums done in this process;
+11. the grid's training path: ``train`` on gpt-100m at full width, 2x2x1,
+   ``multilevel_compress`` with ZeRO-1, 3 steps of 8 x 1024 tokens (2 rows
+   per rank), each rank's launch counters starting at 0 in its fresh
+   process and read at its end: every rank launches the fused EF kernel
+   and the dequant kernel once per reference leaf (10) per step;
+12. the grid's answer: 2 layers at full width, f32, 2x2x1,
+   ``multilevel_compress``, 3 steps on four ranks on the card and four
+   gloo ranks on the CPU: the losses agree, and so does Adam's first
+   moment of a ``wq`` shard after the first two steps, which carries the
+   synced gradient and the EF residual's effect.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -71,6 +90,25 @@ SHAPES = [
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
 TRAIN_SHAPE = 12        # the shape the training path gives all three
 TRAIN = dict(steps=5, seq=1024, batch=8)
+GRID_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
+                  comm="multilevel_compress", dist_backend="gloo")
+GPT_100M_PARAMS = 109_529_856
+QUANT_MAIN_N = GPT_100M_PARAMS // 2   # the gradient over data = 2
+# bytes each kernel moves per element (scales: 4 bytes per 256 elements)
+QUANT_BYTES = {"quantize_int8": 4 + 1 + 4 / 256,
+               "dequantize_int8": 1 + 4 / 256 + 4,
+               "quantize_ef_int8": 4 + 4 + 1 + 4 / 256 + 4}
+COLL_N = 1_000_448      # divides by 2 and 256, its shard not by QTILE
+# The grid's f32 answer, card against CPU: the losses (7.2e-8 apart when
+# measured), and Adam's first moment of the layer-0 wq shard after steps 1
+# and 2, which is the synced gradient (x 0.1 x clip / ranks) and then
+# mixes in the second one, EF residual included.  Where a pod's q rounds
+# the other way on the two devices the element moves by a scale step, so
+# what is bounded is the share of elements that differ by more than
+# GRID_M_REL of the leaf's largest |m| (f32 noise is about 1e-6 of it).
+GRID_LOSS_TOL = 1e-6    # relative
+GRID_M_REL = 1e-4
+GRID_M_SHARE = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -243,6 +281,7 @@ def train_answer(torch, get_config) -> None:
     from repro_torch.launch.step import (device_batch, loss_and_grads,
                                          make_train_step)
     from repro_torch.models import transformer as T
+    from repro_torch.models.convert import stack_runs
     from repro_torch.optim.adamw import OptConfig, init_opt_state
     from repro_torch.tree import tree_map
 
@@ -254,12 +293,13 @@ def train_answer(torch, get_config) -> None:
                      T.init_model(cfg, seed=0, device="cpu"))
     runs = {}
     for dev in ("cuda", "cpu"):
-        params = tree_map(lambda t: t.to(dev), p_cpu)
-        _, grads = loss_and_grads(params, cfg,
+        layers = tree_map(lambda t: t.to(dev), p_cpu)
+        _, grads = loss_and_grads(layers, cfg,
                                   device_batch(pipe.host_batch(0), dev))
         wq = grads["layers"][0]["attn"]["wq"].cpu()
+        params = stack_runs(layers, cfg)
         opt = init_opt_state(params, opt_cfg)
-        step = make_train_step(cfg, opt_cfg, dev)
+        step = make_train_step(cfg, opt_cfg, device=dev)
         losses = []
         for i in range(3):
             params, opt, loss = step(params, opt, pipe.host_batch(i))
@@ -279,6 +319,273 @@ def train_answer(torch, get_config) -> None:
     if not math.isfinite(g_err) or g_err > 1e-3 * g_max:
         fail(f"f32 wq gradient differs by {g_err} between card and CPU "
              f"(max |g| {g_max})")
+
+
+def same(torch, a, b) -> bool:
+    """Bit for bit, with NaN where NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+def quant_check(torch, kq, C, name, x, ef) -> dict:
+    """The three int8 kernels against their plain versions on the same
+    inputs; any bit that differs fails the run.  Returns each kernel's
+    largest absolute difference over its finite outputs (0 when every bit
+    agrees)."""
+    n = x.numel()
+    xp, _ = C.pad_to_block(x, C.QTILE)
+    efp, _ = C.pad_to_block(ef, C.QTILE)
+    q, s, pad = kq.quantize_int8(x)
+    qr, sr = kq.quantize_int8_ref(xp)
+    d = kq.dequantize_int8(q, s, pad)
+    dr = kq.dequantize_int8_ref(q, s)[:n]
+    qe, se, re, _ = kq.quantize_ef_int8(x, ef)
+    qer, ser, rer = kq.quantize_ef_int8_ref(xp, efp)
+    torch.cuda.synchronize()
+    pairs = {"quantize_int8": ((q, qr), (s, sr)),
+             "dequantize_int8": ((d, dr),),
+             "quantize_ef_int8": ((qe, qer), (se, ser), (re, rer[:n]))}
+    err = {}
+    for kern, outs in pairs.items():
+        for a, b in outs:
+            if not same(torch, a, b):
+                fail(f"{kern} differs from its plain version ({name}, "
+                     f"n={n})")
+        err[kern] = max(torch.nan_to_num((a.float() - b.float()).abs(),
+                                         nan=0.0).max().item()
+                        for a, b in outs)
+    return err
+
+
+def quant_phase(torch) -> dict:
+    """Kernels #4-#6 against their plain versions, bit for bit, at edge
+    cases and at the main-path size; times there."""
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import quant as kq
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    randn = lambda n, sd=1.0: sd * torch.randn(n, generator=gen,
+                                               device="cuda")
+
+    def make(n):
+        x = randn(n, 3.0)
+        if n >= 512:             # scale exactly 1, values k + 0.5: ties
+            x[256:512] = torch.arange(256, device="cuda") % 20 - 9.5
+            x[256] = 127.0
+        if n >= 768:
+            x[512:768] = 0.0     # scale 1e-12, q 0
+        return x
+
+    cases = {f"n={n}": make(n) for n in (256, C.QTILE, 3 * C.QTILE - 100,
+                                         333)}
+    cases["nan"] = make(1024)
+    cases["nan"][300] = float("nan")
+    cases["f32max"] = make(1024)
+    cases["f32max"][0], cases["f32max"][600] = C.F32_MAX, -C.F32_MAX
+    cases["inf"] = make(1024)
+    cases["inf"][700] = float("inf")
+    for name, x in cases.items():
+        quant_check(torch, kq, C, name, x, randn(x.numel(), 0.05))
+    r = cases["f32max"]
+    _, _, res, _ = kq.quantize_ef_int8(r, torch.zeros_like(r))
+    if not torch.isfinite(res[:768]).all():
+        fail("quantize_ef_int8 residual overflowed at F32_MAX")
+
+    x, ef = randn(QUANT_MAIN_N), randn(QUANT_MAIN_N, 0.01)
+    err = quant_check(torch, kq, C, "main path", x, ef)
+    xp, _ = C.pad_to_block(x, C.QTILE)       # time the kernels alone
+    efp, _ = C.pad_to_block(ef, C.QTILE)
+    q, s, _ = kq.quantize_int8(xp)
+    n = xp.numel()
+    # the library call: one int8 x f32 product per block (type promotion,
+    # one rounding, as the kernel); no single call quantises blockwise
+    deq_lib = lambda: torch.mul(q.view(-1, C.BLOCK), s[:, None]).view(-1)
+    if not same(torch, deq_lib(), kq.dequantize_int8(q, s)):
+        fail("the library dequant differs from the kernel")
+    runs = {
+        "quantize_int8": (lambda: kq.quantize_int8(xp),
+                          lambda: kq.quantize_int8_ref(xp), None),
+        "dequantize_int8": (lambda: kq.dequantize_int8(q, s),
+                            lambda: kq.dequantize_int8_ref(q, s), deq_lib),
+        "quantize_ef_int8": (lambda: kq.quantize_ef_int8(xp, efp),
+                             lambda: kq.quantize_ef_int8_ref(xp, efp), None),
+    }
+    out = {}
+    for name, (run, plain, lib) in runs.items():
+        rec = {"n": n, "max_abs_err": err[name],
+               "kernel_ms": cuda_ms(torch, run, 20),
+               "plain_ms": cuda_ms(torch, plain, 3),
+               "bound_ms": QUANT_BYTES[name] * n / PEAK_BYTES * 1e3,
+               "bound_by": "bytes",
+               "library_ms": lib and cuda_ms(torch, lib, 20),
+               "edge_cases": sorted(cases)}
+        rec["kernel_gb_per_s"] = QUANT_BYTES[name] * n / rec["kernel_ms"] / 1e6
+        print(json.dumps({name: rec}), flush=True)
+        out[name] = rec
+    return out
+
+
+def coll_inputs(torch, rank):
+    """Rank ``rank``'s x and EF residual for the collectives phase, on the
+    host, from a seed."""
+    gen = torch.Generator().manual_seed(100 + rank)
+    return (torch.randn(COLL_N, generator=gen),
+            0.01 * torch.randn(COLL_N // 2, generator=gen))
+
+
+def collectives_rank(rank):
+    """One rank of the collectives phase: 2x2 grid, the card shared over
+    gloo."""
+    import torch
+    from repro_torch.core.collectives import multilevel_psum
+    from repro_torch.kernels import quant as kq
+    from repro_torch.launch.mesh import make_grid
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    grid = make_grid(2, 2, dev)
+    x, ef = (t.to(dev) for t in coll_inputs(torch, rank))
+    for f in (kq.quantize_int8, kq.dequantize_int8, kq.quantize_ef_int8):
+        f.launches = 0
+    slow, fast = grid.slow, grid.fast
+    out = {"plain": multilevel_psum(x, slow, fast),
+           "int8": multilevel_psum(x, slow, fast, True)}
+    out["int8_ef"], out["int8_ef_new"] = multilevel_psum(x, slow, fast, True,
+                                                         ef)
+    torch.cuda.synchronize()
+    return {"out": {k: v.cpu().numpy() for k, v in out.items()},
+            "launches": {f.__name__: f.launches for f in (
+                kq.quantize_int8, kq.dequantize_int8, kq.quantize_ef_int8)},
+            "backend": grid.backend, "staging": grid.staging,
+            "staged_bytes": grid.staged_bytes,
+            "slow_wire_bytes": grid.slow.wire_bytes}
+
+
+def collectives_phase(torch) -> dict:
+    """``multilevel_psum`` plain, int8 and int8 + EF on four ranks sharing
+    the card, against the same sums in this process (the plain versions
+    on the card): every sum over two ranks is exact, so bit for bit."""
+    from repro_torch.core import compression as C
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    res = run_ranks(collectives_rank, 4, "gloo", timeout=600.0)
+    wall = time.perf_counter() - t0
+    ins = [[t.cuda() for t in coll_inputs(torch, r)] for r in range(4)]
+    pods = [ins[2 * p][0] + ins[2 * p + 1][0] for p in range(2)]
+    n = COLL_N // 2
+    want = {"plain": pods[0] + pods[1], "int8": [], "int8_ef": []}
+    new_ef = {}
+    for d in range(2):
+        parts, parts_ef = [], []
+        for p in range(2):
+            chunk, _ = C.pad_to_block(pods[p][d * n:(d + 1) * n])
+            parts.append(C.dequantize_int8(*C.quantize_int8(chunk))[:n])
+            efp, _ = C.pad_to_block(ins[2 * p + d][1])
+            q, s, r = C.quantize_ef_int8(chunk, efp)
+            parts_ef.append(C.dequantize_int8(q, s)[:n])
+            new_ef[2 * p + d] = r[:n]
+        want["int8"].append(parts[0] + parts[1])
+        want["int8_ef"].append(parts_ef[0] + parts_ef[1])
+    want["int8"] = torch.cat(want["int8"])
+    want["int8_ef"] = torch.cat(want["int8_ef"])
+    for r, got in enumerate(res):
+        for k in ("plain", "int8", "int8_ef"):
+            if not same(torch, torch.from_numpy(got["out"][k]).cuda(),
+                        want[k]):
+                fail(f"collectives: rank {r} {k} differs from the sum in "
+                     f"one process")
+        if not same(torch, torch.from_numpy(got["out"]["int8_ef_new"]).cuda(),
+                    new_ef[r]):
+            fail(f"collectives: rank {r} new EF residual differs")
+        if got["launches"] != {"quantize_int8": 1, "dequantize_int8": 2,
+                               "quantize_ef_int8": 1}:
+            fail(f"collectives: rank {r} launched {got['launches']}")
+    launches = {k: sum(g["launches"][k] for g in res)
+                for k in res[0]["launches"]}
+    rec = {"grid": "2x2", "n": COLL_N, "backend": res[0]["backend"],
+           "staging": res[0]["staging"], "wall_s": wall,
+           "staged_bytes_per_rank": res[0]["staged_bytes"],
+           "slow_wire_bytes_per_rank": res[0]["slow_wire_bytes"],
+           "launches": launches}
+    print(json.dumps({"collectives": rec}), flush=True)
+    return rec
+
+
+def grid_answer_rank(rank, device):
+    """One rank of the grid's f32 answer: 2 layers of gpt-100m at full
+    width, ``multilevel_compress`` on 2x2x1, 3 steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import stack_runs
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = dataclasses.replace(get_config("gpt-100m"), n_layers=2,
+                              pattern=("attn",) * 2)
+    grid = make_grid(2, 2, dev)
+    opt_cfg = adamw.OptConfig(comm_mode="multilevel_compress", lr=1e-3,
+                              warmup_steps=20, total_steps=3)
+    params = stack_runs(tree_map(lambda t: t.float().to(dev), T.init_model(
+        cfg, seed=0, device="cpu")), cfg)
+    opt = adamw.shard_opt_state(adamw.init_opt_state(params, opt_cfg,
+                                                     n_slow=2),
+                                params, opt_cfg, grid)
+    step = make_train_step(cfg, opt_cfg, grid, dev)
+    pipe = DataPipeline(cfg, ShapeSpec("answer", "train", 256, 4))
+    losses, m = [], []
+    for i in range(3):
+        params, opt, loss = step(params, opt, pipe.host_batch(i))
+        losses.append(loss.item())
+        if i < 2:
+            m.append(opt["m"]["runs"][0]["attn"]["wq"].cpu().numpy())
+    return {"losses": losses, "m_wq": m}
+
+
+def grid_answer(torch) -> None:
+    from repro_torch.launch.mesh import run_ranks
+    import numpy as np
+
+    runs = {dev: run_ranks(grid_answer_rank, 4, "gloo", (dev,),
+                           timeout=900.0) for dev in ("cuda", "cpu")}
+    l_gpu, l_cpu = runs["cuda"][0]["losses"], runs["cpu"][0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    share, m_rel = [], []        # per step, the worst rank
+    for i in range(2):
+        d = [(np.abs(g["m_wq"][i] - c["m_wq"][i]), np.abs(c["m_wq"][i]).max())
+             for g, c in zip(runs["cuda"], runs["cpu"])]
+        share.append(max(float((e > GRID_M_REL * top).mean())
+                         for e, top in d))
+        m_rel.append(max(float(e.max() / top) for e, top in d))
+    print(json.dumps({"grid_train_f32_card_vs_cpu": {
+        "grid": "2x2x1", "mode": "multilevel_compress", "losses_card": l_gpu,
+        "losses_cpu": l_cpu, "max_rel_loss_diff": rel,
+        "loss_tolerance": GRID_LOSS_TOL,
+        "m_wq_share_differing_per_step": share,
+        "m_wq_max_rel_diff_per_step": m_rel,
+        "m_wq_share_tolerance": GRID_M_SHARE}}), flush=True)
+    if not math.isfinite(rel) or rel > GRID_LOSS_TOL:
+        fail(f"2x2x1 f32 losses differ by {rel} (relative) between card "
+             f"and CPU")
+    if not all(x <= GRID_M_SHARE for x in share):
+        fail(f"2x2x1 f32 Adam moments of wq differ by more than "
+             f"{GRID_M_REL} of their largest in a share {share} of the "
+             f"elements between card and CPU")
 
 
 def main() -> None:
@@ -391,25 +698,86 @@ def main() -> None:
     # 8. the training answer: f32, the card against the CPU
     train_answer(torch, get_config)
 
+    # 9. the int8 kernels against their plain versions
+    quant = quant_phase(torch)
+
+    # 10. the collectives on four ranks sharing the card
+    coll = collectives_phase(torch)
+
+    # 11. the grid's training path: each rank is a fresh process whose
+    # counters start at 0; train returns every rank's counts at its end
+    torch.cuda.reset_peak_memory_stats()
+    gt = train("gpt-100m", device="cuda", log_every=1, **GRID_TRAIN)
+    steps = GRID_TRAIN["steps"]
+    per_step = [{k: v / steps for k, v in r.items()} for r in gt["launches"]]
+    print(json.dumps({"grid_train": {
+        **GRID_TRAIN, "world": gt["world"], "backend": gt["backend"],
+        "staging": gt["staging"], "losses": gt["losses"],
+        "step_ms": gt["step_ms"], "tokens_per_s": gt["tokens_per_s"],
+        "staged_bytes_per_step": gt["staged_bytes"],
+        "slow_wire_bytes_per_step": gt["slow_wire_bytes"],
+        "slow_f32_bytes_per_step": gt["slow_f32_bytes"],
+        "launches_per_rank_per_step": per_step}}), flush=True)
+    if not all(math.isfinite(x) for x in gt["losses"]) \
+            or len(gt["losses"]) != steps:
+        fail(f"grid training losses {gt['losses']}")
+    leaves = 10                  # the reference's stacked leaves of gpt-100m
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
+            "dequantize_int8": leaves * steps,
+            "quantize_ef_int8": leaves * steps}
+    for r, got in enumerate(gt["launches"]):
+        if got != want:
+            fail(f"grid training rank {r} launched {got}, expected {want}")
+    grid_counts = {k: sum(r[k] for r in gt["launches"]) for k in want}
+
+    # 12. the grid's answer: f32, four ranks on the card against four on
+    # the CPU
+    grid_answer(torch)
+
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
     sources = {
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
-                      "src/repro/kernels/flash_attention.py:68", main_fwd),
+                      "src/repro/kernels/flash_attention.py:68", main_fwd,
+                      serve_counts["flash_fwd"] + train_counts["flash_fwd"]
+                      + grid_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
-                         main_bwd["flash_bwd_dq"]),
+                         main_bwd["flash_bwd_dq"],
+                         train_counts["flash_bwd_dq"]
+                         + grid_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
-                          main_bwd["flash_bwd_dkv"]),
+                          main_bwd["flash_bwd_dkv"],
+                          train_counts["flash_bwd_dkv"]
+                          + grid_counts["flash_bwd_dkv"]),
+        # quantise without EF runs in the collectives phase; the grid's
+        # training runs the fused EF kernel and the dequant
+        "quantize_int8": ("src/repro_torch/kernels/csrc/quant.cu",
+                          "src/repro/kernels/quant.py:30",
+                          quant["quantize_int8"],
+                          coll["launches"]["quantize_int8"]),
+        "dequantize_int8": ("src/repro_torch/kernels/csrc/quant.cu",
+                            "src/repro/kernels/quant.py:39",
+                            quant["dequantize_int8"],
+                            grid_counts["dequantize_int8"]),
+        "quantize_ef_int8": ("src/repro_torch/kernels/csrc/quant.cu",
+                             "src/repro/kernels/quant.py:44",
+                             quant["quantize_ef_int8"],
+                             grid_counts["quantize_ef_int8"]),
     }
+    for name, (_, _, _, n) in sources.items():
+        if n < 1:
+            fail(f"{name} was not launched on its path")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
-        "launches": serve_counts[name] + train_counts[name],
-        "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
-        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-        for name, (src, rep, rec) in sources.items()]}))
+        "launches": n, "max_abs_err": rec["max_abs_err"],
+        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"]}
+        for name, (src, rep, rec, n) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

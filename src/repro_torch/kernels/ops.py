@@ -1,8 +1,9 @@
 """Public wrappers around the kernels.
 
-Counterpart of ``repro/kernels/ops.py``.  The flash-attention forward and
-backward are ported; the int8 quantisers are still to come (``ROADMAP.md``,
-kernel queue).
+Counterpart of ``repro/kernels/ops.py``.  The differentiable flash
+attention is here; the int8 quantise, dequantise and fused error-feedback
+wrappers, which pad to ``QTILE`` as the reference's do, are in
+``kernels/quant.py``.
 """
 from __future__ import annotations
 

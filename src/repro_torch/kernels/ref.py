@@ -1,5 +1,6 @@
 """Plain PyTorch oracles for the kernels (counterpart of
-``repro/kernels/ref.py``; the quantiser oracles come with the quantisers)."""
+``repro/kernels/ref.py``; the quantiser oracles are ``quantize_int8_ref``
+and ``dequantize_int8_ref`` in ``kernels/quant.py``)."""
 from __future__ import annotations
 
 import math

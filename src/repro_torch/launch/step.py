@@ -1,11 +1,16 @@
-"""The train step of the port on one device.
+"""The data-parallel train step of the port.
 
-Counterpart of ``repro/launch/step.py:83 make_train_fn`` on a 1x1x1 mesh:
-``value_and_grad(loss_fn)`` then ``apply_updates``.  With one rank every
-collective of the reference's shard_map is over a size-1 axis, so the step
-is the loss, its gradients (autograd, through the flash kernels' backward
-on the card) and the clipped AdamW update.  The serve steps run through
-``serving.TorchExecutor``.
+Counterpart of ``repro/launch/step.py:83 make_train_fn``.  The reference
+runs ``value_and_grad(loss_fn)`` and ``apply_updates`` inside a
+``shard_map`` over the (pod, data) axes; here each rank of a
+``launch.mesh.Grid`` runs the step on its rows of the global batch
+(``P(dp)``: rows split over the ranks in row-major (pod, data) order),
+takes the loss and its gradients (autograd, through the flash kernels'
+backward on the card), stacks the per-layer gradients into the reference's
+run layout once, and calls ``apply_updates``, whose sync runs over the
+grid's process groups.  The returned loss is the mean over the ranks
+(``lax.pmean(loss, dp)``).  One rank is the grid of size 1.  The serve
+steps run through ``serving.TorchExecutor``.
 """
 from __future__ import annotations
 
@@ -15,10 +20,12 @@ import torch
 from ..kernels.backend import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
+from ..models.convert import stack_runs, unstack_runs
 from ..optim import adamw
 from ..tree import tree_leaves, tree_unflatten
+from .mesh import Grid
 
-__all__ = ["device_batch", "loss_and_grads", "make_train_step"]
+__all__ = ["device_batch", "rank_rows", "loss_and_grads", "make_train_step"]
 
 
 def device_batch(batch: dict, device) -> dict:
@@ -26,6 +33,20 @@ def device_batch(batch: dict, device) -> dict:
     ``device``."""
     return {k: torch.as_tensor(np.asarray(v)).to(device, torch.long)
             for k, v in batch.items()}
+
+
+def rank_rows(batch: dict, grid: Grid) -> dict:
+    """This rank's rows of a global host batch, whose rows must divide by
+    the number of ranks."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        if v.shape[0] % grid.world:
+            raise ValueError(f"batch of {v.shape[0]} rows does not split "
+                             f"over {grid.world} ranks")
+        n = v.shape[0] // grid.world
+        out[k] = v[grid.rank * n:(grid.rank + 1) * n]
+    return out
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch: dict):
@@ -38,15 +59,23 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
+                    grid: Grid | None = None,
                     device: str | torch.device = "cuda"):
-    """``step(params, opt, batch) -> (params, opt, loss)`` on ``device``;
-    ``batch`` is a host batch of ``DataPipeline.host_batch``."""
+    """``step(params, opt, batch) -> (params, opt, loss)`` for this rank of
+    ``grid`` (one rank if None) on ``device``.  ``params`` is in the
+    stacked-run layout (``models.convert.stack_runs``), ``opt`` this
+    rank's shard of the state (``adamw.shard_opt_state``), ``batch`` the
+    global host batch of ``DataPipeline.host_batch``."""
     T.port_check(cfg)
     dev = resolve_device(device)
+    grid = grid or Grid.single()
 
     def step(params, opt, batch):
-        loss, grads = loss_and_grads(params, cfg, device_batch(batch, dev))
-        params, opt = adamw.apply_updates(params, grads, opt, opt_cfg)
+        rows = device_batch(rank_rows(batch, grid), dev)
+        loss, grads = loss_and_grads(unstack_runs(params, cfg), cfg, rows)
+        params, opt = adamw.apply_updates(params, stack_runs(grads, cfg),
+                                          opt, opt_cfg, grid)
+        loss = grid.dp.psum(loss.reshape(1))[0] / grid.world
         return params, opt, loss
 
     return step

@@ -1,13 +1,20 @@
-"""Carry parameters and optimiser state between the JAX package's layout
-and the port's.
+"""Carry parameters and optimiser state between the port's per-layer tree,
+the reference's stacked-run layout, and numpy.
 
 ``repro.models.transformer.init_model`` returns a tree whose layers are
 stacked per run of identical block kinds (leading dim = layers in the
-run).  The port keeps one dict per layer.  The tree crosses the framework
-boundary as numpy arrays, with bf16 leaves as their uint16 bit patterns
-(numpy has no bf16), so the weights arrive bit for bit.  The same numpy
-layout is what the port's checkpoints hold, so the two packages read each
-other's checkpoints.
+run): ``{"embed", "final_norm", ["lm_head"], "runs": [run, ...]}``.  The
+port's model keeps one dict per layer (``"layers"``).  ``stack_runs`` and
+``unstack_runs`` go between the two on the device; ``unstack_runs`` gives
+views, so a model can run on stacked parameters without a copy.  The
+training path keeps parameters, gradients for the sync and the optimiser
+state in the stacked layout, so scatter axes, int8 blocks and EF rows are
+the reference's.
+
+Trees cross the framework boundary as numpy arrays, with bf16 leaves as
+their uint16 bit patterns (numpy has no bf16), so the values arrive bit
+for bit; the port's checkpoints hold the same numpy layout, so the two
+packages read each other's checkpoints.
 """
 from __future__ import annotations
 
@@ -15,11 +22,12 @@ import numpy as np
 import torch
 
 from ..kernels.backend import resolve_device
+from ..tree import tree_map
 from .config import ModelConfig
 from .transformer import port_check
 
-__all__ = ["params_from_jax", "params_to_jax", "opt_from_jax",
-           "opt_to_jax"]
+__all__ = ["stack_runs", "unstack_runs", "from_numpy", "to_numpy",
+           "params_from_jax", "params_to_jax"]
 
 
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -39,49 +47,54 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _layer(run: dict, i: int, axis: int, dev: torch.device) -> dict:
-    return {k: _layer(v, i, axis, dev) if isinstance(v, dict)
-            else _tensor(np.take(v, i, axis), dev) for k, v in run.items()}
+def from_numpy(tree, *, device: str | torch.device = "cuda"):
+    """A tree of numpy arrays (bf16 as uint16 bits) -> tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), tree)
 
 
-def _stack(layers: list, axis: int) -> dict:
-    return {k: _stack([l[k] for l in layers], axis)
-            if isinstance(layers[0][k], dict)
-            else np.stack([_numpy(l[k]) for l in layers], axis)
-            for k in layers[0]}
+def to_numpy(tree):
+    """A tree of tensors -> numpy arrays (bf16 as uint16 bits), the
+    inverse of :func:`from_numpy`."""
+    return tree_map(_numpy, tree)
 
 
-def _from_jax(tree: dict, cfg: ModelConfig, dev: torch.device,
-              axis: int = 0) -> dict:
-    """A params-shaped JAX tree -> the port's layout.  ``axis`` is the run
-    dim of the stacked leaves (1 for the EF residual, whose leaves lead
-    with the slow-axis dim)."""
+def _stack(layers: list) -> dict:
+    return {k: _stack([l[k] for l in layers]) if isinstance(layers[0][k], dict)
+            else torch.stack([l[k] for l in layers]) for k in layers[0]}
+
+
+def _layer(run: dict, i: int) -> dict:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in run.items()}
+
+
+def stack_runs(params: dict, cfg: ModelConfig) -> dict:
+    """The port's per-layer tree -> the reference's stacked layout (a copy
+    of the layer leaves)."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["runs"], i = [], 0
+    for _, n in cfg.runs():
+        out["runs"].append(_stack(params["layers"][i:i + n]))
+        i += n
+    return out
+
+
+def unstack_runs(tree: dict, cfg: ModelConfig) -> dict:
+    """The reference's stacked layout -> the port's per-layer tree, each
+    layer leaf a view into its run's stacked leaf."""
     runs = cfg.runs()
     if len(tree["runs"]) != len(runs):
         raise ValueError(f"tree has {len(tree['runs'])} runs, config "
                          f"{cfg.name} has {len(runs)}")
-    out = {"embed": _tensor(tree["embed"], dev),
-           "final_norm": _tensor(tree["final_norm"], dev), "layers": []}
-    if "lm_head" in tree:
-        out["lm_head"] = _tensor(tree["lm_head"], dev)
+    out = {k: v for k, v in tree.items() if k != "runs"}
+    out["layers"] = []
     for run, (kind, n) in zip(tree["runs"], runs):
-        if run["norm1"].shape[axis] != n:
-            raise ValueError(f"run of {kind} stacks "
-                             f"{run['norm1'].shape[axis]} layers, config "
-                             f"says {n}")
-        out["layers"] += [_layer(run, i, axis, dev) for i in range(n)]
-    return out
-
-
-def _to_jax(params: dict, cfg: ModelConfig, axis: int = 0) -> dict:
-    out = {"embed": _numpy(params["embed"]),
-           "final_norm": _numpy(params["final_norm"]), "runs": []}
-    if "lm_head" in params:
-        out["lm_head"] = _numpy(params["lm_head"])
-    i = 0
-    for _, n in cfg.runs():
-        out["runs"].append(_stack(params["layers"][i:i + n], axis))
-        i += n
+        if run["norm1"].shape[0] != n:
+            raise ValueError(f"run of {kind} stacks {run['norm1'].shape[0]} "
+                             f"layers, config says {n}")
+        out["layers"] += [_layer(run, i) for i in range(n)]
     return out
 
 
@@ -89,34 +102,11 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
                     device: str | torch.device = "cuda") -> dict:
     """JAX parameter tree of numpy arrays -> the port's parameters."""
     port_check(cfg)
-    return _from_jax(tree, cfg, resolve_device(device))
+    return unstack_runs(from_numpy(tree, device=device), cfg)
 
 
 def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
     """The port's parameters -> the JAX parameter tree of numpy arrays
     (bf16 as uint16 bits), the inverse of :func:`params_from_jax`."""
     port_check(cfg)
-    return _to_jax(params, cfg)
-
-
-def opt_from_jax(tree: dict, cfg: ModelConfig, *,
-                 device: str | torch.device = "cuda") -> dict:
-    """The reference's optimiser state (``m``, ``v``, ``master``, ``step``
-    and, in the compressed mode, ``ef``) as numpy -> the port's."""
-    port_check(cfg)
-    dev = resolve_device(device)
-    out = {k: _from_jax(tree[k], cfg, dev) for k in ("m", "v", "master")}
-    out["step"] = _tensor(np.asarray(tree["step"], np.int32), dev)
-    if "ef" in tree:
-        out["ef"] = _from_jax(tree["ef"], cfg, dev, axis=1)
-    return out
-
-
-def opt_to_jax(opt: dict, cfg: ModelConfig) -> dict:
-    """The inverse of :func:`opt_from_jax`."""
-    port_check(cfg)
-    out = {k: _to_jax(opt[k], cfg) for k in ("m", "v", "master")}
-    out["step"] = _numpy(opt["step"])
-    if "ef" in opt:
-        out["ef"] = _to_jax(opt["ef"], cfg, axis=1)
-    return out
+    return to_numpy(stack_runs(params, cfg))

@@ -1,15 +1,24 @@
-"""AdamW with f32 master weights, global-norm clipping, cosine schedule.
+"""AdamW with f32 master weights, global-norm clipping, cosine schedule,
+the multilevel gradient sync and an optional ZeRO-1 mode.
 
 Counterpart of ``repro/optim/adamw.py``.  ``OptConfig``, ``lr_at``,
-``_adamw_math`` and ``init_opt_state`` are copies.  ``apply_updates`` is
-the single-rank update: the reference's gradient sync over the (pod, data)
-axes is the identity at world size 1 (every psum is over a size-1 axis and
-the slow axis is absent), so only the f32 cast, the global-norm clip and
-the AdamW math remain.  A larger world raises until the multilevel sync is
-ported (``ROADMAP.md``, Queue 1 item 2).  The ZeRO-1, bucketed and
-compressed modes are accepted and validated as in the reference; at world
-size 1 they compute the same update, and the compressed mode's EF residual
-passes through unchanged.
+``scatter_axes``, ``_adamw_math`` and ``init_opt_state`` are copies.
+``apply_updates`` runs on every rank of a ``launch.mesh.Grid`` (the
+reference runs inside ``shard_map`` over the (pod, data) axes) and syncs
+each leaf over the grid's process groups: flat (one all-reduce over all
+ranks), multilevel (reduce-scatter in the pod, the slow exchange on the
+1/|data| shard, all-gather), multilevel_compress (the slow hop as int8
+with an error-feedback residual), bucketed (fused buffers in reverse leaf
+order), and under ZeRO-1 the sync stops after the slow hop: each rank
+updates its shard of the optimiser state and all-gathers updated
+parameters.  ``shard_opt_state`` cuts the global state to this rank's
+shard, the counterpart of ``opt_manual_specs``.  One rank (no grid) is the
+identity sync.
+
+The trees are walked leaf by leaf, so the scatter axes, the int8 blocks
+and the EF rows follow the layout of the tree given; the train step passes
+the reference's stacked-run layout (``models.convert.stack_runs``), so
+they are the reference's.
 """
 from __future__ import annotations
 
@@ -19,13 +28,13 @@ from typing import Any
 
 import torch
 
+from ..core import compression
+from ..core.collectives import bucketed_psum_tree
+from ..launch.mesh import Grid
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["OptConfig", "NOT_PORTED", "init_opt_state", "apply_updates",
-           "lr_at"]
-
-NOT_PORTED = ("ROADMAP.md, Queue 1 item 2: the multilevel gradient sync "
-              "over torch.distributed")
+__all__ = ["OptConfig", "scatter_axes", "init_opt_state", "shard_opt_state",
+           "apply_updates", "lr_at"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +92,20 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos).float()
 
 
+def scatter_axes(params: Any, n: int) -> Any:
+    """For each leaf: the dim to reduce-scatter over the fast axis (size
+    ``n``), the largest that ``n`` divides (the first of equals), or None
+    if none does.  The reference also avoids a model-sharded dim; the port
+    has no model axis."""
+    def pick(leaf):
+        shape = leaf.shape
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if shape[i] % n == 0:
+                return i
+        return None
+    return tree_map(pick, params)
+
+
 def _adamw_math(m, v, g, master, cfg: OptConfig, lr, t, decay_mask=1.0):
     b1, b2 = cfg.betas
     m = b1 * m + (1 - b1) * g
@@ -114,31 +137,149 @@ def init_opt_state(params: Any, cfg: OptConfig, n_slow: int = 1) -> dict:
     return state
 
 
-def _sync(grads: Any, world_size: int) -> Any:
-    """The gradient sync, as f32: the identity on one rank."""
-    if world_size != 1:
-        raise NotImplementedError(f"gradient sync over {world_size} ranks "
-                                  f"is not ported yet ({NOT_PORTED})")
-    return tree_map(lambda g: g.float(), grads)
+def shard_opt_state(opt: dict, params: Any, cfg: OptConfig,
+                    grid: Grid) -> dict:
+    """This rank's shard of the global optimiser state (the per-rank view
+    of the reference's ``opt_manual_specs``).  Under ZeRO-1 m, v and master
+    keep the rank's chunk along each leaf's scatter axis; otherwise they
+    are whole.  The EF residual keeps the rank's pod row and its chunk
+    along the scatter axis in both modes, shape ``(1,) + shard``."""
+    axes = scatter_axes(params, grid.data)
+    d, pod = grid.fast.index, 0 if grid.slow is None else grid.slow.index
+
+    def chunk(t, ax, lead=0):
+        if ax is None:
+            return t.clone()
+        n = t.shape[ax + lead] // grid.data
+        return t.narrow(ax + lead, d * n, n).clone()
+
+    out = dict(opt)
+    if cfg.sharded_state:
+        for k in ("m", "v", "master"):
+            out[k] = tree_map(chunk, opt[k], axes)
+    if cfg.error_feedback:
+        out["ef"] = tree_map(lambda e, ax: chunk(e[pod:pod + 1], ax, 1),
+                             opt["ef"], axes)
+    return out
 
 
-@torch.no_grad()
-def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig, *,
-                  world_size: int = 1) -> tuple[Any, dict]:
-    """Gradient sync (identity on one rank), global-norm clip and AdamW on
-    the f32 master; returns (params cast back to their dtypes, opt)."""
-    t = opt["step"] + 1
-    lr = lr_at(cfg, opt["step"])
-    grads = _sync(grads, world_size)
-    gn2 = sum(torch.dot(g.reshape(-1), g.reshape(-1))
-              for g in tree_leaves(grads))
-    scale = torch.clamp(cfg.clip_norm / torch.clamp_min(torch.sqrt(gn2),
-                                                        1e-12), max=1.0)
+def _sync_shard(g, ax, grid: Grid, cfg: OptConfig, ef=None):
+    """Multilevel stages 1 and 2 for one leaf: reduce-scatter over the fast
+    axis (an all-reduce where no dim divides), then the (optionally int8)
+    exchange over the slow axis on the 1/|data| shard.  With ``ef``, the
+    leaf's residual (shard-shaped), returns ``(g, new_ef)``."""
+    g = g.float()
+    g = grid.fast.psum(g) if ax is None else grid.fast.psum_scatter(g, ax)
+    new_ef = ef
+    if grid.slow is not None:
+        if cfg.comm_mode == "multilevel_compress":
+            shp = g.shape
+            if ef is not None:
+                g, new_ef = compression.compressed_psum(
+                    g.reshape(-1), grid.slow, ef=ef.reshape(-1),
+                    use_kernel=cfg.quant_kernel)
+                g, new_ef = g.reshape(shp), new_ef.reshape(shp)
+            else:
+                g = compression.compressed_psum(
+                    g.reshape(-1), grid.slow,
+                    use_kernel=cfg.quant_kernel).reshape(shp)
+        else:
+            g = grid.slow.psum(g)
+    return g if ef is None else (g, new_ef)
+
+
+def _clip_scale(gn2, cfg: OptConfig):
+    return torch.clamp(cfg.clip_norm / torch.clamp_min(torch.sqrt(gn2),
+                                                       1e-12), max=1.0)
+
+
+def _update(grads, opt, cfg: OptConfig, scale, lr, t):
+    """AdamW on every leaf: (m, v, master) trees."""
     res = tree_map(lambda m, v, g, w: _adamw_math(m, v, g * scale, w, cfg,
                                                   lr, t),
                    opt["m"], opt["v"], grads, opt["master"])
     # res holds an (m, v, w) tuple per leaf: pick along grads' structure
-    new_m, new_v, new_w = (tree_map(lambda _, r: r[i], grads, res)
-                           for i in range(3))
-    new_params = tree_map(lambda w, p: w.to(p.dtype), new_w, params)
-    return new_params, dict(opt, m=new_m, v=new_v, master=new_w, step=t)
+    return (tree_map(lambda _, r: r[i], grads, res) for i in range(3))
+
+
+@torch.no_grad()
+def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig,
+                  grid: Grid | None = None) -> tuple[Any, dict]:
+    """Gradient sync over ``grid`` (one rank if None), global-norm clip and
+    AdamW on the f32 master; returns (params cast back to their dtypes,
+    opt).  Under ZeRO-1 the opt leaves are this rank's shards
+    (``shard_opt_state``)."""
+    grid = grid or Grid.single()
+    data_size, dp_degree = grid.data, grid.world
+    t = opt["step"] + 1
+    lr = lr_at(cfg, opt["step"])
+    axes = scatter_axes(params, data_size)
+    pick = lambda pairs, i: tree_map(lambda _, r: r[i], grads, pairs)
+
+    if not cfg.sharded_state:
+        # the flat baseline or dense state: full grads on every rank
+        new_ef = opt.get("ef")
+        if cfg.bucket_bytes is not None:
+            grads = bucketed_psum_tree(
+                tree_map(lambda g: g.float(), grads), grid,
+                bucket_bytes=cfg.bucket_bytes, mode=cfg.comm_mode,
+                mean_over=dp_degree)
+        elif cfg.comm_mode == "flat":
+            grads = tree_map(lambda g: grid.dp.psum(g.float()) / dp_degree,
+                             grads)
+        elif cfg.error_feedback:
+            def ml_ef(g, ax, e):
+                gs, ne = _sync_shard(g, ax, grid, cfg, e[0])
+                gs = gs / dp_degree
+                if ax is not None:
+                    gs = grid.fast.all_gather(gs, ax)
+                return gs, ne[None]
+            pairs = tree_map(ml_ef, grads, axes, opt["ef"])
+            grads, new_ef = pick(pairs, 0), pick(pairs, 1)
+        else:
+            def ml(g, ax):
+                gs = _sync_shard(g, ax, grid, cfg) / dp_degree
+                return gs if ax is None else grid.fast.all_gather(gs, ax)
+            grads = tree_map(ml, grads, axes)
+        gn2 = sum(torch.dot(g.reshape(-1), g.reshape(-1))
+                  for g in tree_leaves(grads))
+        new_m, new_v, new_w = _update(grads, opt, cfg, _clip_scale(gn2, cfg),
+                                      lr, t)
+        new_params = tree_map(lambda w, p: w.to(p.dtype), new_w, params)
+        out = dict(opt, m=new_m, v=new_v, master=new_w, step=t)
+        if new_ef is not None:
+            out["ef"] = new_ef
+        return new_params, out
+
+    # ---------------- ZeRO-1 ---------------- #
+    new_ef = None
+    if cfg.error_feedback:
+        pairs = tree_map(lambda g, ax, e: _sync_shard(g, ax, grid, cfg, e[0]),
+                         grads, axes, opt["ef"])
+        shards = tree_map(lambda _, r: r[0] / dp_degree, grads, pairs)
+        new_ef = tree_map(lambda _, r: r[1][None], grads, pairs)
+    else:
+        shards = tree_map(
+            lambda g, ax: _sync_shard(g, ax, grid, cfg) / dp_degree,
+            grads, axes)
+
+    # the global norm from the shards: they tile the gradient, except the
+    # leaves no dim of which divides, replicated on the fast axis
+    def sq(g, ax):
+        s = torch.dot(g.reshape(-1), g.reshape(-1))
+        return s if ax is not None else s / data_size
+    gn2 = sum(tree_leaves(tree_map(sq, shards, axes)))
+    gn2 = grid.fast.psum(gn2.reshape(1))[0]
+    new_m, new_v, new_w = _update(shards, opt, cfg, _clip_scale(gn2, cfg),
+                                  lr, t)
+
+    # stage 3: all-gather updated params over the fast axis, cast to their
+    # dtype first (half the bytes for bf16)
+    def gather(w, ax, p):
+        wc = w.to(p.dtype)
+        return wc if ax is None else grid.fast.all_gather(wc, ax)
+    new_params = tree_map(gather, new_w, axes, params)
+    out = dict(opt, m=new_m, v=new_v, master=new_w, step=t)
+    if new_ef is not None:
+        out["ef"] = new_ef
+    return new_params, out

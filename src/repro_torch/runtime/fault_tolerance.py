@@ -1,10 +1,9 @@
 """Straggler detection for the training loop.
 
 Copy of ``StragglerMonitor`` from ``repro/runtime/fault_tolerance.py``, the
-part the single-rank loop uses.  Failure injection and elastic recovery
-planning (``FailureInjector``, ``plan_recovery``) act on a multi-rank mesh
-and come with the multilevel gradient sync (``ROADMAP.md``, Queue 1
-item 2).
+part the training loop uses.  Failure injection and elastic recovery
+planning (``FailureInjector``, ``plan_recovery``) come with elastic
+recovery over the rank grid (``ROADMAP.md``, Queue 1 item 2).
 """
 from __future__ import annotations
 

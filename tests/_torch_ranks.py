@@ -1,0 +1,108 @@
+"""Rank bodies for the port's multi-rank tests.
+
+``repro_torch.launch.mesh.run_ranks`` spawns the ranks and pickles the
+function by its module path, so the bodies live here, in a module that
+imports neither JAX nor pytest: each spawned rank imports only torch and
+the port.  Every body takes the inputs of all ranks as numpy arrays,
+picks its own by rank (rank = pod * data + d), and returns numpy.
+"""
+import numpy as np
+import torch
+
+from repro_torch.core import collectives as C
+from repro_torch.core import compression
+from repro_torch.launch.mesh import make_grid
+from repro_torch.launch.step import make_train_step
+from repro_torch.models.convert import from_numpy, to_numpy
+from repro_torch.optim import adamw
+from repro_torch.tree import tree_map
+
+CPU = torch.device("cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def collectives(rank, pods, data, x, ef, tree):
+    """Each collective of ``core.collectives`` on this rank's inputs:
+    ``x`` (pods, data, N), ``ef`` (pods, data, N / data), ``tree`` a dict
+    of (pods, data, ...) leaves."""
+    grid = make_grid(pods, data, CPU)
+    pod, d = divmod(rank, data)
+    xr, er = _t(x[pod, d]), _t(ef[pod, d])
+    tr = {k: _t(v[pod, d]) for k, v in tree.items()}
+    slow_bytes = lambda: grid.slow.wire_bytes if grid.slow else 0
+    out = {"flat": C.flat_psum(xr, grid.dp)}
+    w0 = slow_bytes()
+    out["multilevel"] = C.multilevel_psum(xr, grid.slow, grid.fast)
+    out["slow_bytes_multilevel"] = np.array(slow_bytes() - w0)
+    if grid.slow is not None:
+        w0 = slow_bytes()
+        out["compressed"] = C.multilevel_psum(xr, grid.slow, grid.fast, True)
+        out["slow_bytes_compressed"] = np.array(slow_bytes() - w0)
+        out["compressed_ef"], out["compressed_ef_new"] = C.multilevel_psum(
+            xr, grid.slow, grid.fast, True, er)
+        # the kernel path's padding (QTILE) through the plain versions on
+        # the CPU: the same values, more wire bytes
+        out["kernel_path_ef"], out["kernel_path_ef_new"] = \
+            compression.compressed_psum(
+                grid.fast.psum_scatter(xr), grid.slow, ef=er,
+                use_kernel=True)
+    for mode in ("flat", "multilevel", "multilevel_compress"):
+        res = C.multilevel_psum_tree(tr, grid, mode=mode, mean_over=4)
+        out.update({f"tree_{mode}_{k}": v for k, v in res.items()})
+    ef0 = C.compress_ef_zeros(tr, data, tile=compression.QTILE)
+    out["ef_zeros_size"] = np.array(ef0.numel())
+    res, new_ef = C.multilevel_psum_tree(tr, grid, mode="multilevel_compress",
+                                         ef=ef0 + 0.01)
+    out.update({f"tree_ef_{k}": v for k, v in res.items()})
+    out["tree_ef_new"] = new_ef
+    for mode in ("flat", "multilevel"):
+        res = C.bucketed_psum_tree(tr, grid, bucket_bytes=300.0, mode=mode,
+                                   mean_over=2)
+        out.update({f"bucketed_{mode}_{k}": v for k, v in res.items()})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def updates(rank, pods, data, cases, params, opt, grads):
+    """``apply_updates`` for each case, a dict of ``OptConfig`` fields and
+    a gradient scale: three steps from the global state ``opt[case]`` with
+    this rank's gradients ``scale * grads[step]`` (leaves (pods, data,
+    ...)); returns the params and this rank's opt shard after the last
+    step, per case."""
+    grid = make_grid(pods, data, CPU)
+    pod, d = divmod(rank, data)
+    out = []
+    for i, (kw, scale) in enumerate(cases):
+        cfg = adamw.OptConfig(**kw)
+        p = from_numpy(params, device=CPU)
+        o = adamw.shard_opt_state(from_numpy(opt[i], device=CPU), p, cfg,
+                                  grid)
+        for g in grads:
+            mine = from_numpy(tree_map(lambda a: np.float32(scale)
+                                       * a[pod, d], g), device=CPU)
+            p, o = adamw.apply_updates(p, mine, o, cfg, grid)
+        out.append(to_numpy({"params": p, "opt": o}))
+    return out
+
+
+def trajectory(rank, pods, data, cfg, modes, params, batches):
+    """The train step of ``cfg`` for each comm mode: three steps from
+    ``params`` (the reference's stacked layout, numpy) on the global host
+    batches; returns the losses per mode."""
+    grid = make_grid(pods, data, CPU)
+    out = {}
+    for mode in modes:
+        opt_cfg = adamw.OptConfig(comm_mode=mode, lr=1e-3, warmup_steps=20,
+                                  total_steps=len(batches))
+        p = from_numpy(params, device=CPU)
+        o = adamw.shard_opt_state(
+            adamw.init_opt_state(p, opt_cfg, n_slow=pods), p, opt_cfg, grid)
+        step = make_train_step(cfg, opt_cfg, grid, device=CPU)
+        losses = []
+        for b in batches:
+            p, o, loss = step(p, o, b)
+            losses.append(loss.item())
+        out[mode] = losses
+    return out

@@ -10,14 +10,17 @@ Tolerances: 3e-5 (f32) and 2e-2 (bf16) absolute on the forward, the JAX
 kernel tests' own; 1e-4 (f32) and 2e-2 (bf16) times max|ref| on the
 backward, as ``chip_smoke.py`` holds them.  The kernels sum in another
 order than the plain versions, and bf16 outputs may round to the
-neighbouring value.  TF32 is off for the plain versions' f32 einsums.
+neighbouring value.  TF32 is off for the plain versions' f32 einsums.  The
+int8 kernels equal their plain versions bit for bit (NaN where NaN).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import compression as C
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quant as kq
 from repro_torch.launch.serve import serve
 from repro_torch.launch.step import device_batch, loss_and_grads
 from repro_torch.launch.train import train
@@ -204,3 +207,82 @@ def test_launch_train_on_card(dev):
     n = cfg.n_layers * 2
     assert fa.flash_attention_fwd.launches == 2 * n   # remat recomputes
     assert fa.flash_bwd_dq.launches == fa.flash_bwd_dkv.launches == n
+
+
+def _same(a, b):
+    """Bit for bit, NaN where NaN."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                               b[~nb].view(torch.int32))
+
+
+def _quant_input(n, dev, special=None, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (3.0 * rng.standard_normal(n)).astype(np.float32)
+    if n >= 768:
+        x[256:512] = np.arange(256) % 20 - 9.5       # ties at scale 1
+        x[256] = 127.0
+        x[512:768] = 0.0
+    if special == "nan":
+        x[300] = np.nan
+    elif special == "inf":
+        x[700] = np.inf
+    elif special == "f32max":
+        x[0], x[600] = C.F32_MAX, -C.F32_MAX
+    ef = (0.05 * rng.standard_normal(n)).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(ef).to(dev)
+
+
+@pytest.mark.parametrize("n,special", [
+    (256, None), (C.QTILE, None), (3 * C.QTILE - 100, None), (333, None),
+    (1_000_003, None), (1024, "nan"), (1024, "inf"), (1024, "f32max")])
+def test_quant_kernels_match_plain(dev, n, special):
+    x, ef = _quant_input(n, dev, special)
+    xp, _ = C.pad_to_block(x, C.QTILE)
+    efp, _ = C.pad_to_block(ef, C.QTILE)
+    before = [f.launches for f in (kq.quantize_int8, kq.dequantize_int8,
+                                   kq.quantize_ef_int8)]
+    q, s, pad = kq.quantize_int8(x)
+    d = kq.dequantize_int8(q, s, pad)
+    qe, se, re, pad_e = kq.quantize_ef_int8(x, ef)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (kq.quantize_int8, kq.dequantize_int8,
+                                 kq.quantize_ef_int8)] == \
+        [b + 1 for b in before]
+    assert pad == pad_e == (-n) % C.QTILE and d.numel() == re.numel() == n
+    qr, sr = kq.quantize_int8_ref(xp)
+    assert _same(q, qr) and _same(s, sr)
+    assert _same(d, kq.dequantize_int8_ref(q, s)[:n])
+    qer, ser, rer = kq.quantize_ef_int8_ref(xp, efp)
+    assert _same(qe, qer) and _same(se, ser) and _same(re, rer[:n])
+    if special == "f32max":
+        assert torch.isfinite(re[:768]).all()
+
+
+def test_quant_kernels_take_views_at_any_offset(dev):
+    """A view 4 bytes into its buffer is copied to a 16-byte boundary."""
+    x, ef = _quant_input(2049, dev)
+    q, s, _ = kq.quantize_int8(x[1:])
+    qr, sr = kq.quantize_int8_ref(C.pad_to_block(x[1:].clone(), C.QTILE)[0])
+    assert _same(q, qr) and _same(s, sr)
+    _, _, r, _ = kq.quantize_ef_int8(x[1:], ef[1:])
+    _, _, rr = kq.quantize_ef_int8_ref(
+        C.pad_to_block(x[1:].clone(), C.QTILE)[0],
+        C.pad_to_block(ef[1:].clone(), C.QTILE)[0])
+    assert _same(r, rr[:2048])
+
+
+def test_cuda_tensor_never_takes_the_plain_path(dev):
+    x = torch.zeros(512, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        C.compressed_psum(x, None, use_kernel=False)
+    with pytest.raises(ValueError, match="float32"):
+        kq.quantize_int8(x.half())
+    with pytest.raises(ValueError, match="devices"):
+        kq.quantize_ef_int8(x, x.cpu())
+    before = kq.quantize_ef_int8.launches
+    _, _, new, _ = kq.quantize_ef_int8(x + 1.0, x)   # the kernel, on the card
+    assert new.is_cuda and kq.quantize_ef_int8.launches == before + 1
