@@ -46,7 +46,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``multilevel_compress``, 3 steps on four ranks on the card and four
    gloo ranks on the CPU: the losses agree, and so does Adam's first
    moment of a ``wq`` shard after the first two steps, which carries the
-   synced gradient and the EF residual's effect.
+   synced gradient and the EF residual's effect;
+13. the WKV kernel against its plain version on the card: o and the final
+   state within 1e-4 of their scale, at the prefill shape of rwkv6-1.6b
+   (8 x 512, 32 heads of 64), a 300-token request padded to 304 (whose
+   final state must equal, bit for bit, that of the same request padded
+   to 320), the reference kernel test's three shapes, and decays on the
+   clip (w = 0.1923) and near 1; times beside the plain version's and the
+   bound, one JSON line per shape;
+14. the RWKV-6 serving path: ``make_prefill_fn``/``make_decode_fn`` on
+   rwkv6-1.6b at full width (24 layers, d 2048, random weights from a
+   seed), a batch of 8 prompts of 512 tokens and one of 300, 16 greedy
+   tokens each, the counters set to 0 just before and read just after:
+   24 WKV launches a prefill;
+15. the RWKV-6 answer: rwkv6-1.6b at full width cut to 2 layers, f32
+   weights, a 300-token prompt and 4 greedy steps on the card and on the
+   CPU: the prefill's logits and cache, and each step's from the CPU's
+   cache and token, agree leaf by leaf; a free run of the card's own cache
+   holds its logits to the same tolerance.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -109,6 +126,28 @@ COLL_N = 1_000_448      # divides by 2 and 256, its shard not by QTILE
 GRID_LOSS_TOL = 1e-6    # relative
 GRID_M_REL = 1e-4
 GRID_M_SHARE = 1e-3
+# (name, B, S, H, hd, decays); S of the ragged request before its pad
+WKV_SHAPES = [
+    ("rwkv6-1.6b prefill", 8, 512, 32, 64, "model"),
+    ("ragged 300 -> 304", 1, 300, 32, 64, "model"),
+    ("kernel test", 2, 64, 2, 16, "test"),
+    ("kernel test", 1, 128, 4, 32, "test"),
+    ("kernel test", 1, 64, 1, 64, "test"),
+    ("decay clip", 1, 512, 32, 64, "clip"),
+    ("decay near 1", 1, 512, 32, 64, "one"),
+]
+WKV_MAIN = 0            # the shape the RWKV-6 prefill gives the kernel
+# o and the final state, relative to max(1, max|ref|): the reference kernel
+# test's atol (tests/test_kernels.py:104) at unit scale
+WKV_TOL = 1e-4
+RWKV_SERVE = ((8, 512), (1, 300))       # (batch, prompt tokens)
+RWKV_GEN = 16
+# RWKV-6's f32 answer, card against CPU: logits and the WKV state within
+# 1e-4 of their scale; x_tm and x_cm are stored in bf16, where a value
+# near a rounding boundary may land one bf16 ulp (at most 2**-7 of it)
+# apart.
+RWKV_TOL = 1e-4
+BF16_ULP = 2.0 ** -7
 
 
 def fail(msg: str) -> None:
@@ -262,15 +301,17 @@ def flash_bwd_phase(torch, fa, shape) -> dict:
     return out
 
 
-def reset(fa) -> None:
-    for f in (fa.flash_attention_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+def reset(fa, kw) -> None:
+    for f in (fa.flash_attention_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+              kw.wkv_chunked):
         f.launches = 0
 
 
-def counts(fa) -> dict:
+def counts(fa, kw) -> dict:
     return {"flash_fwd": fa.flash_attention_fwd.launches,
             "flash_bwd_dq": fa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "wkv": kw.wkv_chunked.launches}
 
 
 def train_answer(torch, get_config) -> None:
@@ -588,6 +629,190 @@ def grid_answer(torch) -> None:
              f"elements between card and CPU")
 
 
+def wkv_inputs(torch, B, S, H, hd, decays, seed=0):
+    """r, k, v, w (B,S,H,hd) and u (H,hd), f32 on the card, from a seeded
+    generator: w from the reference kernel test's range (0.39, 0.99), the
+    model's formula exp(-exp(clip(n, -8, 0.5))), or constant at either end
+    of that clip."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v, n = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
+                  for _ in range(4))
+    ends = {"clip": 0.5, "one": -8.0}
+    if decays == "test":
+        w = torch.sigmoid(n) * 0.6 + 0.39
+    elif decays == "model":
+        w = torch.exp(-torch.exp(n.clamp(-8, 0.5)))
+    else:
+        w = torch.exp(-torch.exp(torch.full_like(n, ends[decays])))
+    u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
+    return r, k, v, w, u
+
+
+def pad_wkv(torch, ins, S):
+    """Pad r, k, v, w to S steps as rwkv6_fwd does: zeros, and w = 1."""
+    r, k, v, w, u = ins
+    pad = (0, 0, 0, 0, 0, S - r.shape[1])
+    F = torch.nn.functional
+    return [F.pad(t, pad) for t in (r, k, v)] + [F.pad(w, pad, value=1.0), u]
+
+
+def wkv_work(B, S, H, hd, C=16):
+    """(flops, bytes) of one chunked WKV with its final state: per chunk
+    and (b, h) the inter-chunk product and the state update (2 C hd^2
+    each), the decay and sum of the old state (2 hd^2), the strictly lower
+    scores and their product with v (C (C-1) hd each), the bonus (5 C hd),
+    the decays (6 C hd, log and exp counted as one each) and k/e times e_C
+    (C hd); each input read and each output written once."""
+    per_chunk = 4 * C * hd * hd + 2 * C * (C - 1) * hd + 2 * hd * hd \
+        + 12 * C * hd
+    flops = B * H * (S // C) * per_chunk
+    nbytes = 4 * (5 * B * S * H * hd + B * H * hd * hd + H * hd)
+    return flops, nbytes
+
+
+def wkv_phase(torch, kw, shape) -> dict:
+    """The WKV kernel against its plain version on one shape, o and the
+    final state; its time beside the plain version's and the bound."""
+    name, B, S0, H, hd, decays = shape
+    ins = wkv_inputs(torch, B, S0, H, hd, decays)
+    S = S0 + (-S0) % kw.CHUNK
+    if S != S0:
+        ins = pad_wkv(torch, ins, S)
+    o, st = kw.wkv_chunked(*ins, return_state=True)
+    torch.cuda.synchronize()
+    o_ref, st_ref = kw.wkv_chunk_scan_ref(*ins, kw.CHUNK)
+    errs = {}
+    for what, got, want in (("o", o, o_ref), ("S_fin", st, st_ref)):
+        err = (got - want).abs().max().item()
+        lim = WKV_TOL * max(1.0, want.abs().max().item())
+        if not (torch.isfinite(got).all() and err <= lim):
+            fail(f"wkv {name} {what}: max abs err {err} > {lim}")
+        errs[what] = err
+    if S != S0:
+        # the pad leaves the state and the real outputs exact
+        o2, st2 = kw.wkv_chunked(*pad_wkv(torch, ins, S + kw.CHUNK),
+                                 return_state=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(st, st2) and torch.equal(o[:, :S0], o2[:, :S0])):
+            fail(f"wkv {name}: the state or outputs move across the pad")
+    flops, nbytes = wkv_work(B, S, H, hd)
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    rec = {"shape": name, "B": B, "S": S, "H": H, "hd": hd,
+           "decays": decays, "max_abs_err": max(errs.values()),
+           "max_abs_err_o_S": errs,
+           "kernel_ms": cuda_ms(torch, lambda: kw.wkv_chunked(
+               *ins, return_state=True), 20),
+           "plain_ms": cuda_ms(torch, lambda: kw.wkv_chunk_scan_ref(
+               *ins, kw.CHUNK), 3),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_rates": "3.35 TB/s; 67 TFLOP/s f32 (non-tensor)",
+           "flops": flops, "bytes": nbytes, "library_ms": None}
+    rec["kernel_gflops"] = flops / rec["kernel_ms"] / 1e6
+    print(json.dumps({"wkv": rec}), flush=True)
+    return rec
+
+
+def rwkv_serve(torch, cfg, params, B, L):
+    """Prefill a (B, L) prompt from a seed on the card and decode greedily
+    to RWKV_GEN tokens through make_prefill_fn/make_decode_fn.  Returns
+    the wall times, the tokens and each step's logits."""
+    from repro_torch.launch.step import make_decode_fn, make_prefill_fn
+
+    gen = torch.Generator().manual_seed(L)
+    prompt = torch.randint(0, cfg.vocab, (B, L), generator=gen).cuda()
+    prefill = make_prefill_fn(cfg, L + RWKV_GEN - 1)
+    decode = make_decode_fn(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, pos = prefill(params, {"tokens": prompt})
+    out, lgs = [logits[:, -1].argmax(-1, keepdim=True)], [logits]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(RWKV_GEN - 1):
+        logits, cache = decode(params, cache, out[-1], pos + i)
+        out.append(logits[:, -1].argmax(-1, keepdim=True))
+        lgs.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_step": (t2 - t1) * 1e3 / (RWKV_GEN - 1),
+            "tokens": torch.cat(out, 1), "logits": lgs, "wall_s": t2 - t0}
+
+
+def rwkv_leaf_errs(torch, name, got, want) -> tuple[dict, bool]:
+    """How far one cache leaf on the card is from the CPU's, and whether
+    it is within RWKV_TOL of its scale (S) or one bf16 ulp (x_tm, x_cm)."""
+    a, b = got.cpu().float(), want.float()
+    d, top = (a - b).abs(), b.abs().max().item()
+    if name == "S":
+        ok = d.max().item() <= RWKV_TOL * top
+    else:
+        ok = bool((d <= BF16_ULP * b.abs() + 1e-6 * top).all())
+    return {"max_abs_err": d.max().item(), "max_abs": top,
+            "differing": int((d > 0).sum().item())}, ok
+
+
+def rwkv_answer(torch, get_config) -> dict:
+    """rwkv6-1.6b at full width, 2 layers, f32: a 300-token prefill and 4
+    greedy steps on the card and on the CPU.  Each step runs on both from
+    the CPU's cache and token, so every leaf is held to one step's
+    rounding; x_tm and x_cm are stored in bf16, so a free run lets a row
+    rounded the other way feed the next step and the two runs drift apart
+    ulp by ulp.  The free run's logits are held to RWKV_TOL as well, and
+    its drift is printed."""
+    from repro_torch.launch.step import make_decode_fn, make_prefill_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2,
+                              pattern=("rwkv6",) * 2)
+    p_cpu = tree_map(lambda t: t.float(),
+                     T.init_model(cfg, seed=0, device="cpu"))
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    prompt = torch.randint(0, cfg.vocab, (1, 300),
+                           generator=torch.Generator().manual_seed(300))
+    prefill, decode = make_prefill_fn(cfg, 304), make_decode_fn(cfg)
+    lg_c, cache_c, pos = prefill(p_cpu, {"tokens": prompt})
+    lg_g, cache_g, _ = prefill(p_gpu, {"tokens": prompt.cuda()})
+    free = cache_g
+    rec, fed = {"steps": []}, []
+    for i in range(5):
+        if i:
+            tok = lg_c[:, -1].argmax(-1, keepdim=True)
+            fed.append(tok)
+            start = tree_map(lambda t: t.cuda(), cache_c)
+            lg_c, cache_c = decode(p_cpu, cache_c, tok, pos + i - 1)
+            lg_g, cache_g = decode(p_gpu, start, tok.cuda(), pos + i - 1)
+        step = {"logits_max_rel_err": (lg_g.cpu() - lg_c).abs().max().item()
+                / max(1.0, lg_c.abs().max().item())}
+        ok = step["logits_max_rel_err"] <= RWKV_TOL
+        for name in ("S", "x_tm", "x_cm"):
+            step[name], leaf_ok = rwkv_leaf_errs(torch, name,
+                                                 cache_g[0][name],
+                                                 cache_c[0][name])
+            ok &= leaf_ok
+        rec["steps"].append(step)
+        if not ok:
+            fail(f"rwkv6 f32 {'prefill' if not i else f'step {i}'} on the "
+                 f"card differs from the CPU: {step}")
+    # the free run: the card's own cache from its prefill on
+    for i, tok in enumerate(fed):
+        lg_f, free = decode(p_gpu, free, tok.cuda(), pos + i)
+    rec["free_run_logits_max_rel_err"] = (lg_f.cpu() - lg_c).abs().max() \
+        .item() / max(1.0, lg_c.abs().max().item())
+    rec["free_run_cache"] = {name: rwkv_leaf_errs(torch, name, free[0][name],
+                                                  cache_c[0][name])[0]
+                             for name in ("S", "x_tm", "x_cm")}
+    print(json.dumps({"rwkv6_f32_card_vs_cpu": {
+        "layers": 2, "prompt": 300, "decode_steps": 4,
+        "tolerance": RWKV_TOL, **rec}}), flush=True)
+    if not rec["free_run_logits_max_rel_err"] <= RWKV_TOL:
+        fail(f"rwkv6 f32 free-run logits differ by "
+             f"{rec['free_run_logits_max_rel_err']} of their scale")
+    return rec
+
+
 def main() -> None:
     if not KERNELS.is_dir():
         fail(f"{KERNELS} not found: run from a checkout of the repository")
@@ -610,6 +835,7 @@ def main() -> None:
 
     from repro_torch.kernels import backend
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv as kw
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
     from repro_torch.configs import get_config
@@ -630,10 +856,10 @@ def main() -> None:
     bwd = [flash_bwd_phase(torch, fa, s) for s in SHAPES]
 
     # 5. the serving path
-    reset(fa)
+    reset(fa, kw)
     runs = [serve("gpt-100m", 8, 512, 16, device="cuda"),
             serve("gpt-100m", 1, 300, 16, device="cuda")]
-    serve_counts = counts(fa)
+    serve_counts = counts(fa, kw)
     cfg = get_config("gpt-100m")
     prefills = sum(r["prefills"] for r in runs)
     for r, n in zip(runs, (8, 1)):
@@ -649,7 +875,7 @@ def main() -> None:
             "ttft_wall_p99_ms": r["ttft_wall_p99_s"] * 1e3,
             "simulated_s": r["report"]["sim_s"]}}), flush=True)
     if serve_counts != {"flash_fwd": cfg.n_layers * prefills,
-                        "flash_bwd_dq": 0, "flash_bwd_dkv": 0} \
+                        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "wkv": 0} \
             or prefills != 9:
         fail(f"serving launched {serve_counts} for {prefills} prefills of "
              f"{cfg.n_layers} layers")
@@ -675,10 +901,10 @@ def main() -> None:
     del params, p_gpu, p_cpu
 
     # 7. the training path
-    reset(fa)
+    reset(fa, kw)
     torch.cuda.reset_peak_memory_stats()
     tr = train("gpt-100m", device="cuda", log_every=1, **TRAIN)
-    train_counts = counts(fa)
+    train_counts = counts(fa, kw)
     steady = tr["step_ms"][1:]
     print(json.dumps({"train": {
         **TRAIN, "losses": tr["losses"], "step_ms": tr["step_ms"],
@@ -691,7 +917,7 @@ def main() -> None:
         fail(f"training losses {tr['losses']}")
     per_step = cfg.n_layers * TRAIN["steps"]
     want = {"flash_fwd": 2 * per_step, "flash_bwd_dq": per_step,
-            "flash_bwd_dkv": per_step}
+            "flash_bwd_dkv": per_step, "wkv": 0}
     if train_counts != want:
         fail(f"training launched {train_counts}, expected {want}")
 
@@ -736,6 +962,36 @@ def main() -> None:
     # the CPU
     grid_answer(torch)
 
+    # 13. the WKV kernel against its plain version
+    wkv_recs = [wkv_phase(torch, kw, s) for s in WKV_SHAPES]
+
+    # 14. the RWKV-6 serving path
+    rcfg = get_config("rwkv6-1.6b")
+    params = T.init_model(rcfg, seed=0, device="cuda")
+    reset(fa, kw)
+    rruns = [rwkv_serve(torch, rcfg, params, B, L) for B, L in RWKV_SERVE]
+    rwkv_counts = counts(fa, kw)
+    for (B, L), r in zip(RWKV_SERVE, rruns):
+        gen = r["tokens"]
+        if gen.shape != (B, RWKV_GEN) or gen.min() < 0 \
+                or gen.max() >= rcfg.vocab \
+                or not all(torch.isfinite(x).all() for x in r["logits"]):
+            fail(f"rwkv6 served tokens of shape {tuple(gen.shape)} or "
+                 f"non-finite logits")
+        print(json.dumps({"rwkv6_serve": {
+            "batch": B, "prompt": L, "generated": RWKV_GEN,
+            "prefill_wall_ms": r["prefill_ms"],
+            "decode_wall_ms_per_step": r["decode_ms_per_step"],
+            "tokens_per_s": B * RWKV_GEN / r["wall_s"]}}), flush=True)
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "wkv": rcfg.n_layers * len(RWKV_SERVE)}
+    if rwkv_counts != want:
+        fail(f"rwkv6 serving launched {rwkv_counts}, expected {want}")
+    del params, rruns
+
+    # 15. the RWKV-6 answer: f32, the card against the CPU
+    rwkv_answer(torch, get_config)
+
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
     sources = {
@@ -767,6 +1023,9 @@ def main() -> None:
                              "src/repro/kernels/quant.py:44",
                              quant["quantize_ef_int8"],
                              grid_counts["quantize_ef_int8"]),
+        "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
+                "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
+                rwkv_counts["wkv"]),
     }
     for name, (_, _, _, n) in sources.items():
         if n < 1:

@@ -1,12 +1,13 @@
 """Public wrappers around the kernels.
 
 Counterpart of ``repro/kernels/ops.py``.  The differentiable flash
-attention is here; the int8 quantise, dequantise and fused error-feedback
-wrappers, which pad to ``QTILE`` as the reference's do, are in
-``kernels/quant.py``.
+attention and the RWKV-6 chunked WKV are here; the int8 quantise,
+dequantise and fused error-feedback wrappers, which pad to ``QTILE`` as
+the reference's do, are in ``kernels/quant.py``.
 """
 from __future__ import annotations
 
 from .flash_attention import flash_attention
+from .wkv import wkv_chunked
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "wkv_chunked"]

@@ -1,0 +1,143 @@
+"""RWKV-6 chunked WKV recurrence: the Hopper kernel, its plain version and
+the wrapper.
+
+Counterpart of ``repro/kernels/wkv.py``.  ``csrc/wkv.cu`` replaces the
+Pallas ``_wkv_kernel``; see the note at the top of that file for its design
+and what bounds it.  The plain version, :func:`wkv_chunk_scan_ref`, is a
+copy of the reference model's ``layers._wkv_chunk_scan``, the oracle the
+Pallas kernel was written to replace and the function the reference's
+``rwkv6_fwd`` calls.
+
+:func:`wkv_chunked` takes the plain version only for CPU tensors; for a
+CUDA tensor it launches the kernel or raises, and counts each launch in
+``wkv_chunked.launches``.  Unlike the Pallas wrapper it can also return the
+final state, the oracle's second result, which the prefill cache holds.
+There is no backward kernel (the reference differentiates the oracle with
+XLA), so the kernel refuses inputs that require a gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import backend
+
+__all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "NOT_PORTED_BWD",
+           "wkv_chunk_scan_ref", "wkv_chunked"]
+
+CHUNK = 16
+KERNEL_MAX_HEAD_DIM = 64        # the (hd, hd) f32 state in shared memory
+NOT_PORTED_BWD = "ROADMAP.md, Queue 1 item 6: RWKV-6 training"
+
+
+def wkv_chunk_scan_ref(r, k, v, w, u, chunk: int):
+    """Chunked linear recurrence S_t = diag(w_t) S_{t-1} + k_t v_t^T with
+    per-step output o_t = r_t S_{t-1} + (r_t . (u*k_t)) v_t.
+
+    r,k,v,w: (B,S,H,hd) f32, w in (0,1); u: (H,hd) f32.  Returns (o
+    (B,S,H,hd), S_final (B,H,hd,hd)), both f32."""
+    B, S, H, hd = r.shape
+    C = chunk
+    if S % C != 0:
+        raise ValueError(f"linear-attention chunking needs S % chunk "
+                         f"== 0, got S={S} chunk={C}")
+    n = S // C
+    fold = lambda t: t.reshape(B, n, C, H, hd).permute(1, 0, 3, 2, 4)
+    rs, ks, vs, ws = (fold(t) for t in (r, k, v, w))    # (n,B,H,C,hd)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                      -1)
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    os_ = torch.empty((n, B, H, C, hd), dtype=torch.float32, device=r.device)
+    for i in range(n):
+        rc, kc, vc, wc = rs[i], ks[i], vs[i], ws[i]
+        logw = torch.log(torch.clamp_min(wc, 1e-8))
+        e = torch.exp(torch.cumsum(logw, dim=2))     # e_t = prod_{j<=t} w_j
+        e_excl = e / torch.clamp_min(wc, 1e-8)       # e_{t-1} relative
+        # inter-chunk: o_t += (r_t * e_excl_t) @ S_prev
+        o = torch.einsum("bhtd,bhde->bhte", rc * e_excl, state)
+        # intra-chunk: scores_{t,j} = (r_t*e_excl_t) . (k_j/e_j), j < t
+        kk = kc / torch.clamp_min(e, 1e-30)
+        sc = torch.einsum("bhtd,bhjd->bhtj", rc * e_excl, kk)
+        sc = torch.where(mask, sc, 0.0)
+        o = o + torch.einsum("bhtj,bhjd->bhtd", sc, vc)
+        # diagonal bonus term
+        bonus = torch.einsum("bhtd,bhtd->bht", rc, u[None, :, None, :] * kc)
+        os_[i] = o + bonus[..., None] * vc
+        # state update
+        ec = e[:, :, -1]
+        state = ec[..., None] * state + torch.einsum(
+            "bhtd,bhte->bhde", kk * ec[:, :, None], vc)
+    o = os_.permute(1, 0, 3, 2, 4).reshape(B, S, H, hd)
+    return o, state
+
+
+def _check(r, k, v, w, u, chunk: int) -> None:
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or t.shape != r.shape or t.dim() != 4:
+            raise ValueError(f"wkv_chunked: r, k, v, w must be f32 tensors "
+                             f"of one (B,S,H,hd) shape, got {name} "
+                             f"{getattr(t, 'dtype', type(t))} "
+                             f"{tuple(getattr(t, 'shape', ()))}")
+        if t.device != r.device or t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"wkv_chunked: inputs must be on one cpu or "
+                             f"cuda device, got {name} on {t.device}")
+    B, S, H, hd = r.shape
+    if not isinstance(u, torch.Tensor) or u.dtype != torch.float32 \
+            or u.shape != (H, hd) or u.device != r.device:
+        raise ValueError(f"wkv_chunked: u must be f32 ({H}, {hd}) on "
+                         f"{r.device}, got {getattr(u, 'dtype', type(u))} "
+                         f"{tuple(getattr(u, 'shape', ()))}")
+    if chunk != CHUNK or S % chunk:
+        raise ValueError(f"wkv_chunked needs chunk == {CHUNK} and S % chunk "
+                         f"== 0, got S={S} chunk={chunk}")
+    if not 1 <= hd <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"wkv_chunked takes head_dim 1..{KERNEL_MAX_HEAD_DIM}"
+                         f", got {hd}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = backend.load("wkv")
+    if lib.wkv_fwd.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.wkv_fwd.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+        lib.wkv_fwd.restype = ctypes.c_int
+        lib.wkv_error_string.argtypes = [i]
+        lib.wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
+                return_state: bool = False):
+    """r,k,v,w: (B,S,H,hd) f32; u: (H,hd) f32.  Returns o (B,S,H,hd) f32,
+    and with ``return_state`` also the final state (B,H,hd,hd) f32.
+
+    S must divide by ``chunk`` (callers pad, as ``models.layers`` does)."""
+    _check(r, k, v, w, u, chunk)
+    if not r.is_cuda:
+        o, state = wkv_chunk_scan_ref(r, k, v, w, u, chunk)
+        return (o, state) if return_state else o
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u)):
+        raise RuntimeError(f"wkv_chunked has no backward kernel; inputs that "
+                           f"require grad are refused ({NOT_PORTED_BWD})")
+    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    B, S, H, hd = r.shape
+    o = torch.empty_like(r)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                        device=r.device) if return_state else None
+    lib = _lib()
+    err = lib.wkv_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                      u.data_ptr(), o.data_ptr(),
+                      None if state is None else state.data_ptr(),
+                      B, S, H, hd, r.device.index,
+                      torch.cuda.current_stream(r.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wkv_fwd launch failed: "
+                           f"{lib.wkv_error_string(err).decode()}")
+    wkv_chunked.launches += 1
+    return (o, state) if return_state else o
+
+
+wkv_chunked.launches = 0

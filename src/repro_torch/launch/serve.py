@@ -54,6 +54,7 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
     Prometheus text exposition."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
+    T.paged_arch_check(cfg)
     tracer = Tracer() if trace else None
     s_max = prompt_len + gen_len
     s_max += (-s_max) % block_size

@@ -9,8 +9,13 @@ takes the loss and its gradients (autograd, through the flash kernels'
 backward on the card), stacks the per-layer gradients into the reference's
 run layout once, and calls ``apply_updates``, whose sync runs over the
 grid's process groups.  The returned loss is the mean over the ranks
-(``lax.pmean(loss, dp)``).  One rank is the grid of size 1.  The serve
-steps run through ``serving.TorchExecutor``.
+(``lax.pmean(loss, dp)``).  One rank is the grid of size 1.
+
+The paged serve steps run through ``serving.TorchExecutor``.  The dense
+ones, ``make_prefill_fn`` and ``make_decode_fn``, are the one-device
+counterparts of the reference's ``:233``/``:243``: plain functions under
+``torch.inference_mode`` (the reference jits them).  They serve the
+recurrent RWKV-6 stack, which the paged path refuses.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from ..optim import adamw
 from ..tree import tree_leaves, tree_unflatten
 from .mesh import Grid
 
-__all__ = ["device_batch", "rank_rows", "loss_and_grads", "make_train_step"]
+__all__ = ["device_batch", "rank_rows", "loss_and_grads", "make_train_step",
+           "make_prefill_fn", "make_decode_fn"]
 
 
 def device_batch(batch: dict, device) -> dict:
@@ -66,7 +72,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     stacked-run layout (``models.convert.stack_runs``), ``opt`` this
     rank's shard of the state (``adamw.shard_opt_state``), ``batch`` the
     global host batch of ``DataPipeline.host_batch``."""
-    T.port_check(cfg)
+    T.train_check(cfg)
     dev = resolve_device(device)
     grid = grid or Grid.single()
 
@@ -79,3 +85,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
         return params, opt, loss
 
     return step
+
+
+def make_prefill_fn(cfg: ModelConfig, s_max: int):
+    """``run(params, inputs) -> (logits (B,1,V) f32, cache, S)``: the
+    prompt ``inputs["tokens"]`` (B,S) through the model, its dense cache
+    sized for ``s_max`` tokens (``transformer.prefill``)."""
+    T.port_check(cfg)
+
+    def run(params, inputs):
+        return T.prefill(params, cfg, inputs, s_max)
+    return run
+
+
+def make_decode_fn(cfg: ModelConfig):
+    """``run(params, cache, tokens, pos) -> (logits (B,1,V) f32, cache)``:
+    one greedy step over the dense cache, updated in place
+    (``transformer.decode_step``)."""
+    T.port_check(cfg)
+
+    def run(params, cache, tokens, pos):
+        return T.decode_step(params, cfg, cache, tokens, pos)
+    return run

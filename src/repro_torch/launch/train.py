@@ -160,7 +160,7 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     lead = grid.rank == 0
     info = log.info if lead else (lambda *a, **k: None)
     cfg = get_config(arch, smoke=smoke)
-    T.port_check(cfg)
+    T.train_check(cfg)
     opt_cfg = OptConfig(comm_mode=comm, zero1=zero1, lr=1e-3,
                         warmup_steps=20, total_steps=steps)
     pipe = DataPipeline(cfg, ShapeSpec("custom", "train", seq, batch))

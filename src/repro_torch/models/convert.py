@@ -11,6 +11,10 @@ training path keeps parameters, gradients for the sync and the optimiser
 state in the stacked layout, so scatter axes, int8 blocks and EF rows are
 the reference's.
 
+The dense serving caches (``transformer.init_cache``/``prefill``) already
+use the reference's layout, one stacked entry per run; ``cache_from_jax``
+and ``cache_to_numpy`` carry them across.
+
 Trees cross the framework boundary as numpy arrays, with bf16 leaves as
 their uint16 bit patterns (numpy has no bf16), so the values arrive bit
 for bit; the port's checkpoints hold the same numpy layout, so the two
@@ -27,7 +31,8 @@ from .config import ModelConfig
 from .transformer import port_check
 
 __all__ = ["stack_runs", "unstack_runs", "from_numpy", "to_numpy",
-           "params_from_jax", "params_to_jax"]
+           "params_from_jax", "params_to_jax", "cache_from_jax",
+           "cache_to_numpy"]
 
 
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -110,3 +115,27 @@ def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
     (bf16 as uint16 bits), the inverse of :func:`params_from_jax`."""
     port_check(cfg)
     return to_numpy(stack_runs(params, cfg))
+
+
+def cache_from_jax(cache: list, cfg: ModelConfig, *,
+                   device: str | torch.device = "cuda") -> list:
+    """The reference's dense cache (a list of per-run dicts of numpy
+    arrays, bf16 as uint16 bits) -> the port's, on ``device``."""
+    port_check(cfg)
+    runs = cfg.runs()
+    if len(cache) != len(runs):
+        raise ValueError(f"cache has {len(cache)} runs, config {cfg.name} "
+                         f"has {len(runs)}")
+    for ent, (kind, n) in zip(cache, runs):
+        names = {"S", "x_tm", "x_cm"} if kind == "rwkv6" else {"k", "v"}
+        if set(ent) != names or any(a.shape[0] != n for a in ent.values()):
+            raise ValueError(f"a {kind} run of {n} layers caches {names} "
+                             f"stacked {n}, got "
+                             f"{ {k: a.shape for k, a in ent.items()} }")
+    return from_numpy(cache, device=device)
+
+
+def cache_to_numpy(cache: list) -> list:
+    """The port's dense cache -> numpy arrays (bf16 as uint16 bits) in the
+    reference's layout, the inverse of :func:`cache_from_jax`."""
+    return to_numpy(cache)

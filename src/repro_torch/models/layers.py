@@ -1,5 +1,6 @@
-"""Neural building blocks in PyTorch: the dense-attention subset of
-``repro/models/layers.py`` that serving and training run.
+"""Neural building blocks in PyTorch: the subset of
+``repro/models/layers.py`` that serving and training run (dense attention,
+the MLP, and RWKV-6's time and channel mix).
 
 Functions take and return tensors in the JAX package's layouts, and
 parameters are plain dicts of tensors with the JAX names.  Numerics follow
@@ -13,8 +14,12 @@ the sequence length; on a CPU tensor the same dispatch as the reference
 (the naive oracle, differentiated by autograd, for lengths that are not a
 multiple of the chunk, else the kernels' plain versions).
 
-The paged decode works on the pools in place and returns them, where the
-JAX version returns updated copies.
+RWKV-6's time mix runs the chunked WKV recurrence through
+:func:`~repro_torch.kernels.wkv.wkv_chunked`: the Hopper kernel on a CUDA
+tensor, the reference's ``_wkv_chunk_scan`` on a CPU one.
+
+The paged and dense decodes write their caches in place and return them,
+where the JAX versions return updated copies.
 """
 from __future__ import annotations
 
@@ -24,13 +29,15 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import NEG_INF
-from ..kernels.ops import flash_attention
+from ..kernels.ops import flash_attention, wkv_chunked
+from ..kernels.wkv import CHUNK
 from .config import ModelConfig
 
 __all__ = ["rmsnorm", "rope", "dense_init", "init_attention",
            "naive_attention", "chunked_attention", "attention_fwd",
-           "attention_prefill", "paged_attention_decode", "init_mlp",
-           "mlp_fwd"]
+           "attention_prefill", "attention_decode", "paged_attention_decode",
+           "init_mlp", "mlp_fwd", "init_rwkv6", "rwkv6_fwd",
+           "rwkv6_channel_mix", "rwkv6_channel_mix_decode", "rwkv6_decode"]
 
 
 # ---------------------------------------------------------------------- #
@@ -61,13 +68,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def _uniform(gen: torch.Generator, shape, scale: float,
+             dtype=torch.float32):
+    """U(-scale, scale) drawn from ``gen`` on its device."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return ((2.0 * u - 1.0) * scale).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.bfloat16):
-    """U(-1/sqrt(d_in), 1/sqrt(d_in)) as in the reference, drawn from
-    ``gen`` on its device."""
-    scale = 1.0 / math.sqrt(d_in)
-    u = torch.rand((d_in, d_out), generator=gen, device=gen.device)
-    return ((2.0 * u - 1.0) * scale).to(dtype)
+    """U(-1/sqrt(d_in), 1/sqrt(d_in)) as in the reference."""
+    return _uniform(gen, (d_in, d_out), 1.0 / math.sqrt(d_in)).to(dtype)
 
 
 # ---------------------------------------------------------------------- #
@@ -195,6 +206,46 @@ def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
     return o @ p["wo"], pool_k, pool_v
 
 
+def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
+                     windowed: bool):
+    """One-token decode against a dense cache.  x: (B,1,D); cache_k/v:
+    (B,S_cache,Hkv,hd), written in place; pos: the number of tokens
+    already in the cache (a Python int).  A windowed cache is a ring of
+    ``S_cache`` slots.  Returns (y, cache_k, cache_v).
+
+    The reference's sequence-parallel branch (``_cache_attend_sp``, taken
+    under a model axis) is not ported (ROADMAP.md, Queue 1 item 3): the
+    port has no model axis."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    q, k, v = _qkv(p, cfg, x)
+    pos_t = torch.tensor([pos], device=x.device)
+    q = rope(q, pos_t, cfg.rope_theta)
+    k = rope(k, pos_t, cfg.rope_theta)
+
+    s_cache = cache_k.shape[1]
+    slot = pos % s_cache if windowed else min(pos, s_cache - 1)
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    idx = torch.arange(s_cache, device=x.device)
+    if windowed:
+        # entry i holds the latest position p' <= pos with p' % S_cache == i
+        abs_pos = pos - ((pos - idx) % s_cache)
+        valid = (abs_pos >= 0) & (abs_pos >= pos - s_cache + 1) \
+            & (abs_pos <= pos)
+    else:
+        valid = idx <= pos
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, cfg.n_kv_heads, G, hd)
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                      cache_k.float()) / math.sqrt(hd)
+    sc = sc.masked_fill(~valid, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", pr, cache_v.float())
+    o = o.reshape(B, 1, cfg.q_dim).to(x.dtype)
+    return o @ p["wo"], cache_k, cache_v
+
+
 def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
                       keep_full: bool = False):
     """Causal self-attention sublayer that also returns the KV cache slice
@@ -239,3 +290,113 @@ def mlp_fwd(p, cfg: ModelConfig, x):
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------- #
+# RWKV-6 ("Finch"): linear attention with data-dependent per-channel decay
+# ---------------------------------------------------------------------- #
+
+def init_rwkv6(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    H = D // cfg.rwkv_head_dim
+    return {
+        # time-mix
+        "w_r": dense_init(gen, D, D),
+        "w_k": dense_init(gen, D, D),
+        "w_v": dense_init(gen, D, D),
+        "w_g": dense_init(gen, D, D),
+        "w_w": dense_init(gen, D, D),       # decay projection
+        "w_o": dense_init(gen, D, D),
+        "u": _uniform(gen, (H, cfg.rwkv_head_dim), 0.5),
+        "mix": _uniform(gen, (5, D), 0.5),  # r, k, v, g, w
+        # channel-mix
+        "cm_k": dense_init(gen, D, F_),
+        "cm_v": dense_init(gen, F_, D),
+        "cm_r": dense_init(gen, D, D),
+        "cm_mix": _uniform(gen, (2, D), 0.5),
+    }
+
+
+def _token_shift(x):
+    """x_{t-1} with zero at t=0.  x: (B,S,D)."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False):
+    """RWKV-6 time-mix sublayer (pre-norm handled by the caller).
+    x: (B,S,D).  With ``return_state`` also returns {"S": the WKV state
+    (B,H,hd,hd) f32, "x_tm", "x_cm": x's last row}."""
+    B, S, D = x.shape
+    hd = cfg.rwkv_head_dim
+    H = D // hd
+    xp = _token_shift(x)
+    mix = p["mix"].to(x.dtype)
+    xr, xk, xv, xg, xw = (x + mix[i] * (xp - x) for i in range(5))
+    r = (xr @ p["w_r"]).reshape(B, S, H, hd).float()
+    k = (xk @ p["w_k"]).reshape(B, S, H, hd).float()
+    v = (xv @ p["w_v"]).reshape(B, S, H, hd).float()
+    g = xg @ p["w_g"]
+    # the decay clamp keeps the factored chunk recurrence in f32 range for
+    # chunks of 16
+    w = torch.exp(-torch.exp(torch.clamp((xw @ p["w_w"]).float(), -8, 0.5)))
+    w = w.reshape(B, S, H, hd)
+    # pad the sequence to a chunk multiple: zero k adds nothing and w = 1
+    # keeps the state unchanged, so the final state stays exact
+    pad = (-S) % CHUNK
+    if pad:
+        r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    out = wkv_chunked(r, k, v, w, p["u"], return_state=return_state)
+    o, s_fin = out if return_state else (out, None)
+    if pad:
+        o = o[:, :S]
+    o = (o.reshape(B, S, D) * F.silu(g.float())).to(x.dtype)
+    y = o @ p["w_o"]
+    if return_state:
+        return y, {"S": s_fin, "x_tm": x[:, -1], "x_cm": x[:, -1]}
+    return y
+
+
+def _channel_mix(p, x, xp):
+    mix = p["cm_mix"].to(x.dtype)
+    xk = x + mix[0] * (xp - x)
+    xr = x + mix[1] * (xp - x)
+    kk = torch.square(F.relu(xk @ p["cm_k"]))
+    return torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype) \
+        * (kk @ p["cm_v"])
+
+
+def rwkv6_channel_mix(p, cfg: ModelConfig, x):
+    return _channel_mix(p, x, _token_shift(x))
+
+
+def rwkv6_channel_mix_decode(p, cfg: ModelConfig, x, x_cm_prev):
+    """Single-token channel mix.  x: (B,1,D); x_cm_prev: (B,D).  Returns
+    (y (B,1,D), x's row to carry)."""
+    xt = x[:, 0]
+    return _channel_mix(p, xt, x_cm_prev)[:, None], xt
+
+
+def rwkv6_decode(p, cfg: ModelConfig, x, state):
+    """Single-token time mix.  state = {"S": (B,H,hd,hd) f32, "x_tm":
+    (B,D)}.  Returns (y (B,1,D), the new state)."""
+    B, _, D = x.shape
+    hd = cfg.rwkv_head_dim
+    H = D // hd
+    xt = x[:, 0]
+    mix = p["mix"].to(x.dtype)
+    xp = state["x_tm"]
+    xr, xk, xv, xg, xw = (xt + mix[i] * (xp - xt) for i in range(5))
+    r = (xr @ p["w_r"]).reshape(B, H, hd).float()
+    k = (xk @ p["w_k"]).reshape(B, H, hd).float()
+    v = (xv @ p["w_v"]).reshape(B, H, hd).float()
+    g = xg @ p["w_g"]
+    w = torch.exp(-torch.exp(torch.clamp((xw @ p["w_w"]).float(), -8, 0.5)))
+    w = w.reshape(B, H, hd)
+    S = state["S"]
+    o = torch.einsum("bhd,bhde->bhe", r, S) + torch.einsum(
+        "bhd,bhd->bh", r, p["u"][None] * k)[..., None] * v
+    S = w[..., None] * S + k[..., None] * v[:, :, None, :]
+    o = (o.reshape(B, D) * F.silu(g.float())).to(x.dtype)
+    y = (o @ p["w_o"])[:, None]
+    return y, dict(state, S=S, x_tm=xt)

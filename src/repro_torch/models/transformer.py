@@ -1,13 +1,15 @@
-"""Model assembly: init, the training forward and loss, prefill, paged
-pools, paged decode.
+"""Model assembly: init, the training forward and loss, prefill, the
+dense decode, paged pools, paged decode.
 
 The subset of ``repro/models/transformer.py`` for decoder stacks of
-attention layers ("attn" and "local" kinds, dense MLPs).  Parameters are
-a plain dict: ``embed``, ``final_norm``, optional ``lm_head``, and
+attention layers ("attn" and "local" kinds, dense MLPs) and of RWKV-6
+layers ("rwkv6", time mix and channel mix, no MLP).  Parameters are a
+plain dict: ``embed``, ``final_norm``, optional ``lm_head``, and
 ``layers``, one dict per layer in pattern order (the reference stacks the
 layers of each run and scans them; here a Python loop walks them).  Caches
-and pools keep the reference's per-run stacked layout,
-(run, ..., Hkv, hd), so they compare one to one.
+and pools keep the reference's per-run stacked layout, (run, B, ...), so
+they compare one to one.  RWKV-6 is served (prefill and the dense decode),
+not trained: the reference has no WKV backward kernel.
 
 The training forward remats each layer and each cross-entropy chunk with
 ``torch.utils.checkpoint`` (non-reentrant), where the reference wraps its
@@ -29,13 +31,15 @@ from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
-__all__ = ["NOT_PORTED", "port_check", "init_model", "embed_inputs",
-           "trunk_fwd", "model_fwd", "loss_fn", "prefill",
-           "paged_arch_check", "init_paged_pools", "scatter_prefill_cache",
-           "decode_step_paged"]
+__all__ = ["NOT_PORTED", "NOT_PORTED_TRAIN", "port_check", "train_check",
+           "init_model", "embed_inputs", "trunk_fwd", "model_fwd", "loss_fn",
+           "init_cache", "prefill", "decode_step", "paged_arch_check",
+           "init_paged_pools", "scatter_prefill_cache", "decode_step_paged"]
 
-NOT_PORTED = ("ROADMAP.md, Queue 1 item 4: MoE, recurrent, enc-dec and "
+NOT_PORTED = ("ROADMAP.md, Queue 1 item 4: MoE, RG-LRU, enc-dec and "
               "frontend architectures")
+NOT_PORTED_TRAIN = "ROADMAP.md, Queue 1 item 6: RWKV-6 training"
+KINDS = ("attn", "local", "rwkv6")
 
 
 def port_check(cfg: ModelConfig) -> None:
@@ -44,7 +48,7 @@ def port_check(cfg: ModelConfig) -> None:
     missing = []
     if cfg.moe is not None:
         missing.append("MoE")
-    missing += sorted({k for k in cfg.pattern if k not in ("attn", "local")})
+    missing += sorted({k for k in cfg.pattern if k not in KINDS})
     if cfg.enc_dec is not None:
         missing.append("enc-dec")
     if cfg.frontend is not None:
@@ -52,6 +56,15 @@ def port_check(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
                                   f"ported yet ({NOT_PORTED})")
+
+
+def train_check(cfg: ModelConfig) -> None:
+    """``port_check``, and RWKV-6 layers are served but not trained."""
+    port_check(cfg)
+    if "rwkv6" in cfg.pattern:
+        raise NotImplementedError(f"{cfg.name}: training through the WKV "
+                                  f"recurrence is not ported yet "
+                                  f"({NOT_PORTED_TRAIN})")
 
 
 # ---------------------------------------------------------------------- #
@@ -70,10 +83,15 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     zeros = lambda: torch.zeros((D,), dtype=torch.float32, device=dev)
     embed = torch.randn((V, D), generator=gen, device=dev) / math.sqrt(D)
     params = {"embed": embed.to(torch.bfloat16), "final_norm": zeros(),
-              "layers": [{"norm1": zeros(), "norm2": zeros(),
-                          "attn": L.init_attention(gen, cfg),
-                          "mlp": L.init_mlp(gen, cfg)}
-                         for _ in cfg.pattern]}
+              "layers": []}
+    for kind in cfg.pattern:
+        p = {"norm1": zeros(), "norm2": zeros()}
+        if kind == "rwkv6":
+            p["rwkv"] = L.init_rwkv6(gen, cfg)
+        else:
+            p["attn"] = L.init_attention(gen, cfg)
+            p["mlp"] = L.init_mlp(gen, cfg)
+        params["layers"].append(p)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, D, V)
     return params
@@ -124,6 +142,7 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x):
 def trunk_fwd(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
     """Embeddings + layer stack (each layer rematted) + final norm ->
     hidden states (B, S, D)."""
+    train_check(cfg)
     x = embed_inputs(params, cfg, inputs)
     for kind, layers in _runs(params, cfg):
         for p in layers:
@@ -168,16 +187,59 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
 
 
 # ---------------------------------------------------------------------- #
-# Prefill
+# Serving: cache init / prefill / dense decode
 # ---------------------------------------------------------------------- #
+
+def init_cache(cfg: ModelConfig, B: int, s_max: int, *,
+               device: str | torch.device = "cuda") -> list:
+    """One zero cache entry per run, stacked on the run dim: attention
+    {"k", "v"} (n, B, S_c, Hkv, hd) bf16 (S_c = min(window, s_max) for
+    windowed runs); RWKV-6 {"S"} (n, B, H, hd, hd) f32 and {"x_tm",
+    "x_cm"} (n, B, D) bf16."""
+    port_check(cfg)
+    dev = resolve_device(device)
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    cache = []
+    for kind, n in cfg.runs():
+        if kind == "rwkv6":
+            hd = cfg.rwkv_head_dim
+            cache.append({
+                "S": torch.zeros((n, B, cfg.d_model // hd, hd, hd),
+                                 dtype=torch.float32, device=dev),
+                "x_tm": torch.zeros((n, B, cfg.d_model), **bf16),
+                "x_cm": torch.zeros((n, B, cfg.d_model), **bf16)})
+        else:
+            s_c = min(cfg.window, s_max) if kind == "local" else s_max
+            shape = (n, B, s_c, cfg.n_kv_heads, cfg.head_dim)
+            cache.append({"k": torch.zeros(shape, **bf16),
+                          "v": torch.zeros(shape, **bf16)})
+    return cache
+
+
+def _layer_prefill(p, cfg: ModelConfig, kind: str, x, keep_full: bool):
+    """(x_out, cache entry) for one layer."""
+    if kind == "rwkv6":
+        xn = L.rmsnorm(x, p["norm1"])
+        y, st = L.rwkv6_fwd(p["rwkv"], cfg, xn, return_state=True)
+        x = x + y
+        xn2 = L.rmsnorm(x, p["norm2"])
+        x = x + L.rwkv6_channel_mix(p["rwkv"], cfg, xn2)
+        return x, {"S": st["S"], "x_tm": xn[:, -1].to(torch.bfloat16),
+                   "x_cm": xn2[:, -1].to(torch.bfloat16)}
+    y, ck, cv = L.attention_prefill(
+        p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
+        window=cfg.window if kind == "local" else None, keep_full=keep_full)
+    x = x + y
+    x = x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+    return x, {"k": ck, "v": cv}
 
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
             last_pos=None, full_local_cache: bool = False):
     """Process the prompt; return (last-token logits (B,1,V) f32, cache,
-    S).  ``cache`` holds one {"k", "v"} entry per run, (run, B, S_c, Hkv,
-    hd) bf16, padded to ``s_max``.
+    S).  ``cache`` holds one entry per run in the layout of
+    :func:`init_cache`; attention entries are padded to ``s_max``.
 
     ``last_pos`` ((B,) int) selects each row's last real token, so
     right-padded prompts are safe: causality keeps the pads out of the real
@@ -187,23 +249,18 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
     B, S = x.shape[:2]
     cache = []
     for kind, layers in _runs(params, cfg):
-        window = cfg.window if kind == "local" else None
-        ks, vs = [], []
+        ents = []
         for p in layers:
-            y, ck, cv = L.attention_prefill(
-                p["attn"], cfg, L.rmsnorm(x, p["norm1"]), window=window,
-                keep_full=full_local_cache)
-            x = x + y
-            x = x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
-            ks.append(ck)
-            vs.append(cv)
-        k, v = torch.stack(ks), torch.stack(vs)
-        tgt = s_max if full_local_cache or kind != "local" \
-            else min(cfg.window, s_max)
-        if k.shape[2] < tgt:
-            pad = (0, 0, 0, 0, 0, tgt - k.shape[2])
-            k, v = F.pad(k, pad), F.pad(v, pad)
-        cache.append({"k": k, "v": v})
+            x, ent = _layer_prefill(p, cfg, kind, x, full_local_cache)
+            ents.append(ent)
+        ent = {k: torch.stack([e[k] for e in ents]) for k in ents[0]}
+        if kind != "rwkv6":
+            tgt = s_max if full_local_cache or kind != "local" \
+                else min(cfg.window, s_max)
+            if ent["k"].shape[2] < tgt:
+                pad = (0, 0, 0, 0, 0, tgt - ent["k"].shape[2])
+                ent = {k: F.pad(v, pad) for k, v in ent.items()}
+        cache.append(ent)
     x = L.rmsnorm(x, params["final_norm"])
     if last_pos is None:
         xl = x[:, -1:]
@@ -211,6 +268,46 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
         xl = x[torch.arange(B, device=x.device), last_pos][:, None]
     logits = (xl @ _head(params, cfg).to(x.dtype)).float()
     return logits, cache, S
+
+
+def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
+                  pos: int):
+    """One layer's decode step; writes layer ``i`` of the run's cache
+    entry ``ent`` in place."""
+    if kind == "rwkv6":
+        xn = L.rmsnorm(x, p["norm1"])
+        y, st = L.rwkv6_decode(p["rwkv"], cfg, xn,
+                               {"S": ent["S"][i],
+                                "x_tm": ent["x_tm"][i].to(xn.dtype)})
+        x = x + y
+        xn2 = L.rmsnorm(x, p["norm2"])
+        y2, x_cm = L.rwkv6_channel_mix_decode(p["rwkv"], cfg, xn2,
+                                              ent["x_cm"][i].to(xn2.dtype))
+        ent["S"][i] = st["S"]
+        ent["x_tm"][i] = st["x_tm"].to(torch.bfloat16)
+        ent["x_cm"][i] = x_cm.to(torch.bfloat16)
+        return x + y2
+    y, _, _ = L.attention_decode(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
+                                 ent["k"][i], ent["v"][i], pos,
+                                 windowed=kind == "local")
+    x = x + y
+    return x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ModelConfig, cache: list, tokens, pos):
+    """One-token serve step over the dense cache of :func:`prefill` or
+    :func:`init_cache`, updated in place.  tokens: (B,1) int; pos: the
+    number of tokens already in the cache, one for the whole batch (an int
+    or a 0-d tensor).  Returns (logits (B,1,V) f32, cache)."""
+    pos = int(pos)
+    x = embed_inputs(params, cfg, {"tokens": tokens})
+    for ent, (kind, layers) in zip(cache, _runs(params, cfg)):
+        for i, p in enumerate(layers):
+            x = _layer_decode(p, cfg, kind, x, ent, i, pos)
+    x = L.rmsnorm(x, params["final_norm"])
+    logits = (x @ _head(params, cfg).to(x.dtype)).float()
+    return logits, cache
 
 
 # ---------------------------------------------------------------------- #

@@ -11,7 +11,11 @@ kernel tests' own; 1e-4 (f32) and 2e-2 (bf16) times max|ref| on the
 backward, as ``chip_smoke.py`` holds them.  The kernels sum in another
 order than the plain versions, and bf16 outputs may round to the
 neighbouring value.  TF32 is off for the plain versions' f32 einsums.  The
-int8 kernels equal their plain versions bit for bit (NaN where NaN).
+int8 kernels equal their plain versions bit for bit (NaN where NaN).  The
+WKV kernel's o and final state agree with its plain version within 1e-4
+times max(1, max|ref|), as ``chip_smoke.py`` holds it; the RWKV-6 model in
+f32 on the card agrees with the CPU within 1e-4 on logits and state, and
+one bf16 ulp on the bf16 rows it carries.
 """
 import numpy as np
 import pytest
@@ -21,8 +25,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import compression as C
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quant as kq
+from repro_torch.kernels import wkv as kw
 from repro_torch.launch.serve import serve
-from repro_torch.launch.step import device_batch, loss_and_grads
+from repro_torch.launch.step import (device_batch, loss_and_grads,
+                                     make_decode_fn, make_prefill_fn)
 from repro_torch.launch.train import train
 from repro_torch.models import transformer as T
 from repro_torch.serving import ReqState
@@ -286,3 +292,103 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     before = kq.quantize_ef_int8.launches
     _, _, new, _ = kq.quantize_ef_int8(x + 1.0, x)   # the kernel, on the card
     assert new.is_cuda and kq.quantize_ef_int8.launches == before + 1
+
+
+def _wkv_inputs(B, S, H, hd, decays, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    r, k, v, n = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+                  for _ in range(4))
+    w = {"test": lambda: 1 / (1 + np.exp(-n)) * 0.6 + 0.39,
+         "model": lambda: np.exp(-np.exp(np.clip(n, -8, 0.5))),
+         "clip": lambda: np.full_like(n, np.exp(-np.exp(0.5))),
+         "one": lambda: np.full_like(n, np.exp(-np.exp(-8.0)))}[decays]()
+    u = 0.5 * rng.standard_normal((H, hd)).astype(np.float32)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (r, k, v, w, u)]
+
+
+def _pad_wkv(ins, S):
+    r, k, v, w, u = ins
+    pad = (0, 0, 0, 0, 0, S - r.shape[1])
+    F = torch.nn.functional
+    return [F.pad(t, pad) for t in (r, k, v)] + [F.pad(w, pad, value=1.0), u]
+
+
+@pytest.mark.parametrize("B,S,H,hd,decays", [
+    (8, 512, 32, 64, "model"),     # rwkv6-1.6b prefill
+    (2, 64, 2, 16, "test"), (1, 128, 4, 32, "test"), (1, 64, 1, 64, "test"),
+    (1, 256, 32, 64, "clip"), (1, 256, 32, 64, "one"),
+    (2, 48, 3, 24, "model"),       # a head dim that is no power of two
+])
+def test_wkv_kernel_matches_plain(dev, B, S, H, hd, decays):
+    ins = _wkv_inputs(B, S, H, hd, decays, dev)
+    before = kw.wkv_chunked.launches
+    o, st = kw.wkv_chunked(*ins, return_state=True)
+    o_only = kw.wkv_chunked(*ins)
+    torch.cuda.synchronize()
+    assert kw.wkv_chunked.launches == before + 2
+    o_ref, st_ref = kw.wkv_chunk_scan_ref(*ins, kw.CHUNK)
+    for got, want in ((o, o_ref), (st, st_ref)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    assert torch.equal(o_only, o)
+
+
+def test_wkv_kernel_pad_leaves_state_exact(dev):
+    """A 300-token request padded to 304 and to 320 (w = 1, zero r, k, v):
+    the same final state and first 300 outputs, bit for bit."""
+    ins = _wkv_inputs(1, 300, 32, 64, "model", dev)
+    (o1, s1), (o2, s2) = (kw.wkv_chunked(*_pad_wkv(ins, S), return_state=True)
+                          for S in (304, 320))
+    assert torch.equal(s1, s2) and torch.equal(o1[:, :300], o2[:, :300])
+
+
+def test_wkv_kernel_refuses_what_it_cannot_take(dev):
+    ins = _wkv_inputs(1, 64, 2, 16, "test", dev)
+    leaf = ins[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="backward"):
+        kw.wkv_chunked(leaf, *ins[1:])
+    with torch.no_grad():                  # no graph, no refusal
+        kw.wkv_chunked(leaf, *ins[1:])
+    with pytest.raises(ValueError, match="one cpu or cuda device"):
+        kw.wkv_chunked(ins[0].cpu(), *ins[1:])
+    big = [torch.zeros(1, 16, 1, 128, device=dev) for _ in range(4)]
+    with pytest.raises(ValueError, match="head_dim"):
+        kw.wkv_chunked(*big, torch.zeros(1, 128, device=dev))
+
+
+def test_rwkv6_serving_on_card_matches_cpu(dev):
+    """rwkv6-1.6b smoke in f32, prefill of a ragged 21-token prompt and 4
+    steps fed the CPU's tokens: logits and every cache leaf on the card
+    against the CPU; one WKV launch per layer and prefill."""
+    cfg = get_config("rwkv6_1p6b", smoke=True)
+    params = _f32(T.init_model(cfg, seed=0, device="cpu"), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 21),
+                         generator=torch.Generator().manual_seed(0))
+    runs, fed = {}, []
+    for d in ("cpu", dev):
+        p = _f32(params, d)
+        before = kw.wkv_chunked.launches
+        logits, cache, pos = make_prefill_fn(cfg, 32)(
+            p, {"tokens": toks.to(d)})
+        assert kw.wkv_chunked.launches - before == \
+            (cfg.n_layers if d != "cpu" else 0)
+        lgs = [logits.cpu()]
+        for i in range(4):
+            if d == "cpu":
+                fed.append(logits[:, -1].argmax(-1, keepdim=True))
+            logits, cache = make_decode_fn(cfg)(p, cache, fed[i].to(d),
+                                                pos + i)
+            lgs.append(logits.cpu())
+        runs[d] = lgs, [{k: t.cpu() for k, t in e.items()} for e in cache]
+    (lg_c, c_c), (lg_g, c_g) = runs["cpu"], runs[dev]
+    for a, b in zip(lg_g, lg_c):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    for eg, ec in zip(c_g, c_c):
+        top = ec["S"].abs().max().item()
+        torch.testing.assert_close(eg["S"], ec["S"], atol=1e-4 * top, rtol=0)
+        for name in ("x_tm", "x_cm"):
+            torch.testing.assert_close(eg[name].float(), ec[name].float(),
+                                       rtol=2.0 ** -7, atol=1e-6)

@@ -25,7 +25,7 @@ from repro import configs as jconfigs
 from repro.models import transformer as JT
 from repro_torch import configs
 from repro_torch.models import transformer as T
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, stack_runs, to_numpy
 
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 CACHE_TOL = {"float32": 1e-2, "bfloat16": 2e-2}
@@ -43,11 +43,23 @@ def test_configs_equal_reference(arch, smoke):
 
 @pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "olmoe_1b_7b",
                                   "pixtral_12b", "recurrentgemma_2b",
-                                  "seamless_m4t_medium", "rwkv6_1p6b"])
+                                  "seamless_m4t_medium"])
 def test_unported_archs_raise(arch):
     cfg = configs.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_model(cfg, device="cpu")
+
+
+def test_init_model_builds_rwkv6_with_reference_leaves():
+    """rwkv6 layers carry the reference's ``rwkv`` sub-tree and no MLP:
+    the same leaf names, shapes and dtypes once stacked per run."""
+    cfg = configs.get_config("rwkv6_1p6b", smoke=True)
+    ours = to_numpy(stack_runs(T.init_model(cfg, device="cpu"), cfg))
+    ref = jax_to_numpy(JT.init_model(jax.random.PRNGKey(0), cfg))
+    assert "mlp" not in ours["runs"][0]
+    assert jax.tree.structure(ours) == jax.tree.structure(ref)
+    for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype
 
 
 def _close(got, want, tol):
