@@ -7,13 +7,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. the card: its name and power limit (nvidia-smi), torch and CUDA versions;
 2. the build of every kernel under src/repro_torch/kernels/csrc (one nvcc
-   per source, all started together), timed as set-up;
+   per source, all started together), timed as set-up, and the count of
+   tensor-core instructions (HMMA/HGMMA) in the SASS of each bf16 backward
+   kernel, which must not be 0;
 3. the flash forward kernel against its plain PyTorch version on the card,
    at the shapes of the models the port serves and trains, with its time
    beside the plain version's, the library call's (timed only, never used
    by the port) and its roofline bound; one JSON line per shape;
 4. the two flash backward kernels (dq, dk/dv) the same way, at the same
-   shapes, the library call being SDPA's backward;
+   shapes: against the f32 plain version, and in bf16 also against the
+   plain version that mirrors the tensor-core kernels' bf16 rounding of P
+   and dS, more tightly; the library call is SDPA's backward, timed on its
+   own after one forward, in turns with the kernel (kernel, SDPA, SDPA,
+   kernel), and its device kernels' names and summed time (profiler);
 5. the serving path: ``repro_torch.launch.serve.serve`` on gpt-100m at full
    width (12 layers, d 768, random weights from a seed), 8 requests of 512
    prompt tokens and one ragged 300-token request, 16 new tokens each,
@@ -71,6 +77,7 @@ The line before the last is the kernels' JSON summary; the last line is
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +90,13 @@ KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # (tolerance on dq, dk, dv relative to max|ref|)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# bf16 dq, dk, dv against the plain version that mirrors the kernels' bf16
+# rounding of P and dS, relative to max|mirror|: the mirror returns f32, so
+# what is left is the kernels' rounding of their output to bf16, at most
+# half a bf16 ulp, 2**-8 = 3.9e-3 of max|mirror|, and f32 sums in another
+# order (about 1e-6 of it).  A key tile left out moves a row's gradient by
+# far more.
+MIRROR_TOL = 4e-3
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 on the tensor
 # cores, f32 on the CUDA cores; HBM3 bandwidth.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -252,53 +266,106 @@ def flash_bwd_phase(torch, fa, shape) -> dict:
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     delta = fa._delta(o, do, lse)
-    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
-    errs = {}
-    for g, w, what in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
-                       (dv, dv_ref, "dv")):
-        err = (g.float() - w.float()).abs().max().item()
-        lim = BWD_TOL[dt] * w.float().abs().max().item()
-        if not (torch.isfinite(g.float()).all() and err <= lim):
-            fail(f"flash bwd {what} {name} {dt}: max abs err {err} > {lim}")
-        errs[what] = err
+    refs = {"f32": (fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
+                    *fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw))}
+    tols = {"f32": BWD_TOL[dt]}
+    if dt == "bfloat16":
+        refs["mirror"] = (
+            fa.flash_bwd_dq_bf16_ref(q, k, v, do, lse, delta, **kw),
+            *fa.flash_bwd_dkv_bf16_ref(q, k, v, do, lse, delta, **kw))
+        tols["mirror"] = MIRROR_TOL
+    errs, rel = {}, {}
+    for ref, want in refs.items():
+        for g, w, what in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+            err = (g.float() - w.float()).abs().max().item()
+            top = w.float().abs().max().item()
+            ok = torch.isfinite(g.float()).all() and err <= tols[ref] * top
+            if not ok:
+                fail(f"flash bwd {what} {name} {dt} against the {ref} plain "
+                     f"version: max abs err {err} > {tols[ref]} x {top}")
+            errs.setdefault(ref, {})[what] = err
+            rel.setdefault(ref, {})[what] = err / top
 
-    # SDPA's backward, same backend as its forward: (fwd + bwd) - fwd
+    # SDPA's backward on its own: one forward, then the gradient over the
+    # retained graph, timed in turns with each kernel
     mask = mask_of(torch, shape)
     sdpa = sdpa_of(torch, shape, mask)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = sdpa(*leaves)
     dot = do.transpose(1, 2)
-    fwd_ms = cuda_ms(torch, lambda: sdpa(*leaves), 20)
-    fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        sdpa(*leaves), leaves, dot), 20)
-    library_ms = fwd_bwd_ms - fwd_ms
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, dot,
+                                           retain_graph=True)
+    sdpa_device_ms, sdpa_kernels = device_time(torch, sdpa_bwd)
 
     pairs = B * H * mask.sum().item()
     esz = q.element_size()
     ins = (2 * q.numel() + k.numel() + v.numel()) * esz + 2 * lse.numel() * 4
     out = {}
-    for kern, flops, out_bytes, run, plain, err in (
+    for kern, flops, out_bytes, run, plain, what in (
             ("flash_bwd_dq", 6.0 * hd * pairs, q.numel() * esz,
              lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
              lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
-             errs["dq"]),
+             ("dq",)),
             ("flash_bwd_dkv", 8.0 * hd * pairs, 2 * k.numel() * esz,
              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
              lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw),
-             max(errs["dk"], errs["dv"]))):
+             ("dk", "dv"))):
         bound_ms, bound_by = bound(flops, ins + out_bytes, dt)
+        turns = [cuda_ms(torch, run, 20), cuda_ms(torch, sdpa_bwd, 20),
+                 cuda_ms(torch, sdpa_bwd, 20), cuda_ms(torch, run, 20)]
         rec = {"shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
                "Hkv": Hkv, "hd": hd, "causal": causal, "window": window,
-               "q_offset": q_offset, "dtype": dt, "max_abs_err": err,
+               "q_offset": q_offset, "dtype": dt,
+               "design": "mma_bf16" if dt == "bfloat16" else "fma_f32",
+               "max_abs_err": max(errs["f32"][w] for w in what),
                "max_abs_err_dq_dk_dv": errs,
-               "kernel_ms": cuda_ms(torch, run, 20),
+               "err_over_max_ref_dq_dk_dv": rel, "tolerances": tols,
+               "kernel_ms": (turns[0] + turns[3]) / 2,
+               "kernel_ms_turns": [turns[0], turns[3]],
+               "kernel_device_ms": device_time(torch, run)[0],
                "plain_ms": cuda_ms(torch, plain, 3),
-               "library_ms": library_ms, "sdpa_fwd_ms": fwd_ms,
+               "library_ms": (turns[1] + turns[2]) / 2,
+               "library_ms_turns": turns[1:3],
+               "library_device_ms": sdpa_device_ms,
+               "library_kernels": sdpa_kernels,
                "bound_ms": bound_ms, "bound_by": bound_by}
         rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
         print(json.dumps({kern: rec}), flush=True)
         out[kern] = rec
     return out
+
+
+def device_time(torch, fn, reps: int = 10) -> tuple[float, list]:
+    """The card's ms per call of ``fn``, summed over the kernels it runs,
+    and their names (cut to 100 characters), from torch.profiler: what a
+    library call costs the card where its host side, not the card, paces
+    a run of calls, and which backend it took."""
+    fn()
+    torch.cuda.synchronize()
+    P = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[P.CPU, P.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kerns = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kerns) / 1e3 / reps,
+            sorted({e.key[:100] for e in kerns}))
+
+
+def tensor_core_ops(sass: str) -> dict:
+    """HMMA/HGMMA instructions in the SASS of each bf16 backward kernel,
+    by kernel and head dim, from ``cuobjdump -sass``."""
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_bwd_d(?:q|kv)_bf16)_kernelILi(\d+)E", line)
+            cur = m and f"{m.group(1)} hd {m.group(2)}"
+            if cur:
+                counts[cur] = 0
+        elif cur and re.search(r"\bHG?MMA\b", line):
+            counts[cur] += 1
+    return counts
 
 
 def reset(fa, kw) -> None:
@@ -850,6 +917,14 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    mma = tensor_core_ops(backend.sass("flash_bwd"))
+    print(json.dumps({"flash_bwd_sass_hmma": mma}), flush=True)
+    want = {f"flash_bwd_{k}_bf16 hd {d}" for k in ("dq", "dkv")
+            for d in fa.KERNEL_BWD_HEAD_DIMS}
+    if set(mma) != want or not all(mma.values()):
+        fail(f"the bf16 backward kernels' SASS holds {mma} tensor-core "
+             f"instructions, expected a nonzero count for each of "
+             f"{sorted(want)}")
 
     # 3-4. kernels against their plain versions
     recs = [flash_phase(torch, fa, s) for s in SHAPES]

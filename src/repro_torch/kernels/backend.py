@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "resolve_device", "on_hopper",
-           "build", "load"]
+           "build", "sass", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -95,6 +95,16 @@ def build(*names: str) -> dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+def sass(name: str) -> str:
+    """The SASS of kernel library ``name``, built first, as ``cuobjdump
+    -sass`` from the toolkit beside ``nvcc`` prints it."""
+    build(name)
+    return subprocess.run(
+        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
+         str(_target(name))], capture_output=True, text=True,
+        check=True).stdout
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), GQA-folded, f32 math.
+// Flash-attention backward for Hopper (sm_90a), GQA-folded: bf16 on the
+// tensor cores, f32 on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py:186 `_flash_bwd_dq_kernel`
 // and :224 `_flash_bwd_dkv_kernel` (entry `flash_attention_bwd`, :265), the
@@ -10,61 +11,84 @@
 //     dq = sum_k ds k,  dk = sum_q ds^T q,  dv = sum_q p^T do,
 // with delta = rowsum(do * o) computed by the caller from the stored o.  The
 // mask is applied explicitly, as the Pallas kernels do (:210-212): a fully
-// masked row has lse ~ -1e30, and exp(s - lse) would be 1, not 0.  Sums and
-// math are f32; dq, dk and dv are written in the input dtype.
+// masked row has lse ~ -1e30, and exp(s - lse) would be 1, not 0.  Sums are
+// f32; dq, dk and dv are written in the input dtype.
 //
-// Design.  The TPU kernels walk the inner loop on a sequential grid axis and
-// carry the accumulator in VMEM scratch across grid steps.  Blocks on a GPU
-// run in parallel and in no order, so each kernel's block owns one output
-// tile and loops over the other axis itself, the accumulator in registers:
+// Shared by both designs.  The TPU kernels walk the inner loop on a
+// sequential grid axis and carry the accumulator in VMEM scratch across
+// grid steps.  Blocks on a GPU run in parallel and in no order, so each
+// kernel's block owns one output tile and loops over the other axis itself,
+// the accumulator in registers, with no atomics (the result is
+// deterministic):
 //   * dq: one block per (batch * kv head, query tile).  The G query heads of
 //     a KV group are folded into the 64 rows of the tile (G * bq = 64 for
 //     G | 64), as in flash_fwd.cu, so each K/V tile staged in shared memory
 //     serves all G heads.  The block loops over the KV tiles.
 //   * dk/dv: one block per (batch * kv head, 64-key tile), looping over the
 //     query tiles of all G heads, so the G-head sum of dk and dv happens in
-//     the block's registers, with no atomics and no second pass.
+//     the block's registers, with no atomics and no second pass.  The
+//     heads stay folded into the 64-row query tile here too, rather than
+//     each head walking its own 64-row tiles: the tiles stay full at any G,
+//     and lse and delta are staged with them in one layout.
 // Ragged lengths are masked in the kernels: keys past Sk and queries past Sq
 // get p = 0 and contribute exactly nothing.  Because the mask is explicit,
 // a tile that is masked for every (query, key) pair adds exactly zero, so
 // the loops visit only the tiles inside the causal and window bounds: dq
 // stops at the diagonal tile, dk/dv start from it (offset by q_offset).
 //
-// What bounds it on the H100.  The roofline bound of the backward at the
-// training shapes (S = 1024, hd 64) is the bf16 tensor-core rate (6 hd
-// FLOPs per unmasked pair for dq, 8 hd for dk/dv).  These kernels do their
-// arithmetic in f32 FMA on the CUDA cores (67 TFLOP/s peak, not 989), so
-// they are bound by the FMA pipe and by shared-memory traffic long before
-// either roofline limit.  What the design does about it: 4x4 register
-// micro-tiles for the two score products and 4 x (hd/16) micro-tiles for the
-// accumulating products, with padded row strides so the tiles are read
-// without bank conflicts.  Tensor cores (mma.sync / wgmma on bf16 operands),
-// TMA staging and a deeper pipeline are the next steps.  Head dims above
-// 128 do not fit the four f32 tiles in shared memory and are refused.
+// bf16 inputs (the training path).  What bounds them on the H100: the four
+// products of each kernel (dq: S = Q K^T, dP = dO V^T, dQ += dS K; dk/dv:
+// S, dP, dV += P^T dO, dK += dS^T Q) at 6 hd (dq) and 8 hd (dk/dv) FLOPs per
+// unmasked pair, against the bf16 tensor-core rate of 989 TFLOP/s: at the
+// training shape (8 x 1024, 12 heads of 64, causal) they are bound by
+// operations, not bytes.  What the design does about it:
+//   * every product is `mma.sync.m16n8k16` with bf16 operands and f32
+//     accumulators, fed by `ldmatrix` (`.trans` where the operand is read
+//     transposed); the tiles stay bf16 in shared memory, rows padded by 8
+//     elements so that the 8 rows an `ldmatrix` reads fall in 8 different
+//     bank groups;
+//   * four warps; in dq a warp owns 16 query rows, in dk/dv 16 keys, and
+//     computes the transposed scores S^T = K Q^T and dP^T = V dO^T there.
+//     The f32 accumulator fragment of one m16n8k16 has the layout of the A
+//     fragment of the next, so P (dk/dv) and dS go from the score
+//     accumulators straight into the A operand of the accumulating product,
+//     rounded to bf16 in registers, with no round trip through shared
+//     memory; the Pallas kernels keep them in f32, and this rounding is the
+//     one numerical difference (`flash_bwd_dq_bf16_ref` and
+//     `flash_bwd_dkv_bf16_ref` in flash_attention.py mirror it);
+//   * the next K/V tile (dq) or Q/dO tile with its lse and delta (dk/dv) is
+//     loaded with 16-byte `cp.async` into the second buffer of a 2-stage
+//     ring while the current one is computed;
+//   * lse and delta of a dq block's rows sit in registers; in dk/dv, where
+//     they index the columns of S^T, in shared memory beside the Q tile;
+//   * tiles inside the band skip the per-element mask, and the longest dq
+//     rows start first, so the causal tail of the grid is short.
+// dk/dv computes S^T in chunks of 32 query rows (16 at hd 128), so that
+// the dk and dv accumulators (hd / 2 f32 each a thread) and the scores fit
+// the registers up to hd 128.  At hd 256 the two accumulators of a 16-key warp tile alone
+// are 256 registers a thread, above the limit of 255, so hd 256 is refused.
+//
+// f32 inputs (the card-against-CPU answers, held to 1e-4, which bf16 or
+// TF32 products cannot meet) keep the first design: f32 FMA on the CUDA
+// cores (67 TFLOP/s peak), 4x4 register micro-tiles for the two score
+// products and 4 x (hd/16) micro-tiles for the accumulating products, with
+// padded f32 tiles and P and dS staged through shared memory.  Head dims
+// above 128 do not fit its four f32 tiles in shared memory and are refused.
 //
 // Interface: plain C, launched on the caller's stream; returns
-// cudaGetLastError() (0 on success).  Inputs must be contiguous.
+// cudaGetLastError() (0 on success).  Inputs must be contiguous, and bf16
+// ones 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int ROWS = 64;            // query rows per tile (G heads x bq)
 constexpr int BK = 64;              // keys per KV tile
-constexpr int THREADS = 256;
-constexpr int S_STRIDE = BK + 16;   // p / ds row stride (conflict-free)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // The fixed arguments of one backward call.
 struct Args {
@@ -72,10 +96,54 @@ struct Args {
   float scale;
 };
 
+// The KV tiles with an unmasked key for some row of the query tile at q0.
+__device__ __forceinline__ void key_tiles(const Args& a, int q0, int& kt0,
+                                          int& kt1) {
+  const int first = a.q_offset + q0;
+  const int last = a.q_offset + min(q0 + a.bq, a.Sq) - 1;
+  kt0 = 0;
+  kt1 = (a.Sk + BK - 1) / BK;
+  if (a.causal) kt1 = min(kt1, last < 0 ? 0 : last / BK + 1);
+  if (a.window > 0) kt0 = max(0, first - a.window + 1) / BK;
+}
+
+// The query tiles with an unmasked query for some key of the tile at k0.
+__device__ __forceinline__ void query_tiles(const Args& a, int k0, int& qt0,
+                                            int& qt1) {
+  qt0 = 0;
+  qt1 = (a.Sq + a.bq - 1) / a.bq;
+  if (a.causal) {
+    const int x = k0 - a.q_offset;
+    qt0 = x > 0 ? x / a.bq : 0;
+  }
+  if (a.window > 0) {
+    const int x = a.window + k0 + BK - 1 - a.q_offset;
+    qt1 = min(qt1, x > 0 ? (x + a.bq - 1) / a.bq : 0);
+  }
+}
+
+// Whether row r of the query tile at q0 (query q0 + r % bq) keeps key kpos.
+__device__ __forceinline__ bool keeps(const Args& a, int q0, int r, int kpos) {
+  const int s = q0 + r % a.bq;
+  const int qpos = a.q_offset + s;
+  bool keep = r < a.rows && s < a.Sq && kpos < a.Sk;
+  if (a.causal) keep = keep && qpos >= kpos;
+  if (a.window > 0) keep = keep && qpos - kpos < a.window;
+  return keep;
+}
+
+// ======================================================================
+// f32: FMA on the CUDA cores
+// ======================================================================
+
+constexpr int THREADS = 256;
+constexpr int S_STRIDE = BK + 16;   // p / ds row stride (conflict-free)
+
 // ROWS rows of a (B,Sq,H,HD) tensor into a padded f32 tile: row r is query
 // q0 + r % bq of head hkv * G + r / bq; zeros past the ragged edge.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
                                           const Args& a, int b, int hkv,
                                           int q0) {
   constexpr int QS = HD + 1;
@@ -84,15 +152,15 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
     const int s = q0 + r % a.bq;
     float x = 0.f;
     if (r < a.rows && s < a.Sq)
-      x = to_f32(src[((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) *
-                         HD + d]);
+      x = src[((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD + d];
     dst[r * QS + d] = x;
   }
 }
 
 // BK keys of a (B,Sk,Hkv,HD) tensor into a padded f32 tile; zeros past Sk.
-template <typename T, int HD>
-__device__ __forceinline__ void load_keys(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_keys(float* dst,
+                                          const float* __restrict__ src,
                                           const Args& a, int b, int hkv,
                                           int k0) {
   constexpr int QS = HD + 1;
@@ -100,7 +168,7 @@ __device__ __forceinline__ void load_keys(float* dst, const T* __restrict__ src,
     const int c = i / HD, d = i % HD;
     float x = 0.f;
     if (k0 + c < a.Sk)
-      x = to_f32(src[((size_t)(b * a.Sk + k0 + c) * a.Hkv + hkv) * HD + d]);
+      x = src[((size_t)(b * a.Sk + k0 + c) * a.Hkv + hkv) * HD + d];
     dst[c * QS + d] = x;
   }
 }
@@ -163,16 +231,11 @@ __device__ __forceinline__ void probs(const float* q_s, const float* do_s,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = tr + 16 * i;
-    const bool row_ok = r < a.rows && q0 + r % a.bq < a.Sq;
-    const int qpos = a.q_offset + q0 + r % a.bq;
     const float l = lse_s[r], dl = dl_s[r];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int kpos = k0 + tc + 16 * j;
-      bool keep = row_ok && kpos < a.Sk;
-      if (a.causal) keep = keep && qpos >= kpos;
-      if (a.window > 0) keep = keep && qpos - kpos < a.window;
-      const float pv = keep ? expf(s[i][j] * a.scale - l) : 0.f;
+      const float pv =
+          keeps(a, q0, r, k0 + tc + 16 * j) ? expf(s[i][j] * a.scale - l) : 0.f;
       p[i][j] = pv;
       ds[i][j] = pv * (dp[i][j] - dl) * a.scale;
     }
@@ -191,12 +254,13 @@ constexpr size_t dkv_smem_bytes() {
                                   2 * ROWS * S_STRIDE + 2 * ROWS);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     Args a) {
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 16;          // output columns per thread
@@ -214,8 +278,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * a.bq;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 
-  load_rows<T, HD>(q_s, q, a, b, hkv, q0);
-  load_rows<T, HD>(do_s, dout, a, b, hkv, q0);
+  load_rows<HD>(q_s, q, a, b, hkv, q0);
+  load_rows<HD>(do_s, dout, a, b, hkv, q0);
   load_stats(lse_s, dl_s, lse, delta, a, b, hkv, q0);
 
   float acc[4][CPT];
@@ -224,18 +288,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-  // The KV tiles with an unmasked key for some row of this tile.
-  const int first = a.q_offset + q0;
-  const int last = a.q_offset + min(q0 + a.bq, a.Sq) - 1;
-  int kt0 = 0, kt1 = (a.Sk + BK - 1) / BK;
-  if (a.causal) kt1 = min(kt1, last < 0 ? 0 : last / BK + 1);
-  if (a.window > 0) kt0 = max(0, first - a.window + 1) / BK;
-
+  int kt0, kt1;
+  key_tiles(a, q0, kt0, kt1);
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile is done with k_s, v_s, ds_s
-    load_keys<T, HD>(k_s, k, a, b, hkv, k0);
-    load_keys<T, HD>(v_s, v, a, b, hkv, k0);
+    load_keys<HD>(k_s, k, a, b, hkv, k0);
+    load_keys<HD>(v_s, v, a, b, hkv, k0);
     __syncthreads();
 
     float p[4][4], ds[4][4];
@@ -267,19 +326,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = tr + 16 * i;
     const int s = q0 + r % a.bq;
     if (r >= a.rows || s >= a.Sq) continue;
-    T* row = dq + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD;
+    float* row = dq + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) put(row + tc + 16 * j, acc[i][j]);
+    for (int j = 0; j < CPT; ++j) row[tc + 16 * j] = acc[i][j];
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, Args a) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, Args a) {
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 16;
   extern __shared__ float smem[];
@@ -297,8 +357,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BK;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 
-  load_keys<T, HD>(k_s, k, a, b, hkv, k0);
-  load_keys<T, HD>(v_s, v, a, b, hkv, k0);
+  load_keys<HD>(k_s, k, a, b, hkv, k0);
+  load_keys<HD>(v_s, v, a, b, hkv, k0);
 
   // keys k0 + tr + 16 i, columns tc + 16 j
   float dk_acc[4][CPT], dv_acc[4][CPT];
@@ -307,22 +367,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // The query tiles with an unmasked query for some key of this tile.
-  int qt0 = 0, qt1 = (a.Sq + a.bq - 1) / a.bq;
-  if (a.causal) {
-    const int x = k0 - a.q_offset;
-    qt0 = x > 0 ? x / a.bq : 0;
-  }
-  if (a.window > 0) {
-    const int x = a.window + k0 + BK - 1 - a.q_offset;
-    qt1 = min(qt1, x > 0 ? (x + a.bq - 1) / a.bq : 0);
-  }
-
+  int qt0, qt1;
+  query_tiles(a, k0, qt0, qt1);
   for (int qt = qt0; qt < qt1; ++qt) {
     const int q0 = qt * a.bq;
     __syncthreads();  // the previous tile is done with q_s, do_s, p_s, ds_s
-    load_rows<T, HD>(q_s, q, a, b, hkv, q0);
-    load_rows<T, HD>(do_s, dout, a, b, hkv, q0);
+    load_rows<HD>(q_s, q, a, b, hkv, q0);
+    load_rows<HD>(do_s, dout, a, b, hkv, q0);
     load_stats(lse_s, dl_s, lse, delta, a, b, hkv, q0);
     __syncthreads();
 
@@ -368,11 +419,476 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * HD;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      put(dk + off + tc + 16 * j, dk_acc[i][j]);
-      put(dv + off + tc + 16 * j, dv_acc[i][j]);
+      dk[off + tc + 16 * j] = dk_acc[i][j];
+      dv[off + tc + 16 * j] = dv_acc[i][j];
     }
   }
 }
+
+// ======================================================================
+// bf16: mma.sync on the tensor cores
+// ======================================================================
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int MMA_THREADS = 128;    // 4 warps of 16 query rows or 16 keys
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(MMA_THREADS == 2 * ROWS, "stage_stats: one thread a value");
+static_assert(BK == ROWS && ROWS == 4 * 16, "four warps of 16");
+
+// A bf16 tile of ROWS rows of HD, each row padded by 8 elements (16 bytes):
+// the 8 rows one ldmatrix reads start in 8 different bank groups.
+template <int HD>
+__host__ __device__ constexpr int ld() { return HD + 8; }
+template <int HD>
+__host__ __device__ constexpr int tile() { return ROWS * ld<HD>(); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zeros where !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  With .trans each is delivered transposed.
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, round to nearest even; lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator fragments c[2i], c[2i+1] (16 x 16, columns 16 i..16 i+15) as
+// the A fragment of a product over those 16 columns, rounded to bf16.
+__device__ __forceinline__ void to_a(uint32_t a[4], const float c0[4],
+                                     const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// The A fragment of rows m0.., columns k0.. of a [rows][LD] tile.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* t, int m0,
+                                       int k0, int lane) {
+  ldsm4(a, t + (m0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
+}
+// B fragments of two 8-column tiles (n0.., n0 + 8..) over k0..k0 + 15, from
+// a tile stored [n][k] (b[0], b[1] the first, b[2], b[3] the second).
+template <int LD>
+__device__ __forceinline__ void load_b_nk(uint32_t b[4], const bf16* t,
+                                          int n0, int k0, int lane) {
+  ldsm4(b, t + (n0 + ((lane >> 4) << 3) + (lane & 7)) * LD + k0 +
+               ((lane >> 3) & 1) * 8);
+}
+// The same from a tile stored [k][n].
+template <int LD>
+__device__ __forceinline__ void load_b_kn(uint32_t b[4], const bf16* t,
+                                          int n0, int k0, int lane) {
+  ldsm4t(b, t + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + n0 +
+                (lane >> 4) * 8);
+}
+
+// ROWS rows of a (B,Sq,H,HD) tensor into a bf16 tile, asynchronously: row r
+// is query q0 + r % bq of head hkv * G + r / bq; zeros past the ragged edge.
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           const Args& a, int b, int hkv,
+                                           int q0) {
+  constexpr int CH = HD / 8;           // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
+    const int r = i / CH, c = i % CH;
+    const int s = q0 + r % a.bq;
+    const bool ok = r < a.rows && s < a.Sq;
+    const bf16* p =
+        ok ? src + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD +
+                 c * 8
+           : src;
+    cp_async16(dst + r * ld<HD>() + c * 8, p, ok);
+  }
+}
+
+// BK keys of a (B,Sk,Hkv,HD) tensor into a bf16 tile; zeros past Sk.
+template <int HD>
+__device__ __forceinline__ void stage_keys(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           const Args& a, int b, int hkv,
+                                           int k0) {
+  constexpr int CH = HD / 8;
+  for (int i = threadIdx.x; i < BK * CH; i += MMA_THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = k0 + r < a.Sk;
+    const bf16* p =
+        ok ? src + ((size_t)(b * a.Sk + k0 + r) * a.Hkv + hkv) * HD + c * 8
+           : src;
+    cp_async16(dst + r * ld<HD>() + c * 8, p, ok);
+  }
+}
+
+// lse (dst[0, ROWS)) and delta (dst[ROWS, 2 ROWS)) of the tile's rows.
+__device__ __forceinline__ void stage_stats(float* dst,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            const Args& a, int b, int hkv,
+                                            int q0) {
+  const int r = threadIdx.x % ROWS;
+  const float* src = threadIdx.x < ROWS ? lse : delta;
+  const int s = q0 + r % a.bq;
+  const bool ok = r < a.rows && s < a.Sq;
+  const float* p =
+      ok ? src + ((size_t)(b * a.Hkv + hkv) * a.G + r / a.bq) * a.Sq + s : src;
+  cp_async4(dst + threadIdx.x, p, ok);
+}
+
+// Whether every (row, key) pair of the tiles at q0 and k0 is in range and
+// unmasked: then the kernels skip the per-element mask.
+__device__ __forceinline__ bool tile_full(const Args& a, int q0, int k0) {
+  const int first = a.q_offset + q0, last = first + a.bq - 1;
+  return a.rows == ROWS && q0 + a.bq <= a.Sq && k0 + BK <= a.Sk &&
+         (!a.causal || first >= k0 + BK - 1) &&
+         (a.window <= 0 || last - k0 < a.window);
+}
+
+template <int HD>
+constexpr size_t dq_bf16_smem_bytes() {   // Q, dO, two stages of K, V
+  return sizeof(bf16) * 6 * (size_t)tile<HD>();
+}
+
+template <int HD>
+constexpr size_t dkv_bf16_smem_bytes() {  // K, V, two stages of Q, dO, stats
+  return sizeof(bf16) * 6 * (size_t)tile<HD>() + sizeof(float) * 4 * ROWS;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, Args a) {
+  constexpr int LD = ld<HD>(), TILE = tile<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + TILE;
+  bf16* kv_s = do_s + TILE;             // [stage][K, V][TILE]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / a.Hkv, hkv = blockIdx.x % a.Hkv;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * a.bq;  // longest rows first
+  const float sl2 = a.scale * LOG2E;
+
+  // this thread's rows warp * 16 + g and + 8: lse (log2 units), delta
+  float lse2[2], dl[2];
+  int qpos[2];
+  bool rok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    const int s = q0 + r % a.bq;
+    rok[h] = r < a.rows && s < a.Sq;
+    qpos[h] = a.q_offset + s;
+    lse2[h] = dl[h] = 0.f;
+    if (rok[h]) {
+      const size_t i = ((size_t)(b * a.Hkv + hkv) * a.G + r / a.bq) * a.Sq + s;
+      lse2[h] = lse[i] * LOG2E;
+      dl[h] = delta[i];
+    }
+  }
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  int kt0, kt1;
+  key_tiles(a, q0, kt0, kt1);
+  if (kt0 < kt1) {
+    stage_rows<HD>(q_s, q, a, b, hkv, q0);
+    stage_rows<HD>(do_s, dout, a, b, hkv, q0);
+    stage_keys<HD>(kv_s, k, a, b, hkv, kt0 * BK);
+    stage_keys<HD>(kv_s + TILE, v, a, b, hkv, kt0 * BK);
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const bf16* k_s = kv_s + ((kt - kt0) & 1) * 2 * TILE;
+    const bf16* v_s = k_s + TILE;
+    if (kt + 1 < kt1) {               // the next tile into the other stage
+      bf16* nk = kv_s + ((kt + 1 - kt0) & 1) * 2 * TILE;
+      stage_keys<HD>(nk, k, a, b, hkv, (kt + 1) * BK);
+      stage_keys<HD>(nk + TILE, v, a, b, hkv, (kt + 1) * BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows x BK keys
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      load_a<LD>(qa, q_s, warp * 16, kk * 16, lane);
+      load_a<LD>(oa, do_s, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t kb[4], vb[4];
+        load_b_nk<LD>(kb, k_s, np * 16, kk * 16, lane);
+        load_b_nk<LD>(vb, v_s, np * 16, kk * 16, lane);
+        mma(s[2 * np], qa, kb[0], kb[1]);
+        mma(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma(dp[2 * np], oa, vb[0], vb[1]);
+        mma(dp[2 * np + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+    // p, then ds in place of s: element e of fragment j is row
+    // warp * 16 + g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2
+    const int k0 = kt * BK;
+    const bool full = tile_full(a, q0, k0);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, kpos = k0 + 8 * j + 2 * t + (e & 1);
+        bool keep = full;
+        if (!full) {
+          keep = rok[h] && kpos < a.Sk;
+          if (a.causal) keep = keep && qpos[h] >= kpos;
+          if (a.window > 0) keep = keep && qpos[h] - kpos < a.window;
+        }
+        const float p = keep ? exp2f(s[j][e] * sl2 - lse2[h]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[h]) * a.scale;
+      }
+
+    // dQ += dS K, dS from the registers as bf16 A fragments
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t da[4];
+      to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t kb[4];
+        load_b_kn<LD>(kb, k_s, np * 16, kk * 16, lane);
+        mma(acc[2 * np], da, kb[0], kb[1]);
+        mma(acc[2 * np + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // the stage is free for the load after next
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!rok[h]) continue;
+    const int r = warp * 16 + g + 8 * h;
+    bf16* row = dq + ((size_t)(b * a.Sq + q0 + r % a.bq) * a.H + hkv * a.G +
+                      r / a.bq) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          Args a) {
+  constexpr int LD = ld<HD>(), TILE = tile<HD>();
+  constexpr int QC = HD >= 128 ? 16 : 32;   // query rows per S^T chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + TILE;
+  bf16* qo_s = v_s + TILE;              // [stage][Q, dO][TILE]
+  float* st_s = reinterpret_cast<float*>(qo_s + 4 * TILE);  // [stage][2 ROWS]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / a.Hkv, hkv = blockIdx.x % a.Hkv;
+  const int k0 = blockIdx.y * BK;       // causal: the longest keys first
+  const float sl2 = a.scale * LOG2E;
+
+  // keys k0 + warp * 16 + g (+ 8), columns 8 j + 2 t (+ 1)
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  int qt0, qt1;
+  query_tiles(a, k0, qt0, qt1);
+  if (qt0 < qt1) {
+    stage_keys<HD>(k_s, k, a, b, hkv, k0);
+    stage_keys<HD>(v_s, v, a, b, hkv, k0);
+    stage_rows<HD>(qo_s, q, a, b, hkv, qt0 * a.bq);
+    stage_rows<HD>(qo_s + TILE, dout, a, b, hkv, qt0 * a.bq);
+    stage_stats(st_s, lse, delta, a, b, hkv, qt0 * a.bq);
+    cp_async_commit();
+  }
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int stage = (qt - qt0) & 1;
+    const bf16* q_s = qo_s + stage * 2 * TILE;
+    const bf16* do_s = q_s + TILE;
+    const float* lse_s = st_s + stage * 2 * ROWS;
+    const float* dl_s = lse_s + ROWS;
+    if (qt + 1 < qt1) {               // the next tile into the other stage
+      const int nq0 = (qt + 1) * a.bq;
+      bf16* nq = qo_s + (stage ^ 1) * 2 * TILE;
+      stage_rows<HD>(nq, q, a, b, hkv, nq0);
+      stage_rows<HD>(nq + TILE, dout, a, b, hkv, nq0);
+      stage_stats(st_s + (stage ^ 1) * 2 * ROWS, lse, delta, a, b, hkv, nq0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int q0 = qt * a.bq;
+    const bool full = tile_full(a, q0, k0);
+#pragma unroll
+    for (int c = 0; c < ROWS / QC; ++c) {
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x QC rows
+      float s[QC / 8][4], dp[QC / 8][4];
+#pragma unroll
+      for (int j = 0; j < QC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        load_a<LD>(ka, k_s, warp * 16, kk * 16, lane);
+        load_a<LD>(va, v_s, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int np = 0; np < QC / 16; ++np) {
+          uint32_t qb[4], ob[4];
+          load_b_nk<LD>(qb, q_s, c * QC + np * 16, kk * 16, lane);
+          load_b_nk<LD>(ob, do_s, c * QC + np * 16, kk * 16, lane);
+          mma(s[2 * np], ka, qb[0], qb[1]);
+          mma(s[2 * np + 1], ka, qb[2], qb[3]);
+          mma(dp[2 * np], va, ob[0], ob[1]);
+          mma(dp[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+
+      // p^T in place of s, ds^T in place of dp: element e of fragment j is
+      // key k0 + warp * 16 + g + 8 (e / 2), row c QC + 8 j + 2 t + e % 2
+#pragma unroll
+      for (int j = 0; j < QC / 8; ++j) {
+        const int r = c * QC + 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + r);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_s + r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + warp * 16 + g + 8 * (e >> 1);
+          const bool keep = full || keeps(a, q0, r + (e & 1), kpos);
+          const float l = (e & 1) ? l2.y : l2.x;
+          const float d = (e & 1) ? d2.y : d2.x;
+          const float p = keep ? exp2f(s[j][e] * sl2 - l * LOG2E) : 0.f;
+          dp[j][e] = p * (dp[j][e] - d) * a.scale;
+          s[j][e] = p;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q over the chunk's rows, P^T and dS^T
+      // from the registers as bf16 A fragments
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          uint32_t ob[4], qb[4];
+          load_b_kn<LD>(ob, do_s, np * 16, c * QC + kk * 16, lane);
+          load_b_kn<LD>(qb, q_s, np * 16, c * QC + kk * 16, lane);
+          mma(dv_acc[2 * np], pa, ob[0], ob[1]);
+          mma(dv_acc[2 * np + 1], pa, ob[2], ob[3]);
+          mma(dk_acc[2 * np], da, qb[0], qb[1]);
+          mma(dk_acc[2 * np + 1], da, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the load after next
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + warp * 16 + g + 8 * h;
+    if (key >= a.Sk) continue;
+    const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
+          pack_bf16(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
+          pack_bf16(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+    }
+  }
+}
+
+// ======================================================================
+// Launch
+// ======================================================================
 
 Args make_args(int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
                int q_offset) {
@@ -391,65 +907,53 @@ Args make_args(int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
   return a;
 }
 
-template <typename T, int HD>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int B,
-              const Args& a, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<HD>();
-  auto kern = flash_bwd_dq_kernel<T, HD>;
+// Raise the dynamic shared memory limit of `kern`, then launch it.
+template <typename Kernel, typename... Ptrs>
+int launch(Kernel kern, dim3 grid, int threads, size_t smem,
+           cudaStream_t stream, const Args& a, Ptrs... ptrs) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.Sq + a.bq - 1) / a.bq, B * a.Hkv);
-  kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, a);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  kern<<<grid, threads, smem, stream>>>(ptrs..., a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int B,
+              const Args& a, bool bf, cudaStream_t st) {
+  const int tiles = (a.Sq + a.bq - 1) / a.bq;
+  if (bf)
+    return launch(flash_bwd_dq_bf16_kernel<HD>, dim3(B * a.Hkv, tiles),
+                  MMA_THREADS, dq_bf16_smem_bytes<HD>(), st, a,
+                  (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                  (const bf16*)dout, (const float*)lse, (const float*)delta,
+                  (bf16*)dq);
+  return launch(flash_bwd_dq_kernel<HD>, dim3(tiles, B * a.Hkv), THREADS,
+                dq_smem_bytes<HD>(), st, a, (const float*)q, (const float*)k,
+                (const float*)v, (const float*)dout, (const float*)lse,
+                (const float*)delta, (float*)dq);
+}
+
+template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
-               const Args& a, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<HD>();
-  auto kern = flash_bwd_dkv_kernel<T, HD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.Sk + BK - 1) / BK, B * a.Hkv);
-  kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, a);
-  return (int)cudaGetLastError();
+               const Args& a, bool bf, cudaStream_t st) {
+  const int tiles = (a.Sk + BK - 1) / BK;
+  if (bf)
+    return launch(flash_bwd_dkv_bf16_kernel<HD>, dim3(B * a.Hkv, tiles),
+                  MMA_THREADS, dkv_bf16_smem_bytes<HD>(), st, a,
+                  (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                  (const bf16*)dout, (const float*)lse, (const float*)delta,
+                  (bf16*)dk, (bf16*)dv);
+  return launch(flash_bwd_dkv_kernel<HD>, dim3(tiles, B * a.Hkv), THREADS,
+                dkv_smem_bytes<HD>(), st, a, (const float*)q, (const float*)k,
+                (const float*)v, (const float*)dout, (const float*)lse,
+                (const float*)delta, (float*)dk, (float*)dv);
 }
 
 #define FLASH_BWD_HEAD_DIMS(X) X(16) X(32) X(64) X(128)
-
-template <typename T>
-int dispatch_dq(int hd, const void* q, const void* k, const void* v,
-                const void* dout, const void* lse, const void* delta, void* dq,
-                int B, const Args& a, cudaStream_t st) {
-  switch (hd) {
-#define CASE(D) \
-  case D: return launch_dq<T, D>(q, k, v, dout, lse, delta, dq, B, a, st);
-    FLASH_BWD_HEAD_DIMS(CASE)
-#undef CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int dispatch_dkv(int hd, const void* q, const void* k, const void* v,
-                 const void* dout, const void* lse, const void* delta,
-                 void* dk, void* dv, int B, const Args& a, cudaStream_t st) {
-  switch (hd) {
-#define CASE(D) \
-  case D: return launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, B, a, st);
-    FLASH_BWD_HEAD_DIMS(CASE)
-#undef CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 bool bad_shape(int B, int Sq, int Sk, int H, int Hkv) {
   return B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv || H / Hkv > ROWS;
@@ -473,10 +977,13 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(Sq, Sk, H, Hkv, hd, causal, window, q_offset);
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch_dq<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dq, B, a,
-                                      st);
-  return dispatch_dq<float>(hd, q, k, v, dout, lse, delta, dq, B, a, st);
+  switch (hd) {
+#define CASE(D) \
+  case D: return launch_dq<D>(q, k, v, dout, lse, delta, dq, B, a, is_bf16, st);
+    FLASH_BWD_HEAD_DIMS(CASE)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // As flash_bwd_dq; dk and dv like k.
@@ -490,10 +997,15 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(Sq, Sk, H, Hkv, hd, causal, window, q_offset);
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch_dkv<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dk, dv,
-                                       B, a, st);
-  return dispatch_dkv<float>(hd, q, k, v, dout, lse, delta, dk, dv, B, a, st);
+  switch (hd) {
+#define CASE(D)                                                           \
+  case D:                                                                 \
+    return launch_dkv<D>(q, k, v, dout, lse, delta, dk, dv, B, a, is_bf16, \
+                         st);
+    FLASH_BWD_HEAD_DIMS(CASE)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* flash_bwd_error_string(int code) {

@@ -5,7 +5,10 @@ Counterpart of ``repro/kernels/flash_attention.py``.  Three kernels replace
 the three Pallas kernels there: ``csrc/flash_fwd.cu`` the forward
 ``_flash_kernel``, and ``csrc/flash_bwd.cu`` the backward
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``; see the notes at
-the top of those files for their design and what bounds them.
+the top of those files for their design and what bounds them.  The
+backward has two designs chosen by the dtype: bf16 inputs run on the
+tensor cores (``mma.sync`` with bf16 operands, f32 sums), f32 inputs on
+f32 FMA.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers every
 caller goes through.  They take the plain version only for tensors on the
@@ -13,6 +16,12 @@ CPU; for a CUDA tensor they launch the kernels or raise, and count each
 launch (``flash_attention_fwd.launches``, ``flash_bwd_dq.launches``,
 ``flash_bwd_dkv.launches``).  ``FlashAttention`` wires them into a
 ``torch.autograd.Function``, the analogue of the reference's custom VJP.
+
+The plain backward (``flash_bwd_dq_ref``, ``flash_bwd_dkv_ref``) computes
+in f32, as the Pallas kernels do.  The bf16 kernels round P and dS to bf16
+where they feed a product; ``flash_bwd_dq_bf16_ref`` and
+``flash_bwd_dkv_bf16_ref`` mirror that rounding, so the card's bf16
+kernels can be held to them more tightly than to the f32 version.
 
 Layouts are the JAX package's: q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd), query
 head ``h`` reads KV head ``h // G`` (G = H // Hkv); outputs o (B,Sq,H,hd)
@@ -34,13 +43,16 @@ __all__ = ["NEG_INF", "DEFAULT_BLOCK_K", "KERNEL_HEAD_DIMS",
            "KERNEL_BWD_HEAD_DIMS", "KERNEL_MAX_GROUP", "flash_attention_fwd",
            "flash_attention_fwd_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "FlashAttention",
+           "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "flash_bwd_dq_bf16_ref",
+           "flash_bwd_dkv_bf16_ref", "FlashAttention",
            "flash_attention"]
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 512
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
-KERNEL_BWD_HEAD_DIMS = (16, 32, 64, 128)   # four f32 tiles in shared memory
+# f32: four f32 tiles in shared memory; bf16: dk and dv of a 16-key warp
+# tile in registers (at hd 256 they alone would need 256 a thread)
+KERNEL_BWD_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_MAX_GROUP = 64          # G query heads must fit the 64-row tile
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -203,20 +215,50 @@ def _bwd_blocks(q, k, v, do, lse, delta, causal, window, q_offset, block_k):
         yield kj, p, p * (dp - delta[..., None]) * scale
 
 
-def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
-                     window: int | None = None, q_offset: int = 0,
-                     block_k: int = DEFAULT_BLOCK_K):
-    """Plain PyTorch dq, KV block by KV block (what ``_flash_bwd_dq_kernel``
-    computes): sum over keys of ds k, f32, cast to q's dtype."""
+def _dq_sum(q, k, v, do, lse, delta, rnd, causal, window, q_offset,
+            block_k):
+    """dq = sum over keys of rnd(ds) k, f32, (B,Sq,H,hd)."""
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     dq = torch.zeros((B, Hkv, H // Hkv, Sq, hd), dtype=torch.float32,
                      device=q.device)
     for kj, _, ds in _bwd_blocks(q, k, v, do, lse, delta, causal, window,
                                  q_offset, block_k):
-        dq += torch.einsum("bhgqk,bkhd->bhgqd", ds, kj)
-    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
-    return dq.to(q.dtype).contiguous()
+        dq += torch.einsum("bhgqk,bkhd->bhgqd", rnd(ds), kj)
+    return dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).contiguous()
+
+
+def _dkv_sums(q, k, v, do, lse, delta, rnd, causal, window, q_offset,
+              block_k):
+    """dk = sum over queries and the G heads of rnd(ds)^T q, dv of
+    rnd(p)^T do; f32, (B,Sk,Hkv,hd) each."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd).float()
+    dog = do.reshape(B, Sq, Hkv, H // Hkv, hd).float()
+    dks, dvs = [], []
+    for _, p, ds in _bwd_blocks(q, k, v, do, lse, delta, causal, window,
+                                q_offset, block_k):
+        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", rnd(p), dog))
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", rnd(ds), qg))
+    return torch.cat(dks, 1), torch.cat(dvs, 1)
+
+
+def _f32(t):
+    return t
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                     window: int | None = None, q_offset: int = 0,
+                     block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch dq, KV block by KV block (what ``_flash_bwd_dq_kernel``
+    computes): sum over keys of ds k, f32, cast to q's dtype."""
+    return _dq_sum(q, k, v, do, lse, delta, _f32, causal, window, q_offset,
+                   block_k).to(q.dtype)
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -225,16 +267,30 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True,
     """Plain PyTorch (dk, dv), KV block by KV block (what
     ``_flash_bwd_dkv_kernel`` computes): dv = sum over queries and the G
     heads of p^T do, dk of ds^T q; f32, cast to k's dtype."""
-    B, Sq, H, hd = q.shape
-    Hkv = k.shape[2]
-    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd).float()
-    dog = do.reshape(B, Sq, Hkv, H // Hkv, hd).float()
-    dks, dvs = [], []
-    for _, p, ds in _bwd_blocks(q, k, v, do, lse, delta, causal, window,
-                                q_offset, block_k):
-        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, dog))
-        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qg))
-    return torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+    dk, dv = _dkv_sums(q, k, v, do, lse, delta, _f32, causal, window,
+                       q_offset, block_k)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_bf16_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                          window: int | None = None, q_offset: int = 0,
+                          block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch dq as the bf16 kernel computes it: ds rounded to bf16
+    where it feeds ds k, sums in f32.  Returned in f32: the kernel's one
+    further rounding, of dq to bf16 on its store, is left to the caller's
+    tolerance."""
+    return _dq_sum(q, k, v, do, lse, delta, _bf16, causal, window, q_offset,
+                   block_k)
+
+
+def flash_bwd_dkv_bf16_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                           window: int | None = None, q_offset: int = 0,
+                           block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch (dk, dv) as the bf16 kernel computes them: p and ds
+    rounded to bf16 where they feed p^T do and ds^T q, sums in f32;
+    returned in f32, as :func:`flash_bwd_dq_bf16_ref`."""
+    return _dkv_sums(q, k, v, do, lse, delta, _bf16, causal, window,
+                     q_offset, block_k)
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
@@ -268,6 +324,11 @@ def _check_bwd(q, k, v, o, lse, do, window) -> None:
         raise ValueError(f"flash attention backward: lse must be a "
                          f"contiguous f32 tensor {(B, Hkv, H // Hkv, Sq)} "
                          f"on {q.device}")
+    # the bf16 kernels stage rows with 16-byte copies
+    if q.is_cuda and q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash attention backward: bf16 q, k, v and do "
+                         "must be 16-byte aligned on the card")
 
 
 def _bwd_lib() -> ctypes.CDLL:

@@ -10,7 +10,9 @@ kernels' oracle.  Inputs come from numpy with a seed; the blocks are 64,
 so S 128/256 tile them.  Tolerances: 1e-4 x max|ref| in f32, as
 ``tests/test_kernels.py`` uses for the backward, and 2e-2 x max|ref| in
 bf16 (the outputs round to bf16, and the two frameworks round the f32
-sums at different places).
+sums at different places).  The plain version that mirrors the card's
+bf16 kernels (P and dS rounded to bf16 where they feed a product) is held
+to the Pallas backward under the same 2e-2.
 """
 import functools
 
@@ -105,6 +107,27 @@ def test_flash_bwd_matches_pallas_and_jnp_vjp(B, Sq, Sk, Hkv, G, hd, causal,
                                  impl="jnp", **kw)
         for g, w in zip(got, _vjp(attn, q, k, v, do)):
             _close(g, w, dtype)
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,Hkv,G,hd,causal,window,q_offset",
+    [c[:9] for c in CASES if c[9] == "bfloat16"])
+def test_flash_bwd_bf16_mirror_matches_pallas(B, Sq, Sk, Hkv, G, hd, causal,
+                                              window, q_offset):
+    """The plain version of the bf16 tensor-core kernels against the Pallas
+    backward (f32 math) on the same bf16 inputs."""
+    q, k, v, do = _inputs(B, Sq, Sk, Hkv * G, Hkv, hd, "bfloat16")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want = jax.jit(functools.partial(jax_bwd, block_q=64, block_k=64,
+                                     interpret=True, **kw))(
+        *map(_jax, (q, k, v, o, lse, do)))
+    delta = fa._delta(o, do, lse)
+    dq = fa.flash_bwd_dq_bf16_ref(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_bf16_ref(q, k, v, do, lse, delta, **kw)
+    for g, w, t in zip((dq, dk, dv), want, (q, k, v)):
+        assert g.dtype == torch.float32 and g.shape == t.shape
+        _close(g, w, "bfloat16")
 
 
 @pytest.mark.parametrize("causal,window,dtype", [
