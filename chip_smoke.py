@@ -8,18 +8,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. the card: its name and power limit (nvidia-smi), torch and CUDA versions;
 2. the build of every kernel under src/repro_torch/kernels/csrc (one nvcc
    per source, all started together), timed as set-up, and the count of
-   tensor-core instructions (HMMA/HGMMA) in the SASS of each bf16 backward
-   kernel, which must not be 0;
+   tensor-core instructions (HMMA/HGMMA) in the SASS of each bf16 flash
+   kernel (the forward at every head dim 16-256, the two backward ones at
+   16-128), which must not be 0; the f32 kernels' counts are printed
+   beside them;
 3. the flash forward kernel against its plain PyTorch version on the card,
-   at the shapes of the models the port serves and trains, with its time
-   beside the plain version's, the library call's (timed only, never used
-   by the port) and its roofline bound; one JSON line per shape;
+   at the shapes of the models the port serves and trains (gemma3-12b's
+   local layer at hd 256 among them), and in bf16 also against the plain
+   version that mirrors the tensor-core kernel's bf16 rounding of P, more
+   tightly; its time in turns with the library call's (kernel, SDPA, SDPA,
+   kernel; the library is timed only, never used by the port), in bf16
+   also both device times (profiler), beside the plain version's time and
+   the roofline bound; one JSON line per shape with the design it ran
+   (``mma_bf16`` or ``fma_f32``);
 4. the two flash backward kernels (dq, dk/dv) the same way, at the same
-   shapes: against the f32 plain version, and in bf16 also against the
-   plain version that mirrors the tensor-core kernels' bf16 rounding of P
-   and dS, more tightly; the library call is SDPA's backward, timed on its
-   own after one forward, in turns with the kernel (kernel, SDPA, SDPA,
-   kernel), and its device kernels' names and summed time (profiler);
+   shapes where their head dim is one they take (16-128): against the f32
+   plain version, and in bf16 also against the plain version that mirrors
+   the tensor-core kernels' bf16 rounding of P and dS, more tightly; the
+   library call is SDPA's backward, timed on its own after one forward, in
+   turns with the kernel (kernel, SDPA, SDPA, kernel), and its device
+   kernels' names and summed time (profiler);
 5. the serving path: ``repro_torch.launch.serve.serve`` on gpt-100m at full
    width (12 layers, d 768, random weights from a seed), 8 requests of 512
    prompt tokens and one ragged 300-token request, 16 new tokens each,
@@ -90,13 +98,16 @@ KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # (tolerance on dq, dk, dv relative to max|ref|)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# bf16 dq, dk, dv against the plain version that mirrors the kernels' bf16
-# rounding of P and dS, relative to max|mirror|: the mirror returns f32, so
-# what is left is the kernels' rounding of their output to bf16, at most
-# half a bf16 ulp, 2**-8 = 3.9e-3 of max|mirror|, and f32 sums in another
-# order (about 1e-6 of it).  A key tile left out moves a row's gradient by
-# far more.
+# bf16 o, dq, dk, dv against the plain versions that mirror the kernels'
+# bf16 rounding of P (and dS), relative to max|mirror|: the mirrors return
+# f32, so what is left is the kernels' rounding of their output to bf16, at
+# most half a bf16 ulp, 2**-8 = 3.9e-3 of max|mirror|, and f32 sums in
+# another order (about 1e-6 of it).  A key tile left out moves a row's
+# output or gradient by far more.
 MIRROR_TOL = 4e-3
+# the forward's lse against its mirror, relative to max(1, max|lse|): it is
+# not rounded to bf16, so only f32 sums and exp2 against exp differ
+LSE_MIRROR_TOL = 1e-4
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 on the tensor
 # cores, f32 on the CUDA cores; HBM3 bandwidth.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -117,6 +128,7 @@ SHAPES = [
     ("q_offset", 1, 512, 2048, 12, 12, 64, True, None, 1536, "bfloat16"),
     ("gpt-100m train", 8, 1024, 1024, 12, 12, 64, True, None, 0, "bfloat16"),
     ("gpt-100m train", 8, 1024, 1024, 12, 12, 64, True, None, 0, "float32"),
+    ("gemma3-12b local", 1, 2048, 2048, 16, 8, 256, True, 1024, 0, "bfloat16"),
 ]
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
 TRAIN_SHAPE = 12        # the shape the training path gives all three
@@ -232,6 +244,18 @@ def flash_phase(torch, fa, shape) -> dict:
               (lse - lse_ref).abs().max().item())
     if not (torch.isfinite(o.float()).all() and err <= TOL[dt]):
         fail(f"flash_fwd {name} {dt}: max abs err {err} > {TOL[dt]}")
+    mirror = {}
+    if dt == "bfloat16":
+        o_m, lse_m = fa.flash_attention_fwd_bf16_ref(q, k, v, **kw)
+        top = o_m.abs().max().item()
+        lse_top = max(1.0, lse_m.abs().max().item())
+        mirror = {"o": (o.float() - o_m).abs().max().item() / top,
+                  "lse": (lse - lse_m).abs().max().item() / lse_top}
+        if not (mirror["o"] <= MIRROR_TOL
+                and mirror["lse"] <= LSE_MIRROR_TOL):
+            fail(f"flash_fwd {name} {dt} against the mirror: err over "
+                 f"max|mirror| {mirror}, limits o {MIRROR_TOL} lse "
+                 f"{LSE_MIRROR_TOL}")
 
     mask = mask_of(torch, shape)
     sdpa = sdpa_of(torch, shape, mask)
@@ -240,17 +264,27 @@ def flash_phase(torch, fa, shape) -> dict:
     nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
         * q.element_size() + lse.numel() * 4
     bound_ms, bound_by = bound(flops, nbytes, dt)
+    run = lambda: fa.flash_attention_fwd(q, k, v, **kw)
+    lib = lambda: sdpa(q, k, v)
+    turns = [cuda_ms(torch, run, 20), cuda_ms(torch, lib, 20),
+             cuda_ms(torch, lib, 20), cuda_ms(torch, run, 20)]
     rec = {
         "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "Hkv": Hkv,
         "hd": hd, "causal": causal, "window": window, "q_offset": q_offset,
-        "dtype": dt, "max_abs_err": err,
-        "kernel_ms": cuda_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, **kw), 20),
+        "dtype": dt, "design": "mma_bf16" if dt == "bfloat16" else "fma_f32",
+        "max_abs_err": err, "err_over_max_mirror": mirror,
+        "kernel_ms": (turns[0] + turns[3]) / 2,
+        "kernel_ms_turns": [turns[0], turns[3]],
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_fwd_ref(
             q, k, v, **kw), 3),
-        "library_ms": cuda_ms(torch, lambda: sdpa(q, k, v), 20),
+        "library_ms": (turns[1] + turns[2]) / 2,
+        "library_ms_turns": turns[1:3],
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if dt == "bfloat16":      # at 1 x 512 the events time the host
+        rec["kernel_device_ms"] = device_time(torch, run)[0]
+        rec["library_device_ms"], rec["library_kernels"] = \
+            device_time(torch, lib)
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     print(json.dumps({"flash_fwd": rec}), flush=True)
     return rec
@@ -354,12 +388,13 @@ def device_time(torch, fn, reps: int = 10) -> tuple[float, list]:
 
 
 def tensor_core_ops(sass: str) -> dict:
-    """HMMA/HGMMA instructions in the SASS of each bf16 backward kernel,
-    by kernel and head dim, from ``cuobjdump -sass``."""
+    """HMMA/HGMMA instructions in the SASS of each flash kernel, by kernel
+    and head dim, from ``cuobjdump -sass``."""
     counts, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_bwd_d(?:q|kv)_bf16)_kernelILi(\d+)E", line)
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16)?)"
+                          r"_kernelILi(\d+)E", line)
             cur = m and f"{m.group(1)} hd {m.group(2)}"
             if cur:
                 counts[cur] = 0
@@ -915,20 +950,25 @@ def main() -> None:
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}")
-    mma = tensor_core_ops(backend.sass("flash_bwd"))
-    print(json.dumps({"flash_bwd_sass_hmma": mma}), flush=True)
-    want = {f"flash_bwd_{k}_bf16 hd {d}" for k in ("dq", "dkv")
-            for d in fa.KERNEL_BWD_HEAD_DIMS}
-    if set(mma) != want or not all(mma.values()):
-        fail(f"the bf16 backward kernels' SASS holds {mma} tensor-core "
+    mma = {**tensor_core_ops(backend.sass("flash_fwd")),
+           **tensor_core_ops(backend.sass("flash_bwd"))}
+    print(json.dumps({"flash_sass_hmma": mma}), flush=True)
+    want = {f"flash_fwd_bf16 hd {d}" for d in fa.KERNEL_HEAD_DIMS} | {
+        f"flash_bwd_{k}_bf16 hd {d}" for k in ("dq", "dkv")
+        for d in fa.KERNEL_BWD_HEAD_DIMS}
+    bf16 = {k: n for k, n in mma.items() if "_bf16 " in k}
+    if set(bf16) != want or not all(bf16.values()):
+        fail(f"the bf16 flash kernels' SASS holds {bf16} tensor-core "
              f"instructions, expected a nonzero count for each of "
              f"{sorted(want)}")
 
     # 3-4. kernels against their plain versions
     recs = [flash_phase(torch, fa, s) for s in SHAPES]
-    bwd = [flash_bwd_phase(torch, fa, s) for s in SHAPES]
+    bwd = {i: flash_bwd_phase(torch, fa, s) for i, s in enumerate(SHAPES)
+           if s[6] in fa.KERNEL_BWD_HEAD_DIMS}
 
     # 5. the serving path
     reset(fa, kw)

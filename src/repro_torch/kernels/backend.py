@@ -6,11 +6,12 @@ tensor takes a kernel's plain PyTorch version, a CUDA tensor takes the
 kernel, which needs a Hopper card (compute capability 9.0) because it is
 compiled for ``sm_90a`` only.
 
-Kernels live in ``csrc/<name>.cu`` with a plain C interface.  They are
-compiled with ``nvcc`` at first use into ``build/`` next to this file (a
-directory git ignores), one shared library per source, named by a hash of
-the source and the flags so an edited source is never served stale, and
-loaded with ``ctypes``.
+Kernels live in ``csrc/<name>.cu`` with a plain C interface; building
+blocks shared between sources live in ``csrc/*.cuh``.  They are compiled
+with ``nvcc`` at first use into ``build/`` next to this file (a directory
+git ignores), one shared library per source, named by a hash of the
+source, every header and the flags so an edited source or header is never
+served stale, and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -61,9 +62,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> dict[str, str]:

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), GQA-folded, f32 math.
+// Flash-attention forward for Hopper (sm_90a), GQA-folded: bf16 on the
+// tensor cores, f32 on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py:68 `_flash_kernel`
 // (entry `flash_attention_fwd`, :129), the Pallas TPU kernel behind every
@@ -8,57 +9,87 @@
 // averages V instead of dividing 0 by 0), the max(l, 1e-30) guard, and
 // returns o (B,Sq,H,hd) in the input dtype plus lse (B,Hkv,G,Sq) in f32.
 //
-// Design.  The TPU kernel walks the KV blocks on a sequential grid axis
-// and carries m, l and acc in VMEM scratch across grid steps.  Blocks on a
-// GPU run in parallel and in no order, so here one thread block owns one
-// (batch * kv head, query tile) pair and loops over the KV tiles itself,
-// keeping m and l in shared memory and acc in registers.  The G query heads
-// of a KV group are folded into the block's 64 query rows (G * bq = 64 for
-// G | 64), so every K/V tile staged in shared memory serves all G heads and
-// K/V are read from device memory once per query tile instead of G times.
-// Ragged lengths are masked in the kernel: key rows past Sk are excluded
-// (-inf, weight exactly 0) and query rows past Sq are never stored, so any
-// Sq, Sk run here; the 512-multiple restriction of the JAX dispatch does
-// not apply.  For causal attention without a window and q_offset >= 0 the
-// KV loop stops at the tile's last query position: the tiles it skips are
-// fully masked for every row of the block and would add exactly zero.
+// Shared by both designs.  The TPU kernel walks the KV blocks on a
+// sequential grid axis and carries m, l and acc in VMEM scratch across grid
+// steps.  Blocks on a GPU run in parallel and in no order, so here one
+// thread block owns one (batch * kv head, query tile) pair and loops over
+// the KV tiles itself.  The G query heads of a KV group are folded into the
+// block's 64 query rows (G * bq = 64 for G | 64, fewer live rows
+// otherwise), so every K/V tile staged in shared memory serves all G heads
+// and K/V are read from device memory once per query tile instead of G
+// times.  Ragged lengths are masked in the kernel: key rows past Sk are
+// excluded (-inf, weight exactly 0) and query rows past Sq are never
+// stored, so any Sq, Sk run here; the 512-multiple restriction of the JAX
+// dispatch does not apply.
 //
-// What bounds it on the H100.  The roofline bound of attention at the
-// serving shapes (S = 512..2048, hd 64..128) is the bf16 tensor-core rate
-// for long sequences and HBM bandwidth for short ones.  This first kernel
-// does its arithmetic in f32 FMA on the CUDA cores (67 TFLOP/s peak, not
-// 989), so it is bound by the FMA pipe and by shared-memory traffic long
-// before either roofline limit.  What the design does about it: 4x4
-// register micro-tiles for S = QK^T and 4 x (hd/16) micro-tiles for the PV
-// product give 16 FMAs per 8 shared loads, and the row strides are padded
-// so the tiles are read without bank conflicts.  Tensor cores (mma.sync /
-// wgmma with bf16 operands), TMA staging and a deeper pipeline are the
-// next steps.
+// bf16 inputs (every prefill and training forward).  What bounds it on the
+// H100: the two products S = Q K^T and O += P V, 4 hd FLOPs per unmasked
+// (query, key) pair, against the bf16 tensor-core rate of 989 TFLOP/s, for
+// long sequences; the bytes of q, k, v and o at 3.35 TB/s for short ones.
+// What the design does about it:
+//   * four warps, each owning 16 query rows of the 64-row tile; both
+//     products are `mma.sync.m16n8k16` with bf16 operands and f32
+//     accumulators, fed by `ldmatrix` (V through `.trans`), from bf16 tiles
+//     in shared memory whose rows are padded by 8 elements (flash_mma.cuh);
+//   * the online softmax runs on the S accumulator fragments in registers:
+//     each thread holds two rows of its warp's 16, their running max m and
+//     (partial) sum l; the row max is reduced over the 4 threads of a row
+//     with two shuffles, the sum only once at the end.  Scores are scaled
+//     into log2 units once, so p = exp2(s - m) is one FFMA and one MUFU;
+//   * P goes from the S accumulators into the A fragment of the P V product
+//     as bf16 in registers (`to_a`), never through shared memory.  This
+//     rounding is the one numerical difference from the Pallas kernel,
+//     which keeps p in f32; l sums the unrounded f32 p.
+//     `flash_attention_fwd_bf16_ref` in flash_attention.py mirrors both;
+//   * the next K/V tile is loaded with 16-byte `cp.async` into the second
+//     buffer of a 2-stage ring while the current tile is computed;
+//   * tiles inside the causal and window band skip the per-element mask;
+//   * Q's A fragments are held in registers up to hd 128.  At hd 256 the O
+//     accumulator of a 16-row warp tile alone is 128 f32 registers a
+//     thread, so Q is read from shared memory for each KV tile and the KV
+//     tiles are 32 keys instead of 64 (the S fragments then take 16
+//     registers, not 32);
+//   * blocks are ordered longest rows first, so the causal tail of the
+//     grid is short.
+// Tile skipping: tiles outside the causal and window band are fully masked
+// for every row of the block.  For a row with some unmasked key they add
+// exactly zero (its running max is a real score, and exp2 of NEG_INF minus
+// it is 0).  A row with no unmasked key must average V over every key, as
+// the Pallas kernel (which visits every KV block) gives it, so the band
+// limits apply only to a block whose every live row has an unmasked key.
+//
+// f32 inputs (the card-against-CPU answers, held to 1e-4 and 1e-6, which
+// bf16 or TF32 products cannot meet) keep the first design: f32 FMA on the
+// CUDA cores (67 TFLOP/s peak), 4x4 register micro-tiles for S = QK^T and
+// 4 x (hd/16) micro-tiles for the PV product (16 FMAs per 8 shared loads),
+// padded f32 tiles, S and P staged through shared memory, three
+// __syncthreads per KV tile.  For causal attention without a window and
+// q_offset >= 0 its KV loop stops at the tile's last query position.
 //
 // Interface: plain C, launched on the caller's stream; returns
-// cudaGetLastError() (0 on success).  Inputs must be contiguous.
+// cudaGetLastError() (0 on success).  Inputs must be contiguous, and bf16
+// ones 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;            // query rows per block (G heads x bq)
+constexpr float NEG_INF = -1e30f;
+
+// ======================================================================
+// f32: FMA on the CUDA cores
+// ======================================================================
+
 constexpr int BK = 64;              // keys per KV tile
 constexpr int THREADS = 256;
 constexpr int S_STRIDE = BK + 16;   // score row stride (conflict-free)
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -66,10 +97,10 @@ constexpr size_t smem_bytes() {
                                   ROWS * S_STRIDE + 3 * ROWS);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
                  int bq, float scale, int causal, int window, int q_offset) {
   constexpr int QS = HD + 1;   // padded row stride of the Q and K tiles
@@ -98,7 +129,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float x = 0.f;
     const int s = q0 + r % bq;
     if (r < rows && s < Sq)
-      x = to_f32(q[((size_t)(b * Sq + s) * H + hkv * G + r / bq) * HD + d]);
+      x = q[((size_t)(b * Sq + s) * H + hkv * G + r / bq) * HD + d];
     q_s[r * QS + d] = x;
   }
   for (int r = tid; r < ROWS; r += THREADS) {
@@ -127,8 +158,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kx = 0.f, vx = 0.f;
       if (k0 + c < Sk) {
         const size_t off = ((size_t)(b * Sk + k0 + c) * Hkv + hkv) * HD + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       k_s[c * QS + d] = kx;
       v_s[c * HD + d] = vx;
@@ -228,54 +259,282 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= rows || s >= Sq) continue;
     const int g = r / bq;
     const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = o + ((size_t)(b * Sq + s) * H + hkv * G + g) * HD;
+    float* orow = o + ((size_t)(b * Sq + s) * H + hkv * G + g) * HD;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) put(orow + tc + 16 * j, acc[i][j] / l);
+    for (int j = 0; j < CPT; ++j) orow[tc + 16 * j] = acc[i][j] / l;
     if (tc == 0)
       lse[((size_t)(b * Hkv + hkv) * G + g) * Sq + s] = m_s[r] + logf(l);
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
+               int window, int q_offset, cudaStream_t stream) {
   const int G = H / Hkv;
   const int bq = ROWS / G;
   const size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<T, HD>;
+  auto kern = flash_fwd_kernel<HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const float scale = (float)(1.0 / sqrt((double)(HD)));
   dim3 grid((Sq + bq - 1) / bq, B * Hkv);
   kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Sq, Sk, H,
-      Hkv, bq, scale, causal, window, q_offset);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, Sq, Sk, H, Hkv, bq, scale, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             void* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
-             int window, int q_offset, cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, q_offset, st);
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, q_offset, st);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, q_offset, st);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, q_offset, st);
-    case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, q_offset, st);
-    default: return (int)cudaErrorInvalidValue;
+// ======================================================================
+// bf16: mma.sync on the tensor cores
+// ======================================================================
+
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG2 = NEG_INF * LOG2E;   // a masked score in log2 units
+
+// Keys per KV tile: 32 at hd 256, where registers are short, else 64
+// (`kernel_block_k` in flash_attention.py, the mirror's tiles, must agree).
+template <int HD>
+__host__ __device__ constexpr int keys_per_tile() {
+  return HD >= 256 ? 32 : 64;
+}
+
+template <int HD>
+constexpr size_t bf16_smem_bytes() {   // Q, two stages of K and V
+  return sizeof(bf16) * (size_t)(ROWS + 4 * keys_per_tile<HD>()) * ld<HD>();
+}
+
+// The NK-key tiles kt0..kt1 - 1 the block at q0 visits: those inside the
+// causal and window band when every live row of the block has an unmasked
+// key, else all of them (a row with none averages V over every key).
+template <int NK>
+__device__ __forceinline__ void fwd_key_tiles(const Args& a, int q0, int& kt0,
+                                              int& kt1) {
+  const int first = a.q_offset + q0;
+  const int last = a.q_offset + min(q0 + a.bq, a.Sq) - 1;
+  kt0 = 0;
+  kt1 = (a.Sk + NK - 1) / NK;
+  // query qpos keeps keys max(0, qpos - window + 1)..min(qpos, Sk - 1)
+  // (causal) or ..Sk - 1: one exists iff qpos >= 0 (causal) and
+  // qpos - window + 1 <= Sk - 1 (window); both are monotone in qpos
+  const bool keyed = (!a.causal || first >= 0) &&
+                     (a.window <= 0 || last - a.window + 2 <= a.Sk);
+  if (!keyed) return;
+  if (a.causal) kt1 = min(kt1, last / NK + 1);
+  if (a.window > 0) kt0 = max(0, first - a.window + 1) / NK;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int BH, Args a) {
+  constexpr int NK = keys_per_tile<HD>(), LD = ld<HD>(), KT = NK * LD;
+  constexpr bool QREG = HD <= 128;      // Q's A fragments in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* kv_s = q_s + tile<HD>();        // [stage][K, V][KT]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // one block per (query tile, batch * kv head), the longest rows first
+  const int tiles = gridDim.x / BH;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (tiles - 1 - (int)(blockIdx.x / BH)) * a.bq;
+  const int b = bh / a.Hkv, hkv = bh % a.Hkv;
+  const float sl2 = a.scale * LOG2E;
+
+  // this thread's rows warp * 16 + g and + 8: position, whether stored,
+  // running max (log2 units) and this thread's part of the running sum
+  int qpos[2];
+  bool rok[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    const int s = q0 + r % a.bq;
+    rok[h] = r < a.rows && s < a.Sq;
+    qpos[h] = a.q_offset + s;
+    m[h] = NEG2;
+    l[h] = 0.f;
+  }
+
+  // columns 8 j + 2 t (+ 1) of the two rows
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  int kt0, kt1;                         // kt0 < kt1 always
+  fwd_key_tiles<NK>(a, q0, kt0, kt1);
+  stage_rows<HD>(q_s, q, a, b, hkv, q0);
+  stage_keys<HD, NK>(kv_s, k, a, b, hkv, kt0 * NK);
+  stage_keys<HD, NK>(kv_s + KT, v, a, b, hkv, kt0 * NK);
+  cp_async_commit();
+
+  [[maybe_unused]] uint32_t qa[QREG ? HD / 16 : 1][4];
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const bf16* k_s = kv_s + ((kt - kt0) & 1) * 2 * KT;
+    const bf16* v_s = k_s + KT;
+    if (kt + 1 < kt1) {               // the next tile into the other stage
+      bf16* nk = kv_s + ((kt + 1 - kt0) & 1) * 2 * KT;
+      stage_keys<HD, NK>(nk, k, a, b, hkv, (kt + 1) * NK);
+      stage_keys<HD, NK>(nk + KT, v, a, b, hkv, (kt + 1) * NK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (QREG) {
+      if (kt == kt0) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          load_a<LD>(qa[kk], q_s, warp * 16, kk * 16, lane);
+      }
+    }
+
+    // S = Q K^T for the warp's 16 rows x NK keys
+    float s[NK / 8][4];
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qf[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+      } else {
+        load_a<LD>(qf, q_s, warp * 16, kk * 16, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < NK / 16; ++np) {
+        uint32_t kb[4];
+        load_b_nk<LD>(kb, k_s, np * 16, kk * 16, lane);
+        mma(s[2 * np], qf, kb[0], kb[1]);
+        mma(s[2 * np + 1], qf, kb[2], kb[3]);
+      }
+    }
+
+    // scores in log2 units, masked: element e of fragment j is row
+    // warp * 16 + g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2
+    const int k0 = kt * NK;
+    const bool full = tile_full<NK>(a, q0, k0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float x = s[j][e] * sl2;
+        if (!full) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          bool keep = true;
+          if (a.causal) keep = qpos[h] >= kpos;
+          if (a.window > 0) keep = keep && qpos[h] - kpos < a.window;
+          x = keep ? x : NEG2;
+          if (kpos >= a.Sk) x = -INFINITY;  // past the ragged edge: no key
+        }
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+
+    // the new row max over the 4 threads of each row, then rescale
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float alpha = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= alpha;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[j][2 * h] *= alpha;
+        acc[j][2 * h + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+
+    // O += P V, P from the registers as bf16 A fragments
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      uint32_t pa[4];
+      to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t vb[4];
+        load_b_kn<LD>(vb, v_s, np * 16, kk * 16, lane);
+        mma(acc[2 * np], pa, vb[0], vb[1]);
+        mma(acc[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // the stage is free for the load after next
+  }
+
+  // o = acc / max(l, 1e-30), lse = m + log(l) in natural units; a row with
+  // no unmasked key has m = NEG2 exactly, and its lse is NEG_INF + log(l)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!rok[h]) continue;
+    const int r = warp * 16 + g + 8 * h;
+    const int s = q0 + r % a.bq;
+    const float lh = fmaxf(l[h], 1e-30f);
+    bf16* row = o + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * h] / lh, acc[j][2 * h + 1] / lh);
+    if (t == 0) {
+      const float mn = m[h] == NEG2 ? NEG_INF : m[h] * LN2;
+      lse[((size_t)(b * a.Hkv + hkv) * a.G + r / a.bq) * a.Sq + s] =
+          mn + logf(lh);
+    }
   }
 }
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, const Args& a, cudaStream_t stream) {
+  const long long bh = (long long)B * a.Hkv;
+  const long long blocks = bh * ((a.Sq + a.bq - 1) / a.bq);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = bf16_smem_bytes<HD>();
+  auto kern = flash_fwd_bf16_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)blocks, MMA_THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      (int)bh, a);
+  return (int)cudaGetLastError();
+}
+
+#define FLASH_FWD_HEAD_DIMS(X) X(16) X(32) X(64) X(128) X(256)
 
 }  // namespace
 
 extern "C" {
 
 // q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd), o like q, lse (B,Hkv,G,Sq) f32; all
-// contiguous on `device`.  window <= 0 means no window.  The wrapper checks
-// shapes and types; the bounds here only keep a bad call from launching.
+// contiguous on `device`, bf16 ones 16-byte aligned.  window <= 0 means no
+// window.  The wrapper checks shapes and types; the bounds here only keep
+// a bad call from launching.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int B, int Sq, int Sk, int H, int Hkv, int hd, int is_bf16,
               int causal, int window, int q_offset, int device,
@@ -285,11 +544,17 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, lse, B, Sq, Sk, H, Hkv,
+  const Args a = make_args(Sq, Sk, H, Hkv, hd, causal, window, q_offset);
+  switch (hd) {
+#define CASE(D)                                                            \
+  case D:                                                                  \
+    return is_bf16 ? launch_bf16<D>(q, k, v, o, lse, B, a, st)             \
+                   : launch_f32<D>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,     \
                                    causal, window, q_offset, st);
-  return dispatch<float>(hd, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal,
-                         window, q_offset, st);
+    FLASH_FWD_HEAD_DIMS(CASE)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* flash_fwd_error_string(int code) {

@@ -5,10 +5,9 @@ Counterpart of ``repro/kernels/flash_attention.py``.  Three kernels replace
 the three Pallas kernels there: ``csrc/flash_fwd.cu`` the forward
 ``_flash_kernel``, and ``csrc/flash_bwd.cu`` the backward
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``; see the notes at
-the top of those files for their design and what bounds them.  The
-backward has two designs chosen by the dtype: bf16 inputs run on the
-tensor cores (``mma.sync`` with bf16 operands, f32 sums), f32 inputs on
-f32 FMA.
+the top of those files for their design and what bounds them.  Each has
+two designs chosen by the dtype: bf16 inputs run on the tensor cores
+(``mma.sync`` with bf16 operands, f32 sums), f32 inputs on f32 FMA.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers every
 caller goes through.  They take the plain version only for tensors on the
@@ -17,11 +16,13 @@ launch (``flash_attention_fwd.launches``, ``flash_bwd_dq.launches``,
 ``flash_bwd_dkv.launches``).  ``FlashAttention`` wires them into a
 ``torch.autograd.Function``, the analogue of the reference's custom VJP.
 
-The plain backward (``flash_bwd_dq_ref``, ``flash_bwd_dkv_ref``) computes
-in f32, as the Pallas kernels do.  The bf16 kernels round P and dS to bf16
-where they feed a product; ``flash_bwd_dq_bf16_ref`` and
+The plain versions compute in f32, as the Pallas kernels do.  The bf16
+kernels round P (forward, dk/dv) and dS (backward) to bf16 where they feed
+a product; ``flash_attention_fwd_bf16_ref``, ``flash_bwd_dq_bf16_ref`` and
 ``flash_bwd_dkv_bf16_ref`` mirror that rounding, so the card's bf16
-kernels can be held to them more tightly than to the f32 version.
+kernels can be held to them more tightly than to the f32 versions.  The
+mirrors are for tests and ``chip_smoke.py``: on the CPU the wrappers
+return the f32 plain versions for every dtype.
 
 Layouts are the JAX package's: q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd), query
 head ``h`` reads KV head ``h // G`` (G = H // Hkv); outputs o (B,Sq,H,hd)
@@ -29,6 +30,8 @@ in q's dtype and lse (B,Hkv,G,Sq) in f32.  Masked scores are the finite
 ``NEG_INF``, as in the Pallas kernel, which visits every KV block: a row
 with no unmasked key averages V over all keys.  The backward masks
 explicitly, so such a row gets zero gradient, as in the Pallas backward.
+On the card, bf16 q, k, v (and the backward's do) must be 16-byte
+aligned: the bf16 kernels stage rows with 16-byte copies.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ from . import backend
 
 __all__ = ["NEG_INF", "DEFAULT_BLOCK_K", "KERNEL_HEAD_DIMS",
            "KERNEL_BWD_HEAD_DIMS", "KERNEL_MAX_GROUP", "flash_attention_fwd",
-           "flash_attention_fwd_ref", "flash_attention_bwd",
+           "flash_attention_fwd_ref", "flash_attention_fwd_bf16_ref",
+           "kernel_block_k", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "flash_bwd_dq_bf16_ref",
            "flash_bwd_dkv_bf16_ref", "FlashAttention",
@@ -67,13 +71,19 @@ def _block_mask(q_pos, k_pos, causal: bool, window: int | None):
     return mask
 
 
-def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
-                            window: int | None = None, q_offset: int = 0,
-                            block_k: int = DEFAULT_BLOCK_K):
-    """Plain PyTorch online-softmax forward over KV blocks of ``block_k``
-    (the last one may be short), math in f32.  Mirrors
-    ``repro.models.layers._flash_fwd_impl`` without its block skipping,
-    i.e. what ``_flash_kernel`` computes.  Returns (o, lse)."""
+def _f32(t):
+    return t
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _fwd_sum(q, k, v, rnd, causal, window, q_offset, block_k):
+    """The online-softmax forward over KV blocks of ``block_k`` (the last
+    one may be short), math in f32; p is passed through ``rnd`` where it
+    feeds p v, and l sums the unrounded p.  Returns (o (B,Sq,H,hd) f32,
+    lse (B,Hkv,G,Sq))."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -96,14 +106,43 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
-                                                    vj)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                    rnd(p), vj)
         m = m_new
     l = torch.clamp_min(l, 1e-30)
     o = acc / l[..., None]
     lse = m + torch.log(l)
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
-    return o.contiguous(), lse
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd), lse
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
+                            window: int | None = None, q_offset: int = 0,
+                            block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch online-softmax forward over KV blocks of ``block_k``
+    (the last one may be short), math in f32.  Mirrors
+    ``repro.models.layers._flash_fwd_impl`` without its block skipping,
+    i.e. what ``_flash_kernel`` computes.  Returns (o, lse)."""
+    o, lse = _fwd_sum(q, k, v, _f32, causal, window, q_offset, block_k)
+    return o.to(q.dtype).contiguous(), lse
+
+
+def kernel_block_k(hd: int) -> int:
+    """Keys per KV tile of the bf16 forward kernel at head dim ``hd``."""
+    return 32 if hd >= 256 else 64
+
+
+def flash_attention_fwd_bf16_ref(q, k, v, *, causal: bool = True,
+                                 window: int | None = None,
+                                 q_offset: int = 0):
+    """Plain PyTorch forward as the bf16 kernel computes it: its KV tiles
+    (``kernel_block_k``), p rounded to bf16 where it feeds p v, the row
+    sum l taken over the unrounded f32 p, sums in f32.  f32 inputs are not
+    rounded, so for them this is :func:`flash_attention_fwd_ref` at those
+    tiles.  Returns (o, lse) in f32: the kernel's one further rounding, of
+    o to bf16 on its store, is left to the caller's tolerance."""
+    rnd = _bf16 if q.dtype == torch.bfloat16 else _f32
+    return _fwd_sum(q, k, v, rnd, causal, window, q_offset,
+                    kernel_block_k(q.shape[3]))
 
 
 def _check(q, k, v, window, head_dims=KERNEL_HEAD_DIMS) -> None:
@@ -136,6 +175,11 @@ def _check(q, k, v, window, head_dims=KERNEL_HEAD_DIMS) -> None:
                          f"{head_dims} and at most "
                          f"{KERNEL_MAX_GROUP} query heads per KV head, got "
                          f"hd={hd} G={H // Hkv}")
+    # the bf16 kernels stage rows with 16-byte copies
+    if q.is_cuda and q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash attention: bf16 q, k and v must be 16-byte "
+                         "aligned on the card")
 
 
 def _lib() -> ctypes.CDLL:
@@ -244,14 +288,6 @@ def _dkv_sums(q, k, v, do, lse, delta, rnd, causal, window, q_offset,
     return torch.cat(dks, 1), torch.cat(dvs, 1)
 
 
-def _f32(t):
-    return t
-
-
-def _bf16(t):
-    return t.to(torch.bfloat16).float()
-
-
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
                      window: int | None = None, q_offset: int = 0,
                      block_k: int = DEFAULT_BLOCK_K):
@@ -324,11 +360,9 @@ def _check_bwd(q, k, v, o, lse, do, window) -> None:
         raise ValueError(f"flash attention backward: lse must be a "
                          f"contiguous f32 tensor {(B, Hkv, H // Hkv, Sq)} "
                          f"on {q.device}")
-    # the bf16 kernels stage rows with 16-byte copies
-    if q.is_cuda and q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("flash attention backward: bf16 q, k, v and do "
-                         "must be 16-byte aligned on the card")
+    if q.is_cuda and q.dtype == torch.bfloat16 and do.data_ptr() % 16:
+        raise ValueError("flash attention backward: bf16 do must be "
+                         "16-byte aligned on the card")
 
 
 def _bwd_lib() -> ctypes.CDLL:

@@ -10,11 +10,13 @@ Tolerances: 3e-5 (f32) and 2e-2 (bf16) absolute on the forward, the JAX
 kernel tests' own; 1e-4 (f32) and 2e-2 (bf16) times max|ref| on the
 backward, as ``chip_smoke.py`` holds them.  The kernels sum in another
 order than the plain versions, and bf16 outputs may round to the
-neighbouring value.  The bf16 backward kernels are also held to the plain
-version that mirrors their bf16 rounding of P and dS, under 4e-3 times
-max|ref|: that version returns f32, so what is left is the kernels' own
-rounding of dq, dk and dv to bf16 (half an ulp, at most 2**-8 = 3.9e-3 of
-max|ref|) and f32 sums in another order.  TF32 is off for the plain
+neighbouring value.  The bf16 kernels are also held to the plain versions
+that mirror their bf16 rounding of P (forward, dk/dv) and dS (backward),
+under 4e-3 times max|ref|: those versions return f32, so what is left is
+the kernels' own rounding of o, dq, dk and dv to bf16 (half an ulp, at
+most 2**-8 = 3.9e-3 of max|ref|) and f32 sums in another order; the
+forward's lse, which is not rounded, is held to its mirror within 1e-4
+times max(1, max|lse|).  TF32 is off for the plain
 versions' f32 einsums.  The int8 kernels equal their plain versions bit
 for bit (NaN where NaN).  The WKV kernel's o and final state agree with
 its plain version within 1e-4 times max(1, max|ref|), as
@@ -57,6 +59,11 @@ def _inputs(B, Sq, Sk, H, Hkv, hd, dtype, dev, seed=0):
     return mk(B, Sq, H, hd), mk(B, Sk, Hkv, hd), mk(B, Sk, Hkv, hd)
 
 
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+MIRROR_TOL = 4e-3      # bf16 kernels against their mirror (module docstring)
+LSE_MIRROR_TOL = 1e-4
+
+
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal,window,q_offset", [
     (1, 512, 512, 12, 12, 64, True, None, 0),      # gpt-100m prefill
     (2, 777, 777, 8, 2, 64, True, None, 0),        # ragged, GQA
@@ -67,6 +74,7 @@ def _inputs(B, Sq, Sk, H, Hkv, hd, dtype, dev, seed=0):
     (1, 128, 384, 4, 1, 64, True, None, 256),      # continuation chunk
     (1, 128, 256, 4, 2, 16, True, 64, 300),        # fully masked rows
     (1, 96, 96, 6, 2, 256, True, None, 0),
+    (1, 300, 300, 10, 1, 256, True, 128, 0),       # recurrentgemma: G = 10
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
@@ -83,6 +91,15 @@ def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
     assert o.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=1e-6)
+    if dtype == torch.bfloat16:
+        o_m, lse_m = fa.flash_attention_fwd_bf16_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
+        torch.testing.assert_close(
+            o.float(), o_m, rtol=0,
+            atol=MIRROR_TOL * o_m.abs().max().item())
+        torch.testing.assert_close(
+            lse, lse_m, rtol=1e-6,
+            atol=LSE_MIRROR_TOL * max(1.0, lse_m.abs().max().item()))
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(dev):
@@ -92,6 +109,15 @@ def test_flash_kernel_rejects_what_it_cannot_take(dev):
     q, k, v = _inputs(1, 64, 64, 4, 2, 64, torch.float16, dev)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention_fwd(q, k, v)
+    # bf16 rows are staged with 16-byte copies: a contiguous view that
+    # starts 2 bytes into its storage is refused
+    qkv = _inputs(1, 64, 64, 4, 2, 64, torch.bfloat16, dev)
+    for i, t in enumerate(qkv):
+        args = list(qkv)
+        args[i] = torch.zeros(t.numel() + 1, device=dev,
+                              dtype=t.dtype)[1:].view(t.shape)
+        with pytest.raises(ValueError, match="aligned"):
+            fa.flash_attention_fwd(*args)
 
 
 def _f32(params, device):
@@ -123,10 +149,6 @@ def test_serve_on_card_launches_the_kernel(dev):
     assert all(r.state is ReqState.DONE for r in out["requests"])
     assert out["generated"].shape == (3, 5)
     assert fa.flash_attention_fwd.launches == cfg.n_layers * out["prefills"]
-
-
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-MIRROR_TOL = 4e-3      # bf16 kernels against their mirror (module docstring)
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal,window,q_offset", [

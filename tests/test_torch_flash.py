@@ -3,9 +3,11 @@
 On CPU tensors the wrapper runs the kernel's plain version; it is held
 against the Pallas kernel in interpret mode (what ``tests/test_kernels.py``
 runs) on o AND lse, and against ``naive_attention`` at ragged lengths.
-Inputs come from numpy with a seed.  Tolerances are the JAX kernel tests'
-own: 3e-5 absolute in f32, 2e-2 in bf16 (one bf16 ulp of an output near 2
-is 1.6e-2).
+The plain version that mirrors the card's bf16 kernel (p rounded to bf16
+where it feeds p v) is held against the Pallas kernel too.  Inputs come
+from numpy with a seed.  Tolerances are the JAX kernel tests' own: 3e-5
+absolute in f32, 2e-2 in bf16 (one bf16 ulp of an output near 2 is
+1.6e-2).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -32,18 +34,21 @@ def _inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed=0):
     return jx, pt
 
 
+CASES = [   # B, Sq, Sk, Hkv, G, hd, causal, window, q_offset, block, dtype
+    (1, 128, 128, 2, 1, 64, True, None, 0, 64, "float32"),
+    (1, 128, 128, 1, 2, 64, False, None, 0, 64, "float32"),
+    (2, 128, 128, 1, 4, 128, True, None, 0, 64, "float32"),
+    (1, 128, 128, 2, 2, 128, False, None, 0, 128, "bfloat16"),
+    (1, 256, 256, 1, 4, 64, True, None, 0, 128, "bfloat16"),
+    (1, 128, 128, 2, 2, 64, True, 48, 0, 64, "float32"),
+    (1, 128, 256, 1, 2, 64, True, None, 128, 64, "float32"),
+    # q positions 200..327 past Sk + window: fully masked rows too
+    (1, 128, 256, 2, 1, 128, True, 64, 200, 64, "bfloat16"),
+]
+
+
 @pytest.mark.parametrize(
-    "B,Sq,Sk,Hkv,G,hd,causal,window,q_offset,block,dtype", [
-        (1, 128, 128, 2, 1, 64, True, None, 0, 64, "float32"),
-        (1, 128, 128, 1, 2, 64, False, None, 0, 64, "float32"),
-        (2, 128, 128, 1, 4, 128, True, None, 0, 64, "float32"),
-        (1, 128, 128, 2, 2, 128, False, None, 0, 128, "bfloat16"),
-        (1, 256, 256, 1, 4, 64, True, None, 0, 128, "bfloat16"),
-        (1, 128, 128, 2, 2, 64, True, 48, 0, 64, "float32"),
-        (1, 128, 256, 1, 2, 64, True, None, 128, 64, "float32"),
-        # q positions 200..327 past Sk + window: fully masked rows too
-        (1, 128, 256, 2, 1, 128, True, 64, 200, 64, "bfloat16"),
-    ])
+    "B,Sq,Sk,Hkv,G,hd,causal,window,q_offset,block,dtype", CASES)
 def test_flash_fwd_matches_pallas_kernel(B, Sq, Sk, Hkv, G, hd, causal,
                                          window, q_offset, block, dtype):
     (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, Hkv * G, Hkv, hd, dtype)
@@ -61,6 +66,54 @@ def test_flash_fwd_matches_pallas_kernel(B, Sq, Sk, Hkv, G, hd, causal,
     np.testing.assert_allclose(as_f32(o), as_f32(o_ref), atol=tol, rtol=0)
     np.testing.assert_allclose(as_f32(lse), as_f32(lse_ref), atol=tol,
                                rtol=0)
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,Hkv,G,hd,causal,window,q_offset,block",
+    [c[:10] for c in CASES if c[10] == "bfloat16"])
+def test_flash_fwd_bf16_mirror_matches_pallas(B, Sq, Sk, Hkv, G, hd, causal,
+                                              window, q_offset, block):
+    """The plain version of the bf16 tensor-core kernel (its 64-key tiles,
+    p rounded to bf16 where it feeds p v) against the Pallas forward (f32
+    p) on the same bf16 inputs: o and lse."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, Hkv * G, Hkv, hd,
+                                      "bfloat16")
+    o_ref, lse_ref = jax_fwd(jq, jk, jv, causal=causal, window=window,
+                             q_offset=q_offset, block_q=block,
+                             block_k=block, interpret=True)
+    o, lse = fa.flash_attention_fwd_bf16_ref(q, k, v, causal=causal,
+                                             window=window,
+                                             q_offset=q_offset)
+    assert o.dtype == lse.dtype == torch.float32
+    assert tuple(o.shape) == tuple(o_ref.shape)
+    assert tuple(lse.shape) == tuple(lse_ref.shape)
+    tol = TOL["bfloat16"]
+    np.testing.assert_allclose(as_f32(o), as_f32(o_ref), atol=tol, rtol=0)
+    np.testing.assert_allclose(as_f32(lse), as_f32(lse_ref), atol=tol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,H,Hkv,hd,causal,window,q_offset", [
+        (1, 128, 128, 4, 2, 64, True, None, 0),
+        (2, 100, 100, 4, 4, 32, False, None, 0),
+        (1, 96, 96, 10, 1, 256, True, 40, 0),      # G = 10, 32-key tiles
+        (1, 128, 256, 4, 2, 16, True, 64, 300),    # fully masked rows
+    ])
+def test_flash_fwd_bf16_mirror_is_plain_for_f32(B, Sq, Sk, H, Hkv, hd,
+                                                causal, window, q_offset):
+    """f32 inputs are not rounded: the mirror is then the f32 plain version
+    at the kernel's KV tiles, bit for bit; and at its own 512-key blocks
+    the plain version agrees within f32 noise."""
+    _, (q, k, v) = _inputs(B, Sq, Sk, H, Hkv, hd, "float32", seed=3)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o_m, lse_m = fa.flash_attention_fwd_bf16_ref(q, k, v, **kw)
+    o, lse = fa.flash_attention_fwd_ref(q, k, v, **kw,
+                                        block_k=fa.kernel_block_k(hd))
+    assert torch.equal(o_m, o) and torch.equal(lse_m, lse)
+    o, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(o_m, o, atol=TOL["float32"], rtol=0)
+    torch.testing.assert_close(lse_m, lse, atol=TOL["float32"], rtol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

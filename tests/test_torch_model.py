@@ -66,8 +66,13 @@ def _close(got, want, tol):
     np.testing.assert_allclose(as_f32(got), as_f32(want), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["gpt_100m", "tinyllama_1p1b", "qwen3_4b"])
+# gemma3-12b (windowed layers) in f32 only: in bf16 the two frameworks'
+# roundings compound through its layers to k-cache entries several ulps
+# apart (0.031 at |k| up to 2.7 from layer 1 on), above CACHE_TOL's 2e-2
+@pytest.mark.parametrize("arch,dtype", [
+    (a, d) for d in ("float32", "bfloat16")
+    for a in ("gpt_100m", "tinyllama_1p1b", "qwen3_4b")]
+    + [("gemma3_12b", "float32")])
 def test_prefill_and_paged_decode_match_reference(arch, dtype):
     """Right-padded prefill (logits at last_pos, caches), the scatter into
     paged pools, then greedy paged decode steps across block boundaries:
