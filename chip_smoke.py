@@ -67,7 +67,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    final state must equal, bit for bit, that of the same request padded
    to 320), the reference kernel test's three shapes, and decays on the
    clip (w = 0.1923) and near 1; times beside the plain version's and the
-   bound, one JSON line per shape;
+   bound, the launch the kernel chose (blocks per head, blocks, threads,
+   blocks an SM holds) and its registers and spills (ptxas), one JSON
+   line per shape; at 8 x 512 and 1 x 304 also its time at 1, 2 and 4
+   blocks a head.  Each ``--parent-wkv LIB`` (a shared library built from
+   an earlier ``csrc/wkv.cu``) is held to the plain version there too and
+   timed in turns with the kernel (kernel, parents, the parents in
+   reverse, kernel);
 14. the RWKV-6 serving path: ``make_prefill_fn``/``make_decode_fn`` on
    rwkv6-1.6b at full width (24 layers, d 2048, random weights from a
    seed), a batch of 8 prompts of 512 tokens and one of 300, 16 greedy
@@ -82,6 +88,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 """
+import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -163,6 +171,7 @@ WKV_SHAPES = [
     ("decay near 1", 1, 512, 32, 64, "one"),
 ]
 WKV_MAIN = 0            # the shape the RWKV-6 prefill gives the kernel
+WKV_TURNS = (0, 1)      # the shapes timed at each split and with parents
 # o and the final state, relative to max(1, max|ref|): the reference kernel
 # test's atol (tests/test_kernels.py:104) at unit scale
 WKV_TOL = 1e-4
@@ -772,9 +781,57 @@ def wkv_work(B, S, H, hd, C=16):
     return flops, nbytes
 
 
-def wkv_phase(torch, kw, shape) -> dict:
+def ptxas_of(log: str, kernel: str) -> dict:
+    """Registers and spilled bytes of each instance of ``kernel`` in a
+    ``-Xptxas -v`` log, by its template arguments."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            cur = None
+            if kernel in name:
+                cur = kernel + "".join(
+                    f"<{a}>" for a in re.findall(r"ILi(\d+)E", name))
+                out[cur] = {}
+        elif cur:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[cur]["spill_stores"] = int(m.group(1))
+                out[cur]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def parent_wkv(path):
+    """An earlier WKV kernel's library, for timing in turns: its wkv_fwd
+    called as this one is (the launcher's choice where it takes n_split)."""
+    lib = ctypes.CDLL(str(Path(path).resolve()))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    split = hasattr(lib, "wkv_plan")
+    lib.wkv_fwd.argtypes = [P] * 7 + [I] * 5 + [P] + [I] * split
+    lib.wkv_fwd.restype = I
+
+    def run(torch, r, k, v, w, u, o, st):
+        B, S, H, hd = r.shape
+        err = lib.wkv_fwd(*[t.data_ptr() for t in (r, k, v, w, u, o, st)],
+                          B, S, H, hd, r.device.index,
+                          torch.cuda.current_stream().cuda_stream,
+                          *[0] * split)
+        if err:
+            fail(f"the parent WKV kernel failed to launch: {err}")
+    return run
+
+
+def wkv_phase(torch, kw, shape, ptxas, parents=None) -> dict:
     """The WKV kernel against its plain version on one shape, o and the
-    final state; its time beside the plain version's and the bound."""
+    final state; its time beside the plain version's and the bound.  With
+    ``parents`` (a dict, maybe empty) also its time at 1, 2 and 4 blocks a
+    head, and each earlier kernel held to the plain version and timed in
+    turns with it."""
     name, B, S0, H, hd, decays = shape
     ins = wkv_inputs(torch, B, S0, H, hd, decays)
     S = S0 + (-S0) % kw.CHUNK
@@ -811,6 +868,28 @@ def wkv_phase(torch, kw, shape) -> dict:
            "bound_rates": "3.35 TB/s; 67 TFLOP/s f32 (non-tensor)",
            "flops": flops, "bytes": nbytes, "library_ms": None}
     rec["kernel_gflops"] = flops / rec["kernel_ms"] / 1e6
+    rec["launch"] = kw.launch_plan(B, H, hd)
+    rec["ptxas"] = ptxas
+    if parents is not None:
+        rec["n_split_ms"] = {n: cuda_ms(torch, lambda: kw.wkv_chunked(
+            *ins, return_state=True, n_split=n), 20) for n in (1, 2, 4)}
+        o_p = torch.empty_like(o)
+        st_p = torch.empty_like(st)
+        runs = {"kernel": lambda: kw.wkv_chunked(*ins, return_state=True)}
+        for lib, run in parents.items():
+            run(torch, *ins, o_p, st_p)
+            torch.cuda.synchronize()
+            # an earlier kernel computes the same function: the same bound
+            for what, got, want in (("o", o_p, o_ref),
+                                    ("S_fin", st_p, st_ref)):
+                err = (got - want).abs().max().item()
+                if not err <= WKV_TOL * max(1.0, want.abs().max().item()):
+                    fail(f"the WKV kernel {lib}'s {what} misses by {err}")
+            runs[lib] = lambda run=run: run(torch, *ins, o_p, st_p)
+        if parents:
+            order = list(runs) + list(runs)[::-1]
+            rec["turns_ms"] = [[n, cuda_ms(torch, runs[n], 50)]
+                               for n in order]
     print(json.dumps({"wkv": rec}), flush=True)
     return rec
 
@@ -916,6 +995,12 @@ def rwkv_answer(torch, get_config) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-wkv", metavar="LIB", action="append",
+                    default=[], help="a shared library built from an "
+                    "earlier csrc/wkv.cu, timed in turns with this one "
+                    "under its file name (repeatable)")
+    args = ap.parse_args()
     if not KERNELS.is_dir():
         fail(f"{KERNELS} not found: run from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
@@ -953,6 +1038,8 @@ def main() -> None:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}: {line.strip()}")
+    wkv_ptxas = ptxas_of(logs.get("wkv", ""), "wkv_kernel")
+    print(json.dumps({"wkv_ptxas": wkv_ptxas}), flush=True)
     mma = {**tensor_core_ops(backend.sass("flash_fwd")),
            **tensor_core_ops(backend.sass("flash_bwd"))}
     print(json.dumps({"flash_sass_hmma": mma}), flush=True)
@@ -1078,7 +1165,10 @@ def main() -> None:
     grid_answer(torch)
 
     # 13. the WKV kernel against its plain version
-    wkv_recs = [wkv_phase(torch, kw, s) for s in WKV_SHAPES]
+    parents = {Path(p).stem: parent_wkv(p) for p in args.parent_wkv}
+    wkv_recs = [wkv_phase(torch, kw, s, wkv_ptxas,
+                          parents if i in WKV_TURNS else None)
+                for i, s in enumerate(WKV_SHAPES)]
 
     # 14. the RWKV-6 serving path
     rcfg = get_config("rwkv6-1.6b")

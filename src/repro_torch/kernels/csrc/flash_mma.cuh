@@ -2,7 +2,7 @@
 // (flash_fwd.cu, flash_bwd.cu): the call's fixed arguments, 16-byte
 // `cp.async` staging of query rows and key tiles into bf16 shared-memory
 // tiles, `ldmatrix` fragment loads and `mma.sync.m16n8k16` with bf16
-// operands and f32 accumulators.
+// operands and f32 accumulators.  wkv.cu takes its `cp.async` helpers.
 //
 // Layouts.  Query rows are folded: row r of a ROWS-row tile is query
 // q0 + r % bq of head hkv * G + r / bq (G * bq <= ROWS), so one K/V tile in

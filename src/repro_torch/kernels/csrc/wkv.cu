@@ -17,159 +17,398 @@
 // rearranged form would round differently.  Logs and exps are logf and
 // expf (no fast-math intrinsics) and the cumulative sum runs in order.
 //
-// Design.  The Pallas kernel runs one program per batch * head, stages the
-// whole (S, hd) sequence in VMEM and walks the chunks with a fori_loop
-// carrying the (hd, hd) state.  Here one thread block per (b, h) walks the
-// chunks the same way, but stages only one chunk at a time: the state
-// (hd x hd f32, 16 KB at hd 64) lives in shared memory for the whole
-// sequence and each chunk's r, k, v, w rows (16 x hd f32 each) are loaded
-// into shared memory in the (B, S, H, hd) layout of the caller, so the
-// (B*H, S, hd) transpose of the Pallas wrapper is never made.  4 * hd
-// threads: thread (row tr, column e) owns output rows t = tr + 4i of
-// column e and state rows d = tr + 4i of column e.  Per chunk:
-//   A. stage the chunk (coalesced rows of hd floats);
-//   B. one thread per column d computes the decays in order over the 16
-//      steps and writes r e_excl, k / e and u k;
-//   C. the inter-chunk term into registers, and the 16 x 16 scores (the
-//      diagonal holds the bonus r . (u k)) into shared memory;
-//   D. the intra-chunk product and the bonus finish o, which is written;
-//      then each thread updates its state entries in place.
-// Tile rows are padded to 65 floats so column reads hit distinct banks.
+// Design.  The Pallas kernel runs one program per batch * head and walks
+// the chunks with a fori_loop carrying the (hd, hd) state.  Here a head's
+// chunks run in order inside one thread block of 4 hd threads (rounded to
+// whole warps), and the state lives in registers:
+//   - Value columns.  Column e of o and of the state needs only column e
+//     of v and of the state, so a head's columns may be split over
+//     n_split blocks (tiles of ceil(hd / n_split) columns, the last one
+//     short) that never talk.  Each block holds its tile's columns in its
+//     first warps: thread 32 w + 8 q + i holds column e0 + 8 w + i and its
+//     rows d = 16 m + 4 q + l (m, l < 4), 16 registers.  The launcher
+//     splits only where one block per (b, h) would leave SMs idle (batch
+//     1): every block repeats the decays and the scores, which need all hd
+//     columns.
+//   - Staging (A).  Each chunk's r, k, w, v rows (16 x hd f32 each) are copied
+//     from the caller's (B, S, H, hd) layout by `cp.async` (16 bytes where
+//     hd % 4 == 0 and the pointers are 16-byte aligned, else 4) into a
+//     two-stage ring in shared memory: chunk c + 1 is in flight while
+//     chunk c computes.
+// Per chunk, every thread of the block works in each phase:
+//   B. the decays: log max(w, 1e-8) of every entry in parallel, then the
+//      16-step prefix sum in order, one thread per column (the only
+//      sequential part), then exp, r e_excl, k / e, (k / e) e_C and u k of
+//      every entry in parallel, rounded as the oracle rounds them;
+//   C. the inter-chunk term: each state thread sums re[t] . S[:, e] over
+//      its 16 rows for all 16 t from float4 reads of r e_excl (4 FMAs a
+//      read, one address for the 8 lanes of a quarter warp), and a
+//      column's four partial sums are added by two warp shuffles, lane q
+//      keeping t = 4 i + q; meanwhile the other threads take the 136
+//      scores (the strictly lower 16 x 16 and the bonus r . (u k) on the
+//      diagonal), float4 dot products, one thread each;
+//   D. each state thread finishes o for its 4 steps and updates its 16
+//      state entries from float4 reads of (k / e) e_C.
+// Tile rows are padded to 68 floats: float4 rows, and 8 consecutive rows
+// start in 8 different bank groups.  A column's arithmetic (which rows a
+// thread sums, in which order, and how the four sums are added) does not
+// depend on the split, and every score is one thread's in a fixed order,
+// so any n_split gives the same o and state bit for bit.  No tensor
+// cores: TF32 keeps 10 mantissa bits, and at the decay clip k / e reaches
+// 3e11 |k| within a chunk, so the chunk products would miss the kernel's
+// 1e-4 tolerance.
 //
 // What bounds it on the H100.  Per (b, h) and chunk it does about
 // 4 C hd^2 + 2 C^2 hd flops (0.29 MFLOP at hd 64) on 5 C hd floats it
 // must read or write (r, k, v, w in, o out): 14 flops a byte, under the
 // f32 FMA machine balance (67 TFLOP/s / 3.35 TB/s = 20), so the roofline
-// bound is device-memory bandwidth.  This first kernel is far from it: it
-// is plain f32 FMA fed from shared memory, the decay pass runs on hd of the
-// 4 hd threads, no chunk's loads overlap the previous chunk's work, and at
-// batch 1 the 32 heads of rwkv6-1.6b fill 32 of the card's 132 SMs.
-// Tensor cores, several blocks per head and a pipelined staging ring are
-// later work.
+// bound is device-memory bandwidth.  The kernel is bound instead by one
+// chunk's latency times the chunks of a head, which run in order: all
+// blocks of the prefill shape are resident at once.  Within a chunk the
+// inter-chunk product and the state update read one float of shared
+// memory for each FMA (the state is in registers, its multiplier is not),
+// then come the decays, the scores and five barriers.  Moving the
+// state-independent work (decays, scores) of the next chunk off this
+// chain is later work.
 //
 // Interface: plain C, launched on the caller's stream; returns
 // cudaGetLastError() (0 on success).  Inputs contiguous f32, hd <= 64,
 // S a multiple of 16 (the wrapper checks); s_fin may be null.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "flash_mma.cuh"            // cp.async and smem_u32
 
 namespace {
 
 constexpr int C = 16;               // chunk length (the reference's CHUNK)
 constexpr int MAX_HD = 64;
-constexpr int LD = MAX_HD + 1;      // tile row stride: column reads conflict-free
-constexpr int ROWS = C / 4;         // chunk rows per thread
+constexpr int LD = MAX_HD + 4;      // tile row stride, in floats
+constexpr int TILE = C * LD;
+constexpr int SLD = C + 4;          // score row stride
+constexpr int PAIRS = C * (C + 1) / 2;   // scores on and below the diagonal
+constexpr int MAX_THREADS = 4 * MAX_HD;
+constexpr int STAGES = 2;           // the ring of staged chunks
+// floats of shared memory: r, k, w, v of each stage; r e_excl, k / e,
+// (k / e) e_C (the logs before it), u k; the scores; e_C and u
+constexpr int SMEM_FLOATS = (4 * STAGES + 4) * TILE + C * SLD + 2 * MAX_HD;
+constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
-__global__ void __launch_bounds__(4 * MAX_HD)
+// VEC floats global -> shared, asynchronously
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if (VEC == 4)
+    cp_async16(dst, src, true);
+  else
+    cp_async4(dst, src, true);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+// Start copying a chunk's r, k, w, v rows into the stage at `tiles`
+// (four tiles: r, k, w, v), VEC floats per copy; one commit group.
+template <int VEC>
+__device__ __forceinline__ void stage(
+    float* tiles, const float* __restrict__ r, const float* __restrict__ k,
+    const float* __restrict__ w, const float* __restrict__ v, size_t off,
+    size_t step, int hd) {
+  const int per_row = hd / VEC;
+  for (int i = threadIdx.x; i < C * per_row; i += blockDim.x) {
+    const int t = i / per_row, d = (i - t * per_row) * VEC;
+    const size_t g = off + (size_t)t * step + d;
+    float* const x = tiles + t * LD + d;
+    cp_async<VEC>(x, r + g);
+    cp_async<VEC>(x + TILE, k + g);
+    cp_async<VEC>(x + 2 * TILE, w + g);
+    cp_async<VEC>(x + 3 * TILE, v + g);
+  }
+  cp_async_commit();
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(MAX_THREADS, 2)
 wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, float* __restrict__ o,
-           float* __restrict__ s_fin, int S, int H, int hd) {
-  __shared__ float st[MAX_HD * MAX_HD];     // state, row d, column e
-  __shared__ float rs[C * LD], ks[C * LD], vs[C * LD];
-  __shared__ float uk[C * LD];              // w, then u * k
-  __shared__ float re[C * LD];              // r * e_excl
-  __shared__ float kk[C * LD];              // k / max(e, 1e-30)
-  __shared__ float sc[C * C];               // scores; bonus on the diagonal
-  __shared__ float ec[MAX_HD];              // e at the chunk's last step
+           float* __restrict__ s_fin, int S, int H, int hd, int n_split,
+           int cols) {
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const re = ring + 4 * STAGES * TILE;   // r * e_excl
+  float* const kk = re + TILE;      // k / max(e, 1e-30)
+  float* const ke = kk + TILE;      // the logs' prefix sums, then kk * e_C
+  float* const uk = ke + TILE;      // u * k
+  float* const sc = uk + TILE;      // scores; the bonus on the diagonal
+  float* const ec = sc + C * SLD;   // e at the chunk's last step
+  float* const us = ec + MAX_HD;    // u of this head
 
-  const int bh = blockIdx.x;
-  const int h = bh % H;
   const int tid = threadIdx.x;
-  const int e = tid % hd;
-  const int tr = tid / hd;
+  const int nt = blockDim.x;
+  const int bh = blockIdx.x / n_split;     // the head
+  const int e0 = (blockIdx.x - bh * n_split) * cols;   // its first column
+  const int h = bh % H;
   const size_t step = (size_t)H * hd;       // one time step of (B,S,H,hd)
   const size_t base = (size_t)(bh / H) * S * step + (size_t)h * hd;
+  // this block's columns e0 .. e0 + cols - 1 (fewer in the last block)
+  // are held by its first warps: thread 32 w + 8 q + i holds column
+  // e0 + 8 w + i; the other warps only stage and share the decays and the
+  // scores
+  const int q = (tid >> 3) & 3;             // row quarter of the column
+  const int ci = (tid >> 5) * 8 + (tid & 7);   // the column in the tile
+  const int e = e0 + ci;                    // the column
+  const bool col = ci < cols && e < hd;
+  const bool state_warp = (tid & ~31) < 4 * cols;
+  const int n4 = (hd + 3) >> 2;             // float4s a row's dot reads
+  const int n16 = (hd + 15) >> 4;           // 16-row groups of the state
 
-  for (int d = tr; d < hd; d += 4) st[d * hd + e] = 0.f;
+  // the pad columns the float4 reads reach stay zero; e_C and u of the
+  // pad rows are zero, so their state rows stay zero
+  for (int i = tid; i < 4 * STAGES * TILE; i += nt)
+    if (i % LD >= hd) ring[i] = 0.f;
+  for (int d = tid; d < MAX_HD; d += nt) {
+    ec[d] = 0.f;
+    us[d] = d < hd ? u[h * hd + d] : 0.f;
+  }
+  float st[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) st[i] = 0.f;
+  if (S > 0) stage<VEC>(ring, r, k, w, v, base, step, hd);
 
   for (int c = 0; c < S / C; ++c) {
     const size_t off = base + (size_t)c * C * step;
-    // A. stage the chunk
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int t = tr + 4 * i;
-      const size_t g = off + (size_t)t * step + e;
-      rs[t * LD + e] = r[g];
-      ks[t * LD + e] = k[g];
-      vs[t * LD + e] = v[g];
-      uk[t * LD + e] = w[g];
+    float* const rs = ring + (c % STAGES) * 4 * TILE;
+    float* const ks = rs + TILE;
+    float* const ws = ks + TILE;
+    float* const vs = ws + TILE;
+    // chunk c has landed and every thread is past chunk c - 1, whose
+    // stage now takes chunk c + 1 while this one computes
+    cp_async_wait<0>();
+    __syncthreads();
+    if (c + 1 < S / C)
+      stage<VEC>(ring + ((c + 1) % STAGES) * 4 * TILE, r, k, w, v,
+                 off + (size_t)C * step, step, hd);
+
+    // B. decays: the logs of every entry ...
+    for (int i = tid; i < C * 16; i += nt) {
+      const int x = (i >> 4) * LD + 4 * (i & 15);
+      if (4 * (i & 15) < hd) {
+        const float4 wt = ld4(ws + x);
+        st4(ke + x, make_float4(logf(fmaxf(wt.x, 1e-8f)),
+                                logf(fmaxf(wt.y, 1e-8f)),
+                                logf(fmaxf(wt.z, 1e-8f)),
+                                logf(fmaxf(wt.w, 1e-8f))));
+      }
     }
     __syncthreads();
-
-    // B. decays, one column per thread, in order over the chunk
+    // ... their sum in order over the chunk, one thread per column ...
     if (tid < hd) {
-      const int d = tid;
-      const float ud = u[h * hd + d];
-      float cum = 0.f, ed = 1.f;
+      float cum = 0.f;
+#pragma unroll
       for (int t = 0; t < C; ++t) {
-        const float wt = fmaxf(uk[t * LD + d], 1e-8f);
-        cum += logf(wt);
-        ed = expf(cum);
-        const float kt = ks[t * LD + d];
-        re[t * LD + d] = rs[t * LD + d] * (ed / wt);
-        kk[t * LD + d] = kt / fmaxf(ed, 1e-30f);
-        uk[t * LD + d] = ud * kt;
+        cum += ke[t * LD + tid];
+        ke[t * LD + tid] = cum;
       }
-      ec[d] = ed;
+      ec[tid] = expf(cum);
+    }
+    __syncthreads();
+    // ... and every entry's products and quotients (zero past hd)
+    for (int i = tid; i < C * 16; i += nt) {
+      const int d0 = 4 * (i & 15);
+      if (d0 < 16 * n16) {
+        const int x = (i >> 4) * LD + d0;
+        const float4 wt = ld4(ws + x), rt = ld4(rs + x), kt = ld4(ks + x);
+        const float4 cs = ld4(ke + x), e4 = ld4(ec + d0), u4 = ld4(us + d0);
+        float rv[4], kv[4], kev[4], ukv[4];
+        const float wa[4] = {wt.x, wt.y, wt.z, wt.w};
+        const float ra[4] = {rt.x, rt.y, rt.z, rt.w};
+        const float ka[4] = {kt.x, kt.y, kt.z, kt.w};
+        const float ca[4] = {cs.x, cs.y, cs.z, cs.w};
+        const float ea[4] = {e4.x, e4.y, e4.z, e4.w};
+        const float ua[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          if (d0 + l < hd) {
+            const float ed = expf(ca[l]);
+            const float kq = ka[l] / fmaxf(ed, 1e-30f);
+            rv[l] = ra[l] * (ed / fmaxf(wa[l], 1e-8f));
+            kv[l] = kq;
+            kev[l] = kq * ea[l];
+            ukv[l] = ua[l] * ka[l];
+          } else {
+            rv[l] = kv[l] = kev[l] = ukv[l] = 0.f;
+          }
+        }
+        st4(re + x, make_float4(rv[0], rv[1], rv[2], rv[3]));
+        st4(kk + x, make_float4(kv[0], kv[1], kv[2], kv[3]));
+        st4(ke + x, make_float4(kev[0], kev[1], kev[2], kev[3]));
+        st4(uk + x, make_float4(ukv[0], ukv[1], ukv[2], ukv[3]));
+      }
     }
     __syncthreads();
 
-    // C. inter-chunk term (registers) and the scores (shared memory)
-    float acc[ROWS];
+    // C. inter-chunk term: this thread's rows of column e, all 16 t ...
+    float part[C];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) acc[i] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      const float s = st[d * hd + e];
+    for (int t = 0; t < C; ++t) part[t] = 0.f;
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        acc[i] = fmaf(re[(tr + 4 * i) * LD + d], s, acc[i]);
-    }
-    for (int idx = tid; idx < C * C; idx += 4 * hd) {
-      const int t = idx / C, j = idx % C;
-      float a = 0.f;
-      if (j < t) {
-        for (int d = 0; d < hd; ++d)
-          a = fmaf(re[t * LD + d], kk[j * LD + d], a);
-      } else if (j == t) {
-        for (int d = 0; d < hd; ++d)
-          a = fmaf(rs[t * LD + d], uk[t * LD + d], a);
+    for (int m = 0; m < 4; ++m) {
+      if (state_warp && m < n16) {
+#pragma unroll
+        for (int t = 0; t < C; ++t) {
+          const float4 a = ld4(re + t * LD + 16 * m + 4 * q);
+          part[t] = fmaf(a.x, st[4 * m], part[t]);
+          part[t] = fmaf(a.y, st[4 * m + 1], part[t]);
+          part[t] = fmaf(a.z, st[4 * m + 2], part[t]);
+          part[t] = fmaf(a.w, st[4 * m + 3], part[t]);
+        }
       }
-      sc[idx] = a;
+    }
+    // ... summed over the column's four lanes (8 apart); lane q keeps
+    // t = 4 i + q
+    float pair[C / 2], inter[C / 4];
+    if (state_warp) {
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) {
+        const float mine = (q & 1) ? part[2 * i + 1] : part[2 * i];
+        const float give = (q & 1) ? part[2 * i] : part[2 * i + 1];
+        pair[i] = mine + __shfl_xor_sync(0xffffffffu, give, 8);
+      }
+#pragma unroll
+      for (int i = 0; i < C / 4; ++i) {
+        const float mine = (q & 2) ? pair[2 * i + 1] : pair[2 * i];
+        const float give = (q & 2) ? pair[2 * i] : pair[2 * i + 1];
+        inter[i] = mine + __shfl_xor_sync(0xffffffffu, give, 16);
+      }
+    }
+    // the scores, one thread each, from the top thread down
+    for (int p = nt - 1 - tid; p < PAIRS; p += nt) {
+      int t = 0, j = p;             // row-major over the lower triangle
+      while (j > t) j -= ++t;
+      const float* a = (j == t ? rs : re) + t * LD;
+      const float* b = (j == t ? uk : kk) + j * LD;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < MAX_HD / 4; ++i) {
+        if (i < n4) {
+          const float4 x = ld4(a + 4 * i), y = ld4(b + 4 * i);
+          acc.x = fmaf(x.x, y.x, acc.x);
+          acc.y = fmaf(x.y, y.y, acc.y);
+          acc.z = fmaf(x.z, y.z, acc.z);
+          acc.w = fmaf(x.w, y.w, acc.w);
+        }
+      }
+      sc[t * SLD + j] = (acc.x + acc.y) + (acc.z + acc.w);
     }
     __syncthreads();
 
-    // D. finish and write o; then the state update
-    float vr[C];
-#pragma unroll
-    for (int j = 0; j < C; ++j) vr[j] = vs[j * LD + e];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int t = tr + 4 * i;
-      float intra = 0.f, bonus = 0.f;
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        if (j < t) intra = fmaf(sc[t * C + j], vr[j], intra);
-        if (j == t) bonus = sc[t * C + j] * vr[j];
+    // D. o for this lane's 4 steps; then its 16 state entries
+    if (state_warp) {
+      float vr[C];
+  #pragma unroll
+      for (int j = 0; j < C; ++j) vr[j] = col ? vs[j * LD + e] : 0.f;
+  #pragma unroll
+      for (int i = 0; i < C / 4; ++i) {
+        const int t = 4 * i + q;
+        float intra = 0.f, bonus = 0.f;
+  #pragma unroll
+        for (int j4 = 0; j4 < C / 4; ++j4) {
+          const float4 s4 = ld4(sc + t * SLD + 4 * j4);
+          const float sa[4] = {s4.x, s4.y, s4.z, s4.w};
+  #pragma unroll
+          for (int l = 0; l < 4; ++l) {
+            const int j = 4 * j4 + l;
+            if (j < t) intra = fmaf(sa[l], vr[j], intra);
+            if (j == t) bonus = sa[l] * vr[j];
+          }
+        }
+        if (col) o[off + (size_t)t * step + e] = (inter[i] + intra) + bonus;
       }
-      o[off + (size_t)t * step + e] = (acc[i] + intra) + bonus;
+  #pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (m < n16) {
+          float a[4] = {0.f, 0.f, 0.f, 0.f};
+  #pragma unroll
+          for (int j = 0; j < C; ++j) {
+            const float4 x = ld4(ke + j * LD + 16 * m + 4 * q);
+            a[0] = fmaf(x.x, vr[j], a[0]);
+            a[1] = fmaf(x.y, vr[j], a[1]);
+            a[2] = fmaf(x.z, vr[j], a[2]);
+            a[3] = fmaf(x.w, vr[j], a[3]);
+          }
+          const float4 e4 = ld4(ec + 16 * m + 4 * q);
+          st[4 * m] = fmaf(e4.x, st[4 * m], a[0]);
+          st[4 * m + 1] = fmaf(e4.y, st[4 * m + 1], a[1]);
+          st[4 * m + 2] = fmaf(e4.z, st[4 * m + 2], a[2]);
+          st[4 * m + 3] = fmaf(e4.w, st[4 * m + 3], a[3]);
+        }
+      }
     }
-    for (int d = tr; d < hd; d += 4) {
-      const float ecd = ec[d];
-      float a = 0.f;
-#pragma unroll
-      for (int j = 0; j < C; ++j) a = fmaf(kk[j * LD + d] * ecd, vr[j], a);
-      st[d * hd + e] = ecd * st[d * hd + e] + a;
-    }
-    __syncthreads();
   }
-
-  if (s_fin != nullptr) {
-    float* out = s_fin + (size_t)bh * hd * hd;
-    for (int d = tr; d < hd; d += 4) out[d * hd + e] = st[d * hd + e];
+  if (s_fin != nullptr && col) {
+    float* out = s_fin + (size_t)bh * hd * hd + e;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int d = 16 * m + 4 * q + l;
+        if (d < hd) out[(size_t)d * hd] = st[4 * m + l];
+      }
   }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+int sm_count(int device) {
+  static int sms[64];
+  if (device < 64 && sms[device]) return sms[device];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)
+      != cudaSuccess)
+    return 0;
+  if (device < 64) sms[device] = n;
+  return n;
+}
+
+// The launch of one call.  n_split blocks share a head's value columns
+// only where one block per (b, h) would leave SMs idle: as many as the
+// SMs hold heads, at most ceil(hd / 16), so each block keeps at least 16
+// columns against the decays and scores it repeats.  A caller's own
+// n_split (a test's) is rounded to the blocks its column tiles need.
+struct Plan {
+  int n_split, cols, blocks, threads;
+};
+
+Plan plan_of(int B, int H, int hd, int n_split, int sms) {
+  if (n_split == 0) {
+    const long long heads = (long long)B * H;
+    n_split = heads > 0 && heads < sms ? (int)(sms / heads) : 1;
+    n_split = n_split < (hd + 15) / 16 ? n_split : (hd + 15) / 16;
+  }
+  Plan p;
+  p.cols = (hd + n_split - 1) / n_split;
+  p.n_split = (hd + p.cols - 1) / p.cols;
+  p.blocks = B * H * p.n_split;
+  p.threads = (4 * hd + 31) / 32 * 32;
+  return p;
+}
+
+template <int VEC>
+cudaError_t opt_in(int device) {
+  static bool opted[64];          // dynamic shared memory above 48 KB
+  if (device < 64 && opted[device]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      wkv_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (e == cudaSuccess && device < 64) opted[device] = true;
+  return e;
+}
+
+bool args_ok(int B, int H, int hd, int n_split) {
+  return B >= 0 && H >= 1 && hd >= 1 && hd <= MAX_HD && n_split >= 0
+         && n_split <= hd && (long long)B * H * hd <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -177,20 +416,53 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
 extern "C" {
 
 // r, k, v, w f32 (B,S,H,hd), u f32 (H,hd) -> o f32 (B,S,H,hd) and, if
-// s_fin is not null, the final state f32 (B,H,hd,hd)
+// s_fin is not null, the final state f32 (B,H,hd,hd).  n_split 0 is the
+// launcher's choice of blocks per head; 1..hd asks for that many (tests).
 int wkv_fwd(const void* r, const void* k, const void* v, const void* w,
             const void* u, void* o, void* s_fin, int B, int S, int H, int hd,
-            int device, void* stream) {
-  if (B < 0 || S < 0 || S % C || H < 1 || hd < 1 || hd > MAX_HD
-      || (long long)B * H > 0x7fffffffLL)
+            int device, void* stream, int n_split) {
+  if (!args_ok(B, H, hd, n_split) || S < 0 || S % C)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0) return 0;
-  wkv_kernel<<<B * H, 4 * hd, 0, (cudaStream_t)stream>>>(
-      (const float*)r, (const float*)k, (const float*)v, (const float*)w,
-      (const float*)u, (float*)o, (float*)s_fin, S, H, hd);
+  const Plan p = plan_of(B, H, hd, n_split, sm_count(device));
+  const bool vec = hd % 4 == 0 && aligned16(r) && aligned16(k)
+                   && aligned16(v) && aligned16(w);
+  e = vec ? opt_in<4>(device) : opt_in<1>(device);
+  if (e != cudaSuccess) return (int)e;
+  const float *r_ = (const float*)r, *k_ = (const float*)k,
+              *v_ = (const float*)v, *w_ = (const float*)w,
+              *u_ = (const float*)u;
+  if (vec)
+    wkv_kernel<4><<<p.blocks, p.threads, SMEM_BYTES, (cudaStream_t)stream>>>(
+        r_, k_, v_, w_, u_, (float*)o, (float*)s_fin, S, H, hd, p.n_split,
+        p.cols);
+  else
+    wkv_kernel<1><<<p.blocks, p.threads, SMEM_BYTES, (cudaStream_t)stream>>>(
+        r_, k_, v_, w_, u_, (float*)o, (float*)s_fin, S, H, hd, p.n_split,
+        p.cols);
   return (int)cudaGetLastError();
+}
+
+// What wkv_fwd would launch: plan = {n_split, blocks, threads a block,
+// dynamic shared bytes a block, blocks an SM holds at once}.
+int wkv_plan(int B, int H, int hd, int n_split, int device, int* plan) {
+  if (!args_ok(B, H, hd, n_split)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = opt_in<4>(device);
+  if (e != cudaSuccess) return (int)e;
+  const Plan p = plan_of(B, H, hd, n_split, sm_count(device));
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, wkv_kernel<4>, p.threads, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  plan[0] = p.n_split;
+  plan[1] = p.blocks;
+  plan[2] = p.threads;
+  plan[3] = (int)SMEM_BYTES;
+  plan[4] = per_sm;
+  return 0;
 }
 
 const char* wkv_error_string(int code) {

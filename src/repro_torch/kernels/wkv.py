@@ -23,11 +23,11 @@ import torch
 
 from . import backend
 
-__all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "NOT_PORTED_BWD",
+__all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "NOT_PORTED_BWD", "launch_plan",
            "wkv_chunk_scan_ref", "wkv_chunked"]
 
 CHUNK = 16
-KERNEL_MAX_HEAD_DIM = 64        # the (hd, hd) f32 state in shared memory
+KERNEL_MAX_HEAD_DIM = 64        # 4 hd threads a block, 16 state floats each
 NOT_PORTED_BWD = "ROADMAP.md, Queue 1 item 6: RWKV-6 training"
 
 
@@ -35,20 +35,23 @@ def wkv_chunk_scan_ref(r, k, v, w, u, chunk: int):
     """Chunked linear recurrence S_t = diag(w_t) S_{t-1} + k_t v_t^T with
     per-step output o_t = r_t S_{t-1} + (r_t . (u*k_t)) v_t.
 
-    r,k,v,w: (B,S,H,hd) f32, w in (0,1); u: (H,hd) f32.  Returns (o
-    (B,S,H,hd), S_final (B,H,hd,hd)), both f32."""
+    r,k,w: (B,S,H,hd) f32, w in (0,1); v: (B,S,H,hv) f32, hv = hd or
+    any slice of v's columns; u: (H,hd) f32.  Returns (o (B,S,H,hv),
+    S_final (B,H,hd,hv)), both f32: column e of each needs only column e
+    of v."""
     B, S, H, hd = r.shape
+    hv = v.shape[-1]
     C = chunk
     if S % C != 0:
         raise ValueError(f"linear-attention chunking needs S % chunk "
                          f"== 0, got S={S} chunk={C}")
     n = S // C
-    fold = lambda t: t.reshape(B, n, C, H, hd).permute(1, 0, 3, 2, 4)
-    rs, ks, vs, ws = (fold(t) for t in (r, k, v, w))    # (n,B,H,C,hd)
+    fold = lambda t: t.reshape(B, n, C, H, -1).permute(1, 0, 3, 2, 4)
+    rs, ks, vs, ws = (fold(t) for t in (r, k, v, w))    # (n,B,H,C,hd|hv)
     mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
                       -1)
-    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    os_ = torch.empty((n, B, H, C, hd), dtype=torch.float32, device=r.device)
+    state = torch.zeros((B, H, hd, hv), dtype=torch.float32, device=r.device)
+    os_ = torch.empty((n, B, H, C, hv), dtype=torch.float32, device=r.device)
     for i in range(n):
         rc, kc, vc, wc = rs[i], ks[i], vs[i], ws[i]
         logw = torch.log(torch.clamp_min(wc, 1e-8))
@@ -68,11 +71,11 @@ def wkv_chunk_scan_ref(r, k, v, w, u, chunk: int):
         ec = e[:, :, -1]
         state = ec[..., None] * state + torch.einsum(
             "bhtd,bhte->bhde", kk * ec[:, :, None], vc)
-    o = os_.permute(1, 0, 3, 2, 4).reshape(B, S, H, hd)
+    o = os_.permute(1, 0, 3, 2, 4).reshape(B, S, H, hv)
     return o, state
 
 
-def _check(r, k, v, w, u, chunk: int) -> None:
+def _check(r, k, v, w, u, chunk: int, n_split: int) -> None:
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
                 or t.shape != r.shape or t.dim() != 4:
@@ -95,26 +98,50 @@ def _check(r, k, v, w, u, chunk: int) -> None:
     if not 1 <= hd <= KERNEL_MAX_HEAD_DIM:
         raise ValueError(f"wkv_chunked takes head_dim 1..{KERNEL_MAX_HEAD_DIM}"
                          f", got {hd}")
+    if not 0 <= n_split <= hd:
+        raise ValueError(f"wkv_chunked takes n_split 0..{hd} (0: the "
+                         f"launcher's choice), got {n_split}")
 
 
 def _lib() -> ctypes.CDLL:
     lib = backend.load("wkv")
     if lib.wkv_fwd.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.wkv_fwd.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+        lib.wkv_fwd.argtypes = [ptr] * 7 + [i] * 5 + [ptr, i]
         lib.wkv_fwd.restype = ctypes.c_int
+        lib.wkv_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.wkv_plan.restype = ctypes.c_int
         lib.wkv_error_string.argtypes = [i]
         lib.wkv_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def launch_plan(B: int, H: int, hd: int, n_split: int = 0,
+                device: int | None = None) -> dict:
+    """What the kernel launches for a (B, S, H, hd) call on a card:
+    blocks per head (``n_split``), blocks, threads and dynamic shared bytes
+    a block, and how many blocks an SM holds at once."""
+    dev = torch.cuda.current_device() if device is None else device
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.wkv_plan(B, H, hd, n_split, dev, out)
+    if err:
+        raise RuntimeError(f"wkv_plan failed: "
+                           f"{lib.wkv_error_string(err).decode()}")
+    return dict(zip(("n_split", "blocks", "threads", "smem_bytes",
+                     "blocks_per_sm"), out))
+
+
 def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
-                return_state: bool = False):
+                return_state: bool = False, n_split: int = 0):
     """r,k,v,w: (B,S,H,hd) f32; u: (H,hd) f32.  Returns o (B,S,H,hd) f32,
     and with ``return_state`` also the final state (B,H,hd,hd) f32.
 
-    S must divide by ``chunk`` (callers pad, as ``models.layers`` does)."""
-    _check(r, k, v, w, u, chunk)
+    S must divide by ``chunk`` (callers pad, as ``models.layers`` does).
+    ``n_split`` is a test hook: 0 lets the kernel's launcher choose how many
+    blocks share a head's value columns, 1..hd asks for that many; the
+    plain version ignores it (its columns are independent either way)."""
+    _check(r, k, v, w, u, chunk, n_split)
     if not r.is_cuda:
         o, state = wkv_chunk_scan_ref(r, k, v, w, u, chunk)
         return (o, state) if return_state else o
@@ -132,7 +159,8 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
                       u.data_ptr(), o.data_ptr(),
                       None if state is None else state.data_ptr(),
                       B, S, H, hd, r.device.index,
-                      torch.cuda.current_stream(r.device).cuda_stream)
+                      torch.cuda.current_stream(r.device).cuda_stream,
+                      n_split)
     if err:
         raise RuntimeError(f"wkv_fwd launch failed: "
                            f"{lib.wkv_error_string(err).decode()}")

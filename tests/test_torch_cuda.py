@@ -357,6 +357,7 @@ def _pad_wkv(ins, S):
 
 @pytest.mark.parametrize("B,S,H,hd,decays", [
     (8, 512, 32, 64, "model"),     # rwkv6-1.6b prefill
+    (1, 304, 32, 64, "model"),     # batch 1: the heads split over blocks
     (2, 64, 2, 16, "test"), (1, 128, 4, 32, "test"), (1, 64, 1, 64, "test"),
     (1, 256, 32, 64, "clip"), (1, 256, 32, 64, "one"),
     (2, 48, 3, 24, "model"),       # a head dim that is no power of two
@@ -375,6 +376,39 @@ def test_wkv_kernel_matches_plain(dev, B, S, H, hd, decays):
         tol = 1e-4 * max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, atol=tol, rtol=0)
     assert torch.equal(o_only, o)
+
+
+@pytest.mark.parametrize("B,S,H,hd,decays", [
+    (1, 304, 32, 64, "model"), (2, 48, 3, 24, "model"),
+    (1, 256, 32, 64, "clip")])
+def test_wkv_kernel_split_is_exact(dev, B, S, H, hd, decays):
+    """Column e of o and of the state needs only column e of v and of the
+    state, and the kernel does a column's arithmetic the same way whichever
+    block holds it: 1, 2, 4 and 5 blocks a head (5 divides neither 64 nor
+    24: tiles of 13 or 5 columns, the last one short) give the same o and
+    final state bit for bit."""
+    ins = _wkv_inputs(B, S, H, hd, decays, dev)
+    o1, s1 = kw.wkv_chunked(*ins, return_state=True, n_split=1)
+    for n in (2, 4, 5):
+        plan = kw.launch_plan(B, H, hd, n)
+        assert plan["n_split"] == n and plan["blocks"] == B * H * n
+        o, st = kw.wkv_chunked(*ins, return_state=True, n_split=n)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o1) and torch.equal(st, s1), n
+
+
+def test_wkv_launcher_splits_only_where_sms_idle(dev):
+    """The launcher's choice: one block per (b, h) where the heads fill the
+    SMs, else as many blocks a head as the SMs hold heads, at most
+    ceil(hd / 16); all of the prefill shape's blocks resident at once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, H, hd in ((8, 32, 64), (1, 32, 64), (1, 2, 64), (2, 3, 24),
+                     (1, 200, 64)):
+        want = min((hd + 15) // 16, max(1, sms // (B * H)))
+        plan = kw.launch_plan(B, H, hd)
+        assert plan["n_split"] == want and plan["blocks"] == B * H * want
+        assert plan["threads"] == (4 * hd + 31) // 32 * 32
+    assert kw.launch_plan(8, 32, 64)["blocks_per_sm"] * sms >= 8 * 32
 
 
 def test_wkv_kernel_pad_leaves_state_exact(dev):

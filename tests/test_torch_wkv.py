@@ -72,6 +72,27 @@ def test_ref_matches_pallas_kernel(B, S, H, hd, decay):
     close(o.numpy(), jo)
 
 
+@pytest.mark.parametrize("B,S,H,hd,decay", CASES)
+def test_ref_on_a_column_slice_of_v_gives_that_slice(B, S, H, hd, decay):
+    """What the kernel's split of a head over blocks rests on: run on a
+    slice of v's columns (all of r, k, w, u), the plain version gives that
+    slice of the full run's o and final state.  Tolerance 1e-6 times
+    max(1, max|ref|): einsum may block a narrower operand differently."""
+    r, k, v, w, u = map(torch.from_numpy, wkv_inputs(B, S, H, hd, decay,
+                                                      seed=2))
+    o, s_fin = wkv_chunk_scan_ref(r, k, v, w, u, CHUNK)
+    cut = (hd + 2) // 3                   # three tiles, the last one short
+    for a in range(0, hd, cut):
+        b = min(hd, a + cut)
+        o_s, s_s = wkv_chunk_scan_ref(r, k, v[..., a:b].contiguous(), w, u,
+                                      CHUNK)
+        assert o_s.shape == (B, S, H, b - a)
+        assert s_s.shape == (B, H, hd, b - a)
+        for got, want in ((o_s, o[..., a:b]), (s_s, s_fin[..., a:b])):
+            tol = 1e-6 * max(1.0, want.abs().max().item())
+            torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
 def test_cpu_wrapper_is_the_plain_version():
     ins = [torch.from_numpy(a) for a in wkv_inputs(2, 48, 3, 16, "model")]
     before = wkv_chunked.launches
@@ -79,6 +100,7 @@ def test_cpu_wrapper_is_the_plain_version():
     want_o, want_s = wkv_chunk_scan_ref(*ins, CHUNK)
     assert torch.equal(o, want_o) and torch.equal(s_fin, want_s)
     assert torch.equal(wkv_chunked(*ins), want_o)
+    assert torch.equal(wkv_chunked(*ins, n_split=3), want_o)
     assert wkv_chunked.launches == before       # no kernel on the CPU
 
 
@@ -115,3 +137,6 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         wkv_chunked(r.double(), k, v, w, u)
     with pytest.raises(ValueError, match="u must be"):
         wkv_chunked(r, k, v, w, u[:1])
+    for n in (-1, 17):                    # hd 16
+        with pytest.raises(ValueError, match="n_split"):
+            wkv_chunked(r, k, v, w, u, n_split=n)
