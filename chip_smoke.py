@@ -83,7 +83,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    weights, a 300-token prompt and 4 greedy steps on the card and on the
    CPU: the prefill's logits and cache, and each step's from the CPU's
    cache and token, agree leaf by leaf; a free run of the card's own cache
-   holds its logits to the same tolerance.
+   holds its logits to the same tolerance;
+16. the seven collectives by tree on 8 ranks sharing the card (gloo,
+   staged through host memory): on the ``"p2p"`` backend over a topology
+   of 2 pods of 2 boards of 2, the bcast of gpt-100m's bf16 parameters from
+   rank 3 (219,059,712 bytes, twice: the second builds no tree and hits the
+   plan cache), the all-reduce of its f32 gradient (438,119,424 bytes),
+   reduce, gather and scatter at roots 0, 3 and 7, allgather (1 MiB per
+   rank) and barrier, each held bit for bit to a replay in this process of
+   the plans' ``Lowered.device_rounds()`` and ``tree_rounds`` folds, with
+   the bytes each link level carried held to the plans' sends and the
+   slow-level messages of each bcast to ``slow_crossings``; then on the
+   ``"torch"`` backend of a 4 x 2 grid, the seven ops and
+   ``allreduce_tree`` of gpt-100m's 10 leaves in ``"multilevel"`` and
+   ``"multilevel_compress"``, without and with an EF residual, bit for bit
+   where the summation order is fixed and within 1e-6 of max|ref| where
+   gloo adds more than two terms its own way, every rank launching one
+   quantise (or fused EF quantise) and one dequantise per compressed call.
+   Each op's wall ms (the slowest rank), the bytes staged per rank, the
+   bytes per link level and the plan cache are printed.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -183,6 +201,21 @@ RWKV_GEN = 16
 # apart.
 RWKV_TOL = 1e-4
 BF16_ULP = 2.0 ** -7
+# phase 16: the seven collectives by tree on 8 ranks sharing the card
+TREE_WORLD = 8
+TREE_ROOTS = (0, 3, 7)
+TREE_SMALL = 1 << 18        # f32 elements per rank: 1 MiB
+TREE_GRID = (4, 2)          # pods x data of the torch backend: board pairs
+# gpt-100m's 10 leaves in the reference's stacked layout: the embedding,
+# the final norm, and over its 12 layers wq, wk, wv, wo, w1, w2 and the
+# two norms
+GPT_100M_LEAVES = [(32000, 768), (768,)] + [(12, 768, 768)] * 4 + [
+    (12, 768, 3072), (12, 3072, 768), (12, 768), (12, 768)]
+TREE_SEEDS = {"params": 1000, "grad": 2000, "x": 3000, "g": 4000,
+              "sc": 5000, "ef": 6000}
+# where gloo adds more than two terms in an order of its own, relative to
+# max|ref|; every other result of the phase is held bit for bit
+TREE_REL_TOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -994,6 +1027,461 @@ def rwkv_answer(torch, get_config) -> dict:
     return rec
 
 
+def tree_topology():
+    """The topology of phase 16: 2 pods of 2 boards of 2 ranks, the shape
+    of ``examples/tree_collectives_on_mesh.py``; its first stratum is a
+    2 x 4 grid's pods.  The card's link classes are not measured yet
+    (ROADMAP.md, Queue 1 item 3), so the levels carry names only: policy
+    "paper" builds its trees from the coordinates."""
+    from repro_torch.core.topology import Level, Topology
+
+    return Topology([[i // 4, i // 2] for i in range(TREE_WORLD)],
+                    [Level(n, 0.0, 1.0) for n in ("pod", "board", "rank")])
+
+
+def tree_input(torch, key, rank):
+    """Rank ``rank``'s operand ``key`` of phase 16, made on the card from a
+    seed: bf16 parameters and an f32 gradient at gpt-100m's width, 1 MiB
+    per rank for the other ops (``sc``: the root's [8, ...] scatter
+    buffer), and the EF residual of the compressed tree sync."""
+    from repro_torch.core import collectives as C
+    from repro_torch.core import compression
+
+    n = {"params": GPT_100M_PARAMS, "grad": GPT_100M_PARAMS,
+         "x": TREE_SMALL, "g": TREE_SMALL, "sc": TREE_WORLD * TREE_SMALL}
+    if key == "ef":
+        like = [torch.empty(s, device="meta") for s in GPT_100M_LEAVES]
+        n["ef"] = C.compress_ef_zeros(like, TREE_GRID[1],
+                                      tile=compression.QTILE).numel()
+    gen = torch.Generator(device="cuda").manual_seed(TREE_SEEDS[key] + rank)
+    t = torch.randn(n[key], generator=gen, device="cuda")
+    if key == "params":
+        return t.to(torch.bfloat16)
+    if key == "sc":
+        return t.reshape(TREE_WORLD, TREE_SMALL)
+    return 0.01 * t if key == "ef" else t
+
+
+def leaves_of(flat):
+    """gpt-100m's leaves as views of one flat buffer."""
+    out, off = {}, 0
+    for i, shape in enumerate(GPT_100M_LEAVES):
+        n = math.prod(shape)
+        out[f"leaf{i}"] = flat[off:off + n].reshape(shape)
+        off += n
+    return out
+
+
+def flat_of(torch, tree):
+    return torch.cat([tree[f"leaf{i}"].reshape(-1)
+                      for i in range(len(GPT_100M_LEAVES))])
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes: equal digests are bit for bit."""
+    import hashlib
+    import torch
+
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    return hashlib.sha256(b.numpy().tobytes()).hexdigest()
+
+
+def tree_rank(rank):
+    """One of the 8 ranks of phase 16, sharing the card over gloo: the
+    seven collectives on the ``"p2p"`` backend (2 x 2 x 2 topology), then
+    on the ``"torch"`` backend of a 4 x 2 grid with ``allreduce_tree`` of
+    gpt-100m's leaves, each op timed between barriers and its output kept
+    as a digest (or, where gloo sums more than two terms, as an array)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Communicator
+    from repro_torch.kernels import quant as kq
+    from repro_torch.launch.mesh import grid_communicator, make_grid
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    topo = tree_topology()
+    ins = {k: tree_input(torch, k, rank)
+           for k in ("params", "grad", "x", "g", "sc", "ef")}
+    p2p = Communicator(topo, policy="paper", backend="p2p")
+    rec = {"p2p": {}, "torch": {}}
+    arrays = {}
+
+    def timed(backend, name, fn, keep=False):
+        peers = p2p.backend.peers
+        b0, m0 = dict(peers.link_bytes), dict(peers.link_messages)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        r = {"ms": (time.perf_counter() - t0) * 1e3, "digest": digest(out)}
+        if backend == "p2p":
+            r["link_bytes"] = {k: v - b0[k]
+                               for k, v in peers.link_bytes.items()}
+            r["link_messages"] = {k: v - m0[k]
+                                  for k, v in peers.link_messages.items()}
+        rec[backend][name] = r
+        if keep:
+            arrays[f"{backend}/{name}"] = out.cpu().numpy()
+
+    def seven(backend, comm, bcast_roots):
+        x, g, sc = ins["x"], ins["g"], ins["sc"]
+        for root in bcast_roots:
+            timed(backend, f"bcast_{root}",
+                  lambda: comm.bcast(x, root=root))
+        for root in TREE_ROOTS:
+            timed(backend, f"reduce_{root}",
+                  lambda: comm.reduce(x, root=root),
+                  keep=backend == "torch" and rank == root)
+            timed(backend, f"gather_{root}",
+                  lambda: comm.gather(g, root=root))
+            timed(backend, f"scatter_{root}",
+                  lambda: comm.scatter(sc, root=root))
+        timed(backend, "allgather", lambda: comm.allgather(g))
+        timed(backend, "barrier", lambda: comm.barrier())
+
+    # the p2p backend: the weight broadcast and the gradient all-reduce at
+    # gpt-100m's width, the rest at 1 MiB per rank
+    timed("p2p", "bcast_params_3", lambda: p2p.bcast(ins["params"], root=3))
+    cache0 = tuple(p2p.cache_info())
+    timed("p2p", "bcast_params_3_again",
+          lambda: p2p.bcast(ins["params"], root=3))
+    cache1 = tuple(p2p.cache_info())
+    timed("p2p", "allreduce_grad", lambda: p2p.allreduce(ins["grad"]))
+    seven("p2p", p2p, ())
+    # the torch backend on a 4 x 2 grid (the topology's board pairs)
+    grid = make_grid(*TREE_GRID, dev)
+    tc = grid_communicator(grid, list(topo.levels))
+    seven("torch", tc, TREE_ROOTS)
+    timed("torch", "allreduce", lambda: tc.allreduce(ins["x"]), keep=True)
+    for f in (kq.quantize_int8, kq.dequantize_int8, kq.quantize_ef_int8):
+        f.launches = 0
+    tree = leaves_of(ins["grad"])
+    launches = {}
+    for name, kw in (("multilevel", {}),
+                     ("multilevel_compress", {"mode": "multilevel_compress"}),
+                     ("multilevel_compress_ef", {
+                         "mode": "multilevel_compress", "ef": ins["ef"]})):
+        def sync(kw=kw):
+            out = tc.allreduce_tree(tree, **kw)
+            if "ef" in kw:
+                return torch.cat([flat_of(torch, out[0]), out[1]])
+            return flat_of(torch, out)
+        timed("torch", f"allreduce_tree_{name}", sync,
+              keep=name == "multilevel")
+        launches[name] = {f.__name__: f.launches for f in (
+            kq.quantize_int8, kq.dequantize_int8, kq.quantize_ef_int8)}
+    return {"rec": rec, "arrays": arrays, "cache": (cache0, cache1),
+            "launches": launches, "backend": grid.backend,
+            "staging": grid.staging,
+            "staged_bytes": {"p2p": p2p.backend.peers.staged_bytes,
+                             "torch": grid.staged_bytes}}
+
+
+def replay_lowered(torch, xs, lowered):
+    """``tree_exec.run_lowered`` for every rank in one process: ``xs[r]``
+    is rank r's operand; each round's sends carry what their sources held
+    before the round, and a receiver folds ``cur + recv`` or copies."""
+    C = max(1, lowered.nchunks)
+    bufs = []
+    for x in xs:
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % C
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        bufs.append(flat.reshape(C, -1).clone())
+    for rnd in lowered.device_rounds():
+        sent = {(s, c): bufs[s][c].clone() for s, _, c, _ in rnd}
+        for s, d, c, kind in rnd:
+            recv = sent[(s, c)]
+            bufs[d][c] = bufs[d][c] + recv if kind == "reduce" else recv
+    return [b.reshape(-1)[:x.numel()].reshape(x.shape)
+            for b, x in zip(bufs, xs)]
+
+
+def replay_bcast(xs, tree):
+    """``tree_exec.tree_bcast`` for every rank in one process."""
+    from repro_torch.core.tree_exec import tree_rounds
+
+    xs, have = list(xs), {tree.root}
+    for rnd in tree_rounds(tree):
+        sent = {s: xs[s] for s, _ in rnd}
+        for s, d in rnd:
+            if d not in have:
+                xs[d] = sent[s]
+            have.add(d)
+    return xs
+
+
+def replay_reduce(xs, tree):
+    """``tree_exec.tree_reduce`` for every rank in one process: children
+    send up in reversed round order, the parent folds ``cur + recv``."""
+    from repro_torch.core.tree_exec import tree_rounds
+
+    xs = list(xs)
+    for rnd in reversed(tree_rounds(tree)):
+        sent = {d: xs[d] for _, d in rnd}
+        for s, d in rnd:
+            xs[s] = xs[s] + sent[d]
+    return xs
+
+
+def replay_gather(torch, gs, tree):
+    """``tree_exec.tree_gather_flat`` for every rank in one process."""
+    bufs = []
+    for r, g in enumerate(gs):
+        b = g.new_zeros((len(gs),) + tuple(g.shape))
+        b[r] = g
+        bufs.append(b)
+    return replay_reduce(bufs, tree)
+
+
+def p2p_want(torch, comm, grads):
+    """The p2p backend's outputs for every rank, replayed in one process
+    from the plans' ``Lowered.device_rounds()`` and ``tree_rounds``."""
+    ins = {k: [tree_input(torch, k, r) for r in range(TREE_WORLD)]
+           for k in ("x", "g", "sc")}
+    want = {}
+    params = tree_input(torch, "params", 3)
+    nb = params.numel() * params.element_size()
+    want["bcast_params_3"] = replay_lowered(
+        torch, [params if r == 3 else torch.zeros_like(params)
+                for r in range(TREE_WORLD)],
+        comm.plan("bcast", root=3, nbytes=nb).lower(nb))
+    want["bcast_params_3_again"] = want["bcast_params_3"]
+    nb = grads[0].numel() * 4
+    want["allreduce_grad"] = replay_lowered(
+        torch, grads, comm.plan("allreduce", nbytes=nb).lower(nb))
+    for root in TREE_ROOTS:
+        tree = comm.plan("reduce", root=root).tree
+        r = replay_reduce(ins["x"], tree)[root]
+        want[f"reduce_{root}"] = [r if i == root else torch.zeros_like(r)
+                                  for i in range(TREE_WORLD)]
+        b = replay_gather(torch, ins["g"], tree)[root]
+        want[f"gather_{root}"] = [b if i == root else torch.zeros_like(b)
+                                  for i in range(TREE_WORLD)]
+        full = replay_bcast(ins["sc"], tree)
+        want[f"scatter_{root}"] = [full[i][i] for i in range(TREE_WORLD)]
+    tree = comm.plan("allgather").tree
+    want["allgather"] = replay_bcast(replay_gather(torch, ins["g"], tree),
+                                     tree)
+    tree = comm.plan("barrier").tree
+    token = torch.zeros((), dtype=torch.float32)
+    want["barrier"] = replay_bcast(replay_reduce([token] * TREE_WORLD, tree),
+                                   tree)
+    return want
+
+
+def torch_want(torch, grads):
+    """The torch backend's outputs for every rank, from the same sums in
+    one process: exact where a sum has two terms or the port sums the
+    dequantised pods; where gloo adds more terms its own way, the
+    reference the tolerance is held to."""
+    from repro_torch.core import compression as C
+
+    ins = {k: [tree_input(torch, k, r) for r in range(TREE_WORLD)]
+           for k in ("x", "g", "sc")}
+    W, (pods, data) = TREE_WORLD, TREE_GRID
+    want, ref = {}, {}
+    total = sum(ins["x"][1:], ins["x"][0])
+    for root in TREE_ROOTS:
+        want[f"bcast_{root}"] = [ins["x"][root]] * W
+        # zeros off the root; the root's sum is held to the tolerance
+        want[f"reduce_{root}"] = [None if i == root else
+                                  torch.zeros_like(total) for i in range(W)]
+        ref[f"reduce_{root}"] = total
+        stacked = torch.stack(ins["g"])
+        want[f"gather_{root}"] = [stacked if i == root else
+                                  torch.zeros_like(stacked) for i in range(W)]
+        want[f"scatter_{root}"] = [ins["sc"][root][i] for i in range(W)]
+    want["allgather"] = [torch.stack(ins["g"])] * W
+    want["barrier"] = [torch.zeros((), dtype=torch.float32)] * W
+    ref["allreduce"] = total
+    # the gradient tree: pod sums over the fast axis of 2 are exact
+    pod = [grads[data * p] + grads[data * p + 1] for p in range(pods)]
+    ref["allreduce_tree_multilevel"] = sum(pod[1:], pod[0])
+    n = GPT_100M_PARAMS // data
+    full = []
+    for d in range(data):
+        parts = []
+        for p in range(pods):
+            chunk, _ = C.pad_to_block(pod[p][d * n:(d + 1) * n])
+            parts.append(C.dequantize_int8(*C.quantize_int8(chunk))[:n])
+        full.append(sum(parts[1:], parts[0]))
+    want["allreduce_tree_multilevel_compress"] = [torch.cat(full)] * W
+    efs = [tree_input(torch, "ef", r) for r in range(W)]
+    n = efs[0].numel()
+    padded = [torch.nn.functional.pad(p, (0, n * data - p.numel()))
+              for p in pod]
+    full, new_ef = [], [None] * W
+    for d in range(data):
+        parts = []
+        for p in range(pods):
+            chunk, _ = C.pad_to_block(padded[p][d * n:(d + 1) * n])
+            efp, _ = C.pad_to_block(efs[data * p + d])
+            q, s, r = C.quantize_ef_int8(chunk, efp)
+            parts.append(C.dequantize_int8(q, s)[:n])
+            new_ef[data * p + d] = r[:n]
+        full.append(sum(parts[1:], parts[0]))
+    full = torch.cat(full)[:GPT_100M_PARAMS]
+    want["allreduce_tree_multilevel_compress_ef"] = [
+        torch.cat([full, e]) for e in new_ef]
+    return want, ref
+
+
+def digests(want: dict) -> dict:
+    """Each list of expected tensors as digests (None stays None), each
+    distinct tensor hashed once."""
+    seen = {}
+    return {k: [None if t is None else seen.setdefault(id(t), digest(t))
+                for t in v] for k, v in want.items()}
+
+
+def tree_phase(torch) -> dict:
+    """Phase 16: the seven collectives by tree on 8 ranks sharing the card
+    (gloo, staged through host memory), held bit for bit to their replay
+    in one process, with the link bytes, the slow-level messages and the
+    plan cache checked against the plans, and the int8 kernels' launches
+    against what the compressed syncs imply."""
+    from repro_torch.core import Communicator
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()     # the ranks share the card with this process
+    t0 = time.perf_counter()
+    res = run_ranks(tree_rank, TREE_WORLD, "gloo", timeout=900.0)
+    wall = time.perf_counter() - t0
+    topo = tree_topology()
+    comm = Communicator(topo, policy="paper")
+    grads = [tree_input(torch, "grad", r) for r in range(TREE_WORLD)]
+    checks = {}
+    for backend in ("p2p", "torch"):
+        if backend == "p2p":
+            want, ref = digests(p2p_want(torch, comm, grads)), {}
+        else:
+            want, ref = torch_want(torch, grads)
+            want = digests(want)
+        for name in res[0]["rec"][backend]:
+            got = [r["rec"][backend][name]["digest"] for r in res]
+            if name in want:
+                if any(w is not None and g != w
+                       for g, w in zip(got, want[name])):
+                    fail(f"tree collectives: {backend} {name} differs from "
+                         f"its replay in one process")
+                checks[f"{backend}/{name}"] = {"check": "bit for bit"}
+            if name in ref:
+                holders = [i for i, r in enumerate(res)
+                           if f"{backend}/{name}" in r["arrays"]]
+                want_t, err = ref[name], 0.0
+                for i in holders:
+                    a = torch.from_numpy(
+                        res[i]["arrays"][f"{backend}/{name}"]).cuda()
+                    err = max(err, (a - want_t).abs().max().item())
+                top = want_t.abs().max().item()
+                if not holders or not math.isfinite(err) \
+                        or err > TREE_REL_TOL * top:
+                    fail(f"tree collectives: {backend} {name} is {err} from "
+                         f"the sum in one process (max|ref| {top}, ranks "
+                         f"{holders})")
+                checks[f"{backend}/{name}"] = {
+                    "check": f"{TREE_REL_TOL} x max|ref|" + (
+                        " at the root, bit for bit elsewhere"
+                        if name in want else ""),
+                    "max_abs_err": err, "max_abs_ref": top,
+                    "ranks_checked": holders}
+            if name not in want and name not in ref:
+                fail(f"tree collectives: {backend} {name} has no check")
+    del grads
+    # link bytes and slow-level messages against the plans
+    level_of = lambda s, d: topo.levels[topo.comm_level(s, d)].name
+    names = [l.name for l in topo.levels]
+
+    def summed(name, key):
+        return {k: sum(r["rec"]["p2p"][name][key][k] for r in res)
+                for k in names}
+
+    def by_level(sends):
+        out = dict.fromkeys(names, 0)
+        for s, d, nb in sends:
+            out[level_of(s, d)] += nb
+        return out
+
+    params_nb = 2 * GPT_100M_PARAMS
+    plans = {"bcast_params_3": ("bcast", 3, params_nb),
+             "bcast_params_3_again": ("bcast", 3, params_nb),
+             "allreduce_grad": ("allreduce", 0, 4 * GPT_100M_PARAMS)}
+    for name, (op, root, nb) in plans.items():
+        low = comm.plan(op, root=root, nbytes=nb).lower(nb)
+        if summed(name, "link_bytes") != by_level(
+                (s.src, s.dst, int(s.nbytes)) for s in low.sends):
+            fail(f"tree collectives: {name} put {summed(name, 'link_bytes')}"
+                 f" bytes per level, its plan sends otherwise")
+    small = 4 * TREE_SMALL
+    for root in TREE_ROOTS:
+        edges = [(p, c) for p, cs in comm.plan("reduce", root=root)
+                 .tree.children.items() for c in cs]
+        for name, sends in (
+                (f"reduce_{root}", [(c, p, small) for p, c in edges]),
+                (f"gather_{root}",
+                 [(c, p, TREE_WORLD * small) for p, c in edges]),
+                (f"scatter_{root}",
+                 [(p, c, TREE_WORLD * small) for p, c in edges])):
+            if summed(name, "link_bytes") != by_level(sends):
+                fail(f"tree collectives: {name} put "
+                     f"{summed(name, 'link_bytes')} bytes per level")
+    slow = {name: summed(name, "link_messages")["pod"]
+            for name in ("bcast_params_3", "bcast_params_3_again")}
+    crossings = comm.slow_crossings("bcast", root=3)
+    if set(slow.values()) != {crossings}:
+        fail(f"tree collectives: the bcasts sent {slow} slow-level messages,"
+             f" the plan crosses {crossings} times")
+    # the second identical bcast built no tree and hit the plan cache
+    for r, got in enumerate(res):
+        (h0, m0, _, _, b0), (h1, m1, _, _, b1) = got["cache"]
+        if b1 != b0 or m1 != m0 or h1 != h0 + 1:
+            fail(f"tree collectives: rank {r}'s repeated bcast went from "
+                 f"cache {got['cache'][0]} to {got['cache'][1]}")
+    want_launches = {
+        "multilevel": {"quantize_int8": 0, "dequantize_int8": 0,
+                       "quantize_ef_int8": 0},
+        "multilevel_compress": {"quantize_int8": 1, "dequantize_int8": 1,
+                                "quantize_ef_int8": 0},
+        "multilevel_compress_ef": {"quantize_int8": 1, "dequantize_int8": 2,
+                                   "quantize_ef_int8": 1}}
+    for r, got in enumerate(res):
+        if got["launches"] != want_launches:
+            fail(f"tree collectives: rank {r} launched {got['launches']}, "
+                 f"expected {want_launches}")
+    launches = {k: sum(g["launches"]["multilevel_compress_ef"][k]
+                       for g in res)
+                for k in want_launches["multilevel"]}
+    ops = {}
+    for backend in ("p2p", "torch"):
+        for name in res[0]["rec"][backend]:
+            ops[f"{backend}/{name}"] = {
+                "wall_ms_max_over_ranks": max(
+                    r["rec"][backend][name]["ms"] for r in res),
+                **checks[f"{backend}/{name}"]}
+    link_bytes = {name: summed(name, "link_bytes")
+                  for name in res[0]["rec"]["p2p"]}
+    rec = {"world": TREE_WORLD, "backend": res[0]["backend"],
+           "staging": res[0]["staging"], "phase_wall_s": wall,
+           "bcast_bytes": params_nb, "allreduce_bytes": 4 * GPT_100M_PARAMS,
+           "small_bytes_per_rank": small,
+           "staged_bytes_per_rank": [r["staged_bytes"] for r in res],
+           "link_bytes_all_ranks": link_bytes,
+           "slow_messages_per_bcast": crossings,
+           "plan_cache_rank0": {"before_repeat": res[0]["cache"][0],
+                                "after_repeat": res[0]["cache"][1],
+                                "fields": ["hits", "misses", "currsize",
+                                           "maxsize", "tree_builds"]},
+           "launches": launches}
+    for name, op in ops.items():
+        print(json.dumps({"tree_op": {"name": name, **op}}), flush=True)
+    print(json.dumps({"tree_collectives": rec}), flush=True)
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-wkv", metavar="LIB", action="append",
@@ -1197,6 +1685,10 @@ def main() -> None:
     # 15. the RWKV-6 answer: f32, the card against the CPU
     rwkv_answer(torch, get_config)
 
+    # 16. the seven collectives by tree on eight ranks sharing the card;
+    # each rank is a fresh process whose counters start at 0
+    tree = tree_phase(torch)
+
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
     sources = {
@@ -1215,19 +1707,23 @@ def main() -> None:
                           train_counts["flash_bwd_dkv"]
                           + grid_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
-        # training runs the fused EF kernel and the dequant
+        # training runs the fused EF kernel and the dequant; the tree
+        # phase's compressed syncs run all three
         "quantize_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                           "src/repro/kernels/quant.py:30",
                           quant["quantize_int8"],
-                          coll["launches"]["quantize_int8"]),
+                          coll["launches"]["quantize_int8"]
+                          + tree["launches"]["quantize_int8"]),
         "dequantize_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                             "src/repro/kernels/quant.py:39",
                             quant["dequantize_int8"],
-                            grid_counts["dequantize_int8"]),
+                            grid_counts["dequantize_int8"]
+                            + tree["launches"]["dequantize_int8"]),
         "quantize_ef_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                              "src/repro/kernels/quant.py:44",
                              quant["quantize_ef_int8"],
-                             grid_counts["quantize_ef_int8"]),
+                             grid_counts["quantize_ef_int8"]
+                             + tree["launches"]["quantize_ef_int8"]),
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
                 rwkv_counts["wkv"]),

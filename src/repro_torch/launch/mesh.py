@@ -20,11 +20,20 @@ counting those bytes too.
 
 ``run_ranks`` spawns the ranks of a grid on this host, each with a
 ``file://`` rendezvous, and returns what each returned.
+
+``grid_topology``, ``dp_topology`` and ``grid_communicator`` are the
+counterparts of the reference's ``mesh_topology`` (:30), ``dp_topology``
+(:45) and ``mesh_communicator`` (:67): the same strata over the grid's
+rank order, but the link classes (``Level`` objects) are the caller's — the
+port carries no rate modelled for a TPU, and the card's own come from
+discovery (ROADMAP.md, Queue 1 item 3).  The default policy, ``"paper"``,
+builds its trees from the coordinates alone.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import pickle
 import queue as queue_mod
 import shutil
 import tempfile
@@ -32,11 +41,15 @@ import time
 import traceback
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.topology import Level, Topology
+
 __all__ = ["NOT_PORTED_TP", "Axis", "Grid", "parse_mesh", "make_grid",
-           "stage_through_host", "run_ranks"]
+           "stage_through_host", "run_ranks", "grid_topology",
+           "dp_topology", "grid_communicator"]
 
 NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 3: tensor parallelism over a "
                  "model axis")
@@ -193,10 +206,54 @@ def make_grid(pods: int, data: int, device: torch.device) -> Grid:
                 Axis("dp", world, rank, stage=stage), backend)
 
 
-def _rank_entry(fn, rank, world, backend, init_method, timeout_s, args,
-                results) -> None:
+def grid_topology(grid: Grid, levels: "list[Level]") -> Topology:
+    """The Topology of a grid's ranks: strata = [pod, data-row] over the
+    row-major rank order (a data row is one rank: the grid has no model
+    axis), with the caller's three ``levels`` (slowest first); used to
+    build the paper's explicit trees for the p2p backend."""
+    idx = np.arange(grid.pods * grid.data)
+    return Topology(np.stack([idx // grid.data, idx], axis=1), levels)
+
+
+def dp_topology(grid: Grid, levels: "list[Level]") -> Topology:
+    """The Topology over the data-parallel ranks: strata = [pod], with the
+    caller's two ``levels`` (across pods, inside a pod) — the rank space of
+    the torch backend."""
+    return Topology((np.arange(grid.pods * grid.data) // grid.data)[:, None],
+                    levels)
+
+
+def grid_communicator(grid: Grid, levels: "list[Level]", *,
+                      backend: str = "torch", policy="paper", **kw):
+    """The :class:`repro_torch.core.Communicator` for a grid's ranks.
+
+    ``levels``: three link classes, slowest first (across pods, between
+    the ranks of a pod, inside a rank's data row); the dp-scoped topology
+    of the torch backend keeps the first and the last, as the reference's
+    keeps DCN and ICI.
+
+    backend "torch": grid-decomposed collectives over the grid's groups.
+    backend "p2p": explicit tree rounds on the default process group.
+    backend "sim": postal-model planning/estimation on the grid's topology.
+    """
+    from ..core import Communicator
+
+    if backend == "torch":
+        # rank space = (pod, data): the dp-scoped topology keeps member and
+        # root indices equal to the grid's ranks
+        kw.setdefault("grid", grid)
+        return Communicator(dp_topology(grid, [levels[0], levels[-1]]),
+                            backend=backend, policy=policy, **kw)
+    return Communicator(grid_topology(grid, levels), backend=backend,
+                        policy=policy, **kw)
+
+
+def _rank_entry(fn, rank, world, backend, init_method, timeout_s,
+                args_path, results) -> None:
     torch.set_num_threads(1)
     try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         dist.init_process_group(
             backend, init_method=init_method, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
@@ -212,7 +269,9 @@ def run_ranks(fn: Callable, world: int, backend: str, args: tuple = (),
               timeout: float = 900.0) -> list[Any]:
     """Spawn ``world`` ranks on this host, rendezvous through a file in a
     fresh temporary directory, run ``fn(rank, *args)`` in each (``fn`` and
-    ``args`` are pickled, so ``fn`` must be importable; its result should
+    ``args`` are pickled, so ``fn`` must be importable; ``args`` go through
+    a file in that directory, not the start pipe, which blocks each start
+    until its child has imported; its result should
     hold numpy arrays, not tensors, which would outlive their process in
     shared memory) and return their results in rank order.  Raises if a
     rank raises, dies, or the ranks take longer than ``timeout`` seconds;
@@ -220,9 +279,11 @@ def run_ranks(fn: Callable, world: int, backend: str, args: tuple = (),
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
     results = ctx.Queue()
+    with open(f"{tmp}/args.pkl", "wb") as f:
+        pickle.dump(args, f)
     procs = [ctx.Process(target=_rank_entry, daemon=True, args=(
-        fn, r, world, backend, f"file://{tmp}/rendezvous", timeout, args,
-        results)) for r in range(world)]
+        fn, r, world, backend, f"file://{tmp}/rendezvous", timeout,
+        f"{tmp}/args.pkl", results)) for r in range(world)]
     out: dict[int, Any] = {}
     try:
         for p in procs:

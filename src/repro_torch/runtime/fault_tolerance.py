@@ -1,15 +1,16 @@
-"""Straggler detection for the training loop.
+"""Straggler detection for the training loop, and the repair quorum.
 
-Copy of ``StragglerMonitor`` from ``repro/runtime/fault_tolerance.py``, the
-part the training loop uses.  Failure injection and elastic recovery
+Copies of ``StragglerMonitor`` and ``has_quorum`` from
+``repro/runtime/fault_tolerance.py``: the parts the training loop and
+``Communicator.has_quorum`` use.  Failure injection and elastic recovery
 planning (``FailureInjector``, ``plan_recovery``) come with elastic
-recovery over the rank grid (``ROADMAP.md``, Queue 1 item 2).
+recovery over the rank grid (``ROADMAP.md``, Queue 1 item 4).
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["StragglerMonitor"]
+__all__ = ["StragglerMonitor", "has_quorum"]
 
 
 class StragglerMonitor:
@@ -44,3 +45,10 @@ class StragglerMonitor:
     @property
     def median(self) -> float:
         return float(np.median(self._times)) if self._times else 0.0
+
+
+def has_quorum(total: int, n_failed: int, quorum: float = 0.5) -> bool:
+    """True when strictly more than ``quorum`` of ``total`` members survive
+    ``n_failed`` losses — the threshold between in-place communicator
+    repair (carry live state, no replay) and checkpoint-restart."""
+    return (total - n_failed) > quorum * total

@@ -9,9 +9,11 @@ picks its own by rank (rank = pod * data + d), and returns numpy.
 import numpy as np
 import torch
 
+from repro_torch.core import Communicator
 from repro_torch.core import collectives as C
 from repro_torch.core import compression
-from repro_torch.launch.mesh import make_grid
+from repro_torch.core.topology import Level, Topology
+from repro_torch.launch.mesh import grid_communicator, make_grid
 from repro_torch.launch.step import make_train_step
 from repro_torch.models.convert import from_numpy, to_numpy
 from repro_torch.optim import adamw
@@ -106,3 +108,83 @@ def trajectory(rank, pods, data, cfg, modes, params, batches):
             losses.append(loss.item())
         out[mode] = losses
     return out
+
+
+def _tree_ops(run, comm, roots, x, g, sc):
+    """The seven collectives of ``comm`` on this rank's inputs, recorded by
+    ``run(name, comm, thunk)``."""
+    for root in roots:
+        run(f"bcast_{root}", comm, lambda: comm.bcast(x, root=root))
+        run(f"reduce_{root}", comm, lambda: comm.reduce(x, root=root))
+        run(f"gather_{root}", comm, lambda: comm.gather(g, root=root))
+        run(f"scatter_{root}", comm, lambda: comm.scatter(sc, root=root))
+    run("allreduce", comm, lambda: comm.allreduce(x))
+    run("allgather", comm, lambda: comm.allgather(g))
+    run("barrier", comm, lambda: comm.barrier())
+
+
+def tree_p2p(rank, coords, levels, roots, xs, gs, sc):
+    """The seven collectives by tree on the ``"p2p"`` backend over the
+    default group, with the ``sag`` broadcast and the ``rsag`` all-reduce
+    besides; returns this rank's outputs, the bytes it sent on each link
+    class per case, and the bytes it staged."""
+    topo = Topology(coords, [Level(*l) for l in levels])
+    comms = {a: Communicator(topo, policy="paper", backend="p2p",
+                             algorithm=a) for a in (None, "sag", "rsag")}
+    x, g = _t(xs[rank]), _t(gs[rank])
+    out, links = {}, {}
+
+    def run(name, comm, thunk):
+        before = dict(comm.backend.peers.link_bytes)
+        out[name] = thunk()
+        links[name] = {k: v - before[k]
+                       for k, v in comm.backend.peers.link_bytes.items()}
+
+    _tree_ops(run, comms[None], roots, x, g, _t(sc))
+    run("bcast_sag_3", comms["sag"], lambda: comms["sag"].bcast(x, root=3))
+    run("allreduce_rsag", comms["rsag"],
+        lambda: comms["rsag"].allreduce(x))
+    again = comms[None].bcast(x, root=3)
+    return {"out": {k: np.asarray(v) for k, v in out.items()},
+            "links": links,
+            "repeat_equal": bool(torch.equal(again, out["bcast_3"])),
+            "cache": tuple(comms[None].cache_info()),
+            "staged": sum(c.backend.peers.staged_bytes
+                          for c in comms.values())}
+
+
+def tree_torch(rank, pods, data, levels, roots, xs, gs, sc, tree):
+    """The seven collectives on the ``"torch"`` backend of a ``pods x
+    data`` grid, the ``rsag`` all-reduce, and ``allreduce_tree`` beside
+    the direct ``multilevel_psum_tree`` / ``bucketed_psum_tree`` calls it
+    stands for; returns this rank's outputs."""
+    grid = make_grid(pods, data, CPU)
+    lv = [Level(*l) for l in levels]
+    comm = grid_communicator(grid, lv)
+    rsag = grid_communicator(grid, lv, algorithm="rsag")
+    x, g = _t(xs[rank]), _t(gs[rank])
+    out = {}
+
+    def run(name, comm, thunk):
+        out[name] = thunk()
+
+    _tree_ops(run, comm, roots, x, g, _t(sc))
+    out["allreduce_rsag"] = rsag.allreduce(x)
+    tr = {k: _t(v[rank]) for k, v in tree.items()}
+    ef = C.compress_ef_zeros(tr, grid.fast.size, tile=compression.QTILE)
+    cases = {"multilevel": dict(mode="multilevel", mean_over=8),
+             "compress": dict(mode="multilevel_compress"),
+             "compress_ef": dict(mode="multilevel_compress", ef=ef + 0.01)}
+    for name, kw in cases.items():
+        got, want = (comm.allreduce_tree(tr, **kw),
+                     C.multilevel_psum_tree(tr, grid, **kw))
+        if "ef" in kw:
+            (got, out[f"tree_{name}_ef"]), (want, out[f"direct_{name}_ef"]) \
+                = got, want
+        out.update({f"tree_{name}_{k}": v for k, v in got.items()})
+        out.update({f"direct_{name}_{k}": v for k, v in want.items()})
+    got = comm.allreduce_tree(tr, bucket_bytes=300.0)
+    want = C.bucketed_psum_tree(tr, grid, bucket_bytes=300.0)
+    out.update({f"tree_bucketed_{k}": v for k, v in got.items()})
+    out.update({f"direct_bucketed_{k}": v for k, v in want.items()})
+    return {k: np.asarray(v) for k, v in out.items()}
