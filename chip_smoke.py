@@ -101,7 +101,36 @@ Phases, each of which fails the run (nonzero exit, no result line):
    gloo adds more than two terms its own way, every rank launching one
    quantise (or fused EF quantise) and one dequantise per compressed call.
    Each op's wall ms (the slowest rank), the bytes staged per rank, the
-   bytes per link level and the plan cache are printed.
+   bytes per link level and the plan cache are printed;
+17. serving with the network plane, run right after phase 5 and in turns
+   with it (5, 17, 17, 5): ``serve`` on gpt-100m at full width with
+   ``mesh="2x2x1"`` (the plane's topology; the model runs on the card),
+   ``monitor=True``, a Chrome trace and a metrics file, phase 5's
+   requests, the counters set to 0 just before and read just after; its
+   tokens must equal phase 5's, token for token, and so must the repeated
+   phase 5's.  Printed: the weight-bcast estimate and its slow-link
+   crossings (1), the engine demo's makespans (fifo, priority,
+   serialised), the engine's issued, completed and batches counters, the
+   monitor's events and last snapshot, the simulated TTFT beside the wall
+   TTFT, tok/s, the flash-forward launches and each turn's wall s;
+18. the train launcher's planning on a grid: ``train`` on gpt-100m at full
+   width, 2x2x1 over gloo, ``multilevel`` with 25 MiB gradient buckets and
+   a trace, 3 steps of 8 x 1024 tokens (phase 11's global batch), each
+   rank's counters starting at 0 in its fresh process: finite losses, the
+   setup estimate (``est_ms``, slow-link crossings) and the bucketed one
+   (``n_buckets``, overlapped and serial ms), a trace that parses as
+   JSON, and each rank's launches of #1-#3;
+19. discovery on phase 16's 8 ranks: ``environment_topology`` from the
+   ranks' node and card, timed point-to-point probes (``device_probes``,
+   1 KiB and 1 MiB, staged through host memory as gloo's collectives are)
+   whose (8, 8, 2) times every rank must hold alike, the topology fitted
+   from them (``Communicator.from_probes``, persisted to a file), the
+   ``"p2p"`` bcast of 1 MiB from rank 3 on it bit for bit against its
+   replay in one process, and ``discover("device", path=)`` loading the
+   same topology again without probing, in under a second.  The probes'
+   minimum, median and maximum at each size, the fitted levels and
+   ``nstrata`` are printed: eight ranks on one card, all over host-staged
+   loopback, may well cluster as one flat level.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -114,6 +143,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -216,6 +246,17 @@ TREE_SEEDS = {"params": 1000, "grad": 2000, "x": 3000, "g": 4000,
 # where gloo adds more than two terms in an order of its own, relative to
 # max|ref|; every other result of the phase is held bit for bit
 TREE_REL_TOL = 1e-6
+# phase 17: phase 5's requests with the network plane on a 2x2x1 topology
+SERVE_RUNS = ((8, 512), (1, 300))       # (requests, prompt tokens)
+SERVE_GEN = 16
+NET_MESH = "2x2x1"
+# phase 18: phase 11's global batch, bucketed multilevel sync
+BUCKET_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
+                    comm="multilevel", bucket_mb=25, dist_backend="gloo")
+# phase 19: the bcast on the discovered topology
+DISC_ROOT = 3
+DISC_POLICY = "auto"        # plans on the measured levels
+DISC_LOAD_S = 1.0           # loading the persisted topology, no probing
 
 
 def fail(msg: str) -> None:
@@ -1086,12 +1127,14 @@ def digest(t) -> str:
     return hashlib.sha256(b.numpy().tobytes()).hexdigest()
 
 
-def tree_rank(rank):
+def tree_rank(rank, disc_dir):
     """One of the 8 ranks of phase 16, sharing the card over gloo: the
     seven collectives on the ``"p2p"`` backend (2 x 2 x 2 topology), then
     on the ``"torch"`` backend of a 4 x 2 grid with ``allreduce_tree`` of
     gpt-100m's leaves, each op timed between barriers and its output kept
-    as a digest (or, where gloo sums more than two terms, as an array)."""
+    as a digest (or, where gloo sums more than two terms, as an array);
+    then phase 19's discovery (``discovery_rank``), its topology persisted
+    in ``disc_dir``."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import Communicator
@@ -1176,7 +1219,40 @@ def tree_rank(rank):
             "launches": launches, "backend": grid.backend,
             "staging": grid.staging,
             "staged_bytes": {"p2p": p2p.backend.peers.staged_bytes,
-                             "torch": grid.staged_bytes}}
+                             "torch": grid.staged_bytes},
+            "discovery": discovery_rank(torch, rank, disc_dir, ins["x"])}
+
+
+def discovery_rank(torch, rank, disc_dir, x):
+    """Phase 19 on one rank: the environment's topology, the timed probes,
+    the topology fitted from them (persisted to this rank's file), the
+    ``"p2p"`` bcast of ``x`` (1 MiB) from rank ``DISC_ROOT`` on it, and
+    ``discover("device", path=)`` loading that file again."""
+    import torch.distributed as dist
+    from repro_torch.core import Communicator
+    from repro_torch.core import discovery as D
+
+    env = D.environment_topology()
+    path = f"{disc_dir}/rank{rank}.json"
+    t0 = time.perf_counter()
+    probes = D.device_probes(device="cuda")
+    probe_s = time.perf_counter() - t0
+    comm = Communicator.from_probes(probes, path=path, backend="p2p",
+                                    policy=DISC_POLICY)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = comm.bcast(x, root=DISC_ROOT)
+    torch.cuda.synchronize()
+    bcast_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again = D.discover("device", path=path)
+    load_s = time.perf_counter() - t0
+    return {"env": env.to_json(), "times": probes.times,
+            "sizes": probes.sizes, "probe_s": probe_s,
+            "topo": comm.topo.to_json(), "again": again.to_json(),
+            "load_s": load_s, "bcast_ms": bcast_ms, "bcast": digest(out),
+            "link_bytes": dict(comm.backend.peers.link_bytes)}
 
 
 def replay_lowered(torch, xs, lowered):
@@ -1349,7 +1425,9 @@ def tree_phase(torch) -> dict:
 
     torch.cuda.empty_cache()     # the ranks share the card with this process
     t0 = time.perf_counter()
-    res = run_ranks(tree_rank, TREE_WORLD, "gloo", timeout=900.0)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_disc_") as tmp:
+        res = run_ranks(tree_rank, TREE_WORLD, "gloo", (tmp,),
+                        timeout=900.0)
     wall = time.perf_counter() - t0
     topo = tree_topology()
     comm = Communicator(topo, policy="paper")
@@ -1479,7 +1557,185 @@ def tree_phase(torch) -> dict:
     for name, op in ops.items():
         print(json.dumps({"tree_op": {"name": name, **op}}), flush=True)
     print(json.dumps({"tree_collectives": rec}), flush=True)
-    return rec
+    return rec, [r["discovery"] for r in res]
+
+
+def discovery_phase(torch, disc) -> None:
+    """Phase 19's checks, from what each of the 8 ranks returned: every
+    rank holds the same probe times and fits the same topology; the
+    times have shape (P, P, 2), a zero diagonal and positive pairs; the
+    bcast on the discovered topology is bit for bit its replay in one
+    process; the second ``discover`` loaded the same topology in under
+    ``DISC_LOAD_S`` seconds."""
+    import numpy as np
+    from repro_torch.core import Communicator
+    from repro_torch.core.topology import Topology
+
+    times = disc[0]["times"]
+    P = TREE_WORLD
+    if times.shape != (P, P, 2):
+        fail(f"discovery: probe times of shape {times.shape}")
+    off = ~np.eye(P, dtype=bool)
+    if np.any(times[~off] != 0.0) or not np.all(times[off] > 0.0) \
+            or not np.all(np.isfinite(times)):
+        fail("discovery: probe times want a zero diagonal and positive, "
+             "finite pairs")
+    for r, d in enumerate(disc):
+        if not np.array_equal(d["times"], times):
+            fail(f"discovery: rank {r} holds other probe times than rank 0")
+        if d["topo"] != disc[0]["topo"] or d["env"] != disc[0]["env"]:
+            fail(f"discovery: rank {r} fitted another topology than rank 0")
+        if d["again"] != d["topo"] or d["load_s"] >= DISC_LOAD_S:
+            fail(f"discovery: rank {r}'s second discover took "
+                 f"{d['load_s']} s and loaded "
+                 f"{'the same' if d['again'] == d['topo'] else 'another'} "
+                 f"topology")
+    topo = Topology.from_json(disc[0]["topo"])
+    env = Topology.from_json(disc[0]["env"])
+    comm = Communicator(topo, policy=DISC_POLICY)
+    xs = [tree_input(torch, "x", r) for r in range(P)]
+    nb = xs[0].numel() * xs[0].element_size()
+    want = replay_lowered(torch, xs, comm.plan(
+        "bcast", root=DISC_ROOT, nbytes=nb).lower(nb))
+    for r, (d, w) in enumerate(zip(disc, want)):
+        if d["bcast"] != digest(w):
+            fail(f"discovery: rank {r}'s bcast on the discovered topology "
+                 f"differs from its replay in one process")
+    stats = {}
+    for k, size in enumerate(disc[0]["sizes"]):
+        t = times[:, :, k][off]
+        stats[f"{int(size)}B"] = {"min_us": float(t.min()) * 1e6,
+                                  "median_us": float(np.median(t)) * 1e6,
+                                  "max_us": float(t.max()) * 1e6}
+    print(json.dumps({"discovery": {
+        "ranks": P, "env_nstrata": env.nstrata,
+        "env_levels": [l.name for l in env.levels],
+        "probe_one_way": stats,
+        "probe_s_max_over_ranks": max(d["probe_s"] for d in disc),
+        "nstrata": topo.nstrata, "coords": topo.coords.tolist(),
+        "levels": [{"name": l.name, "latency_us": l.latency * 1e6,
+                    "bandwidth_gb_s": l.bandwidth / 1e9,
+                    "overhead_us": l.overhead * 1e6} for l in topo.levels],
+        "bcast_root": DISC_ROOT, "bcast_bytes": nb, "policy": DISC_POLICY,
+        "bcast_plan": comm.plan("bcast", root=DISC_ROOT,
+                                nbytes=nb).algorithm,
+        "bcast_ms_max_over_ranks": max(d["bcast_ms"] for d in disc),
+        "bcast_check": "bit for bit",
+        "load_s_max_over_ranks": max(d["load_s"] for d in disc)}}),
+        flush=True)
+
+
+def serve_runs(serve, tmp=None, **kw) -> list:
+    """Phase 5's requests through ``serve``, one call per row of
+    ``SERVE_RUNS``; with ``tmp``, each call writes its Chrome trace and
+    metrics file there, and its result counts the trace's events and the
+    metric series."""
+    runs = []
+    for n, L in SERVE_RUNS:
+        if tmp is not None:
+            kw.update(trace=f"{tmp}/trace_{n}x{L}.json",
+                      metrics_out=f"{tmp}/metrics_{n}x{L}.txt")
+        r = serve("gpt-100m", n, L, SERVE_GEN, device="cuda", **kw)
+        if tmp is not None:
+            with open(kw["trace"]) as f:
+                r["trace_events"] = len(json.load(f)["traceEvents"])
+            with open(kw["metrics_out"]) as f:
+                r["metric_series"] = sum(1 for line in f
+                                         if line.startswith("# TYPE"))
+        runs.append(r)
+    return runs
+
+
+def net_serve_phase(serve, fa, kw, plain, cfg) -> dict:
+    """Phase 17, in turns with phase 5 (whose runs are ``plain``): the
+    network plane twice, then phase 5 again; every turn's tokens equal
+    phase 5's.  Returns the launches of the two network turns (counters
+    set to 0 just before, read just after)."""
+    turns = [("5", plain)]
+    reset(fa, kw)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_serve_") as tmp:
+        for _ in (1, 2):
+            turns.append(("17", serve_runs(serve, tmp, mesh=NET_MESH,
+                                           monitor=True)))
+    net_counts = counts(fa, kw)
+    turns.append(("5", serve_runs(serve)))
+    for name, runs in turns[1:]:
+        for r, p, (n, _) in zip(runs, plain, SERVE_RUNS):
+            if not all(q.state.name == "DONE" for q in r["requests"]) \
+                    or not (r["generated"] == p["generated"]).all():
+                fail(f"phase {name}'s {n}-request run generated other "
+                     f"tokens than phase 5's")
+    prefills = sum(r["prefills"] for _, runs in turns[1:3] for r in runs)
+    want = {"flash_fwd": cfg.n_layers * prefills, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "wkv": 0}
+    if net_counts != want or prefills != 18:
+        fail(f"serving with the network plane launched {net_counts} for "
+             f"{prefills} prefills, expected {want}")
+    for r, (n, L) in zip(turns[2][1], SERVE_RUNS):
+        if r["setup"]["slow_crossings"] != 1:
+            fail(f"the weight bcast crosses the slow link "
+                 f"{r['setup']['slow_crossings']} times, the plan 1")
+        snap = r["health"]
+        print(json.dumps({"serve_network_plane": {
+            "requests": n, "prompt": L, "mesh": NET_MESH,
+            "weight_bytes": r["setup"]["weight_bytes"],
+            "bcast_est_ms": r["setup"]["bcast_est_ms"],
+            "slow_crossings": r["setup"]["slow_crossings"],
+            "engine_demo": r["engine_demo"], "engine": r["engine"],
+            "monitor_events": snap["events"], "monitor_snapshot": snap,
+            "ttft_sim_p50_ms": r["report"]["ttft_p50_s"] * 1e3,
+            "ttft_sim_p99_ms": r["report"]["ttft_p99_s"] * 1e3,
+            "ttft_wall_p50_ms": r["ttft_wall_p50_s"] * 1e3,
+            "ttft_wall_p99_ms": r["ttft_wall_p99_s"] * 1e3,
+            "simulated_s": r["report"]["sim_s"],
+            "tokens_per_s": r["tokens_per_s"],
+            "trace_events": r["trace_events"],
+            "metric_series": r["metric_series"],
+            "flash_fwd_launches_two_turns": net_counts["flash_fwd"]}}),
+            flush=True)
+    print(json.dumps({"serve_turns": [
+        {"phase": name, "wall_s": [r["seconds"] for r in runs],
+         "tokens_per_s": [r["tokens_per_s"] for r in runs],
+         "simulated_s": [r["report"]["sim_s"] for r in runs]}
+        for name, runs in turns]}), flush=True)
+    return net_counts
+
+
+def bucket_train_phase(train, cfg) -> dict:
+    """Phase 18: the train launcher's planning plane on the grid, with
+    bucketed sync and a trace; returns the launches summed over the
+    ranks."""
+    with tempfile.TemporaryDirectory(prefix="repro_torch_train_") as tmp:
+        path = f"{tmp}/train_trace.json"
+        bt = train("gpt-100m", device="cuda", log_every=1, trace=path,
+                   **BUCKET_TRAIN)
+        with open(path) as f:
+            events = len(json.load(f)["traceEvents"])
+    steps = BUCKET_TRAIN["steps"]
+    plan = bt["plan"]
+    if not all(math.isfinite(x) for x in bt["losses"]) \
+            or len(bt["losses"]) != steps:
+        fail(f"bucketed grid training losses {bt['losses']}")
+    if not {"est_ms", "slow_crossings", "bucketed"} <= set(plan) \
+            or plan["bucketed"]["n_buckets"] < 1:
+        fail(f"the train launcher's planning logged {plan}")
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
+            "dequantize_int8": 0, "quantize_ef_int8": 0}
+    for r, got in enumerate(bt["launches"]):
+        if got != want:
+            fail(f"bucketed grid training rank {r} launched {got}, "
+                 f"expected {want}")
+    b = plan["bucketed"]
+    print(json.dumps({"train_planning": {
+        **BUCKET_TRAIN, "world": bt["world"], "losses": bt["losses"],
+        "est_ms": plan["est_ms"], "slow_crossings": plan["slow_crossings"],
+        "n_buckets": b["n_buckets"], "overlapped_ms": b["overlapped_s"] * 1e3,
+        "serial_ms": b["serial_s"] * 1e3, "speedup": b["speedup"],
+        "step_ms": bt["step_ms"], "trace_events": events,
+        "launches_per_rank": bt["launches"]}}), flush=True)
+    return {k: sum(r[k] for r in bt["launches"]) for k in want}
 
 
 def main() -> None:
@@ -1547,8 +1803,7 @@ def main() -> None:
 
     # 5. the serving path
     reset(fa, kw)
-    runs = [serve("gpt-100m", 8, 512, 16, device="cuda"),
-            serve("gpt-100m", 1, 300, 16, device="cuda")]
+    runs = serve_runs(serve)
     serve_counts = counts(fa, kw)
     cfg = get_config("gpt-100m")
     prefills = sum(r["prefills"] for r in runs)
@@ -1569,6 +1824,9 @@ def main() -> None:
             or prefills != 9:
         fail(f"serving launched {serve_counts} for {prefills} prefills of "
              f"{cfg.n_layers} layers")
+
+    # 17. serving with the network plane, in turns with phase 5
+    net_counts = net_serve_phase(serve, fa, kw, runs, cfg)
 
     # 6. the serving answer: f32 weights, the card against the CPU
     params = T.init_model(cfg, seed=0, device="cuda")
@@ -1687,7 +1945,14 @@ def main() -> None:
 
     # 16. the seven collectives by tree on eight ranks sharing the card;
     # each rank is a fresh process whose counters start at 0
-    tree = tree_phase(torch)
+    tree, disc = tree_phase(torch)
+
+    # 18. the train launcher's planning on a grid: each rank is a fresh
+    # process whose counters start at 0
+    bucket_counts = bucket_train_phase(train, cfg)
+
+    # 19. discovery on phase 16's ranks
+    discovery_phase(torch, disc)
 
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
@@ -1695,17 +1960,20 @@ def main() -> None:
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                       "src/repro/kernels/flash_attention.py:68", main_fwd,
                       serve_counts["flash_fwd"] + train_counts["flash_fwd"]
-                      + grid_counts["flash_fwd"]),
+                      + grid_counts["flash_fwd"] + net_counts["flash_fwd"]
+                      + bucket_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
                          train_counts["flash_bwd_dq"]
-                         + grid_counts["flash_bwd_dq"]),
+                         + grid_counts["flash_bwd_dq"]
+                         + bucket_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
                           train_counts["flash_bwd_dkv"]
-                          + grid_counts["flash_bwd_dkv"]),
+                          + grid_counts["flash_bwd_dkv"]
+                          + bucket_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
         # training runs the fused EF kernel and the dequant; the tree
         # phase's compressed syncs run all three

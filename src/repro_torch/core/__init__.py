@@ -13,18 +13,24 @@ the op dispatch table, and simulation results.  The multilevel all-reduce
 of a rank grid and its int8 slow hop live in :mod:`.collectives` and
 :mod:`.compression`.
 
-Counterpart of ``repro/core/__init__.py``, less the async engine (of which
-only ``partition_buckets`` is ported), discovery's device half
-(``environment_topology``, ``device_probes``) and ``tpu_v5e_multipod``
-(ROADMAP.md, Queue 1 item 3 and Queue 3 D).
+The async :class:`Engine` issues, orders and prices many collectives at
+once on the simulation plane.  Discovery fits a topology from simulated
+probes, from the ranks' environment (torchrun's variables and the card
+each rank is bound to) or from timed point-to-point round trips between
+the ranks.
+
+Counterpart of ``repro/core/__init__.py``, less ``tpu_v5e_multipod``
+(ROADMAP.md, Queue 3 D).
 """
 from .communicator import (BACKENDS, CacheInfo, CommStats, Communicator,
                            OPS, OpSpec, Plan, PlanCache, PlanChoice,
                            RefreshReport, RepairReport, SimResult,
                            register_op, select_plan, select_tree,
                            size_bucket)
-from .engine import partition_buckets
-from .discovery import (ProbeSet, TargetedProbes, cluster_probes, discover,
+from .engine import (Engine, EngineStats, Handle, overlapped_step_times,
+                     partition_buckets)
+from .discovery import (ProbeSet, TargetedProbes, cluster_probes,
+                        device_probes, discover, environment_topology,
                         fit_levels, fit_topology, measure_drift,
                         refit_levels, representative_pairs,
                         simulated_probes, targeted_probes)
@@ -39,11 +45,12 @@ __all__ = [
     # the front door
     "Communicator", "Plan", "PlanCache", "PlanChoice", "SimResult",
     "CacheInfo", "CommStats", "RepairReport", "RefreshReport",
-    # gradient bucketing (the engine's partitioner)
-    "partition_buckets",
+    # the async engine (nonblocking handles + concurrent scheduling)
+    "Engine", "EngineStats", "Handle", "partition_buckets",
+    "overlapped_step_times",
     # topology discovery (probe -> cluster -> fit)
-    "ProbeSet", "simulated_probes", "cluster_probes", "fit_levels",
-    "fit_topology", "discover",
+    "ProbeSet", "simulated_probes", "environment_topology", "device_probes",
+    "cluster_probes", "fit_levels", "fit_topology", "discover",
     # elastic refresh (targeted re-probe -> drift -> refit)
     "TargetedProbes", "representative_pairs", "targeted_probes",
     "measure_drift", "refit_levels",

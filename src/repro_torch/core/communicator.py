@@ -45,15 +45,12 @@ import math
 import os
 from typing import Any, Callable, Sequence
 
-import torch
-
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import PID_PLANNER, PID_PROGRAMS
 from . import rounds as R
 from . import schedule as S
 from .simulator import simulate, simulate_rounds
 from .topology import Topology
-from .tree_exec import tree_rounds
 from .trees import (LevelPolicy, PAPER_POLICY, Tree, adaptive_policy,
                     binomial_tree, build_multilevel_tree, repair_tree)
 
@@ -378,6 +375,7 @@ class Plan:
     @property
     def rounds(self) -> list[list[tuple[int, int]]]:
         if self._rounds is None:
+            from .tree_exec import tree_rounds  # lazy: pulls in torch
             self._rounds = tree_rounds(self.tree)
         return self._rounds
 
@@ -599,6 +597,8 @@ class P2PBackend:
         return TE.run_lowered(x, lowered, self.peers)
 
     def reduce(self, plan, x, root):
+        import torch
+
         from . import tree_exec as TE
         r = TE.tree_reduce(x, plan.tree, self.peers)
         return r if self.peers.index == root else torch.zeros_like(r)
@@ -609,6 +609,8 @@ class P2PBackend:
         return TE.run_lowered(x, lowered, self.peers)
 
     def gather(self, plan, x, root):
+        import torch
+
         from . import tree_exec as TE
         buf = TE.tree_gather_flat(x, plan.tree, self.peers,
                                   len(self.comm.members))
@@ -631,10 +633,19 @@ class P2PBackend:
 
     def barrier(self, plan, x, root):
         from . import tree_exec as TE
-        token = torch.zeros((), dtype=torch.float32,
-                            device=_token_device(self.peers.backend))
+        token = self.token(self.peers.backend)
         token = TE.tree_reduce(token, plan.tree, self.peers)
         return TE.tree_bcast(token, plan.tree, self.peers)
+
+    @staticmethod
+    def token(dist_backend: str | None):
+        """A barrier's f32 zero token: on the card for NCCL, else on the
+        host."""
+        import torch
+
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist_backend == "nccl" else torch.device("cpu"))
+        return torch.zeros((), dtype=torch.float32, device=dev)
 
 
 class TorchBackend:
@@ -669,6 +680,8 @@ class TorchBackend:
 
     # -- ops ------------------------------------------------------------ #
     def allreduce(self, x, root, plan=None):
+        import torch
+
         from .collectives import multilevel_psum
         fast = self.grid.fast.size
         if (plan is not None and plan.algorithm == "tree") or fast == 1:
@@ -683,39 +696,31 @@ class TorchBackend:
         return flat.reshape(x.shape)
 
     def bcast(self, x, root):
-        masked = x if self.grid.rank == root else torch.zeros_like(x)
+        masked = x if self.grid.rank == root else x.new_zeros(x.shape)
         return self.grid.dp.psum(masked)
 
     def reduce(self, x, root):
         full = self.grid.dp.psum(x)
-        return full if self.grid.rank == root else torch.zeros_like(full)
+        return full if self.grid.rank == root else full.new_zeros(full.shape)
 
     def gather(self, x, root):
         full = self.grid.dp.psum(self._placed(x))
-        return full if self.grid.rank == root else torch.zeros_like(full)
+        return full if self.grid.rank == root else full.new_zeros(full.shape)
 
     def allgather(self, x, root):
         return self.grid.dp.psum(self._placed(x))
 
     def scatter(self, x, root):
-        masked = x if self.grid.rank == root else torch.zeros_like(x)
+        masked = x if self.grid.rank == root else x.new_zeros(x.shape)
         return self.grid.dp.psum(masked)[self.grid.rank]
 
     def barrier(self, x, root):
-        return self.grid.dp.psum(torch.zeros(
-            (), dtype=torch.float32, device=_token_device(self.grid.backend)))
+        return self.grid.dp.psum(P2PBackend.token(self.grid.backend))
 
     def _placed(self, x):
         buf = x.new_zeros((self.grid.world,) + tuple(x.shape))
         buf[self.grid.rank] = x
         return buf
-
-
-def _token_device(dist_backend: str | None) -> torch.device:
-    """Where a barrier's token lives: the card for NCCL, else the host."""
-    if dist_backend == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
 
 
 BACKENDS: dict[str, type] = {
@@ -1143,14 +1148,12 @@ class Communicator:
             return 0.0
         if isinstance(x, (int, float)):
             return float(x)
-        if isinstance(x, torch.Tensor):
-            nbytes = float(x.numel() * x.element_size())
-        else:  # an array: bytes of the local shard
-            size = 1
-            for d in getattr(x, "shape", ()):
-                size *= int(d)
-            itemsize = getattr(getattr(x, "dtype", None), "itemsize", 4)
-            nbytes = float(size * itemsize)
+        # a tensor or array: bytes of this rank's operand
+        size = 1
+        for d in getattr(x, "shape", ()):
+            size *= int(d)
+        itemsize = getattr(getattr(x, "dtype", None), "itemsize", 4)
+        nbytes = float(size * itemsize)
         if op == "scatter":
             nbytes /= max(len(self.members), 1)
         return nbytes

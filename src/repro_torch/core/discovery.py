@@ -18,14 +18,18 @@ Probe sources feed one pipeline::
 1. :func:`simulated_probes` — all-pairs postal-model timings sampled from a
    hidden ground-truth :class:`Topology` with configurable multiplicative
    noise.  This is the validation plane: recovery accuracy vs. noise is a
-   measurable quantity (``benchmarks/bench_discovery.py``).
+   measurable quantity.
+2. :func:`environment_topology` — coordinates from the ranks' environment:
+   the node (torchrun's ``GROUP_RANK``) and the card each rank is bound
+   to.  No timing needed.
+3. :func:`device_probes` — timed point-to-point round trips between the
+   ranks of a process group at two message sizes, fitting per-pair latency
+   and bandwidth.
 
-The reference's other two sources — ``environment_topology`` (device
-metadata) and ``device_probes`` (timed round trips on a mesh) — read
-``jax.devices()``; their counterparts for ranks (torchrun's environment,
-timed point-to-point exchanges) are not ported yet (ROADMAP.md, Queue 1
-item 3), and :func:`discover` raises for them.  This module is a copy of
-the host half of ``repro/core/discovery.py``.
+A copy of ``repro/core/discovery.py`` whose two device sources read ranks
+instead of ``jax.devices()``: the reference's columns ``slice_index`` and
+``process_index`` become the node and the card, and its jitted
+``ppermute`` bounce becomes a ``batch_isend_irecv`` bounce.
 
 The clusterer makes NO layer-count assumption: strata fall out of the
 measurements (cost-gap plateaus in the dendrogram), which is the paper's
@@ -51,6 +55,10 @@ __all__ = [
     "DEFAULT_PROBE_SIZES",
     "DEFAULT_GAP_FACTOR",
     "simulated_probes",
+    "GENERIC_LEVELS",
+    "RankInfo",
+    "environment_topology",
+    "device_probes",
     "cluster_probes",
     "fit_levels",
     "fit_topology",
@@ -157,6 +165,166 @@ def simulated_probes(topo: Topology, *, noise: float = 0.0, seed: int = 0,
     times[eye] = 0.0
     inject[eye] = 0.0
     return ProbeSet(sizes=(s1, s2), times=times, inject=inject)
+
+
+# ---------------------------------------------------------------------- #
+# Source 2: the ranks' environment (the RSL-depths analogue)
+# ---------------------------------------------------------------------- #
+
+# Default link classes off a TPU (the reference's
+# ``_ENV_LEVELS["generic"]``), coarsest first; the fitted topology keeps the
+# innermost ``S + 1`` of them for ``S`` discovered strata.
+GENERIC_LEVELS = (
+    Level("dcn", latency=10e-6, bandwidth=6.25e9, overhead=2e-6),
+    Level("host", latency=5e-6, bandwidth=12.5e9, overhead=2e-6),
+    Level("local", latency=1e-6, bandwidth=100e9, overhead=0.5e-6),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankInfo:
+    """Where one rank runs: its node and the CUDA device it is bound to
+    (-1 for none).  Ranks that share a card share ``device``."""
+
+    node: int
+    device: int
+
+
+def _this_rank(group=None) -> RankInfo:
+    """This rank's :class:`RankInfo`: the node is torchrun's
+    ``GROUP_RANK``, else the rank over ``LOCAL_WORLD_SIZE`` (default: the
+    whole group on one node); the device is the current CUDA device."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if "GROUP_RANK" in os.environ:
+        node = int(os.environ["GROUP_RANK"])
+    else:
+        node = rank // int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    device = torch.cuda.current_device() if torch.cuda.is_available() else -1
+    return RankInfo(node, device)
+
+
+def environment_topology(devices: Sequence[RankInfo] | None = None, *,
+                         group=None) -> Topology:
+    """Derive a topology from the ranks' environment alone — no timing.
+
+    Strata candidates, coarsest first: the node and the card a rank is
+    bound to (``devices``: one :class:`RankInfo` per rank; default: every
+    rank's own, gathered over the initialised process ``group``).  Columns
+    that do not discriminate (all ranks agree) are dropped, so ranks of one
+    node on one card (or on none) yield a flat single-class topology — the
+    number of levels follows the environment, never a fixed template.
+    Rank order is the group's.  The link classes are
+    :data:`GENERIC_LEVELS`.
+    """
+    if devices is None:
+        import torch.distributed as dist
+
+        devices = [None] * dist.get_world_size(group)
+        dist.all_gather_object(devices, _this_rank(group), group=group)
+    devices = list(devices)
+    if not devices:
+        raise ValueError("no devices to derive a topology from")
+
+    cols = [
+        [int(d.node) for d in devices],
+        [int(d.device) for d in devices],
+    ]
+    cols = [c for c in cols if len(set(c)) > 1]
+    coords = (np.stack(cols, axis=1) if cols
+              else np.zeros((len(devices), 0), dtype=np.int64))
+
+    classes = GENERIC_LEVELS
+    need = coords.shape[1] + 1
+    levels = list(classes[-need:])
+    while len(levels) < need:  # more strata than canned classes: pad coarse
+        levels.insert(0, classes[0])
+    return Topology(coords, levels)
+
+
+# ---------------------------------------------------------------------- #
+# Source 3: timed device probes (point-to-point round trips)
+# ---------------------------------------------------------------------- #
+
+def device_probes(*, sizes: Sequence[float] = DEFAULT_PROBE_SIZES,
+                  repeats: int = 3, roundtrips: int = 4, group=None,
+                  device="cuda") -> ProbeSet:
+    """Measure per-pair one-way time between the ranks of ``group`` (None:
+    the default group) with point-to-point round trips; every rank of the
+    group calls it, and every rank returns the same :class:`ProbeSet`.
+
+    For every ordered pair (i, j) rank i bounces a float32 payload of
+    about ``s`` bytes i→j→i ``roundtrips`` times (one ``batch_isend_irecv``
+    a message) while the other ranks wait at a barrier; every rank walks
+    the pairs in the same order.  One untimed bounce warms the pair; the
+    best of ``repeats`` timed bounces (host clock around a
+    ``torch.cuda.synchronize`` on the card) divided by ``2 * roundtrips``
+    estimates the one-way time.  Under gloo a payload on the card is
+    staged through host memory, as the tree collectives stage it
+    (``tree_exec.Peers``), so the probes time the transport they pay.  Two
+    payload sizes give the affine fit its two points; the (P, P, 2) times
+    are gathered to every rank.  Cost is O(P²) bounces — this is the
+    *once-per-fleet* measurement the persistence cache (:func:`discover`
+    ``path=``) exists to amortise.  A pair that fails raises; nothing is
+    made up.
+    """
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ..kernels.backend import resolve_device
+    from .tree_exec import Peers
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    P = dist.get_world_size(group)
+    if P < 2:
+        raise ValueError(f"device probes need >= 2 ranks, got {P}")
+    peers = Peers(Topology(np.zeros((P, 0), np.int64),
+                           [Level("probe", 1.0, 1.0)]), group)
+    me = peers.index
+    s1, s2 = float(sizes[0]), float(sizes[1])
+    mine = np.zeros((P, 2))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for si, s in enumerate((s1, s2)):
+        n = max(int(s) // 4, 1)  # float32 payload of ~s bytes
+        x = torch.zeros(n, dtype=torch.float32, device=dev)
+        for i in range(P):
+            for j in range(P):
+                if i == j:
+                    continue
+                if me in (i, j):
+                    def bounce(i=i, j=j):
+                        for _ in range(roundtrips):
+                            if me == i:
+                                peers.exchange(x, j, None, None)
+                                peers.exchange(None, None, x, j)
+                            else:
+                                got = peers.exchange(None, None, x, i)
+                                peers.exchange(got, i, None, None)
+                        sync()
+
+                    bounce()  # warm the pair
+                    best = math.inf
+                    for _ in range(repeats):
+                        sync()
+                        t0 = time.perf_counter()
+                        bounce()
+                        best = min(best, time.perf_counter() - t0)
+                    if me == i:
+                        mine[j, si] = best / (2 * roundtrips)
+                dist.barrier(group=group)
+    rows = [None] * P
+    dist.all_gather_object(rows, mine, group=group)
+    return ProbeSet(sizes=(s1, s2), times=np.stack(rows), inject=None)
 
 
 # ---------------------------------------------------------------------- #
@@ -489,20 +657,21 @@ def measure_drift(topo: Topology, probes: TargetedProbes) -> dict[int, float]:
 # Front door
 # ---------------------------------------------------------------------- #
 
-NOT_PORTED_SOURCES = ("ROADMAP.md, Queue 1 item 3: discovery from the "
-                      "ranks' environment and timed point-to-point probes")
-
-
 def discover(source: str = "sim", *, topo: Topology | None = None,
              noise: float = 0.0, seed: int = 0,
              sizes: Sequence[float] = DEFAULT_PROBE_SIZES,
              gap_factor: float = DEFAULT_GAP_FACTOR,
-             path: str | None = None, refresh: bool = False) -> Topology:
-    """Discover a topology from a probe source.
+             devices: Sequence[RankInfo] | None = None,
+             path: str | None = None, refresh: bool = False,
+             **device_kw) -> Topology:
+    """Discover a topology from one of the three probe sources.
 
     source : "sim" (requires ``topo=`` as hidden ground truth; ``noise``,
-        ``seed`` control the probe sampling).  The reference's "env" and
-        "device" sources raise ``NotImplementedError`` here.
+        ``seed`` control the probe sampling), "env" (the ranks'
+        environment, or ``devices=``: one :class:`RankInfo` per rank), or
+        "device" (timed point-to-point probes between the ranks; extra
+        kwargs — ``group``, ``device``, ``repeats``, ``roundtrips`` — are
+        forwarded to :func:`device_probes`).
     path : Fast-Tuning cache.  When the file exists (and ``refresh`` is
         false) it is loaded and NO probing happens; otherwise discovery
         runs once and persists its result there.
@@ -515,9 +684,11 @@ def discover(source: str = "sim", *, topo: Topology | None = None,
         t = fit_topology(simulated_probes(topo, noise=noise, seed=seed,
                                           sizes=sizes),
                          gap_factor=gap_factor)
-    elif source in ("env", "device"):
-        raise NotImplementedError(f"probe source {source!r} "
-                                  f"({NOT_PORTED_SOURCES})")
+    elif source == "env":
+        t = environment_topology(devices, group=device_kw.get("group"))
+    elif source == "device":
+        t = fit_topology(device_probes(sizes=sizes, **device_kw),
+                         gap_factor=gap_factor)
     else:
         raise ValueError(f"unknown probe source {source!r}; "
                          "choose from 'sim', 'env', 'device'")

@@ -28,7 +28,7 @@ __all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "NOT_PORTED_BWD", "launch_plan",
 
 CHUNK = 16
 KERNEL_MAX_HEAD_DIM = 64        # 4 hd threads a block, 16 state floats each
-NOT_PORTED_BWD = "ROADMAP.md, Queue 1 item 6: RWKV-6 training"
+NOT_PORTED_BWD = "ROADMAP.md, Queue 1 item 7: RWKV-6 training"
 
 
 def wkv_chunk_scan_ref(r, k, v, w, u, chunk: int):

@@ -25,9 +25,10 @@ counting those bytes too.
 counterparts of the reference's ``mesh_topology`` (:30), ``dp_topology``
 (:45) and ``mesh_communicator`` (:67): the same strata over the grid's
 rank order, but the link classes (``Level`` objects) are the caller's — the
-port carries no rate modelled for a TPU, and the card's own come from
-discovery (ROADMAP.md, Queue 1 item 3).  The default policy, ``"paper"``,
-builds its trees from the coordinates alone.
+port carries no rate modelled for a TPU; the card's own come from
+discovery (``core.discovery``), and its generic classes
+(``GENERIC_LEVELS``) stand in where nothing was measured.  The default
+policy, ``"paper"``, builds its trees from the coordinates alone.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ __all__ = ["NOT_PORTED_TP", "Axis", "Grid", "parse_mesh", "make_grid",
            "stage_through_host", "run_ranks", "grid_topology",
            "dp_topology", "grid_communicator"]
 
-NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 3: tensor parallelism over a "
+NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 5: tensor parallelism over a "
                  "model axis")
 
 # torch 2.13 renames the two single-tensor collectives; older releases
@@ -160,7 +161,16 @@ class Grid:
     @classmethod
     def single(cls) -> "Grid":
         """One rank: every axis has size 1 and no group."""
-        return cls(1, 1, 0, Axis("data", 1, 0), None, Axis("dp", 1, 0))
+        return cls.shape_only(1, 1)
+
+    @classmethod
+    def shape_only(cls, pods: int, data: int) -> "Grid":
+        """The shape of a (pods x data) grid seen from rank 0, with no
+        process group: for the planning plane only (``grid_topology``,
+        ``grid_communicator`` with ``backend="sim"``)."""
+        return cls(pods, data, 0, Axis("data", data, 0),
+                   Axis("pod", pods, 0) if pods > 1 else None,
+                   Axis("dp", pods * data, 0))
 
 
 def parse_mesh(spec: str) -> tuple[int, int]:

@@ -1,19 +1,29 @@
 """Serving entry point of the port: continuous batching over a paged KV cache,
-real greedy decoding on one device.
+real greedy decoding on one device, with the multilevel engine pricing
+per-request collectives against weight broadcasts.
 
 On the H100:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-100m \\
-      --requests 8 --prompt-len 512 --gen-len 16
+      --requests 8 --prompt-len 512 --gen-len 16 --mesh 2x2x1 --monitor
 On the CPU, at smoke size:
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
+      --mesh 2x2x1 --monitor
 
-The JAX launcher (``repro.launch.serve``) also plans the weight broadcast
-over the multilevel topology and prices each step's collectives with the
-engine.  That network plane comes with the planning-plane slice; until then
-the scheduler runs with ``engine=None`` on one device, and its simulated
-clock prices compute only.  This launcher reports the host's wall clock beside
-it: wall time, tokens per second, and the time from the start of the run to
-each request's first token.
+Counterpart of ``repro/launch/serve.py``.  With ``--mesh PxDx1`` the
+network plane is the reference's: the weight-broadcast plan over the
+multilevel topology of that grid (``launch.mesh.grid_communicator``, the
+generic link classes of ``core.discovery``), a fifo-vs-priority engine
+demo, and an :class:`~repro_torch.core.engine.Engine` that prices each
+step's decode gathers against the periodic weight broadcast on the
+scheduler's simulated clock; ``--monitor`` attaches a
+:class:`~repro_torch.obs.monitor.HealthMonitor` to it.  The model still
+runs on one device: the mesh shapes only the network plane's topology, and
+the engine moves only the simulated clock, never the tokens.  Without
+``--mesh`` there is no network plane (``engine=None``): the simulated clock
+prices compute only.  A model axis > 1 raises (tensor parallelism is not
+ported).  This launcher reports the host's wall clock beside the simulated
+one: wall time, tokens per second, and the time from the start of the run
+to each request's first token.
 """
 from __future__ import annotations
 
@@ -24,12 +34,17 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..core.discovery import GENERIC_LEVELS
+from ..core.engine import Engine
 from ..kernels.backend import resolve_device
+from ..launch.mesh import Grid, grid_communicator, parse_mesh
 from ..models import transformer as T
-from ..obs import MetricsRegistry, Tracer, get_logger, set_json
+from ..obs import (HealthMonitor, MetricsRegistry, Tracer, get_logger,
+                   set_json)
 from ..obs.metrics import percentile
 from ..serving import (SLO, Scheduler, TorchExecutor, default_compute_model,
                        make_requests, poisson_arrivals)
+from ..tree import tree_leaves
 
 log = get_logger("serve")
 
@@ -39,41 +54,151 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _weight_bytes(params) -> float:
+    return float(sum(l.numel() * l.element_size()
+                     for l in tree_leaves(params)))
+
+
+def _engine_demo(wcomm, wbytes: float, cfg, prompt_len: int, model: int,
+                 replicas: list, n_requests: int) -> dict:
+    """Price 1 weight bcast + N request gathers under fifo vs priority
+    (the reference's ``_engine_demo``); returns the logged numbers."""
+    act_itemsize = getattr(torch, cfg.dtype).itemsize
+    req_bytes = float(prompt_len * cfg.d_model * act_itemsize)
+    lat = {}
+    for policy in ("fifo", "priority"):
+        eng = Engine(wcomm, policy=policy, age_rate=wbytes)
+        eng.issue("bcast", wbytes, root=0)
+        issue_t = eng.now
+        reqs = [eng.issue("allgather", req_bytes / model,
+                          members=replicas[r % len(replicas)], priority=1.0)
+                for r in range(n_requests)]
+        eng.wait_all()
+        mean_lat = (sum(h.finished - issue_t for h in reqs)
+                    / max(len(reqs), 1))
+        lat[policy] = (eng.now, mean_lat)
+    serial = wcomm.bcast(wbytes, root=0).time + sum(
+        Engine(wcomm).issue("allgather", req_bytes / model,
+                            members=replicas[r % len(replicas)]).wait().time
+        for r in range(n_requests))
+    out = {"makespan_ms": lat["priority"][0] * 1e3,
+           "makespan_fifo_ms": lat["fifo"][0] * 1e3,
+           "serial_ms": serial * 1e3,
+           "mean_latency_priority_ms": lat["priority"][1] * 1e3,
+           "mean_latency_fifo_ms": lat["fifo"][1] * 1e3}
+    log.info(f"engine batch (1 weight bcast + {n_requests} request "
+             f"gathers): makespan {lat['priority'][0]*1e3:.2f} ms vs "
+             f"{serial*1e3:.2f} ms serialized; mean request latency "
+             f"{lat['priority'][1]*1e3:.3f} ms (priority) vs "
+             f"{lat['fifo'][1]*1e3:.3f} ms (fifo)",
+             event="engine_demo", **out)
+    return out
+
+
+def _network_plane(cfg, params, mesh: str, dev, policy: str,
+                   prompt_len: int, n_requests: int, tracer, registry,
+                   monitor: bool):
+    """The reference's network plane on the topology of a ``mesh`` grid:
+    the weight-broadcast plan and its log event, the engine demo, and the
+    engine (plus its health monitor) the scheduler prices each step with.
+    Returns (engine, monitor, the scheduler's network kwargs, the plan's
+    numbers for the result)."""
+    pods, data = parse_mesh(mesh)
+    model = 1                          # parse_mesh refuses a model axis
+    wbytes = _weight_bytes(params)
+    # Weight-distribution plan through the single collectives entry point:
+    # the multilevel tree broadcast of updated params crosses each slow link
+    # exactly once (paper §3.2); the model runs on one device, so the plan
+    # and its postal-model estimate are surfaced rather than shipped.
+    wcomm = grid_communicator(Grid.shape_only(pods, data),
+                              list(GENERIC_LEVELS), backend="sim",
+                              policy="paper")
+    if tracer is not None:
+        wcomm.tracer = tracer
+    bcast_est = wcomm.bcast(wbytes, root=0).time
+    crossings = wcomm.slow_crossings("bcast", nbytes=wbytes)
+    log.info(f"{cfg.name} on {dev}; {wcomm.describe()}; weight bcast "
+             f"({wbytes/1e6:.1f} MB): est {bcast_est*1e3:.2f} ms, "
+             f"{crossings} slow-link crossing(s)",
+             event="setup", arch=cfg.name, device=str(dev), mesh=mesh,
+             weight_mb=wbytes / 1e6, bcast_est_ms=bcast_est * 1e3,
+             slow_crossings=crossings)
+    replicas = [tuple(range(g * model, (g + 1) * model))
+                for g in range(pods * data)]
+    demo = _engine_demo(wcomm, wbytes, cfg, prompt_len, model, replicas,
+                        n_requests)
+    # each step's decode gathers are priced against the periodic weight
+    # broadcast by the priority engine
+    eng = Engine(wcomm, policy="fifo" if policy == "fifo" else "priority",
+                 age_rate=wbytes, metrics=registry)
+    mon = (HealthMonitor(engine=eng, metrics=registry, log_every=4)
+           if monitor else None)
+    act_itemsize = getattr(torch, cfg.dtype).itemsize
+    net = {"engine": eng, "replicas": replicas, "weight_bytes": wbytes,
+           "gather_bytes": float(cfg.d_model * act_itemsize) / model,
+           "bcast_every": 16}
+    plane = {"setup": {"weight_bytes": wbytes,
+                       "bcast_est_ms": bcast_est * 1e3,
+                       "slow_crossings": crossings},
+             "engine_demo": demo}
+    return eng, mon, net, plane
+
+
 def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
-          gen_len: int = 16, *, smoke: bool = False,
+          gen_len: int = 16, mesh: str | None = None, *,
+          smoke: bool = False,
           device: str | torch.device = "cuda", policy: str = "priority",
           block_size: int = 8, rate: float | None = None,
-          trace: str | None = None,
+          trace: str | None = None, monitor: bool = False,
           metrics_out: str | None = None) -> dict:
     """Run ``n_requests`` through the continuous-batching scheduler with
-    the model on ``device`` (random weights from seed 0).
+    the model on ``device`` (random weights from seed 0) and, given a
+    ``mesh`` ("PxDx1"), the network plane on the topology of that grid
+    (None: no network plane; the simulated clock prices compute only).
 
     ``rate``: open-loop Poisson arrival rate (req/s of *simulation* time);
     default: all requests arrive at t=0 (closed batch).  ``trace`` writes a
-    Chrome trace of the request lifecycles; ``metrics_out`` the run's
-    Prometheus text exposition."""
+    Chrome trace (request lifecycles, engine spans, link occupancy).
+    ``monitor`` attaches a :class:`~repro_torch.obs.HealthMonitor` to the
+    engine (drift detection + auto-refit, periodic health snapshots in the
+    log); ``metrics_out`` writes the run's Prometheus text exposition."""
+    if mesh is not None:
+        parse_mesh(mesh)               # a model axis > 1 raises
+    elif monitor:
+        raise ValueError("the monitor watches the network plane: give a "
+                         "mesh")
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     T.paged_arch_check(cfg)
     tracer = Tracer() if trace else None
     s_max = prompt_len + gen_len
     s_max += (-s_max) % block_size
-    log.info(f"{cfg.name} on {dev}; the network plane (weight-broadcast "
-             f"plan, engine pricing, --monitor) lands with the "
-             f"planning-plane slice, so the simulated clock prices compute "
-             f"only", event="setup", arch=cfg.name, device=str(dev))
 
     params = T.init_model(cfg, seed=0, device=dev)
+    # one registry spans engine + scheduler + monitor when scraping: the
+    # exposition file must read as ONE process, not three
+    registry = MetricsRegistry() if metrics_out or monitor else None
+    eng = mon = None
+    net, plane = {"tracer": tracer}, {}
+    if mesh is None:
+        log.info(f"{cfg.name} on {dev}; no mesh: no network plane, the "
+                 f"simulated clock prices compute only", event="setup",
+                 arch=cfg.name, device=str(dev))
+    else:
+        eng, mon, net, plane = _network_plane(
+            cfg, params, mesh, dev, policy, prompt_len, n_requests, tracer,
+            registry, monitor)
+    # Continuous batching: requests join/leave the running batch per step;
+    # KV lives in on-demand blocks.
     max_slots = min(n_requests, 8)
     n_blocks = 1 + max_slots * (s_max // block_size)
     ex = TorchExecutor(cfg, params, n_blocks=n_blocks, block_size=block_size,
                        max_slots=max_slots, max_blocks=s_max // block_size)
-    registry = MetricsRegistry() if metrics_out else None
     sch = Scheduler(
         ex, n_blocks=n_blocks, block_size=block_size, max_slots=max_slots,
         s_max=s_max, policy=policy, prefill_token_budget=4 * prompt_len,
         compute_model=default_compute_model(cfg.active_param_count()),
-        tracer=tracer, metrics=registry)
+        metrics=registry, **net)
 
     if rate is None:
         arrivals = [0.0] * n_requests
@@ -97,7 +222,11 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
            "tokens_per_s": n_tokens / dt,
            "ttft_wall_p50_s": percentile(ttft_wall, 50),
            "ttft_wall_p99_s": percentile(ttft_wall, 99),
-           "prefills": len(ex.prefill_done_s), "report": s}
+           "prefills": len(ex.prefill_done_s), "report": s, **plane}
+    if eng is not None:
+        st = eng.stats()
+        out["engine"] = {"issued": st.issued, "completed": st.completed,
+                         "batches": st.batches, "now_s": st.now}
     log.info(f"{s['n_done']}/{s['n_requests']} done ({s['n_shed']} shed) in "
              f"{report.steps} steps; wall {dt:.3f} s, "
              f"{out['tokens_per_s']:.1f} tok/s, wall TTFT p50 "
@@ -114,6 +243,15 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
              ttft_p50_ms=s["ttft_p50_s"] * 1e3,
              ttft_p99_ms=s["ttft_p99_s"] * 1e3,
              max_concurrent=report.max_concurrent)
+    if mon is not None:
+        snap = mon.snapshot()
+        out["health"] = snap
+        log.info(f"health: {snap['refits']} refit(s), "
+                 f"{len(snap['stragglers'])} straggler(s), worst drift "
+                 f"{snap['worst_drift']:.3f} over {snap['checks']} checks",
+                 event="health", **{k: snap[k] for k in
+                                    ("refits", "worst_drift", "checks",
+                                     "stragglers", "links")})
     if metrics_out:
         with open(metrics_out, "w") as f:
             f.write(registry.to_prometheus())
@@ -133,6 +271,10 @@ def main() -> None:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--mesh", default=None,
+                    help="pods x data x model of the network plane's "
+                         "topology; the model axis must be 1 (the model "
+                         "runs on one device); default: no network plane")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config instead of its "
@@ -147,15 +289,19 @@ def main() -> None:
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace of the serving run "
                          "(open in chrome://tracing or Perfetto)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="attach a HealthMonitor to the engine: drift "
+                         "detection, straggler scoring, auto-refit, "
+                         "periodic health snapshots in the log")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the run's metrics as Prometheus text "
-                         "exposition")
+                         "exposition (no tracer needed)")
     args = ap.parse_args()
     set_json(args.log_json)
     out = serve(args.arch, args.requests, args.prompt_len, args.gen_len,
-                smoke=args.smoke, device=args.device, policy=args.policy,
-                rate=args.rate, trace=args.trace,
-                metrics_out=args.metrics_out)
+                args.mesh, smoke=args.smoke, device=args.device,
+                policy=args.policy, rate=args.rate, trace=args.trace,
+                monitor=args.monitor, metrics_out=args.metrics_out)
     log.info(f"first request: {out['generated'][0][:16]}",
              event="sample", tokens=out["generated"][0][:16].tolist())
 

@@ -16,6 +16,10 @@ ones, ``make_prefill_fn`` and ``make_decode_fn``, are the one-device
 counterparts of the reference's ``:233``/``:243``: plain functions under
 ``torch.inference_mode`` (the reference jits them).  They serve the
 recurrent RWKV-6 stack, which the paged path refuses.
+
+``layer_grad_bytes`` is a copy of the reference's ``:41``: the per-layer
+gradient bytes the engine's bucketed-sync estimate takes, from the
+parameter shapes alone (fake tensors; nothing is allocated).
 """
 from __future__ import annotations
 
@@ -31,7 +35,38 @@ from ..tree import tree_leaves, tree_unflatten
 from .mesh import Grid
 
 __all__ = ["device_batch", "rank_rows", "loss_and_grads", "make_train_step",
-           "make_prefill_fn", "make_decode_fn"]
+           "make_prefill_fn", "make_decode_fn", "layer_grad_bytes"]
+
+
+def layer_grad_bytes(cfg: ModelConfig, model_size: int = 1) -> list[float]:
+    """Per-layer gradient wire bytes (f32 sync) in FORWARD order.
+
+    Backward produces gradients for these entries last-to-first, which is
+    exactly the issue order of the engine's bucketed gradient sync — feed
+    this list to :func:`repro_torch.core.engine.overlapped_step_times`
+    (the train launcher's overlap estimate does).  Entry 0 aggregates the
+    non-layer leaves (embedding/head/norms): their gradients arrive at the
+    very end of backward.  ``model_size`` divides out the tensor-parallel
+    shard — the sync moves 1/model_size of the bytes per model slice.  The
+    shapes come from ``init_model`` under a fake-tensor mode, which
+    allocates no storage.
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = T.init_model(cfg, seed=0, device="cpu")
+    numel = lambda tree: sum(l.numel() for l in tree_leaves(tree))
+    run_bytes = 0.0
+    layers: list[float] = []
+    i = 0
+    for kind, n in cfg.runs():
+        rb = 4.0 * sum(numel(l) for l in params["layers"][i:i + n])
+        i += n
+        run_bytes += rb
+        layers.extend([rb / n] * n)
+    total = 4.0 * numel(params)
+    return [(total - run_bytes) / model_size] + [b / model_size
+                                                for b in layers]
 
 
 def device_batch(batch: dict, device) -> dict:

@@ -13,6 +13,9 @@ On the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
       --mesh 2x2x1 --comm multilevel_compress --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
+      --mesh 2x2x1 --comm multilevel --bucket-mb 1 --trace /tmp/t.json \\
+      --steps 2 --seq 32 --batch 4
 
 Counterpart of ``repro/launch/train.py:79 train``.  ``--mesh PxDx1`` runs
 P*D ranks: under ``torchrun`` each process is one rank (env rendezvous);
@@ -26,8 +29,13 @@ gloo's collectives take host tensors, so the sync then stages the card's
 tensors through host memory, and rank 0 says so.  Checkpoints hold the
 reference's stacked layout and a one-rank run resumes from the newest one
 in ``ckpt_dir``; a grid of more than one rank refuses ``ckpt_dir``
-(``NotImplementedError``).  Not ported yet: failure injection and elastic
-recovery, and the planning plane's estimates and trace.
+(``NotImplementedError``).  Rank 0 also runs the reference's planning
+plane: a sim ``Communicator`` over the grid's data-parallel topology (the
+generic link classes of ``core.discovery``) prices the gradient sync for
+the setup log (``est_ms``, ``slow_crossings``), and with ``--bucket-mb``
+the async engine prices the bucketed, overlapped sync
+(``bucketed_estimate``); ``--trace`` writes that plane's Chrome trace.
+Not ported yet: failure injection and elastic recovery.
 """
 from __future__ import annotations
 
@@ -41,15 +49,18 @@ import torch.distributed as dist
 from ..checkpoint.manager import CheckpointManager
 from ..configs import get_config
 from ..configs.shapes import ShapeSpec
+from ..core import Communicator
+from ..core.discovery import GENERIC_LEVELS
+from ..core.engine import overlapped_step_times
 from ..data.pipeline import DataPipeline
 from ..kernels import flash_attention as fa
 from ..kernels import quant as kq
 from ..kernels.backend import resolve_device
-from ..launch.mesh import make_grid, parse_mesh, run_ranks
-from ..launch.step import make_train_step
+from ..launch.mesh import dp_topology, make_grid, parse_mesh, run_ranks
+from ..launch.step import layer_grad_bytes, make_train_step
 from ..models import transformer as T
 from ..models.convert import from_numpy, stack_runs, to_numpy
-from ..obs import get_logger, set_json
+from ..obs import Tracer, get_logger, set_json
 from ..optim.adamw import (OptConfig, init_opt_state, scatter_axes,
                            shard_opt_state)
 from ..runtime.fault_tolerance import StragglerMonitor
@@ -57,7 +68,7 @@ from ..tree import tree_leaves
 
 log = get_logger("train")
 
-NOT_PORTED_CKPT = "ROADMAP.md, Queue 1 item 2: multi-rank checkpoints"
+NOT_PORTED_CKPT = "ROADMAP.md, Queue 1 item 4: multi-rank checkpoints"
 SPAWN_TIMEOUT_S = 3600.0
 KERNELS = {"flash_fwd": fa.flash_attention_fwd,
            "flash_bwd_dq": fa.flash_bwd_dq,
@@ -99,7 +110,8 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
           ckpt_every: int = 25, *, smoke: bool = False,
           device: str | torch.device = "cuda", log_every: int = 10,
           profile: str | None = None, dist_backend: str | None = None,
-          log_json: bool = False) -> dict:
+          log_json: bool = False, bucket_mb: float = 0.0,
+          trace: str | None = None) -> dict:
     """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens
     (the global batch, split over the ranks) from random weights (seed 0),
     with lr 1e-3 and 20 warmup steps as the reference's driver.
@@ -112,6 +124,11 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     host bytes staged per step, and each rank's kernel launches in this
     run.  One rank restarts from the newest checkpoint in ``ckpt_dir``.
 
+    ``bucket_mb`` > 0 switches the gradient sync to size-targeted buckets
+    (reverse-layer order, one fused collective per bucket); it forces
+    ``zero1=False`` as the reference does, since ZeRO-1 scatters per leaf.
+    ``trace`` writes a Chrome trace of rank 0's planning plane (simulated
+    link occupancy, planner decisions, the engine's spans) to that path.
     ``profile`` traces rank 0's steps after the first with
     ``torch.profiler`` and writes its op table to that path
     (``_write_profile``)."""
@@ -124,7 +141,8 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     kw = dict(arch=arch, steps=steps, pods=pods, data=data, seq=seq,
               batch=batch, comm=comm, zero1=zero1, ckpt_dir=ckpt_dir,
               ckpt_every=ckpt_every, smoke=smoke, device=str(dev),
-              log_every=log_every, profile=profile, log_json=log_json)
+              log_every=log_every, profile=profile, log_json=log_json,
+              bucket_mb=bucket_mb, trace=trace)
     if world == 1:
         return _train_rank(**kw)
     if "WORLD_SIZE" in os.environ:          # torchrun: this process is a rank
@@ -148,7 +166,7 @@ def _spawned_rank(rank: int, kw: dict) -> dict:
 
 def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
                 ckpt_every, smoke, device, log_every, profile, log_json,
-                local_rank: int = 0) -> dict:
+                bucket_mb, trace, local_rank: int = 0) -> dict:
     """The training loop of one rank (of a grid whose process group is
     initialised, or alone)."""
     set_json(log_json)
@@ -161,8 +179,14 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     info = log.info if lead else (lambda *a, **k: None)
     cfg = get_config(arch, smoke=smoke)
     T.train_check(cfg)
+    bucket_bytes = bucket_mb * 2 ** 20 if bucket_mb > 0 else None
+    if bucket_bytes and zero1 and comm != "flat":
+        info("bucketed sync: forcing zero1=False (ZeRO-1 "
+             "scatters per leaf)", event="config")
+        zero1 = False
     opt_cfg = OptConfig(comm_mode=comm, zero1=zero1, lr=1e-3,
-                        warmup_steps=20, total_steps=steps)
+                        warmup_steps=20, total_steps=steps,
+                        bucket_bytes=bucket_bytes)
     pipe = DataPipeline(cfg, ShapeSpec("custom", "train", seq, batch))
     straggler = StragglerMonitor()
     ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
@@ -170,13 +194,27 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     params = stack_runs(T.init_model(cfg, seed=0, device=dev), cfg)
     opt = shard_opt_state(init_opt_state(params, opt_cfg, n_slow=pods),
                           params, opt_cfg, grid)
+    tracer = Tracer() if trace and lead else None
+    est = _plan_estimates(cfg, grid, bucket_bytes, tracer) if lead else {}
     info(f"{cfg.name} on {dev}: {steps} steps of {batch} x {seq} tokens, "
          f"comm '{comm}' over a {pods}x{data} grid of {grid.world} rank(s)"
          + (f", backend {grid.backend}, collectives staged through host "
             f"memory: {'yes' if grid.staging == 'host' else 'no'}"
-            if grid.world > 1 else ""),
+            if grid.world > 1 else "")
+         + f"; grad sync est {est.get('est_ms', 0.0):.1f} ms/step, "
+         f"{est.get('slow_crossings', 0)} slow-link crossing(s)",
          event="setup", arch=cfg.name, device=str(dev), world=grid.world,
-         mode=comm, backend=grid.backend, staging=grid.staging)
+         mode=comm, backend=grid.backend, staging=grid.staging,
+         est_ms=est.get("est_ms"), slow_crossings=est.get("slow_crossings"))
+    if "bucketed" in est:
+        b = est["bucketed"]
+        info(f"bucketed sync ({bucket_mb:g} MiB x {b['n_buckets']} "
+             f"buckets): overlapped est {b['overlapped_s'] * 1e3:.1f} "
+             f"ms/step vs serial {b['serial_s'] * 1e3:.1f} ms "
+             f"({b['speedup']:.2f}x, balanced-compute model)",
+             event="bucketed_estimate", n_buckets=b["n_buckets"],
+             overlapped_ms=b["overlapped_s"] * 1e3,
+             serial_ms=b["serial_s"] * 1e3, speedup=b["speedup"])
 
     start = 0
     latest = ckpt.latest_step() if ckpt else None
@@ -225,6 +263,10 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
                  loss=losses[-1], dt_ms=dt * 1e3)
     if ckpt:
         ckpt.wait()
+    if tracer is not None:
+        tracer.save(trace)
+        info(f"trace: {tracer.n_events()} events -> {trace}",
+             event="trace", path=trace, events=tracer.n_events())
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     if grid.world > 1:
         every = [None] * grid.world
@@ -241,10 +283,36 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
            "staging": grid.staging, "staged_bytes": staged,
            "slow_wire_bytes": wire,
            "slow_f32_bytes": _slow_f32_bytes(params, grid),
-           "launches": launches}
+           "launches": launches, "plan": est}
     if prof is not None:
         prof.stop()
         out["profile"] = _write_profile(prof, dev, profile, sum(steady))
+    return out
+
+
+def _plan_estimates(cfg, grid, bucket_bytes: float | None, tracer) -> dict:
+    """The reference's planning plane (``train.py:115-146``): the
+    gradient sync's postal-model estimate over the grid's data-parallel
+    topology, with the generic link classes, its slow-link crossings and,
+    with ``bucket_bytes``, the bucketed, overlapped estimate through the
+    async engine at the communication-bound threshold (backward compute ~
+    sync time, spread over layers by gradient size)."""
+    sim = Communicator(dp_topology(grid, [GENERIC_LEVELS[0],
+                                          GENERIC_LEVELS[-1]]),
+                       policy="paper", backend="sim", tracer=tracer)
+    lbytes = layer_grad_bytes(cfg)
+    slice_bytes = sum(lbytes)
+    est_s = sim.allreduce(slice_bytes).time
+    out = {"est_ms": est_s * 1e3,
+           "slow_crossings": sim.slow_crossings("allreduce",
+                                                nbytes=slice_bytes)}
+    if bucket_bytes and grid.world > 1:  # one rank syncs nothing
+        b = overlapped_step_times(
+            sim, lbytes, [est_s * x / slice_bytes for x in lbytes],
+            bucket_bytes=bucket_bytes)
+        out["bucketed"] = {k: b[k] for k in (
+            "n_buckets", "overlapped_s", "serial_s", "speedup",
+            "overlap_efficiency")}
     return out
 
 
@@ -311,6 +379,12 @@ def main() -> None:
                          "checkpoint); one rank only; none by default")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--bucket-mb", type=float, default=0.0,
+                    help="size-targeted gradient buckets (MiB); 0 = one "
+                         "monolithic sync")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace of the planning plane "
+                         "(open in chrome://tracing or Perfetto)")
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="trace rank 0's steps after the first with "
                          "torch.profiler and write its op table to PATH")
@@ -323,7 +397,8 @@ def main() -> None:
                 args.comm, not args.no_zero1, args.ckpt_dir,
                 args.ckpt_every, smoke=args.smoke, device=args.device,
                 log_every=args.log_every, profile=args.profile,
-                dist_backend=args.dist_backend, log_json=args.log_json)
+                dist_backend=args.dist_backend, log_json=args.log_json,
+                bucket_mb=args.bucket_mb, trace=args.trace)
     if int(os.environ.get("RANK", 0)) != 0:
         return
     tps = out["tokens_per_s"]

@@ -214,7 +214,7 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
     ``S_cache`` slots.  Returns (y, cache_k, cache_v).
 
     The reference's sequence-parallel branch (``_cache_attend_sp``, taken
-    under a model axis) is not ported (ROADMAP.md, Queue 1 item 3): the
+    under a model axis) is not ported (ROADMAP.md, Queue 1 item 5): the
     port has no model axis."""
     B = x.shape[0]
     hd = cfg.head_dim

@@ -36,9 +36,9 @@ __all__ = ["NOT_PORTED", "NOT_PORTED_TRAIN", "port_check", "train_check",
            "init_cache", "prefill", "decode_step", "paged_arch_check",
            "init_paged_pools", "scatter_prefill_cache", "decode_step_paged"]
 
-NOT_PORTED = ("ROADMAP.md, Queue 1 item 4: MoE, RG-LRU, enc-dec and "
+NOT_PORTED = ("ROADMAP.md, Queue 1 item 6: MoE, RG-LRU, enc-dec and "
               "frontend architectures")
-NOT_PORTED_TRAIN = "ROADMAP.md, Queue 1 item 6: RWKV-6 training"
+NOT_PORTED_TRAIN = "ROADMAP.md, Queue 1 item 7: RWKV-6 training"
 KINDS = ("attn", "local", "rwkv6")
 
 

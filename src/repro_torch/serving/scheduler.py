@@ -8,11 +8,11 @@ state machine is WAITING -> PREFILL -> DECODE -> DONE (or SHED).
 Time is a virtual clock: each step costs ``max(compute_s, network_s)`` —
 compute from a roofline-style model over the tokens processed, network from
 an engine pricing the step's per-request decode gathers against the periodic
-fat weight broadcast on the shared multilevel topology.  The engine belongs
-to the planning plane, which the port has not reached yet: until it lands,
-``engine=None`` and a step costs its compute only.  This module is a copy
+fat weight broadcast on the shared multilevel topology (the priority
+:class:`~repro_torch.core.engine.Engine`; ``launch.serve`` builds it).
+With ``engine=None`` a step costs its compute only.  This module is a copy
 of ``repro/serving/scheduler.py`` with ``TorchExecutor`` in place of the
-JAX executor; the engine and monitor hooks are kept for that slice.
+JAX executor.
 
 Memory is paged (``serving.kv_cache``): KV lives in fixed-size blocks handed
 out on demand and freed on finish.  ``mode="dense"`` keeps the same
@@ -37,9 +37,7 @@ from collections import deque
 from typing import Protocol, Sequence
 
 import numpy as np
-import torch
 
-from ..models import transformer as T
 from ..obs.metrics import MetricsRegistry, percentile
 from ..obs.trace import PID_REQUESTS
 from .kv_cache import BlockAllocator, blocks_needed
@@ -130,6 +128,11 @@ class TorchExecutor:
 
     def __init__(self, cfg, params, *, n_blocks: int, block_size: int,
                  max_slots: int, max_blocks: int):
+        import torch
+
+        from ..models import transformer as T
+        self._torch = torch
+        self._T = T
         T.paged_arch_check(cfg)
         self.cfg = cfg
         self.params = params
@@ -142,13 +145,14 @@ class TorchExecutor:
         self.prefill_done_s: list[float] = []
 
     def _tensor(self, a: np.ndarray):
-        return torch.from_numpy(a).to(self.device)
+        return self._torch.from_numpy(a).to(self.device)
 
     def prefill(self, slot, blocks, tokens):
         L = int(tokens.shape[0])
         S_p = len(blocks) * self.block_size
         padded = np.zeros((1, S_p), np.int64)
         padded[0, :L] = tokens
+        T = self._T
         logits, cache, _ = T.prefill(
             self.params, self.cfg, {"tokens": self._tensor(padded)}, S_p,
             last_pos=self._tensor(np.asarray([L - 1])),
@@ -157,7 +161,7 @@ class TorchExecutor:
                                 self.block_size, row=0)
         self.tables[slot, :] = 0
         self.tables[slot, :len(blocks)] = blocks
-        tok = int(torch.argmax(logits[0, -1]))
+        tok = int(self._torch.argmax(logits[0, -1]))
         self.prefill_done_s.append(time.perf_counter())
         return tok
 
@@ -174,10 +178,10 @@ class TorchExecutor:
         for s, t, p in zip(slots, tokens, pos):
             tok[s, 0] = t
             posv[s] = p
-        logits, self.pools = T.decode_step_paged(
+        logits, self.pools = self._T.decode_step_paged(
             self.params, self.cfg, self.pools, self._tensor(self.tables),
             self._tensor(tok), self._tensor(posv))
-        out = torch.argmax(logits[:, 0], -1).cpu().numpy()
+        out = self._torch.argmax(logits[:, 0], -1).cpu().numpy()
         return [int(out[s]) for s in slots]
 
     def release(self, slot):

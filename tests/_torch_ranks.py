@@ -188,3 +188,37 @@ def tree_torch(rank, pods, data, levels, roots, xs, gs, sc, tree):
     out.update({f"tree_bucketed_{k}": v for k, v in got.items()})
     out.update({f"direct_bucketed_{k}": v for k, v in want.items()})
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+def discovery(rank, tmp, envs, xs):
+    """Discovery on this rank: the environment's topology (as spawned, and
+    under torchrun-style variables ``envs[rank]``), the timed probes, the
+    topology ``discover("device", path=)`` fits and persists, a second
+    ``discover`` that must load it without probing, and the ``"p2p"``
+    bcast of ``xs[rank]`` from rank 3 on the probes' topology."""
+    import os
+
+    from repro_torch.core import discovery as D
+
+    out = {"env_spawned": D.environment_topology().to_json()}
+    os.environ.update(envs[rank])
+    out["env"] = D.discover("env").to_json()
+    probes = D.device_probes(device="cpu")
+    out["times"] = probes.times
+    out["sizes"] = probes.sizes
+    path = f"{tmp}/rank{rank}.json"
+    out["topo"] = D.discover("device", path=path, device="cpu").to_json()
+    probe = D.device_probes
+
+    def no_probing(**kw):
+        raise AssertionError("discover probed although its file exists")
+
+    D.device_probes = no_probing
+    try:
+        out["again"] = D.discover("device", path=path).to_json()
+    finally:
+        D.device_probes = probe
+    comm = Communicator.from_probes(probes, backend="p2p", policy="auto")
+    out["probes_topo"] = comm.topo.to_json()
+    out["bcast"] = comm.bcast(_t(xs[rank]), root=3).numpy()
+    return out

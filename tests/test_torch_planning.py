@@ -453,13 +453,17 @@ def test_discovery_equal(name, tmp_path):
 
 
 def test_discovery_device_sources_not_ported():
-    for source in ("env", "device"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            TD.discover(source)
+    """The device sources no longer raise ``NotImplementedError``: "env"
+    fits the given ranks (``tests/test_torch_discovery_env.py`` holds both
+    sources against the reference and on spawned ranks); an unknown
+    source still raises."""
+    ranks = [TD.RankInfo(0, 0), TD.RankInfo(0, 1)]
+    assert TD.discover("env", devices=ranks).to_json() == \
+        TD.environment_topology(ranks).to_json()
     with pytest.raises(ValueError, match="unknown probe source"):
         TD.discover("nvlink")
-    assert not hasattr(TD, "environment_topology")
-    assert not hasattr(TD, "device_probes")
+    assert callable(TD.environment_topology)
+    assert callable(TD.device_probes)
 
 
 # ---------------------------------------------------------------------- #

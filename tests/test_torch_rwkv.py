@@ -236,7 +236,7 @@ def test_rwkv6_training_raises_naming_roadmap():
     cfg = configs.get_config("rwkv6_1p6b", smoke=True)
     params = T.init_model(cfg, device="cpu")
     toks = torch.zeros((1, 16), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
         T.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
         T.trunk_fwd(params, cfg, {"tokens": toks})

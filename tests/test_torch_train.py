@@ -422,9 +422,9 @@ def test_grid_trains_and_a_model_axis_raises():
     assert all(0.25 * f32 < w < 0.27 * f32 for w in out["slow_wire_bytes"])
     assert len(out["launches"]) == 4
     assert all(n == 0 for rank in out["launches"] for n in rank.values())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         train("gpt-100m", 1, mesh_spec="1x2x2", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         train("gpt-100m", 1, mesh_spec="2x1x1", smoke=True, device="cpu",
               ckpt_dir="unused")
 
