@@ -131,6 +131,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    minimum, median and maximum at each size, the fitted levels and
    ``nstrata`` are printed: eight ranks on one card, all over host-staged
    loopback, may well cluster as one flat level.
+20. elastic training of gpt-100m at full width and depth, ranks sharing
+   the card over gloo (staged through host memory, as phase 11), each
+   rank's counters starting at 0 in its fresh process.  20a: 4x1x1,
+   ``multilevel_compress`` with ZeRO-1, 6 steps of 8 x 1024 tokens, pod 1
+   failing before step 2 and a checkpoint every 3 steps: 6 finite losses,
+   an in-place repair (``repairs`` 1, ``recoveries`` 0) and its report,
+   the global batch fitted to 6 rows over the 3 survivors, the checkpoint
+   of step 3 written from 3 pods (each EF leaf ``(3,) + shape``), and
+   each survivor's launches of #1-#3 and of #5 and #6 (10 a step).  20b:
+   2x2x1, ``multilevel`` with ZeRO-1, 8 steps, a checkpoint every 3 steps,
+   pod 1 failing before step 7: below quorum, a restart from step 6 onto
+   1x2x1 with accumulation 2 (``recoveries`` 1), the restored global
+   state bit for bit the state gathered at the save of step 6 (SHA-256).
+   20c: 2 layers at full width, f32, 4x1x1 ``multilevel_compress``, pod
+   1 failing before step 2, 4 steps on four ranks on the card and on four
+   gloo ranks on the CPU from the same weights: the losses agree to phase
+   12's tolerance.  Printed: each case's wall s, step ms, recovery s,
+   each save's bytes and seconds (the gather and host copy) and each
+   write's on disk.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -141,6 +160,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -257,6 +277,19 @@ BUCKET_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
 DISC_ROOT = 3
 DISC_POLICY = "auto"        # plans on the measured levels
 DISC_LOAD_S = 1.0           # loading the persisted topology, no probing
+# phase 20: elastic training; 20a repairs in place, 20b restarts from a
+# checkpoint below quorum, 20c holds the f32 losses through a failure to
+# the CPU's (2 layers at full width, phase 12's rows and tolerance)
+ELASTIC_REPAIR = dict(steps=6, seq=1024, batch=8, mesh_spec="4x1x1",
+                      comm="multilevel_compress", zero1=True, ckpt_every=3,
+                      fail_at={2: [1]})
+ELASTIC_RESTART = dict(steps=8, seq=1024, batch=8, mesh_spec="2x2x1",
+                       comm="multilevel", zero1=True, ckpt_every=3,
+                       fail_at={7: [1]}, digests=True)
+ELASTIC_ANSWER = dict(steps=4, seq=256, batch=4, mesh_spec="4x1x1",
+                      comm="multilevel_compress", fail_at={2: [1]})
+# losses: 20b replays step 7 from the checkpoint of step 6
+ELASTIC_LOSSES = {"20a": 6, "20b": 8}
 
 
 def fail(msg: str) -> None:
@@ -1738,6 +1771,139 @@ def bucket_train_phase(train, cfg) -> dict:
     return {k: sum(r[k] for r in bt["launches"]) for k in want}
 
 
+def elastic_case(train, name, kw, ckpt_dir) -> dict:
+    """One case of phase 20 through ``train`` on the card, checkpointing
+    into ``ckpt_dir``; returns its result."""
+    t0 = time.perf_counter()
+    out = train("gpt-100m", device="cuda", log_every=1, ckpt_dir=ckpt_dir,
+                **kw)
+    wall = time.perf_counter() - t0
+    if len(out["losses"]) != ELASTIC_LOSSES[name] \
+            or not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"phase {name}: losses {out['losses']}, expected "
+             f"{ELASTIC_LOSSES[name]} finite")
+    print(json.dumps({f"elastic_{name}": {
+        **{k: v for k, v in kw.items() if k != "fail_at"},
+        "fail_at": {str(k): v for k, v in kw["fail_at"].items()},
+        "wall_s": wall, "losses": out["losses"], "step_ms": out["step_ms"],
+        "step_tokens": out["step_tokens"], "recovery_s": out["recovery_s"],
+        "recoveries": out["recoveries"], "repairs": out["repairs"],
+        "events": out["events"], "world_after": out["world"],
+        "pods_after": out["pods"], "accum": out["accum"],
+        "saves": [{k: v for k, v in s.items() if k != "digest"}
+                  for s in out["saves"]],
+        "ckpt_writes": out["ckpt_writes"],
+        "launches_per_rank": out["launches"]}}), flush=True)
+    return out
+
+
+def ef_rows_of(path: str, step: int) -> tuple[set, int]:
+    """The leading dims of a checkpoint's EF leaves, and how many EF
+    leaves the manifest lists whose shape is not (rows,) + the shape of
+    the parameter leaf of the same path."""
+    with open(f"{path}/step_{step:09d}/manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    rows, bad = set(), 0
+    for fn, meta in leaves.items():
+        if fn.startswith("opt_ef_"):
+            p = leaves["params_" + fn[len("opt_ef_"):]]["shape"]
+            rows.add(meta["shape"][0])
+            bad += meta["shape"][1:] != p
+    return rows, bad
+
+
+def elastic_answer(train, get_config) -> None:
+    """Phase 20c: 2 layers of gpt-100m at full width, f32, on four ranks
+    on the card and on four gloo ranks on the CPU from the same weights,
+    pod 1 failing before step 2: the losses agree."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import stack_runs, to_numpy
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("gpt-100m"), n_layers=2,
+                              pattern=("attn",) * 2)
+    params = to_numpy(stack_runs(tree_map(lambda t: t.float(), T.init_model(
+        cfg, seed=0, device="cpu")), cfg))
+    runs, wall = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = train("gpt-100m", config=cfg, init_params=params,
+                          device=dev, log_every=100, **ELASTIC_ANSWER)
+        wall[dev] = time.perf_counter() - t0
+    l_gpu, l_cpu = runs["cuda"]["losses"], runs["cpu"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    print(json.dumps({"elastic_20c_f32_card_vs_cpu": {
+        **{k: v for k, v in ELASTIC_ANSWER.items() if k != "fail_at"},
+        "fail_at": {str(k): v for k, v in ELASTIC_ANSWER["fail_at"].items()},
+        "layers": 2, "losses_card": l_gpu, "losses_cpu": l_cpu,
+        "repairs": [runs[d]["repairs"] for d in ("cuda", "cpu")],
+        "max_rel_loss_diff": rel, "loss_tolerance": GRID_LOSS_TOL,
+        "wall_s_card": wall["cuda"], "wall_s_cpu": wall["cpu"]}}),
+        flush=True)
+    if len(l_gpu) != len(l_cpu) or len(l_gpu) != ELASTIC_ANSWER["steps"] \
+            or any(runs[d]["repairs"] != 1 for d in runs):
+        fail(f"phase 20c: {len(l_gpu)} losses on the card, {len(l_cpu)} on "
+             f"the CPU, repairs {[runs[d]['repairs'] for d in runs]}")
+    if not math.isfinite(rel) or rel > GRID_LOSS_TOL:
+        fail(f"phase 20c: the f32 losses through a failure differ by {rel} "
+             f"(relative) between card and CPU")
+
+
+def elastic_phase(train, cfg, get_config) -> dict:
+    """Phase 20: elastic training of gpt-100m at full width and depth on
+    ranks sharing the card.  20a repairs in place and checkpoints from the
+    shrunk grid; 20b restarts below quorum from a checkpoint, whose
+    restored state must equal, bit for bit, the state gathered at its
+    save; 20c holds the losses through a failure to the CPU's.  Returns
+    the launches of 20a and 20b summed over their surviving ranks."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_elastic_") as tmp:
+        a = elastic_case(train, "20a", ELASTIC_REPAIR, f"{tmp}/a")
+        leaves, steps = 10, ELASTIC_REPAIR["steps"]
+        want = {"flash_fwd": 2 * cfg.n_layers * steps,
+                "flash_bwd_dq": cfg.n_layers * steps,
+                "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
+                "dequantize_int8": leaves * steps,
+                "quantize_ef_int8": leaves * steps}
+        seq, rows = ELASTIC_REPAIR["seq"], ELASTIC_REPAIR["batch"]
+        if a["repairs"] != 1 or a["recoveries"] != 0 \
+                or [e["event"] for e in a["events"]] != ["failure", "repair"] \
+                or a["events"][1]["survivors"] != 3 or a["world"] != 3:
+            fail(f"phase 20a: repairs {a['repairs']}, recoveries "
+                 f"{a['recoveries']}, events {a['events']}")
+        if a["step_tokens"] != [rows * seq] * 2 + [rows // 3 * 3 * seq] * 4:
+            fail(f"phase 20a: tokens a step {a['step_tokens']}")
+        if [(s["step"], s["pods"]) for s in a["saves"]] != [(3, 3)] \
+                or ef_rows_of(f"{tmp}/a", 3) != ({3}, 0):
+            fail(f"phase 20a: saves {a['saves']}; the EF leaves of step 3 "
+                 f"lead with {ef_rows_of(f'{tmp}/a', 3)}")
+        if len(a["launches"]) != 3 or any(r != want for r in a["launches"]):
+            fail(f"phase 20a: the surviving ranks launched {a['launches']}, "
+                 f"expected {want} each")
+        shutil.rmtree(f"{tmp}/a")
+
+        b = elastic_case(train, "20b", ELASTIC_RESTART, f"{tmp}/b")
+        saved = {s["step"]: s["digest"] for s in b["saves"]}
+        if b["recoveries"] != 1 or b["repairs"] != 0 or b["accum"] != 2 \
+                or b["pods"] != 1 or b["world"] != 2 \
+                or [e["in_place"] for e in b["events"]] != [False]:
+            fail(f"phase 20b: recoveries {b['recoveries']}, repairs "
+                 f"{b['repairs']}, accum {b['accum']}, grid {b['pods']} "
+                 f"pods of {b['world']} ranks")
+        if [r["step"] for r in b["restored"]] != [6] \
+                or b["restored"][0]["digest"] != saved.get(6):
+            fail(f"phase 20b: restored {b['restored']}, saved {saved}")
+        print(json.dumps({"elastic_20b_restore": {
+            "step": 6, "digest_saved": saved[6],
+            "digest_restored": b["restored"][0]["digest"],
+            "check": "bit for bit"}}), flush=True)
+    elastic_answer(train, get_config)
+    print(json.dumps({"elastic_phase_wall_s": time.perf_counter() - t_phase}),
+          flush=True)
+    return {k: sum(r[k] for r in a["launches"] + b["launches"])
+            for k in a["launches"][0]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-wkv", metavar="LIB", action="append",
@@ -1954,6 +2120,10 @@ def main() -> None:
     # 19. discovery on phase 16's ranks
     discovery_phase(torch, disc)
 
+    # 20. elastic training on ranks sharing the card: each rank is a fresh
+    # process whose counters start at 0
+    elastic_counts = elastic_phase(train, cfg, get_config)
+
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
     sources = {
@@ -1961,22 +2131,25 @@ def main() -> None:
                       "src/repro/kernels/flash_attention.py:68", main_fwd,
                       serve_counts["flash_fwd"] + train_counts["flash_fwd"]
                       + grid_counts["flash_fwd"] + net_counts["flash_fwd"]
-                      + bucket_counts["flash_fwd"]),
+                      + bucket_counts["flash_fwd"]
+                      + elastic_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
                          train_counts["flash_bwd_dq"]
                          + grid_counts["flash_bwd_dq"]
-                         + bucket_counts["flash_bwd_dq"]),
+                         + bucket_counts["flash_bwd_dq"]
+                         + elastic_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
                           train_counts["flash_bwd_dkv"]
                           + grid_counts["flash_bwd_dkv"]
-                          + bucket_counts["flash_bwd_dkv"]),
+                          + bucket_counts["flash_bwd_dkv"]
+                          + elastic_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
-        # training runs the fused EF kernel and the dequant; the tree
-        # phase's compressed syncs run all three
+        # training (phases 11 and 20) runs the fused EF kernel and the
+        # dequant; the tree phase's compressed syncs run all three
         "quantize_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                           "src/repro/kernels/quant.py:30",
                           quant["quantize_int8"],
@@ -1986,12 +2159,14 @@ def main() -> None:
                             "src/repro/kernels/quant.py:39",
                             quant["dequantize_int8"],
                             grid_counts["dequantize_int8"]
-                            + tree["launches"]["dequantize_int8"]),
+                            + tree["launches"]["dequantize_int8"]
+                            + elastic_counts["dequantize_int8"]),
         "quantize_ef_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                              "src/repro/kernels/quant.py:44",
                              quant["quantize_ef_int8"],
                              grid_counts["quantize_ef_int8"]
-                             + tree["launches"]["quantize_ef_int8"]),
+                             + tree["launches"]["quantize_ef_int8"]
+                             + elastic_counts["quantize_ef_int8"]),
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
                 rwkv_counts["wkv"]),

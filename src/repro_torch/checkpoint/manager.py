@@ -1,7 +1,8 @@
 """Checkpointing with atomic commits and an async writer thread.
 
-Copy of ``repro/checkpoint/manager.py`` without jax or ``ml_dtypes``, and
-always writing asynchronously.
+Copy of ``repro/checkpoint/manager.py`` without jax or ``ml_dtypes``,
+always writing asynchronously, and keeping each write's bytes and seconds
+(``writes``).
 
 Layout:  <dir>/step_<N>/   one .npy per leaf + manifest.json
 Commit protocol: write into ``step_<N>.tmp``, fsync, atomic rename — a crash
@@ -55,6 +56,8 @@ class CheckpointManager:
     def __post_init__(self):
         os.makedirs(self.directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        # each finished write: step, bytes on disk, seconds of the write
+        self.writes: list[dict] = []
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, state: Any) -> None:
@@ -72,6 +75,7 @@ class CheckpointManager:
             self._thread = None
 
     def _write(self, step: int, host_state: Any) -> None:
+        t0 = time.monotonic()
         final = os.path.join(self.directory, f"step_{step:09d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
@@ -91,6 +95,9 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic commit
         self._gc()
+        self.writes.append({"step": step, "bytes": sum(
+            a.nbytes for _, a in tree_paths(host_state)),
+            "s": time.monotonic() - t0})
 
     def _gc(self) -> None:
         steps = sorted(self.list_steps())

@@ -13,7 +13,9 @@ it as a product with the reciprocal), ``torch.round`` rounds half to even,
 and the EF residual subtracts the rounded product ``q * scale``.  They are
 also the plain versions of the Hopper kernels in ``repro_torch.kernels.
 quant``, which a CUDA tensor always takes (``use_kernel=None``); a CPU
-tensor takes the plain path.  The kernel path pads to ``QTILE`` (the
+tensor takes the plain path.  ``apply_error_feedback`` is the local (no
+collective) form of the correction ``compressed_psum`` applies with an
+``ef`` buffer.  The kernel path pads to ``QTILE`` (the
 reference's kernel granularity) instead of ``BLOCK``: the extra blocks are
 zeros, so the values are the same and only the wire bytes grow.
 
@@ -30,7 +32,7 @@ import torch
 
 __all__ = ["BLOCK", "TILE", "QTILE", "WIRE_BYTES_PER_ELEM", "F32_MAX",
            "pad_to_block", "quantize_int8", "dequantize_int8",
-           "quantize_ef_int8", "compressed_psum"]
+           "quantize_ef_int8", "compressed_psum", "apply_error_feedback"]
 
 BLOCK = 256        # elements per scale block
 TILE = 32          # quant blocks per kernel grid step of the reference
@@ -149,3 +151,23 @@ def compressed_psum(x: torch.Tensor, slow, block: int = BLOCK,
     out = out[:n]
     return out if ef is None else (out, new_ef)
 
+
+def apply_error_feedback(grad_flat: torch.Tensor, ef: torch.Tensor,
+                         block: int = BLOCK,
+                         use_kernel: bool | None = None):
+    """Classic EF: add the residual, quantise-dequantise locally to compute
+    the new residual.  Returns (corrected_grad, new_ef).  ``use_kernel``
+    as in :func:`compressed_psum`: the kernel path pads to ``QTILE`` and
+    takes the fused quantise + EF kernel, which produces the residual in
+    the same pass as the quantisation (its plain version on a CPU
+    tensor)."""
+    use_kernel = _resolve_use_kernel(use_kernel, block, grad_flat)
+    g = grad_flat + ef
+    if use_kernel:
+        from ..kernels import quant as kq
+        _, _, new_ef, _ = kq.quantize_ef_int8(grad_flat, ef)
+        return g, new_ef
+    gp, _ = pad_to_block(g, block)
+    q, s = quantize_int8(gp, block)
+    deq = dequantize_int8(q, s, block)[:g.numel()]
+    return g, g - deq

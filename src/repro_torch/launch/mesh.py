@@ -8,7 +8,10 @@ mesh axes.  The ``fast`` axis of a rank is the group of its pod's ranks
 ``slow`` axis the group of the ranks that share its data index (``pod``:
 the one exchange across pods), and ``dp`` all ranks (the flat baseline).
 One pod means no slow axis, as the reference's mesh then has no ``pod``
-axis.
+axis.  After a pod fails, the survivors' grid is a subset of the ranks
+(``make_grid(..., members=)``): its three axes are groups of their own,
+created by the members alone, and its ranks count from 0 in their
+row-major order.
 
 ``Axis`` runs the three collectives the sync needs on its group, along
 any dim (moved to the front and made contiguous, as the group collectives
@@ -158,6 +161,11 @@ class Grid:
     def axes(self) -> list[Axis]:
         return [a for a in (self.fast, self.slow, self.dp) if a is not None]
 
+    def barrier(self) -> None:
+        """Wait for every rank of the grid."""
+        if self.world > 1:
+            dist.barrier(group=self.dp.group)
+
     @classmethod
     def single(cls) -> "Grid":
         """One rank: every axis has size 1 and no group."""
@@ -187,33 +195,60 @@ def parse_mesh(spec: str) -> tuple[int, int]:
     return pods, data
 
 
-def make_grid(pods: int, data: int, device: torch.device) -> Grid:
+def make_grid(pods: int, data: int, device: torch.device,
+              members: "list[int] | None" = None) -> Grid:
     """This rank's ``Grid`` over the initialised default group, whose size
-    must be ``pods * data``.  Every rank creates every group, in the same
-    order.  Collectives of CUDA tensors are staged through the host when
-    the backend is gloo."""
-    if pods * data == 1 and not dist.is_initialized():
+    must be ``pods * data``, or over ``members``: the global ranks of a
+    grid that holds only some of them (the survivors of a failure), in
+    row-major (pod, data) order, this rank among them.  Every rank creates
+    every group of the default group, in the same order; a grid of
+    ``members`` creates its groups with the members alone
+    (``use_local_synchronization``), so ranks that have left need not
+    join, and each member creates its own fast, slow and dp groups in that
+    order.  torch names such a group by its ranks and the number of groups
+    the process has made, so the members must have made equally many
+    before: a rank outside ``members`` leaves for good.  Collectives of
+    CUDA tensors are staged through the host when the backend is gloo."""
+    if members is None and pods * data == 1 and not dist.is_initialized():
         return Grid.single()
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != pods * data:
-        raise ValueError(f"{world} ranks for a {pods}x{data} grid")
+    if members is None:
+        if world != pods * data:
+            raise ValueError(f"{world} ranks for a {pods}x{data} grid")
+        members = list(range(world))
+        local = False
+    else:
+        members = list(members)
+        if len(members) != pods * data or rank not in members:
+            raise ValueError(f"members {members} for a {pods}x{data} grid "
+                             f"on rank {rank}")
+        local = True
     backend = dist.get_backend()
     stage = backend == "gloo" and device.type == "cuda"
-    pod, d = divmod(rank, data)
+    me = members.index(rank)
+    pod, d = divmod(me, data)
+
+    def group(ids: list[int]):
+        ranks = [members[i] for i in ids]
+        return dist.new_group(ranks, use_local_synchronization=True) \
+            if local else dist.new_group(ranks)
+
     fast = Axis("data", data, d, stage=stage)
     for p in range(pods):
-        if data > 1:
-            g = dist.new_group([p * data + i for i in range(data)])
+        if data > 1 and (p == pod or not local):
+            g = group([p * data + i for i in range(data)])
             if p == pod:
                 fast.group = g
     slow = Axis("pod", pods, pod, stage=stage) if pods > 1 else None
     for i in range(data):
-        if pods > 1:
-            g = dist.new_group([p * data + i for p in range(pods)])
+        if pods > 1 and (i == d or not local):
+            g = group([p * data + i for p in range(pods)])
             if i == d:
                 slow.group = g
-    return Grid(pods, data, rank, fast, slow,
-                Axis("dp", world, rank, stage=stage), backend)
+    dp = Axis("dp", pods * data, me, stage=stage)
+    if local and pods * data > 1:
+        dp.group = group(list(range(pods * data)))
+    return Grid(pods, data, me, fast, slow, dp, backend)
 
 
 def grid_topology(grid: Grid, levels: "list[Level]") -> Topology:

@@ -12,8 +12,9 @@ with an error-feedback residual), bucketed (fused buffers in reverse leaf
 order), and under ZeRO-1 the sync stops after the slow hop: each rank
 updates its shard of the optimiser state and all-gathers updated
 parameters.  ``shard_opt_state`` cuts the global state to this rank's
-shard, the counterpart of ``opt_manual_specs``.  One rank (no grid) is the
-identity sync.
+shard, the counterpart of ``opt_manual_specs``, and ``gather_opt_state``
+puts the shards back together into the global state (for a checkpoint).
+One rank (no grid) is the identity sync.
 
 The trees are walked leaf by leaf, so the scatter axes, the int8 blocks
 and the EF rows follow the layout of the tree given; the train step passes
@@ -34,7 +35,7 @@ from ..launch.mesh import Grid
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["OptConfig", "scatter_axes", "init_opt_state", "shard_opt_state",
-           "apply_updates", "lr_at"]
+           "gather_opt_state", "apply_updates", "lr_at"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +161,30 @@ def shard_opt_state(opt: dict, params: Any, cfg: OptConfig,
     if cfg.error_feedback:
         out["ef"] = tree_map(lambda e, ax: chunk(e[pod:pod + 1], ax, 1),
                              opt["ef"], axes)
+    return out
+
+
+def gather_opt_state(opt: dict, params: Any, cfg: OptConfig,
+                     grid: Grid) -> dict:
+    """The global optimiser state from every rank's shard, on every rank:
+    the inverse of :func:`shard_opt_state`.  Under ZeRO-1 m, v and master
+    are all-gathered along each leaf's scatter axis over the fast axis
+    (the pods hold replicas); the EF rows are gathered over both axes
+    into ``(n_slow,) + param.shape``.  A collective over the grid."""
+    axes = scatter_axes(params, grid.data)
+
+    def whole(t, ax, lead=0):
+        return t if ax is None else grid.fast.all_gather(t, ax + lead)
+
+    out = dict(opt)
+    if cfg.sharded_state:
+        for k in ("m", "v", "master"):
+            out[k] = tree_map(whole, opt[k], axes)
+    if cfg.error_feedback:
+        def rows(e, ax):
+            e = whole(e, ax, 1)
+            return e if grid.slow is None else grid.slow.all_gather(e, 0)
+        out["ef"] = tree_map(rows, opt["ef"], axes)
     return out
 
 

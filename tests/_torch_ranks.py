@@ -222,3 +222,67 @@ def discovery(rank, tmp, envs, xs):
     out["probes_topo"] = comm.topo.to_json()
     out["bcast"] = comm.bcast(_t(xs[rank]), root=3).numpy()
     return out
+
+
+def _axis_sums(grid, x):
+    """The grid's collectives on ``x``: psum, psum_scatter and all_gather
+    over dp, psum over the fast and slow axes."""
+    out = {"rank": grid.rank, "world": grid.world,
+           "dp_psum": grid.dp.psum(x), "dp_scatter": grid.dp.psum_scatter(x),
+           "dp_gather": grid.dp.all_gather(x),
+           "fast_psum": grid.fast.psum(x),
+           "slow_psum": x if grid.slow is None else grid.slow.psum(x)}
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def grid_state(rank, params, ckpt_dir, cases, xs):
+    """The optimiser state of a grid across checkpoints and failures.
+
+    First, on 2x2: the reference's checkpoint of step 5 in ``ckpt_dir``
+    restored on this rank (``train._restore``, EF rows of 2 pods), and
+    its shards gathered back (``gather_opt_state``).  Then for each case
+    ``(pods, data, lost, opt)``: this rank's shard of the global ``opt``
+    on a grid over all ranks, pods ``lost`` failing; a survivor keeps its
+    live shard (``train._fit_ef_rows``) on the survivors' grid
+    (``make_grid(members=)``), runs the grid's collectives on ``xs[rank]``
+    and gathers the state.  Last, two failures in a row on 4x1 where the
+    lost ranks really leave (return) before the survivors make their
+    groups: pod 1, then pod 0 of the three left."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as TR
+
+    cfg = adamw.OptConfig(comm_mode="multilevel_compress")
+    p = from_numpy(params, device=CPU)
+    x = _t(xs[rank])
+    out = {}
+    grid = make_grid(2, 2, CPU)
+    _, opt, _ = TR._restore(CheckpointManager(ckpt_dir), 5, p, cfg, grid,
+                            2, (), CPU)
+    out["restored"] = to_numpy(opt)
+    out["gathered"] = to_numpy(adamw.gather_opt_state(opt, p, cfg, grid))
+    for i, (pods, data, lost, opt_global) in enumerate(cases):
+        grid = make_grid(pods, data, CPU)
+        opt = adamw.shard_opt_state(from_numpy(opt_global, device=CPU), p,
+                                    cfg, grid)
+        keep = [q for q in range(pods) if q not in lost] or [0]
+        members = [q * data + d for q in keep for d in range(data)]
+        if rank not in members:
+            out[i] = None
+            continue
+        sub = make_grid(len(keep), data, CPU, members=members)
+        opt = TR._fit_ef_rows(opt, pods, lost, len(keep))
+        res = _axis_sums(sub, x)
+        res["state"] = to_numpy(adamw.gather_opt_state(opt, p, cfg, sub))
+        sub.barrier()
+        out[i] = res
+    make_grid(4, 1, CPU)
+    members = list(range(4))
+    out["leave"] = []
+    for lost in (1, 0):          # pod 1 of 4, then pod 0 of the 3 left
+        members = [m for i, m in enumerate(members) if i != lost]
+        if rank not in members:
+            return out
+        grid = make_grid(len(members), 1, CPU, members=members)
+        out["leave"].append(_axis_sums(grid, x))
+        grid.barrier()
+    return out

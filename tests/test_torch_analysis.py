@@ -237,8 +237,6 @@ POINTERS = [
     ("models/transformer.py", 6, "MoE, RG-LRU, enc-dec"),
     ("models/transformer.py", 7, "RWKV-6 training"),
     ("kernels/wkv.py", 7, "RWKV-6 training"),
-    ("launch/train.py", 4, "checkpoints"),
-    ("runtime/fault_tolerance.py", 4, "elastic"),
 ]
 
 

@@ -18,7 +18,8 @@ most 2**-8 = 3.9e-3 of max|ref|) and f32 sums in another order; the
 forward's lse, which is not rounded, is held to its mirror within 1e-4
 times max(1, max|lse|).  TF32 is off for the plain
 versions' f32 einsums.  The int8 kernels equal their plain versions bit
-for bit (NaN where NaN).  The WKV kernel's o and final state agree with
+for bit (NaN where NaN), and so does ``apply_error_feedback`` on the
+card against its plain path on the CPU.  The WKV kernel's o and final state agree with
 its plain version within 1e-4 times max(1, max|ref|), as
 ``chip_smoke.py`` holds it; the RWKV-6 model in f32 on the card agrees
 with the CPU within 1e-4 on logits and state, and one bf16 ulp on the
@@ -333,6 +334,40 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     before = kq.quantize_ef_int8.launches
     _, _, new, _ = kq.quantize_ef_int8(x + 1.0, x)   # the kernel, on the card
     assert new.is_cuda and kq.quantize_ef_int8.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [333, C.QTILE, 3 * C.QTILE - 100,
+                               1_000_003])
+def test_apply_error_feedback_takes_the_fused_kernel(dev, n):
+    """On the card ``apply_error_feedback`` launches the fused quantise +
+    EF kernel once and equals the plain path on the CPU bit for bit."""
+    x, ef = _quant_input(n, dev)
+    before = kq.quantize_ef_int8.launches
+    g, new = C.apply_error_feedback(x, ef)
+    torch.cuda.synchronize()
+    assert kq.quantize_ef_int8.launches == before + 1
+    g_cpu, new_cpu = C.apply_error_feedback(x.cpu(), ef.cpu(),
+                                            use_kernel=False)
+    assert _same(g.cpu(), g_cpu) and _same(new.cpu(), new_cpu)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        C.apply_error_feedback(x, ef, use_kernel=False)
+
+
+def test_elastic_grid_on_card(dev, tmp_path):
+    """4x1x1 ``multilevel_compress`` ranks sharing the card over gloo,
+    pod 1 failing before step 1: an in-place repair, the checkpoint of
+    step 2 written from 3 pods, and every survivor launching the fused EF
+    and dequant kernels once per stacked leaf a step."""
+    out = train("gpt-100m", steps=3, mesh_spec="4x1x1", seq=64, batch=4,
+                comm="multilevel_compress", ckpt_dir=str(tmp_path),
+                ckpt_every=2, fail_at={1: [1]}, smoke=True, device="cuda")
+    assert (out["repairs"], out["recoveries"], out["world"]) == (1, 0, 3)
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert [(s["step"], s["pods"]) for s in out["saves"]] == [(2, 3)]
+    assert len(out["launches"]) == 3
+    for rank in out["launches"]:
+        assert rank == out["launches"][0]
+        assert rank["quantize_ef_int8"] == rank["dequantize_int8"] == 30
 
 
 def _wkv_inputs(B, S, H, hd, decays, dev, seed=0):
