@@ -14,7 +14,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    beside them;
 3. the flash forward kernel against its plain PyTorch version on the card,
    at the shapes of the models the port serves and trains (gemma3-12b's
-   local layer at hd 256 among them), and in bf16 also against the plain
+   local layer at hd 256 among them, and the serving regimes of phases
+   21-22: olmoe's prefill, recurrentgemma-2b's local layer (G 10, hd 256,
+   window 2048), seamless's encoder and cross attention (not causal, the
+   cross with Sq != Sk), pixtral and llama4-scout (G 4, 5)), and in bf16
+   also against the plain
    version that mirrors the tensor-core kernel's bf16 rounding of P, more
    tightly; its time in turns with the library call's (kernel, SDPA, SDPA,
    kernel; the library is timed only, never used by the port), in bf16
@@ -22,7 +26,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the roofline bound; one JSON line per shape with the design it ran
    (``mma_bf16`` or ``fma_f32``);
 4. the two flash backward kernels (dq, dk/dv) the same way, at the same
-   shapes where their head dim is one they take (16-128): against the f32
+   shapes but the serving-only regimes, where their head dim is one they
+   take (16-128): against the f32
    plain version, and in bf16 also against the plain version that mirrors
    the tensor-core kernels' bf16 rounding of P and dS, more tightly; the
    library call is SDPA's backward, timed on its own after one forward, in
@@ -150,6 +155,30 @@ Phases, each of which fails the run (nonzero exit, no result line):
    12's tolerance.  Printed: each case's wall s, step ms, recovery s,
    each save's bytes and seconds (the gather and host copy) and each
    write's on disk.
+21. the MoE main path: ``serve`` on olmoe-1b-7b at full width and depth
+   (16 layers, d 2048, 64 experts top-8; 6.82 B parameters, random from a
+   seed), phase 5's requests, the counters and ``moe_fwd.host_syncs`` set
+   to 0 just before and read just after: every request done, 16 flash
+   launches a prefill; wall s, tok/s, wall TTFT and the host syncs a
+   scheduler step printed; then one 8 x 512 prefill under torch.profiler:
+   the card's ms in flash, in the expert products, in the router and
+   sort, and in the rest, beside the route's host ms;
+22. the dense path (``make_prefill_fn``/``make_decode_fn``) at full
+   width: recurrentgemma-2b (4 x 512, then 1 x 2048, whose decode wraps
+   the local layers' 2048-slot ring), seamless-m4t-medium (4 requests of
+   512 encoder frames and 128 decoder tokens), pixtral-12b (4 x (256 patch
+   embeds + 256 tokens)) and llama4-scout-17b-a16e cut to 4 of its 48
+   layers (the whole does not fit one card), 16 greedy tokens each, the
+   counters set to 0 before each config and read after: finite logits,
+   tokens in range, a flash launch per attention layer (encoder and cross
+   layers included) and prefill; prefill ms and decode ms a step;
+23. the five configs' f32 answer, card against CPU, at full width and one
+   pattern period (llama4-scout, olmoe, pixtral 2 layers, recurrentgemma
+   3, seamless 2 + 2): 2 prompts of 48 tokens (after 32 patch embeds or
+   encoder frames), the prefill's logits and cache and 4 decode steps,
+   each from the CPU's cache and token, within 1e-4 of their scale (bf16
+   cache leaves within one ulp); every MoE call's top-k experts, token by
+   token, different only at near-ties (printed per layer).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -205,9 +234,21 @@ SHAPES = [
     ("gpt-100m train", 8, 1024, 1024, 12, 12, 64, True, None, 0, "bfloat16"),
     ("gpt-100m train", 8, 1024, 1024, 12, 12, 64, True, None, 0, "float32"),
     ("gemma3-12b local", 1, 2048, 2048, 16, 8, 256, True, 1024, 0, "bfloat16"),
+    # the serving regimes of phases 21-22 (forward only)
+    ("olmoe-1b-7b prefill", 1, 512, 512, 16, 16, 128, True, None, 0,
+     "bfloat16"),
+    ("recurrentgemma-2b local", 1, 2048, 2048, 10, 1, 256, True, 2048, 0,
+     "bfloat16"),
+    ("seamless-m4t-medium encoder", 4, 512, 512, 16, 16, 64, False, None, 0,
+     "bfloat16"),
+    ("seamless-m4t-medium cross", 4, 128, 512, 16, 16, 64, False, None, 0,
+     "bfloat16"),
+    ("pixtral-12b", 4, 512, 512, 32, 8, 128, True, None, 0, "bfloat16"),
+    ("llama4-scout", 4, 512, 512, 40, 8, 128, True, None, 0, "bfloat16"),
 ]
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
 TRAIN_SHAPE = 12        # the shape the training path gives all three
+BWD_SHAPES = 15         # phase 4 runs the first 15; the rest serve only
 TRAIN = dict(steps=5, seq=1024, batch=8)
 GRID_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
                   comm="multilevel_compress", dist_backend="gloo")
@@ -244,7 +285,7 @@ WKV_TURNS = (0, 1)      # the shapes timed at each split and with parents
 # test's atol (tests/test_kernels.py:104) at unit scale
 WKV_TOL = 1e-4
 RWKV_SERVE = ((8, 512), (1, 300))       # (batch, prompt tokens)
-RWKV_GEN = 16
+DENSE_GEN = 16          # tokens each dense-path request generates
 # RWKV-6's f32 answer, card against CPU: logits and the WKV state within
 # 1e-4 of their scale; x_tm and x_cm are stored in bf16, where a value
 # near a rounding boundary may land one bf16 ulp (at most 2**-7 of it)
@@ -290,6 +331,33 @@ ELASTIC_ANSWER = dict(steps=4, seq=256, batch=4, mesh_spec="4x1x1",
                       comm="multilevel_compress", fail_at={2: [1]})
 # losses: 20b replays step 7 from the checkpoint of step 6
 ELASTIC_LOSSES = {"20a": 6, "20b": 8}
+# phase 21: olmoe-1b-7b at full width and depth through the paged
+# scheduler, phase 5's requests; then one profiled prefill of 8 x 512
+MOE_ARCH = "olmoe-1b-7b"
+MOE_PROFILE = (8, 512)
+# phase 22: (arch, layers kept or None for all, (batch, prompt tokens) of
+# each prefill, prefix positions: patch embeds or encoder frames)
+DENSE_SERVE = [
+    ("recurrentgemma-2b", None, ((4, 512), (1, 2048)), 0),
+    ("seamless-m4t-medium", None, ((4, 128),), 512),
+    ("pixtral-12b", None, ((4, 256),), 256),
+    ("llama4-scout-17b-a16e", 4, ((4, 512),), 0),
+]
+# phase 23: f32, card against CPU, one pattern period of each config at
+# full width: its layers (encoder and decoder each for enc-dec), then a
+# batch of 2 prompts of 48 tokens after 32 prefix positions where the
+# config takes them, and 4 decode steps.  Logits and f32 cache leaves
+# within 1e-4 of their scale; bf16 cache leaves within one bf16 ulp (as
+# phase 15).  A token whose top-k experts differ between card and CPU is a
+# near-tie only if its k-th and (k+1)-th probabilities on the CPU are
+# within 1e-6, else a failure; near-ties are counted and printed.
+ANSWER_LAYERS = {"llama4-scout-17b-a16e": 2, "olmoe-1b-7b": 2,
+                 "recurrentgemma-2b": 3, "seamless-m4t-medium": 2,
+                 "pixtral-12b": 2}
+ANSWER_INPUT = (2, 48, 32)       # batch, prompt tokens, prefix positions
+ANSWER_STEPS = 4
+ARCH_TOL = 1e-4
+NEAR_TIE = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -328,10 +396,11 @@ def sdpa_of(torch, shape, mask):
     """One SDPA call on (B,S,H,hd) inputs: the library yardstick."""
     _, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
     plain_causal = causal and window is None and q_offset == 0 and Sq == Sk
+    unmasked = not causal and window is None
     return lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=None if plain_causal else mask, is_causal=plain_causal,
-        enable_gqa=Hkv != H)
+        attn_mask=None if plain_causal or unmasked else mask,
+        is_causal=plain_causal, enable_gqa=Hkv != H)
 
 
 def inputs_of(torch, shape, seed=0):
@@ -1001,39 +1070,54 @@ def wkv_phase(torch, kw, shape, ptxas, parents=None) -> dict:
     return rec
 
 
-def rwkv_serve(torch, cfg, params, B, L):
-    """Prefill a (B, L) prompt from a seed on the card and decode greedily
-    to RWKV_GEN tokens through make_prefill_fn/make_decode_fn.  Returns
-    the wall times, the tokens and each step's logits."""
+def prompt_inputs(torch, cfg, B, L, P, seed):
+    """A (B, L) prompt from a seed, and P positions of bf16 patch embeds
+    (a vision frontend) or encoder frames (enc-dec), on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (B, L), generator=gen)}
+    if P:
+        e = torch.randn((B, P, cfg.d_model), generator=gen)
+        inputs["src_embeds" if cfg.enc_dec else "embeds"] = \
+            e.to(torch.bfloat16)
+    return inputs
+
+
+def dense_serve(torch, cfg, params, B, L, P=0):
+    """Prefill a (B, L) prompt from a seed (after P prefix positions) on
+    the card and decode greedily to DENSE_GEN tokens through
+    make_prefill_fn/make_decode_fn.  Returns the wall times, the tokens
+    and each step's logits."""
     from repro_torch.launch.step import make_decode_fn, make_prefill_fn
 
-    gen = torch.Generator().manual_seed(L)
-    prompt = torch.randint(0, cfg.vocab, (B, L), generator=gen).cuda()
-    prefill = make_prefill_fn(cfg, L + RWKV_GEN - 1)
+    inputs = {k: v.cuda()
+              for k, v in prompt_inputs(torch, cfg, B, L, P, L).items()}
+    pre = 0 if cfg.enc_dec else P
+    prefill = make_prefill_fn(cfg, pre + L + DENSE_GEN - 1)
     decode = make_decode_fn(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache, pos = prefill(params, {"tokens": prompt})
+    logits, cache, pos = prefill(params, inputs)
     out, lgs = [logits[:, -1].argmax(-1, keepdim=True)], [logits]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for i in range(RWKV_GEN - 1):
+    for i in range(DENSE_GEN - 1):
         logits, cache = decode(params, cache, out[-1], pos + i)
         out.append(logits[:, -1].argmax(-1, keepdim=True))
         lgs.append(logits)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return {"prefill_ms": (t1 - t0) * 1e3,
-            "decode_ms_per_step": (t2 - t1) * 1e3 / (RWKV_GEN - 1),
+            "decode_ms_per_step": (t2 - t1) * 1e3 / (DENSE_GEN - 1),
             "tokens": torch.cat(out, 1), "logits": lgs, "wall_s": t2 - t0}
 
 
-def rwkv_leaf_errs(torch, name, got, want) -> tuple[dict, bool]:
+def leaf_errs(torch, got, want) -> tuple[dict, bool]:
     """How far one cache leaf on the card is from the CPU's, and whether
-    it is within RWKV_TOL of its scale (S) or one bf16 ulp (x_tm, x_cm)."""
+    it is within RWKV_TOL of its scale (an f32 leaf) or one bf16 ulp (a
+    leaf stored in bf16)."""
     a, b = got.cpu().float(), want.float()
     d, top = (a - b).abs(), b.abs().max().item()
-    if name == "S":
+    if want.dtype == torch.float32:
         ok = d.max().item() <= RWKV_TOL * top
     else:
         ok = bool((d <= BF16_ULP * b.abs() + 1e-6 * top).all())
@@ -1076,9 +1160,8 @@ def rwkv_answer(torch, get_config) -> dict:
                 / max(1.0, lg_c.abs().max().item())}
         ok = step["logits_max_rel_err"] <= RWKV_TOL
         for name in ("S", "x_tm", "x_cm"):
-            step[name], leaf_ok = rwkv_leaf_errs(torch, name,
-                                                 cache_g[0][name],
-                                                 cache_c[0][name])
+            step[name], leaf_ok = leaf_errs(torch, cache_g[0][name],
+                                            cache_c[0][name])
             ok &= leaf_ok
         rec["steps"].append(step)
         if not ok:
@@ -1089,8 +1172,8 @@ def rwkv_answer(torch, get_config) -> dict:
         lg_f, free = decode(p_gpu, free, tok.cuda(), pos + i)
     rec["free_run_logits_max_rel_err"] = (lg_f.cpu() - lg_c).abs().max() \
         .item() / max(1.0, lg_c.abs().max().item())
-    rec["free_run_cache"] = {name: rwkv_leaf_errs(torch, name, free[0][name],
-                                                  cache_c[0][name])[0]
+    rec["free_run_cache"] = {name: leaf_errs(torch, free[0][name],
+                                             cache_c[0][name])[0]
                              for name in ("S", "x_tm", "x_cm")}
     print(json.dumps({"rwkv6_f32_card_vs_cpu": {
         "layers": 2, "prompt": 300, "decode_steps": 4,
@@ -1658,9 +1741,9 @@ def discovery_phase(torch, disc) -> None:
         flush=True)
 
 
-def serve_runs(serve, tmp=None, **kw) -> list:
-    """Phase 5's requests through ``serve``, one call per row of
-    ``SERVE_RUNS``; with ``tmp``, each call writes its Chrome trace and
+def serve_runs(serve, tmp=None, arch="gpt-100m", **kw) -> list:
+    """Phase 5's requests through ``serve`` on ``arch``, one call per row
+    of ``SERVE_RUNS``; with ``tmp``, each call writes its Chrome trace and
     metrics file there, and its result counts the trace's events and the
     metric series."""
     runs = []
@@ -1668,7 +1751,7 @@ def serve_runs(serve, tmp=None, **kw) -> list:
         if tmp is not None:
             kw.update(trace=f"{tmp}/trace_{n}x{L}.json",
                       metrics_out=f"{tmp}/metrics_{n}x{L}.txt")
-        r = serve("gpt-100m", n, L, SERVE_GEN, device="cuda", **kw)
+        r = serve(arch, n, L, SERVE_GEN, device="cuda", **kw)
         if tmp is not None:
             with open(kw["trace"]) as f:
                 r["trace_events"] = len(json.load(f)["traceEvents"])
@@ -1904,6 +1987,273 @@ def elastic_phase(train, cfg, get_config) -> dict:
             for k in a["launches"][0]}
 
 
+def cut(get_config, arch, n):
+    """``arch`` at full width, cut to its first ``n`` layers (encoder and
+    decoder each for enc-dec; None keeps them all)."""
+    cfg = get_config(arch)
+    if n is None:
+        return cfg
+    enc = cfg.enc_dec and dataclasses.replace(
+        cfg.enc_dec, n_enc_layers=n, n_dec_layers=n)
+    return dataclasses.replace(cfg, n_layers=n, pattern=cfg.pattern[:n],
+                               enc_dec=enc)
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash-forward launches of one prefill: each attention layer, and
+    for enc-dec each encoder layer and each decoder layer's cross
+    attention."""
+    n = sum(k in ("attn", "local") for k in cfg.pattern)
+    return n + (cfg.enc_dec.n_enc_layers + n if cfg.enc_dec else 0)
+
+
+def ranged(torch, label, fn):
+    """``fn`` inside a profiler range named ``label``."""
+    def run(*args):
+        with torch.profiler.record_function(label):
+            return fn(*args)
+    return run
+
+
+def moe_profile(torch, T, L, cfg, params) -> dict:
+    """One 8 x 512 prefill of the MoE model under torch.profiler: the
+    card's ms in flash, in the expert products (``_moe_experts``), in the
+    router, top-k, sort and group-size read (``_moe_route``), and in
+    everything else; beside them the host ms of the route, which waits
+    for the group sizes, and the prefill's wall ms."""
+    B, S = MOE_PROFILE
+    toks = torch.randint(0, cfg.vocab, (B, S),
+                         generator=torch.Generator().manual_seed(B)).cuda()
+    run = lambda: T.prefill(params, cfg, {"tokens": toks}, S)
+    run()
+    torch.cuda.synchronize()
+    orig = (L._moe_route, L._moe_experts)
+    P = torch.profiler.ProfilerActivity
+    syncs = L.moe_fwd.host_syncs
+    try:
+        L._moe_route = ranged(torch, "moe_route", orig[0])
+        L._moe_experts = ranged(torch, "moe_experts", orig[1])
+        with torch.profiler.profile(activities=[P.CPU, P.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        L._moe_route, L._moe_experts = orig
+    syncs = L.moe_fwd.host_syncs - syncs
+    cuda = torch.autograd.DeviceType.CUDA
+    labels = ("moe_route", "moe_experts")
+    # the ranges' own spans on the card's timeline are not kernels
+    kerns = [e for e in prof.key_averages()
+             if e.device_type == cuda and e.key not in labels]
+    total = sum(e.self_device_time_total for e in kerns) / 1e3
+    flash = sum(e.self_device_time_total for e in kerns
+                if "flash_fwd" in e.key) / 1e3
+    ranges = {}
+    for e in prof.events():
+        if e.name in labels and e.device_type != cuda:
+            dev_ms, host_ms = ranges.get(e.name, (0.0, 0.0))
+            ranges[e.name] = (dev_ms + e.device_time_total / 1e3,
+                              host_ms + e.cpu_time_total / 1e3)
+    route, experts = ranges.get("moe_route"), ranges.get("moe_experts")
+    if route is None or experts is None \
+            or not flash + experts[0] + route[0] <= total:
+        fail(f"the MoE prefill's profile does not attribute its device "
+             f"time: total {total} ms, flash {flash} ms, ranges {ranges}")
+    rec = {"batch": B, "prompt": S, "wall_ms": wall * 1e3,
+           "device_ms": total, "flash_ms": flash,
+           "expert_products_ms": experts[0], "router_sort_ms": route[0],
+           "other_ms": total - flash - experts[0] - route[0],
+           "idle_share": 1.0 - total / (wall * 1e3),
+           "router_sort_host_ms": route[1],
+           "expert_products_host_ms": experts[1], "host_syncs": syncs}
+    print(json.dumps({"moe_prefill_profile": rec}), flush=True)
+    return rec
+
+
+def moe_serve_phase(torch, serve, fa, kw, T, L, get_config) -> dict:
+    """Phase 21: olmoe-1b-7b at full width and depth through ``serve``,
+    phase 5's requests, the counters and the MoE's host syncs set to 0
+    just before and read just after; then one profiled 8 x 512 prefill.
+    Returns the launches."""
+    cfg = get_config(MOE_ARCH)
+    reset(fa, kw)
+    L.moe_fwd.host_syncs = 0
+    t0 = time.perf_counter()
+    runs = serve_runs(serve, arch=MOE_ARCH)
+    wall = time.perf_counter() - t0
+    got, syncs = counts(fa, kw), L.moe_fwd.host_syncs
+    prefills = sum(r["prefills"] for r in runs)
+    for r, (n, _) in zip(runs, SERVE_RUNS):
+        if not all(q.state.name == "DONE" for q in r["requests"]):
+            fail(f"{MOE_ARCH}: a request did not finish")
+        gen = r["generated"]
+        if gen.shape != (n, SERVE_GEN) or gen.min() < 0 \
+                or gen.max() >= cfg.vocab:
+            fail(f"{MOE_ARCH} generated tokens of shape {gen.shape} out of "
+                 f"range")
+    want = {"flash_fwd": cfg.n_layers * prefills, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "wkv": 0}
+    if got != want or prefills != 9:
+        fail(f"{MOE_ARCH} serving launched {got} for {prefills} prefills, "
+             f"expected {want}")
+    steps = sum(r["report"]["steps"] for r in runs)
+    for r, (n, L_) in zip(runs, SERVE_RUNS):
+        print(json.dumps({"moe_serve": {
+            "arch": MOE_ARCH, "requests": n, "prompt": L_,
+            "generated": SERVE_GEN, "wall_s": r["seconds"],
+            "tokens_per_s": r["tokens_per_s"],
+            "ttft_wall_p50_ms": r["ttft_wall_p50_s"] * 1e3,
+            "ttft_wall_p99_ms": r["ttft_wall_p99_s"] * 1e3,
+            "steps": r["report"]["steps"],
+            "simulated_s": r["report"]["sim_s"]}}), flush=True)
+    print(json.dumps({"moe_serve_phase": {
+        "launches": got, "prefills": prefills, "scheduler_steps": steps,
+        "host_syncs": syncs, "host_syncs_per_step": syncs / steps,
+        "wall_s_with_init": wall}}), flush=True)
+    del runs
+    params = T.init_model(cfg, seed=0, device="cuda")
+    moe_profile(torch, T, L, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return got
+
+
+def dense_serve_phase(torch, fa, kw, T, get_config) -> int:
+    """Phase 22: the four configs the paged scheduler refuses or that
+    carry a prefix, at full width, on the dense path: each prefill and 16
+    greedy tokens, the counters set to 0 just before each config and read
+    just after.  Returns the flash launches."""
+    from repro_torch.tree import tree_leaves
+
+    total = 0
+    for arch, depth, prefills, P in DENSE_SERVE:
+        cfg = cut(get_config, arch, depth)
+        params = T.init_model(cfg, seed=0, device="cuda")
+        reset(fa, kw)
+        runs = [dense_serve(torch, cfg, params, B, L_, P)
+                for B, L_ in prefills]
+        got = counts(fa, kw)
+        want = {"flash_fwd": flash_per_prefill(cfg) * len(prefills),
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "wkv": 0}
+        if got != want:
+            fail(f"{arch} on the dense path launched {got}, expected {want}")
+        for (B, L_), r in zip(prefills, runs):
+            gen = r["tokens"]
+            if gen.shape != (B, DENSE_GEN) or gen.min() < 0 \
+                    or gen.max() >= cfg.vocab \
+                    or not all(torch.isfinite(x).all() for x in r["logits"]):
+                fail(f"{arch} served tokens of shape {tuple(gen.shape)} or "
+                     f"non-finite logits")
+            print(json.dumps({"dense_serve": {
+                "arch": arch, "layers": cfg.n_layers,
+                "params": sum(t.numel() for t in tree_leaves(params)),
+                "batch": B, "prompt": L_, "prefix": P,
+                "generated": DENSE_GEN, "prefill_wall_ms": r["prefill_ms"],
+                "decode_wall_ms_per_step": r["decode_ms_per_step"],
+                "tokens_per_s": B * DENSE_GEN / r["wall_s"],
+                "flash_fwd_launches": got["flash_fwd"]}}), flush=True)
+        total += got["flash_fwd"]
+        del params, runs
+        torch.cuda.empty_cache()
+    return total
+
+
+def routing_diff(card, cpu, k) -> tuple[int, int]:
+    """(tokens whose top-k experts differ between the card's and the
+    CPU's routing of one MoE call, of those the near-ties)."""
+    (ig, _), (ic, vc) = card, cpu
+    differ = (ig[:, :k].sort(-1).values != ic[:, :k].sort(-1).values) \
+        .any(-1)
+    tie = (vc[:, k - 1] - vc[:, k]) <= NEAR_TIE
+    return int(differ.sum()), int((differ & tie).sum())
+
+
+def arch_answer(torch, T, L, get_config) -> dict:
+    """Phase 23: each new config at full width and one pattern period in
+    f32 on the card and on the CPU: the prefill's logits and cache, then
+    ANSWER_STEPS decode steps, each from the CPU's cache and token on both
+    sides; every MoE call's routing compared token by token."""
+    from repro_torch.launch.step import make_decode_fn, make_prefill_fn
+    from repro_torch.tree import tree_map
+
+    out = {}
+    B, L_, P_ = ANSWER_INPUT
+    orig = L._moe_route
+    routes = {"cpu": [], "cuda": []}
+
+    def recording(p, m, xt):
+        probs = torch.softmax(xt.float() @ p["router"].float(), -1)
+        top = torch.topk(probs, m.top_k + 1, dim=-1)
+        routes[xt.device.type].append((top.indices.cpu(), top.values.cpu()))
+        return orig(p, m, xt)
+
+    for arch, n in ANSWER_LAYERS.items():
+        cfg = cut(get_config, arch, n)
+        P = P_ if cfg.frontend else 0
+        p_gpu = tree_map(lambda t: t.float(),
+                         T.init_model(cfg, seed=0, device="cuda"))
+        p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+        inputs = prompt_inputs(torch, cfg, B, L_, P, 23)
+        s_max = (0 if cfg.enc_dec else P) + L_ + ANSWER_STEPS
+        prefill, decode = make_prefill_fn(cfg, s_max), make_decode_fn(cfg)
+        for r in routes.values():
+            r.clear()
+        L._moe_route = recording
+        try:
+            lg_c, cache_c, pos = prefill(p_cpu, inputs)
+            lg_g, cache_g, _ = prefill(p_gpu, {k: v.cuda()
+                                               for k, v in inputs.items()})
+            rec, ok = {"layers": cfg.n_layers, "steps": []}, True
+            for i in range(ANSWER_STEPS + 1):
+                if i:
+                    tok = lg_c[:, -1].argmax(-1, keepdim=True)
+                    start = tree_map(lambda t: t.cuda(), cache_c)
+                    lg_c, cache_c = decode(p_cpu, cache_c, tok, pos + i - 1)
+                    lg_g, cache_g = decode(p_gpu, start, tok.cuda(),
+                                           pos + i - 1)
+                err = (lg_g.cpu() - lg_c).abs().max().item() \
+                    / max(1.0, lg_c.abs().max().item())
+                step = {"logits_max_rel_err": err}
+                ok = err <= ARCH_TOL
+                for r, (eg, ec) in enumerate(zip(cache_g, cache_c)):
+                    for name in ec:
+                        e, leaf_ok = leaf_errs(torch, eg[name], ec[name])
+                        step[f"run{r}_{name}"] = e
+                        ok &= leaf_ok
+                rec["steps"].append(step)
+                if not ok:
+                    fail(f"{arch} f32 {'prefill' if not i else f'step {i}'} "
+                         f"on the card differs from the CPU: {step}")
+        finally:
+            L._moe_route = orig
+        if cfg.moe:
+            k = cfg.moe.top_k
+            if len(routes["cuda"]) != len(routes["cpu"]):
+                fail(f"{arch}: {len(routes['cuda'])} MoE calls on the card, "
+                     f"{len(routes['cpu'])} on the CPU")
+            per_layer = [[0, 0] for _ in range(cfg.n_layers)]
+            for j, (g, c) in enumerate(zip(routes["cuda"], routes["cpu"])):
+                d, t = routing_diff(g, c, k)
+                per_layer[j % cfg.n_layers][0] += d
+                per_layer[j % cfg.n_layers][1] += t
+            rec["routing_differing_tokens_per_layer"] = [x[0]
+                                                         for x in per_layer]
+            rec["routing_near_ties_per_layer"] = [x[1] for x in per_layer]
+            rec["routed_tokens_per_layer"] = sum(
+                c[0].shape[0] for c in routes["cpu"]) // cfg.n_layers
+            if any(d != t for d, t in per_layer):
+                fail(f"{arch}: tokens routed to other experts on the card "
+                     f"than on the CPU without a near-tie: {per_layer}")
+        print(json.dumps({"arch_f32_card_vs_cpu": {
+            "arch": arch, "batch": B, "prompt": L_, "prefix": P,
+            "tolerance": ARCH_TOL, **rec}}), flush=True)
+        out[arch] = rec
+        del p_gpu, p_cpu, cache_c, cache_g
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-wkv", metavar="LIB", action="append",
@@ -1964,7 +2314,8 @@ def main() -> None:
 
     # 3-4. kernels against their plain versions
     recs = [flash_phase(torch, fa, s) for s in SHAPES]
-    bwd = {i: flash_bwd_phase(torch, fa, s) for i, s in enumerate(SHAPES)
+    bwd = {i: flash_bwd_phase(torch, fa, s)
+           for i, s in enumerate(SHAPES[:BWD_SHAPES])
            if s[6] in fa.KERNEL_BWD_HEAD_DIMS}
 
     # 5. the serving path
@@ -2086,20 +2437,20 @@ def main() -> None:
     rcfg = get_config("rwkv6-1.6b")
     params = T.init_model(rcfg, seed=0, device="cuda")
     reset(fa, kw)
-    rruns = [rwkv_serve(torch, rcfg, params, B, L) for B, L in RWKV_SERVE]
+    rruns = [dense_serve(torch, rcfg, params, B, L) for B, L in RWKV_SERVE]
     rwkv_counts = counts(fa, kw)
     for (B, L), r in zip(RWKV_SERVE, rruns):
         gen = r["tokens"]
-        if gen.shape != (B, RWKV_GEN) or gen.min() < 0 \
+        if gen.shape != (B, DENSE_GEN) or gen.min() < 0 \
                 or gen.max() >= rcfg.vocab \
                 or not all(torch.isfinite(x).all() for x in r["logits"]):
             fail(f"rwkv6 served tokens of shape {tuple(gen.shape)} or "
                  f"non-finite logits")
         print(json.dumps({"rwkv6_serve": {
-            "batch": B, "prompt": L, "generated": RWKV_GEN,
+            "batch": B, "prompt": L, "generated": DENSE_GEN,
             "prefill_wall_ms": r["prefill_ms"],
             "decode_wall_ms_per_step": r["decode_ms_per_step"],
-            "tokens_per_s": B * RWKV_GEN / r["wall_s"]}}), flush=True)
+            "tokens_per_s": B * DENSE_GEN / r["wall_s"]}}), flush=True)
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "wkv": rcfg.n_layers * len(RWKV_SERVE)}
     if rwkv_counts != want:
@@ -2124,6 +2475,23 @@ def main() -> None:
     # process whose counters start at 0
     elastic_counts = elastic_phase(train, cfg, get_config)
 
+    # 21. the MoE main path: olmoe-1b-7b through the paged scheduler
+    from repro_torch.models import layers as L
+    walls = [time.perf_counter()]
+    moe_counts = moe_serve_phase(torch, serve, fa, kw, T, L, get_config)
+    walls.append(time.perf_counter())
+
+    # 22. the dense path: recurrentgemma, seamless, pixtral, llama4-scout
+    dense_flash = dense_serve_phase(torch, fa, kw, T, get_config)
+    walls.append(time.perf_counter())
+
+    # 23. the new configs' f32 answer, the card against the CPU
+    arch_answer(torch, T, L, get_config)
+    walls.append(time.perf_counter())
+    print(json.dumps({"phase_wall_s": {
+        str(n): b - a for n, a, b in zip((21, 22, 23), walls, walls[1:])}}),
+        flush=True)
+
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
     sources = {
@@ -2132,7 +2500,8 @@ def main() -> None:
                       serve_counts["flash_fwd"] + train_counts["flash_fwd"]
                       + grid_counts["flash_fwd"] + net_counts["flash_fwd"]
                       + bucket_counts["flash_fwd"]
-                      + elastic_counts["flash_fwd"]),
+                      + elastic_counts["flash_fwd"]
+                      + moe_counts["flash_fwd"] + dense_flash),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],

@@ -14,8 +14,9 @@ grid's process groups.  The returned loss is the mean over the ranks
 The paged serve steps run through ``serving.TorchExecutor``.  The dense
 ones, ``make_prefill_fn`` and ``make_decode_fn``, are the one-device
 counterparts of the reference's ``:233``/``:243``: plain functions under
-``torch.inference_mode`` (the reference jits them).  They serve the
-recurrent RWKV-6 stack, which the paged path refuses.
+``torch.inference_mode`` (the reference jits them).  They serve what the
+paged path refuses, the recurrent stacks (RWKV-6, RG-LRU) and enc-dec,
+and prompts that carry a frontend's embeddings.
 
 ``layer_grad_bytes`` is a copy of the reference's ``:41``: the per-layer
 gradient bytes the engine's bucketed-sync estimate takes, from the
@@ -124,8 +125,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
 
 def make_prefill_fn(cfg: ModelConfig, s_max: int):
     """``run(params, inputs) -> (logits (B,1,V) f32, cache, S)``: the
-    prompt ``inputs["tokens"]`` (B,S) through the model, its dense cache
-    sized for ``s_max`` tokens (``transformer.prefill``)."""
+    prompt through the model, its dense cache sized for ``s_max`` tokens
+    (``transformer.prefill``).  ``inputs``: ``tokens`` (B,S); a
+    frontend's ``embeds`` (B,P,D), a prefix the cache and S count; an
+    enc-dec config's ``src_embeds`` (B,Ss,D), the encoder's input, whose
+    cross K/V the cache keeps."""
     T.port_check(cfg)
 
     def run(params, inputs):

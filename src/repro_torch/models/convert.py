@@ -3,8 +3,9 @@ the reference's stacked-run layout, and numpy.
 
 ``repro.models.transformer.init_model`` returns a tree whose layers are
 stacked per run of identical block kinds (leading dim = layers in the
-run): ``{"embed", "final_norm", ["lm_head"], "runs": [run, ...]}``.  The
-port's model keeps one dict per layer (``"layers"``).  ``stack_runs`` and
+run): ``{"embed", "final_norm", ["lm_head"], "runs": [run, ...],
+["enc": {"runs": [run], "final_norm"}]}``.  The port's model keeps one
+dict per layer (``"layers"``, and ``enc["layers"]``).  ``stack_runs`` and
 ``unstack_runs`` go between the two on the device; ``unstack_runs`` gives
 views, so a model can run on stacked parameters without a copy.  The
 training path keeps parameters, gradients for the sync and the optimiser
@@ -75,31 +76,52 @@ def _layer(run: dict, i: int) -> dict:
             for k, v in run.items()}
 
 
+def _enc_runs(cfg: ModelConfig) -> list:
+    return [("attn", cfg.enc_dec.n_enc_layers)]
+
+
+def _stack_layers(layers: list, runs: list) -> list:
+    out, i = [], 0
+    for _, n in runs:
+        out.append(_stack(layers[i:i + n]))
+        i += n
+    return out
+
+
+def _unstack_layers(stacked: list, runs: list, cfg: ModelConfig) -> list:
+    if len(stacked) != len(runs):
+        raise ValueError(f"tree has {len(stacked)} runs, config "
+                         f"{cfg.name} has {len(runs)}")
+    out = []
+    for run, (kind, n) in zip(stacked, runs):
+        if run["norm1"].shape[0] != n:
+            raise ValueError(f"run of {kind} stacks {run['norm1'].shape[0]} "
+                             f"layers, config says {n}")
+        out += [_layer(run, i) for i in range(n)]
+    return out
+
+
 def stack_runs(params: dict, cfg: ModelConfig) -> dict:
     """The port's per-layer tree -> the reference's stacked layout (a copy
     of the layer leaves)."""
     out = {k: v for k, v in params.items() if k != "layers"}
-    out["runs"], i = [], 0
-    for _, n in cfg.runs():
-        out["runs"].append(_stack(params["layers"][i:i + n]))
-        i += n
+    out["runs"] = _stack_layers(params["layers"], cfg.runs())
+    if cfg.enc_dec:
+        out["enc"] = {"runs": _stack_layers(params["enc"]["layers"],
+                                            _enc_runs(cfg)),
+                      "final_norm": params["enc"]["final_norm"]}
     return out
 
 
 def unstack_runs(tree: dict, cfg: ModelConfig) -> dict:
     """The reference's stacked layout -> the port's per-layer tree, each
     layer leaf a view into its run's stacked leaf."""
-    runs = cfg.runs()
-    if len(tree["runs"]) != len(runs):
-        raise ValueError(f"tree has {len(tree['runs'])} runs, config "
-                         f"{cfg.name} has {len(runs)}")
     out = {k: v for k, v in tree.items() if k != "runs"}
-    out["layers"] = []
-    for run, (kind, n) in zip(tree["runs"], runs):
-        if run["norm1"].shape[0] != n:
-            raise ValueError(f"run of {kind} stacks {run['norm1'].shape[0]} "
-                             f"layers, config says {n}")
-        out["layers"] += [_layer(run, i) for i in range(n)]
+    out["layers"] = _unstack_layers(tree["runs"], cfg.runs(), cfg)
+    if cfg.enc_dec:
+        out["enc"] = {"layers": _unstack_layers(tree["enc"]["runs"],
+                                                _enc_runs(cfg), cfg),
+                      "final_norm": tree["enc"]["final_norm"]}
     return out
 
 
@@ -127,7 +149,10 @@ def cache_from_jax(cache: list, cfg: ModelConfig, *,
         raise ValueError(f"cache has {len(cache)} runs, config {cfg.name} "
                          f"has {len(runs)}")
     for ent, (kind, n) in zip(cache, runs):
-        names = {"S", "x_tm", "x_cm"} if kind == "rwkv6" else {"k", "v"}
+        names = {"rwkv6": {"S", "x_tm", "x_cm"},
+                 "rglru": {"h", "conv"}}.get(kind, {"k", "v"})
+        if cfg.enc_dec and kind in ("attn", "local"):
+            names = names | {"xk", "xv"}
         if set(ent) != names or any(a.shape[0] != n for a in ent.values()):
             raise ValueError(f"a {kind} run of {n} layers caches {names} "
                              f"stacked {n}, got "

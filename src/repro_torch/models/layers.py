@@ -1,6 +1,6 @@
-"""Neural building blocks in PyTorch: the subset of
-``repro/models/layers.py`` that serving and training run (dense attention,
-the MLP, and RWKV-6's time and channel mix).
+"""Neural building blocks in PyTorch: the counterparts of
+``repro/models/layers.py`` (attention, self and cross, the MLP, the dense
+MoE, the RG-LRU recurrent block, and RWKV-6's time and channel mix).
 
 Functions take and return tensors in the JAX package's layouts, and
 parameters are plain dicts of tensors with the JAX names.  Numerics follow
@@ -17,6 +17,14 @@ multiple of the chunk, else the kernels' plain versions).
 RWKV-6's time mix runs the chunked WKV recurrence through
 :func:`~repro_torch.kernels.wkv.wkv_chunked`: the Hopper kernel on a CUDA
 tensor, the reference's ``_wkv_chunk_scan`` on a CPU one.
+
+The MoE computes the reference's ``lax.ragged_dot`` (XLA, not Pallas) as
+one ``torch.matmul`` per non-empty expert on its slice of the
+expert-sorted tokens; the group sizes are read on the host once per token
+block (``moe_fwd.host_syncs`` counts the reads).  The RG-LRU computes the
+reference's ``lax.associative_scan`` as a log-step (Hillis-Steele) scan
+on the same (a, b) combine: ceil(log2 S) elementwise passes, with no
+running product of the decays, which would underflow f32.
 
 The paged and dense decodes write their caches in place and return them,
 where the JAX versions return updated copies.
@@ -36,7 +44,9 @@ from .config import ModelConfig
 __all__ = ["rmsnorm", "rope", "dense_init", "init_attention",
            "naive_attention", "chunked_attention", "attention_fwd",
            "attention_prefill", "attention_decode", "paged_attention_decode",
-           "init_mlp", "mlp_fwd", "init_rwkv6", "rwkv6_fwd",
+           "cross_kv", "cross_attention_decode", "init_mlp", "mlp_fwd",
+           "MOE_CHUNK", "init_moe", "moe_fwd", "init_rglru", "linear_scan",
+           "rglru_fwd", "rglru_prefill", "rglru_decode", "init_rwkv6", "rwkv6_fwd",
            "rwkv6_channel_mix", "rwkv6_channel_mix_decode", "rwkv6_decode"]
 
 
@@ -70,9 +80,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 def _uniform(gen: torch.Generator, shape, scale: float,
              dtype=torch.float32):
-    """U(-scale, scale) drawn from ``gen`` on its device."""
+    """U(-scale, scale) drawn from ``gen`` on its device (in f32, in
+    place, then cast: an expert stack's f32 draw is its largest buffer)."""
     u = torch.rand(shape, generator=gen, device=gen.device)
-    return ((2.0 * u - 1.0) * scale).to(dtype)
+    return u.mul_(2.0).sub_(1.0).mul_(scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -85,7 +96,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 # Attention
 # ---------------------------------------------------------------------- #
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> dict:
+    """Projections, and q/k norms where the config has them; a cross
+    attention (``cross``) has none."""
     D, Q, KV, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
     p = {
         "wq": dense_init(gen, D, Q),
@@ -93,7 +107,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "wv": dense_init(gen, D, KV),
         "wo": dense_init(gen, Q, D),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.zeros((hd,), dtype=torch.float32,
                                   device=gen.device)
         p["k_norm"] = torch.zeros((hd,), dtype=torch.float32,
@@ -139,29 +153,45 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                            q_offset=q_offset)
 
 
-def _qkv(p, cfg: ModelConfig, x):
+def _mm(x, w):
+    """``x @ w`` in the promoted dtype, as ``jnp.matmul`` promotes: a bf16
+    ``x`` meets f32 weights where an f32 model's encoder takes its bf16
+    input."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
+def _qkv(p, cfg: ModelConfig, x, src=None):
+    """q from ``x``, k and v from ``src`` (``x`` if None), with the q/k
+    norms where ``p`` has them."""
+    src = x if src is None else src
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _mm(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = _mm(src, p["wk"]).reshape(B, src.shape[1], cfg.n_kv_heads, hd)
+    v = _mm(src, p["wv"]).reshape(B, src.shape[1], cfg.n_kv_heads, hd)
     if "q_norm" in p:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     return q, k, v
 
 
 def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
-                  window: int | None = None, positions=None):
-    """Self-attention sublayer of the training forward (projections,
-    optional q/k norm, rope, attention, out projection).  Cross-attention
-    (``kv_src`` in the reference) comes with the enc-dec architectures."""
+                  window: int | None = None, kv_src=None, positions=None):
+    """Attention sublayer of the full-sequence forward (projections,
+    optional q/k norm, rope, attention, out projection).  ``kv_src``: the
+    encoder's output for cross-attention, which takes no rope and no
+    causal mask."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, torch.arange(S, device=x.device), cfg.rope_theta)
-    o = chunked_attention(q, k, v, causal=causal, window=window)
+    q, k, v = _qkv(p, cfg, x, kv_src)
+    if kv_src is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, torch.arange(S, device=x.device), cfg.rope_theta)
+    o = chunked_attention(q, k, v, causal=causal and kv_src is None,
+                          window=window)
     return o.reshape(B, S, cfg.q_dim) @ p["wo"]
 
 
@@ -269,8 +299,30 @@ def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
     return y, ck.to(torch.bfloat16), cv.to(torch.bfloat16)
 
 
+def cross_kv(p, cfg: ModelConfig, enc_out):
+    """Cross-attention K/V (bf16) from the encoder's output (B,Sk,D)."""
+    B, Sk, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def cross_attention_decode(p, cfg: ModelConfig, x, ck, cv):
+    """One-token cross-attention (B,1,D) against the encoder's K/V, every
+    source position visible."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = (x @ p["wq"]).reshape(B, cfg.n_kv_heads, G, hd)
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                      ck.float()) / math.sqrt(hd)
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", pr, cv.float())
+    return o.reshape(B, 1, cfg.q_dim).to(x.dtype) @ p["wo"]
+
+
 # ---------------------------------------------------------------------- #
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------- #
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -290,6 +342,188 @@ def mlp_fwd(p, cfg: ModelConfig, x):
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["wo"]
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Router (D,E) f32 (bf16 values), experts ``w_in``/``w_gate``
+    (E,D,Fe) and ``w_out`` (E,Fe,D) bf16, and llama4's ``shared`` MLP."""
+    m = cfg.moe
+    D, Fe, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    scale = 1.0 / math.sqrt(D)
+    p = {
+        "router": dense_init(gen, D, E).float(),
+        "w_in": _uniform(gen, (E, D, Fe), scale, torch.bfloat16),
+        "w_gate": _uniform(gen, (E, D, Fe), scale, torch.bfloat16),
+        "w_out": _uniform(gen, (E, Fe, D), 1.0 / math.sqrt(Fe),
+                          torch.bfloat16),
+    }
+    if m.shared_expert:
+        p["shared"] = init_mlp(gen, cfg)
+    return p
+
+
+MOE_CHUNK = 8192  # token-block size of the dispatch
+
+
+def _moe_route(p, m, xt):
+    """Router and dispatch order for one block of tokens (T,D): f32
+    logits, softmax, top-k with the gates renormalised, a stable sort of
+    the flat expert ids, and the tokens each expert takes, read on the
+    host (one sync).  Returns (gates (T,k), order (T*k,), sizes list)."""
+    logits = _mm(xt.float(), p["router"])
+    gates, eidx = torch.topk(torch.softmax(logits, dim=-1), m.top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    flat_e = eidx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sizes = torch.bincount(flat_e, minlength=m.n_experts).tolist()
+    moe_fwd.host_syncs += 1
+    return gates, order, sizes
+
+
+def _moe_experts(p, xs, sizes):
+    """The three grouped products and ``silu(g) * h`` over the
+    expert-sorted rows ``xs``: one matmul per non-empty expert on its
+    slice (``lax.ragged_dot`` in the reference)."""
+    yo = xs.new_empty(xs.shape)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            xe = xs[start:start + n]
+            h = F.silu(xe @ p["w_gate"][e]) * (xe @ p["w_in"][e])
+            yo[start:start + n] = h @ p["w_out"][e]
+        start += n
+    return yo
+
+
+def _moe_block(p, m, xt):
+    """Route, dispatch and expert compute for one block of tokens (T,D);
+    every routed token is computed (no capacity)."""
+    T, D = xt.shape
+    gates, order, sizes = _moe_route(p, m, xt)
+    yo = _moe_experts(p, xt[order // m.top_k], sizes)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    yo = yo[inv].reshape(T, m.top_k, D)
+    return torch.einsum("tk,tkd->td", gates.to(yo.dtype), yo)
+
+
+def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK):
+    """Top-k MoE on one device, x (B,S,D).  Inputs longer than ``chunk``
+    tokens and a multiple of it run in blocks of ``chunk`` (the
+    reference's condition), which bounds the dispatch buffers.  The
+    reference's expert-parallel ``_moe_block_ep`` needs a model axis
+    (ROADMAP.md, Queue 1 item 5), which the port does not have."""
+    m = cfg.moe
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    if B * S <= chunk or (B * S) % chunk:
+        y = _moe_block(p, m, xt)
+    else:
+        y = torch.cat([_moe_block(p, m, xb) for xb in xt.split(chunk)])
+    y = y.reshape(B, S, D)
+    if m.shared_expert:
+        y = y + mlp_fwd(p["shared"], cfg, x)
+    return y.to(x.dtype)
+
+
+moe_fwd.host_syncs = 0     # group-size reads, one per token block
+
+
+# ---------------------------------------------------------------------- #
+# RG-LRU (Griffin / recurrentgemma recurrent block)
+# ---------------------------------------------------------------------- #
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    R = cfg.d_rnn or cfg.d_model
+    D = cfg.d_model
+    return {
+        "w_x": dense_init(gen, D, R),
+        "w_gate": dense_init(gen, D, R),
+        "conv": _uniform(gen, (4, R), 0.5, torch.bfloat16),
+        "w_a": dense_init(gen, R, R),
+        "w_i": dense_init(gen, R, R),
+        "lam": torch.linspace(-4.3, -9.0, R, dtype=torch.float32,
+                              device=gen.device),    # a in (.9, .999)
+        "w_out": dense_init(gen, R, D),
+    }
+
+
+def _rglru_gates(p, u):
+    """u: (..., R) conv output -> (a, gated input b), both f32.  softplus
+    is ``logaddexp(x, 0)``, as ``jax.nn.softplus``."""
+    uf = u.float()
+    r = torch.sigmoid(uf @ p["w_a"].float())
+    i = torch.sigmoid(uf @ p["w_i"].float())
+    lam = p["lam"]
+    log_a = -8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
+        * (i * uf)
+    return a, b
+
+
+def linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0, for every t:
+    a log-step scan of the reference's combine
+    ``(al, bl), (ar, br) -> (al ar, ar bl + br)``."""
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], 1)
+        if 2 * d < S:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        d *= 2
+    return b
+
+
+def _gelu_gate(gate, h, dtype):
+    return (F.gelu(gate.float(), approximate="tanh") * h).to(dtype)
+
+
+def _rglru(p, x, h0=None):
+    """(y, h (B,S,R) f32, the pre-conv inputs u) of the recurrent block."""
+    S = x.shape[1]
+    u_pre = x @ p["w_x"]
+    gate = x @ p["w_gate"]
+    # causal depthwise conv, kernel 4, rounded after each add as the
+    # reference's Python sum
+    upad = F.pad(u_pre, (0, 0, 3, 0))
+    u = sum(upad[:, i:i + S] * p["conv"][i] for i in range(4))
+    a, b = _rglru_gates(p, u)
+    if h0 is not None:
+        b[:, 0] += a[:, 0] * h0
+    h = linear_scan(a, b)
+    return _gelu_gate(gate, h, x.dtype) @ p["w_out"], h, u_pre
+
+
+def rglru_fwd(p, cfg: ModelConfig, x, h0=None):
+    """x: (B,S,D) -> (y (B,S,D), the last state (B,R) f32)."""
+    y, h, _ = _rglru(p, x, h0)
+    return y, h[:, -1]
+
+
+def rglru_prefill(p, cfg: ModelConfig, x):
+    """Forward plus the state decode continues from: (y, h (B,R) f32, the
+    last 3 pre-conv inputs (B,3,R), zero-padded in front if S < 3)."""
+    y, h, u_pre = _rglru(p, x)
+    S = x.shape[1]
+    conv = u_pre[:, -3:] if S >= 3 else F.pad(u_pre, (0, 0, 3 - S, 0))
+    return y, h[:, -1].float(), conv
+
+
+def rglru_decode(p, cfg: ModelConfig, x, h_prev, conv_state):
+    """x: (B,1,D); h_prev: (B,R); conv_state: (B,3,R).  The conv's four
+    taps are summed in f32 and rounded once, as XLA's bf16 dot.  Returns
+    (y (B,1,D), h, the next conv state)."""
+    u_new = (x @ p["w_x"])[:, 0]
+    gate = (x @ p["w_gate"])[:, 0]
+    window = torch.cat([conv_state, u_new[:, None]], 1)      # (B,4,R)
+    u = (window.float() * p["conv"].float()).sum(1).to(
+        torch.promote_types(window.dtype, p["conv"].dtype))
+    a, b = _rglru_gates(p, u)
+    h = a * h_prev + b
+    return (_gelu_gate(gate, h, x.dtype) @ p["w_out"])[:, None], h, \
+        window[:, 1:]
 
 
 # ---------------------------------------------------------------------- #

@@ -1,15 +1,23 @@
 """Model assembly: init, the training forward and loss, prefill, the
 dense decode, paged pools, paged decode.
 
-The subset of ``repro/models/transformer.py`` for decoder stacks of
-attention layers ("attn" and "local" kinds, dense MLPs) and of RWKV-6
-layers ("rwkv6", time mix and channel mix, no MLP).  Parameters are a
-plain dict: ``embed``, ``final_norm``, optional ``lm_head``, and
-``layers``, one dict per layer in pattern order (the reference stacks the
-layers of each run and scans them; here a Python loop walks them).  Caches
-and pools keep the reference's per-run stacked layout, (run, B, ...), so
-they compare one to one.  RWKV-6 is served (prefill and the dense decode),
-not trained: the reference has no WKV backward kernel.
+The counterpart of ``repro/models/transformer.py`` for every kind of the
+zoo: decoder stacks of attention layers ("attn", "local"), RG-LRU layers
+("rglru") and RWKV-6 layers ("rwkv6", time mix and channel mix, no MLP),
+each attention or RG-LRU layer followed by an MLP or a top-k MoE; an
+encoder stack and per-layer cross-attention for enc-dec configs; and the
+frontends' stub, precomputed embeddings as a prefix.  Parameters are a
+plain dict: ``embed``, ``final_norm``, optional ``lm_head``, ``layers``,
+one dict per layer in pattern order (the reference stacks the layers of
+each run and scans them; here a Python loop walks them), and for enc-dec
+``enc`` = {``layers``, ``final_norm``}.  Caches and pools keep the
+reference's per-run stacked layout, (run, B, ...), so they compare one to
+one.
+
+Serving runs every config.  Training runs the dense attention stacks:
+RWKV-6 (the reference has no WKV backward kernel) and the MoE, RG-LRU,
+enc-dec and frontend configs are refused by :func:`train_check`; the
+full-sequence forward (``model_fwd``, no gradient) runs all but RWKV-6.
 
 The training forward remats each layer and each cross-entropy chunk with
 ``torch.utils.checkpoint`` (non-reentrant), where the reference wraps its
@@ -31,45 +39,68 @@ from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
-__all__ = ["NOT_PORTED", "NOT_PORTED_TRAIN", "port_check", "train_check",
-           "init_model", "embed_inputs", "trunk_fwd", "model_fwd", "loss_fn",
-           "init_cache", "prefill", "decode_step", "paged_arch_check",
-           "init_paged_pools", "scatter_prefill_cache", "decode_step_paged"]
+__all__ = ["NOT_PORTED_TRAIN", "NOT_PORTED_TRAIN_ARCH", "port_check",
+           "train_check", "init_model", "embed_inputs", "encoder_fwd",
+           "trunk_fwd", "model_fwd", "loss_fn", "init_cache", "prefill",
+           "decode_step", "paged_arch_check", "init_paged_pools",
+           "scatter_prefill_cache", "decode_step_paged"]
 
-NOT_PORTED = ("ROADMAP.md, Queue 1 item 6: MoE, RG-LRU, enc-dec and "
-              "frontend architectures")
 NOT_PORTED_TRAIN = "ROADMAP.md, Queue 1 item 7: RWKV-6 training"
-KINDS = ("attn", "local", "rwkv6")
+NOT_PORTED_TRAIN_ARCH = ("ROADMAP.md, Queue 1 item 9: training of "
+                         "MoE, RG-LRU, enc-dec and the frontends")
+KINDS = ("attn", "local", "rglru", "rwkv6")
 
 
 def port_check(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the parts of the zoo the port has not
-    reached yet."""
-    missing = []
-    if cfg.moe is not None:
-        missing.append("MoE")
-    missing += sorted({k for k in cfg.pattern if k not in KINDS})
-    if cfg.enc_dec is not None:
-        missing.append("enc-dec")
-    if cfg.frontend is not None:
-        missing.append(f"{cfg.frontend} frontend")
+    """Raise NotImplementedError for a block kind the port does not
+    have."""
+    missing = sorted({k for k in cfg.pattern if k not in KINDS})
     if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  f"ported yet ({NOT_PORTED})")
+        raise NotImplementedError(f"{cfg.name}: block kinds {missing} are "
+                                  f"not ported")
 
 
-def train_check(cfg: ModelConfig) -> None:
-    """``port_check``, and RWKV-6 layers are served but not trained."""
-    port_check(cfg)
+def _wkv_grad_check(cfg: ModelConfig) -> None:
     if "rwkv6" in cfg.pattern:
         raise NotImplementedError(f"{cfg.name}: training through the WKV "
                                   f"recurrence is not ported yet "
                                   f"({NOT_PORTED_TRAIN})")
 
 
+def train_check(cfg: ModelConfig) -> None:
+    """``port_check``, and the configs that are served but not trained:
+    RWKV-6, the MoE, RG-LRU, enc-dec and the frontends."""
+    port_check(cfg)
+    _wkv_grad_check(cfg)
+    missing = (["MoE"] if cfg.moe is not None else []) \
+        + (["RG-LRU"] if "rglru" in cfg.pattern else []) \
+        + (["enc-dec"] if cfg.enc_dec is not None else []) \
+        + ([f"{cfg.frontend} frontend"] if cfg.frontend else [])
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: training of "
+                                  f"{', '.join(missing)} is not ported yet "
+                                  f"({NOT_PORTED_TRAIN_ARCH})")
+
+
 # ---------------------------------------------------------------------- #
 # Init
 # ---------------------------------------------------------------------- #
+
+def _init_layer(gen, cfg: ModelConfig, kind: str, cross: bool, zeros):
+    p = {"norm1": zeros(), "norm2": zeros()}
+    if kind == "rwkv6":
+        p["rwkv"] = L.init_rwkv6(gen, cfg)
+        return p
+    if kind == "rglru":
+        p["rec"] = L.init_rglru(gen, cfg)
+    else:
+        p["attn"] = L.init_attention(gen, cfg)
+    p["mlp"] = L.init_moe(gen, cfg) if cfg.moe else L.init_mlp(gen, cfg)
+    if cross:
+        p["norm_x"] = zeros()
+        p["xattn"] = L.init_attention(gen, cfg, cross=True)
+    return p
+
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device: str | torch.device = "cuda") -> dict:
@@ -82,18 +113,17 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     D, V = cfg.d_model, cfg.vocab
     zeros = lambda: torch.zeros((D,), dtype=torch.float32, device=dev)
     embed = torch.randn((V, D), generator=gen, device=dev) / math.sqrt(D)
+    cross = cfg.enc_dec is not None
     params = {"embed": embed.to(torch.bfloat16), "final_norm": zeros(),
-              "layers": []}
-    for kind in cfg.pattern:
-        p = {"norm1": zeros(), "norm2": zeros()}
-        if kind == "rwkv6":
-            p["rwkv"] = L.init_rwkv6(gen, cfg)
-        else:
-            p["attn"] = L.init_attention(gen, cfg)
-            p["mlp"] = L.init_mlp(gen, cfg)
-        params["layers"].append(p)
+              "layers": [_init_layer(gen, cfg, kind, cross, zeros)
+                         for kind in cfg.pattern]}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, D, V)
+    if cross:
+        params["enc"] = {
+            "layers": [_init_layer(gen, cfg, "attn", False, zeros)
+                       for _ in range(cfg.enc_dec.n_enc_layers)],
+            "final_norm": zeros()}
     return params
 
 
@@ -102,10 +132,14 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 # ---------------------------------------------------------------------- #
 
 def embed_inputs(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
-    """tokens (B,S) -> (B,S,D).  The scale is rounded to the embedding's
-    dtype before the product, as JAX does with a weakly typed scalar."""
+    """tokens (B,S), and the frontends' ``embeds`` (B,P,D) as a prefix ->
+    (B,P+S,D).  The scale is rounded to the embedding's dtype before the
+    product, as JAX does with a weakly typed scalar."""
     x = params["embed"][inputs["tokens"]]
-    return x * x.new_tensor(math.sqrt(cfg.d_model))
+    x = x * x.new_tensor(math.sqrt(cfg.d_model))
+    if "embeds" in inputs:
+        x = torch.cat([inputs["embeds"].to(x.dtype), x], 1)
+    return x
 
 
 def _head(params, cfg: ModelConfig):
@@ -127,26 +161,57 @@ def _remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _layer_fwd(p, cfg: ModelConfig, kind: str, x):
-    window = cfg.window if kind == "local" else None
-    if cfg.parallel_block:
-        # parallel residual: both sublayers read x (transformer.py:84-91)
-        xn = L.rmsnorm(x, p["norm1"])
-        return (x + L.attention_fwd(p["attn"], cfg, xn, window=window)
-                + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"])))
-    x = x + L.attention_fwd(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
-                            window=window)
-    return x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+def _ffn(p, cfg: ModelConfig, x):
+    """The MLP or MoE sublayer, pre-norm."""
+    sub = L.moe_fwd if cfg.moe else L.mlp_fwd
+    return sub(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+
+
+def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
+               causal: bool = True):
+    if kind == "rglru":
+        y, _ = L.rglru_fwd(p["rec"], cfg, L.rmsnorm(x, p["norm1"]))
+        x = x + y
+    else:
+        window = cfg.window if kind == "local" else None
+        if cfg.parallel_block and enc_out is None and not cfg.moe:
+            # parallel residual: both sublayers read x (transformer.py:84-91)
+            xn = L.rmsnorm(x, p["norm1"])
+            return (x + L.attention_fwd(p["attn"], cfg, xn, causal=causal,
+                                        window=window)
+                    + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"])))
+        x = x + L.attention_fwd(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
+                                causal=causal, window=window)
+    if enc_out is not None:
+        x = x + L.attention_fwd(p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]),
+                                kv_src=enc_out)
+    return x + _ffn(p, cfg, x)
+
+
+def encoder_fwd(params, cfg: ModelConfig, src_embeds) -> torch.Tensor:
+    """The enc-dec encoder: bf16 ``src_embeds`` (B,Ss,D) through its
+    non-causal attention layers and final norm."""
+    x = src_embeds.to(torch.bfloat16)
+    for p in params["enc"]["layers"]:
+        x = _remat(functools.partial(_layer_fwd, p, cfg, "attn",
+                                     causal=False), x)
+    return L.rmsnorm(x, params["enc"]["final_norm"])
 
 
 def trunk_fwd(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
-    """Embeddings + layer stack (each layer rematted) + final norm ->
-    hidden states (B, S, D)."""
-    train_check(cfg)
+    """Embeddings (``embeds`` prefix included), the encoder for enc-dec
+    (``src_embeds``), the layer stack (each layer rematted) and the final
+    norm -> hidden states (B, S, D).  RWKV-6 is refused."""
+    port_check(cfg)
+    _wkv_grad_check(cfg)
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = encoder_fwd(params, cfg, inputs["src_embeds"])
     x = embed_inputs(params, cfg, inputs)
     for kind, layers in _runs(params, cfg):
         for p in layers:
-            x = _remat(functools.partial(_layer_fwd, p, cfg, kind), x)
+            x = _remat(functools.partial(_layer_fwd, p, cfg, kind,
+                                         enc_out=enc_out), x)
     return L.rmsnorm(x, params["final_norm"])
 
 
@@ -171,6 +236,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
 
     The unembedding and softmax run over sequence chunks of ``ce_chunk``,
     each rematted, so the (B, S, V) logits are never held whole."""
+    train_check(cfg)
     x = trunk_fwd(params, cfg, batch)
     labels = batch["labels"]
     head = _head(params, cfg)
@@ -190,15 +256,18 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
 # Serving: cache init / prefill / dense decode
 # ---------------------------------------------------------------------- #
 
-def init_cache(cfg: ModelConfig, B: int, s_max: int, *,
+def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
                device: str | torch.device = "cuda") -> list:
     """One zero cache entry per run, stacked on the run dim: attention
     {"k", "v"} (n, B, S_c, Hkv, hd) bf16 (S_c = min(window, s_max) for
-    windowed runs); RWKV-6 {"S"} (n, B, H, hd, hd) f32 and {"x_tm",
-    "x_cm"} (n, B, D) bf16."""
+    windowed runs), and for enc-dec {"xk", "xv"} (n, B, src_len, Hkv, hd)
+    bf16; RG-LRU {"h"} (n, B, R) f32 and {"conv"} (n, B, 3, R) bf16;
+    RWKV-6 {"S"} (n, B, H, hd, hd) f32 and {"x_tm", "x_cm"} (n, B, D)
+    bf16."""
     port_check(cfg)
     dev = resolve_device(device)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
+    R = cfg.d_rnn or cfg.d_model
     cache = []
     for kind, n in cfg.runs():
         if kind == "rwkv6":
@@ -208,15 +277,25 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, *,
                                  dtype=torch.float32, device=dev),
                 "x_tm": torch.zeros((n, B, cfg.d_model), **bf16),
                 "x_cm": torch.zeros((n, B, cfg.d_model), **bf16)})
+        elif kind == "rglru":
+            cache.append({"h": torch.zeros((n, B, R), dtype=torch.float32,
+                                           device=dev),
+                          "conv": torch.zeros((n, B, 3, R), **bf16)})
         else:
             s_c = min(cfg.window, s_max) if kind == "local" else s_max
             shape = (n, B, s_c, cfg.n_kv_heads, cfg.head_dim)
-            cache.append({"k": torch.zeros(shape, **bf16),
-                          "v": torch.zeros(shape, **bf16)})
+            ent = {"k": torch.zeros(shape, **bf16),
+                   "v": torch.zeros(shape, **bf16)}
+            if cfg.enc_dec:
+                xshape = (n, B, src_len, cfg.n_kv_heads, cfg.head_dim)
+                ent["xk"] = torch.zeros(xshape, **bf16)
+                ent["xv"] = torch.zeros(xshape, **bf16)
+            cache.append(ent)
     return cache
 
 
-def _layer_prefill(p, cfg: ModelConfig, kind: str, x, keep_full: bool):
+def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
+                   keep_full: bool):
     """(x_out, cache entry) for one layer."""
     if kind == "rwkv6":
         xn = L.rmsnorm(x, p["norm1"])
@@ -226,40 +305,57 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, keep_full: bool):
         x = x + L.rwkv6_channel_mix(p["rwkv"], cfg, xn2)
         return x, {"S": st["S"], "x_tm": xn[:, -1].to(torch.bfloat16),
                    "x_cm": xn2[:, -1].to(torch.bfloat16)}
+    if kind == "rglru":
+        y, h, conv = L.rglru_prefill(p["rec"], cfg, L.rmsnorm(x, p["norm1"]))
+        x = x + y
+        return x + _ffn(p, cfg, x), {"h": h,
+                                     "conv": conv.to(torch.bfloat16)}
     y, ck, cv = L.attention_prefill(
         p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
         window=cfg.window if kind == "local" else None, keep_full=keep_full)
     x = x + y
-    x = x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
-    return x, {"k": ck, "v": cv}
+    ent = {"k": ck, "v": cv}
+    if enc_out is not None:
+        ent["xk"], ent["xv"] = L.cross_kv(p["xattn"], cfg, enc_out)
+        x = x + L.attention_fwd(p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]),
+                                kv_src=enc_out)
+    return x + _ffn(p, cfg, x), ent
 
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
             last_pos=None, full_local_cache: bool = False):
     """Process the prompt; return (last-token logits (B,1,V) f32, cache,
-    S).  ``cache`` holds one entry per run in the layout of
-    :func:`init_cache`; attention entries are padded to ``s_max``.
+    S).  ``inputs``: ``tokens`` (B,S), the frontends' ``embeds`` (B,P,D)
+    as a prefix (S then counts them), and for enc-dec ``src_embeds``
+    (B,Ss,D) for the encoder.  ``cache`` holds one entry per run in the
+    layout of :func:`init_cache` with src_len Ss; attention entries are
+    padded to ``s_max``.
 
     ``last_pos`` ((B,) int) selects each row's last real token, so
     right-padded prompts are safe: causality keeps the pads out of the real
     positions.  ``full_local_cache`` keeps windowed layers' caches at full
     length (the paged pools store them so and mask at read time)."""
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = encoder_fwd(params, cfg, inputs["src_embeds"])
     x = embed_inputs(params, cfg, inputs)
     B, S = x.shape[:2]
     cache = []
     for kind, layers in _runs(params, cfg):
         ents = []
         for p in layers:
-            x, ent = _layer_prefill(p, cfg, kind, x, full_local_cache)
+            x, ent = _layer_prefill(p, cfg, kind, x, enc_out,
+                                    full_local_cache)
             ents.append(ent)
         ent = {k: torch.stack([e[k] for e in ents]) for k in ents[0]}
-        if kind != "rwkv6":
+        if kind in ("attn", "local"):
             tgt = s_max if full_local_cache or kind != "local" \
                 else min(cfg.window, s_max)
             if ent["k"].shape[2] < tgt:
                 pad = (0, 0, 0, 0, 0, tgt - ent["k"].shape[2])
-                ent = {k: F.pad(v, pad) for k, v in ent.items()}
+                ent["k"], ent["v"] = F.pad(ent["k"], pad), F.pad(ent["v"],
+                                                                 pad)
         cache.append(ent)
     x = L.rmsnorm(x, params["final_norm"])
     if last_pos is None:
@@ -287,11 +383,22 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
         ent["x_tm"][i] = st["x_tm"].to(torch.bfloat16)
         ent["x_cm"][i] = x_cm.to(torch.bfloat16)
         return x + y2
+    if kind == "rglru":
+        y, h, conv = L.rglru_decode(p["rec"], cfg, L.rmsnorm(x, p["norm1"]),
+                                    ent["h"][i], ent["conv"][i])
+        ent["h"][i] = h
+        ent["conv"][i] = conv.to(torch.bfloat16)
+        x = x + y
+        return x + _ffn(p, cfg, x)
     y, _, _ = L.attention_decode(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
                                  ent["k"][i], ent["v"][i], pos,
                                  windowed=kind == "local")
     x = x + y
-    return x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+    if "xk" in ent:
+        x = x + L.cross_attention_decode(p["xattn"], cfg,
+                                         L.rmsnorm(x, p["norm_x"]),
+                                         ent["xk"][i], ent["xv"][i])
+    return x + _ffn(p, cfg, x)
 
 
 @torch.inference_mode()
@@ -378,7 +485,7 @@ def decode_step_paged(params, cfg: ModelConfig, pools: list, block_tables,
                 p["attn"], cfg, L.rmsnorm(x, p["norm1"]), ent["k"][i],
                 ent["v"][i], block_tables, pos, window=window)
             x = x + y
-            x = x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+            x = x + _ffn(p, cfg, x)
     x = L.rmsnorm(x, params["final_norm"])
     logits = (x @ _head(params, cfg).to(x.dtype)).float()
     return logits, pools

@@ -234,7 +234,7 @@ def test_analysis_cli_exits_zero():
 POINTERS = [
     ("models/layers.py", 5, "_cache_attend_sp"),
     ("launch/mesh.py", 5, "tensor parallelism"),
-    ("models/transformer.py", 6, "MoE, RG-LRU, enc-dec"),
+    ("models/transformer.py", 9, "MoE, RG-LRU, enc-dec"),
     ("models/transformer.py", 7, "RWKV-6 training"),
     ("kernels/wkv.py", 7, "RWKV-6 training"),
 ]

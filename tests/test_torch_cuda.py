@@ -19,7 +19,9 @@ forward's lse, which is not rounded, is held to its mirror within 1e-4
 times max(1, max|lse|).  TF32 is off for the plain
 versions' f32 einsums.  The int8 kernels equal their plain versions bit
 for bit (NaN where NaN), and so does ``apply_error_feedback`` on the
-card against its plain path on the CPU.  The WKV kernel's o and final state agree with
+card against its plain path on the CPU.  The MoE, RG-LRU, enc-dec and
+vision configs in f32 agree with the CPU within 1e-4 on logits and f32
+cache leaves, one bf16 ulp on bf16 ones.  The WKV kernel's o and final state agree with
 its plain version within 1e-4 times max(1, max|ref|), as
 ``chip_smoke.py`` holds it; the RWKV-6 model in f32 on the card agrees
 with the CPU within 1e-4 on logits and state, and one bf16 ulp on the
@@ -76,6 +78,12 @@ LSE_MIRROR_TOL = 1e-4
     (1, 128, 256, 4, 2, 16, True, 64, 300),        # fully masked rows
     (1, 96, 96, 6, 2, 256, True, None, 0),
     (1, 300, 300, 10, 1, 256, True, 128, 0),       # recurrentgemma: G = 10
+    (1, 512, 512, 16, 16, 128, True, None, 0),     # olmoe prefill
+    (1, 2048, 2048, 10, 1, 256, True, 2048, 0),    # recurrentgemma local
+    (4, 512, 512, 16, 16, 64, False, None, 0),     # seamless encoder
+    (4, 128, 512, 16, 16, 64, False, None, 0),     # seamless cross
+    (4, 512, 512, 32, 8, 128, True, None, 0),      # pixtral
+    (4, 512, 512, 40, 8, 128, True, None, 0),      # llama4-scout: G = 5
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
@@ -141,6 +149,76 @@ def test_prefill_on_card_matches_cpu(dev, arch, S):
     got, _, _ = T.prefill(_f32(params, dev), cfg, {"tokens": toks.to(dev)},
                           S)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+NEW_ARCHS = ["llama4_scout_17b_a16e", "olmoe_1b_7b", "pixtral_12b",
+             "recurrentgemma_2b", "seamless_m4t_medium"]
+
+
+def _leaves_close(got, want):
+    """f32 cache leaves within 1e-4 of their scale, bf16 ones within one
+    bf16 ulp."""
+    for eg, ec in zip(got, want):
+        for name, b in ec.items():
+            a = eg[name].cpu()
+            if b.dtype == torch.float32:
+                top = b.abs().max().item()
+                torch.testing.assert_close(a, b, atol=1e-4 * top, rtol=0)
+            else:
+                torch.testing.assert_close(a.float(), b.float(),
+                                           rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_archs_on_card_match_cpu(dev, arch):
+    """MoE, RG-LRU, enc-dec and the vision prefix at smoke size in f32: the
+    prefill and 3 dense decode steps, each from the CPU's cache and token,
+    on the card against the CPU: logits within 1e-4, cache leaves as
+    ``_leaves_close``; the flash kernel launched once per attention layer
+    (encoder and cross layers included) of the prefill."""
+    cfg = get_config(arch, smoke=True)
+    params = _f32(T.init_model(cfg, seed=0, device="cpu"), "cpu")
+    p_dev = _f32(params, dev)
+    gen = torch.Generator().manual_seed(0)
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen)}
+    if cfg.frontend:
+        e = torch.randn((2, 4, cfg.d_model), generator=gen)
+        inputs["src_embeds" if cfg.enc_dec else "embeds"] = \
+            e.to(torch.bfloat16)
+    prefill, decode = make_prefill_fn(cfg, 24), make_decode_fn(cfg)
+    lg_c, cache_c, pos = prefill(params, inputs)
+    before = fa.flash_attention_fwd.launches
+    lg_g, cache_g, _ = prefill(p_dev, {k: v.to(dev)
+                                       for k, v in inputs.items()})
+    n_attn = sum(k in ("attn", "local") for k in cfg.pattern)
+    enc = cfg.enc_dec.n_enc_layers + n_attn if cfg.enc_dec else 0
+    assert fa.flash_attention_fwd.launches - before == n_attn + enc
+    torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    _leaves_close(cache_g, cache_c)
+    for i in range(3):
+        tok = lg_c[:, -1].argmax(-1, keepdim=True)
+        start = [{k: t.to(dev, copy=True) for k, t in e.items()}
+                 for e in cache_c]
+        lg_c, cache_c = decode(params, cache_c, tok, pos + i)
+        lg_g, cache_g = decode(p_dev, start, tok.to(dev), pos + i)
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+        _leaves_close(cache_g, cache_c)
+
+
+def test_olmoe_serve_on_card(dev):
+    """The paged serve of the MoE on the card: every request done, one
+    flash launch per layer and prefill, one host read of the group sizes
+    per MoE layer and model call."""
+    from repro_torch.models import layers as L
+    cfg = get_config("olmoe_1b_7b", smoke=True)
+    fa.flash_attention_fwd.launches = 0
+    L.moe_fwd.host_syncs = 0
+    out = serve("olmoe-1b-7b", 3, 21, 5, smoke=True, device="cuda")
+    assert all(r.state is ReqState.DONE for r in out["requests"])
+    assert out["generated"].shape == (3, 5)
+    assert fa.flash_attention_fwd.launches == cfg.n_layers * out["prefills"]
+    assert L.moe_fwd.host_syncs % cfg.n_layers == 0
+    assert L.moe_fwd.host_syncs >= cfg.n_layers * out["prefills"]
 
 
 def test_serve_on_card_launches_the_kernel(dev):
