@@ -178,7 +178,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    encoder frames), the prefill's logits and cache and 4 decode steps,
    each from the CPU's cache and token, within 1e-4 of their scale (bf16
    cache leaves within one ulp); every MoE call's top-k experts, token by
-   token, different only at near-ties (printed per layer).
+   token, different only at near-ties (printed per layer);
+24. serving on a model axis, the M ranks of one model group sharing the
+   card over gloo (staged through host memory), each a fresh process
+   holding its shard of the weights (random from a seed, the one-rank
+   model's): 24a ``serve`` on gpt-100m at full width with ``mesh``
+   ``1x1x2`` and ``1x1x4``, 24b on olmoe-1b-7b at full depth on ``1x1x4``
+   (16 experts a rank, expert-parallel at its capacity_factor 1.25),
+   both with phase 5's requests; 24c the dense path
+   (``make_prefill_fn``/``make_decode_fn`` with the grid) on gemma3-12b
+   cut to its first pattern period (5 windowed layers, 1 global) on
+   ``1x1x2``, 4 x 512 and 1 x 2048 prompts whose decode wraps the
+   1024-slot ring, 16 greedy tokens, the caches split over the sequence;
+   each against the one-rank run of the same requests (phases 5 and 21,
+   and the dense path in this process): every request done, the first
+   prefill's bf16 logits within 5e-2, each rank's flash launches (one a
+   layer and prefill, on its heads), printed with wall s, tok/s, TTFT,
+   the model axis's collectives a prefill and a decode step, the bytes
+   each rank staged, the MoE's dropped slots per layer and the token
+   agreement.  24d: the three configs at full width and their smoke
+   configs' depth in f32 on the card (the MoE with room for every slot),
+   each model group against the one-rank model: the paged and the dense
+   prefill's logits within 1e-5, each paged decode step (pools of the
+   rank's KV heads) and each dense decode step (the sequence-parallel
+   decode where the model axis divides the cache) from the one-rank
+   pools or cache within 1e-4, no slot dropped.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -358,6 +382,31 @@ ANSWER_INPUT = (2, 48, 32)       # batch, prompt tokens, prefix positions
 ANSWER_STEPS = 4
 ARCH_TOL = 1e-4
 NEAR_TIE = 1e-6
+# phase 24: serving on a model axis, the M ranks of one model group
+# sharing the card over gloo (staged through host memory).  24a gpt-100m
+# through serve on each mesh and 24b olmoe-1b-7b (16 experts a rank, its
+# capacity_factor 1.25), phase 5's requests; 24c the dense path on
+# gemma3-12b cut to its first pattern period (5 windowed layers, 1
+# global), caches sized to a multiple of 8 so the model axis divides them
+# (the sequence-parallel decode); the 2048-token prompt wraps the
+# 1024-slot ring; 24d the three configs at their smoke configs' depth and
+# full width in f32, each model group against the one-rank model
+TP_SERVE = ("1x1x2", "1x1x4")
+TP_MOE_MESH = "1x1x4"
+TP_DENSE = ("gemma3-12b", 6, "1x1x2", ((4, 512), (1, 2048)))
+TP_ANSWER = {2: ("gpt-100m", "gemma3-12b"), 4: ("gpt-100m", "olmoe-1b-7b")}
+TP_ANSWER_INPUT = (2, 48, 8)    # dense batch, prompt, the paged prompt's pad
+TP_ANSWER_STEPS = 4
+TP_ANSWER_BLOCK = 8     # the paged pools' block size
+# bf16 first-prefill logits against the one-rank run's: the tests' bf16
+# LOGIT_TOL (tests/test_torch_model.py:38); the row-parallel sums round
+# in another order
+LOGIT_TOL = 5e-2
+# f32: the prefills' logits against the one-rank model's; a decode step
+# (from the one-rank cache) also reads the k and v it writes to bf16,
+# which may round to the neighbouring value (tests/test_torch_tp.py)
+TP_F32_TOL = 1e-5
+TP_STEP_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1082,21 +1131,27 @@ def prompt_inputs(torch, cfg, B, L, P, seed):
     return inputs
 
 
-def dense_serve(torch, cfg, params, B, L, P=0):
+def dense_serve(torch, cfg, params, B, L, P=0, grid=None, align=1):
     """Prefill a (B, L) prompt from a seed (after P prefix positions) on
     the card and decode greedily to DENSE_GEN tokens through
-    make_prefill_fn/make_decode_fn.  Returns the wall times, the tokens
-    and each step's logits."""
+    make_prefill_fn/make_decode_fn (on this rank's shard where ``grid``
+    has a model axis), the cache sized for the tokens rounded up to a
+    multiple of ``align``.  Returns the wall times, the tokens and each
+    step's logits."""
     from repro_torch.launch.step import make_decode_fn, make_prefill_fn
 
     inputs = {k: v.cuda()
               for k, v in prompt_inputs(torch, cfg, B, L, P, L).items()}
     pre = 0 if cfg.enc_dec else P
-    prefill = make_prefill_fn(cfg, pre + L + DENSE_GEN - 1)
-    decode = make_decode_fn(cfg)
+    s_max = pre + L + DENSE_GEN - 1
+    prefill = make_prefill_fn(cfg, s_max + (-s_max) % align, grid)
+    decode = make_decode_fn(cfg, grid)
+    calls = (lambda: grid.tp.calls) if grid is not None else (lambda: 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    c0 = calls()
     logits, cache, pos = prefill(params, inputs)
+    c1 = calls()
     out, lgs = [logits[:, -1].argmax(-1, keepdim=True)], [logits]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1108,7 +1163,9 @@ def dense_serve(torch, cfg, params, B, L, P=0):
     t2 = time.perf_counter()
     return {"prefill_ms": (t1 - t0) * 1e3,
             "decode_ms_per_step": (t2 - t1) * 1e3 / (DENSE_GEN - 1),
-            "tokens": torch.cat(out, 1), "logits": lgs, "wall_s": t2 - t0}
+            "tokens": torch.cat(out, 1), "logits": lgs, "wall_s": t2 - t0,
+            "collectives_prefill": c1 - c0,
+            "collectives_per_decode_step": (calls() - c1) / (DENSE_GEN - 1)}
 
 
 def leaf_errs(torch, got, want) -> tuple[dict, bool]:
@@ -2111,12 +2168,14 @@ def moe_serve_phase(torch, serve, fa, kw, T, L, get_config) -> dict:
         "launches": got, "prefills": prefills, "scheduler_steps": steps,
         "host_syncs": syncs, "host_syncs_per_step": syncs / steps,
         "wall_s_with_init": wall}}), flush=True)
+    kept = [{"generated": r["generated"], "first_logits": r["first_logits"]}
+            for r in runs]
     del runs
     params = T.init_model(cfg, seed=0, device="cuda")
     moe_profile(torch, T, L, cfg, params)
     del params
     torch.cuda.empty_cache()
-    return got
+    return got, kept
 
 
 def dense_serve_phase(torch, fa, kw, T, get_config) -> int:
@@ -2252,6 +2311,308 @@ def arch_answer(torch, T, L, get_config) -> dict:
         del p_gpu, p_cpu, cache_c, cache_g
         torch.cuda.empty_cache()
     return out
+
+
+def tp_serve_phase(serve, arch, mesh, plain, cfg) -> int:
+    """Phase 24a/24b: ``serve`` of ``arch`` at full width on ``mesh``, the
+    M ranks of one model group sharing the card over gloo, phase 5's
+    requests, against the one-rank runs ``plain`` of the same requests
+    (phase 5's or 21's): every request done, tokens in range, the first
+    prefill's bf16 logits within LOGIT_TOL of the one-rank run's, each
+    rank's flash launches (each rank is a fresh process whose counter
+    starts at 0: one a layer and prefill, on its heads).  Printed beside
+    them: wall s, tok/s, wall TTFT, the model axis's collectives a prefill
+    and a decode step, the bytes each rank staged through host memory, the
+    MoE's dropped slots per layer, the token agreement with the one-rank
+    run.  Returns the flash launches of every rank."""
+    launches = 0
+    t0 = time.perf_counter()
+    runs = serve_runs(serve, arch=arch, mesh=mesh)
+    wall = time.perf_counter() - t0
+    for r, p, (n, L_) in zip(runs, plain, SERVE_RUNS):
+        gen = r["generated"]
+        if not all(q.state.name == "DONE" for q in r["requests"]) \
+                or gen.shape != (n, SERVE_GEN) or gen.min() < 0 \
+                or gen.max() >= cfg.vocab:
+            fail(f"{arch} on {mesh}: a request did not finish, or tokens "
+                 f"of shape {gen.shape} out of range")
+        ax = r["model_axis"]
+        err = float(abs(r["first_logits"] - p["first_logits"]).max())
+        rec = {"arch": arch, "mesh": mesh, "requests": n, "prompt": L_,
+               "generated": SERVE_GEN, "wall_s": r["seconds"],
+               "tokens_per_s": r["tokens_per_s"],
+               "ttft_wall_p50_ms": r["ttft_wall_p50_s"] * 1e3,
+               "ttft_wall_p99_ms": r["ttft_wall_p99_s"] * 1e3,
+               "first_prefill_max_abs_logit_err_bf16": err,
+               "logit_tol": LOGIT_TOL,
+               "token_agreement": float((gen == p["generated"]).mean()),
+               **{k: ax[k] for k in (
+                   "collectives_per_prefill", "collectives_per_decode_step",
+                   "staged_bytes", "flash_fwd_launches",
+                   "moe_dropped_per_layer", "moe_dropped_first_prefill")},
+               "wall_s_both_runs_with_spawn": wall}
+        print(json.dumps({"tp_serve": rec}), flush=True)
+        if ax["flash_fwd_launches"] != [cfg.n_layers * r["prefills"]] \
+                * ax["model"]:
+            fail(f"{arch} on {mesh}: flash launches per rank "
+                 f"{ax['flash_fwd_launches']} for {r['prefills']} prefills")
+        if not err <= LOGIT_TOL:
+            fail(f"{arch} on {mesh}: first prefill's logits {err} from the "
+                 f"one-rank run's")
+        launches += sum(ax["flash_fwd_launches"])
+    return launches
+
+
+def tp_dense_rank(rank, mesh, arch, n, prefills):
+    """One rank of phase 24c: ``arch`` cut to ``n`` layers at full width,
+    this rank's shard on ``mesh``'s model axis (gloo, the card shared),
+    the dense path's prefills with the sequence-parallel decode."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_grid, parse_mesh
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    model = parse_mesh(mesh)[2]
+    grid = make_grid(1, 1, dev, model=model)
+    cfg = cut(get_config, arch, n)
+    params = T.init_model(cfg, seed=0, device=dev, model=model, m=rank)
+    fa.flash_attention_fwd.launches = 0
+    out = []
+    for B, L_ in prefills:
+        s0 = grid.staged_bytes
+        r = dense_serve(torch, cfg, params, B, L_, grid=grid, align=8)
+        out.append({"tokens": r["tokens"].cpu().numpy(),
+                    "first_logits": r["logits"][0].cpu().numpy(),
+                    "finite": all(bool(torch.isfinite(x).all())
+                                  for x in r["logits"]),
+                    "staged_bytes": grid.staged_bytes - s0,
+                    **{k: r[k] for k in (
+                        "prefill_ms", "decode_ms_per_step", "wall_s",
+                        "collectives_prefill",
+                        "collectives_per_decode_step")}})
+    return {"runs": out, "flash_fwd": fa.flash_attention_fwd.launches}
+
+
+def tp_dense_phase(torch, T, get_config) -> int:
+    """Phase 24c: the dense path on the model axis, each rank's cache
+    split over the sequence (the windowed layers' 1024-slot ring wraps
+    under the 2048-token prompt): against the one-rank dense path in this
+    process on the same weights, the first prefill's bf16 logits within
+    LOGIT_TOL and the token agreement.  Returns the flash launches of
+    every rank."""
+    from repro_torch.launch.mesh import parse_mesh, run_ranks
+
+    arch, n, mesh, prefills = TP_DENSE
+    model = parse_mesh(mesh)[2]
+    ranks = run_ranks(tp_dense_rank, model, "gloo",
+                      args=(mesh, arch, n, prefills), timeout=600)
+    cfg = cut(get_config, arch, n)
+    params = T.init_model(cfg, seed=0, device="cuda")
+    one = [dense_serve(torch, cfg, params, B, L_, align=8)
+           for B, L_ in prefills]
+    del params
+    torch.cuda.empty_cache()
+    for i, ((B, L_), o) in enumerate(zip(prefills, one)):
+        r = ranks[0]["runs"][i]
+        want = o["logits"][0].cpu().numpy()
+        err = float(abs(r["first_logits"] - want).max())
+        gen = r["tokens"]
+        for other in ranks[1:]:
+            if not (other["runs"][i]["tokens"] == gen).all():
+                fail(f"{arch} on {mesh}: the ranks took other tokens")
+        print(json.dumps({"tp_dense": {
+            "arch": arch, "layers": cfg.n_layers, "mesh": mesh, "batch": B,
+            "prompt": L_, "generated": DENSE_GEN,
+            "prefill_wall_ms": r["prefill_ms"],
+            "decode_wall_ms_per_step": r["decode_ms_per_step"],
+            "tokens_per_s": B * DENSE_GEN / r["wall_s"],
+            "one_rank_prefill_wall_ms": o["prefill_ms"],
+            "one_rank_decode_wall_ms_per_step": o["decode_ms_per_step"],
+            "collectives_prefill": r["collectives_prefill"],
+            "collectives_per_decode_step": r["collectives_per_decode_step"],
+            "staged_bytes": [x["runs"][i]["staged_bytes"] for x in ranks],
+            "first_prefill_max_abs_logit_err_bf16": err,
+            "logit_tol": LOGIT_TOL,
+            "token_agreement": float(
+                (gen == o["tokens"].cpu().numpy()).mean()),
+            "flash_fwd_launches": [x["flash_fwd"] for x in ranks]}}),
+            flush=True)
+        if not r["finite"] or gen.shape != (B, DENSE_GEN) \
+                or gen.min() < 0 or gen.max() >= cfg.vocab:
+            fail(f"{arch} on {mesh}: tokens of shape {gen.shape} or "
+                 f"non-finite logits")
+        if not err <= LOGIT_TOL:
+            fail(f"{arch} on {mesh}: first prefill's logits {err} from the "
+                 f"one-rank run's")
+    want = flash_per_prefill(cfg) * len(prefills)
+    if any(x["flash_fwd"] != want for x in ranks):
+        fail(f"{arch} on {mesh}: flash launches "
+             f"{[x['flash_fwd'] for x in ranks]}, expected {want} a rank")
+    return sum(x["flash_fwd"] for x in ranks)
+
+
+def tp_answer_inputs(torch, cfg):
+    """Phase 24d's inputs: a right-padded prompt for the paged prefill and
+    a batch for the dense path, from a seed."""
+    B, L_, pad = TP_ANSWER_INPUT
+    gen = torch.Generator().manual_seed(24)
+    return {"paged": torch.randint(0, cfg.vocab, (1, L_ + pad),
+                                   generator=gen),
+            "dense": torch.randint(0, cfg.vocab, (B, L_), generator=gen),
+            "steps": torch.randint(0, cfg.vocab, (TP_ANSWER_STEPS, B, 1),
+                                   generator=gen)}
+
+
+def tp_answer_cfg(get_config, arch, model):
+    """``arch`` at full width and its smoke config's depth; an MoE with
+    room for every slot (capacity_factor M), so that the expert-parallel
+    block computes what the one-rank dense block does."""
+    cfg = cut(get_config, arch, get_config(arch, smoke=True).n_layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(model)))
+    return cfg
+
+
+def tp_answer_paths(torch, T, cfg, params, ins, tp=None, before=None):
+    """The paged prefill's logits and TP_ANSWER_STEPS paged decode steps'
+    (the prefill's cache scattered into pools of this rank's KV heads),
+    the dense prefill's and TP_ANSWER_STEPS dense decode steps'.  Each
+    step starts from ``before[kind][i]``, the one-rank run's pools or
+    cache of that step cut for this rank, where given; the one-rank run
+    records them (numpy) in ``out["before"]``."""
+    B, L_, pad = TP_ANSWER_INPUT
+    out = {"before": {"pools": [], "cache": []}}
+
+    def start(kind, i, state):
+        if before is None:
+            out["before"][kind].append([{k: v.float().cpu().numpy()
+                                         for k, v in ent.items()}
+                                        for ent in state])
+            return state
+        return [{k: tp_cut(torch, before[kind][i][r][k], v, tp)
+                 for k, v in ent.items()} for r, ent in enumerate(state)]
+
+    lg, cache, _ = T.prefill(params, cfg, {"tokens": ins["paged"].cuda()},
+                             L_ + pad, last_pos=torch.tensor([L_ - 1]).cuda(),
+                             full_local_cache=True, tp=tp, seq_shard=False)
+    out["paged_prefill"] = lg.cpu().numpy()
+    nb = (L_ + pad) // TP_ANSWER_BLOCK
+    pools = T.init_paged_pools(cfg, 1 + nb, TP_ANSWER_BLOCK, device="cuda",
+                               tp=tp)
+    T.scatter_prefill_cache(pools, cache, list(range(1, nb + 1)),
+                            TP_ANSWER_BLOCK)
+    tables = torch.arange(1, nb + 1, device="cuda")[None]
+    out["paged_steps"] = []
+    for i in range(TP_ANSWER_STEPS):
+        pools = start("pools", i, pools)
+        lg, pools = T.decode_step_paged(
+            params, cfg, pools, tables, ins["steps"][i][:1].cuda(),
+            torch.tensor([L_ + i]).cuda(), tp=tp)
+        out["paged_steps"].append(lg.cpu().numpy())
+    s_max = L_ + TP_ANSWER_STEPS
+    s_max += (-s_max) % 8
+    lg, cache, S = T.prefill(params, cfg, {"tokens": ins["dense"].cuda()},
+                             s_max, tp=tp)
+    out["dense_prefill"] = lg.cpu().numpy()
+    out["dense_steps"] = []
+    for i in range(TP_ANSWER_STEPS):
+        cache = start("cache", i, cache)
+        lg, cache = T.decode_step(params, cfg, cache,
+                                  ins["steps"][i].cuda(), S + i, tp=tp)
+        out["dense_steps"].append(lg.cpu().numpy())
+    return out
+
+
+def tp_cut(torch, full, like, tp):
+    """This rank's part of a one-rank cache leaf ``full`` (numpy) in the
+    layout of ``like``: its slice of the sequence where ``like`` holds
+    every KV head, else its KV heads."""
+    t = torch.from_numpy(full).to(like.dtype).cuda()
+    dim = 2 if like.shape[-2] == t.shape[-2] else t.dim() - 2
+    n = like.shape[dim]
+    return t.narrow(dim, tp.index * n, n).contiguous()
+
+
+def tp_answer_rank(rank, model, archs, befores):
+    """One rank of phase 24d: f32 weights of each of ``archs``, this
+    rank's shard, TF32 off, the paths of ``tp_answer_paths``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tp = make_grid(1, 1, dev, model=model).tp
+    out = {}
+    for arch, before in zip(archs, befores):
+        cfg = tp_answer_cfg(get_config, arch, model)
+        params = tree_map(lambda t: t.float(), T.init_model(
+            cfg, seed=0, device=dev, model=model, m=rank))
+        L.moe_fwd.dropped = []
+        out[arch] = tp_answer_paths(torch, T, cfg, params,
+                                    tp_answer_inputs(torch, cfg), tp, before)
+        out[arch]["dropped"] = sum(L.moe_fwd.dropped)
+        L.moe_fwd.dropped = None
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_answer_phase(torch, T, get_config) -> None:
+    """Phase 24d: the three configs of 24a-c at full width and their smoke
+    depth in f32 on the card, each model group against the one-rank model
+    in this process on the same weights: the paged and the dense
+    prefill's logits within TP_F32_TOL; each paged and each dense decode
+    step, from the one-rank run's pools or cache, within TP_STEP_TOL (the
+    step rounds the k and v it writes to bf16, and an f32 value a
+    summation order apart may round to the neighbouring bf16 number); no
+    expert slot dropped."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.tree import tree_map
+
+    for model, archs in TP_ANSWER.items():
+        ones, befores = {}, []
+        for arch in archs:
+            cfg = tp_answer_cfg(get_config, arch, model)
+            params = tree_map(lambda t: t.float(),
+                              T.init_model(cfg, seed=0, device="cuda"))
+            ones[arch] = tp_answer_paths(torch, T, cfg, params,
+                                         tp_answer_inputs(torch, cfg))
+            befores.append(ones[arch].pop("before"))
+            del params
+            torch.cuda.empty_cache()
+        ranks = run_ranks(tp_answer_rank, model, "gloo",
+                          args=(model, archs, befores), timeout=600)
+        for arch in archs:
+            one, got = ones[arch], ranks[0][arch]
+            steps = lambda k: k.endswith("_steps")
+            err = lambda k: float(max(abs(a - b).max() for a, b in zip(
+                got[k] if steps(k) else [got[k]],
+                one[k] if steps(k) else [one[k]])))
+            rec = {"arch": arch, "model": model,
+                   "layers": tp_answer_cfg(get_config, arch, model).n_layers,
+                   "paged_prefill_max_abs_err": err("paged_prefill"),
+                   "paged_steps_max_abs_err": err("paged_steps"),
+                   "dense_prefill_max_abs_err": err("dense_prefill"),
+                   "dense_steps_max_abs_err": err("dense_steps"),
+                   "prefill_tol": TP_F32_TOL, "step_tol": TP_STEP_TOL,
+                   "dropped": [r[arch]["dropped"] for r in ranks]}
+            print(json.dumps({"tp_f32_vs_one_rank": rec}), flush=True)
+            if not (rec["paged_prefill_max_abs_err"] <= TP_F32_TOL
+                    and rec["dense_prefill_max_abs_err"] <= TP_F32_TOL
+                    and rec["paged_steps_max_abs_err"] <= TP_STEP_TOL
+                    and rec["dense_steps_max_abs_err"] <= TP_STEP_TOL) \
+                    or any(rec["dropped"]):
+                fail(f"{arch} on a model axis of {model} in f32: {rec}")
 
 
 def main() -> None:
@@ -2478,7 +2839,8 @@ def main() -> None:
     # 21. the MoE main path: olmoe-1b-7b through the paged scheduler
     from repro_torch.models import layers as L
     walls = [time.perf_counter()]
-    moe_counts = moe_serve_phase(torch, serve, fa, kw, T, L, get_config)
+    moe_counts, moe_runs = moe_serve_phase(torch, serve, fa, kw, T, L,
+                                           get_config)
     walls.append(time.perf_counter())
 
     # 22. the dense path: recurrentgemma, seamless, pixtral, llama4-scout
@@ -2488,9 +2850,20 @@ def main() -> None:
     # 23. the new configs' f32 answer, the card against the CPU
     arch_answer(torch, T, L, get_config)
     walls.append(time.perf_counter())
+
+    # 24. serving on a model axis: each rank is a fresh process whose
+    # counters start at 0 and are read at its end
+    tp_flash = sum(tp_serve_phase(serve, "gpt-100m", mesh, runs, cfg)
+                   for mesh in TP_SERVE)
+    tp_flash += tp_serve_phase(serve, MOE_ARCH, TP_MOE_MESH, moe_runs,
+                               get_config(MOE_ARCH))
+    tp_flash += tp_dense_phase(torch, T, get_config)
+    walls.append(time.perf_counter())
+    tp_answer_phase(torch, T, get_config)
+    walls.append(time.perf_counter())
     print(json.dumps({"phase_wall_s": {
-        str(n): b - a for n, a, b in zip((21, 22, 23), walls, walls[1:])}}),
-        flush=True)
+        n: b - a for n, a, b in zip(("21", "22", "23", "24a-c", "24d"),
+                                    walls, walls[1:])}}), flush=True)
 
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
@@ -2501,7 +2874,7 @@ def main() -> None:
                       + grid_counts["flash_fwd"] + net_counts["flash_fwd"]
                       + bucket_counts["flash_fwd"]
                       + elastic_counts["flash_fwd"]
-                      + moe_counts["flash_fwd"] + dense_flash),
+                      + moe_counts["flash_fwd"] + dense_flash + tp_flash),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],

@@ -1,25 +1,31 @@
-"""The data-parallel rank grid over ``torch.distributed``.
+"""The rank grid over ``torch.distributed``: (pod x data) data-parallel
+ranks, each cell a model group of M ranks.
 
-Counterpart of ``repro/launch/mesh.py`` (``dp_topology`` :45 and
-``dp_decomposition`` :58).  Ranks form a (pod x data) grid in row-major
-order, rank = pod * data + d, as the reference flattens its (pod, data)
-mesh axes.  The ``fast`` axis of a rank is the group of its pod's ranks
-(the reference's ``data`` axis: reduce-scatter and all-gather), the
-``slow`` axis the group of the ranks that share its data index (``pod``:
-the one exchange across pods), and ``dp`` all ranks (the flat baseline).
-One pod means no slow axis, as the reference's mesh then has no ``pod``
-axis.  After a pod fails, the survivors' grid is a subset of the ranks
-(``make_grid(..., members=)``): its three axes are groups of their own,
-created by the members alone, and its ranks count from 0 in their
-row-major order.
+Counterpart of ``repro/launch/mesh.py`` (``mesh_topology`` :30,
+``dp_topology`` :45 and ``dp_decomposition`` :58).  Ranks form a (pod x
+data x model) grid in row-major order, rank = (pod * data + d) * model +
+m, as the reference flattens its (pod, data, model) mesh: the model axis
+is innermost, so a model group is M neighbouring ranks and never spans two
+(pod, data) cells, let alone a pod.  The ``fast`` axis of a rank is the
+group of its pod's ranks that share its m (the reference's ``data`` axis:
+reduce-scatter and all-gather), the ``slow`` axis the group of the ranks
+that share its data index and m (``pod``: the one exchange across pods),
+``dp`` all ranks that share its m (the flat baseline), and ``tp`` its
+model group (the tensor-parallel collectives of every layer).  One pod
+means no slow axis, as the reference's mesh then has no ``pod`` axis.
+``Grid.rank`` and ``Grid.world`` count the data-parallel ranks (pod *
+data + d of pods * data); ``tp.index`` is m.  After a pod fails, the
+survivors' grid is a subset of the ranks (``make_grid(..., members=)``,
+model axis 1): its three axes are groups of their own, created by the
+members alone, and its ranks count from 0 in their row-major order.
 
-``Axis`` runs the three collectives the sync needs on its group, along
-any dim (moved to the front and made contiguous, as the group collectives
-take it, then moved back into a contiguous result), counts the payload
-this rank puts on it (``wire_bytes``), and, where the backend is gloo and
-the tensors live on a card (the ranks share one card, which NCCL
-refuses), copies them to the host and back in ``stage_through_host``,
-counting those bytes too.
+``Axis`` runs the collectives the sync and the model axis need on its
+group, along any dim (moved to the front and made contiguous, as the group
+collectives take it, then moved back into a contiguous result), counts
+the calls and the payload this rank puts on it (``calls``,
+``wire_bytes``), and, where the backend is gloo and the tensors live on a
+card (the ranks share one card, which NCCL refuses), copies them to the
+host and back in ``stage_through_host``, counting those bytes too.
 
 ``run_ranks`` spawns the ranks of a grid on this host, each with a
 ``file://`` rendezvous, and returns what each returned.
@@ -51,12 +57,10 @@ import torch.distributed as dist
 
 from ..core.topology import Level, Topology
 
-__all__ = ["NOT_PORTED_TP", "Axis", "Grid", "parse_mesh", "make_grid",
-           "stage_through_host", "run_ranks", "grid_topology",
+__all__ = ["Axis", "Grid", "parse_mesh", "choose_backend", "grid_groups",
+           "make_grid", "stage_through_host", "run_ranks", "grid_topology",
            "dp_topology", "grid_communicator"]
 
-NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 5: tensor parallelism over a "
-                 "model axis")
 
 # torch 2.13 renames the two single-tensor collectives; older releases
 # have only the old names
@@ -89,11 +93,13 @@ class Axis:
                  stage: bool = False):
         self.name, self.size, self.index = name, size, index
         self.group, self.stage = group, stage
+        self.calls = 0            # collectives this rank joined
         self.wire_bytes = 0       # payload this rank put into collectives
         self.staged_bytes = 0     # host copies made for gloo
 
     def _run(self, fn: Callable, out: torch.Tensor,
              inp: torch.Tensor | None) -> torch.Tensor:
+        self.calls += 1
         self.wire_bytes += (out if inp is None else inp).nbytes
         if self.stage and out.is_cuda:
             stage_through_host(fn, out, inp, self)
@@ -107,6 +113,15 @@ class Axis:
             return x
         return self._run(lambda o, _: dist.all_reduce(o, group=self.group),
                          x.contiguous().clone(), None)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``x`` over the axis, on every
+        member."""
+        if self.size == 1:
+            return x
+        return self._run(lambda o, _: dist.all_reduce(
+            o, op=dist.ReduceOp.MAX, group=self.group),
+            x.contiguous().clone(), None)
 
     def psum_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Sum over the axis, member i keeping chunk i along ``dim``
@@ -137,7 +152,8 @@ class Axis:
 
 @dataclasses.dataclass
 class Grid:
-    """This rank's place in the (pods x data) grid and its three axes."""
+    """This rank's place in the (pods x data x model) grid and its four
+    axes; ``rank`` and ``world`` count the data-parallel ranks."""
     pods: int
     data: int
     rank: int
@@ -145,6 +161,8 @@ class Grid:
     slow: Axis | None
     dp: Axis
     backend: str | None = None
+    model: int = 1
+    tp: Axis | None = None
 
     @property
     def world(self) -> int:
@@ -159,7 +177,8 @@ class Grid:
         return sum(a.staged_bytes for a in self.axes())
 
     def axes(self) -> list[Axis]:
-        return [a for a in (self.fast, self.slow, self.dp) if a is not None]
+        return [a for a in (self.fast, self.slow, self.dp, self.tp)
+                if a is not None]
 
     def barrier(self) -> None:
         """Wait for every rank of the grid."""
@@ -172,92 +191,135 @@ class Grid:
         return cls.shape_only(1, 1)
 
     @classmethod
-    def shape_only(cls, pods: int, data: int) -> "Grid":
-        """The shape of a (pods x data) grid seen from rank 0, with no
-        process group: for the planning plane only (``grid_topology``,
+    def shape_only(cls, pods: int, data: int, model: int = 1) -> "Grid":
+        """The shape of a (pods x data x model) grid seen from rank 0, with
+        no process group: for the planning plane only (``grid_topology``,
         ``grid_communicator`` with ``backend="sim"``)."""
         return cls(pods, data, 0, Axis("data", data, 0),
                    Axis("pod", pods, 0) if pods > 1 else None,
-                   Axis("dp", pods * data, 0))
+                   Axis("dp", pods * data, 0), model=model,
+                   tp=Axis("model", model, 0) if model > 1 else None)
 
 
-def parse_mesh(spec: str) -> tuple[int, int]:
-    """``"PxDxM"`` -> (pods, data).  A model axis is not ported yet."""
+def parse_mesh(spec: str) -> tuple[int, int, int]:
+    """``"PxDxM"`` -> (pods, data, model)."""
     try:
         pods, data, model = (int(x) for x in spec.split("x"))
     except ValueError:
         raise ValueError(f"mesh must be PODSxDATAxMODEL, got {spec!r}")
     if min(pods, data, model) < 1:
         raise ValueError(f"mesh sizes must be >= 1, got {spec!r}")
-    if model != 1:
-        raise NotImplementedError(f"mesh {spec}: a model axis of {model} "
-                                  f"({NOT_PORTED_TP})")
-    return pods, data
+    return pods, data, model
 
 
-def make_grid(pods: int, data: int, device: torch.device,
+def choose_backend(requested: str | None, dev: torch.device,
+                   local_world: int) -> str:
+    """NCCL where every rank of this host has a card of its own, gloo
+    where ranks share one or run on the CPU."""
+    if dev.type == "cpu":
+        if requested not in (None, "gloo"):
+            raise ValueError(f"--dist-backend {requested} needs the card; "
+                             f"the CPU takes gloo")
+        return "gloo"
+    cards = torch.cuda.device_count()
+    if requested is None:
+        return "nccl" if cards >= local_world else "gloo"
+    if requested == "nccl" and cards < local_world:
+        raise ValueError(f"NCCL refuses two ranks on one device: "
+                         f"{local_world} ranks on {cards} card(s); pass "
+                         f"--dist-backend gloo")
+    if requested not in ("nccl", "gloo"):
+        raise ValueError(f"unknown backend {requested!r}")
+    return requested
+
+
+def grid_groups(pods: int, data: int, model: int = 1) -> dict:
+    """The rank lists of every group of a (pods x data x model) grid,
+    rank = (pod * data + d) * model + m: ``"fast"`` one per (pod, m),
+    ``"slow"`` one per (d, m), ``"dp"`` one per m, ``"tp"`` one per
+    (pod, d) cell, each in the order ``make_grid`` creates them."""
+    r = lambda p, d, m: (p * data + d) * model + m
+    return {
+        "fast": [[r(p, i, m) for i in range(data)]
+                 for p in range(pods) for m in range(model)],
+        "slow": [[r(p, i, m) for p in range(pods)]
+                 for i in range(data) for m in range(model)],
+        "dp": [[r(p, i, m) for p in range(pods) for i in range(data)]
+               for m in range(model)],
+        "tp": [[r(p, i, m) for m in range(model)]
+               for p in range(pods) for i in range(data)],
+    }
+
+
+def make_grid(pods: int, data: int, device: torch.device, model: int = 1,
               members: "list[int] | None" = None) -> Grid:
     """This rank's ``Grid`` over the initialised default group, whose size
-    must be ``pods * data``, or over ``members``: the global ranks of a
-    grid that holds only some of them (the survivors of a failure), in
-    row-major (pod, data) order, this rank among them.  Every rank creates
-    every group of the default group, in the same order; a grid of
-    ``members`` creates its groups with the members alone
-    (``use_local_synchronization``), so ranks that have left need not
-    join, and each member creates its own fast, slow and dp groups in that
-    order.  torch names such a group by its ranks and the number of groups
-    the process has made, so the members must have made equally many
-    before: a rank outside ``members`` leaves for good.  Collectives of
-    CUDA tensors are staged through the host when the backend is gloo."""
-    if members is None and pods * data == 1 and not dist.is_initialized():
+    must be ``pods * data * model``, or over ``members``: the global ranks
+    of a grid that holds only some of them (the survivors of a failure,
+    model axis 1), in row-major (pod, data) order, this rank among them.
+    Every rank creates every group of the default group, in the order of
+    :func:`grid_groups`; a grid of ``members`` creates its groups with the
+    members alone (``use_local_synchronization``), so ranks that have left
+    need not join, and each member creates its own fast, slow and dp
+    groups in that order.  torch names such a group by its ranks and the
+    number of groups the process has made, so the members must have made
+    equally many before: a rank outside ``members`` leaves for good.
+    Collectives of CUDA tensors are staged through the host when the
+    backend is gloo."""
+    if members is None and pods * data * model == 1 \
+            and not dist.is_initialized():
         return Grid.single()
     world, rank = dist.get_world_size(), dist.get_rank()
     if members is None:
-        if world != pods * data:
-            raise ValueError(f"{world} ranks for a {pods}x{data} grid")
+        if world != pods * data * model:
+            raise ValueError(f"{world} ranks for a {pods}x{data}x{model} "
+                             f"grid")
         members = list(range(world))
         local = False
     else:
         members = list(members)
-        if len(members) != pods * data or rank not in members:
-            raise ValueError(f"members {members} for a {pods}x{data} grid "
-                             f"on rank {rank}")
+        if model != 1 or len(members) != pods * data or rank not in members:
+            raise ValueError(f"members {members} for a {pods}x{data}x"
+                             f"{model} grid on rank {rank}")
         local = True
     backend = dist.get_backend()
     stage = backend == "gloo" and device.type == "cuda"
     me = members.index(rank)
-    pod, d = divmod(me, data)
+    cell, m = divmod(me, model)
+    pod, d = divmod(cell, data)
+    sizes = {"fast": data, "slow": pods, "dp": pods * data, "tp": model}
+    mine = {}
+    for kind, lists in grid_groups(pods, data, model).items():
+        if sizes[kind] == 1 or (kind == "dp" and model == 1 and not local):
+            continue                   # no group, or the default group
+        for ids in lists:
+            if me in ids:
+                mine[kind] = _group(members, ids, local)
+            elif not local:
+                _group(members, ids, local)
+    axis = lambda name, kind, size, index: Axis(
+        name, size, index, group=mine.get(kind), stage=stage)
+    return Grid(pods, data, cell, axis("data", "fast", data, d),
+                axis("pod", "slow", pods, pod) if pods > 1 else None,
+                axis("dp", "dp", pods * data, cell), backend, model,
+                axis("model", "tp", model, m) if model > 1 else None)
 
-    def group(ids: list[int]):
-        ranks = [members[i] for i in ids]
-        return dist.new_group(ranks, use_local_synchronization=True) \
-            if local else dist.new_group(ranks)
 
-    fast = Axis("data", data, d, stage=stage)
-    for p in range(pods):
-        if data > 1 and (p == pod or not local):
-            g = group([p * data + i for i in range(data)])
-            if p == pod:
-                fast.group = g
-    slow = Axis("pod", pods, pod, stage=stage) if pods > 1 else None
-    for i in range(data):
-        if pods > 1 and (i == d or not local):
-            g = group([p * data + i for p in range(pods)])
-            if i == d:
-                slow.group = g
-    dp = Axis("dp", pods * data, me, stage=stage)
-    if local and pods * data > 1:
-        dp.group = group(list(range(pods * data)))
-    return Grid(pods, data, me, fast, slow, dp, backend)
+def _group(members: list[int], ids: list[int], local: bool):
+    ranks = [members[i] for i in ids]
+    return dist.new_group(ranks, use_local_synchronization=True) \
+        if local else dist.new_group(ranks)
 
 
 def grid_topology(grid: Grid, levels: "list[Level]") -> Topology:
-    """The Topology of a grid's ranks: strata = [pod, data-row] over the
-    row-major rank order (a data row is one rank: the grid has no model
-    axis), with the caller's three ``levels`` (slowest first); used to
-    build the paper's explicit trees for the p2p backend."""
-    idx = np.arange(grid.pods * grid.data)
-    return Topology(np.stack([idx // grid.data, idx], axis=1), levels)
+    """The Topology of a grid's ranks: strata = [pod, (pod, data) cell]
+    over the row-major rank order (a cell is one model group, M ranks),
+    with the caller's three ``levels`` (slowest first); used to build the
+    paper's explicit trees for the p2p backend."""
+    model = grid.model
+    idx = np.arange(grid.pods * grid.data * model)
+    return Topology(np.stack([idx // (grid.data * model), idx // model],
+                             axis=1), levels)
 
 
 def dp_topology(grid: Grid, levels: "list[Level]") -> Topology:

@@ -1,29 +1,43 @@
 """Serving entry point of the port: continuous batching over a paged KV cache,
-real greedy decoding on one device, with the multilevel engine pricing
-per-request collectives against weight broadcasts.
+real greedy decoding on one device or on the ranks of one model group,
+with the multilevel engine pricing per-request collectives against weight
+broadcasts.
 
 On the H100:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-100m \\
       --requests 8 --prompt-len 512 --gen-len 16 --mesh 2x2x1 --monitor
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-100m \\
+      --requests 8 --prompt-len 512 --gen-len 16 --mesh 1x1x2
 On the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
       --mesh 2x2x1 --monitor
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
+      --mesh 1x1x2
 
-Counterpart of ``repro/launch/serve.py``.  With ``--mesh PxDx1`` the
+Counterpart of ``repro/launch/serve.py``.  With ``--mesh PxDxM`` the
 network plane is the reference's: the weight-broadcast plan over the
 multilevel topology of that grid (``launch.mesh.grid_communicator``, the
 generic link classes of ``core.discovery``), a fifo-vs-priority engine
 demo, and an :class:`~repro_torch.core.engine.Engine` that prices each
 step's decode gathers against the periodic weight broadcast on the
 scheduler's simulated clock; ``--monitor`` attaches a
-:class:`~repro_torch.obs.monitor.HealthMonitor` to it.  The model still
-runs on one device: the mesh shapes only the network plane's topology, and
-the engine moves only the simulated clock, never the tokens.  Without
-``--mesh`` there is no network plane (``engine=None``): the simulated clock
-prices compute only.  A model axis > 1 raises (tensor parallelism is not
-ported).  This launcher reports the host's wall clock beside the simulated
-one: wall time, tokens per second, and the time from the start of the run
-to each request's first token.
+:class:`~repro_torch.obs.monitor.HealthMonitor` to it.  The engine moves
+only the simulated clock, never the tokens.  Without ``--mesh`` there is
+no network plane (``engine=None``): the simulated clock prices compute
+only.
+
+With M > 1 the model runs tensor-parallel on the M ranks of one model
+group (the replicas of the P x D cells would run the same requests, so
+one group runs them): ``serve`` spawns them (``mesh.run_ranks``; gloo,
+staged through host memory where they share one card, which NCCL
+refuses).  Each rank holds its shard of the weights
+(``transformer.init_model(model=, m=)``), every rank runs the same
+deterministic scheduler, and their tokens must be equal; rank 0's result
+is returned, with the model axis's collectives a prefill and a decode
+step, the bytes each rank staged, and each rank's flash launches.  This
+launcher reports the host's wall clock beside the simulated one: wall
+time, tokens per second, and the time from the start of the run to each
+request's first token.
 """
 from __future__ import annotations
 
@@ -36,9 +50,12 @@ import torch
 from ..configs import get_config
 from ..core.discovery import GENERIC_LEVELS
 from ..core.engine import Engine
+from ..kernels import flash_attention as fa
 from ..kernels.backend import resolve_device
-from ..launch.mesh import Grid, grid_communicator, parse_mesh
+from ..launch.mesh import (Grid, choose_backend, grid_communicator,
+                           make_grid, parse_mesh, run_ranks)
 from ..models import transformer as T
+from ..models.sharding import tp_check
 from ..obs import (HealthMonitor, MetricsRegistry, Tracer, get_logger,
                    set_json)
 from ..obs.metrics import percentile
@@ -54,9 +71,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _weight_bytes(params) -> float:
+def _weight_bytes(cfg) -> float:
+    """The whole model's parameter bytes (``init_model`` under a
+    fake-tensor mode allocates nothing)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = T.init_model(cfg, seed=0, device="cpu")
     return float(sum(l.numel() * l.element_size()
                      for l in tree_leaves(params)))
+
+
+class _Silent:
+    """The logger of a model group's ranks after the first."""
+
+    def info(self, msg: str, **fields) -> None:
+        pass
 
 
 def _engine_demo(wcomm, wbytes: float, cfg, prompt_len: int, model: int,
@@ -95,22 +125,20 @@ def _engine_demo(wcomm, wbytes: float, cfg, prompt_len: int, model: int,
     return out
 
 
-def _network_plane(cfg, params, mesh: str, dev, policy: str,
-                   prompt_len: int, n_requests: int, tracer, registry,
-                   monitor: bool):
+def _network_plane(cfg, mesh: str, dev, policy: str, prompt_len: int,
+                   n_requests: int, tracer, registry, monitor: bool):
     """The reference's network plane on the topology of a ``mesh`` grid:
     the weight-broadcast plan and its log event, the engine demo, and the
     engine (plus its health monitor) the scheduler prices each step with.
     Returns (engine, monitor, the scheduler's network kwargs, the plan's
     numbers for the result)."""
-    pods, data = parse_mesh(mesh)
-    model = 1                          # parse_mesh refuses a model axis
-    wbytes = _weight_bytes(params)
+    pods, data, model = parse_mesh(mesh)
+    wbytes = _weight_bytes(cfg)
     # Weight-distribution plan through the single collectives entry point:
     # the multilevel tree broadcast of updated params crosses each slow link
-    # exactly once (paper §3.2); the model runs on one device, so the plan
-    # and its postal-model estimate are surfaced rather than shipped.
-    wcomm = grid_communicator(Grid.shape_only(pods, data),
+    # exactly once (paper §3.2); one model group serves, so the plan and
+    # its postal-model estimate are surfaced rather than shipped.
+    wcomm = grid_communicator(Grid.shape_only(pods, data, model),
                               list(GENERIC_LEVELS), backend="sim",
                               policy="paper")
     if tracer is not None:
@@ -136,7 +164,9 @@ def _network_plane(cfg, params, mesh: str, dev, policy: str,
     act_itemsize = getattr(torch, cfg.dtype).itemsize
     net = {"engine": eng, "replicas": replicas, "weight_bytes": wbytes,
            "gather_bytes": float(cfg.d_model * act_itemsize) / model,
-           "bcast_every": 16}
+           "bcast_every": 16,
+           "compute_model": default_compute_model(cfg.active_param_count(),
+                                                  model_size=model)}
     plane = {"setup": {"weight_bytes": wbytes,
                        "bcast_est_ms": bcast_est * 1e3,
                        "slow_crossings": crossings},
@@ -153,8 +183,10 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
           metrics_out: str | None = None) -> dict:
     """Run ``n_requests`` through the continuous-batching scheduler with
     the model on ``device`` (random weights from seed 0) and, given a
-    ``mesh`` ("PxDx1"), the network plane on the topology of that grid
-    (None: no network plane; the simulated clock prices compute only).
+    ``mesh`` ("PxDxM"), the network plane on the topology of that grid
+    (None: no network plane; the simulated clock prices compute only) and
+    the model on the M ranks of one model group (NCCL where each rank has
+    a card of its own, else gloo).
 
     ``rate``: open-loop Poisson arrival rate (req/s of *simulation* time);
     default: all requests arrive at t=0 (closed batch).  ``trace`` writes a
@@ -162,42 +194,89 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
     ``monitor`` attaches a :class:`~repro_torch.obs.HealthMonitor` to the
     engine (drift detection + auto-refit, periodic health snapshots in the
     log); ``metrics_out`` writes the run's Prometheus text exposition."""
-    if mesh is not None:
-        parse_mesh(mesh)               # a model axis > 1 raises
-    elif monitor:
+    if mesh is None and monitor:
         raise ValueError("the monitor watches the network plane: give a "
                          "mesh")
-    dev = resolve_device(device)
+    model = parse_mesh(mesh)[2] if mesh is not None else 1
     cfg = get_config(arch, smoke=smoke)
     T.paged_arch_check(cfg)
+    tp_check(cfg, model)
+    kw = dict(arch=arch, n_requests=n_requests, prompt_len=prompt_len,
+              gen_len=gen_len, mesh=mesh, smoke=smoke, device=str(device),
+              policy=policy, block_size=block_size, rate=rate, trace=trace,
+              monitor=monitor, metrics_out=metrics_out)
+    if model == 1:
+        return _serve(grid=None, **kw)
+    outs = run_ranks(_serve_rank, model,
+                     choose_backend(None, resolve_device(device), model),
+                     args=(kw,))
+    for r, o in enumerate(outs[1:], 1):
+        if not np.array_equal(o["generated"], outs[0]["generated"]):
+            raise RuntimeError(f"rank {r} of the model group generated "
+                               f"other tokens than rank 0")
+    out = outs[0]
+    out["model_axis"]["flash_fwd_launches"] = [
+        o["model_axis"]["flash_fwd_launches"][0] for o in outs]
+    out["model_axis"]["staged_bytes"] = [
+        o["model_axis"]["staged_bytes"][0] for o in outs]
+    return out
+
+
+def _serve_rank(rank: int, kw: dict) -> dict:
+    """One rank of a model group (spawned by :func:`serve`) on its card,
+    the host's ``rank % cards``-th (the one card where the ranks share
+    it): only rank 0 logs and writes the trace and metrics files."""
+    global log
+    if rank:
+        log = _Silent()
+        kw = dict(kw, trace=None, metrics_out=None)
+    dev = resolve_device(kw["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    grid = make_grid(1, 1, dev, model=parse_mesh(kw["mesh"])[2])
+    return _serve(grid=grid, **dict(kw, device=str(dev)))
+
+
+def _serve(arch: str, n_requests: int, prompt_len: int, gen_len: int,
+           mesh: str | None, *, smoke: bool, device: str, policy: str,
+           block_size: int, rate: float | None, trace: str | None,
+           monitor: bool, metrics_out: str | None, grid: Grid | None) -> dict:
+    """:func:`serve` on this process: the whole model (``grid`` None) or
+    this rank's shard of it on ``grid``'s model axis."""
+    dev = resolve_device(device)
+    cfg = get_config(arch, smoke=smoke)
+    tp = grid.tp if grid is not None else None
     tracer = Tracer() if trace else None
     s_max = prompt_len + gen_len
     s_max += (-s_max) % block_size
 
-    params = T.init_model(cfg, seed=0, device=dev)
+    params = T.init_model(cfg, seed=0, device=dev) if tp is None else \
+        T.init_model(cfg, seed=0, device=dev, model=tp.size, m=tp.index)
     # one registry spans engine + scheduler + monitor when scraping: the
     # exposition file must read as ONE process, not three
     registry = MetricsRegistry() if metrics_out or monitor else None
     eng = mon = None
-    net, plane = {"tracer": tracer}, {}
     if mesh is None:
         log.info(f"{cfg.name} on {dev}; no mesh: no network plane, the "
                  f"simulated clock prices compute only", event="setup",
                  arch=cfg.name, device=str(dev))
+        net, plane = {"tracer": tracer, "compute_model": default_compute_model(
+            cfg.active_param_count())}, {}
     else:
         eng, mon, net, plane = _network_plane(
-            cfg, params, mesh, dev, policy, prompt_len, n_requests, tracer,
+            cfg, mesh, dev, policy, prompt_len, n_requests, tracer,
             registry, monitor)
     # Continuous batching: requests join/leave the running batch per step;
     # KV lives in on-demand blocks.
     max_slots = min(n_requests, 8)
     n_blocks = 1 + max_slots * (s_max // block_size)
     ex = TorchExecutor(cfg, params, n_blocks=n_blocks, block_size=block_size,
-                       max_slots=max_slots, max_blocks=s_max // block_size)
+                       max_slots=max_slots, max_blocks=s_max // block_size,
+                       tp=tp)
     sch = Scheduler(
         ex, n_blocks=n_blocks, block_size=block_size, max_slots=max_slots,
         s_max=s_max, policy=policy, prefill_token_budget=4 * prompt_len,
-        compute_model=default_compute_model(cfg.active_param_count()),
         metrics=registry, **net)
 
     if rate is None:
@@ -208,6 +287,7 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
     reqs = make_requests(arrivals, vocab=cfg.vocab, prompt_len=prompt_len,
                          gen_len=gen_len, slo=SLO(), seed=0)
 
+    flash0 = fa.flash_attention_fwd.launches
     _sync(dev)
     t0 = time.perf_counter()
     report = sch.run(reqs)
@@ -222,7 +302,19 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
            "tokens_per_s": n_tokens / dt,
            "ttft_wall_p50_s": percentile(ttft_wall, 50),
            "ttft_wall_p99_s": percentile(ttft_wall, 99),
-           "prefills": len(ex.prefill_done_s), "report": s, **plane}
+           "prefills": len(ex.prefill_done_s), "report": s,
+           "first_logits": ex.first_logits, **plane}
+    if tp is not None:
+        mean = lambda xs: sum(xs) / len(xs) if xs else 0.0
+        out["model_axis"] = {
+            "model": tp.size,
+            "collectives_per_prefill": mean(ex.tp_calls["prefill"]),
+            "collectives_per_decode_step": mean(ex.tp_calls["decode"]),
+            "staged_bytes": [grid.staged_bytes],
+            "flash_fwd_launches": [fa.flash_attention_fwd.launches - flash0],
+            "moe_dropped_per_layer": ex.moe_dropped.tolist()
+            if cfg.moe else None,
+            "moe_dropped_first_prefill": ex.first_prefill_dropped}
     if eng is not None:
         st = eng.stats()
         out["engine"] = {"issued": st.issued, "completed": st.completed,
@@ -272,9 +364,10 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--mesh", default=None,
-                    help="pods x data x model of the network plane's "
-                         "topology; the model axis must be 1 (the model "
-                         "runs on one device); default: no network plane")
+                    help="pods x data x model: the network plane's "
+                         "topology, and a model axis > 1 serves on the "
+                         "ranks of one model group; default: no network "
+                         "plane, one device")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config instead of its "

@@ -12,11 +12,13 @@ grid's process groups.  The returned loss is the mean over the ranks
 (``lax.pmean(loss, dp)``).  One rank is the grid of size 1.
 
 The paged serve steps run through ``serving.TorchExecutor``.  The dense
-ones, ``make_prefill_fn`` and ``make_decode_fn``, are the one-device
-counterparts of the reference's ``:233``/``:243``: plain functions under
+ones, ``make_prefill_fn`` and ``make_decode_fn``, are the counterparts of
+the reference's ``:233``/``:243``: plain functions under
 ``torch.inference_mode`` (the reference jits them).  They serve what the
 paged path refuses, the recurrent stacks (RWKV-6, RG-LRU) and enc-dec,
-and prompts that carry a frontend's embeddings.
+and prompts that carry a frontend's embeddings; given a grid with a model
+axis, this rank's shard of an attention stack, its dense cache's sequence
+split over the axis where the axis divides it.
 
 ``layer_grad_bytes`` is a copy of the reference's ``:41``: the per-layer
 gradient bytes the engine's bucketed-sync estimate takes, from the
@@ -31,6 +33,7 @@ from ..kernels.backend import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..models.convert import stack_runs, unstack_runs
+from ..models.sharding import tp_check
 from ..optim import adamw
 from ..tree import tree_leaves, tree_unflatten
 from .mesh import Grid
@@ -123,26 +126,36 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     return step
 
 
-def make_prefill_fn(cfg: ModelConfig, s_max: int):
+def _tp(cfg: ModelConfig, grid: Grid | None):
+    T.port_check(cfg)
+    tp = grid.tp if grid is not None else None
+    if tp is not None:
+        tp_check(cfg, tp.size)
+    return tp
+
+
+def make_prefill_fn(cfg: ModelConfig, s_max: int, grid: Grid | None = None):
     """``run(params, inputs) -> (logits (B,1,V) f32, cache, S)``: the
     prompt through the model, its dense cache sized for ``s_max`` tokens
     (``transformer.prefill``).  ``inputs``: ``tokens`` (B,S); a
     frontend's ``embeds`` (B,P,D), a prefix the cache and S count; an
     enc-dec config's ``src_embeds`` (B,Ss,D), the encoder's input, whose
-    cross K/V the cache keeps."""
-    T.port_check(cfg)
+    cross K/V the cache keeps.  On a ``grid`` with a model axis,
+    ``params`` are this rank's shard and so is the cache."""
+    tp = _tp(cfg, grid)
 
     def run(params, inputs):
-        return T.prefill(params, cfg, inputs, s_max)
+        return T.prefill(params, cfg, inputs, s_max, tp=tp)
     return run
 
 
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, grid: Grid | None = None):
     """``run(params, cache, tokens, pos) -> (logits (B,1,V) f32, cache)``:
     one greedy step over the dense cache, updated in place
-    (``transformer.decode_step``)."""
-    T.port_check(cfg)
+    (``transformer.decode_step``), on this rank of ``grid``'s model axis
+    where it has one."""
+    tp = _tp(cfg, grid)
 
     def run(params, cache, tokens, pos):
-        return T.decode_step(params, cfg, cache, tokens, pos)
+        return T.decode_step(params, cfg, cache, tokens, pos, tp=tp)
     return run

@@ -24,7 +24,9 @@ Elastic recovery (no CLI flag, as the reference's driver):
 Counterpart of ``repro/launch/train.py:79 train``.  ``--mesh PxDx1`` runs
 P*D ranks: under ``torchrun`` each process is one rank (env rendezvous);
 otherwise ``train`` spawns the ranks itself (``mesh.run_ranks``) and
-returns the first surviving rank's result.  Each step takes
+returns the first surviving rank's result.  A model axis (M > 1) is
+refused: training on one is not ported yet (``sharding.NOT_PORTED_TP``;
+serving on one is, ``launch.serve``).  Each step takes
 ``DataPipeline.host_batch`` (the reference's tokens, bit for bit), this
 rank's rows of it, the loss and its gradients, and ``apply_updates`` with
 the sync over the grid's groups.  The backend is NCCL where every rank has
@@ -74,10 +76,12 @@ from ..data.pipeline import DataPipeline
 from ..kernels import flash_attention as fa
 from ..kernels import quant as kq
 from ..kernels.backend import resolve_device
-from ..launch.mesh import Grid, dp_topology, make_grid, parse_mesh, run_ranks
+from ..launch.mesh import (Grid, choose_backend, dp_topology, make_grid,
+                           parse_mesh, run_ranks)
 from ..launch.step import layer_grad_bytes, make_train_step
 from ..models import transformer as T
 from ..models.convert import from_numpy, stack_runs, to_numpy
+from ..models.sharding import NOT_PORTED_TP
 from ..obs import Tracer, get_logger, set_json
 from ..optim.adamw import (OptConfig, gather_opt_state, init_opt_state,
                            scatter_axes, shard_opt_state)
@@ -150,27 +154,6 @@ def _fit_batch(arr: np.ndarray, dp: int) -> np.ndarray:
     return arr[:n]
 
 
-def _backend(requested: str | None, dev: torch.device,
-             local_world: int) -> str:
-    """NCCL where every rank of this host has a card of its own, gloo
-    where ranks share one or run on the CPU."""
-    if dev.type == "cpu":
-        if requested not in (None, "gloo"):
-            raise ValueError(f"--dist-backend {requested} needs the card; "
-                             f"the CPU takes gloo")
-        return "gloo"
-    cards = torch.cuda.device_count()
-    if requested is None:
-        return "nccl" if cards >= local_world else "gloo"
-    if requested == "nccl" and cards < local_world:
-        raise ValueError(f"NCCL refuses two ranks on one device: "
-                         f"{local_world} ranks on {cards} card(s); pass "
-                         f"--dist-backend gloo")
-    if requested not in ("nccl", "gloo"):
-        raise ValueError(f"unknown backend {requested!r}")
-    return requested
-
-
 def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
           seq: int = 128, batch: int = 8, comm: str = "multilevel",
           zero1: bool = True, ckpt_dir: str | None = None,
@@ -212,7 +195,10 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     (``restored``); ``config`` trains that ``ModelConfig`` instead of
     ``arch``'s; ``init_params`` (numpy, the stacked layout) replaces the
     seed-0 weights."""
-    pods, data = parse_mesh(mesh_spec)
+    pods, data, model = parse_mesh(mesh_spec)
+    if model != 1:
+        raise NotImplementedError(f"mesh {mesh_spec}: a model axis of "
+                                  f"{model} ({NOT_PORTED_TP})")
     world = pods * data
     dev = resolve_device(device)
     kw = dict(arch=arch, steps=steps, pods=pods, data=data, seq=seq,
@@ -228,14 +214,15 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
             raise ValueError(f"torchrun started {os.environ['WORLD_SIZE']} "
                              f"ranks for mesh {mesh_spec}")
         local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-        dist.init_process_group(_backend(dist_backend, dev, local))
+        dist.init_process_group(choose_backend(dist_backend, dev, local))
         try:
             return _train_rank(local_rank=int(os.environ.get("LOCAL_RANK",
                                                              0)), **kw)
         finally:
             dist.destroy_process_group()
-    res = run_ranks(_spawned_rank, world, _backend(dist_backend, dev, world),
-                    (kw,), timeout=SPAWN_TIMEOUT_S)
+    res = run_ranks(_spawned_rank, world,
+                    choose_backend(dist_backend, dev, world), (kw,),
+                    timeout=SPAWN_TIMEOUT_S)
     return next(r for r in res if not r["left"])
 
 

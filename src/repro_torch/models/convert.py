@@ -20,6 +20,11 @@ Trees cross the framework boundary as numpy arrays, with bf16 leaves as
 their uint16 bit patterns (numpy has no bf16), so the values arrive bit
 for bit; the port's checkpoints hold the same numpy layout, so the two
 packages read each other's checkpoints.
+
+``shard_params`` cuts rank m's share of a model axis out of the full
+parameters (by ``sharding.param_model_dims``), so ``params_from_jax``
+followed by it carries the reference's parameters to each rank;
+``unshard_params`` puts the ranks' shares back together.
 """
 from __future__ import annotations
 
@@ -29,11 +34,12 @@ import torch
 from ..kernels.backend import resolve_device
 from ..tree import tree_map
 from .config import ModelConfig
+from .sharding import cut_shard, param_model_dims
 from .transformer import port_check
 
 __all__ = ["stack_runs", "unstack_runs", "from_numpy", "to_numpy",
            "params_from_jax", "params_to_jax", "cache_from_jax",
-           "cache_to_numpy"]
+           "cache_to_numpy", "shard_params", "unshard_params"]
 
 
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -164,3 +170,29 @@ def cache_to_numpy(cache: list) -> list:
     """The port's dense cache -> numpy arrays (bf16 as uint16 bits) in the
     reference's layout, the inverse of :func:`cache_from_jax`."""
     return to_numpy(cache)
+
+
+def shard_params(params: dict, cfg: ModelConfig, model: int,
+                 m: int) -> dict:
+    """Rank ``m``'s share of the port's full ``params`` on a model axis of
+    ``model`` ranks: each leaf cut along its ``param_model_dims`` dim (a
+    copy of its own), replicated leaves kept whole."""
+    port_check(cfg)
+    return tree_map(lambda t, d: cut_shard(t, d, model, m), params,
+                    param_model_dims(params, model, cfg))
+
+
+def unshard_params(shards: list, cfg: ModelConfig) -> dict:
+    """The full parameters from every rank's share (``shards[m]`` of
+    :func:`shard_params`), the inverse of it.  The dims are decided on the
+    full shapes, which ``cfg`` gives (``init_model`` under a fake-tensor
+    mode allocates nothing)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from . import transformer as T
+
+    port_check(cfg)
+    with FakeTensorMode():
+        full = T.init_model(cfg, seed=0, device="cpu")
+    return tree_map(lambda d, *ts: ts[0] if d < 0 else torch.cat(ts, d),
+                    param_model_dims(full, len(shards), cfg), *shards)

@@ -28,9 +28,22 @@ running product of the decays, which would underflow f32.
 
 The paged and dense decodes write their caches in place and return them,
 where the JAX versions return updated copies.
+
+On a model axis (``tp``, a ``launch.mesh.Axis`` over the M ranks of a
+model group, or None) each rank holds its shard of the parameters
+(``sharding.param_model_dims``): the attention layers run on its Hq/M and
+Hkv/M heads (the column-parallel ``wq``/``wk``/``wv``) and return the
+row-parallel ``wo``'s partial sum, as ``mlp_fwd`` on its feature slice
+does; the caller adds what it can and all-reduces once.  The dense decode
+attends a cache whose sequence dim is sharded over the axis through the
+reference's log-sum-exp combine (``_cache_attend_sp``), and the MoE runs
+the reference's expert-parallel block (``_moe_block_ep``: E/M experts a
+rank, capacity-bounded local dispatch, one sum over the axis).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -41,7 +54,7 @@ from ..kernels.ops import flash_attention, wkv_chunked
 from ..kernels.wkv import CHUNK
 from .config import ModelConfig
 
-__all__ = ["rmsnorm", "rope", "dense_init", "init_attention",
+__all__ = ["local_config", "rmsnorm", "rope", "dense_init", "init_attention",
            "naive_attention", "chunked_attention", "attention_fwd",
            "attention_prefill", "attention_decode", "paged_attention_decode",
            "cross_kv", "cross_attention_decode", "init_mlp", "mlp_fwd",
@@ -53,6 +66,18 @@ __all__ = ["rmsnorm", "rope", "dense_init", "init_attention",
 # ---------------------------------------------------------------------- #
 # Small pieces
 # ---------------------------------------------------------------------- #
+
+@functools.lru_cache(maxsize=None)
+def _local_cfg(cfg: ModelConfig, model: int) -> ModelConfig:
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // model,
+                               n_kv_heads=cfg.n_kv_heads // model)
+
+
+def local_config(cfg: ModelConfig, tp) -> ModelConfig:
+    """``cfg`` with the heads of one rank of the model axis ``tp`` (``cfg``
+    itself where ``tp`` is None)."""
+    return cfg if tp is None else _local_cfg(cfg, tp.size)
+
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """RMSNorm: sum of squares in f32, then ``x * scale`` in x's dtype with
@@ -178,11 +203,14 @@ def _qkv(p, cfg: ModelConfig, x, src=None):
 
 
 def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
-                  window: int | None = None, kv_src=None, positions=None):
+                  window: int | None = None, kv_src=None, positions=None,
+                  tp=None):
     """Attention sublayer of the full-sequence forward (projections,
     optional q/k norm, rope, attention, out projection).  ``kv_src``: the
     encoder's output for cross-attention, which takes no rope and no
-    causal mask."""
+    causal mask.  With ``tp``, this rank's heads and the partial sum of
+    its ``wo`` rows."""
+    cfg = local_config(cfg, tp)
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, kv_src)
     if kv_src is None:
@@ -196,7 +224,8 @@ def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
 
 
 def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
-                           block_tables, pos, *, window: int | None = None):
+                           block_tables, pos, *, window: int | None = None,
+                           tp=None):
     """One-token decode against a paged KV pool.
 
     x: (B,1,D); pool_k/v: (n_blocks, block_size, Hkv, hd), written in
@@ -204,7 +233,9 @@ def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
     block to a physical one (0 = the reserved null block, where idle slots
     write harmlessly); pos: (B,) per-slot token count.  Windowed layers
     store the full sequence and mask ``pos - idx >= window`` at read.
-    Returns (y, pool_k, pool_v)."""
+    With ``tp``, the pools hold this rank's KV heads and y is the partial
+    sum of its ``wo`` rows.  Returns (y, pool_k, pool_v)."""
+    cfg = local_config(cfg, tp)
     B = x.shape[0]
     hd = cfg.head_dim
     q, k, v = _qkv(p, cfg, x)
@@ -236,22 +267,81 @@ def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
     return o @ p["wo"], pool_k, pool_v
 
 
+def _cache_attend_sp(q, k_new, v_new, cache_k, cache_v, pos: int,
+                     windowed: bool, tp):
+    """The reference's flash-decode combine (``layers.py:332``): the cache's
+    sequence dim is sharded over the model axis ``tp``; this rank writes
+    the new k/v where it owns the slot, scores its slice, and a max and two
+    sums over the axis merge the partials.  q: (B,Hkv,G,hd), every head;
+    k/v_new: (B,1,Hkv,hd); cache_k/v: (B,S_loc,Hkv,hd), this rank's slice,
+    written in place.  Returns o (B,Hkv,G,hd) f32."""
+    B, S_loc, Hkv, hd = cache_k.shape
+    r = tp.index
+    S_tot = S_loc * tp.size
+    slot_g = pos % S_tot if windowed else min(pos, S_tot - 1)
+    local = slot_g - r * S_loc
+    if 0 <= local < S_loc:
+        cache_k[:, local] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, local] = v_new[:, 0].to(cache_v.dtype)
+    idx = r * S_loc + torch.arange(S_loc, device=q.device)
+    if windowed:
+        abs_pos = pos - ((pos - idx) % S_tot)
+        valid = (abs_pos >= 0) & (abs_pos >= pos - S_tot + 1) \
+            & (abs_pos <= pos)
+    else:
+        valid = idx <= pos
+    sc = torch.einsum("bhgd,bkhd->bhgk", q.float(),
+                      cache_k.float()) / math.sqrt(hd)
+    sc = sc.masked_fill(~valid, NEG_INF)
+    m = tp.pmax(sc.amax(-1))                       # (B,Hkv,G)
+    pr = torch.exp(sc - m[..., None])
+    l = tp.psum(pr.sum(-1))
+    o = tp.psum(torch.einsum("bhgk,bkhd->bhgd", pr, cache_v.float()))
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _gather_heads(tp, *ts):
+    """Each of ``ts`` (B,1,h,hd), this rank's heads, with every rank's
+    heads in rank order: one all-gather over the model axis."""
+    n = [t.shape[2] for t in ts]
+    g = tp.all_gather(torch.cat(ts, 2), dim=2)       # (B,1,M*sum(n),hd)
+    g = g.reshape(g.shape[0], 1, tp.size, sum(n), g.shape[-1])
+    return [t.reshape(t.shape[0], 1, -1, t.shape[-1])
+            for t in g.split(n, dim=3)]
+
+
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
-                     windowed: bool):
+                     windowed: bool, tp=None):
     """One-token decode against a dense cache.  x: (B,1,D); cache_k/v:
     (B,S_cache,Hkv,hd), written in place; pos: the number of tokens
     already in the cache (a Python int).  A windowed cache is a ring of
     ``S_cache`` slots.  Returns (y, cache_k, cache_v).
 
-    The reference's sequence-parallel branch (``_cache_attend_sp``, taken
-    under a model axis) is not ported (ROADMAP.md, Queue 1 item 5): the
-    port has no model axis."""
+    With ``tp``, y is the partial sum of this rank's ``wo`` rows.  A cache
+    that holds every KV head is this rank's slice of the sequence (the
+    reference's sequence-parallel decode, taken where the model axis
+    divides ``S_cache``): the heads' q, k and v are gathered over the axis,
+    as the reference's q enters its combine whole, and the combine's
+    output is cut back to this rank's heads.  Otherwise the cache holds
+    this rank's KV heads, and so does the attention."""
     B = x.shape[0]
+    lcfg = local_config(cfg, tp)
     hd = cfg.head_dim
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, lcfg, x)
     pos_t = torch.tensor([pos], device=x.device)
     q = rope(q, pos_t, cfg.rope_theta)
     k = rope(k, pos_t, cfg.rope_theta)
+    G = cfg.n_heads // cfg.n_kv_heads
+    if tp is not None and tp.size > 1 and cache_k.shape[2] == cfg.n_kv_heads:
+        q, k, v = _gather_heads(tp, q, k, v)
+        o = _cache_attend_sp(q.reshape(B, cfg.n_kv_heads, G, hd), k, v,
+                             cache_k, cache_v, pos, windowed, tp)
+        h = lcfg.n_heads
+        o = o.reshape(B, 1, cfg.n_heads, hd)[:, :, tp.index * h:
+                                             (tp.index + 1) * h]
+        o = o.reshape(B, 1, lcfg.q_dim).to(x.dtype)
+        return o @ p["wo"], cache_k, cache_v
+    cfg = lcfg
 
     s_cache = cache_k.shape[1]
     slot = pos % s_cache if windowed else min(pos, s_cache - 1)
@@ -277,10 +367,13 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
 
 
 def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
-                      keep_full: bool = False):
+                      keep_full: bool = False, tp=None):
     """Causal self-attention sublayer that also returns the KV cache slice
     (bf16).  Windowed layers keep the last ``window`` keys (prefill length
-    must then be a multiple of the window) unless ``keep_full``."""
+    must then be a multiple of the window) unless ``keep_full``.  With
+    ``tp``, this rank's heads (and their cache) and the partial sum of its
+    ``wo`` rows."""
+    cfg = local_config(cfg, tp)
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     pos = torch.arange(S, device=x.device)
@@ -365,15 +458,21 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
 MOE_CHUNK = 8192  # token-block size of the dispatch
 
 
-def _moe_route(p, m, xt):
-    """Router and dispatch order for one block of tokens (T,D): f32
-    logits, softmax, top-k with the gates renormalised, a stable sort of
-    the flat expert ids, and the tokens each expert takes, read on the
-    host (one sync).  Returns (gates (T,k), order (T*k,), sizes list)."""
+def _moe_gates(p, m, xt):
+    """f32 router logits, softmax, top-k with the gates renormalised:
+    (gates (T,k), flat expert ids (T*k,))."""
     logits = _mm(xt.float(), p["router"])
     gates, eidx = torch.topk(torch.softmax(logits, dim=-1), m.top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    flat_e = eidx.reshape(-1)
+    return gates, eidx.reshape(-1)
+
+
+def _moe_route(p, m, xt):
+    """Router and dispatch order for one block of tokens (T,D): the gates,
+    a stable sort of the flat expert ids, and the tokens each expert
+    takes, read on the host (one sync).  Returns (gates (T,k), order
+    (T*k,), sizes list)."""
+    gates, flat_e = _moe_gates(p, m, xt)
     order = torch.argsort(flat_e, stable=True)
     sizes = torch.bincount(flat_e, minlength=m.n_experts).tolist()
     moe_fwd.host_syncs += 1
@@ -407,26 +506,70 @@ def _moe_block(p, m, xt):
     return torch.einsum("tk,tkd->td", gates.to(yo.dtype), yo)
 
 
-def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK):
-    """Top-k MoE on one device, x (B,S,D).  Inputs longer than ``chunk``
-    tokens and a multiple of it run in blocks of ``chunk`` (the
-    reference's condition), which bounds the dispatch buffers.  The
-    reference's expert-parallel ``_moe_block_ep`` needs a model axis
-    (ROADMAP.md, Queue 1 item 5), which the port does not have."""
+def _moe_block_ep(p, m, xt, tp):
+    """The reference's expert-parallel block (``layers.py:634``) on this
+    rank of the model axis ``tp``, which holds E/M experts (``w_*`` are
+    its slices).  Tokens are replicated over the axis, so the dispatch is
+    local: this rank's slots, sorted stably by local expert id, the first
+    C kept (C = int(T k capacity_factor) // M, rounded down to a multiple
+    of 8, at least 8), the rest dropped; the combine is one sum over the
+    axis.  The kept group sizes are read on the host once (one sync), and
+    the slots this rank dropped are appended to ``moe_fwd.dropped`` where
+    a caller has set it to a list."""
+    T, D = xt.shape
+    E_local = p["w_in"].shape[0]
+    gates, flat_e = _moe_gates(p, m, xt)
+    local = flat_e - tp.index * E_local
+    mine = (local >= 0) & (local < E_local)
+    C = int(T * m.top_k * m.capacity_factor) // tp.size
+    C = max(C - C % 8, 8)
+    key = torch.where(mine, local, E_local)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=E_local + 1).tolist()
+    moe_fwd.host_syncs += 1
+    sizes, left = [], C
+    for n in counts[:E_local]:
+        sizes.append(min(n, left))
+        left -= sizes[-1]
+    kept = sum(sizes)
+    if moe_fwd.dropped is not None:
+        moe_fwd.dropped.append(sum(counts[:E_local]) - kept)
+    sel = order[:kept]
+    tok_for = sel // m.top_k
+    yo = _moe_experts(p, xt[tok_for], sizes)
+    w = gates.reshape(-1)[sel]
+    out = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
+    out.index_add_(0, tok_for, yo.float() * w[:, None])
+    return tp.psum(out).to(xt.dtype)
+
+
+def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
+    """Top-k MoE, x (B,S,D).  Inputs longer than ``chunk`` tokens and a
+    multiple of it run in blocks of ``chunk`` (the reference's condition),
+    which bounds the dispatch buffers.  On a model axis ``tp`` each block
+    takes the expert-parallel path (``sharding.tp_check`` holds E to a
+    multiple of M, the reference's condition for it) and the shared
+    expert is a tensor-parallel MLP; either way the output is summed over
+    the axis."""
     m = cfg.moe
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
+    block = (lambda xb: _moe_block(p, m, xb)) if tp is None else \
+        (lambda xb: _moe_block_ep(p, m, xb, tp))
     if B * S <= chunk or (B * S) % chunk:
-        y = _moe_block(p, m, xt)
+        y = block(xt)
     else:
-        y = torch.cat([_moe_block(p, m, xb) for xb in xt.split(chunk)])
+        y = torch.cat([block(xb) for xb in xt.split(chunk)])
     y = y.reshape(B, S, D)
     if m.shared_expert:
-        y = y + mlp_fwd(p["shared"], cfg, x)
+        sh = mlp_fwd(p["shared"], cfg, x)
+        y = y + (sh if tp is None else tp.psum(sh))
     return y.to(x.dtype)
 
 
 moe_fwd.host_syncs = 0     # group-size reads, one per token block
+moe_fwd.dropped = None     # a list a caller sets (and takes back) to
+                           # count each expert-parallel block's drops
 
 
 # ---------------------------------------------------------------------- #

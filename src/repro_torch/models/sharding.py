@@ -1,0 +1,187 @@
+"""Which dim of each parameter the model axis shards: the port's copy of
+``repro/models/sharding.py``.
+
+Topology-aware placement, per the paper's principle: the tensor-parallel
+(``model``) axis, whose collectives run every layer, is the innermost,
+fastest group of ranks and never crosses a pod (``launch.mesh.make_grid``
+puts the M ranks of a model group next to each other); the data-parallel
+axes (``pod``, ``data``) carry one gradient collective a step.
+
+The rules are the reference's, name-based over the parameter tree (``_RULES``
+and ``_dim_for``, its ``_spec_for`` with its two fallbacks: a dim that does
+not divide by the model-axis size moves to the other matmul dim, else the
+leaf is replicated).  The reference decides on its run-stacked shapes, a
+leading dim of the run's layers; the port keeps one dict per layer, so a
+layer's leaf is decided on ``(n,) + shape`` for its run of n layers and
+the dim is given in the per-layer leaf.  That keeps the MoE gate
+(``w_gate`` of an expert stack, 4-D once stacked) apart from the RG-LRU's
+input gate (3-D once stacked).  One rule lands on the run dim itself: the
+RG-LRU's ``w_out`` shares the expert stacks' name, and on a run whose
+length the axis divides the reference splits the run's layers over the
+ranks.  A per-layer tree cannot hold that split: its dim is ``RUN_DIM``,
+and the leaf stays whole on every rank (``tp_check`` refuses RG-LRU).
+
+:func:`tp_check` holds a config to what the port's tensor parallelism
+computes: whole heads and whole experts on each rank, attention and MLP
+stacks only.
+"""
+from __future__ import annotations
+
+from .config import ModelConfig
+
+__all__ = ["NOT_PORTED_TP", "NOT_PORTED_TP_ARCH", "RUN_DIM",
+           "param_model_dims",
+           "layer_model_dims", "cut_shard", "tp_check", "dp_axes",
+           "batch_pspec"]
+
+NOT_PORTED_TP = "ROADMAP.md, Queue 1 item 5: training on a model axis"
+NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: the recurrent and "
+                      "enc-dec families on a model axis")
+
+RUN_DIM = -2      # the reference splits the run's layers over the axis
+
+# leaf name -> which logical dim to shard over "model"
+#   "col": the LAST dim (output features)
+#   "row": the SECOND-TO-LAST dim (input features)
+#   "expert": the expert dim (ndim-3 with run stacking)
+#   None: replicate
+_RULES: dict[str, str | None] = {
+    "embed": "vocab", "lm_head": "col",
+    "wq": "col", "wk": "col", "wv": "col", "wo": "row",
+    "wi": "col", "wg": "col",
+    "router": None,
+    "w_in": "expert", "w_out": "expert",
+    "w_x": "col", "w_a": "col", "w_i": "col",
+    "conv": None, "lam": None,
+    "w_r": "col", "w_k": "col", "w_v": "col", "w_g": "col", "w_w": "col",
+    "w_o": "row", "u": None, "mix": None,
+    "cm_k": "col", "cm_v": "row", "cm_r": "col", "cm_mix": None,
+}
+
+
+def _dim_for(name: str, shape: tuple, model_size: int) -> int:
+    """The reference's ``_spec_for`` on a (run-stacked) shape: the index
+    of the dim sharded over ``model``, or -1 for a replicated leaf."""
+    if model_size <= 1:
+        return -1
+    rule = _RULES.get(name)
+    # the MoE gate shares the name "w_gate" with the RG-LRU's input gate:
+    # expert tensors are 4-D once run-stacked
+    if name == "w_gate":
+        rule = "expert" if len(shape) >= 4 else "col"
+    axis = {"vocab": 0, "col": len(shape) - 1, "row": len(shape) - 2,
+            "expert": len(shape) - 3}.get(rule)
+    if axis is None:
+        return -1
+    if shape[axis] % model_size != 0:
+        # fall back: try the other matmul dim, else replicate
+        alt = len(shape) - 1 if rule in ("row", "expert") else len(shape) - 2
+        if 0 <= alt < len(shape) and shape[alt] % model_size == 0 \
+                and alt != axis:
+            axis = alt
+        else:
+            return -1
+    return axis
+
+
+def _dims(tree, model_size: int, run: int, name: str = ""):
+    """The dims of a subtree; ``run`` the length of the layer's run, 0 for
+    a leaf outside the layers."""
+    if isinstance(tree, dict):
+        return {k: _dims(v, model_size, run, k) for k, v in tree.items()}
+    shape = tuple(tree.shape)
+    if not run:
+        return _dim_for(name, shape, model_size)
+    dim = _dim_for(name, (run,) + shape, model_size)
+    return {-1: -1, 0: RUN_DIM}.get(dim, dim - 1)
+
+
+def layer_model_dims(layer: dict, model_size: int, run: int = 1) -> dict:
+    """:func:`param_model_dims` of one layer's dict, decided on its shapes
+    stacked for a run of ``run`` layers."""
+    return _dims(layer, model_size, run)
+
+
+def _run_lens(cfg: ModelConfig | None, kinds, n: int) -> list[int]:
+    if cfg is None:
+        return [1] * n
+    return [k for _, k in kinds for _ in range(k)]
+
+
+def param_model_dims(params: dict, model_size: int,
+                     cfg: ModelConfig | None = None) -> dict:
+    """A tree mirroring the port's ``params``: for each leaf the dim that
+    is sharded over a model axis of ``model_size`` ranks, -1 where the
+    leaf is replicated, ``RUN_DIM`` where the reference splits the layers
+    of its run.  ``cfg`` gives each layer its run's length (without it a
+    layer is a run of one, which changes only ``RUN_DIM`` leaves).  Any
+    object with a ``shape`` serves as a leaf."""
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            runs = _run_lens(cfg, cfg.runs() if cfg else (), len(v))
+            out[k] = [layer_model_dims(l, model_size, n)
+                      for l, n in zip(v, runs)]
+        elif k == "enc":
+            n_enc = len(v["layers"])
+            runs = _run_lens(cfg, [("attn", n_enc)], n_enc)
+            out[k] = {"layers": [layer_model_dims(l, model_size, n)
+                                 for l, n in zip(v["layers"], runs)],
+                      "final_norm": _dims(v["final_norm"], model_size, 0,
+                                          "final_norm")}
+        else:
+            out[k] = _dims(v, model_size, 0, k)
+    return out
+
+
+def cut_shard(t, dim: int, model: int, m: int):
+    """Rank ``m``'s slice of tensor ``t`` along ``dim`` of ``model`` equal
+    parts, a copy that does not hold ``t``'s storage; ``t`` itself where
+    ``dim`` is negative."""
+    if dim < 0:                     # replicated, or RUN_DIM
+        return t
+    n = t.shape[dim] // model
+    part = t.narrow(dim, m * n, n)
+    return part.clone() if part.is_contiguous() else part.contiguous()
+
+
+def tp_check(cfg: ModelConfig, model_size: int) -> None:
+    """Raise NotImplementedError where the port cannot serve ``cfg`` on a
+    model axis of ``model_size`` ranks: the recurrent and enc-dec families,
+    and a head, expert, feature or vocabulary count the axis does not
+    divide (where the reference's flat-dim split or its fallback would cut
+    inside a head or an expert, which GSPMD absorbs and the port does
+    not)."""
+    if model_size <= 1:
+        return
+    fam = sorted({k for k in cfg.pattern if k not in ("attn", "local")}) \
+        + (["enc-dec"] if cfg.enc_dec is not None else [])
+    if fam:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(fam)} on a model axis of {model_size} "
+            f"is not ported ({NOT_PORTED_TP_ARCH})")
+    counts = {"heads": cfg.n_heads, "KV heads": cfg.n_kv_heads,
+              "vocabulary rows": cfg.vocab}
+    if cfg.moe is not None:
+        counts["experts"] = cfg.moe.n_experts
+    if cfg.moe is None or cfg.moe.shared_expert:
+        counts["MLP features"] = cfg.d_ff
+    bad = [f"{n} {k}" for k, n in counts.items() if n % model_size]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {model_size} does not divide its "
+            f"{', '.join(bad)}; the port shards whole heads, experts and "
+            f"rows only (ROADMAP.md, Queue 1 item 5 lists the split)")
+
+
+def dp_axes(pods: int) -> tuple[str, ...]:
+    """Data-parallel axes of a grid, slowest first (``pod`` only where the
+    grid has more than one)."""
+    return ("pod", "data") if pods > 1 else ("data",)
+
+
+def batch_pspec(pods: int) -> tuple:
+    """The batch dim sharded over every data-parallel axis, as the
+    reference's ``P(dp_axes)`` reads (one axis as its name)."""
+    axes = dp_axes(pods)
+    return (axes[0] if len(axes) == 1 else axes,)

@@ -24,6 +24,19 @@ The training forward remats each layer and each cross-entropy chunk with
 scan bodies in ``jax.checkpoint``; so a backward runs every layer's
 forward, flash attention included, a second time.  Serving runs under
 ``torch.inference_mode`` and never goes through the training forward.
+
+Serving and the forward also run on a model axis: ``tp``, the
+``launch.mesh.Axis`` of this rank's model group (None: one rank), with
+parameters from ``init_model(model=, m=)`` or ``convert.shard_params``.
+The embedding's rows are split over the axis (each rank looks up the ids
+it owns, then one all-reduce), the tied head gives this rank's columns of
+the logits, all-gathered so that every rank takes the same greedy token;
+attention and the MLP return row-parallel partial sums, all-reduced once
+a sublayer, and once for both in the parallel-residual block; the MoE
+reduces inside its expert-parallel block.  Caches hold this rank's KV
+heads, but the dense cache's sequence dim is split over the axis where M
+divides it (the reference's sequence-parallel decode).  Attention and MLP
+stacks only (``sharding.tp_check``).
 """
 from __future__ import annotations
 
@@ -38,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
+from .sharding import (NOT_PORTED_TP, cut_shard, layer_model_dims,
+                       param_model_dims, tp_check)
 
 __all__ = ["NOT_PORTED_TRAIN", "NOT_PORTED_TRAIN_ARCH", "port_check",
            "train_check", "init_model", "embed_inputs", "encoder_fwd",
@@ -103,40 +118,77 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, cross: bool, zeros):
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda", model: int = 1,
+               m: int = 0) -> dict:
     """Random weights with the reference's distributions, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the numbers are
-    not the JAX ones; ``convert.params_from_jax`` carries those over)."""
+    not the JAX ones; ``convert.params_from_jax`` carries those over).
+    With ``model`` > 1, rank ``m``'s share of the same weights
+    (``convert.shard_params`` of the full model), cut as each layer is
+    drawn, so that one full layer at most is held beside the shares."""
     port_check(cfg)
+    tp_check(cfg, model)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, V = cfg.d_model, cfg.vocab
     zeros = lambda: torch.zeros((D,), dtype=torch.float32, device=dev)
+
+    def cut(name, t):
+        return cut_shard(t, param_model_dims({name: t}, model)[name],
+                         model, m)
+
+    def layer(kind, cross):
+        # tp_check holds a sharded model to attention and MLP runs, whose
+        # dims do not depend on the run's length
+        p = _init_layer(gen, cfg, kind, cross, zeros)
+        if model == 1:
+            return p
+        return _tree_cut(p, layer_model_dims(p, model), model, m)
+
     embed = torch.randn((V, D), generator=gen, device=dev) / math.sqrt(D)
     cross = cfg.enc_dec is not None
-    params = {"embed": embed.to(torch.bfloat16), "final_norm": zeros(),
-              "layers": [_init_layer(gen, cfg, kind, cross, zeros)
-                         for kind in cfg.pattern]}
+    params = {"embed": cut("embed", embed.to(torch.bfloat16)),
+              "final_norm": zeros()}
+    del embed
+    params["layers"] = [layer(kind, cross) for kind in cfg.pattern]
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, D, V)
+        params["lm_head"] = cut("lm_head", L.dense_init(gen, D, V))
     if cross:
         params["enc"] = {
-            "layers": [_init_layer(gen, cfg, "attn", False, zeros)
+            "layers": [layer("attn", False)
                        for _ in range(cfg.enc_dec.n_enc_layers)],
             "final_norm": zeros()}
     return params
+
+
+def _tree_cut(tree: dict, dims: dict, model: int, m: int) -> dict:
+    return {k: _tree_cut(v, dims[k], model, m) if isinstance(v, dict)
+            else cut_shard(v, dims[k], model, m) for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------- #
 # Train / full-sequence forward
 # ---------------------------------------------------------------------- #
 
-def embed_inputs(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
+def embed_inputs(params, cfg: ModelConfig, inputs: dict,
+                 tp=None) -> torch.Tensor:
     """tokens (B,S), and the frontends' ``embeds`` (B,P,D) as a prefix ->
     (B,P+S,D).  The scale is rounded to the embedding's dtype before the
-    product, as JAX does with a weakly typed scalar."""
-    x = params["embed"][inputs["tokens"]]
+    product, as JAX does with a weakly typed scalar.  On a model axis
+    ``tp`` the embedding holds this rank's rows of the vocabulary: the ids
+    outside them look up zeros, and one all-reduce adds the ranks' rows
+    (each id has one owner, so the sum is exact)."""
+    emb, ids = params["embed"], inputs["tokens"]
+    if tp is None:
+        x = emb[ids]
+    else:
+        n = emb.shape[0]
+        loc = ids - tp.index * n
+        own = (loc >= 0) & (loc < n)
+        x = emb[loc.clamp(0, n - 1)] * own[..., None].to(emb.dtype)
     x = x * x.new_tensor(math.sqrt(cfg.d_model))
+    if tp is not None:
+        x = tp.psum(x)
     if "embeds" in inputs:
         x = torch.cat([inputs["embeds"].to(x.dtype), x], 1)
     return x
@@ -144,6 +196,18 @@ def embed_inputs(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
 
 def _head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(params, cfg: ModelConfig, x, tp=None) -> torch.Tensor:
+    """(…, V) f32 logits of hidden states ``x``; on a model axis this
+    rank's vocabulary columns, all-gathered in rank order."""
+    logits = (x @ _head(params, cfg).to(x.dtype)).float()
+    return logits if tp is None else tp.all_gather(logits, dim=-1)
+
+
+def _psum(tp, y):
+    """A row-parallel partial sum, all-reduced over the model axis."""
+    return y if tp is None else tp.psum(y)
 
 
 def _runs(params, cfg: ModelConfig):
@@ -161,31 +225,35 @@ def _remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _ffn(p, cfg: ModelConfig, x):
-    """The MLP or MoE sublayer, pre-norm."""
-    sub = L.moe_fwd if cfg.moe else L.mlp_fwd
-    return sub(p["mlp"], cfg, L.rmsnorm(x, p["norm2"]))
+def _ffn(p, cfg: ModelConfig, x, tp=None):
+    """The MLP or MoE sublayer, pre-norm, summed over the model axis."""
+    xn = L.rmsnorm(x, p["norm2"])
+    if cfg.moe:
+        return L.moe_fwd(p["mlp"], cfg, xn, tp=tp)
+    return _psum(tp, L.mlp_fwd(p["mlp"], cfg, xn))
 
 
 def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
-               causal: bool = True):
+               causal: bool = True, tp=None):
     if kind == "rglru":
         y, _ = L.rglru_fwd(p["rec"], cfg, L.rmsnorm(x, p["norm1"]))
         x = x + y
     else:
         window = cfg.window if kind == "local" else None
         if cfg.parallel_block and enc_out is None and not cfg.moe:
-            # parallel residual: both sublayers read x (transformer.py:84-91)
+            # parallel residual: both sublayers read x, and their partial
+            # sums are added before one all-reduce (transformer.py:84-91)
             xn = L.rmsnorm(x, p["norm1"])
-            return (x + L.attention_fwd(p["attn"], cfg, xn, causal=causal,
-                                        window=window)
-                    + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"])))
-        x = x + L.attention_fwd(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
-                                causal=causal, window=window)
+            return x + _psum(tp, L.attention_fwd(
+                p["attn"], cfg, xn, causal=causal, window=window, tp=tp)
+                + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"])))
+        x = x + _psum(tp, L.attention_fwd(
+            p["attn"], cfg, L.rmsnorm(x, p["norm1"]), causal=causal,
+            window=window, tp=tp))
     if enc_out is not None:
         x = x + L.attention_fwd(p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]),
                                 kv_src=enc_out)
-    return x + _ffn(p, cfg, x)
+    return x + _ffn(p, cfg, x, tp)
 
 
 def encoder_fwd(params, cfg: ModelConfig, src_embeds) -> torch.Tensor:
@@ -198,27 +266,34 @@ def encoder_fwd(params, cfg: ModelConfig, src_embeds) -> torch.Tensor:
     return L.rmsnorm(x, params["enc"]["final_norm"])
 
 
-def trunk_fwd(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
+def trunk_fwd(params, cfg: ModelConfig, inputs: dict,
+              tp=None) -> torch.Tensor:
     """Embeddings (``embeds`` prefix included), the encoder for enc-dec
     (``src_embeds``), the layer stack (each layer rematted) and the final
-    norm -> hidden states (B, S, D).  RWKV-6 is refused."""
+    norm -> hidden states (B, S, D).  RWKV-6 is refused.  On a model axis
+    ``tp``, the forward only (no gradient through the collectives)."""
     port_check(cfg)
     _wkv_grad_check(cfg)
+    if tp is not None:
+        tp_check(cfg, tp.size)
+        if torch.is_grad_enabled():
+            raise NotImplementedError(f"{cfg.name}: a gradient through the "
+                                      f"model axis ({NOT_PORTED_TP})")
     enc_out = None
     if cfg.enc_dec:
         enc_out = encoder_fwd(params, cfg, inputs["src_embeds"])
-    x = embed_inputs(params, cfg, inputs)
+    x = embed_inputs(params, cfg, inputs, tp)
     for kind, layers in _runs(params, cfg):
         for p in layers:
             x = _remat(functools.partial(_layer_fwd, p, cfg, kind,
-                                         enc_out=enc_out), x)
+                                         enc_out=enc_out, tp=tp), x)
     return L.rmsnorm(x, params["final_norm"])
 
 
-def model_fwd(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
+def model_fwd(params, cfg: ModelConfig, inputs: dict,
+              tp=None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V) f32."""
-    x = trunk_fwd(params, cfg, inputs)
-    return (x @ _head(params, cfg).to(x.dtype)).float()
+    return _logits(params, cfg, trunk_fwd(params, cfg, inputs, tp), tp)
 
 
 def _ce_chunk(x, labels, head):
@@ -256,15 +331,29 @@ def loss_fn(params, cfg: ModelConfig, batch: dict,
 # Serving: cache init / prefill / dense decode
 # ---------------------------------------------------------------------- #
 
+def _cache_len(cfg: ModelConfig, kind: str, s_max: int) -> int:
+    return min(cfg.window, s_max) if kind == "local" else s_max
+
+
+def _seq_sharded(tp, s_c: int) -> bool:
+    """The dense cache's layout on a model axis: this rank's slice of the
+    sequence (every KV head) where the axis divides its length ``s_c``
+    (the reference's ``_sp_decode_ctx``), else this rank's KV heads."""
+    return tp is not None and tp.size > 1 and s_c % tp.size == 0
+
+
 def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
-               device: str | torch.device = "cuda") -> list:
+               device: str | torch.device = "cuda", tp=None) -> list:
     """One zero cache entry per run, stacked on the run dim: attention
     {"k", "v"} (n, B, S_c, Hkv, hd) bf16 (S_c = min(window, s_max) for
     windowed runs), and for enc-dec {"xk", "xv"} (n, B, src_len, Hkv, hd)
     bf16; RG-LRU {"h"} (n, B, R) f32 and {"conv"} (n, B, 3, R) bf16;
     RWKV-6 {"S"} (n, B, H, hd, hd) f32 and {"x_tm", "x_cm"} (n, B, D)
-    bf16."""
+    bf16.  On a model axis ``tp`` an attention entry is (n, B, S_c/M,
+    Hkv, hd) where M divides S_c, else (n, B, S_c, Hkv/M, hd)."""
     port_check(cfg)
+    if tp is not None:
+        tp_check(cfg, tp.size)
     dev = resolve_device(device)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     R = cfg.d_rnn or cfg.d_model
@@ -282,8 +371,12 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
                                            device=dev),
                           "conv": torch.zeros((n, B, 3, R), **bf16)})
         else:
-            s_c = min(cfg.window, s_max) if kind == "local" else s_max
+            s_c = _cache_len(cfg, kind, s_max)
             shape = (n, B, s_c, cfg.n_kv_heads, cfg.head_dim)
+            if _seq_sharded(tp, s_c):
+                shape = (n, B, s_c // tp.size, cfg.n_kv_heads, cfg.head_dim)
+            elif tp is not None:
+                shape = (n, B, s_c, cfg.n_kv_heads // tp.size, cfg.head_dim)
             ent = {"k": torch.zeros(shape, **bf16),
                    "v": torch.zeros(shape, **bf16)}
             if cfg.enc_dec:
@@ -295,8 +388,9 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
 
 
 def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
-                   keep_full: bool):
-    """(x_out, cache entry) for one layer."""
+                   keep_full: bool, tp=None):
+    """(x_out, cache entry) for one layer (this rank's KV heads on a model
+    axis)."""
     if kind == "rwkv6":
         xn = L.rmsnorm(x, p["norm1"])
         y, st = L.rwkv6_fwd(p["rwkv"], cfg, xn, return_state=True)
@@ -312,19 +406,30 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
                                      "conv": conv.to(torch.bfloat16)}
     y, ck, cv = L.attention_prefill(
         p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
-        window=cfg.window if kind == "local" else None, keep_full=keep_full)
-    x = x + y
+        window=cfg.window if kind == "local" else None, keep_full=keep_full,
+        tp=tp)
+    x = x + _psum(tp, y)
     ent = {"k": ck, "v": cv}
     if enc_out is not None:
         ent["xk"], ent["xv"] = L.cross_kv(p["xattn"], cfg, enc_out)
         x = x + L.attention_fwd(p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]),
                                 kv_src=enc_out)
-    return x + _ffn(p, cfg, x), ent
+    return x + _ffn(p, cfg, x, tp), ent
+
+
+def _seq_slice(tp, t, s_c: int):
+    """A run's cache (n, B, s_c, Hkv/M, hd) of this rank's heads -> its
+    slice of the sequence with every head, (n, B, s_c/M, Hkv, hd): one
+    all-gather over the model axis."""
+    t = tp.all_gather(t, dim=3)
+    n = s_c // tp.size
+    return t[:, :, tp.index * n:(tp.index + 1) * n].contiguous()
 
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
-            last_pos=None, full_local_cache: bool = False):
+            last_pos=None, full_local_cache: bool = False, tp=None,
+            seq_shard: bool = True):
     """Process the prompt; return (last-token logits (B,1,V) f32, cache,
     S).  ``inputs``: ``tokens`` (B,S), the frontends' ``embeds`` (B,P,D)
     as a prefix (S then counts them), and for enc-dec ``src_embeds``
@@ -335,39 +440,47 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
     ``last_pos`` ((B,) int) selects each row's last real token, so
     right-padded prompts are safe: causality keeps the pads out of the real
     positions.  ``full_local_cache`` keeps windowed layers' caches at full
-    length (the paged pools store them so and mask at read time)."""
+    length (the paged pools store them so and mask at read time).
+
+    On a model axis ``tp`` the cache is in :func:`init_cache`'s layout;
+    ``seq_shard`` False keeps every run's entry on this rank's KV heads
+    (the paged pools' split)."""
+    if tp is not None:
+        tp_check(cfg, tp.size)
     enc_out = None
     if cfg.enc_dec:
         enc_out = encoder_fwd(params, cfg, inputs["src_embeds"])
-    x = embed_inputs(params, cfg, inputs)
+    x = embed_inputs(params, cfg, inputs, tp)
     B, S = x.shape[:2]
     cache = []
     for kind, layers in _runs(params, cfg):
         ents = []
         for p in layers:
             x, ent = _layer_prefill(p, cfg, kind, x, enc_out,
-                                    full_local_cache)
+                                    full_local_cache, tp)
             ents.append(ent)
         ent = {k: torch.stack([e[k] for e in ents]) for k in ents[0]}
         if kind in ("attn", "local"):
-            tgt = s_max if full_local_cache or kind != "local" \
-                else min(cfg.window, s_max)
+            tgt = s_max if full_local_cache \
+                else _cache_len(cfg, kind, s_max)
             if ent["k"].shape[2] < tgt:
                 pad = (0, 0, 0, 0, 0, tgt - ent["k"].shape[2])
                 ent["k"], ent["v"] = F.pad(ent["k"], pad), F.pad(ent["v"],
                                                                  pad)
+            if seq_shard and _seq_sharded(tp, tgt):
+                ent["k"] = _seq_slice(tp, ent["k"], tgt)
+                ent["v"] = _seq_slice(tp, ent["v"], tgt)
         cache.append(ent)
     x = L.rmsnorm(x, params["final_norm"])
     if last_pos is None:
         xl = x[:, -1:]
     else:
         xl = x[torch.arange(B, device=x.device), last_pos][:, None]
-    logits = (xl @ _head(params, cfg).to(x.dtype)).float()
-    return logits, cache, S
+    return _logits(params, cfg, xl, tp), cache, S
 
 
 def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
-                  pos: int):
+                  pos: int, tp=None):
     """One layer's decode step; writes layer ``i`` of the run's cache
     entry ``ent`` in place."""
     if kind == "rwkv6":
@@ -392,29 +505,29 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
         return x + _ffn(p, cfg, x)
     y, _, _ = L.attention_decode(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
                                  ent["k"][i], ent["v"][i], pos,
-                                 windowed=kind == "local")
-    x = x + y
+                                 windowed=kind == "local", tp=tp)
+    x = x + _psum(tp, y)
     if "xk" in ent:
         x = x + L.cross_attention_decode(p["xattn"], cfg,
                                          L.rmsnorm(x, p["norm_x"]),
                                          ent["xk"][i], ent["xv"][i])
-    return x + _ffn(p, cfg, x)
+    return x + _ffn(p, cfg, x, tp)
 
 
 @torch.inference_mode()
-def decode_step(params, cfg: ModelConfig, cache: list, tokens, pos):
+def decode_step(params, cfg: ModelConfig, cache: list, tokens, pos,
+                tp=None):
     """One-token serve step over the dense cache of :func:`prefill` or
     :func:`init_cache`, updated in place.  tokens: (B,1) int; pos: the
     number of tokens already in the cache, one for the whole batch (an int
     or a 0-d tensor).  Returns (logits (B,1,V) f32, cache)."""
     pos = int(pos)
-    x = embed_inputs(params, cfg, {"tokens": tokens})
+    x = embed_inputs(params, cfg, {"tokens": tokens}, tp)
     for ent, (kind, layers) in zip(cache, _runs(params, cfg)):
         for i, p in enumerate(layers):
-            x = _layer_decode(p, cfg, kind, x, ent, i, pos)
+            x = _layer_decode(p, cfg, kind, x, ent, i, pos, tp)
     x = L.rmsnorm(x, params["final_norm"])
-    logits = (x @ _head(params, cfg).to(x.dtype)).float()
-    return logits, cache
+    return _logits(params, cfg, x, tp), cache
 
 
 # ---------------------------------------------------------------------- #
@@ -435,12 +548,19 @@ def paged_arch_check(cfg: ModelConfig) -> None:
 
 
 def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int, *,
-                     device: str | torch.device = "cuda") -> list:
+                     device: str | torch.device = "cuda", tp=None) -> list:
     """One k/v pool pair per run: (run, n_blocks, block_size, Hkv, hd)
-    bf16.  Physical block 0 is the null block no request ever owns."""
+    bf16.  Physical block 0 is the null block no request ever owns.  On a
+    model axis ``tp``, this rank's Hkv/M heads (the reference's
+    ``paged_pool_shardings``: any request's blocks live anywhere in the
+    pool, so only the KV-head dim splits)."""
     paged_arch_check(cfg)
     dev = resolve_device(device)
-    shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    Hkv = cfg.n_kv_heads
+    if tp is not None:
+        tp_check(cfg, tp.size)
+        Hkv //= tp.size
+    shape = (n_blocks, block_size, Hkv, cfg.head_dim)
     return [{"k": torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev),
              "v": torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev)}
             for _, n in cfg.runs()]
@@ -473,19 +593,18 @@ def scatter_prefill_cache(pools: list, cache: list, blocks, block_size: int,
 
 @torch.inference_mode()
 def decode_step_paged(params, cfg: ModelConfig, pools: list, block_tables,
-                      tokens, pos):
+                      tokens, pos, tp=None):
     """One-token serve step over paged pools (updated in place).
     tokens: (B,1) int; block_tables: (B, max_blocks) int; pos: (B,) int.
     Returns (logits (B,1,V) f32, pools)."""
-    x = embed_inputs(params, cfg, {"tokens": tokens})
+    x = embed_inputs(params, cfg, {"tokens": tokens}, tp)
     for ent, (kind, layers) in zip(pools, _runs(params, cfg)):
         window = cfg.window if kind == "local" else None
         for i, p in enumerate(layers):
             y, _, _ = L.paged_attention_decode(
                 p["attn"], cfg, L.rmsnorm(x, p["norm1"]), ent["k"][i],
-                ent["v"][i], block_tables, pos, window=window)
-            x = x + y
-            x = x + _ffn(p, cfg, x)
+                ent["v"][i], block_tables, pos, window=window, tp=tp)
+            x = x + _psum(tp, y)
+            x = x + _ffn(p, cfg, x, tp)
     x = L.rmsnorm(x, params["final_norm"])
-    logits = (x @ _head(params, cfg).to(x.dtype)).float()
-    return logits, pools
+    return _logits(params, cfg, x, tp), pools

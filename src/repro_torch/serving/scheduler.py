@@ -124,25 +124,65 @@ class TorchExecutor:
     block and are ignored.  The pools live on the parameters' device and
     are updated in place.  ``prefill_done_s`` keeps the host clock
     (``time.perf_counter``) at the end of each prefill, once its first
-    token is on the host."""
+    token is on the host; ``first_logits`` the first prefill's last-token
+    logits (numpy f32).
+
+    On a model axis ``tp`` (a ``launch.mesh.Axis``), ``params`` are this
+    rank's shard and the pools hold its KV heads; every rank of the model
+    group runs the same scheduler and takes the same greedy tokens (the
+    logits are all-gathered).  ``tp_calls`` keeps the axis's collectives
+    of each prefill and of each decode step; for an MoE, ``moe_dropped``
+    the slots this rank's expert-parallel blocks dropped, per layer, and
+    ``first_prefill_dropped`` those of the first prefill."""
 
     def __init__(self, cfg, params, *, n_blocks: int, block_size: int,
-                 max_slots: int, max_blocks: int):
+                 max_slots: int, max_blocks: int, tp=None):
         import torch
 
+        from ..models import layers as L
         from ..models import transformer as T
         self._torch = torch
+        self._L = L
         self._T = T
         T.paged_arch_check(cfg)
         self.cfg = cfg
         self.params = params
+        self.tp = tp
         self.device = params["embed"].device
         self.block_size = block_size
         self.max_slots = max_slots
         self.pools = T.init_paged_pools(cfg, n_blocks, block_size,
-                                        device=self.device)
+                                        device=self.device, tp=tp)
         self.tables = np.zeros((max_slots, max_blocks), np.int64)
         self.prefill_done_s: list[float] = []
+        self.first_logits = None
+        self.tp_calls: dict[str, list[int]] = {"prefill": [], "decode": []}
+        self.moe_dropped = np.zeros(cfg.n_layers, np.int64) \
+            if tp is not None and cfg.moe else None
+        self.first_prefill_dropped = None
+
+    def _forward(self, kind: str, fn, *args, **kw):
+        """``fn(*args, **kw)``, one forward of the model, counting the
+        model axis's collectives and the dropped expert slots: the
+        forward's expert-parallel blocks come layer by layer, each layer
+        in equally many token blocks."""
+        L = self._L
+        calls0 = self.tp.calls if self.tp is not None else 0
+        if self.moe_dropped is not None:
+            L.moe_fwd.dropped = []
+        try:
+            out = fn(*args, **kw)
+        finally:
+            blocks, L.moe_fwd.dropped = L.moe_fwd.dropped, None
+        if self.tp is not None:
+            self.tp_calls[kind].append(self.tp.calls - calls0)
+        if self.moe_dropped is not None:
+            per = len(blocks) // self.cfg.n_layers
+            for j, n in enumerate(blocks):
+                self.moe_dropped[j // per] += n
+            if kind == "prefill" and self.first_prefill_dropped is None:
+                self.first_prefill_dropped = sum(blocks)
+        return out
 
     def _tensor(self, a: np.ndarray):
         return self._torch.from_numpy(a).to(self.device)
@@ -153,16 +193,19 @@ class TorchExecutor:
         padded = np.zeros((1, S_p), np.int64)
         padded[0, :L] = tokens
         T = self._T
-        logits, cache, _ = T.prefill(
-            self.params, self.cfg, {"tokens": self._tensor(padded)}, S_p,
+        logits, cache, _ = self._forward(
+            "prefill", T.prefill, self.params, self.cfg,
+            {"tokens": self._tensor(padded)}, S_p,
             last_pos=self._tensor(np.asarray([L - 1])),
-            full_local_cache=True)
+            full_local_cache=True, tp=self.tp, seq_shard=False)
         T.scatter_prefill_cache(self.pools, cache, list(blocks),
                                 self.block_size, row=0)
         self.tables[slot, :] = 0
         self.tables[slot, :len(blocks)] = blocks
         tok = int(self._torch.argmax(logits[0, -1]))
         self.prefill_done_s.append(time.perf_counter())
+        if self.first_logits is None:
+            self.first_logits = logits[0, -1].cpu().numpy()
         return tok
 
     def extend(self, slot, block):
@@ -178,9 +221,10 @@ class TorchExecutor:
         for s, t, p in zip(slots, tokens, pos):
             tok[s, 0] = t
             posv[s] = p
-        logits, self.pools = self._T.decode_step_paged(
-            self.params, self.cfg, self.pools, self._tensor(self.tables),
-            self._tensor(tok), self._tensor(posv))
+        logits, self.pools = self._forward(
+            "decode", self._T.decode_step_paged, self.params, self.cfg,
+            self.pools, self._tensor(self.tables), self._tensor(tok),
+            self._tensor(posv), tp=self.tp)
         out = self._torch.argmax(logits[:, 0], -1).cpu().numpy()
         return [int(out[s]) for s in slots]
 

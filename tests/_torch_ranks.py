@@ -286,3 +286,133 @@ def grid_state(rank, params, ckpt_dir, cases, xs):
         out["leave"].append(_axis_sums(grid, x))
         grid.barrier()
     return out
+
+
+# ---------------------------------------------------------------------- #
+# A model axis: tensor parallelism, the sequence-parallel decode, EP
+# ---------------------------------------------------------------------- #
+
+def _from_full(t, like, tp):
+    """This rank's part of an unsharded cache or pool leaf ``t`` (numpy)
+    in the layout of ``like``: its slice of the sequence (dim 2) where
+    ``like`` holds every KV head, else its KV heads (dim -2)."""
+    t = torch.from_numpy(np.array(t)).to(like.dtype)
+    if tp is None:
+        return t
+    dim = 2 if like.shape[-2] == t.shape[-2] else t.dim() - 2
+    n = like.shape[dim]
+    return t.narrow(dim, tp.index * n, n).contiguous()
+
+
+def model_paths(params, cfg, ins, tp=None):
+    """One model's serving paths on ``params`` (the whole model, or this
+    rank's shard on the model axis ``tp``): the paged path (a right-padded
+    prefill at ``ins["S_p"]`` with ``last_pos``, its cache scattered into
+    paged pools, then ``ins["forced"]`` decode steps of given tokens), the
+    dense path (a prefill of ``ins["dense"]`` into a cache for
+    ``ins["s_max"]`` tokens, then the steps of ``ins["dense_forced"]``,
+    the ring of windowed layers wrapping), and the full forward
+    (``model_fwd`` of ``ins["dense"]``).  Each decode step starts from the
+    cache of ``ins["pools_before"][i]`` / ``ins["caches_before"][i]``
+    (the unsharded run's, cut for this rank) where the inputs have them,
+    so that a bf16 cache entry rounded the other way in an earlier step
+    does not carry over.  Returns numpy logits, the caches before each
+    step (unsharded runs only: the ``*_before`` inputs), the dense cache
+    after the last step, and the axis's collectives of each call."""
+    from repro_torch.models import transformer as T
+
+    calls = (lambda: tp.calls) if tp is not None else (lambda: 0)
+    start = lambda kind, i, cache: cache if f"{kind}_before" not in ins \
+        else [{k: _from_full(ins[f"{kind}_before"][i][r][k], v, tp)
+               for k, v in ent.items()} for r, ent in enumerate(cache)]
+    keep = lambda cache: [{k: v.float().numpy() for k, v in ent.items()}
+                          for ent in cache]
+    out = {"pools_before": [], "caches_before": []}
+    BS, L = ins["BS"], ins["L"]
+    toks = _t(ins["toks"]).long()
+    c0 = calls()
+    lg, cache, _ = T.prefill(params, cfg, {"tokens": toks}, ins["S_p"],
+                             last_pos=torch.tensor([L - 1]),
+                             full_local_cache=True, tp=tp, seq_shard=False)
+    out["paged_prefill_calls"] = np.array(calls() - c0)
+    out["paged_prefill"] = lg.numpy()
+    nb = ins["S_p"] // BS
+    pools = T.init_paged_pools(cfg, 2 + ins["max_blocks"], BS, device=CPU,
+                               tp=tp)
+    T.scatter_prefill_cache(pools, cache, list(range(1, nb + 1)), BS)
+    tables = torch.arange(1, ins["max_blocks"] + 1)[None]
+    steps = []
+    for i, t in enumerate(ins["forced"]):
+        pools = start("pools", i, pools)
+        out["pools_before"].append(keep(pools))
+        lg, pools = T.decode_step_paged(params, cfg, pools, tables,
+                                        _t(t).long()[None],
+                                        torch.tensor([L + i]), tp=tp)
+        steps.append(lg.numpy())
+    out["paged_steps"] = np.stack(steps)
+    dense = _t(ins["dense"]).long()
+    c0 = calls()
+    lg, cache, S = T.prefill(params, cfg, {"tokens": dense}, ins["s_max"],
+                             tp=tp)
+    out["dense_prefill_calls"] = np.array(calls() - c0)
+    out["dense_prefill"] = lg.numpy()
+    steps = []
+    for i, t in enumerate(ins["dense_forced"]):
+        cache = start("caches", i, cache)
+        out["caches_before"].append(keep(cache))
+        c0 = calls()
+        lg, cache = T.decode_step(params, cfg, cache, _t(t).long(), S + i,
+                                  tp=tp)
+        out["dense_step_calls"] = np.array(calls() - c0)
+        steps.append(lg.numpy())
+    out["dense_steps"] = np.stack(steps)
+    for r, ent in enumerate(cache):
+        for name in ("k", "v"):
+            out[f"cache{r}_{name}"] = ent[name].float().numpy()
+    with torch.no_grad():
+        c0 = calls()
+        out["fwd"] = T.model_fwd(params, cfg, {"tokens": dense}, tp).numpy()
+        out["fwd_calls"] = np.array(calls() - c0)
+    if tp is not None:
+        del out["pools_before"], out["caches_before"]
+    return out
+
+
+def tp_ranks(rank, model, cases, sp_cases):
+    """This rank of a model group of ``model`` gloo ranks on the CPU.
+
+    With 4 ranks, first a 1x2x2 grid: each rank's axis indices and the
+    sums of its rank id over the model and dp axes.  Then, for each case
+    ``(name, cfg, params)`` (the reference's parameters, numpy) with the
+    inputs ``ins``, :func:`model_paths` on this rank's shard of them
+    (``shard_params``).  Then for each of ``sp_cases`` the
+    sequence-parallel combine alone (``layers._cache_attend_sp``) on this
+    rank's slice of a cache; returns its o and the slice after the write."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.convert import params_from_jax, shard_params
+
+    out = {}
+    if model == 4:
+        g = make_grid(1, 2, CPU, model=2)
+        x = torch.tensor([float(rank)])
+        out["grid122"] = np.array([g.rank, g.tp.index, g.dp.index,
+                                   g.tp.psum(x).item(), g.dp.psum(x).item(),
+                                   g.fast.psum(x).item()])
+    grid = make_grid(1, 1, CPU, model=model)
+    tp = grid.tp
+    for name, cfg, params, ins in cases:
+        p = shard_params(params_from_jax(params, cfg, device=CPU), cfg,
+                         model, rank)
+        res = model_paths(p, cfg, ins, tp)
+        out.update({f"{name}/{k}": v for k, v in res.items()})
+    for i, (q, kn, vn, ck, cv, pos, windowed) in enumerate(sp_cases):
+        n = ck.shape[1] // model
+        cut = lambda a: torch.from_numpy(
+            np.array(a[:, rank * n:(rank + 1) * n])).to(torch.bfloat16)
+        k_loc, v_loc = cut(ck), cut(cv)
+        o = L._cache_attend_sp(_t(q), _t(kn), _t(vn), k_loc, v_loc, pos,
+                               windowed, tp)
+        out[f"sp{i}/o"] = o.numpy()
+        out[f"sp{i}/k"] = k_loc.float().numpy()
+    out["staged_bytes"] = np.array(grid.staged_bytes)
+    return out

@@ -232,8 +232,8 @@ def test_analysis_cli_exits_zero():
 # Every pointer of the port into ROADMAP.md's Queue 1: (file, item, a
 # phrase that names the subject in both the pointer and the item)
 POINTERS = [
-    ("models/layers.py", 5, "_cache_attend_sp"),
-    ("launch/mesh.py", 5, "tensor parallelism"),
+    ("models/sharding.py", 5, "training on a model axis"),
+    ("models/sharding.py", 5, "recurrent and enc-dec families"),
     ("models/transformer.py", 9, "MoE, RG-LRU, enc-dec"),
     ("models/transformer.py", 7, "RWKV-6 training"),
     ("kernels/wkv.py", 7, "RWKV-6 training"),

@@ -221,6 +221,24 @@ def test_olmoe_serve_on_card(dev):
     assert L.moe_fwd.host_syncs >= cfg.n_layers * out["prefills"]
 
 
+def test_serve_on_a_model_axis_on_card(dev):
+    """``serve --mesh 1x1x2`` on the card: two gloo ranks share it, each
+    with its shard and its heads (the flash kernel on 2 of gpt-100m's 4
+    smoke heads, one launch a layer and prefill on each rank), their
+    collectives staged through host memory; the tokens are the one-rank
+    serve's and the first prefill's bf16 logits within 5e-2 of its."""
+    cfg = get_config("gpt_100m", smoke=True)
+    one = serve("gpt-100m", 3, 21, 5, smoke=True, device="cuda")
+    two = serve("gpt-100m", 3, 21, 5, "1x1x2", smoke=True, device="cuda")
+    assert all(r.state is ReqState.DONE for r in two["requests"])
+    np.testing.assert_array_equal(two["generated"], one["generated"])
+    np.testing.assert_allclose(two["first_logits"], one["first_logits"],
+                               atol=5e-2, rtol=0)
+    ax = two["model_axis"]
+    assert ax["flash_fwd_launches"] == [cfg.n_layers * two["prefills"]] * 2
+    assert all(b > 0 for b in ax["staged_bytes"])
+
+
 def test_serve_on_card_launches_the_kernel(dev):
     cfg = get_config("qwen3_4b", smoke=True)
     fa.flash_attention_fwd.launches = 0

@@ -565,22 +565,24 @@ def test_fig8_ordering_on_the_ports_plans():
     assert comms["mpich-binomial"].slow_crossings("bcast", root=0) > 1
 
 
-@pytest.mark.parametrize("pods,data", [(2, 4), (4, 2), (1, 3), (3, 1)])
-def test_grid_topologies_are_the_reference_mesh_strata(pods, data):
+@pytest.mark.parametrize("pods,data,model", [
+    (2, 4, 1), (4, 2, 1), (1, 3, 1), (3, 1, 1), (2, 2, 2), (1, 2, 4)])
+def test_grid_topologies_are_the_reference_mesh_strata(pods, data, model):
     """``grid_topology``/``dp_topology`` keep the reference's
     ``mesh_topology``/``dp_topology`` strata (launch/mesh.py:30, :45) for
-    a mesh of ``pods x data`` and a model axis of 1, with the caller's
-    levels."""
+    a mesh of ``pods x data x model``, with the caller's levels."""
     import types
 
     from repro_torch.launch.mesh import dp_topology, grid_topology
 
-    grid = types.SimpleNamespace(pods=pods, data=data)
+    grid = types.SimpleNamespace(pods=pods, data=data, model=model)
     ref, port = _pair("tpu_2x2x2")
-    idx = np.arange(pods * data)
-    want = JT.Topology(np.stack([idx // data, idx], axis=1), ref.levels)
+    idx = np.arange(pods * data * model)
+    want = JT.Topology(np.stack([idx // (data * model), idx // model],
+                                axis=1), ref.levels)
     got = grid_topology(grid, port.levels)
     assert got.to_json() == want.to_json()
+    idx = np.arange(pods * data)
     want = JT.Topology((idx // data)[:, None],
                        [ref.levels[0], ref.levels[-1]])
     got = dp_topology(grid, [port.levels[0], port.levels[-1]])
