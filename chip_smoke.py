@@ -202,7 +202,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    prefill's logits within 1e-5, each paged decode step (pools of the
    rank's KV heads) and each dense decode step (the sequence-parallel
    decode where the model axis divides the cache) from the one-rank
-   pools or cache within 1e-4, no slot dropped.
+   pools or cache within 1e-4, no slot dropped;
+25. training on a model axis, the ranks sharing the card over gloo
+   (staged through host memory), each a fresh process holding its model
+   shard (random from a seed) and its counters starting at 0, read at its
+   end: 25a ``train`` on gpt-100m at full width and depth with ``mesh``
+   ``1x2x2``, ``multilevel`` with ZeRO-1, 4 steps of 8 x 1024 tokens
+   (tensor-parallel forward and backward, the vocab-parallel loss, the
+   sync over data beside the model shards); 25b ``2x1x2``
+   ``multilevel_compress``, so that the fused EF quantiser and the
+   dequantiser run on each rank's model shard: finite losses, every
+   rank's launches of #1-#3 (2, 1, 1 a layer and step) and of #5 and #6
+   (10 a step: one per stacked leaf), the same model-axis collectives on
+   each step; printed with wall ms a step after the first and tok/s
+   beside phases 7 and 11, the model axis's collectives a step (forward,
+   the remat's re-run, backward), the bytes staged a rank and the slow
+   axis's bytes beside f32's.  25c, the f32 answer: gpt-100m at 2 layers
+   and full width, ``multilevel``, unclipped, 3 steps of 4 x 256 on
+   1x1x2 and 2x1x2 on the card and on the CPU, against one rank and
+   2x1x1 on the card: the losses within 1e-4 relative.  25d: qwen3-4b at
+   full width cut to 4 layers (its 151,936-word tied head vocab-sharded,
+   q/k norms, G 4 on each rank) on 1x1x2 in bf16, 2 steps of 2 x 1024:
+   finite losses, the first within 1e-2 relative of the one-rank run's.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -407,6 +428,22 @@ LOGIT_TOL = 5e-2
 # which may round to the neighbouring value (tests/test_torch_tp.py)
 TP_F32_TOL = 1e-5
 TP_STEP_TOL = 1e-4
+# phase 25: training on a model axis.  25a and 25b at full width and depth
+# (4 rows a data-parallel rank), 25c gpt-100m's 2 layers in f32, 25d
+# qwen3-4b cut to 4 layers in bf16
+TP_TRAIN = {"25a": dict(steps=4, seq=1024, batch=8, mesh_spec="1x2x2",
+                        comm="multilevel", dist_backend="gloo"),
+            "25b": dict(steps=4, seq=1024, batch=8, mesh_spec="2x1x2",
+                        comm="multilevel_compress", dist_backend="gloo")}
+TP_TRAIN_ANSWER = dict(steps=3, seq=256, batch=4)
+# (pods, data, model) grids of 25c and the devices each runs on
+TP_TRAIN_GRIDS = {2: (((1, 1, 2), ("cuda", "cpu")), ((2, 1, 1), ("cuda",))),
+                  4: (((2, 1, 2), ("cuda", "cpu")),)}
+TP_TRAIN_TOL = 1e-4     # relative, tests/test_torch_train.py's trajectory
+TP_QWEN = ("qwen3-4b", 4, "1x1x2", dict(steps=2, seq=1024, batch=2))
+# bf16: the first step's loss (before any update) of the model group
+# against one rank: tests/test_torch_train.py's bf16 loss tolerance
+TP_QWEN_TOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -2615,6 +2652,180 @@ def tp_answer_phase(torch, T, get_config) -> None:
                 fail(f"{arch} on a model axis of {model} in f32: {rec}")
 
 
+def tp_train_case(train, name, kw, cfg, refs) -> dict:
+    """Phase 25a/25b: ``train`` of gpt-100m at full width and depth on
+    ``kw``'s grid; ``refs`` the steady step ms of phases 7 and 11.
+    Returns every rank's launches."""
+    t0 = time.perf_counter()
+    out = train("gpt-100m", device="cuda", log_every=1, **kw)
+    wall = time.perf_counter() - t0
+    steps, leaves = kw["steps"], 10
+    compress = kw["comm"] == "multilevel_compress"
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
+            "dequantize_int8": leaves * steps * compress,
+            "quantize_ef_int8": leaves * steps * compress}
+    steady = out["step_ms"][1:]
+    print(json.dumps({f"tp_train_{name}": {
+        **kw, "world": out["world"], "model": out["model"],
+        "backend": out["backend"], "staging": out["staging"],
+        "losses": out["losses"], "step_ms": out["step_ms"],
+        "steady_step_ms_mean": sum(steady) / len(steady),
+        "tokens_per_s": out["tokens_per_s"],
+        "one_rank_steady_step_ms_phase_7": refs["7"],
+        "grid_2x2x1_steady_step_ms_phase_11": refs["11"],
+        "tp_calls_per_step": out["tp_calls"],
+        "staged_bytes_per_step": out["staged_bytes"],
+        "slow_wire_bytes_per_step": out["slow_wire_bytes"],
+        "slow_f32_bytes_per_step": out["slow_f32_bytes"],
+        "launches_per_rank": out["launches"],
+        "wall_s_with_spawn": wall}}), flush=True)
+    if len(out["losses"]) != steps \
+            or not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"phase {name}: losses {out['losses']}")
+    if any(c != out["tp_calls"][0] for c in out["tp_calls"]) \
+            or min(out["tp_calls"][0].values()) < 1:
+        fail(f"phase {name}: model-axis collectives a step "
+             f"{out['tp_calls']}")
+    if len(out["launches"]) != 4 or any(r != want for r in out["launches"]):
+        fail(f"phase {name}: the ranks launched {out['launches']}, "
+             f"expected {want} each")
+    return out["launches"]
+
+
+def tp_train_answer_losses(grid, cfg, full, device) -> list:
+    """3 f32 steps of 25c on ``grid`` on ``device`` from the global
+    stacked parameters ``full`` (CPU), this rank's model shard of them."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models.convert import model_dims, shard_params
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    tp = grid.tp
+    p = full if tp is None else shard_params(full, cfg, tp.size, tp.index)
+    p = tree_map(lambda t: t.to(device), p)
+    opt_cfg = adamw.OptConfig(comm_mode="multilevel", lr=1e-3,
+                              warmup_steps=20, clip_norm=1e30,
+                              total_steps=TP_TRAIN_ANSWER["steps"])
+    opt = adamw.shard_opt_state(
+        adamw.init_opt_state(p, opt_cfg, n_slow=grid.pods), p, opt_cfg,
+        grid, None if tp is None else model_dims(cfg, tp.size))
+    step = make_train_step(cfg, opt_cfg, grid, torch.device(device))
+    pipe = DataPipeline(cfg, ShapeSpec("answer", "train",
+                                       TP_TRAIN_ANSWER["seq"],
+                                       TP_TRAIN_ANSWER["batch"]))
+    losses = []
+    for i in range(TP_TRAIN_ANSWER["steps"]):
+        p, opt, loss = step(p, opt, pipe.host_batch(i))
+        losses.append(loss.item())
+    return losses
+
+
+def tp_train_answer_rank(rank, world):
+    """One rank of 25c: each grid of ``TP_TRAIN_GRIDS[world]`` on each of
+    its devices, from the same f32 weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import stack_runs
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    cfg = cut(get_config, "gpt-100m", 2)
+    full = stack_runs(tree_map(lambda t: t.float(), T.init_model(
+        cfg, seed=0, device="cpu")), cfg)
+    out = {}
+    for (pods, data, model), devices in TP_TRAIN_GRIDS[world]:
+        grid = make_grid(pods, data, torch.device("cuda", 0), model=model)
+        for dev in devices:
+            out[f"{pods}x{data}x{model} {dev}"] = tp_train_answer_losses(
+                grid, cfg, full, dev)
+    return out
+
+
+def tp_train_answer(torch, T, get_config) -> None:
+    """Phase 25c: gpt-100m's 2 layers at full width in f32, unclipped, on
+    1x1x2 and 2x1x2 on the card and on the CPU, against one rank and 2x1x1
+    on the card, the same global batches: the losses within
+    TP_TRAIN_TOL."""
+    from repro_torch.launch.mesh import Grid, run_ranks
+    from repro_torch.models.convert import stack_runs
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = cut(get_config, "gpt-100m", 2)
+    full = stack_runs(tree_map(lambda t: t.float(), T.init_model(
+        cfg, seed=0, device="cpu")), cfg)
+    runs = {"1x1x1 cuda": tp_train_answer_losses(Grid.single(), cfg, full,
+                                                 "cuda")}
+    torch.cuda.empty_cache()
+    for world in TP_TRAIN_GRIDS:
+        runs.update(run_ranks(tp_train_answer_rank, world, "gloo", (world,),
+                              timeout=900.0)[0])
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(
+        runs[a], runs[b]))
+    pairs = [("1x1x2 cuda", "1x1x1 cuda"), ("2x1x2 cuda", "1x1x1 cuda"),
+             ("2x1x2 cuda", "2x1x1 cuda"), ("1x1x2 cuda", "1x1x2 cpu"),
+             ("2x1x2 cuda", "2x1x2 cpu")]
+    errs = {f"{a} vs {b}": rel(a, b) for a, b in pairs}
+    print(json.dumps({"tp_train_25c_f32": {
+        **TP_TRAIN_ANSWER, "layers": 2, "comm": "multilevel",
+        "clip_norm": 1e30, "losses": runs, "max_rel_loss_diff": errs,
+        "tolerance": TP_TRAIN_TOL,
+        "wall_s_with_spawns": time.perf_counter() - t0}}), flush=True)
+    if any(len(v) != TP_TRAIN_ANSWER["steps"] for v in runs.values()) \
+            or not all(math.isfinite(e) and e <= TP_TRAIN_TOL
+                       for e in errs.values()):
+        fail(f"phase 25c: f32 losses on a model axis {errs} (relative), "
+             f"tolerance {TP_TRAIN_TOL}")
+
+
+def tp_train_qwen(torch, train, get_config) -> list:
+    """Phase 25d: qwen3-4b at full width cut to 4 layers on 1x1x2 in bf16
+    against one rank in this process, the same weights and batches:
+    finite losses, the first step's within TP_QWEN_TOL.  Returns the
+    ranks' launches."""
+    arch, n, mesh, kw = TP_QWEN
+    cfg = cut(get_config, arch, n)
+    t0 = time.perf_counter()
+    two = train(arch, config=cfg, mesh_spec=mesh, device="cuda",
+                dist_backend="gloo", log_every=1, **kw)
+    t1 = time.perf_counter()
+    one = train(arch, config=cfg, device="cuda", log_every=1, **kw)
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rel = abs(two["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    print(json.dumps({"tp_train_25d": {
+        "arch": arch, "layers": n, "mesh": mesh, **kw, "dtype": "bfloat16",
+        "losses": two["losses"], "losses_one_rank": one["losses"],
+        "first_step_rel_diff": rel, "tolerance": TP_QWEN_TOL,
+        "step_ms": two["step_ms"], "step_ms_one_rank": one["step_ms"],
+        "tp_calls_per_step": two["tp_calls"],
+        "staged_bytes_per_step": two["staged_bytes"],
+        "launches_per_rank": two["launches"],
+        "wall_s_with_spawn": t1 - t0, "wall_s_one_rank": t2 - t1}}),
+        flush=True)
+    steps = kw["steps"]
+    want = {"flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
+            "flash_bwd_dkv": n * steps, "quantize_int8": 0,
+            "dequantize_int8": 0, "quantize_ef_int8": 0}
+    if not all(math.isfinite(x) for x in two["losses"] + one["losses"]) \
+            or not rel <= TP_QWEN_TOL:
+        fail(f"phase 25d: losses {two['losses']} on {mesh}, "
+             f"{one['losses']} on one rank")
+    if len(two["launches"]) != 2 or any(r != want for r in two["launches"]):
+        fail(f"phase 25d: the ranks launched {two['launches']}, expected "
+             f"{want} each")
+    return two["launches"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-wkv", metavar="LIB", action="append",
@@ -2861,8 +3072,24 @@ def main() -> None:
     walls.append(time.perf_counter())
     tp_answer_phase(torch, T, get_config)
     walls.append(time.perf_counter())
+
+    # 25. training on a model axis: each rank is a fresh process whose
+    # counters start at 0 and are read at its end
+    refs = {"7": sum(tr["step_ms"][1:]) / len(tr["step_ms"][1:]),
+            "11": sum(gt["step_ms"][1:]) / len(gt["step_ms"][1:])}
+    tp_train_launches = []
+    for name, kw_ in TP_TRAIN.items():
+        tp_train_launches += tp_train_case(train, name, kw_, cfg, refs)
+        walls.append(time.perf_counter())
+    tp_train_answer(torch, T, get_config)
+    walls.append(time.perf_counter())
+    tp_train_launches += tp_train_qwen(torch, train, get_config)
+    walls.append(time.perf_counter())
+    tp_train_counts = {k: sum(r[k] for r in tp_train_launches)
+                       for k in tp_train_launches[0]}
     print(json.dumps({"phase_wall_s": {
-        n: b - a for n, a, b in zip(("21", "22", "23", "24a-c", "24d"),
+        n: b - a for n, a, b in zip(("21", "22", "23", "24a-c", "24d",
+                                     "25a", "25b", "25c", "25d"),
                                     walls, walls[1:])}}), flush=True)
 
     main_fwd = recs[MAIN_SHAPE]
@@ -2874,24 +3101,27 @@ def main() -> None:
                       + grid_counts["flash_fwd"] + net_counts["flash_fwd"]
                       + bucket_counts["flash_fwd"]
                       + elastic_counts["flash_fwd"]
-                      + moe_counts["flash_fwd"] + dense_flash + tp_flash),
+                      + moe_counts["flash_fwd"] + dense_flash + tp_flash
+                      + tp_train_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
                          train_counts["flash_bwd_dq"]
                          + grid_counts["flash_bwd_dq"]
                          + bucket_counts["flash_bwd_dq"]
-                         + elastic_counts["flash_bwd_dq"]),
+                         + elastic_counts["flash_bwd_dq"]
+                         + tp_train_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
                           train_counts["flash_bwd_dkv"]
                           + grid_counts["flash_bwd_dkv"]
                           + bucket_counts["flash_bwd_dkv"]
-                          + elastic_counts["flash_bwd_dkv"]),
+                          + elastic_counts["flash_bwd_dkv"]
+                          + tp_train_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
-        # training (phases 11 and 20) runs the fused EF kernel and the
-        # dequant; the tree phase's compressed syncs run all three
+        # training (phases 11, 20 and 25b) runs the fused EF kernel and
+        # the dequant; the tree phase's compressed syncs run all three
         "quantize_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                           "src/repro/kernels/quant.py:30",
                           quant["quantize_int8"],
@@ -2902,13 +3132,15 @@ def main() -> None:
                             quant["dequantize_int8"],
                             grid_counts["dequantize_int8"]
                             + tree["launches"]["dequantize_int8"]
-                            + elastic_counts["dequantize_int8"]),
+                            + elastic_counts["dequantize_int8"]
+                            + tp_train_counts["dequantize_int8"]),
         "quantize_ef_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                              "src/repro/kernels/quant.py:44",
                              quant["quantize_ef_int8"],
                              grid_counts["quantize_ef_int8"]
                              + tree["launches"]["quantize_ef_int8"]
-                             + elastic_counts["quantize_ef_int8"]),
+                             + elastic_counts["quantize_ef_int8"]
+                             + tp_train_counts["quantize_ef_int8"]),
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
                 rwkv_counts["wkv"]),

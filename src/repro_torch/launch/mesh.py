@@ -27,6 +27,16 @@ the calls and the payload this rank puts on it (``calls``,
 card (the ranks share one card, which NCCL refuses), copies them to the
 host and back in ``stage_through_host``, counting those bytes too.
 
+``Axis.copy_to`` and ``Axis.reduce_from`` are the model axis's two
+collectives that autograd differentiates, the Megatron pair: ``copy_to``
+is the identity forward and a sum over the axis backward, where a
+replicated tensor enters work that each rank does on its own shard (a
+column-parallel product, a replicated leaf read on the rank's heads);
+``reduce_from`` is the sum forward and the identity backward, at every
+row-parallel partial sum.  Every rank builds the same graph, so autograd
+issues the backward's sums in the same order on each; ``bwd_calls``
+counts them apart from ``calls``.
+
 ``run_ranks`` spawns the ranks of a grid on this host, each with a
 ``file://`` rendezvous, and returns what each returned.
 
@@ -85,6 +95,32 @@ def stage_through_host(fn: Callable, out: torch.Tensor,
     axis.staged_bytes += inp_h.nbytes + out_h.nbytes
 
 
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, the sum over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.axis.bwd_calls += 1
+        return ctx.axis.psum(g), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the axis forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class Axis:
     """One axis of the rank grid: its process group (None for a size-1
     axis or for the default group), this rank's index on it, its size."""
@@ -94,6 +130,7 @@ class Axis:
         self.name, self.size, self.index = name, size, index
         self.group, self.stage = group, stage
         self.calls = 0            # collectives this rank joined
+        self.bwd_calls = 0        # of them, copy_to's sums in a backward
         self.wire_bytes = 0       # payload this rank put into collectives
         self.staged_bytes = 0     # host copies made for gloo
 
@@ -122,6 +159,19 @@ class Axis:
         return self._run(lambda o, _: dist.all_reduce(
             o, op=dist.ReduceOp.MAX, group=self.group),
             x.contiguous().clone(), None)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, whose gradient is summed over the axis in the
+        backward."""
+        if self.size == 1 or not torch.is_grad_enabled():
+            return x
+        return _CopyTo.apply(x, self)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`psum`, whose backward passes the gradient through."""
+        if self.size == 1 or not torch.is_grad_enabled():
+            return self.psum(x)
+        return _ReduceFrom.apply(x, self)
 
     def psum_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Sum over the axis, member i keeping chunk i along ``dim``

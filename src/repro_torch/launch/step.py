@@ -11,6 +11,19 @@ run layout once, and calls ``apply_updates``, whose sync runs over the
 grid's process groups.  The returned loss is the mean over the ranks
 (``lax.pmean(loss, dp)``).  One rank is the grid of size 1.
 
+On a grid with a model axis (``grid.tp``, M > 1) the reference runs the
+forward and backward under GSPMD over ``model`` and the update in an
+inner ``shard_map`` manual over it; here each rank holds its model shard
+(``models.convert.shard_params``), the M ranks of a model group take the
+same rows (``rank_rows`` indexes by the data-parallel rank), the forward
+and backward run the model axis's differentiated collectives
+(``transformer.loss_fn(tp=)``), and ``apply_updates`` syncs each shard
+over the data-parallel axes of its model index, with the model's
+``convert.model_dims``.  ``Grid.tp``'s counters split the model axis's
+collectives of a step: ``tp_calls`` holds the forward's, the backward's
+(``copy_to``'s sums) and the forward's that the remat re-issues inside
+the backward.
+
 The paged serve steps run through ``serving.TorchExecutor``.  The dense
 ones, ``make_prefill_fn`` and ``make_decode_fn``, are the counterparts of
 the reference's ``:233``/``:243``: plain functions under
@@ -32,7 +45,7 @@ import torch
 from ..kernels.backend import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..models.convert import stack_runs, unstack_runs
+from ..models.convert import model_dims, stack_runs, unstack_runs
 from ..models.sharding import tp_check
 from ..optim import adamw
 from ..tree import tree_leaves, tree_unflatten
@@ -82,7 +95,8 @@ def device_batch(batch: dict, device) -> dict:
 
 def rank_rows(batch: dict, grid: Grid) -> dict:
     """This rank's rows of a global host batch, whose rows must divide by
-    the number of ranks."""
+    the number of data-parallel ranks (a model group's ranks take the
+    same rows)."""
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
@@ -94,12 +108,22 @@ def rank_rows(batch: dict, grid: Grid) -> dict:
     return out
 
 
-def loss_and_grads(params, cfg: ModelConfig, batch: dict):
+def loss_and_grads(params, cfg: ModelConfig, batch: dict, tp=None,
+                   calls: dict | None = None):
     """(loss, grads): the mean cross-entropy and its gradient with respect
-    to every parameter leaf, in the parameters' structure and dtypes."""
+    to every parameter leaf, in the parameters' structure and dtypes.  On
+    a model axis ``tp``, of this rank's shard ``params``; ``calls`` gets
+    the axis's collectives of the forward (``fwd``), of the backward's
+    sums (``bwd``) and of the forward re-run under remat (``remat``)."""
     leaves = [l.detach().requires_grad_(True) for l in tree_leaves(params)]
-    loss = T.loss_fn(tree_unflatten(params, leaves), cfg, batch)
+    c0 = (tp.calls, tp.bwd_calls) if tp is not None else (0, 0)
+    loss = T.loss_fn(tree_unflatten(params, leaves), cfg, batch, tp=tp)
+    c1 = tp.calls if tp is not None else 0
     grads = torch.autograd.grad(loss, leaves)
+    if tp is not None and calls is not None:
+        bwd = tp.bwd_calls - c0[1]
+        calls.update(fwd=c1 - c0[0], bwd=bwd,
+                     remat=tp.calls - c1 - bwd)
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
@@ -108,21 +132,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
                     device: str | torch.device = "cuda"):
     """``step(params, opt, batch) -> (params, opt, loss)`` for this rank of
     ``grid`` (one rank if None) on ``device``.  ``params`` is in the
-    stacked-run layout (``models.convert.stack_runs``), ``opt`` this
-    rank's shard of the state (``adamw.shard_opt_state``), ``batch`` the
-    global host batch of ``DataPipeline.host_batch``."""
+    stacked-run layout (``models.convert.stack_runs``; on a model axis
+    this rank's shard of it), ``opt`` this rank's shard of the state
+    (``adamw.shard_opt_state``), ``batch`` the global host batch of
+    ``DataPipeline.host_batch``.  ``step.tp_calls`` holds the last step's
+    model-axis collectives (:func:`loss_and_grads`' ``calls``)."""
     T.train_check(cfg)
     dev = resolve_device(device)
     grid = grid or Grid.single()
+    tp = grid.tp
+    if tp is not None:
+        tp_check(cfg, tp.size)
+    mdims = model_dims(cfg, tp.size) if tp is not None else None
 
     def step(params, opt, batch):
         rows = device_batch(rank_rows(batch, grid), dev)
-        loss, grads = loss_and_grads(unstack_runs(params, cfg), cfg, rows)
+        loss, grads = loss_and_grads(unstack_runs(params, cfg), cfg, rows,
+                                     tp, step.tp_calls)
         params, opt = adamw.apply_updates(params, stack_runs(grads, cfg),
-                                          opt, opt_cfg, grid)
+                                          opt, opt_cfg, grid, mdims)
         loss = grid.dp.psum(loss.reshape(1))[0] / grid.world
         return params, opt, loss
 
+    step.tp_calls = {}
     return step
 
 

@@ -9,6 +9,8 @@ On the H100:
       --comm multilevel_compress --dist-backend gloo --steps 3 --seq 1024
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --mesh 2x2x1 --dist-backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh 1x2x2 \\
+      --comm multilevel --dist-backend gloo --steps 4 --seq 1024
 On the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
@@ -16,17 +18,25 @@ On the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
       --mesh 2x2x1 --comm multilevel --bucket-mb 1 --trace /tmp/t.json \\
       --steps 2 --seq 32 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
+      --mesh 1x2x2 --steps 3 --seq 32 --batch 4
 Elastic recovery (no CLI flag, as the reference's driver):
   train("gpt-100m", 6, mesh_spec="4x1x1", seq=32, batch=4,
         comm="multilevel_compress", fail_at={2: [1]}, smoke=True,
         device="cpu")
 
-Counterpart of ``repro/launch/train.py:79 train``.  ``--mesh PxDx1`` runs
-P*D ranks: under ``torchrun`` each process is one rank (env rendezvous);
-otherwise ``train`` spawns the ranks itself (``mesh.run_ranks``) and
-returns the first surviving rank's result.  A model axis (M > 1) is
-refused: training on one is not ported yet (``sharding.NOT_PORTED_TP``;
-serving on one is, ``launch.serve``).  Each step takes
+Counterpart of ``repro/launch/train.py:79 train``.  ``--mesh PxDxM`` runs
+P*D*M ranks, rank = (pod * D + d) * M + m (``mesh.grid_groups``): under
+``torchrun`` each process is one rank (env rendezvous); otherwise
+``train`` spawns the ranks itself (``mesh.run_ranks``) and returns the
+first surviving rank's result.  On a model axis (M > 1) each rank holds
+its model shard of the parameters and state (``launch.step``), the
+planning plane prices 1/M of the gradient, as the reference's
+``train.py:124-126``, and checkpoints keep the reference's global layout:
+gathered over the data axes, then over the model axis; a restore cuts the
+model shard, then the data shard, so a checkpoint crosses between grids
+of any shape.  ``fail_at`` on a model axis is refused
+(``sharding.NOT_PORTED_TP``).  Each step takes
 ``DataPipeline.host_batch`` (the reference's tokens, bit for bit), this
 rank's rows of it, the loss and its gradients, and ``apply_updates`` with
 the sync over the grid's groups.  The backend is NCCL where every rank has
@@ -80,8 +90,10 @@ from ..launch.mesh import (Grid, choose_backend, dp_topology, make_grid,
                            parse_mesh, run_ranks)
 from ..launch.step import layer_grad_bytes, make_train_step
 from ..models import transformer as T
-from ..models.convert import from_numpy, stack_runs, to_numpy
-from ..models.sharding import NOT_PORTED_TP
+from ..models.convert import (from_numpy, gather_shards, model_dims,
+                              shard_params, stack_runs, to_numpy,
+                              unshard_params)
+from ..models.sharding import NOT_PORTED_TP, tp_check
 from ..obs import Tracer, get_logger, set_json
 from ..optim.adamw import (OptConfig, gather_opt_state, init_opt_state,
                            scatter_axes, shard_opt_state)
@@ -165,7 +177,8 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
           bucket_mb: float = 0.0, trace: str | None = None,
           digests: bool = False, config=None, init_params=None) -> dict:
     """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens
-    (the global batch, split over the ranks) from random weights (seed 0),
+    (the global batch, split over the data-parallel ranks) from random
+    weights (seed 0),
     with lr 1e-3 and 20 warmup steps as the reference's driver.
 
     Returns the first surviving rank's losses (the mean over the ranks;
@@ -181,7 +194,10 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     step, pods, bytes and the seconds of its gather and host copy) and
     ``ckpt_writes`` (the writer's bytes and seconds on disk).  A run
     restarts from the newest checkpoint in ``ckpt_dir``; ``fail_at`` maps
-    a step to the pods that fail before it.
+    a step to the pods that fail before it.  On a model axis: ``model``,
+    ``model_rank`` (this rank's index on it; ``rank`` is the data-parallel
+    one) and ``tp_calls``, the model-axis collectives of each step on this
+    rank (``launch.step.loss_and_grads``' ``fwd``, ``remat``, ``bwd``).
 
     ``bucket_mb`` > 0 switches the gradient sync to size-targeted buckets
     (reverse-layer order, one fused collective per bucket); it forces
@@ -196,13 +212,16 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     ``arch``'s; ``init_params`` (numpy, the stacked layout) replaces the
     seed-0 weights."""
     pods, data, model = parse_mesh(mesh_spec)
-    if model != 1:
-        raise NotImplementedError(f"mesh {mesh_spec}: a model axis of "
-                                  f"{model} ({NOT_PORTED_TP})")
-    world = pods * data
+    cfg = config or get_config(arch, smoke=smoke)
+    T.train_check(cfg)
+    tp_check(cfg, model)
+    if model != 1 and fail_at:
+        raise NotImplementedError(f"mesh {mesh_spec}: fail_at on a model "
+                                  f"axis of {model} ({NOT_PORTED_TP})")
+    world = pods * data * model
     dev = resolve_device(device)
-    kw = dict(arch=arch, steps=steps, pods=pods, data=data, seq=seq,
-              batch=batch, comm=comm, zero1=zero1, ckpt_dir=ckpt_dir,
+    kw = dict(arch=arch, steps=steps, pods=pods, data=data, model=model,
+              seq=seq, batch=batch, comm=comm, zero1=zero1, ckpt_dir=ckpt_dir,
               ckpt_every=ckpt_every, fail_at=fail_at, smoke=smoke,
               device=str(dev), log_every=log_every, profile=profile,
               log_json=log_json, bucket_mb=bucket_mb, trace=trace,
@@ -241,14 +260,22 @@ def _digest(tree) -> str:
     return h.hexdigest()
 
 
-def _save(ckpt, step: int, params, opt, opt_cfg, grid: Grid,
-          digests: bool) -> dict:
-    """Checkpoint ``step``: every rank gathers the global state, the
-    grid's first rank writes it (the write runs on after the call)."""
+def _lead(grid: Grid) -> bool:
+    """The grid's first rank: data-parallel rank 0, model index 0."""
+    return grid.rank == 0 and (grid.tp is None or grid.tp.index == 0)
+
+
+def _save(ckpt, step: int, params, opt, opt_cfg, grid: Grid, cfg,
+          mdims, digests: bool) -> dict:
+    """Checkpoint ``step``: every rank gathers the global state (over the
+    data axes, then over the model axis), the grid's first rank writes it
+    (the write runs on after the call)."""
     t0 = time.monotonic()
-    state = {"params": params,
-             "opt": gather_opt_state(opt, params, opt_cfg, grid)}
-    if grid.rank == 0:
+    state = {"params": gather_shards(params, cfg, grid.tp),
+             "opt": gather_shards(gather_opt_state(opt, params, opt_cfg,
+                                                   grid, mdims),
+                                  cfg, grid.tp)}
+    if _lead(grid):
         ckpt.save(step, state)
     rec = {"step": step, "pods": grid.pods,
            "bytes": sum(l.nbytes for l in tree_leaves(state)),
@@ -259,40 +286,49 @@ def _save(ckpt, step: int, params, opt, opt_cfg, grid: Grid,
 
 
 def _restore(ckpt, step: int, params, opt_cfg, grid: Grid, saved_pods: int,
-             lost_pods, dev: torch.device) -> tuple:
+             lost_pods, dev: torch.device, cfg=None, mdims=None) -> tuple:
     """Checkpoint ``step`` read on this rank: the global state, whose EF
     rows are the ``saved_pods`` of its save, the rows fitted to the grid
-    (``_fit_ef``), then this rank's shard.  Returns (params, opt, the
-    global state read)."""
+    (``_fit_ef``), then this rank's model shard (on a model axis, with
+    ``cfg`` and ``mdims``) and its data-parallel shard.  Returns (params,
+    opt, the global state read)."""
+    tp = grid.tp
     meta = tree_map(lambda t: t.to("meta"), params)
+    if tp is not None:
+        meta = unshard_params([meta] * tp.size, cfg)
     state = ckpt.restore(step, {"params": meta, "opt": init_opt_state(
         meta, opt_cfg, n_slow=saved_pods)})
-    params = from_numpy(state["params"], device=dev)
-    opt = shard_opt_state(from_numpy(_fit_ef(state["opt"], lost_pods,
-                                             grid.pods), device="cpu"),
-                          params, opt_cfg, grid)
+    cut = (lambda t: t) if tp is None \
+        else (lambda t: shard_params(t, cfg, tp.size, tp.index))
+    params = tree_map(lambda t: t.to(dev), cut(from_numpy(
+        state["params"], device="cpu")))
+    opt = shard_opt_state(cut(from_numpy(_fit_ef(state["opt"], lost_pods,
+                                                 grid.pods), device="cpu")),
+                          params, opt_cfg, grid, mdims)
     return params, tree_map(lambda t: t.to(dev), opt), state
 
 
-def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
-                ckpt_every, fail_at, smoke, device, log_every, profile,
+def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
+                ckpt_dir, ckpt_every, fail_at, smoke, device, log_every,
+                profile,
                 log_json, bucket_mb, trace, digests, config, init_params,
                 local_rank: int = 0) -> dict:
     """The training loop of one rank (of a grid whose process group is
     initialised, or alone)."""
     set_json(log_json)
     dev = resolve_device(device)
-    if dev.type == "cuda" and pods * data > 1:
+    if dev.type == "cuda" and pods * data * model > 1:
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    grid = make_grid(pods, data, dev)
+    grid = make_grid(pods, data, dev, model=model)
+    tp = grid.tp
     me = dist.get_rank() if dist.is_initialized() else 0
     members = list(range(grid.world))     # the grid's global ranks
     orig_dp = grid.world
     events: list[dict] = []
 
     def info(*a, **k):
-        if grid.rank == 0:
+        if _lead(grid):
             log.info(*a, **k)
 
     def note(msg: str, **fields) -> None:
@@ -302,6 +338,7 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
 
     cfg = config or get_config(arch, smoke=smoke)
     T.train_check(cfg)
+    mdims = model_dims(cfg, model) if tp is not None else None
     bucket_bytes = bucket_mb * 2 ** 20 if bucket_mb > 0 else None
     if bucket_bytes and zero1 and comm != "flat":
         info("bucketed sync: forcing zero1=False (ZeRO-1 "
@@ -314,11 +351,17 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     injector = FailureInjector(fail_at or {})
     straggler = StragglerMonitor()
     ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
-    params = from_numpy(init_params, device=dev) \
-        if init_params is not None \
-        else stack_runs(T.init_model(cfg, seed=0, device=dev), cfg)
+    if init_params is None:
+        params = stack_runs(T.init_model(
+            cfg, seed=0, device=dev, model=model,
+            m=0 if tp is None else tp.index), cfg)
+    elif tp is None:
+        params = from_numpy(init_params, device=dev)
+    else:
+        params = tree_map(lambda t: t.to(dev), shard_params(
+            from_numpy(init_params, device="cpu"), cfg, model, tp.index))
     opt = shard_opt_state(init_opt_state(params, opt_cfg, n_slow=pods),
-                          params, opt_cfg, grid)
+                          params, opt_cfg, grid, mdims)
     tracer = Tracer() if trace and me == 0 else None
     # every rank plans alike, so that each makes the same in-place or
     # restart decision and the same repair; on an in-place recovery the
@@ -328,17 +371,17 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
                        policy="paper", backend="sim", tracer=tracer)
 
     def setup():
-        est = _plan_estimates(cfg, sim, grid.world, bucket_bytes)
+        est = _plan_estimates(cfg, sim, grid.world, bucket_bytes, model)
         info(f"{cfg.name} on {dev}: {steps} steps of {batch} x {seq} "
-             f"tokens, comm '{comm}' over a {grid.pods}x{grid.data} grid "
-             f"of {grid.world} rank(s)"
+             f"tokens, comm '{comm}' over a {grid.pods}x{grid.data}"
+             f"x{model} grid of {grid.world * model} rank(s)"
              + (f", backend {grid.backend}, collectives staged through "
                 f"host memory: {'yes' if grid.staging == 'host' else 'no'}"
-                if grid.world > 1 else "")
+                if grid.world * model > 1 else "")
              + f"; grad sync est {est['est_ms']:.1f} ms/step, "
              f"{est['slow_crossings']} slow-link crossing(s)",
              event="setup", arch=cfg.name, device=str(dev),
-             world=grid.world, mode=comm, backend=grid.backend,
+             world=grid.world, model=model, mode=comm, backend=grid.backend,
              staging=grid.staging, est_ms=est["est_ms"],
              slow_crossings=est["slow_crossings"])
         if "bucketed" in est:
@@ -358,8 +401,10 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     restored = []
     latest = ckpt.latest_step() if ckpt else None
     if latest is not None:
-        params, opt, _ = _restore(ckpt, latest, params, opt_cfg, grid,
-                                  ckpt_pods, (), dev)
+        params, opt, state = _restore(ckpt, latest, params, opt_cfg, grid,
+                                      ckpt_pods, (), dev, cfg, mdims)
+        if digests:
+            restored.append({"step": latest, "digest": _digest(state)})
         start = latest + 1
         info(f"resumed from checkpoint step {latest}", event="resume",
              step=latest)
@@ -370,6 +415,7 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     tokens: list[int] = []
     wire: list[int] = []
     staged: list[int] = []
+    tp_calls: list[dict] = []
     saves: list[dict] = []
     recovery_s: list[float] = []
     recoveries = repairs = 0
@@ -456,7 +502,7 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
             recovery_s.append(time.monotonic() - t0)
 
         # ---- the step (with grad accumulation on a shrunk grid) ------- #
-        if profile and grid.rank == 0 and step_i == start + 1:
+        if profile and _lead(grid) and step_i == start + 1:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -478,6 +524,8 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
             rows += len(hb["tokens"])
         losses.append(loss_acc / accum)
         step_ms.append((time.monotonic() - ts) * 1e3)
+        if tp is not None:
+            tp_calls.append(dict(step_fn.tp_calls))
         tokens.append(rows * seq)
         wire.append((grid.slow.wire_bytes if grid.slow else 0) - w0)
         staged.append(grid.staged_bytes - s0)
@@ -489,7 +537,7 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
         if ckpt and ckpt_every and step_i % ckpt_every == 0 \
                 and step_i > start:
             saves.append(_save(ckpt, step_i, params, opt, opt_cfg, grid,
-                               digests))
+                               cfg, mdims, digests))
             ckpt_pods = grid.pods
         if step_i % log_every == 0:
             info(f"step {step_i:5d} loss {losses[-1]:.4f} "
@@ -506,10 +554,13 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     if left_at is not None:
         return {"left": True, "left_at": left_at, "losses": losses,
                 "events": events, "launches": launches}
-    if orig_dp > 1:
-        every = [launches] * grid.world
-        if grid.world > 1:
-            dist.all_gather_object(every, launches, group=grid.dp.group)
+    if orig_dp * model > 1:
+        # every rank's, in rank order: the grid's data-parallel ranks, or
+        # with a model axis all the ranks
+        every = [launches] * grid.world * model
+        if len(every) > 1:
+            dist.all_gather_object(every, launches, group=grid.dp.group
+                                   if tp is None else None)
         launches = every
     steady = step_ms[1:]
     out = {"left": False, "rank": grid.rank, "losses": losses,
@@ -524,10 +575,13 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
            "accum": accum, "pods": grid.pods,
            "saves": saves, "restored": restored,
            "ckpt_writes": ckpt.writes if ckpt else [],
-           "world": grid.world, "mode": comm, "backend": grid.backend,
+           "world": grid.world, "model": model,
+           "model_rank": 0 if tp is None else tp.index, "mode": comm,
+           "backend": grid.backend,
            "staging": grid.staging, "staged_bytes": staged,
            "slow_wire_bytes": wire,
-           "slow_f32_bytes": _slow_f32_bytes(params, grid),
+           "slow_f32_bytes": _slow_f32_bytes(params, grid, mdims),
+           "tp_calls": tp_calls,
            "launches": launches, "plan": est}
     if prof is not None:
         prof.stop()
@@ -535,14 +589,16 @@ def _train_rank(arch, steps, pods, data, seq, batch, comm, zero1, ckpt_dir,
     return out
 
 
-def _plan_estimates(cfg, sim, world: int, bucket_bytes: float | None) -> dict:
+def _plan_estimates(cfg, sim, world: int, bucket_bytes: float | None,
+                    model: int = 1) -> dict:
     """The reference's planning plane (``train.py:115-146``): the
     gradient sync's postal-model estimate on ``sim`` (the grid's
-    data-parallel topology), its slow-link crossings and, with
+    data-parallel topology) for one model slice's share of the gradient
+    (1/``model`` of it), its slow-link crossings and, with
     ``bucket_bytes``, the bucketed, overlapped estimate through the async
     engine at the communication-bound threshold (backward compute ~ sync
     time, spread over layers by gradient size)."""
-    lbytes = layer_grad_bytes(cfg)
+    lbytes = layer_grad_bytes(cfg, model)
     slice_bytes = sum(lbytes)
     est_s = sim.allreduce(slice_bytes).time
     # rooted at the first member, as ``allreduce`` is: the reference's
@@ -560,13 +616,13 @@ def _plan_estimates(cfg, sim, world: int, bucket_bytes: float | None) -> dict:
     return out
 
 
-def _slow_f32_bytes(params, grid) -> int:
+def _slow_f32_bytes(params, grid, mdims=None) -> int:
     """The bytes one rank would put on the slow axis per step with f32:
-    its 1/|data| shard of every leaf (the whole leaf where no dim
-    divides); 0 with one pod."""
+    its 1/|data| shard of every leaf of its model shard (the whole leaf
+    where no dim divides); 0 with one pod."""
     if grid.slow is None:
         return 0
-    axes = tree_leaves(scatter_axes(params, grid.data))
+    axes = tree_leaves(scatter_axes(params, grid.data, mdims))
     return sum(4 * l.numel() // (1 if ax is None else grid.data)
                for l, ax in zip(tree_leaves(params), axes))
 
@@ -603,7 +659,7 @@ def main() -> None:
     ap.add_argument("--arch", default="gpt-100m")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--mesh", default="1x1x1",
-                    help="pods x data x model; the model axis must be 1")
+                    help="pods x data x model (P*D*M ranks)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch rows, split over the ranks")
@@ -644,7 +700,7 @@ def main() -> None:
                 log_every=args.log_every, profile=args.profile,
                 dist_backend=args.dist_backend, log_json=args.log_json,
                 bucket_mb=args.bucket_mb, trace=args.trace)
-    if out["left"] or out["rank"] != 0:
+    if out["left"] or out["rank"] != 0 or out["model_rank"] != 0:
         return
     tps = out["tokens_per_s"]
     log.info(f"done: final_loss={out['final_loss']:.4f} "

@@ -24,7 +24,12 @@ packages read each other's checkpoints.
 ``shard_params`` cuts rank m's share of a model axis out of the full
 parameters (by ``sharding.param_model_dims``), so ``params_from_jax``
 followed by it carries the reference's parameters to each rank;
-``unshard_params`` puts the ranks' shares back together.
+``unshard_params`` puts the ranks' shares back together, and
+``gather_shards`` does so over the ranks' model axis.  All three take the
+port's per-layer tree, the stacked layout, or an optimiser state of the
+stacked layout (m, v, master, the step, and the EF residual, whose rows
+lead ``(n_slow,)`` ahead of the shard).  ``model_dims`` gives the stacked
+layout's dims, the ``model_dims`` of ``optim.adamw``.
 """
 from __future__ import annotations
 
@@ -34,12 +39,13 @@ import torch
 from ..kernels.backend import resolve_device
 from ..tree import tree_map
 from .config import ModelConfig
-from .sharding import cut_shard, param_model_dims
+from .sharding import RUN_DIM, cut_shard, param_model_dims
 from .transformer import port_check
 
 __all__ = ["stack_runs", "unstack_runs", "from_numpy", "to_numpy",
            "params_from_jax", "params_to_jax", "cache_from_jax",
-           "cache_to_numpy", "shard_params", "unshard_params"]
+           "cache_to_numpy", "model_dims", "shard_params", "unshard_params",
+           "gather_shards"]
 
 
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -172,27 +178,82 @@ def cache_to_numpy(cache: list) -> list:
     return to_numpy(cache)
 
 
-def shard_params(params: dict, cfg: ModelConfig, model: int,
-                 m: int) -> dict:
-    """Rank ``m``'s share of the port's full ``params`` on a model axis of
-    ``model`` ranks: each leaf cut along its ``param_model_dims`` dim (a
-    copy of its own), replicated leaves kept whole."""
-    port_check(cfg)
-    return tree_map(lambda t, d: cut_shard(t, d, model, m), params,
-                    param_model_dims(params, model, cfg))
-
-
-def unshard_params(shards: list, cfg: ModelConfig) -> dict:
-    """The full parameters from every rank's share (``shards[m]`` of
-    :func:`shard_params`), the inverse of it.  The dims are decided on the
-    full shapes, which ``cfg`` gives (``init_model`` under a fake-tensor
-    mode allocates nothing)."""
+def _full_dims(cfg: ModelConfig, model: int) -> dict:
+    """``param_model_dims`` of ``cfg``'s full per-layer parameters, decided
+    on their shapes (``init_model`` under a fake-tensor mode allocates
+    nothing)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from . import transformer as T
 
-    port_check(cfg)
     with FakeTensorMode():
         full = T.init_model(cfg, seed=0, device="cpu")
+    return param_model_dims(full, model, cfg)
+
+
+def _stacked(dims: dict) -> dict:
+    """A layer's dims as its run's stacked leaf's: one leading dim."""
+    return {k: _stacked(v) if isinstance(v, dict)
+            else {-1: -1, RUN_DIM: 0}.get(v, v + 1) for k, v in dims.items()}
+
+
+def model_dims(cfg: ModelConfig, model: int) -> dict:
+    """The model-sharded dim of every leaf of ``cfg``'s parameters in the
+    stacked layout (-1: replicated), for a model axis of ``model`` ranks."""
+    port_check(cfg)
+    dims = _full_dims(cfg, model)
+    out = {k: v for k, v in dims.items() if k not in ("layers", "enc")}
+    i, out["runs"] = 0, []
+    for _, n in cfg.runs():
+        out["runs"].append(_stacked(dims["layers"][i]))
+        i += n
+    if cfg.enc_dec:
+        out["enc"] = {"runs": [_stacked(dims["enc"]["layers"][0])],
+                      "final_norm": dims["enc"]["final_norm"]}
+    return out
+
+
+def _tree_dims(tree: dict, cfg: ModelConfig, model: int) -> dict:
+    """The model-sharded dim of each leaf of ``tree``: per-layer
+    parameters, stacked parameters, or an optimiser state of the stacked
+    layout (the EF rows' leading dim shifts theirs; the step is whole)."""
+    if "layers" in tree:
+        return _full_dims(cfg, model)
+    if "master" not in tree:
+        return model_dims(cfg, model)
+    dims = model_dims(cfg, model)
+    out = {k: dims for k in ("m", "v", "master")}
+    out["step"] = -1
+    if "ef" in tree:
+        out["ef"] = tree_map(lambda d: d + 1 if d >= 0 else d, dims)
+    return out
+
+
+def shard_params(params: dict, cfg: ModelConfig, model: int,
+                 m: int) -> dict:
+    """Rank ``m``'s share of the port's full ``params`` (or of a stacked
+    tree or optimiser state, see :func:`_tree_dims`) on a model axis of
+    ``model`` ranks: each leaf cut along its model-sharded dim (a copy of
+    its own), replicated leaves kept whole."""
+    port_check(cfg)
+    return tree_map(lambda t, d: cut_shard(t, d, model, m), params,
+                    _tree_dims(params, cfg, model))
+
+
+def unshard_params(shards: list, cfg: ModelConfig) -> dict:
+    """The full tree from every rank's share (``shards[m]`` of
+    :func:`shard_params`), the inverse of it.  The dims are decided on the
+    full shapes, which ``cfg`` gives."""
+    port_check(cfg)
     return tree_map(lambda d, *ts: ts[0] if d < 0 else torch.cat(ts, d),
-                    param_model_dims(full, len(shards), cfg), *shards)
+                    _tree_dims(shards[0], cfg, len(shards)), *shards)
+
+
+def gather_shards(tree: dict, cfg: ModelConfig, tp) -> dict:
+    """:func:`unshard_params` over the model axis ``tp`` (a
+    ``launch.mesh.Axis``; None: ``tree`` itself): each rank's share
+    all-gathered along its dim, the full tree on every rank."""
+    if tp is None:
+        return tree
+    return tree_map(lambda t, d: t if d < 0 else tp.all_gather(t, d), tree,
+                    _tree_dims(tree, cfg, tp.size))

@@ -209,7 +209,12 @@ def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
     optional q/k norm, rope, attention, out projection).  ``kv_src``: the
     encoder's output for cross-attention, which takes no rope and no
     causal mask.  With ``tp``, this rank's heads and the partial sum of
-    its ``wo`` rows."""
+    its ``wo`` rows; the q/k norms' weights, replicated but read on this
+    rank's heads only, go through ``tp.copy_to``, so that a backward sums
+    their gradient over the axis."""
+    if tp is not None and "q_norm" in p:
+        p = dict(p, q_norm=tp.copy_to(p["q_norm"]),
+                 k_norm=tp.copy_to(p["k_norm"]))
     cfg = local_config(cfg, tp)
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, kv_src)

@@ -34,7 +34,8 @@ __all__ = ["NOT_PORTED_TP", "NOT_PORTED_TP_ARCH", "RUN_DIM",
            "layer_model_dims", "cut_shard", "tp_check", "dp_axes",
            "batch_pspec"]
 
-NOT_PORTED_TP = "ROADMAP.md, Queue 1 item 5: training on a model axis"
+NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 5: fail_at and elastic recovery "
+                 "of training on a model axis")
 NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: the recurrent and "
                       "enc-dec families on a model axis")
 
@@ -146,8 +147,8 @@ def cut_shard(t, dim: int, model: int, m: int):
 
 
 def tp_check(cfg: ModelConfig, model_size: int) -> None:
-    """Raise NotImplementedError where the port cannot serve ``cfg`` on a
-    model axis of ``model_size`` ranks: the recurrent and enc-dec families,
+    """Raise NotImplementedError where the port cannot serve or train
+    ``cfg`` on a model axis of ``model_size`` ranks: the recurrent and enc-dec families,
     and a head, expert, feature or vocabulary count the axis does not
     divide (where the reference's flat-dim split or its fallback would cut
     inside a head or an expert, which GSPMD absorbs and the port does

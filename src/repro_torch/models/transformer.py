@@ -37,6 +37,19 @@ reduces inside its expert-parallel block.  Caches hold this rank's KV
 heads, but the dense cache's sequence dim is split over the axis where M
 divides it (the reference's sequence-parallel decode).  Attention and MLP
 stacks only (``sharding.tp_check``).
+
+Training runs on a model axis too (the reference's GSPMD forward and
+backward over ``model``), with the axis's differentiated collectives
+(``launch.mesh.Axis.copy_to``/``reduce_from``): ``reduce_from`` at the
+embedding's lookup sum and at every row-parallel sum, ``copy_to`` on the
+normed input of each attention and MLP sublayer and of the head, and on
+the q/k norms' weights, replicated leaves that each rank reads on its own
+heads only (the other replicated leaves of a trained config, the RMS
+norms, act on replicated activations ahead of a ``copy_to``, so their
+gradients are whole on every rank).  The loss is a vocab-parallel cross-entropy: each rank's head
+columns give its logits, and the max over the axis (detached), one sum of
+the exponentials and of the gold logit from the rank that owns the
+label's column give the loss; the (B, S, V) logits are never gathered.
 """
 from __future__ import annotations
 
@@ -51,8 +64,8 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
-from .sharding import (NOT_PORTED_TP, cut_shard, layer_model_dims,
-                       param_model_dims, tp_check)
+from .sharding import (cut_shard, layer_model_dims, param_model_dims,
+                       tp_check)
 
 __all__ = ["NOT_PORTED_TRAIN", "NOT_PORTED_TRAIN_ARCH", "port_check",
            "train_check", "init_model", "embed_inputs", "encoder_fwd",
@@ -177,7 +190,8 @@ def embed_inputs(params, cfg: ModelConfig, inputs: dict,
     product, as JAX does with a weakly typed scalar.  On a model axis
     ``tp`` the embedding holds this rank's rows of the vocabulary: the ids
     outside them look up zeros, and one all-reduce adds the ranks' rows
-    (each id has one owner, so the sum is exact)."""
+    (each id has one owner, so the sum is exact; the gradient of a row
+    is its owner's)."""
     emb, ids = params["embed"], inputs["tokens"]
     if tp is None:
         x = emb[ids]
@@ -188,7 +202,7 @@ def embed_inputs(params, cfg: ModelConfig, inputs: dict,
         x = emb[loc.clamp(0, n - 1)] * own[..., None].to(emb.dtype)
     x = x * x.new_tensor(math.sqrt(cfg.d_model))
     if tp is not None:
-        x = tp.psum(x)
+        x = tp.reduce_from(x)
     if "embeds" in inputs:
         x = torch.cat([inputs["embeds"].to(x.dtype), x], 1)
     return x
@@ -206,8 +220,15 @@ def _logits(params, cfg: ModelConfig, x, tp=None) -> torch.Tensor:
 
 
 def _psum(tp, y):
-    """A row-parallel partial sum, all-reduced over the model axis."""
-    return y if tp is None else tp.psum(y)
+    """A row-parallel partial sum, all-reduced over the model axis (the
+    gradient passes through to each rank's part)."""
+    return y if tp is None else tp.reduce_from(y)
+
+
+def _copy(tp, x):
+    """A replicated ``x`` entering this rank's shard of the work: its
+    gradient, a partial sum on each rank, summed over the model axis."""
+    return x if tp is None else tp.copy_to(x)
 
 
 def _runs(params, cfg: ModelConfig):
@@ -230,7 +251,7 @@ def _ffn(p, cfg: ModelConfig, x, tp=None):
     xn = L.rmsnorm(x, p["norm2"])
     if cfg.moe:
         return L.moe_fwd(p["mlp"], cfg, xn, tp=tp)
-    return _psum(tp, L.mlp_fwd(p["mlp"], cfg, xn))
+    return _psum(tp, L.mlp_fwd(p["mlp"], cfg, _copy(tp, xn)))
 
 
 def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
@@ -243,13 +264,14 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
         if cfg.parallel_block and enc_out is None and not cfg.moe:
             # parallel residual: both sublayers read x, and their partial
             # sums are added before one all-reduce (transformer.py:84-91)
-            xn = L.rmsnorm(x, p["norm1"])
+            xn = _copy(tp, L.rmsnorm(x, p["norm1"]))
             return x + _psum(tp, L.attention_fwd(
                 p["attn"], cfg, xn, causal=causal, window=window, tp=tp)
-                + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(x, p["norm2"])))
+                + L.mlp_fwd(p["mlp"], cfg,
+                            _copy(tp, L.rmsnorm(x, p["norm2"]))))
         x = x + _psum(tp, L.attention_fwd(
-            p["attn"], cfg, L.rmsnorm(x, p["norm1"]), causal=causal,
-            window=window, tp=tp))
+            p["attn"], cfg, _copy(tp, L.rmsnorm(x, p["norm1"])),
+            causal=causal, window=window, tp=tp))
     if enc_out is not None:
         x = x + L.attention_fwd(p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]),
                                 kv_src=enc_out)
@@ -271,14 +293,12 @@ def trunk_fwd(params, cfg: ModelConfig, inputs: dict,
     """Embeddings (``embeds`` prefix included), the encoder for enc-dec
     (``src_embeds``), the layer stack (each layer rematted) and the final
     norm -> hidden states (B, S, D).  RWKV-6 is refused.  On a model axis
-    ``tp``, the forward only (no gradient through the collectives)."""
+    ``tp``, this rank's shard of the work, every rank's hidden states
+    equal; a gradient flows through the axis's collectives."""
     port_check(cfg)
     _wkv_grad_check(cfg)
     if tp is not None:
         tp_check(cfg, tp.size)
-        if torch.is_grad_enabled():
-            raise NotImplementedError(f"{cfg.name}: a gradient through the "
-                                      f"model axis ({NOT_PORTED_TP})")
     enc_out = None
     if cfg.enc_dec:
         enc_out = encoder_fwd(params, cfg, inputs["src_embeds"])
@@ -296,33 +316,50 @@ def model_fwd(params, cfg: ModelConfig, inputs: dict,
     return _logits(params, cfg, trunk_fwd(params, cfg, inputs, tp), tp)
 
 
-def _ce_chunk(x, labels, head):
-    """Cross-entropy partial sums (nll, count) for one sequence chunk."""
+def _ce_chunk(x, labels, head, tp=None):
+    """Cross-entropy partial sums (nll, count) for one sequence chunk.  On
+    a model axis ``head`` holds this rank's vocabulary columns: the max
+    over the axis (detached: the log-sum-exp does not depend on it), then
+    one sum over the axis of each row's exponentials and of its gold
+    logit, which only the rank owning the label's column contributes."""
     logits = (x @ head.to(x.dtype)).float()
-    lse = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return ((lse - gold) * mask).sum(), mask.sum()
+    if tp is None:
+        lse = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp_min(0)[..., None])[..., 0]
+        return ((lse - gold) * mask).sum(), mask.sum()
+    n = logits.shape[-1]
+    loc = labels - tp.index * n
+    own = (loc >= 0) & (loc < n)
+    m = tp.pmax(logits.detach().amax(-1))
+    gold = torch.gather(logits, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
+    sums = tp.reduce_from(torch.stack(
+        [torch.exp(logits - m[..., None]).sum(-1), gold * own], -1))
+    lse = m + torch.log(sums[..., 0])
+    return ((lse - sums[..., 1]) * mask).sum(), mask.sum()
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict,
-            ce_chunk: int = 512) -> torch.Tensor:
+def loss_fn(params, cfg: ModelConfig, batch: dict, ce_chunk: int = 512,
+            tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy over the batch (f32 scalar).
 
     The unembedding and softmax run over sequence chunks of ``ce_chunk``,
-    each rematted, so the (B, S, V) logits are never held whole."""
+    each rematted, so the (B, S, V) logits are never held whole.  On a
+    model axis ``tp`` (``params`` this rank's shard), the vocab-parallel
+    cross-entropy of :func:`_ce_chunk`; every rank returns the same loss."""
     train_check(cfg)
-    x = trunk_fwd(params, cfg, batch)
+    x = _copy(tp, trunk_fwd(params, cfg, batch, tp))
     labels = batch["labels"]
     head = _head(params, cfg)
     S = x.shape[1]
     if S % ce_chunk or S <= ce_chunk:
-        nll, cnt = _ce_chunk(x, labels, head)
+        nll, cnt = _ce_chunk(x, labels, head, tp)
         return nll / torch.clamp_min(cnt, 1.0)
     nll = cnt = 0.0
     for s0 in range(0, S, ce_chunk):
         dn, dc = _remat(_ce_chunk, x[:, s0:s0 + ce_chunk],
-                        labels[:, s0:s0 + ce_chunk], head)
+                        labels[:, s0:s0 + ce_chunk], head, tp)
         nll, cnt = nll + dn, cnt + dc
     return nll / torch.clamp_min(cnt, 1.0)
 

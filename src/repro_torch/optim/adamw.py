@@ -16,6 +16,19 @@ shard, the counterpart of ``opt_manual_specs``, and ``gather_opt_state``
 puts the shards back together into the global state (for a checkpoint).
 One rank (no grid) is the identity sync.
 
+On a model axis (``grid.tp``) each rank holds its model shard of the
+parameters, gradients and state, as the reference's update sees them
+inside its inner ``shard_map`` that is manual over ``model``:
+``model_dims`` (a tree of ints, the model-sharded dim of each leaf, -1
+where it is replicated) keeps the scatter axes off the model-sharded dim,
+the sync runs over the data-parallel axes of the rank's model index
+(beside the model shards, never across them), and the global norm adds
+its squares over the model axis as well, as the reference's does:
+a leaf replicated over ``model`` counts once on each model rank.
+``shard_opt_state`` and ``gather_opt_state`` go between a model shard's
+state and its data-parallel shards; ``models.convert.shard_params`` and
+``gather_shards`` go between the global state and the model shards.
+
 The trees are walked leaf by leaf, so the scatter axes, the int8 blocks
 and the EF rows follow the layout of the tree given; the train step passes
 the reference's stacked-run layout (``models.convert.stack_runs``), so
@@ -93,18 +106,24 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos).float()
 
 
-def scatter_axes(params: Any, n: int) -> Any:
+def scatter_axes(params: Any, n: int, model_dims: Any | None = None) -> Any:
     """For each leaf: the dim to reduce-scatter over the fast axis (size
-    ``n``), the largest that ``n`` divides (the first of equals), or None
-    if none does.  The reference also avoids a model-sharded dim; the port
-    has no model axis."""
-    def pick(leaf):
+    ``n``), the largest that ``n`` divides (the first of equals) that is
+    not the leaf's model-sharded dim (``model_dims``, -1 for none), else
+    the largest that ``n`` divides, or None if none does.  Decided on the
+    shapes given: the train step gives the model shards, as the
+    reference's update sees them."""
+    def pick(leaf, mdim):
         shape = leaf.shape
-        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
-            if shape[i] % n == 0:
-                return i
+        order = sorted(range(len(shape)), key=lambda i: -shape[i])
+        for avoid_model in (True, False):
+            for i in order:
+                if shape[i] % n == 0 and (not avoid_model or i != mdim):
+                    return i
         return None
-    return tree_map(pick, params)
+    if model_dims is None:
+        model_dims = tree_map(lambda _: -1, params)
+    return tree_map(pick, params, model_dims)
 
 
 def _adamw_math(m, v, g, master, cfg: OptConfig, lr, t, decay_mask=1.0):
@@ -138,14 +157,17 @@ def init_opt_state(params: Any, cfg: OptConfig, n_slow: int = 1) -> dict:
     return state
 
 
-def shard_opt_state(opt: dict, params: Any, cfg: OptConfig,
-                    grid: Grid) -> dict:
-    """This rank's shard of the global optimiser state (the per-rank view
-    of the reference's ``opt_manual_specs``).  Under ZeRO-1 m, v and master
-    keep the rank's chunk along each leaf's scatter axis; otherwise they
-    are whole.  The EF residual keeps the rank's pod row and its chunk
-    along the scatter axis in both modes, shape ``(1,) + shard``."""
-    axes = scatter_axes(params, grid.data)
+def shard_opt_state(opt: dict, params: Any, cfg: OptConfig, grid: Grid,
+                    model_dims: Any | None = None) -> dict:
+    """This rank's shard of the optimiser state (the per-rank view of the
+    reference's ``opt_manual_specs``): ``opt`` is the global state, or on
+    a model axis the state of this rank's model shard (``params``, with
+    ``model_dims``; ``models.convert.shard_params`` cuts it).  Under
+    ZeRO-1 m, v and master keep the rank's chunk along each leaf's scatter
+    axis; otherwise they are whole.  The EF residual keeps the rank's pod
+    row and its chunk along the scatter axis in both modes, shape ``(1,) +
+    shard``."""
+    axes = scatter_axes(params, grid.data, model_dims)
     d, pod = grid.fast.index, 0 if grid.slow is None else grid.slow.index
 
     def chunk(t, ax, lead=0):
@@ -164,14 +186,16 @@ def shard_opt_state(opt: dict, params: Any, cfg: OptConfig,
     return out
 
 
-def gather_opt_state(opt: dict, params: Any, cfg: OptConfig,
-                     grid: Grid) -> dict:
-    """The global optimiser state from every rank's shard, on every rank:
-    the inverse of :func:`shard_opt_state`.  Under ZeRO-1 m, v and master
-    are all-gathered along each leaf's scatter axis over the fast axis
-    (the pods hold replicas); the EF rows are gathered over both axes
-    into ``(n_slow,) + param.shape``.  A collective over the grid."""
-    axes = scatter_axes(params, grid.data)
+def gather_opt_state(opt: dict, params: Any, cfg: OptConfig, grid: Grid,
+                     model_dims: Any | None = None) -> dict:
+    """The state of this rank's model shard (the global state without a
+    model axis) from every data-parallel rank's shard, on every rank: the
+    inverse of :func:`shard_opt_state`.  Under ZeRO-1 m, v and master are
+    all-gathered along each leaf's scatter axis over the fast axis (the
+    pods hold replicas); the EF rows are gathered over both axes into
+    ``(n_slow,) + shard``.  A collective over the grid's data-parallel
+    axes."""
+    axes = scatter_axes(params, grid.data, model_dims)
 
     def whole(t, ax, lead=0):
         return t if ax is None else grid.fast.all_gather(t, ax + lead)
@@ -227,18 +251,26 @@ def _update(grads, opt, cfg: OptConfig, scale, lr, t):
     return (tree_map(lambda _, r: r[i], grads, res) for i in range(3))
 
 
+def _model_sum(gn2, grid: Grid):
+    """The squared norm summed over the model axis, as the reference's
+    ``psum`` over ``model`` (``repro/optim/adamw.py:282,291``)."""
+    return gn2 if grid.tp is None else grid.tp.psum(gn2.reshape(1))[0]
+
+
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig,
-                  grid: Grid | None = None) -> tuple[Any, dict]:
+                  grid: Grid | None = None,
+                  model_dims: Any | None = None) -> tuple[Any, dict]:
     """Gradient sync over ``grid`` (one rank if None), global-norm clip and
     AdamW on the f32 master; returns (params cast back to their dtypes,
     opt).  Under ZeRO-1 the opt leaves are this rank's shards
-    (``shard_opt_state``)."""
+    (``shard_opt_state``).  On a model axis the trees are this rank's
+    model shards, ``model_dims`` their model-sharded dims."""
     grid = grid or Grid.single()
     data_size, dp_degree = grid.data, grid.world
     t = opt["step"] + 1
     lr = lr_at(cfg, opt["step"])
-    axes = scatter_axes(params, data_size)
+    axes = scatter_axes(params, data_size, model_dims)
     pick = lambda pairs, i: tree_map(lambda _, r: r[i], grads, pairs)
 
     if not cfg.sharded_state:
@@ -266,8 +298,8 @@ def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig,
                 gs = _sync_shard(g, ax, grid, cfg) / dp_degree
                 return gs if ax is None else grid.fast.all_gather(gs, ax)
             grads = tree_map(ml, grads, axes)
-        gn2 = sum(torch.dot(g.reshape(-1), g.reshape(-1))
-                  for g in tree_leaves(grads))
+        gn2 = _model_sum(sum(torch.dot(g.reshape(-1), g.reshape(-1))
+                             for g in tree_leaves(grads)), grid)
         new_m, new_v, new_w = _update(grads, opt, cfg, _clip_scale(gn2, cfg),
                                       lr, t)
         new_params = tree_map(lambda w, p: w.to(p.dtype), new_w, params)
@@ -294,7 +326,7 @@ def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig,
         s = torch.dot(g.reshape(-1), g.reshape(-1))
         return s if ax is not None else s / data_size
     gn2 = sum(tree_leaves(tree_map(sq, shards, axes)))
-    gn2 = grid.fast.psum(gn2.reshape(1))[0]
+    gn2 = _model_sum(grid.fast.psum(gn2.reshape(1))[0], grid)
     new_m, new_v, new_w = _update(shards, opt, cfg, _clip_scale(gn2, cfg),
                                   lr, t)
 

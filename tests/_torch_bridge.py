@@ -1,5 +1,6 @@
 """Move arrays between the JAX package and the PyTorch port through numpy,
-and run the reference per rank of a (pod, data) grid.
+and run the reference per rank of a (pod, data) or (pod, data, model)
+grid.
 
 bf16 crosses as its uint16 bit pattern (numpy has no bf16), so values
 arrive bit for bit.  TF32 is switched off for the port's f32 products, so
@@ -52,16 +53,37 @@ def cast_tree(tree, dtype):
     return jax.tree.map(lambda a: a.astype(dtype), tree)
 
 
-def vmap_ranks(fn):
+def vmap_ranks(fn, model: bool = False):
     """``fn`` per rank of a (pod, data) grid: inputs lead with (pods,
-    data) dims, and the collectives see axes "pod" and "data"."""
+    data) dims, and the collectives see axes "pod" and "data"; with
+    ``model``, of a (pod, data, model) grid, inputs leading with (pods,
+    data, model) and a third axis "model"."""
+    if model:
+        fn = jax.vmap(fn, axis_name="model")
     return jax.vmap(jax.vmap(fn, axis_name="data"), axis_name="pod")
 
 
-def rank_opt(opt, params, cfg, pods, data):
+def model_cut(a, dim, model, m, lead=0):
+    """Rank ``m``'s slice of ``a`` along its model dim ``dim`` (after
+    ``lead`` leading dims; ``dim`` < 0: replicated, ``a`` itself)."""
+    if dim < 0:
+        return a
+    n = a.shape[dim + lead] // model
+    return lax.slice_in_dim(a, m * n, (m + 1) * n, axis=dim + lead)
+
+
+def rank_opt(opt, params, cfg, pods, data, model=1, mdims=None):
     """The reference's global opt state cut per rank, stacked (pods, data,
-    ...) for the vmap: the shard_map in-specs of ``opt_manual_specs``."""
-    axes = scatter_axes(params, data)
+    ...) for the vmap: the shard_map in-specs of ``opt_manual_specs``.
+    With ``model`` > 1, each rank's model shard first (``mdims``, the
+    reference's ``model_dims_of``; the EF rows' leading dim shifts it),
+    stacked (pods, data, model, ...); the scatter axes are decided on the
+    model shards, as the reference's update decides them."""
+    if mdims is None:
+        mdims = jax.tree.map(lambda _: -1, params)
+    local = jax.tree.map(lambda a, md: model_cut(a, md, model, 0), params,
+                         mdims)
+    axes = scatter_axes(local, data, mdims)
 
     def cut(a, ax, d, lead=0):
         if ax is None:
@@ -69,15 +91,20 @@ def rank_opt(opt, params, cfg, pods, data):
         n = a.shape[ax + lead] // data
         return lax.slice_in_dim(a, d * n, (d + 1) * n, axis=ax + lead)
 
-    def per_rank(p, d):
+    def per_rank(p, d, m):
+        mc = lambda t, lead=0: jax.tree.map(
+            lambda a, md: model_cut(a, md, model, m, lead), t, mdims)
         o = dict(opt)
-        if cfg.sharded_state:
-            for k in ("m", "v", "master"):
-                o[k] = jax.tree.map(lambda a, ax: cut(a, ax, d), opt[k], axes)
+        for k in ("m", "v", "master"):
+            o[k] = mc(opt[k])
+            if cfg.sharded_state:
+                o[k] = jax.tree.map(lambda a, ax: cut(a, ax, d), o[k], axes)
         if cfg.error_feedback:
             o["ef"] = jax.tree.map(lambda a, ax: cut(a[p:p + 1], ax, d, 1),
-                                   opt["ef"], axes)
+                                   mc(opt["ef"], 1), axes)
         return o
-    rows = [[per_rank(p, d) for d in range(data)] for p in range(pods)]
-    return jax.tree.map(lambda *a: jnp.stack(a).reshape(
-        (pods, data) + a[0].shape), *[r for row in rows for r in row])
+    ranks = [per_rank(p, d, m) for p in range(pods) for d in range(data)
+             for m in range(model)]
+    lead = (pods, data) if model == 1 else (pods, data, model)
+    return jax.tree.map(lambda *a: jnp.stack(a).reshape(lead + a[0].shape),
+                        *ranks)

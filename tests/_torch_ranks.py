@@ -4,7 +4,8 @@
 function by its module path, so the bodies live here, in a module that
 imports neither JAX nor pytest: each spawned rank imports only torch and
 the port.  Every body takes the inputs of all ranks as numpy arrays,
-picks its own by rank (rank = pod * data + d), and returns numpy.
+picks its own by rank (rank = pod * data + d, or (pod * data + d) *
+model + m on a model axis), and returns numpy.
 """
 import numpy as np
 import torch
@@ -14,8 +15,12 @@ from repro_torch.core import collectives as C
 from repro_torch.core import compression
 from repro_torch.core.topology import Level, Topology
 from repro_torch.launch.mesh import grid_communicator, make_grid
-from repro_torch.launch.step import make_train_step
-from repro_torch.models.convert import from_numpy, to_numpy
+from repro_torch.launch.step import (device_batch, loss_and_grads,
+                                    make_train_step)
+from repro_torch.models.convert import (from_numpy, model_dims,
+                                        shard_params, stack_runs, to_numpy,
+                                        unstack_runs)
+from repro_torch.models.sharding import cut_shard
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_map
 
@@ -67,25 +72,65 @@ def collectives(rank, pods, data, x, ef, tree):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def updates(rank, pods, data, cases, params, opt, grads):
+def updates(rank, pods, data, cases, params, opt, grads, model=1,
+            mdims=None):
     """``apply_updates`` for each case, a dict of ``OptConfig`` fields and
     a gradient scale: three steps from the global state ``opt[case]`` with
     this rank's gradients ``scale * grads[step]`` (leaves (pods, data,
-    ...)); returns the params and this rank's opt shard after the last
-    step, per case."""
-    grid = make_grid(pods, data, CPU)
-    pod, d = divmod(rank, data)
+    ...), or (pods, data, model, ...) of the model shards); returns the
+    params and this rank's opt shard after the last step, per case.  On a
+    model axis (``model`` > 1) the params and state are cut to this
+    rank's model shard first, along ``mdims``."""
+    grid = make_grid(pods, data, CPU, model=model)
+    cell, m = divmod(rank, model)
+    pod, d = divmod(cell, data)
+    mine = (lambda a: a[pod, d]) if model == 1 else (lambda a: a[pod, d, m])
+    if mdims is None:
+        mdims = tree_map(lambda _: -1, params)
+
+    def mcut(tree, lead=0):
+        return tree_map(lambda t, md: cut_shard(
+            t, md + lead if md >= 0 else -1, model, m), tree, mdims)
     out = []
     for i, (kw, scale) in enumerate(cases):
         cfg = adamw.OptConfig(**kw)
-        p = from_numpy(params, device=CPU)
-        o = adamw.shard_opt_state(from_numpy(opt[i], device=CPU), p, cfg,
-                                  grid)
+        p = mcut(from_numpy(params, device=CPU))
+        o = from_numpy(opt[i], device=CPU)
+        o = dict(o, **{k: mcut(o[k]) for k in ("m", "v", "master")})
+        if "ef" in o:
+            o["ef"] = mcut(o["ef"], 1)
+        o = adamw.shard_opt_state(o, p, cfg, grid, mdims)
         for g in grads:
-            mine = from_numpy(tree_map(lambda a: np.float32(scale)
-                                       * a[pod, d], g), device=CPU)
-            p, o = adamw.apply_updates(p, mine, o, cfg, grid)
+            gr = from_numpy(tree_map(lambda a: np.float32(scale) * mine(a),
+                                     g), device=CPU)
+            p, o = adamw.apply_updates(p, gr, o, cfg, grid, mdims)
         out.append(to_numpy({"params": p, "opt": o}))
+    return out
+
+
+def _trajectory(grid, cfg, modes, params, batches, opt_kw=None):
+    """The losses of the train step on ``grid`` for each comm mode (ZeRO-1
+    where the mode is not flat), from ``params`` (the global stacked layout,
+    numpy, cut to this rank's model shard) on the global host batches."""
+    tp = grid.tp
+    out = {}
+    for mode in modes:
+        opt_cfg = adamw.OptConfig(**{
+            "comm_mode": mode, "lr": 1e-3,
+            "warmup_steps": 20, "total_steps": len(batches),
+            **(opt_kw or {})})
+        p = from_numpy(params, device=CPU)
+        if tp is not None:
+            p = shard_params(p, cfg, tp.size, tp.index)
+        step = make_train_step(cfg, opt_cfg, grid, device=CPU)
+        mdims = None if tp is None else model_dims(cfg, tp.size)
+        o = adamw.shard_opt_state(adamw.init_opt_state(
+            p, opt_cfg, n_slow=grid.pods), p, opt_cfg, grid, mdims)
+        losses = []
+        for b in batches:
+            p, o, loss = step(p, o, b)
+            losses.append(loss.item())
+        out[mode] = losses
     return out
 
 
@@ -93,21 +138,8 @@ def trajectory(rank, pods, data, cfg, modes, params, batches):
     """The train step of ``cfg`` for each comm mode: three steps from
     ``params`` (the reference's stacked layout, numpy) on the global host
     batches; returns the losses per mode."""
-    grid = make_grid(pods, data, CPU)
-    out = {}
-    for mode in modes:
-        opt_cfg = adamw.OptConfig(comm_mode=mode, lr=1e-3, warmup_steps=20,
-                                  total_steps=len(batches))
-        p = from_numpy(params, device=CPU)
-        o = adamw.shard_opt_state(
-            adamw.init_opt_state(p, opt_cfg, n_slow=pods), p, opt_cfg, grid)
-        step = make_train_step(cfg, opt_cfg, grid, device=CPU)
-        losses = []
-        for b in batches:
-            p, o, loss = step(p, o, b)
-            losses.append(loss.item())
-        out[mode] = losses
-    return out
+    return _trajectory(make_grid(pods, data, CPU), cfg, modes, params,
+                       batches)
 
 
 def _tree_ops(run, comm, roots, x, g, sc):
@@ -415,4 +447,82 @@ def tp_ranks(rank, model, cases, sp_cases):
         out[f"sp{i}/o"] = o.numpy()
         out[f"sp{i}/k"] = k_loc.float().numpy()
     out["staged_bytes"] = np.array(grid.staged_bytes)
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# Training on a model axis
+# ---------------------------------------------------------------------- #
+
+def _pair_ops(tp, xs, cs):
+    """``copy_to`` and ``reduce_from`` on this rank's inputs, each through
+    a backward: ``reduce_from(xs[m])`` against the shared weights
+    ``cs[0]``, and ``copy_to`` of the shared ``xs[0]`` against this rank's
+    weights ``cs[m]``; returns the forwards, the gradients and the axis's
+    counters."""
+    m = tp.index
+    c0 = (tp.calls, tp.bwd_calls)
+    x = _t(xs[m]).requires_grad_(True)
+    y = tp.reduce_from(x)
+    (y * _t(cs[0])).sum().backward()
+    u = _t(xs[0]).requires_grad_(True)
+    z = tp.copy_to(u)
+    (z * _t(cs[m])).sum().backward()
+    return {"reduce_y": y.detach().numpy(), "reduce_grad": x.grad.numpy(),
+            "copy_z": z.detach().numpy(), "copy_grad": u.grad.numpy(),
+            "calls": np.array([tp.calls - c0[0], tp.bwd_calls - c0[1]])}
+
+
+def _ce(tp, x, labels, head):
+    """The vocab-parallel cross-entropy (``transformer._ce_chunk``) of
+    this rank's head columns and its gradients: the nll sum, the count,
+    the input's gradient and this rank's columns' gradient."""
+    from repro_torch.models import transformer as T
+
+    n = head.shape[1] // tp.size
+    xt = _t(x).requires_grad_(True)
+    h = _t(head[:, tp.index * n:(tp.index + 1) * n]).requires_grad_(True)
+    nll, cnt = T._ce_chunk(tp.copy_to(xt), torch.from_numpy(labels), h, tp)
+    (nll / cnt).backward()
+    return {"nll": nll.detach().numpy(), "cnt": cnt.numpy(),
+            "x_grad": xt.grad.numpy(), "head_grad": h.grad.numpy()}
+
+
+def tp_train(rank, pods, data, model, pair, ce, cases, traj=None):
+    """This rank of a (pods x data x model) grid of gloo ranks on the CPU.
+
+    ``pair`` (xs, cs) for :func:`_pair_ops`, ``ce`` (x, labels, head) for
+    :func:`_ce`; on the first model group, for each case ``(name, cfg,
+    params, batch)`` (the full f32 parameters in the stacked layout,
+    numpy) the loss and gradients of this rank's model shard
+    (``loss_and_grads``) and the model axis's collectives; with ``traj``
+    (cfg, runs, batches): for each run ``(name, modes, opt_kw, params,
+    again)`` the losses of the train step on this grid, then the runs
+    marked ``again`` on a (pods x data x 1) grid of the model index 0
+    ranks (``make_grid(members=)``), under ``"grid1/" + name``."""
+    grid = make_grid(pods, data, CPU, model=model)
+    tp = grid.tp
+    out = {"pair": _pair_ops(tp, *pair), "ce": _ce(tp, *ce)}
+    for name, cfg, params, batch in cases if grid.rank == 0 else ():
+        p = shard_params(unstack_runs(from_numpy(params, device=CPU), cfg),
+                         cfg, model, tp.index)
+        calls = {}
+        loss, grads = loss_and_grads(p, cfg, device_batch(batch, CPU), tp,
+                                     calls)
+        out[name] = {"loss": loss.numpy(),
+                     "grads": to_numpy(stack_runs(grads, cfg)),
+                     "calls": calls}
+    if traj is not None:
+        cfg, runs, batches = traj
+        for name, modes, opt_kw, params, _ in runs:
+            out[name] = _trajectory(grid, cfg, modes, params, batches,
+                                    opt_kw)
+        members = [r for r in range(pods * data * model) if r % model == 0]
+        if rank in members:
+            sub = make_grid(pods, data, CPU, members=members)
+            for name, modes, opt_kw, params, again in runs:
+                if again:
+                    out["grid1/" + name] = _trajectory(
+                        sub, cfg, modes, params, batches, opt_kw)
+            sub.barrier()
     return out

@@ -466,6 +466,37 @@ def test_elastic_grid_on_card(dev, tmp_path):
         assert rank["quantize_ef_int8"] == rank["dequantize_int8"] == 30
 
 
+def test_train_on_a_model_axis_on_card(dev):
+    """``train --mesh 2x1x2 --comm multilevel_compress`` on the card: four
+    gloo ranks share it, each with its model shard, the model axis's
+    collectives staged through host memory; with f32 weights the losses
+    within 1e-4 (relative, chip_smoke's phase 25c) of the same grid's on
+    the CPU, the same model-axis collectives on each step, and every rank
+    launching the flash kernels on its heads and the fused EF and dequant
+    kernels once per stacked leaf a step."""
+    from repro_torch.models.convert import stack_runs, to_numpy
+
+    cfg = get_config("gpt_100m", smoke=True)
+    params = to_numpy(stack_runs(_f32(T.init_model(cfg, seed=0,
+                                                   device="cpu"), "cpu"),
+                                 cfg))
+    kw = dict(steps=3, mesh_spec="2x1x2", seq=64, batch=4,
+              comm="multilevel_compress", smoke=True, init_params=params)
+    out = train("gpt-100m", device="cuda", **kw)
+    cpu = train("gpt-100m", device="cpu", **kw)
+    assert out["model"] == 2 and out["staging"] == "host"
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    np.testing.assert_allclose(out["losses"], cpu["losses"], rtol=1e-4)
+    assert all(c == out["tp_calls"][0] for c in out["tp_calls"])
+    assert all(b > 0 for b in out["staged_bytes"])
+    n = cfg.n_layers * 3
+    assert len(out["launches"]) == 4
+    for rank in out["launches"]:
+        assert rank["flash_fwd"] == 2 * n
+        assert rank["flash_bwd_dq"] == rank["flash_bwd_dkv"] == n
+        assert rank["quantize_ef_int8"] == rank["dequantize_int8"] == 30
+
+
 def _wkv_inputs(B, S, H, hd, decays, dev, seed=0):
     rng = np.random.default_rng(seed)
     r, k, v, n = (rng.standard_normal((B, S, H, hd)).astype(np.float32)

@@ -138,18 +138,21 @@ def test_model_axis_refusals_name_roadmap_item_5(arch, model, match):
 
 
 def test_a_gradient_through_the_model_axis_is_refused():
-    """Training on a model axis is not ported: the forward with a model
-    axis refuses autograd, naming the item that brings it."""
+    """Training on a model axis is ported for the attention stacks
+    (``tests/test_torch_tp_train.py``); the forward with a model axis
+    still refuses autograd where the axis does not divide the config's KV
+    heads (qwen3's smoke config has one) and for RWKV-6, naming the
+    items that bring them."""
     import types
 
-    cfg = configs.get_config("gpt_100m", smoke=True)
-    params = T.init_model(cfg, device="cpu")
     tp = types.SimpleNamespace(size=2, index=0)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 5: training on a model axis"):
-        T.trunk_fwd(params, cfg, {"tokens": torch.zeros((1, 4),
-                                                         dtype=torch.long)},
-                    tp)
+    toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    for arch, item in (("qwen3_4b", "Queue 1 item 5"),
+                       ("rwkv6_1p6b", "Queue 1 item 7")):
+        cfg = configs.get_config(arch, smoke=True)
+        params = T.init_model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=item):
+            T.trunk_fwd(params, cfg, toks, tp)
 
 
 def test_parse_mesh_gives_the_model_axis_and_dp_names_are_the_reference():

@@ -21,7 +21,7 @@ the reference's ``init_model(PRNGKey(0))`` weights carried over by
   under flat, multilevel and multilevel_compress against the reference
   composed per rank (``value_and_grad(loss_fn)`` on each rank's rows, then
   ``apply_updates`` under nested ``jax.vmap`` over (pod, data)), to 1e-4
-  relative; and the train driver on that grid.
+  relative; and ``train`` on that grid and on a model axis.
 """
 import dataclasses
 import functools
@@ -408,11 +408,12 @@ def test_grid_trajectory_matches_reference(mode):
         assert abs(g - w) <= 1e-4 * abs(w)
 
 
-def test_grid_trains_and_a_model_axis_raises():
+def test_grid_and_a_model_axis_train():
     """``train`` on a 2x2x1 grid spawns four gloo ranks on the CPU: finite
     losses, the int8 slow hop at about a quarter of the f32 bytes, and no
-    kernel launch (the CPU takes the plain versions).  A model axis is
-    refused, naming the ROADMAP item that brings it."""
+    kernel launch (the CPU takes the plain versions).  On 1x2x2 it trains
+    too, four ranks of two model groups, with finite losses; ``fail_at``
+    on a model axis is refused, naming the ROADMAP item that brings it."""
     out = train("gpt-100m", 2, mesh_spec="2x2x1", seq=32, batch=4,
                 smoke=True, device="cpu", comm="multilevel_compress")
     assert out["world"] == 4 and out["backend"] == "gloo"
@@ -422,8 +423,14 @@ def test_grid_trains_and_a_model_axis_raises():
     assert all(0.25 * f32 < w < 0.27 * f32 for w in out["slow_wire_bytes"])
     assert len(out["launches"]) == 4
     assert all(n == 0 for rank in out["launches"] for n in rank.values())
+    out = train("gpt-100m", 2, mesh_spec="1x2x2", seq=32, batch=4,
+                smoke=True, device="cpu")
+    assert out["world"] == 2 and out["model"] == 2
+    assert len(out["losses"]) == 2 and all(map(math.isfinite, out["losses"]))
+    assert len(out["launches"]) == 4
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train("gpt-100m", 1, mesh_spec="1x2x2", smoke=True, device="cpu")
+        train("gpt-100m", 2, mesh_spec="1x2x2", smoke=True, device="cpu",
+              fail_at={1: [0]})
 
 
 def test_stacked_params_unstack_to_views():
