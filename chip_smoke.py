@@ -9,8 +9,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. the build of every kernel under src/repro_torch/kernels/csrc (one nvcc
    per source, all started together), timed as set-up, and the count of
    tensor-core instructions (HMMA/HGMMA) in the SASS of each bf16 flash
-   kernel (the forward at every head dim 16-256, the two backward ones at
-   16-128), which must not be 0; the f32 kernels' counts are printed
+   kernel (the forward and the two backward ones at every head dim
+   16-256), which must not be 0; the f32 kernels' counts are printed
    beside them;
 3. the flash forward kernel against its plain PyTorch version on the card,
    at the shapes of the models the port serves and trains (gemma3-12b's
@@ -26,8 +26,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the roofline bound; one JSON line per shape with the design it ran
    (``mma_bf16`` or ``fma_f32``);
 4. the two flash backward kernels (dq, dk/dv) the same way, at the same
-   shapes but the serving-only regimes, where their head dim is one they
-   take (16-128): against the f32
+   shapes but the serving-only regimes, and at the local layers of
+   recurrentgemma-2b's training (1 x 4096, G 10, hd 256, window 2048) and
+   gemma3-12b in bf16 and f32 (hd 256: the bf16 kernels' column split,
+   the f32 kernels' 32-key tile): against the f32
    plain version, and in bf16 also against the plain version that mirrors
    the tensor-core kernels' bf16 rounding of P and dS, more tightly; the
    library call is SDPA's backward, timed on its own after one forward, in
@@ -223,7 +225,30 @@ Phases, each of which fails the run (nonzero exit, no result line):
    2x1x1 on the card: the losses within 1e-4 relative.  25d: qwen3-4b at
    full width cut to 4 layers (its 151,936-word tied head vocab-sharded,
    q/k norms, G 4 on each rank) on 1x1x2 in bf16, 2 steps of 2 x 1024:
-   finite losses, the first within 1e-2 relative of the one-rank run's.
+   finite losses, the first within 1e-2 relative of the one-rank run's;
+26. training the MoE, RG-LRU, enc-dec and frontend configs on one rank
+   through ``train``, bf16, random weights from a seed, the counters and
+   the MoE's host syncs set to 0 just before each and read just after:
+   26a recurrentgemma-2b at full width and depth (26 layers, d 2560,
+   vocab 256,000; 8 local layers of 10 heads of 256 on one KV head,
+   window 2048), 3 steps of 1 x 4096, so that the window bites in the
+   backward, the full-width path; 26b seamless-m4t-medium at full width
+   and depth (12 + 12 layers, the audio ``src_embeds``), 2 steps of 4 x
+   (512 frames + 512 tokens); 26c olmoe-1b-7b at full width cut to 4 of
+   16 layers, 2 steps of 2 x 1024; 26d pixtral-12b cut to 4 of 40 layers
+   with its 256 patch embeds, 2 steps of 2 x 1024: finite losses, a flash
+   launch per attention call and step (twice for the forward, remat),
+   two host reads of the routing a MoE layer and step; printed with the
+   parameter count, each step's wall ms and loss, peak memory.  26e, the
+   answer: the five configs at full width (recurrentgemma one pattern
+   period, so the f32 hd-256 backward runs; olmoe and pixtral one layer;
+   seamless 1 + 1; llama4-scout at its smoke size) in f32, one step of
+   ``make_train_step`` on the card and on the CPU: the loss within 1e-5
+   relative, Adam's first moment within 1e-4 of each leaf's largest.
+   26f: olmoe-1b-7b at full width cut to 1 layer, f32, on 2x2x1 ranks
+   sharing the card over gloo, ``multilevel_compress`` with ZeRO-1, 2
+   steps, against one rank on the card (1e-4 relative): #5 and #6 once a
+   stacked leaf (the expert leaves included) a step on each rank.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -290,10 +315,19 @@ SHAPES = [
      "bfloat16"),
     ("pixtral-12b", 4, 512, 512, 32, 8, 128, True, None, 0, "bfloat16"),
     ("llama4-scout", 4, 512, 512, 40, 8, 128, True, None, 0, "bfloat16"),
+    # the local layers at hd 256 in training (phase 26): the backward's
+    # column split (bf16) and 32-key tile (f32)
+    ("recurrentgemma-2b train", 1, 4096, 4096, 10, 1, 256, True, 2048, 0,
+     "bfloat16"),
+    ("recurrentgemma-2b train", 1, 4096, 4096, 10, 1, 256, True, 2048, 0,
+     "float32"),
+    ("gemma3-12b local", 1, 2048, 2048, 16, 8, 256, True, 1024, 0,
+     "float32"),
 ]
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
 TRAIN_SHAPE = 12        # the shape the training path gives all three
-BWD_SHAPES = 15         # phase 4 runs the first 15; the rest serve only
+# phase 4 runs these; the others serve only
+BWD_SHAPES = set(range(15)) | {21, 22, 23}
 TRAIN = dict(steps=5, seq=1024, batch=8)
 GRID_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
                   comm="multilevel_compress", dist_backend="gloo")
@@ -444,6 +478,36 @@ TP_QWEN = ("qwen3-4b", 4, "1x1x2", dict(steps=2, seq=1024, batch=2))
 # bf16: the first step's loss (before any update) of the model group
 # against one rank: tests/test_torch_train.py's bf16 loss tolerance
 TP_QWEN_TOL = 1e-2
+
+
+# phase 26: training the MoE, RG-LRU, enc-dec and frontend configs on one
+# rank.  26a-26d bf16 through ``train``: (arch, layers kept or None for
+# all, steps, sequence, batch); 26a is the full-width path
+FAMILY_TRAIN = {
+    "26a": ("recurrentgemma-2b", None, dict(steps=3, seq=4096, batch=1)),
+    "26b": ("seamless-m4t-medium", None, dict(steps=2, seq=1024, batch=4)),
+    "26c": ("olmoe-1b-7b", 4, dict(steps=2, seq=1024, batch=2)),
+    "26d": ("pixtral-12b", 4, dict(steps=2, seq=1024, batch=2)),
+}
+# 26e: f32, card against CPU, one step of ``make_train_step`` at full
+# width (arch, layers kept, or None for the smoke config): the loss within
+# 1e-5 relative, and Adam's first moment after the step (0.1 x the clipped
+# gradient) within 1e-4 of each leaf's largest |m| on the CPU, the CPU
+# tests' f32 gradient tolerance (tests/test_torch_train.py)
+FAMILY_ANSWER = [("recurrentgemma-2b", 3), ("olmoe-1b-7b", 1),
+                 ("pixtral-12b", 1), ("seamless-m4t-medium", 1),
+                 ("llama4-scout-17b-a16e", None)]
+FAMILY_ANSWER_INPUT = dict(seq=256, batch=1)
+FAMILY_LOSS_TOL = 1e-5
+FAMILY_M_TOL = 1e-4
+# llama4-scout routes each token to one expert, whose renormalised gate is
+# 1: its router's gradient is zero but for rounding, held on each side
+# under 1e-6 of the largest |m| (as tests/test_torch_train.py holds it)
+FAMILY_ZERO_TOL = 1e-6
+# 26f: olmoe-1b-7b at full width cut to 1 layer, f32, on 2x2x1 ranks
+# sharing the card over gloo against one rank on the card
+FAMILY_GRID = ("olmoe-1b-7b", 1, dict(steps=2, seq=256, batch=4))
+FAMILY_GRID_TOL = 1e-4     # relative, tests/test_torch_train.py's grid
 
 
 def fail(msg: str) -> None:
@@ -967,7 +1031,8 @@ def grid_answer_rank(rank, device):
         params, opt, loss = step(params, opt, pipe.host_batch(i))
         losses.append(loss.item())
         if i < 2:
-            m.append(opt["m"]["runs"][0]["attn"]["wq"].cpu().numpy())
+            # a copy: the next step updates the state in place
+            m.append(opt["m"]["runs"][0]["attn"]["wq"].cpu().numpy().copy())
     return {"losses": losses, "m_wq": m}
 
 
@@ -2826,6 +2891,212 @@ def tp_train_qwen(torch, train, get_config) -> list:
     return two["launches"]
 
 
+def family_train_case(torch, train, fa, kw, L, get_config, name) -> dict:
+    """26a-26d: ``train`` of one family's config in bf16 on one rank, the
+    counters and the MoE's host syncs set to 0 just before and read just
+    after: finite losses, a flash launch per attention call (encoder and
+    cross layers included) and step, twice for the forward (remat);
+    printed with the parameter count, each step's wall ms and loss, peak
+    memory and, for the MoE, the host syncs of the routing.  Returns the
+    launches."""
+    from repro_torch.launch.step import layer_grad_bytes
+
+    arch, n, kw_ = FAMILY_TRAIN[name]
+    cfg = cut(get_config, arch, n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(fa, kw)
+    L.moe_fwd.host_syncs = 0
+    t0 = time.perf_counter()
+    out = train(arch, config=cfg, device="cuda", log_every=1, **kw_)
+    wall = time.perf_counter() - t0
+    got, syncs = counts(fa, kw), L.moe_fwd.host_syncs
+    calls = flash_per_prefill(cfg) * kw_["steps"]
+    want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
+            "flash_bwd_dkv": calls, "wkv": 0}
+    steady = out["step_ms"][1:]
+    rec = {"arch": arch, "layers": cfg.n_layers,
+           "layers_full": get_config(arch).n_layers,
+           "enc_layers": cfg.enc_dec.n_enc_layers if cfg.enc_dec else 0,
+           "params": int(sum(layer_grad_bytes(cfg)) // 4), **kw_,
+           "dtype": "bfloat16", "losses": out["losses"],
+           "step_ms": out["step_ms"],
+           "steady_step_ms_mean": sum(steady) / len(steady),
+           "tokens_per_s": out["tokens_per_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": got, "head_dim": cfg.head_dim, "wall_s": wall}
+    if cfg.moe:
+        rec["moe_host_syncs"] = syncs
+        rec["moe_host_syncs_per_step"] = syncs / kw_["steps"]
+    print(json.dumps({f"family_train_{name}": rec}), flush=True)
+    if len(out["losses"]) != kw_["steps"] \
+            or not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"phase {name} ({arch}): losses {out['losses']}")
+    if got != want:
+        fail(f"phase {name} ({arch}): launched {got}, expected {want}")
+    # one routing a layer in the forward and one in the remat's re-run
+    if cfg.moe and syncs != 2 * cfg.n_layers * kw_["steps"]:
+        fail(f"phase {name} ({arch}): {syncs} host syncs of the routing")
+    torch.cuda.empty_cache()
+    return got
+
+
+def family_answer(torch, T, get_config) -> None:
+    """26e: each family's config at full width (one pattern period, one
+    layer, 1 + 1 for enc-dec, llama4-scout at its smoke size) in f32, one
+    step of ``make_train_step`` on the card and on the CPU from the same
+    weights and batch: the loss and Adam's first moment after the step."""
+    import numpy as np
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models.convert import stack_runs
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.tree import tree_map, tree_paths
+
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=1)
+    for arch, n in FAMILY_ANSWER:
+        cfg = get_config(arch, smoke=True) if n is None \
+            else cut(get_config, arch, n)
+        pipe = DataPipeline(cfg, ShapeSpec("answer", "train",
+                                           FAMILY_ANSWER_INPUT["seq"],
+                                           FAMILY_ANSWER_INPUT["batch"]))
+        full = stack_runs(tree_map(lambda t: t.float(), T.init_model(
+            cfg, seed=0, device="cpu")), cfg)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = tree_map(lambda t: t.to(dev), full)
+            opt = init_opt_state(params, opt_cfg)
+            step = make_train_step(cfg, opt_cfg, device=dev)
+            params, opt, loss = step(params, opt, pipe.host_batch(0))
+            runs[dev] = (loss.item(), [(k, m.cpu().numpy()) for k, m in
+                                       tree_paths(opt["m"])])
+            del params, opt
+            torch.cuda.empty_cache()
+        (l_gpu, m_gpu), (l_cpu, m_cpu) = runs["cuda"], runs["cpu"]
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        top = max(np.abs(c).max() for _, c in m_cpu)
+        m_rel, zero = 0.0, 0.0
+        for (name, g), (_, c) in zip(m_gpu, m_cpu):
+            if cfg.moe is not None and cfg.moe.top_k == 1 \
+                    and name.endswith("router"):
+                # one expert a token: its renormalised gate is 1, so the
+                # router's gradient is zero but for rounding on each side
+                zero = max(zero, float(max(np.abs(g).max(), np.abs(c).max())
+                                       / top))
+            else:
+                m_rel = max(m_rel, float(np.abs(g - c).max()
+                                         / max(np.abs(c).max(), 1e-30)))
+        print(json.dumps({"family_train_f32_card_vs_cpu": {
+            "arch": arch, "layers": cfg.n_layers, "smoke": n is None,
+            **FAMILY_ANSWER_INPUT, "loss_card": l_gpu, "loss_cpu": l_cpu,
+            "rel_loss_diff": rel, "loss_tolerance": FAMILY_LOSS_TOL,
+            "m_leaves": len(m_cpu), "m_max_rel_diff": m_rel,
+            "m_tolerance": FAMILY_M_TOL,
+            "top1_router_m_over_max_m": zero}}), flush=True)
+        if not math.isfinite(rel) or rel > FAMILY_LOSS_TOL:
+            fail(f"phase 26e {arch}: f32 losses differ by {rel} (relative) "
+                 f"between card and CPU")
+        if not math.isfinite(m_rel) or m_rel > FAMILY_M_TOL:
+            fail(f"phase 26e {arch}: Adam's first moment differs by {m_rel} "
+                 f"of its largest between card and CPU")
+        if not zero <= FAMILY_ZERO_TOL:
+            fail(f"phase 26e {arch}: the top-1 router's first moment is "
+                 f"{zero} of the largest, not a rounding residue")
+
+
+def family_grid_losses(grid, dev):
+    """26f's steps on ``grid`` (one rank: ``Grid.single()``) on ``dev``
+    from the f32 weights of seed 0; returns the losses."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import stack_runs
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    arch, n, kw_ = FAMILY_GRID
+    cfg = cut(get_config, arch, n)
+    opt_cfg = adamw.OptConfig(comm_mode="multilevel_compress", lr=1e-3,
+                              warmup_steps=20, total_steps=kw_["steps"])
+    params = stack_runs(tree_map(lambda t: t.float().to(dev), T.init_model(
+        cfg, seed=0, device="cpu")), cfg)
+    opt = adamw.shard_opt_state(adamw.init_opt_state(
+        params, opt_cfg, n_slow=grid.pods), params, opt_cfg, grid)
+    step = make_train_step(cfg, opt_cfg, grid, dev)
+    pipe = DataPipeline(cfg, ShapeSpec("grid", "train", kw_["seq"],
+                                       kw_["batch"]))
+    losses = []
+    for i in range(kw_["steps"]):
+        params, opt, loss = step(params, opt, pipe.host_batch(i))
+        losses.append(loss.item())
+    return losses
+
+
+def family_grid_rank(rank):
+    """One rank of 26f on the card, its counters from 0."""
+    import torch
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.train import launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    before = launch_counts()
+    losses = family_grid_losses(make_grid(2, 2, dev), dev)
+    return {"losses": losses, "launches": {
+        k: v - before[k] for k, v in launch_counts().items()}}
+
+
+def family_grid(torch, get_config) -> list:
+    """26f: olmoe-1b-7b at full width cut to 1 layer, f32, 2x2x1
+    ``multilevel_compress`` with ZeRO-1 on ranks sharing the card over
+    gloo, against one rank on the card: every rank's losses within
+    FAMILY_GRID_TOL, #5 and #6 once a stacked leaf (expert leaves
+    included) a step on each rank.  Returns the ranks' launches."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.mesh import Grid, run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import stack_runs
+    from repro_torch.tree import tree_leaves
+
+    arch, n, kw_ = FAMILY_GRID
+    cfg = cut(get_config, arch, n)
+    t0 = time.perf_counter()
+    res = run_ranks(family_grid_rank, 4, "gloo", (), timeout=900.0)
+    t1 = time.perf_counter()
+    one = family_grid_losses(Grid.single(), torch.device("cuda"))
+    torch.cuda.empty_cache()
+    with FakeTensorMode():        # the shapes only; nothing allocated
+        leaves = len(tree_leaves(stack_runs(T.init_model(
+            cfg, seed=0, device="cpu"), cfg)))
+    rel = max(abs(g - o) / abs(o) for r in res
+              for g, o in zip(r["losses"], one))
+    steps = kw_["steps"]
+    want = {"flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
+            "flash_bwd_dkv": n * steps, "quantize_int8": 0,
+            "dequantize_int8": leaves * steps,
+            "quantize_ef_int8": leaves * steps}
+    print(json.dumps({"family_train_26f": {
+        "arch": arch, "layers": n, **kw_, "grid": "2x2x1",
+        "comm": "multilevel_compress", "dtype": "float32",
+        "losses": [r["losses"] for r in res], "losses_one_rank": one,
+        "max_rel_loss_diff": rel, "tolerance": FAMILY_GRID_TOL,
+        "launches_per_rank": [r["launches"] for r in res],
+        "wall_s_with_spawn": t1 - t0}}), flush=True)
+    if not math.isfinite(rel) or rel > FAMILY_GRID_TOL:
+        fail(f"phase 26f: the grid's f32 losses differ by {rel} (relative) "
+             f"from one rank's")
+    if any(r["launches"] != want for r in res):
+        fail(f"phase 26f: the ranks launched "
+             f"{[r['launches'] for r in res]}, expected {want} each")
+    return [r["launches"] for r in res]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-wkv", metavar="LIB", action="append",
@@ -2887,8 +3158,7 @@ def main() -> None:
     # 3-4. kernels against their plain versions
     recs = [flash_phase(torch, fa, s) for s in SHAPES]
     bwd = {i: flash_bwd_phase(torch, fa, s)
-           for i, s in enumerate(SHAPES[:BWD_SHAPES])
-           if s[6] in fa.KERNEL_BWD_HEAD_DIMS}
+           for i, s in enumerate(SHAPES) if i in BWD_SHAPES}
 
     # 5. the serving path
     reset(fa, kw)
@@ -3087,9 +3357,27 @@ def main() -> None:
     walls.append(time.perf_counter())
     tp_train_counts = {k: sum(r[k] for r in tp_train_launches)
                        for k in tp_train_launches[0]}
+
+    # 26. training the MoE, RG-LRU, enc-dec and frontend configs: 26a-d
+    # in this process, counters from 0 before each; 26f's ranks are fresh
+    # processes whose counters start at 0 and are read at their end
+    family = []
+    for name in FAMILY_TRAIN:
+        family.append(family_train_case(torch, train, fa, kw, L, get_config,
+                                        name))
+        walls.append(time.perf_counter())
+    family_answer(torch, T, get_config)
+    walls.append(time.perf_counter())
+    family += family_grid(torch, get_config)
+    walls.append(time.perf_counter())
+    family_counts = {k: sum(r[k] for r in family)
+                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    family_counts.update({k: sum(r.get(k, 0) for r in family) for k in (
+        "dequantize_int8", "quantize_ef_int8")})
     print(json.dumps({"phase_wall_s": {
         n: b - a for n, a, b in zip(("21", "22", "23", "24a-c", "24d",
-                                     "25a", "25b", "25c", "25d"),
+                                     "25a", "25b", "25c", "25d", "26a",
+                                     "26b", "26c", "26d", "26e", "26f"),
                                     walls, walls[1:])}}), flush=True)
 
     main_fwd = recs[MAIN_SHAPE]
@@ -3102,7 +3390,8 @@ def main() -> None:
                       + bucket_counts["flash_fwd"]
                       + elastic_counts["flash_fwd"]
                       + moe_counts["flash_fwd"] + dense_flash + tp_flash
-                      + tp_train_counts["flash_fwd"]),
+                      + tp_train_counts["flash_fwd"]
+                      + family_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
@@ -3110,7 +3399,8 @@ def main() -> None:
                          + grid_counts["flash_bwd_dq"]
                          + bucket_counts["flash_bwd_dq"]
                          + elastic_counts["flash_bwd_dq"]
-                         + tp_train_counts["flash_bwd_dq"]),
+                         + tp_train_counts["flash_bwd_dq"]
+                         + family_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
@@ -3118,7 +3408,8 @@ def main() -> None:
                           + grid_counts["flash_bwd_dkv"]
                           + bucket_counts["flash_bwd_dkv"]
                           + elastic_counts["flash_bwd_dkv"]
-                          + tp_train_counts["flash_bwd_dkv"]),
+                          + tp_train_counts["flash_bwd_dkv"]
+                          + family_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
         # training (phases 11, 20 and 25b) runs the fused EF kernel and
         # the dequant; the tree phase's compressed syncs run all three
@@ -3133,14 +3424,16 @@ def main() -> None:
                             grid_counts["dequantize_int8"]
                             + tree["launches"]["dequantize_int8"]
                             + elastic_counts["dequantize_int8"]
-                            + tp_train_counts["dequantize_int8"]),
+                            + tp_train_counts["dequantize_int8"]
+                            + family_counts["dequantize_int8"]),
         "quantize_ef_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                              "src/repro/kernels/quant.py:44",
                              quant["quantize_ef_int8"],
                              grid_counts["quantize_ef_int8"]
                              + tree["launches"]["quantize_ef_int8"]
                              + elastic_counts["quantize_ef_int8"]
-                             + tp_train_counts["quantize_ef_int8"]),
+                             + tp_train_counts["quantize_ef_int8"]
+                             + family_counts["quantize_ef_int8"]),
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
                 rwkv_counts["wkv"]),

@@ -35,12 +35,17 @@ __all__ = ["CheckpointManager"]
 
 
 def _host(leaf) -> np.ndarray:
-    """A leaf as a numpy array on the host (bf16 as uint16 bits)."""
+    """A leaf as a numpy array on the host (bf16 as uint16 bits), a copy
+    of it: the train step updates its state in place, and the writer reads
+    the snapshot after the next step has begun."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
+            t = t.view(torch.int16)
+        a = t.numpy()
+        if leaf.device.type == "cpu":       # .cpu() made no copy
+            a = a.copy()
+        return a.view(np.uint16) if leaf.dtype == torch.bfloat16 else a
     return np.asarray(leaf)
 
 

@@ -64,17 +64,33 @@
 //     they index the columns of S^T, in shared memory beside the Q tile;
 //   * tiles inside the band skip the per-element mask, and the longest dq
 //     rows start first, so the causal tail of the grid is short.
-// dk/dv computes S^T in chunks of 32 query rows (16 at hd 128), so that
-// the dk and dv accumulators (hd / 2 f32 each a thread) and the scores fit
-// the registers up to hd 128.  At hd 256 the two accumulators of a 16-key warp tile alone
-// are 256 registers a thread, above the limit of 255, so hd 256 is refused.
+// dk/dv computes S^T in chunks of 32 query rows (16 at hd 128 and 256), so
+// that the dk and dv accumulators (hd / 2 f32 each a thread) and the scores
+// fit the registers up to hd 128.
+//
+// hd 256 (recurrentgemma-2b's and gemma3-12b's local layers).  A warp's dk
+// and dv of 16 keys would be 256 f32 registers a thread, and dq's 16 rows x
+// 256 columns 128, beside the scores: above or at the limit of 255.  So the
+// output columns are split over NS = 2 blocks (grid dim z): each block of a
+// key tile (dk/dv) or query tile (dq) stages the full rows, recomputes S and
+// dP over the full hd, and accumulates and writes only its half of the
+// columns (128), with the registers of the hd 128 kernels.  The score
+// products are done twice, which a later design that passes P^T and dS^T
+// between two warps through shared memory would save; nothing else is
+// added, no data path and no atomics.  Shared memory: six 64 x 264 bf16
+// tiles, 202,752 bytes (dq) and 203,776 with the stats (dk/dv), of the
+// 232,448 a block may take, so one block an SM.
 //
 // f32 inputs (the card-against-CPU answers, held to 1e-4, which bf16 or
 // TF32 products cannot meet) keep the first design: f32 FMA on the CUDA
 // cores (67 TFLOP/s peak), 4x4 register micro-tiles for the two score
 // products and 4 x (hd/16) micro-tiles for the accumulating products, with
-// padded f32 tiles and P and dS staged through shared memory.  Head dims
-// above 128 do not fit its four f32 tiles in shared memory and are refused.
+// padded f32 tiles and P and dS staged through shared memory.  Its tiles
+// are 64 query rows and NK keys: NK = 64 up to hd 128; at hd 256 four f32
+// tiles of 64 rows (263,168 bytes) exceed a block's shared memory, so the
+// key tile is halved to 32 (a thread then holds 4 x 2 scores and, in
+// dk/dv, 2 keys x 16 columns of each accumulator): 210,176 bytes (dq) and
+// 222,464 (dk/dv).
 //
 // Interface: plain C, launched on the caller's stream; returns
 // cudaGetLastError() (0 on success).  Inputs must be contiguous, and bf16
@@ -92,18 +108,21 @@ namespace {
 
 constexpr int BK = 64;              // keys per KV tile
 
-// The KV tiles with an unmasked key for some row of the query tile at q0.
+// The NK-key tiles with an unmasked key for some row of the query tile at q0.
+template <int NK>
 __device__ __forceinline__ void key_tiles(const Args& a, int q0, int& kt0,
                                           int& kt1) {
   const int first = a.q_offset + q0;
   const int last = a.q_offset + min(q0 + a.bq, a.Sq) - 1;
   kt0 = 0;
-  kt1 = (a.Sk + BK - 1) / BK;
-  if (a.causal) kt1 = min(kt1, last < 0 ? 0 : last / BK + 1);
-  if (a.window > 0) kt0 = max(0, first - a.window + 1) / BK;
+  kt1 = (a.Sk + NK - 1) / NK;
+  if (a.causal) kt1 = min(kt1, last < 0 ? 0 : last / NK + 1);
+  if (a.window > 0) kt0 = max(0, first - a.window + 1) / NK;
 }
 
-// The query tiles with an unmasked query for some key of the tile at k0.
+// The query tiles with an unmasked query for some key of the NK-key tile at
+// k0.
+template <int NK>
 __device__ __forceinline__ void query_tiles(const Args& a, int k0, int& qt0,
                                             int& qt1) {
   qt0 = 0;
@@ -113,7 +132,7 @@ __device__ __forceinline__ void query_tiles(const Args& a, int k0, int& qt0,
     qt0 = x > 0 ? x / a.bq : 0;
   }
   if (a.window > 0) {
-    const int x = a.window + k0 + BK - 1 - a.q_offset;
+    const int x = a.window + k0 + NK - 1 - a.q_offset;
     qt1 = min(qt1, x > 0 ? (x + a.bq - 1) / a.bq : 0);
   }
 }
@@ -133,7 +152,14 @@ __device__ __forceinline__ bool keeps(const Args& a, int q0, int r, int kpos) {
 // ======================================================================
 
 constexpr int THREADS = 256;
-constexpr int S_STRIDE = BK + 16;   // p / ds row stride (conflict-free)
+
+// Keys a tile of the f32 kernels at head dim HD (see the note at the top).
+__host__ __device__ constexpr int f32_keys(int hd) {
+  return hd >= 256 ? 32 : BK;
+}
+// p / ds row stride of an NK-key tile (conflict-free)
+template <int NK>
+__host__ __device__ constexpr int s_stride() { return NK + 16; }
 
 // ROWS rows of a (B,Sq,H,HD) tensor into a padded f32 tile: row r is query
 // q0 + r % bq of head hkv * G + r / bq; zeros past the ragged edge.
@@ -153,14 +179,14 @@ __device__ __forceinline__ void load_rows(float* dst,
   }
 }
 
-// BK keys of a (B,Sk,Hkv,HD) tensor into a padded f32 tile; zeros past Sk.
-template <int HD>
+// NK keys of a (B,Sk,Hkv,HD) tensor into a padded f32 tile; zeros past Sk.
+template <int HD, int NK>
 __device__ __forceinline__ void load_keys(float* dst,
                                           const float* __restrict__ src,
                                           const Args& a, int b, int hkv,
                                           int k0) {
   constexpr int QS = HD + 1;
-  for (int i = threadIdx.x; i < BK * HD; i += THREADS) {
+  for (int i = threadIdx.x; i < NK * HD; i += THREADS) {
     const int c = i / HD, d = i % HD;
     float x = 0.f;
     if (k0 + c < a.Sk)
@@ -188,38 +214,39 @@ __device__ __forceinline__ void load_stats(float* lse_s, float* dl_s,
   }
 }
 
-// This thread's 4x4 micro-tile (rows tr + 16 i, keys tc + 16 j) of
+// This thread's 4 x NK/16 micro-tile (rows tr + 16 i, keys tc + 16 j) of
 // p = mask ? exp(s * scale - lse) : 0 and ds = p * (dp - delta) * scale.
-template <int HD>
+template <int HD, int NK>
 __device__ __forceinline__ void probs(const float* q_s, const float* do_s,
                                       const float* k_s, const float* v_s,
                                       const float* lse_s, const float* dl_s,
                                       const Args& a, int q0, int k0,
-                                      float p[4][4], float ds[4][4]) {
-  constexpr int QS = HD + 1;
+                                      float p[4][NK / 16],
+                                      float ds[4][NK / 16]) {
+  constexpr int QS = HD + 1, NJ = NK / 16;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  float s[4][4], dp[4][4];
+  float s[4][NJ], dp[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
-    float qv[4], kv[4], ov[4], vv[4];
+    float qv[4], kv[NJ], ov[4], vv[NJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       qv[i] = q_s[(tr + 16 * i) * QS + d];
       ov[i] = do_s[(tr + 16 * i) * QS + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       kv[j] = k_s[(tc + 16 * j) * QS + d];
       vv[j] = v_s[(tc + 16 * j) * QS + d];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
       }
@@ -229,7 +256,7 @@ __device__ __forceinline__ void probs(const float* q_s, const float* do_s,
     const int r = tr + 16 * i;
     const float l = lse_s[r], dl = dl_s[r];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const float pv =
           keeps(a, q0, r, k0 + tc + 16 * j) ? expf(s[i][j] * a.scale - l) : 0.f;
       p[i][j] = pv;
@@ -240,14 +267,16 @@ __device__ __forceinline__ void probs(const float* q_s, const float* do_s,
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(2 * ROWS * (HD + 1) + 2 * BK * (HD + 1) +
-                                  ROWS * S_STRIDE + 2 * ROWS);
+  constexpr int NK = f32_keys(HD);
+  return sizeof(float) * (size_t)(2 * ROWS * (HD + 1) + 2 * NK * (HD + 1) +
+                                  ROWS * s_stride<NK>() + 2 * ROWS);
 }
 
 template <int HD>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (size_t)(2 * ROWS * (HD + 1) + 2 * BK * (HD + 1) +
-                                  2 * ROWS * S_STRIDE + 2 * ROWS);
+  constexpr int NK = f32_keys(HD);
+  return sizeof(float) * (size_t)(2 * ROWS * (HD + 1) + 2 * NK * (HD + 1) +
+                                  2 * ROWS * s_stride<NK>() + 2 * ROWS);
 }
 
 template <int HD>
@@ -260,13 +289,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     Args a) {
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 16;          // output columns per thread
+  constexpr int NK = f32_keys(HD), NJ = NK / 16, SS = s_stride<NK>();
   extern __shared__ float smem[];
   float* q_s = smem;                    // ROWS x QS
   float* do_s = q_s + ROWS * QS;        // ROWS x QS
-  float* k_s = do_s + ROWS * QS;        // BK x QS
-  float* v_s = k_s + BK * QS;           // BK x QS
-  float* ds_s = v_s + BK * QS;          // ROWS x S_STRIDE
-  float* lse_s = ds_s + ROWS * S_STRIDE;
+  float* k_s = do_s + ROWS * QS;        // NK x QS
+  float* v_s = k_s + NK * QS;           // NK x QS
+  float* ds_s = v_s + NK * QS;          // ROWS x SS
+  float* lse_s = ds_s + ROWS * SS;
   float* dl_s = lse_s + ROWS;
 
   const int b = blockIdx.y / a.Hkv;
@@ -285,29 +315,29 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
   int kt0, kt1;
-  key_tiles(a, q0, kt0, kt1);
+  key_tiles<NK>(a, q0, kt0, kt1);
   for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * NK;
     __syncthreads();  // the previous tile is done with k_s, v_s, ds_s
-    load_keys<HD>(k_s, k, a, b, hkv, k0);
-    load_keys<HD>(v_s, v, a, b, hkv, k0);
+    load_keys<HD, NK>(k_s, k, a, b, hkv, k0);
+    load_keys<HD, NK>(v_s, v, a, b, hkv, k0);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
-    probs<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, a, q0, k0, p, ds);
+    float p[4][NJ], ds[4][NJ];
+    probs<HD, NK>(q_s, do_s, k_s, v_s, lse_s, dl_s, a, q0, k0, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ds_s[(tr + 16 * i) * S_STRIDE + tc + 16 * j] = ds[i][j];
+      for (int j = 0; j < NJ; ++j)
+        ds_s[(tr + 16 * i) * SS + tc + 16 * j] = ds[i][j];
     __syncthreads();
 
     // dq += ds K for this thread's 4 x CPT micro-tile.
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < NK; ++c) {
       float dsv[4], kv[CPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = ds_s[(tr + 16 * i) * S_STRIDE + c];
+      for (int i = 0; i < 4; ++i) dsv[i] = ds_s[(tr + 16 * i) * SS + c];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) kv[j] = k_s[c * QS + tc + 16 * j];
 #pragma unroll
@@ -338,33 +368,34 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dv, Args a) {
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 16;
+  constexpr int NK = f32_keys(HD), NJ = NK / 16, SS = s_stride<NK>();
   extern __shared__ float smem[];
-  float* k_s = smem;                    // BK x QS
-  float* v_s = k_s + BK * QS;           // BK x QS
-  float* q_s = v_s + BK * QS;           // ROWS x QS
+  float* k_s = smem;                    // NK x QS
+  float* v_s = k_s + NK * QS;           // NK x QS
+  float* q_s = v_s + NK * QS;           // ROWS x QS
   float* do_s = q_s + ROWS * QS;        // ROWS x QS
-  float* p_s = do_s + ROWS * QS;        // ROWS x S_STRIDE
-  float* ds_s = p_s + ROWS * S_STRIDE;  // ROWS x S_STRIDE
-  float* lse_s = ds_s + ROWS * S_STRIDE;
+  float* p_s = do_s + ROWS * QS;        // ROWS x SS
+  float* ds_s = p_s + ROWS * SS;        // ROWS x SS
+  float* lse_s = ds_s + ROWS * SS;
   float* dl_s = lse_s + ROWS;
 
   const int b = blockIdx.y / a.Hkv;
   const int hkv = blockIdx.y % a.Hkv;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * NK;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 
-  load_keys<HD>(k_s, k, a, b, hkv, k0);
-  load_keys<HD>(v_s, v, a, b, hkv, k0);
+  load_keys<HD, NK>(k_s, k, a, b, hkv, k0);
+  load_keys<HD, NK>(v_s, v, a, b, hkv, k0);
 
   // keys k0 + tr + 16 i, columns tc + 16 j
-  float dk_acc[4][CPT], dv_acc[4][CPT];
+  float dk_acc[NJ][CPT], dv_acc[NJ][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NJ; ++i)
 #pragma unroll
     for (int j = 0; j < CPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   int qt0, qt1;
-  query_tiles(a, k0, qt0, qt1);
+  query_tiles<NK>(a, k0, qt0, qt1);
   for (int qt = qt0; qt < qt1; ++qt) {
     const int q0 = qt * a.bq;
     __syncthreads();  // the previous tile is done with q_s, do_s, p_s, ds_s
@@ -373,25 +404,25 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_stats(lse_s, dl_s, lse, delta, a, b, hkv, q0);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
-    probs<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, a, q0, k0, p, ds);
+    float p[4][NJ], ds[4][NJ];
+    probs<HD, NK>(q_s, do_s, k_s, v_s, lse_s, dl_s, a, q0, k0, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p_s[(tr + 16 * i) * S_STRIDE + tc + 16 * j] = p[i][j];
-        ds_s[(tr + 16 * i) * S_STRIDE + tc + 16 * j] = ds[i][j];
+      for (int j = 0; j < NJ; ++j) {
+        p_s[(tr + 16 * i) * SS + tc + 16 * j] = p[i][j];
+        ds_s[(tr + 16 * i) * SS + tc + 16 * j] = ds[i][j];
       }
     __syncthreads();
 
     // dv += p^T dO and dk += ds^T Q over the tile's rows (all G heads).
 #pragma unroll 2
     for (int r = 0; r < ROWS; ++r) {
-      float pv[4], dsv[4], ov[CPT], qv[CPT];
+      float pv[NJ], dsv[NJ], ov[CPT], qv[CPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = p_s[r * S_STRIDE + tr + 16 * i];
-        dsv[i] = ds_s[r * S_STRIDE + tr + 16 * i];
+      for (int i = 0; i < NJ; ++i) {
+        pv[i] = p_s[r * SS + tr + 16 * i];
+        dsv[i] = ds_s[r * SS + tr + 16 * i];
       }
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -399,7 +430,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         qv[j] = q_s[r * QS + tc + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NJ; ++i)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           dv_acc[i][j] = fmaf(pv[i], ov[j], dv_acc[i][j]);
@@ -409,7 +440,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NJ; ++i) {
     const int key = k0 + tr + 16 * i;
     if (key >= a.Sk) continue;
     const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * HD;
@@ -426,6 +457,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ======================================================================
 
 static_assert(MMA_THREADS == 2 * ROWS, "stage_stats: one thread a value");
+
+// Blocks a tile's output columns are split over at head dim HD (see the
+// note at the top): each owns HD / NS of them.
+__host__ __device__ constexpr int col_splits(int hd) {
+  return hd >= 256 ? 2 : 1;
+}
 static_assert(BK == ROWS, "four warps of 16 keys");
 
 // lse (dst[0, ROWS)) and delta (dst[ROWS, 2 ROWS)) of the tile's rows.
@@ -463,6 +500,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dq, Args a) {
   constexpr int LD = ld<HD>(), TILE = tile<HD>();
+  constexpr int OUT = HD / col_splits(HD);   // this block's dq columns
+  // 0 at compile time where there is no split, so that hd <= 128 keeps
+  // constant fragment offsets
+  const int col0 = col_splits(HD) > 1 ? blockIdx.z * OUT : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* do_s = q_s + TILE;
@@ -492,14 +533,14 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     }
   }
 
-  float acc[HD / 8][4];
+  float acc[OUT / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < OUT / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   int kt0, kt1;
-  key_tiles(a, q0, kt0, kt1);
+  key_tiles<BK>(a, q0, kt0, kt1);
   if (kt0 < kt1) {
     stage_rows<HD>(q_s, q, a, b, hkv, q0);
     stage_rows<HD>(do_s, dout, a, b, hkv, q0);
@@ -563,15 +604,16 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         s[j][e] = p * (dp[j][e] - dl[h]) * a.scale;
       }
 
-    // dQ += dS K, dS from the registers as bf16 A fragments
+    // dQ += dS K over this block's columns, dS from the registers as bf16
+    // A fragments
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t da[4];
       to_a(da, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
+      for (int np = 0; np < OUT / 16; ++np) {
         uint32_t kb[4];
-        load_b_kn<LD>(kb, k_s, np * 16, kk * 16, lane);
+        load_b_kn<LD>(kb, k_s, col0 + np * 16, kk * 16, lane);
         mma(acc[2 * np], da, kb[0], kb[1]);
         mma(acc[2 * np + 1], da, kb[2], kb[3]);
       }
@@ -584,9 +626,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     if (!rok[h]) continue;
     const int r = warp * 16 + g + 8 * h;
     bf16* row = dq + ((size_t)(b * a.Sq + q0 + r % a.bq) * a.H + hkv * a.G +
-                      r / a.bq) * HD;
+                      r / a.bq) * HD + col0;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < OUT / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
           pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
   }
@@ -604,6 +646,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           Args a) {
   constexpr int LD = ld<HD>(), TILE = tile<HD>();
   constexpr int QC = HD >= 128 ? 16 : 32;   // query rows per S^T chunk
+  constexpr int OUT = HD / col_splits(HD);  // this block's dk, dv columns
+  const int col0 = col_splits(HD) > 1 ? blockIdx.z * OUT : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* v_s = k_s + TILE;
@@ -617,14 +661,14 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   const float sl2 = a.scale * LOG2E;
 
   // keys k0 + warp * 16 + g (+ 8), columns 8 j + 2 t (+ 1)
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+  float dk_acc[OUT / 8][4], dv_acc[OUT / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < OUT / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
   int qt0, qt1;
-  query_tiles(a, k0, qt0, qt1);
+  query_tiles<BK>(a, k0, qt0, qt1);
   if (qt0 < qt1) {
     stage_keys<HD, BK>(k_s, k, a, b, hkv, k0);
     stage_keys<HD, BK>(v_s, v, a, b, hkv, k0);
@@ -698,18 +742,18 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q over the chunk's rows, P^T and dS^T
-      // from the registers as bf16 A fragments
+      // dV += P^T dO and dK += dS^T Q over the chunk's rows and this
+      // block's columns, P^T and dS^T from the registers as bf16 A fragments
 #pragma unroll
       for (int kk = 0; kk < QC / 16; ++kk) {
         uint32_t pa[4], da[4];
         to_a(pa, s[2 * kk], s[2 * kk + 1]);
         to_a(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
+        for (int np = 0; np < OUT / 16; ++np) {
           uint32_t ob[4], qb[4];
-          load_b_kn<LD>(ob, do_s, np * 16, c * QC + kk * 16, lane);
-          load_b_kn<LD>(qb, q_s, np * 16, c * QC + kk * 16, lane);
+          load_b_kn<LD>(ob, do_s, col0 + np * 16, c * QC + kk * 16, lane);
+          load_b_kn<LD>(qb, q_s, col0 + np * 16, c * QC + kk * 16, lane);
           mma(dv_acc[2 * np], pa, ob[0], ob[1]);
           mma(dv_acc[2 * np + 1], pa, ob[2], ob[3]);
           mma(dk_acc[2 * np], da, qb[0], qb[1]);
@@ -724,9 +768,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + warp * 16 + g + 8 * h;
     if (key >= a.Sk) continue;
-    const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * HD;
+    const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * HD + col0;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < OUT / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
           pack_bf16(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
@@ -757,7 +801,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const Args& a, bool bf, cudaStream_t st) {
   const int tiles = (a.Sq + a.bq - 1) / a.bq;
   if (bf)
-    return launch(flash_bwd_dq_bf16_kernel<HD>, dim3(B * a.Hkv, tiles),
+    return launch(flash_bwd_dq_bf16_kernel<HD>,
+                  dim3(B * a.Hkv, tiles, col_splits(HD)),
                   MMA_THREADS, dq_bf16_smem_bytes<HD>(), st, a,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v,
                   (const bf16*)dout, (const float*)lse, (const float*)delta,
@@ -772,20 +817,22 @@ template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                const Args& a, bool bf, cudaStream_t st) {
-  const int tiles = (a.Sk + BK - 1) / BK;
   if (bf)
-    return launch(flash_bwd_dkv_bf16_kernel<HD>, dim3(B * a.Hkv, tiles),
+    return launch(flash_bwd_dkv_bf16_kernel<HD>,
+                  dim3(B * a.Hkv, (a.Sk + BK - 1) / BK, col_splits(HD)),
                   MMA_THREADS, dkv_bf16_smem_bytes<HD>(), st, a,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v,
                   (const bf16*)dout, (const float*)lse, (const float*)delta,
                   (bf16*)dk, (bf16*)dv);
-  return launch(flash_bwd_dkv_kernel<HD>, dim3(tiles, B * a.Hkv), THREADS,
+  constexpr int NK = f32_keys(HD);
+  return launch(flash_bwd_dkv_kernel<HD>,
+                dim3((a.Sk + NK - 1) / NK, B * a.Hkv), THREADS,
                 dkv_smem_bytes<HD>(), st, a, (const float*)q, (const float*)k,
                 (const float*)v, (const float*)dout, (const float*)lse,
                 (const float*)delta, (float*)dk, (float*)dv);
 }
 
-#define FLASH_BWD_HEAD_DIMS(X) X(16) X(32) X(64) X(128)
+#define FLASH_BWD_HEAD_DIMS(X) X(16) X(32) X(64) X(128) X(256)
 
 bool bad_shape(int B, int Sq, int Sk, int H, int Hkv) {
   return B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv || H / Hkv > ROWS;

@@ -54,9 +54,9 @@ __all__ = ["NEG_INF", "DEFAULT_BLOCK_K", "KERNEL_HEAD_DIMS",
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 512
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
-# f32: four f32 tiles in shared memory; bf16: dk and dv of a 16-key warp
-# tile in registers (at hd 256 they alone would need 256 a thread)
-KERNEL_BWD_HEAD_DIMS = (16, 32, 64, 128)
+# at hd 256 the bf16 kernels split the output columns over two blocks and
+# the f32 ones halve their key tile (csrc/flash_bwd.cu)
+KERNEL_BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_MAX_GROUP = 64          # G query heads must fit the 64-row tile
 DTYPES = (torch.float32, torch.bfloat16)
 

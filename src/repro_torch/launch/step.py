@@ -87,10 +87,15 @@ def layer_grad_bytes(cfg: ModelConfig, model_size: int = 1) -> list[float]:
 
 
 def device_batch(batch: dict, device) -> dict:
-    """A host batch (numpy int32 tokens and labels) as int64 tensors on
-    ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device, torch.long)
-            for k, v in batch.items()}
+    """A host batch on ``device``: the integer arrays (tokens, labels) as
+    int64, the float ones (a frontend's ``embeds``, an enc-dec config's
+    ``src_embeds``) as f32, as the reference's ``global_batch`` places
+    them; ``transformer.embed_inputs`` casts them to the model's dtype."""
+    def put(v):
+        t = torch.as_tensor(np.asarray(v))
+        return t.to(device, torch.float32 if t.is_floating_point()
+                    else torch.long)
+    return {k: put(v) for k, v in batch.items()}
 
 
 def rank_rows(batch: dict, grid: Grid) -> dict:
@@ -135,12 +140,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     stacked-run layout (``models.convert.stack_runs``; on a model axis
     this rank's shard of it), ``opt`` this rank's shard of the state
     (``adamw.shard_opt_state``), ``batch`` the global host batch of
-    ``DataPipeline.host_batch``.  ``step.tp_calls`` holds the last step's
-    model-axis collectives (:func:`loss_and_grads`' ``calls``)."""
-    T.train_check(cfg)
-    dev = resolve_device(device)
+    ``DataPipeline.host_batch``.  The step donates ``opt``, as the
+    reference's jitted step does: its m, v and master are updated in
+    place and returned, and the ``opt`` passed in is not to be read
+    again.  ``step.tp_calls`` holds the last step's model-axis
+    collectives (:func:`loss_and_grads`' ``calls``)."""
     grid = grid or Grid.single()
     tp = grid.tp
+    T.train_check(cfg, 1 if tp is None else tp.size)
+    dev = resolve_device(device)
     if tp is not None:
         tp_check(cfg, tp.size)
     mdims = model_dims(cfg, tp.size) if tp is not None else None
@@ -149,8 +157,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
         rows = device_batch(rank_rows(batch, grid), dev)
         loss, grads = loss_and_grads(unstack_runs(params, cfg), cfg, rows,
                                      tp, step.tp_calls)
-        params, opt = adamw.apply_updates(params, stack_runs(grads, cfg),
-                                          opt, opt_cfg, grid, mdims)
+        grads = stack_runs(grads, cfg)
+        params, opt = adamw.apply_updates(params, grads, opt, opt_cfg, grid,
+                                          mdims)
         loss = grid.dp.psum(loss.reshape(1))[0] / grid.world
         return params, opt, loss
 

@@ -213,7 +213,7 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     seed-0 weights."""
     pods, data, model = parse_mesh(mesh_spec)
     cfg = config or get_config(arch, smoke=smoke)
-    T.train_check(cfg)
+    T.train_check(cfg, model)
     tp_check(cfg, model)
     if model != 1 and fail_at:
         raise NotImplementedError(f"mesh {mesh_spec}: fail_at on a model "
@@ -337,7 +337,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
         info(msg, **fields)
 
     cfg = config or get_config(arch, smoke=smoke)
-    T.train_check(cfg)
+    T.train_check(cfg, model)
     mdims = model_dims(cfg, model) if tp is not None else None
     bucket_bytes = bucket_mb * 2 ** 20 if bucket_mb > 0 else None
     if bucket_bytes and zero1 and comm != "flat":

@@ -48,6 +48,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import NEG_INF
 from ..kernels.ops import flash_attention, wkv_chunked
@@ -551,7 +552,14 @@ def _moe_block_ep(p, m, xt, tp):
 def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
     """Top-k MoE, x (B,S,D).  Inputs longer than ``chunk`` tokens and a
     multiple of it run in blocks of ``chunk`` (the reference's condition),
-    which bounds the dispatch buffers.  On a model axis ``tp`` each block
+    which bounds the dispatch buffers; where a gradient is taken each
+    block runs under remat, as the reference's ``jax.checkpoint`` of its
+    scanned blocks, so its backward routes the block again (the same
+    routing: the same inputs, and a stable sort).  The gradient reaches
+    the router through the renormalised top-k gates, and every non-empty
+    expert's three weights through its products (autograd through one
+    ``torch.matmul`` each, where the reference differentiates
+    ``lax.ragged_dot``).  On a model axis ``tp`` each block
     takes the expert-parallel path (``sharding.tp_check`` holds E to a
     multiple of M, the reference's condition for it) and the shared
     expert is a tensor-parallel MLP; either way the output is summed over
@@ -563,6 +571,9 @@ def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
         (lambda xb: _moe_block_ep(p, m, xb, tp))
     if B * S <= chunk or (B * S) % chunk:
         y = block(xt)
+    elif torch.is_grad_enabled():
+        y = torch.cat([checkpoint(block, xb, use_reentrant=False)
+                       for xb in xt.split(chunk)])
     else:
         y = torch.cat([block(xb) for xb in xt.split(chunk)])
     y = y.reshape(B, S, D)
@@ -639,7 +650,8 @@ def _rglru(p, x, h0=None):
     u = sum(upad[:, i:i + S] * p["conv"][i] for i in range(4))
     a, b = _rglru_gates(p, u)
     if h0 is not None:
-        b[:, 0] += a[:, 0] * h0
+        # out of place: autograd may have saved b
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
     h = linear_scan(a, b)
     return _gelu_gate(gate, h, x.dtype) @ p["w_out"], h, u_pre
 

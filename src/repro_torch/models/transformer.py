@@ -14,10 +14,13 @@ each run and scans them; here a Python loop walks them), and for enc-dec
 reference's per-run stacked layout, (run, B, ...), so they compare one to
 one.
 
-Serving runs every config.  Training runs the dense attention stacks:
-RWKV-6 (the reference has no WKV backward kernel) and the MoE, RG-LRU,
-enc-dec and frontend configs are refused by :func:`train_check`; the
-full-sequence forward (``model_fwd``, no gradient) runs all but RWKV-6.
+Serving runs every config.  Training runs every config but RWKV-6 (the
+reference has no WKV backward kernel; :func:`train_check` refuses it):
+the dense attention stacks, the MoE (autograd through the router's
+renormalised top-k gates and the per-expert products), RG-LRU (through
+the log-step scan), enc-dec (the cross-attention's gradient flows into
+the encoder) and the frontends, whose prefix positions the loss skips.
+The full-sequence forward (``model_fwd``) runs all but RWKV-6.
 
 The training forward remats each layer and each cross-entropy chunk with
 ``torch.utils.checkpoint`` (non-reentrant), where the reference wraps its
@@ -75,7 +78,8 @@ __all__ = ["NOT_PORTED_TRAIN", "NOT_PORTED_TRAIN_ARCH", "port_check",
 
 NOT_PORTED_TRAIN = "ROADMAP.md, Queue 1 item 7: RWKV-6 training"
 NOT_PORTED_TRAIN_ARCH = ("ROADMAP.md, Queue 1 item 9: training of "
-                         "MoE, RG-LRU, enc-dec and the frontends")
+                         "MoE, RG-LRU, enc-dec and the frontends on a model "
+                         "axis")
 KINDS = ("attn", "local", "rglru", "rwkv6")
 
 
@@ -95,18 +99,22 @@ def _wkv_grad_check(cfg: ModelConfig) -> None:
                                   f"({NOT_PORTED_TRAIN})")
 
 
-def train_check(cfg: ModelConfig) -> None:
-    """``port_check``, and the configs that are served but not trained:
-    RWKV-6, the MoE, RG-LRU, enc-dec and the frontends."""
+def train_check(cfg: ModelConfig, model: int = 1) -> None:
+    """``port_check``, and what is served but not trained: RWKV-6, and on
+    a model axis of ``model`` > 1 ranks the MoE (its expert-parallel sums
+    are not differentiated), RG-LRU, enc-dec and the frontends."""
     port_check(cfg)
     _wkv_grad_check(cfg)
+    if model <= 1:
+        return
     missing = (["MoE"] if cfg.moe is not None else []) \
         + (["RG-LRU"] if "rglru" in cfg.pattern else []) \
         + (["enc-dec"] if cfg.enc_dec is not None else []) \
         + ([f"{cfg.frontend} frontend"] if cfg.frontend else [])
     if missing:
         raise NotImplementedError(f"{cfg.name}: training of "
-                                  f"{', '.join(missing)} is not ported yet "
+                                  f"{', '.join(missing)} on a model axis of "
+                                  f"{model} is not ported yet "
                                   f"({NOT_PORTED_TRAIN_ARCH})")
 
 
@@ -279,9 +287,15 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
 
 
 def encoder_fwd(params, cfg: ModelConfig, src_embeds) -> torch.Tensor:
-    """The enc-dec encoder: bf16 ``src_embeds`` (B,Ss,D) through its
-    non-causal attention layers and final norm."""
+    """The enc-dec encoder: ``src_embeds`` (B,Ss,D), rounded to bf16 as
+    the reference's, through its non-causal attention layers and final
+    norm.  The layers' carry keeps the weights' dtype from the first layer
+    on, as the reference's layer scan requires: an f32 model promotes the
+    rounded input to f32 before the first norm (the reference's scan
+    refuses an f32 model outright)."""
     x = src_embeds.to(torch.bfloat16)
+    x = x.to(torch.promote_types(
+        x.dtype, params["enc"]["layers"][0]["attn"]["wq"].dtype))
     for p in params["enc"]["layers"]:
         x = _remat(functools.partial(_layer_fwd, p, cfg, "attn",
                                      causal=False), x)
@@ -347,9 +361,15 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, ce_chunk: int = 512,
     The unembedding and softmax run over sequence chunks of ``ce_chunk``,
     each rematted, so the (B, S, V) logits are never held whole.  On a
     model axis ``tp`` (``params`` this rank's shard), the vocab-parallel
-    cross-entropy of :func:`_ce_chunk`; every rank returns the same loss."""
-    train_check(cfg)
-    x = _copy(tp, trunk_fwd(params, cfg, batch, tp))
+    cross-entropy of :func:`_ce_chunk`; every rank returns the same loss.
+    A frontend's ``embeds`` prefix positions are dropped before the loss,
+    which runs over the token positions only (the reference's
+    :173-174)."""
+    train_check(cfg, 1 if tp is None else tp.size)
+    x = trunk_fwd(params, cfg, batch, tp)
+    if "embeds" in batch:
+        x = x[:, batch["embeds"].shape[1]:]
+    x = _copy(tp, x)
     labels = batch["labels"]
     head = _head(params, cfg)
     S = x.shape[1]

@@ -2,7 +2,9 @@
 the multilevel gradient sync and an optional ZeRO-1 mode.
 
 Counterpart of ``repro/optim/adamw.py``.  ``OptConfig``, ``lr_at``,
-``scatter_axes``, ``_adamw_math`` and ``init_opt_state`` are copies.
+``scatter_axes``, ``_adamw_math`` and ``init_opt_state`` are copies; the
+update writes the optimiser state in place, where the reference's jitted
+train step donates it.
 ``apply_updates`` runs on every rank of a ``launch.mesh.Grid`` (the
 reference runs inside ``shard_map`` over the (pod, data) axes) and syncs
 each leaf over the grid's process groups: flat (one all-reduce over all
@@ -126,15 +128,18 @@ def scatter_axes(params: Any, n: int, model_dims: Any | None = None) -> Any:
     return tree_map(pick, params, model_dims)
 
 
-def _adamw_math(m, v, g, master, cfg: OptConfig, lr, t, decay_mask=1.0):
+def _adamw_math(m, v, g, master, cfg: OptConfig, lr, t):
+    """The reference's AdamW step on one leaf, in place on ``m``, ``v`` and
+    ``master`` (returned): the same operations in the same order, so the
+    same values, with one copy of the state held (the reference's jitted
+    step donates it; recurrentgemma-2b's 2.9 B parameters hold 32 GiB of
+    it)."""
     b1, b2 = cfg.betas
-    m = b1 * m + (1 - b1) * g
-    v = b2 * v + (1 - b2) * g * g
-    mhat = m / (1 - b1 ** t)
-    vhat = v / (1 - b2 ** t)
-    upd = (mhat / (torch.sqrt(vhat) + cfg.eps)
-           + cfg.weight_decay * decay_mask * master)
-    return m, v, master - lr * upd
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    upd = (m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + cfg.eps)
+    master.sub_(lr * (upd + cfg.weight_decay * master))
+    return m, v, master
 
 
 def init_opt_state(params: Any, cfg: OptConfig, n_slow: int = 1) -> dict:
@@ -242,13 +247,17 @@ def _clip_scale(gn2, cfg: OptConfig):
                                                        1e-12), max=1.0)
 
 
-def _update(grads, opt, cfg: OptConfig, scale, lr, t):
-    """AdamW on every leaf: (m, v, master) trees."""
-    res = tree_map(lambda m, v, g, w: _adamw_math(m, v, g * scale, w, cfg,
-                                                  lr, t),
-                   opt["m"], opt["v"], grads, opt["master"])
-    # res holds an (m, v, w) tuple per leaf: pick along grads' structure
-    return (tree_map(lambda _, r: r[i], grads, res) for i in range(3))
+def _update(grads: list, opt, cfg: OptConfig, scale, lr, t):
+    """AdamW on every leaf of ``opt``, in place; ``grads`` the list of the
+    synced f32 gradient leaves, each dropped from it once its leaf is
+    updated (the caller holds no other reference), so that one leaf's
+    temporaries, not a second copy of the gradient, top the state.
+    Returns the (m, v, master) trees."""
+    grads.reverse()
+    for m, v, w in zip(tree_leaves(opt["m"]), tree_leaves(opt["v"]),
+                       tree_leaves(opt["master"])):
+        _adamw_math(m, v, grads.pop() * scale, w, cfg, lr, t)
+    return opt["m"], opt["v"], opt["master"]
 
 
 def _model_sum(gn2, grid: Grid):
@@ -265,7 +274,10 @@ def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig,
     AdamW on the f32 master; returns (params cast back to their dtypes,
     opt).  Under ZeRO-1 the opt leaves are this rank's shards
     (``shard_opt_state``).  On a model axis the trees are this rank's
-    model shards, ``model_dims`` their model-sharded dims."""
+    model shards, ``model_dims`` their model-sharded dims.  ``opt`` is
+    donated, as the reference's jitted step donates its state: its m, v
+    and master are updated in place and returned, and the ``opt`` passed
+    in is not to be read again."""
     grid = grid or Grid.single()
     data_size, dp_degree = grid.data, grid.world
     t = opt["step"] + 1
@@ -300,8 +312,9 @@ def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig,
             grads = tree_map(ml, grads, axes)
         gn2 = _model_sum(sum(torch.dot(g.reshape(-1), g.reshape(-1))
                              for g in tree_leaves(grads)), grid)
-        new_m, new_v, new_w = _update(grads, opt, cfg, _clip_scale(gn2, cfg),
-                                      lr, t)
+        scale = _clip_scale(gn2, cfg)
+        grads = tree_leaves(grads)      # the tree goes: _update frees each
+        new_m, new_v, new_w = _update(grads, opt, cfg, scale, lr, t)
         new_params = tree_map(lambda w, p: w.to(p.dtype), new_w, params)
         out = dict(opt, m=new_m, v=new_v, master=new_w, step=t)
         if new_ef is not None:
@@ -327,8 +340,9 @@ def apply_updates(params: Any, grads: Any, opt: dict, cfg: OptConfig,
         return s if ax is not None else s / data_size
     gn2 = sum(tree_leaves(tree_map(sq, shards, axes)))
     gn2 = _model_sum(grid.fast.psum(gn2.reshape(1))[0], grid)
-    new_m, new_v, new_w = _update(shards, opt, cfg, _clip_scale(gn2, cfg),
-                                  lr, t)
+    scale = _clip_scale(gn2, cfg)
+    shards = tree_leaves(shards)        # the tree goes: _update frees each
+    new_m, new_v, new_w = _update(shards, opt, cfg, scale, lr, t)
 
     # stage 3: all-gather updated params over the fast axis, cast to their
     # dtype first (half the bytes for bf16)

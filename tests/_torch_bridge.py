@@ -1,6 +1,6 @@
 """Move arrays between the JAX package and the PyTorch port through numpy,
-and run the reference per rank of a (pod, data) or (pod, data, model)
-grid.
+run the reference per rank of a (pod, data) or (pod, data, model) grid,
+and run its encoder on an f32 model.
 
 bf16 crosses as its uint16 bit pattern (numpy has no bf16), so values
 arrive bit for bit.  TF32 is switched off for the port's f32 products, so
@@ -39,6 +39,20 @@ def numpy_to_torch(tree):
 
 def to_torch(tree):
     return numpy_to_torch(jax_to_numpy(tree))
+
+
+def ref_encoder_f32(params, cfg, src_embeds):
+    """The reference's ``encoder_fwd`` for an f32 enc-dec model: its bf16
+    input promoted to f32 before its layer scan (``_run_fwd``), whose
+    carry must keep one dtype, as the port's encoder promotes it.  Tests
+    set it in place of ``repro.models.transformer.encoder_fwd``, which
+    refuses an f32 model."""
+    from repro.models import layers as JL
+    from repro.models import transformer as JT
+    x = src_embeds.astype(jnp.bfloat16).astype(jnp.float32)
+    for stacked in params["enc"]["runs"]:
+        x = JT._run_fwd(stacked, cfg, "attn", x, None, causal=False)
+    return JL.rmsnorm(x, params["enc"]["final_norm"])
 
 
 def as_f32(x):

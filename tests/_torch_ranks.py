@@ -142,6 +142,14 @@ def trajectory(rank, pods, data, cfg, modes, params, batches):
                        batches)
 
 
+def family_trajectories(rank, pods, data, cases, modes):
+    """``trajectory`` for each (cfg, params, batches) of ``cases`` on one
+    grid: {config name: {mode: losses}}."""
+    grid = make_grid(pods, data, CPU)
+    return {cfg.name: _trajectory(grid, cfg, modes, params, batches)
+            for cfg, params, batches in cases}
+
+
 def _tree_ops(run, comm, roots, x, g, sc):
     """The seven collectives of ``comm`` on this rank's inputs, recorded by
     ``run(name, comm, thunk)``."""

@@ -259,6 +259,12 @@ def test_serve_on_card_launches_the_kernel(dev):
     (1, 128, 384, 4, 1, 64, True, None, 256),      # continuation chunk
     (1, 128, 256, 4, 2, 16, True, 64, 300),        # fully masked rows
     (1, 96, 96, 6, 3, 32, True, None, 0),          # G = 3 leaves a row idle
+    # hd 256: the bf16 column split and the f32 32-key tile
+    (1, 512, 512, 10, 1, 256, True, 128, 0),       # recurrentgemma: G 10
+    (2, 333, 333, 8, 1, 256, True, None, 0),       # ragged, G 8
+    (1, 300, 300, 16, 8, 256, True, 100, 0),       # gemma3 local, G 2
+    (1, 128, 384, 4, 4, 256, True, None, 256),     # continuation, G 1
+    (1, 200, 300, 2, 2, 256, False, None, 0),      # non-causal, G 1
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernels_match_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
@@ -304,7 +310,7 @@ def test_flash_autograd_on_card_matches_cpu(dev):
 
 
 def test_flash_bwd_rejects_what_it_cannot_take(dev):
-    for hd, G, dtype in ((256, 1, torch.float32), (48, 1, torch.float32),
+    for hd, G, dtype in ((512, 1, torch.float32), (48, 1, torch.float32),
                          (64, 1, torch.float16), (64, 128, torch.float32)):
         q = torch.zeros(1, 64, G, hd, device=dev, dtype=dtype)
         k = torch.zeros(1, 64, 1, hd, device=dev, dtype=dtype)
@@ -340,6 +346,54 @@ def test_train_on_card_matches_cpu(dev):
         want, got = lay_c["attn"]["wq"], lay_g["attn"]["wq"].cpu()
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_family_train_step_on_card_matches_cpu(dev, arch):
+    """One f32 step of ``make_train_step`` of each family at smoke size
+    (2 x 64 tokens: the flash kernels on the card, recurrentgemma's local
+    layers at the window) against the CPU from the same weights: the loss
+    within 1e-5 relative and Adam's first moment (0.1 x the clipped
+    gradient) within 1e-4 of each leaf's largest, the CPU tests' f32
+    gradient tolerance; a backward launch per attention call."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models.convert import stack_runs
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.tree import tree_paths
+
+    cfg = get_config(arch, smoke=True)
+    full = stack_runs(_f32(T.init_model(cfg, seed=0, device="cpu"), "cpu"),
+                      cfg)
+    batch = DataPipeline(cfg, ShapeSpec("t", "train", 64, 2)).host_batch(0)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=1)
+    out = {}
+    for d in ("cpu", dev):
+        params = _f32(full, d)
+        before = fa.flash_bwd_dkv.launches
+        _, opt, loss = make_train_step(cfg, opt_cfg, device=d)(
+            params, init_opt_state(params, opt_cfg), batch)
+        out[str(d)] = (loss.item(), [(k, m.cpu()) for k, m in
+                                     tree_paths(opt["m"])],
+                       fa.flash_bwd_dkv.launches - before)
+    (l_c, m_c, n_c), (l_g, m_g, n_g) = out["cpu"], out[str(dev)]
+    calls = sum(k in ("attn", "local") for k in cfg.pattern)
+    if cfg.enc_dec:                     # the encoder's and cross layers
+        calls += cfg.enc_dec.n_enc_layers + calls
+    assert n_c == 0 and n_g == calls
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c)
+    top = max(c.abs().max().item() for _, c in m_c)
+    for (name, g), (_, c) in zip(m_g, m_c):
+        if cfg.moe is not None and cfg.moe.top_k == 1 \
+                and name.endswith("router"):
+            # a top-1 gate renormalises to 1: a zero gradient but for
+            # rounding on each side
+            assert max(g.abs().max().item(), c.abs().max().item()) \
+                <= 1e-6 * top
+        else:
+            torch.testing.assert_close(g, c, rtol=0,
+                                       atol=1e-4 * c.abs().max().item())
 
 
 def test_launch_train_on_card(dev):

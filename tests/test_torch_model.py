@@ -34,6 +34,7 @@ from repro_torch import configs
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import (cache_from_jax, cache_to_numpy,
                                         params_from_jax, stack_runs, to_numpy)
+from repro_torch.tree import tree_leaves
 
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 CACHE_TOL = {"float32": 1e-2, "bfloat16": 2e-2}
@@ -289,21 +290,25 @@ def test_serve_olmoe_smoke_matches_jax_executor(monkeypatch):
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_training_new_archs_raises_naming_roadmap(arch):
-    """Served, not trained: ``train_check``, the loss and the train step
-    refuse these configs and name ROADMAP's item 9, while their full
-    forward runs."""
-    from repro_torch.launch.step import make_train_step
-    from repro_torch.optim import adamw
+    """Trained on one rank, refused on a model axis: ``train_check``, the
+    loss and the train step of a model axis name ROADMAP's item 9, while
+    the one-rank loss and its gradient run, and so does the full
+    forward."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch.step import loss_and_grads
 
     cfg = configs.get_config(arch, smoke=True)
+    T.train_check(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        T.train_check(cfg)
+        T.train_check(cfg, 2)
     params = T.init_model(cfg, device="cpu")
     _, batch = _inputs(cfg, 1, 8)
     batch["labels"] = batch["tokens"]
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        T.loss_fn(params, cfg, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        make_train_step(cfg, adamw.OptConfig(), device="cpu")
+        T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=2))
+    loss, grads = loss_and_grads(params, cfg, batch)
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g.float()).all() for g in tree_leaves(grads))
     with torch.no_grad():
         assert torch.isfinite(T.model_fwd(params, cfg, batch)).all()

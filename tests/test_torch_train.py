@@ -2,14 +2,23 @@
 
 gpt-100m at its smoke size (4 layers, d 64, 4 heads of 16, vocab 512) with
 the reference's ``init_model(PRNGKey(0))`` weights carried over by
-``params_from_jax``.  Each check runs in both packages on the same inputs:
+``params_from_jax``; the gradient check also at the smoke sizes of
+gemma3-12b, the MoE (olmoe-1b-7b, llama4-scout-17b-a16e with its shared
+expert), recurrentgemma-2b, seamless-m4t-medium and pixtral-12b.  Each
+check runs in both packages on the same inputs:
 
 * loss and every gradient leaf against ``jax.value_and_grad(loss_fn)``:
   f32 to 1e-5 (loss, relative) and 1e-4 x max|g| (each leaf); bf16 to 1e-2
   and a relative L2 error of 5e-2 per leaf, because every op rounds to bf16
   and the tied embedding's gradient is a scatter-add whose bf16 result
   depends on the order of its sums.  S 1024 runs the flash path and the
-  chunked cross-entropy; S 100 the naive path;
+  chunked cross-entropy; S 100 the naive path.  The MoE in bf16 first
+  routes alike in both (a token may route apart only where its k-th and
+  (k+1)-th logits are within twice the two packages' largest logit
+  difference); llama4-scout's router, whose top-1 gate renormalises to
+  1, has a zero gradient but for rounding, held under 1e-6 of the
+  largest gradient entry in both; seamless in f32 takes the reference's
+  encoder through ``_torch_bridge.ref_encoder_f32``;
 * ``apply_updates`` fed identical f32 gradients against the reference's
   inside a one-device ``shard_map``, to 1e-6 x max|ref| per leaf (Adam
   would amplify sign noise on near-zero gradients, so the optimiser is
@@ -35,7 +44,8 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 import _torch_ranks as ranks
-from _torch_bridge import jax_to_numpy, rank_opt, vmap_ranks
+from _torch_bridge import (jax_to_numpy, rank_opt, ref_encoder_f32,
+                           vmap_ranks)
 from repro import configs as jconfigs
 from repro.checkpoint.manager import CheckpointManager as JaxCheckpoints
 from repro.compat import shard_map
@@ -43,6 +53,7 @@ from repro.configs.shapes import ShapeSpec as JaxShape
 from repro.data.pipeline import DataPipeline as JaxPipeline
 from repro.launch import step as JSTEP
 from repro.launch.mesh import make_test_mesh
+from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.optim import adamw as jadamw
 from repro_torch import configs
@@ -54,6 +65,7 @@ from repro_torch.launch.step import device_batch, loss_and_grads
 from repro_torch.launch.step import make_train_step
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.train import train
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import (from_numpy, params_from_jax,
                                         params_to_jax, stack_runs, to_numpy,
@@ -94,32 +106,113 @@ def _batch(cfg, S, B=2, step=0):
     return JaxPipeline(cfg, JaxShape("test", "train", S, B)).host_batch(step)
 
 
+def _routes(monkeypatch, cfg, params, jparams, batch):
+    """Every MoE call of one forward, in layer order, in each package:
+    (the top-k expert ids, the f32 router logits), the reference's taken
+    by a ``jax.debug.callback`` in its ``_moe_block``."""
+    port, ref = [], []
+    route, block = L._moe_route, JL._moe_block
+
+    def port_route(p, m, xt):
+        gates, order, sizes = route(p, m, xt)
+        eidx = torch.empty_like(order)
+        eidx[order] = torch.repeat_interleave(
+            torch.arange(m.n_experts), torch.tensor(sizes))
+        port.append((eidx.reshape(-1, m.top_k).numpy(),
+                     L._mm(xt.float(), p["router"]).numpy()))
+        return gates, order, sizes
+
+    def ref_block(p, m, xt):
+        logits = xt.astype(jnp.float32) @ p["router"]
+        _, eidx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), m.top_k)
+        jax.debug.callback(lambda e, lg: ref.append(
+            (np.asarray(e), np.asarray(lg))), eidx, logits)
+        return block(p, m, xt)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(L, "_moe_route", port_route)
+        mp.setattr(JL, "_moe_block", ref_block)
+        with torch.no_grad():
+            T.loss_fn(params, cfg, batch)
+        jax.block_until_ready(jax.jit(lambda p, b: JT.loss_fn(p, cfg, b))(
+            jparams, {k: jnp.asarray(v) for k, v in _np(batch).items()}))
+    return port, ref
+
+
+def assert_same_routing(port, ref, k):
+    """Equal top-k expert ids, but where a token's k-th and (k+1)-th
+    logits in the reference are within twice the largest difference
+    between the two packages' logits for it: only there can bf16
+    roundings upstream of the router (a few ulps of its input after a
+    few layers) swap two experts."""
+    assert len(port) == len(ref)
+    for (e, lg), (je, jlg) in zip(port, ref):
+        bad = np.nonzero((e != je).any(-1))[0]
+        srt = -np.sort(-jlg[bad], -1)
+        gap = srt[:, k - 1] - srt[:, k]
+        assert np.all(gap <= 2 * np.abs(lg[bad] - jlg[bad]).max(-1)), \
+            f"tokens {bad} route apart with logit gaps {gap}"
+
+
+def _np(batch):
+    return {k: v.numpy() for k, v in batch.items()}
+
+
 @pytest.mark.parametrize("arch,dtype,S,parallel_block", [
     (ARCH, "float32", 1024, False), (ARCH, "bfloat16", 1024, False),
     (ARCH, "float32", 100, True), (ARCH, "bfloat16", 100, False),
     # local and global layers (each remat recomputes with its own window),
     # q/k norm, geglu
-    ("gemma3_12b", "float32", 100, False)])
-def test_loss_and_grads_match_reference(arch, dtype, S, parallel_block):
+    ("gemma3_12b", "float32", 100, False),
+    # the MoE (router, renormalised top-k gates, per-expert products),
+    # llama4-scout's shared expert; RG-LRU's scan beside windowed layers
+    # on the flash path (S 1024) and the naive one; enc-dec (the cross
+    # attention's gradient into the encoder); pixtral's image prefix
+    ("olmoe_1b_7b", "float32", 100, False),
+    ("olmoe_1b_7b", "bfloat16", 100, False),
+    ("llama4_scout_17b_a16e", "float32", 100, False),
+    ("llama4_scout_17b_a16e", "bfloat16", 100, False),
+    ("recurrentgemma_2b", "float32", 1024, False),
+    ("recurrentgemma_2b", "bfloat16", 100, False),
+    ("seamless_m4t_medium", "float32", 100, False),
+    ("seamless_m4t_medium", "bfloat16", 100, False),
+    ("pixtral_12b", "float32", 100, False),
+    ("pixtral_12b", "bfloat16", 100, False)])
+def test_loss_and_grads_match_reference(arch, dtype, S, parallel_block,
+                                        monkeypatch):
     cfg = _cfg(arch, parallel_block=parallel_block)
+    if cfg.enc_dec is not None and dtype == "float32":
+        monkeypatch.setattr(JT, "encoder_fwd", ref_encoder_f32)
     jparams = _jax_params(cfg, dtype)
     batch = _batch(cfg, S)
+    params = params_from_jax(jax_to_numpy(jparams), cfg, device="cpu")
+    tbatch = device_batch(batch, "cpu")
+    if cfg.moe is not None and dtype == "bfloat16":
+        # the gradients compare where both route alike
+        port, ref = _routes(monkeypatch, cfg, params, jparams, tbatch)
+        assert len(port) == cfg.n_layers
+        assert_same_routing(port, ref, cfg.moe.top_k)
     jloss, jgrads = jax.jit(jax.value_and_grad(
         lambda p, b: JT.loss_fn(p, cfg, b)))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
-    params = params_from_jax(jax_to_numpy(jparams), cfg, device="cpu")
-    loss, grads = loss_and_grads(params, cfg, device_batch(batch, "cpu"))
+    loss, grads = loss_and_grads(params, cfg, tbatch)
 
     assert loss.dtype == torch.float32
     rel = abs(loss.item() - float(jloss)) / abs(float(jloss))
     assert rel <= (1e-5 if dtype == "float32" else 1e-2)
     got = tree_leaves(params_to_jax(grads, cfg))
-    want = jax.tree.leaves(jax_to_numpy(jgrads))
+    want, _ = jax.tree_util.tree_flatten_with_path(jax_to_numpy(jgrads))
     assert len(got) == len(want)
-    for g, w in zip(got, want):
+    top = max(np.abs(_f32(w)).max() for _, w in want)
+    for g, (path, w) in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         g, w = _f32(g), _f32(w)
-        if dtype == "float32":
+        if cfg.moe is not None and cfg.moe.top_k == 1 \
+                and "router" in jax.tree_util.keystr(path):
+            # one expert a token: its renormalised gate is 1, so the
+            # router's gradient is zero but for rounding in both
+            assert max(np.abs(g).max(), np.abs(w).max()) <= 1e-6 * top
+        elif dtype == "float32":
             assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
         else:
             assert np.linalg.norm(g - w) <= 5e-2 * np.linalg.norm(w)
