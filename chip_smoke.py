@@ -138,7 +138,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    minimum, median and maximum at each size, the fitted levels and
    ``nstrata`` are printed: eight ranks on one card, all over host-staged
    loopback, may well cluster as one flat level.
-20. elastic training of gpt-100m at full width and depth, ranks sharing
+20. elastic training of gpt-100m at full width cut to 6 of its 12
+   layers (to keep the whole run inside its time), ranks sharing
    the card over gloo (staged through host memory, as phase 11), each
    rank's counters starting at 0 in its fresh process.  20a: 4x1x1,
    ``multilevel_compress`` with ZeRO-1, 6 steps of 8 x 1024 tokens, pod 1
@@ -249,6 +250,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    sharing the card over gloo, ``multilevel_compress`` with ZeRO-1, 2
    steps, against one rank on the card (1e-4 relative): #5 and #6 once a
    stacked leaf (the expert leaves included) a step on each rank.
+27. training RWKV-6 on one rank, and the MoE and frontend configs on a
+   model axis, the counters and the MoE's host syncs set to 0 just before
+   each and read just after (the spawned ranks' from 0 in their fresh
+   processes): 27a ``train`` on rwkv6-1.6b at full width and depth (24
+   layers, d 2048, vocab 65,536), bf16, 3 steps of 8 x 512 (the serving
+   prefill's shape): finite losses and two WKV launches a layer and step
+   (the forward and the remat's re-run; the backward is autograd through
+   the plain scan, recomputed from the saved inputs), printed with each
+   step's wall ms and loss, tok/s and peak memory; 27b, the answer:
+   rwkv6-1.6b at full width cut to 2 layers in f32, one step of
+   ``make_train_step`` on the card and on the CPU (26e's tolerances);
+   27c ``train`` on olmoe-1b-7b at full width cut to 4 of 16 layers on
+   ``1x1x2`` ranks sharing the card over gloo (32 experts a rank), bf16,
+   2 steps of 2 x 1024: finite losses, each rank's flash launches (2, 1,
+   1 a layer and step), its host reads of the routing (2 a layer and
+   step), the slots each layer dropped, the model axis's collectives a
+   step, the bytes staged, step ms beside 26c's one rank and each rank's
+   peak memory; 27d, the answer on the axis: olmoe-1b-7b and pixtral-12b
+   at full width cut to 1 layer in f32 on ``1x1x2`` at a capacity factor
+   that drops nothing, one unclipped step against one rank on the card:
+   the loss within 1e-4 relative, Adam's first moment within 1e-4 of each
+   leaf's largest.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -410,6 +433,9 @@ ELASTIC_ANSWER = dict(steps=4, seq=256, batch=4, mesh_spec="4x1x1",
                       comm="multilevel_compress", fail_at={2: [1]})
 # losses: 20b replays step 7 from the checkpoint of step 6
 ELASTIC_LOSSES = {"20a": 6, "20b": 8}
+# 20a and 20b train gpt-100m at full width cut to 6 of its 12 layers (the
+# whole script's 1200 s: phase 27 took the time)
+ELASTIC_LAYERS = 6
 # phase 21: olmoe-1b-7b at full width and depth through the paged
 # scheduler, phase 5's requests; then one profiled prefill of 8 x 512
 MOE_ARCH = "olmoe-1b-7b"
@@ -508,6 +534,20 @@ FAMILY_ZERO_TOL = 1e-6
 # sharing the card over gloo against one rank on the card
 FAMILY_GRID = ("olmoe-1b-7b", 1, dict(steps=2, seq=256, batch=4))
 FAMILY_GRID_TOL = 1e-4     # relative, tests/test_torch_train.py's grid
+# phase 27: training RWKV-6 on one rank (27a bf16 at full width and
+# depth through ``train``, at the serving prefill's shape; 27b f32 card
+# against CPU at 2 layers, 26e's tolerances), and the MoE and the frontend
+# on a model axis (27c olmoe-1b-7b at 4 of 16 layers on 1x1x2 in bf16, so
+# that its step compares with 26c's one rank; 27d olmoe and pixtral at 1
+# layer in f32 on 1x1x2 against one rank on the card, unclipped, the
+# MoE's capacity factor at the axis size so that no slot drops)
+RWKV_TRAIN = dict(steps=3, seq=512, batch=8)
+RWKV_TRAIN_ANSWER = ("rwkv6-1.6b", 2)
+TP_MOE_TRAIN = ("olmoe-1b-7b", 4, dict(steps=2, seq=1024, batch=2,
+                                       mesh_spec="1x1x2"))
+TP_FAMILY_ANSWER = [("olmoe-1b-7b", 1), ("pixtral-12b", 1)]
+TP_FAMILY_ANSWER_INPUT = dict(seq=256, batch=2, model=2)
+TP_FAMILY_TOL = 1e-4     # the loss relative, m of each leaf's largest
 
 
 def fail(msg: str) -> None:
@@ -1347,8 +1387,9 @@ def tree_topology():
     """The topology of phase 16: 2 pods of 2 boards of 2 ranks, the shape
     of ``examples/tree_collectives_on_mesh.py``; its first stratum is a
     2 x 4 grid's pods.  The card's link classes are not measured yet
-    (ROADMAP.md, Queue 1 item 3), so the levels carry names only: policy
-    "paper" builds its trees from the coordinates."""
+    (ROADMAP.md, Queue 1 item 8: "The NCCL path, one card per rank"), so
+    the levels carry names only: policy "paper" builds its trees from the
+    coordinates."""
     from repro_torch.core.topology import Level, Topology
 
     return Topology([[i // 4, i // 2] for i in range(TREE_WORLD)],
@@ -2013,12 +2054,12 @@ def bucket_train_phase(train, cfg) -> dict:
     return {k: sum(r[k] for r in bt["launches"]) for k in want}
 
 
-def elastic_case(train, name, kw, ckpt_dir) -> dict:
-    """One case of phase 20 through ``train`` on the card, checkpointing
-    into ``ckpt_dir``; returns its result."""
+def elastic_case(train, name, kw, ckpt_dir, cfg) -> dict:
+    """One case of phase 20 through ``train`` of ``cfg`` on the card,
+    checkpointing into ``ckpt_dir``; returns its result."""
     t0 = time.perf_counter()
-    out = train("gpt-100m", device="cuda", log_every=1, ckpt_dir=ckpt_dir,
-                **kw)
+    out = train("gpt-100m", config=cfg, device="cuda", log_every=1,
+                ckpt_dir=ckpt_dir, **kw)
     wall = time.perf_counter() - t0
     if len(out["losses"]) != ELASTIC_LOSSES[name] \
             or not all(math.isfinite(x) for x in out["losses"]):
@@ -2026,6 +2067,7 @@ def elastic_case(train, name, kw, ckpt_dir) -> dict:
              f"{ELASTIC_LOSSES[name]} finite")
     print(json.dumps({f"elastic_{name}": {
         **{k: v for k, v in kw.items() if k != "fail_at"},
+        "layers": cfg.n_layers,
         "fail_at": {str(k): v for k, v in kw["fail_at"].items()},
         "wall_s": wall, "losses": out["losses"], "step_ms": out["step_ms"],
         "step_tokens": out["step_tokens"], "recovery_s": out["recovery_s"],
@@ -2091,16 +2133,18 @@ def elastic_answer(train, get_config) -> None:
              f"(relative) between card and CPU")
 
 
-def elastic_phase(train, cfg, get_config) -> dict:
-    """Phase 20: elastic training of gpt-100m at full width and depth on
-    ranks sharing the card.  20a repairs in place and checkpoints from the
-    shrunk grid; 20b restarts below quorum from a checkpoint, whose
-    restored state must equal, bit for bit, the state gathered at its
-    save; 20c holds the losses through a failure to the CPU's.  Returns
-    the launches of 20a and 20b summed over their surviving ranks."""
+def elastic_phase(train, get_config) -> dict:
+    """Phase 20: elastic training of gpt-100m at full width, cut to
+    ELASTIC_LAYERS layers, on ranks sharing the card.  20a repairs in
+    place and checkpoints from the shrunk grid; 20b restarts below quorum
+    from a checkpoint, whose restored state must equal, bit for bit, the
+    state gathered at its save; 20c holds the losses through a failure to
+    the CPU's.  Returns the launches of 20a and 20b summed over their
+    surviving ranks."""
     t_phase = time.perf_counter()
+    cfg = cut(get_config, "gpt-100m", ELASTIC_LAYERS)
     with tempfile.TemporaryDirectory(prefix="repro_torch_elastic_") as tmp:
-        a = elastic_case(train, "20a", ELASTIC_REPAIR, f"{tmp}/a")
+        a = elastic_case(train, "20a", ELASTIC_REPAIR, f"{tmp}/a", cfg)
         leaves, steps = 10, ELASTIC_REPAIR["steps"]
         want = {"flash_fwd": 2 * cfg.n_layers * steps,
                 "flash_bwd_dq": cfg.n_layers * steps,
@@ -2124,7 +2168,7 @@ def elastic_phase(train, cfg, get_config) -> dict:
                  f"expected {want} each")
         shutil.rmtree(f"{tmp}/a")
 
-        b = elastic_case(train, "20b", ELASTIC_RESTART, f"{tmp}/b")
+        b = elastic_case(train, "20b", ELASTIC_RESTART, f"{tmp}/b", cfg)
         saved = {s["step"]: s["digest"] for s in b["saves"]}
         if b["recoveries"] != 1 or b["repairs"] != 0 or b["accum"] != 2 \
                 or b["pods"] != 1 or b["world"] != 2 \
@@ -2891,14 +2935,14 @@ def tp_train_qwen(torch, train, get_config) -> list:
     return two["launches"]
 
 
-def family_train_case(torch, train, fa, kw, L, get_config, name) -> dict:
+def family_train_case(torch, train, fa, kw, L, get_config, name) -> tuple:
     """26a-26d: ``train`` of one family's config in bf16 on one rank, the
     counters and the MoE's host syncs set to 0 just before and read just
     after: finite losses, a flash launch per attention call (encoder and
     cross layers included) and step, twice for the forward (remat);
     printed with the parameter count, each step's wall ms and loss, peak
     memory and, for the MoE, the host syncs of the routing.  Returns the
-    launches."""
+    launches and the mean wall ms of a step after the first."""
     from repro_torch.launch.step import layer_grad_bytes
 
     arch, n, kw_ = FAMILY_TRAIN[name]
@@ -2938,15 +2982,15 @@ def family_train_case(torch, train, fa, kw, L, get_config, name) -> dict:
     if cfg.moe and syncs != 2 * cfg.n_layers * kw_["steps"]:
         fail(f"phase {name} ({arch}): {syncs} host syncs of the routing")
     torch.cuda.empty_cache()
-    return got
+    return got, rec["steady_step_ms_mean"]
 
 
-def family_answer(torch, T, get_config) -> None:
-    """26e: each family's config at full width (one pattern period, one
-    layer, 1 + 1 for enc-dec, llama4-scout at its smoke size) in f32, one
-    step of ``make_train_step`` on the card and on the CPU from the same
-    weights and batch: the loss and Adam's first moment after the step."""
-    import numpy as np
+def answer_step(torch, T, fa, kw, cfg, arch, n, key, phase) -> dict:
+    """One f32 step of ``make_train_step`` of ``cfg`` (``arch`` cut to
+    ``n`` layers, None for the smoke config) on the card and on the CPU
+    from the same weights and batch: the loss within FAMILY_LOSS_TOL
+    relative, Adam's first moment within FAMILY_M_TOL of each leaf's
+    largest; printed under ``key``.  Returns the card's launches."""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.step import make_train_step
@@ -2955,54 +2999,76 @@ def family_answer(torch, T, get_config) -> None:
     from repro_torch.tree import tree_map, tree_paths
 
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=1)
+    pipe = DataPipeline(cfg, ShapeSpec("answer", "train",
+                                       FAMILY_ANSWER_INPUT["seq"],
+                                       FAMILY_ANSWER_INPUT["batch"]))
+    # drawn on the card (quicker than on the CPU), the same on both sides
+    full = stack_runs(tree_map(lambda t: t.float().cpu(), T.init_model(
+        cfg, seed=0, device="cuda")), cfg)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), full)
+        opt = init_opt_state(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, device=dev)
+        reset(fa, kw)
+        params, opt, loss = step(params, opt, pipe.host_batch(0))
+        runs[dev] = (loss.item(), [(k, m.cpu().numpy()) for k, m in
+                                   tree_paths(opt["m"])], counts(fa, kw))
+        del params, opt
+        torch.cuda.empty_cache()
+    (l_gpu, m_gpu, launches), (l_cpu, m_cpu, _) = runs["cuda"], runs["cpu"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    m_rel, zero = m_errs(m_gpu, m_cpu, cfg)
+    print(json.dumps({key: {
+        "arch": arch, "layers": cfg.n_layers, "smoke": n is None,
+        **FAMILY_ANSWER_INPUT, "loss_card": l_gpu, "loss_cpu": l_cpu,
+        "rel_loss_diff": rel, "loss_tolerance": FAMILY_LOSS_TOL,
+        "m_leaves": len(m_cpu), "m_max_rel_diff": m_rel,
+        "m_tolerance": FAMILY_M_TOL, "top1_router_m_over_max_m": zero,
+        "launches_card": launches}}), flush=True)
+    if not math.isfinite(rel) or rel > FAMILY_LOSS_TOL:
+        fail(f"phase {phase} {arch}: f32 losses differ by {rel} (relative) "
+             f"between card and CPU")
+    if not math.isfinite(m_rel) or m_rel > FAMILY_M_TOL:
+        fail(f"phase {phase} {arch}: Adam's first moment differs by {m_rel} "
+             f"of its largest between card and CPU")
+    if not zero <= FAMILY_ZERO_TOL:
+        fail(f"phase {phase} {arch}: the top-1 router's first moment is "
+             f"{zero} of the largest, not a rounding residue")
+    return launches
+
+
+def m_errs(got, want, cfg) -> tuple[float, float]:
+    """The largest difference of two first moments (lists of (path,
+    numpy leaf)), each leaf's over its largest |m| in ``want``; and for a
+    top-1 router, whose gradient is zero but for rounding (its
+    renormalised gate is 1), the larger of its two |m| over the largest
+    |m| of all leaves, held under FAMILY_ZERO_TOL."""
+    import numpy as np
+
+    top = max(np.abs(c).max() for _, c in want)
+    m_rel, zero = 0.0, 0.0
+    for (name, g), (_, c) in zip(got, want):
+        if cfg.moe is not None and cfg.moe.top_k == 1 \
+                and name.endswith("router"):
+            zero = max(zero, float(max(np.abs(g).max(), np.abs(c).max())
+                                   / top))
+        else:
+            m_rel = max(m_rel, float(np.abs(g - c).max()
+                                     / max(np.abs(c).max(), 1e-30)))
+    return m_rel, zero
+
+
+def family_answer(torch, T, fa, kw, get_config) -> None:
+    """26e: each family's config at full width (one pattern period, one
+    layer, 1 + 1 for enc-dec, llama4-scout at its smoke size) in f32, one
+    step of ``make_train_step`` on the card and on the CPU from the same
+    weights and batch: the loss and Adam's first moment after the step."""
     for arch, n in FAMILY_ANSWER:
         cfg = get_config(arch, smoke=True) if n is None \
             else cut(get_config, arch, n)
-        pipe = DataPipeline(cfg, ShapeSpec("answer", "train",
-                                           FAMILY_ANSWER_INPUT["seq"],
-                                           FAMILY_ANSWER_INPUT["batch"]))
-        full = stack_runs(tree_map(lambda t: t.float(), T.init_model(
-            cfg, seed=0, device="cpu")), cfg)
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            params = tree_map(lambda t: t.to(dev), full)
-            opt = init_opt_state(params, opt_cfg)
-            step = make_train_step(cfg, opt_cfg, device=dev)
-            params, opt, loss = step(params, opt, pipe.host_batch(0))
-            runs[dev] = (loss.item(), [(k, m.cpu().numpy()) for k, m in
-                                       tree_paths(opt["m"])])
-            del params, opt
-            torch.cuda.empty_cache()
-        (l_gpu, m_gpu), (l_cpu, m_cpu) = runs["cuda"], runs["cpu"]
-        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-        top = max(np.abs(c).max() for _, c in m_cpu)
-        m_rel, zero = 0.0, 0.0
-        for (name, g), (_, c) in zip(m_gpu, m_cpu):
-            if cfg.moe is not None and cfg.moe.top_k == 1 \
-                    and name.endswith("router"):
-                # one expert a token: its renormalised gate is 1, so the
-                # router's gradient is zero but for rounding on each side
-                zero = max(zero, float(max(np.abs(g).max(), np.abs(c).max())
-                                       / top))
-            else:
-                m_rel = max(m_rel, float(np.abs(g - c).max()
-                                         / max(np.abs(c).max(), 1e-30)))
-        print(json.dumps({"family_train_f32_card_vs_cpu": {
-            "arch": arch, "layers": cfg.n_layers, "smoke": n is None,
-            **FAMILY_ANSWER_INPUT, "loss_card": l_gpu, "loss_cpu": l_cpu,
-            "rel_loss_diff": rel, "loss_tolerance": FAMILY_LOSS_TOL,
-            "m_leaves": len(m_cpu), "m_max_rel_diff": m_rel,
-            "m_tolerance": FAMILY_M_TOL,
-            "top1_router_m_over_max_m": zero}}), flush=True)
-        if not math.isfinite(rel) or rel > FAMILY_LOSS_TOL:
-            fail(f"phase 26e {arch}: f32 losses differ by {rel} (relative) "
-                 f"between card and CPU")
-        if not math.isfinite(m_rel) or m_rel > FAMILY_M_TOL:
-            fail(f"phase 26e {arch}: Adam's first moment differs by {m_rel} "
-                 f"of its largest between card and CPU")
-        if not zero <= FAMILY_ZERO_TOL:
-            fail(f"phase 26e {arch}: the top-1 router's first moment is "
-                 f"{zero} of the largest, not a rounding residue")
+        answer_step(torch, T, fa, kw, cfg, arch, n,
+                    "family_train_f32_card_vs_cpu", "26e")
 
 
 def family_grid_losses(grid, dev):
@@ -3095,6 +3161,236 @@ def family_grid(torch, get_config) -> list:
         fail(f"phase 26f: the ranks launched "
              f"{[r['launches'] for r in res]}, expected {want} each")
     return [r["launches"] for r in res]
+
+
+def rwkv_train_case(torch, train, fa, kw, get_config) -> dict:
+    """27a: ``train`` of rwkv6-1.6b at full width and depth in bf16 on one
+    rank, the counters set to 0 just before and read just after: finite
+    losses and two WKV launches a layer and step (the forward's and the
+    remat's re-run inside the backward); printed with the parameter
+    count, each step's wall ms and loss, tok/s and peak memory.  Returns
+    the launches."""
+    from repro_torch.launch.step import layer_grad_bytes
+
+    cfg = get_config("rwkv6-1.6b")
+    steps = RWKV_TRAIN["steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(fa, kw)
+    t0 = time.perf_counter()
+    out = train(cfg.name, config=cfg, device="cuda", log_every=1,
+                **RWKV_TRAIN)
+    wall = time.perf_counter() - t0
+    got = counts(fa, kw)
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "wkv": 2 * cfg.n_layers * steps}
+    steady = out["step_ms"][1:]
+    print(json.dumps({"rwkv_train_27a": {
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "params": int(sum(layer_grad_bytes(cfg)) // 4), **RWKV_TRAIN,
+        "dtype": "bfloat16", "losses": out["losses"],
+        "step_ms": out["step_ms"],
+        "steady_step_ms_mean": sum(steady) / len(steady),
+        "tokens_per_s": out["tokens_per_s"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": got,
+        "wkv_per_layer_and_step": got["wkv"] / (cfg.n_layers * steps),
+        "wall_s": wall}}), flush=True)
+    if len(out["losses"]) != steps \
+            or not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"phase 27a: losses {out['losses']}")
+    if got != want:
+        fail(f"phase 27a: launched {got}, expected {want}")
+    torch.cuda.empty_cache()
+    return got
+
+
+def tp_moe_train(torch, train, get_config, one_rank_ms) -> list:
+    """27c: ``train`` of olmoe-1b-7b at full width cut to 4 layers on
+    1x1x2 ranks sharing the card over gloo, bf16, each rank's counters from
+    0 in its fresh process: finite losses, each rank's flash launches (2,
+    1, 1 a layer and step), its two host reads of the routing a layer and
+    step, the same model-axis collectives each step; printed with the
+    slots each layer dropped on each rank, the collectives a step, the
+    bytes staged, step ms beside 26c's one rank (``one_rank_ms``) and
+    each rank's peak memory.  Returns the ranks' launches."""
+    arch, n, kw_ = TP_MOE_TRAIN
+    cfg = cut(get_config, arch, n)
+    steps = kw_["steps"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = train(arch, config=cfg, device="cuda", dist_backend="gloo",
+                log_every=1, **kw_)
+    wall = time.perf_counter() - t0
+    steady = out["step_ms"][1:]
+    want = {"flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
+            "flash_bwd_dkv": n * steps, "quantize_int8": 0,
+            "dequantize_int8": 0, "quantize_ef_int8": 0}
+    print(json.dumps({"tp_moe_train_27c": {
+        "arch": arch, "layers": n, **kw_, "dtype": "bfloat16",
+        "experts_per_rank": cfg.moe.n_experts // out["model"],
+        "capacity_factor": cfg.moe.capacity_factor,
+        "losses": out["losses"], "step_ms": out["step_ms"],
+        "steady_step_ms_mean": sum(steady) / len(steady),
+        "one_rank_steady_step_ms_26c": one_rank_ms,
+        "tokens_per_s": out["tokens_per_s"],
+        "tp_calls_per_step": out["tp_calls"],
+        "staged_bytes_per_step": out["staged_bytes"],
+        "moe_per_rank": out["moe"],
+        "peak_mem_gb_per_rank": [b / 1e9 for b in out["peak_mem_bytes"]],
+        "launches_per_rank": out["launches"],
+        "wall_s_with_spawn": wall}}), flush=True)
+    if len(out["losses"]) != steps \
+            or not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"phase 27c: losses {out['losses']}")
+    if any(c != out["tp_calls"][0] for c in out["tp_calls"]) \
+            or min(out["tp_calls"][0].values()) < 1:
+        fail(f"phase 27c: model-axis collectives a step {out['tp_calls']}")
+    if len(out["launches"]) != 2 or any(r != want for r in out["launches"]):
+        fail(f"phase 27c: the ranks launched {out['launches']}, expected "
+             f"{want} each")
+    if any(r["syncs"] != [2 * n] * steps or len(r["dropped"]) != steps
+           or any(len(d) != n for d in r["dropped"]) for r in out["moe"]):
+        fail(f"phase 27c: the routing's host reads and drops {out['moe']}")
+    return out["launches"]
+
+
+def tp_family_cfg(get_config, arch, n):
+    """27d's config: ``arch`` at full width cut to ``n`` layers, a MoE's
+    capacity factor at the axis size (every slot may land on one rank)."""
+    cfg = cut(get_config, arch, n)
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(TP_FAMILY_ANSWER_INPUT["model"])))
+
+
+def tp_family_step(grid, cfg, dev):
+    """One f32 unclipped step of 27d on ``grid`` (one rank:
+    ``Grid.single()``) on ``dev``, from the seed-0 weights drawn on the
+    card (this rank's model shard of them): the loss, Adam's first
+    moment (the stacked layout, on the card), the slots dropped, the
+    flash kernels' launches."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import (model_dims, shard_params,
+                                            stack_runs)
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    tp = grid.tp
+    p = stack_runs(tree_map(lambda t: t.float(), T.init_model(
+        cfg, seed=0, device=dev)), cfg)
+    if tp is not None:
+        p = shard_params(p, cfg, tp.size, tp.index)
+    opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=20, total_steps=1,
+                              clip_norm=1e30)
+    opt = adamw.shard_opt_state(
+        adamw.init_opt_state(p, opt_cfg), p, opt_cfg, grid,
+        None if tp is None else model_dims(cfg, tp.size))
+    step = make_train_step(cfg, opt_cfg, grid, dev)
+    pipe = DataPipeline(cfg, ShapeSpec("answer", "train",
+                                       TP_FAMILY_ANSWER_INPUT["seq"],
+                                       TP_FAMILY_ANSWER_INPUT["batch"]))
+    kernels = {"flash_fwd": fa.flash_attention_fwd,
+               "flash_bwd_dq": fa.flash_bwd_dq,
+               "flash_bwd_dkv": fa.flash_bwd_dkv}
+    f0 = {k: f.launches for k, f in kernels.items()}
+    L.moe_fwd.dropped = dropped = []
+    try:
+        p, opt, loss = step(p, opt, pipe.host_batch(0))
+    finally:
+        L.moe_fwd.dropped = None
+    return {"loss": loss.item(), "m": opt["m"], "dropped": dropped,
+            "flash": {k: f.launches - f0[k] for k, f in kernels.items()}}
+
+
+def tp_family_rank(rank):
+    """One rank of 27d on the card: for each config, the step on one rank
+    (``Grid.single()``, in this process) and on 1x1x2, and this rank's
+    moment against the one-rank moment's shard (``m_errs``); returns the
+    losses, the errors, the drops and the model-axis step's flash
+    launches, not the moments."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Grid, make_grid
+    from repro_torch.models.convert import shard_params
+    from repro_torch.tree import tree_map, tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    M = TP_FAMILY_ANSWER_INPUT["model"]
+    grid = make_grid(1, 1, dev, model=M)
+    out = {}
+    for arch, n in TP_FAMILY_ANSWER:
+        cfg = tp_family_cfg(get_config, arch, n)
+        one = tp_family_step(Grid.single(), cfg, dev)
+        want = shard_params(one.pop("m"), cfg, M, grid.tp.index)
+        torch.cuda.empty_cache()
+        got = tp_family_step(grid, cfg, dev)
+        host = lambda tree: [(k, t.cpu().numpy())
+                             for k, t in tree_paths(tree)]
+        m_rel, zero = m_errs(host(got.pop("m")), host(want), cfg)
+        out[arch] = {**got, "loss_one_rank": one["loss"], "m_rel": m_rel,
+                     "zero": zero, "m_leaves": len(tree_paths(want))}
+        del want
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_answer(torch, get_config) -> dict:
+    """27d: olmoe-1b-7b and pixtral-12b at full width cut to 1 layer in
+    f32 on 1x1x2 ranks sharing the card over gloo, against one rank on the
+    card, one unclipped step: the loss within TP_FAMILY_TOL relative, each
+    rank's Adam first moment within TP_FAMILY_TOL of the one-rank
+    moment's shard, each leaf of its largest; no slot dropped.  Each rank
+    runs the one-rank step too and compares on the card, so no moment
+    crosses between processes.  Returns the ranks' flash launches on the
+    axis, summed."""
+    from repro_torch.launch.mesh import run_ranks
+
+    M = TP_FAMILY_ANSWER_INPUT["model"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_family_rank, M, "gloo", (), timeout=900.0)
+    wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    flash = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for arch, n in TP_FAMILY_ANSWER:
+        res = [r[arch] for r in ranks]
+        rel = max(abs(r["loss"] - r["loss_one_rank"]) / abs(r["loss_one_rank"])
+                  for r in res)
+        m_rel = max(r["m_rel"] for r in res)
+        zero = max(r["zero"] for r in res)
+        for r in res:
+            for k, v in r["flash"].items():
+                flash[k] += v
+        cfg = tp_family_cfg(get_config, arch, n)
+        rec = {"arch": arch, "layers": n, **TP_FAMILY_ANSWER_INPUT,
+               "capacity_factor": cfg.moe and cfg.moe.capacity_factor,
+               "losses_ranks": [r["loss"] for r in res],
+               "loss_one_rank": res[0]["loss_one_rank"],
+               "rel_loss_diff": rel, "m_leaves": res[0]["m_leaves"],
+               "m_max_rel_diff": m_rel, "top1_router_m_over_max_m": zero,
+               "tolerance": TP_FAMILY_TOL,
+               "dropped": [r["dropped"] for r in res],
+               "flash_per_rank": [r["flash"] for r in res],
+               "wall_s_with_spawn": wall}
+        print(json.dumps({"tp_family_f32_vs_one_rank_27d": rec}),
+              flush=True)
+        want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        if not (math.isfinite(rel) and rel <= TP_FAMILY_TOL
+                and math.isfinite(m_rel) and m_rel <= TP_FAMILY_TOL
+                and zero <= FAMILY_ZERO_TOL) \
+                or any(any(d) for d in rec["dropped"]) \
+                or any(f != want for f in rec["flash_per_rank"]):
+            fail(f"phase 27d: {arch} on a model axis of {M} in f32: {rec}")
+    return flash
 
 
 def main() -> None:
@@ -3315,7 +3611,7 @@ def main() -> None:
 
     # 20. elastic training on ranks sharing the card: each rank is a fresh
     # process whose counters start at 0
-    elastic_counts = elastic_phase(train, cfg, get_config)
+    elastic_counts = elastic_phase(train, get_config)
 
     # 21. the MoE main path: olmoe-1b-7b through the paged scheduler
     from repro_torch.models import layers as L
@@ -3361,12 +3657,13 @@ def main() -> None:
     # 26. training the MoE, RG-LRU, enc-dec and frontend configs: 26a-d
     # in this process, counters from 0 before each; 26f's ranks are fresh
     # processes whose counters start at 0 and are read at their end
-    family = []
+    family, family_ms = [], {}
     for name in FAMILY_TRAIN:
-        family.append(family_train_case(torch, train, fa, kw, L, get_config,
-                                        name))
+        got, family_ms[name] = family_train_case(torch, train, fa, kw, L,
+                                                 get_config, name)
+        family.append(got)
         walls.append(time.perf_counter())
-    family_answer(torch, T, get_config)
+    family_answer(torch, T, fa, kw, get_config)
     walls.append(time.perf_counter())
     family += family_grid(torch, get_config)
     walls.append(time.perf_counter())
@@ -3374,10 +3671,31 @@ def main() -> None:
                      for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     family_counts.update({k: sum(r.get(k, 0) for r in family) for k in (
         "dequantize_int8", "quantize_ef_int8")})
+
+    # 27. training RWKV-6 on one rank (27a-b in this process, counters
+    # from 0 before each), and the MoE and the frontend on a model axis
+    # (27c-d's ranks are fresh processes whose counters start at 0 and
+    # are read at their end)
+    rwkv_train = rwkv_train_case(torch, train, fa, kw, get_config)
+    walls.append(time.perf_counter())
+    arch, n = RWKV_TRAIN_ANSWER
+    rwkv_answer_counts = answer_step(torch, T, fa, kw,
+                                     cut(get_config, arch, n), arch, n,
+                                     "rwkv_train_f32_card_vs_cpu", "27b")
+    if rwkv_answer_counts["wkv"] != 2 * n:
+        fail(f"phase 27b: the card's step launched {rwkv_answer_counts}")
+    walls.append(time.perf_counter())
+    tp_moe = tp_moe_train(torch, train, get_config, family_ms["26c"])
+    walls.append(time.perf_counter())
+    tp_family = tp_family_answer(torch, get_config)
+    walls.append(time.perf_counter())
+    tp_counts = {k: sum(r[k] for r in tp_moe) + tp_family[k]
+                 for k in tp_family}
     print(json.dumps({"phase_wall_s": {
         n: b - a for n, a, b in zip(("21", "22", "23", "24a-c", "24d",
                                      "25a", "25b", "25c", "25d", "26a",
-                                     "26b", "26c", "26d", "26e", "26f"),
+                                     "26b", "26c", "26d", "26e", "26f",
+                                     "27a", "27b", "27c", "27d"),
                                     walls, walls[1:])}}), flush=True)
 
     main_fwd = recs[MAIN_SHAPE]
@@ -3391,7 +3709,8 @@ def main() -> None:
                       + elastic_counts["flash_fwd"]
                       + moe_counts["flash_fwd"] + dense_flash + tp_flash
                       + tp_train_counts["flash_fwd"]
-                      + family_counts["flash_fwd"]),
+                      + family_counts["flash_fwd"]
+                      + tp_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
@@ -3400,7 +3719,8 @@ def main() -> None:
                          + bucket_counts["flash_bwd_dq"]
                          + elastic_counts["flash_bwd_dq"]
                          + tp_train_counts["flash_bwd_dq"]
-                         + family_counts["flash_bwd_dq"]),
+                         + family_counts["flash_bwd_dq"]
+                         + tp_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
@@ -3409,7 +3729,8 @@ def main() -> None:
                           + bucket_counts["flash_bwd_dkv"]
                           + elastic_counts["flash_bwd_dkv"]
                           + tp_train_counts["flash_bwd_dkv"]
-                          + family_counts["flash_bwd_dkv"]),
+                          + family_counts["flash_bwd_dkv"]
+                          + tp_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
         # training (phases 11, 20 and 25b) runs the fused EF kernel and
         # the dequant; the tree phase's compressed syncs run all three
@@ -3436,7 +3757,8 @@ def main() -> None:
                              + family_counts["quantize_ef_int8"]),
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
-                rwkv_counts["wkv"]),
+                rwkv_counts["wkv"] + rwkv_train["wkv"]
+                + rwkv_answer_counts["wkv"]),
     }
     for name, (_, _, _, n) in sources.items():
         if n < 1:

@@ -12,8 +12,14 @@ Pallas kernel was written to replace and the function the reference's
 CUDA tensor it launches the kernel or raises, and counts each launch in
 ``wkv_chunked.launches``.  Unlike the Pallas wrapper it can also return the
 final state, the oracle's second result, which the prefill cache holds.
-There is no backward kernel (the reference differentiates the oracle with
-XLA), so the kernel refuses inputs that require a gradient.
+
+:func:`wkv` is what the model calls.  Where no gradient is taken it is
+:func:`wkv_chunked` itself.  Where one is, it runs :class:`WKV`, whose
+forward is :func:`wkv_chunked` (the kernel on the card) and whose backward
+is autograd through the plain version, recomputed from the saved inputs.
+That is the reference's own gradient: its ``rwkv6_fwd`` trains through
+XLA's autodiff of the same jnp scan, and its Pallas kernel has no VJP, so
+no TPU kernel stands behind the backward for a kernel here to port.
 """
 from __future__ import annotations
 
@@ -23,12 +29,11 @@ import torch
 
 from . import backend
 
-__all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "NOT_PORTED_BWD", "launch_plan",
+__all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "WKV", "launch_plan", "wkv",
            "wkv_chunk_scan_ref", "wkv_chunked"]
 
 CHUNK = 16
 KERNEL_MAX_HEAD_DIM = 64        # 4 hd threads a block, 16 state floats each
-NOT_PORTED_BWD = "ROADMAP.md, Queue 1 item 7: RWKV-6 training"
 
 
 def wkv_chunk_scan_ref(r, k, v, w, u, chunk: int):
@@ -145,10 +150,6 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
     if not r.is_cuda:
         o, state = wkv_chunk_scan_ref(r, k, v, w, u, chunk)
         return (o, state) if return_state else o
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (r, k, v, w, u)):
-        raise RuntimeError(f"wkv_chunked has no backward kernel; inputs that "
-                           f"require grad are refused ({NOT_PORTED_BWD})")
     r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
     B, S, H, hd = r.shape
     o = torch.empty_like(r)
@@ -169,3 +170,39 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
 
 
 wkv_chunked.launches = 0
+
+
+class WKV(torch.autograd.Function):
+    """:func:`wkv_chunked` forward, (o, the final state); the backward
+    recomputes the plain scan from the saved inputs and differentiates
+    it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.set_materialize_grads(False)
+        return wkv_chunked(r, k, v, w, u, return_state=True)
+
+    @staticmethod
+    def backward(ctx, g_o, g_state):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            outs = wkv_chunk_scan_ref(*ins, CHUNK)
+        pairs = [(y, g) for y, g in zip(outs, (g_o, g_state))
+                 if g is not None]
+        got = iter(torch.autograd.grad(
+            [y for y, _ in pairs], [t for t in ins if t.requires_grad],
+            [g for _, g in pairs]))
+        return tuple(next(got) if t.requires_grad else None for t in ins)
+
+
+def wkv(r, k, v, w, u, *, return_state: bool = False):
+    """:func:`wkv_chunked` at the default chunk, differentiable: with a
+    gradient to take (grad mode on and an input that requires it) through
+    :class:`WKV`, else the wrapper alone, which saves nothing."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u)):
+        o, state = WKV.apply(r, k, v, w, u)
+        return (o, state) if return_state else o
+    return wkv_chunked(r, k, v, w, u, return_state=return_state)

@@ -149,8 +149,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     tp = grid.tp
     T.train_check(cfg, 1 if tp is None else tp.size)
     dev = resolve_device(device)
-    if tp is not None:
-        tp_check(cfg, tp.size)
     mdims = model_dims(cfg, tp.size) if tp is not None else None
 
     def step(params, opt, batch):

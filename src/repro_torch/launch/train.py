@@ -89,11 +89,12 @@ from ..kernels.backend import resolve_device
 from ..launch.mesh import (Grid, choose_backend, dp_topology, make_grid,
                            parse_mesh, run_ranks)
 from ..launch.step import layer_grad_bytes, make_train_step
+from ..models import layers as L
 from ..models import transformer as T
 from ..models.convert import (from_numpy, gather_shards, model_dims,
                               shard_params, stack_runs, to_numpy,
                               unshard_params)
-from ..models.sharding import NOT_PORTED_TP, tp_check
+from ..models.sharding import NOT_PORTED_TP
 from ..obs import Tracer, get_logger, set_json
 from ..optim.adamw import (OptConfig, gather_opt_state, init_opt_state,
                            scatter_axes, shard_opt_state)
@@ -198,6 +199,12 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     ``model_rank`` (this rank's index on it; ``rank`` is the data-parallel
     one) and ``tp_calls``, the model-axis collectives of each step on this
     rank (``launch.step.loss_and_grads``' ``fwd``, ``remat``, ``bwd``).
+    For a MoE config, ``moe``: each step's host reads of the routing
+    (``syncs``) and, on a model axis, the slots each layer's
+    expert-parallel blocks dropped in the forward (``dropped``).  On the
+    card, ``peak_mem_bytes``: the process's peak allocation.  With more
+    than one rank, ``launches``, ``moe`` and ``peak_mem_bytes`` hold every
+    rank's, in rank order.
 
     ``bucket_mb`` > 0 switches the gradient sync to size-targeted buckets
     (reverse-layer order, one fused collective per bucket); it forces
@@ -214,7 +221,6 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     pods, data, model = parse_mesh(mesh_spec)
     cfg = config or get_config(arch, smoke=smoke)
     T.train_check(cfg, model)
-    tp_check(cfg, model)
     if model != 1 and fail_at:
         raise NotImplementedError(f"mesh {mesh_spec}: fail_at on a model "
                                   f"axis of {model} ({NOT_PORTED_TP})")
@@ -416,6 +422,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
     wire: list[int] = []
     staged: list[int] = []
     tp_calls: list[dict] = []
+    moe = {"syncs": [], "dropped": []} if cfg.moe is not None else None
     saves: list[dict] = []
     recovery_s: list[float] = []
     recoveries = repairs = 0
@@ -512,16 +519,24 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
         s0 = grid.staged_bytes
         ts = time.monotonic()
         loss_acc, rows = 0.0, 0
-        for micro in range(accum):
-            hb = pipe.host_batch(step_i * accum + micro)
-            # batch fitting is elastic-only: a healthy run keeps
-            # rank_rows' loud error on a batch that does not split
-            if grid.world != orig_dp:
-                hb = {k: _fit_batch(np.asarray(v), grid.world)
-                      for k, v in hb.items()}
-            params, opt, loss = step_fn(params, opt, hb)
-            loss_acc += float(loss)      # waits for the step to finish
-            rows += len(hb["tokens"])
+        syncs0, L.moe_fwd.dropped = L.moe_fwd.host_syncs, []
+        try:
+            for micro in range(accum):
+                hb = pipe.host_batch(step_i * accum + micro)
+                # batch fitting is elastic-only: a healthy run keeps
+                # rank_rows' loud error on a batch that does not split
+                if grid.world != orig_dp:
+                    hb = {k: _fit_batch(np.asarray(v), grid.world)
+                          for k, v in hb.items()}
+                params, opt, loss = step_fn(params, opt, hb)
+                loss_acc += float(loss)  # waits for the step to finish
+                rows += len(hb["tokens"])
+            dropped = L.moe_fwd.dropped
+        finally:
+            L.moe_fwd.dropped = None
+        if moe is not None:
+            moe["syncs"].append(L.moe_fwd.host_syncs - syncs0)
+            moe["dropped"].append(dropped)
         losses.append(loss_acc / accum)
         step_ms.append((time.monotonic() - ts) * 1e3)
         if tp is not None:
@@ -551,17 +566,20 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
         log.info(f"trace: {tracer.n_events()} events -> {trace}",
                  event="trace", path=trace, events=tracer.n_events())
     launches = {k: v - before[k] for k, v in launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
     if left_at is not None:
         return {"left": True, "left_at": left_at, "losses": losses,
                 "events": events, "launches": launches}
     if orig_dp * model > 1:
         # every rank's, in rank order: the grid's data-parallel ranks, or
         # with a model axis all the ranks
-        every = [launches] * grid.world * model
+        mine = (launches, moe, peak)
+        every = [mine] * grid.world * model
         if len(every) > 1:
-            dist.all_gather_object(every, launches, group=grid.dp.group
+            dist.all_gather_object(every, mine, group=grid.dp.group
                                    if tp is None else None)
-        launches = every
+        launches, moe, peak = ([e[i] for e in every] for i in range(3))
     steady = step_ms[1:]
     out = {"left": False, "rank": grid.rank, "losses": losses,
            "step_ms": step_ms,
@@ -581,7 +599,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
            "staging": grid.staging, "staged_bytes": staged,
            "slow_wire_bytes": wire,
            "slow_f32_bytes": _slow_f32_bytes(params, grid, mdims),
-           "tp_calls": tp_calls,
+           "tp_calls": tp_calls, "moe": moe, "peak_mem_bytes": peak,
            "launches": launches, "plan": est}
     if prof is not None:
         prof.stop()

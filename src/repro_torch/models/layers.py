@@ -15,8 +15,10 @@ the sequence length; on a CPU tensor the same dispatch as the reference
 multiple of the chunk, else the kernels' plain versions).
 
 RWKV-6's time mix runs the chunked WKV recurrence through
-:func:`~repro_torch.kernels.wkv.wkv_chunked`: the Hopper kernel on a CUDA
-tensor, the reference's ``_wkv_chunk_scan`` on a CPU one.
+:func:`~repro_torch.kernels.wkv.wkv`: the Hopper kernel on a CUDA tensor,
+the reference's ``_wkv_chunk_scan`` on a CPU one, and where a gradient is
+taken, autograd through that plain scan, recomputed in the backward (the
+reference's own gradient: XLA's autodiff of its jnp scan).
 
 The MoE computes the reference's ``lax.ragged_dot`` (XLA, not Pallas) as
 one ``torch.matmul`` per non-empty expert on its slice of the
@@ -51,7 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import NEG_INF
-from ..kernels.ops import flash_attention, wkv_chunked
+from ..kernels.ops import flash_attention, wkv
 from ..kernels.wkv import CHUNK
 from .config import ModelConfig
 
@@ -519,12 +521,17 @@ def _moe_block_ep(p, m, xt, tp):
     local: this rank's slots, sorted stably by local expert id, the first
     C kept (C = int(T k capacity_factor) // M, rounded down to a multiple
     of 8, at least 8), the rest dropped; the combine is one sum over the
-    axis.  The kept group sizes are read on the host once (one sync), and
-    the slots this rank dropped are appended to ``moe_fwd.dropped`` where
-    a caller has set it to a list."""
+    axis (``reduce_from``: the gradient passes through to each rank's
+    part).  The router is replicated and each rank's gates reach only its
+    own experts' products, so it enters through ``copy_to``, which sums
+    its gradient over the axis.  The kept group sizes are read on the host
+    once (one sync), and the slots this rank dropped are appended to
+    ``moe_fwd.dropped`` where a caller has set it to a list, once a
+    forward: not again where a remat re-runs the block in a backward."""
     T, D = xt.shape
     E_local = p["w_in"].shape[0]
-    gates, flat_e = _moe_gates(p, m, xt)
+    gates, flat_e = _moe_gates(dict(p, router=tp.copy_to(p["router"])), m,
+                               xt)
     local = flat_e - tp.index * E_local
     mine = (local >= 0) & (local < E_local)
     C = int(T * m.top_k * m.capacity_factor) // tp.size
@@ -538,7 +545,7 @@ def _moe_block_ep(p, m, xt, tp):
         sizes.append(min(n, left))
         left -= sizes[-1]
     kept = sum(sizes)
-    if moe_fwd.dropped is not None:
+    if moe_fwd.dropped is not None and not _in_backward():
         moe_fwd.dropped.append(sum(counts[:E_local]) - kept)
     sel = order[:kept]
     tok_for = sel // m.top_k
@@ -546,7 +553,7 @@ def _moe_block_ep(p, m, xt, tp):
     w = gates.reshape(-1)[sel]
     out = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
     out.index_add_(0, tok_for, yo.float() * w[:, None])
-    return tp.psum(out).to(xt.dtype)
+    return tp.reduce_from(out).to(xt.dtype)
 
 
 def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
@@ -563,7 +570,9 @@ def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
     takes the expert-parallel path (``sharding.tp_check`` holds E to a
     multiple of M, the reference's condition for it) and the shared
     expert is a tensor-parallel MLP; either way the output is summed over
-    the axis."""
+    the axis (``reduce_from``).  There ``x`` is the replicated input as
+    the caller passed it through ``copy_to``, which sums the ranks'
+    partial input gradients."""
     m = cfg.moe
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
@@ -579,13 +588,19 @@ def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
     y = y.reshape(B, S, D)
     if m.shared_expert:
         sh = mlp_fwd(p["shared"], cfg, x)
-        y = y + (sh if tp is None else tp.psum(sh))
+        y = y + (sh if tp is None else tp.reduce_from(sh))
     return y.to(x.dtype)
 
 
 moe_fwd.host_syncs = 0     # group-size reads, one per token block
 moe_fwd.dropped = None     # a list a caller sets (and takes back) to
                            # count each expert-parallel block's drops
+
+
+def _in_backward() -> bool:
+    """Whether this thread runs inside autograd's backward, where a remat
+    re-runs a forward."""
+    return torch._C._current_graph_task_id() != -1
 
 
 # ---------------------------------------------------------------------- #
@@ -740,7 +755,7 @@ def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False):
     if pad:
         r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-    out = wkv_chunked(r, k, v, w, p["u"], return_state=return_state)
+    out = wkv(r, k, v, w, p["u"], return_state=return_state)
     o, s_fin = out if return_state else (out, None)
     if pad:
         o = o[:, :S]

@@ -14,13 +14,13 @@ each run and scans them; here a Python loop walks them), and for enc-dec
 reference's per-run stacked layout, (run, B, ...), so they compare one to
 one.
 
-Serving runs every config.  Training runs every config but RWKV-6 (the
-reference has no WKV backward kernel; :func:`train_check` refuses it):
-the dense attention stacks, the MoE (autograd through the router's
-renormalised top-k gates and the per-expert products), RG-LRU (through
-the log-step scan), enc-dec (the cross-attention's gradient flows into
+Serving and training run every config: the dense attention stacks, the
+MoE (autograd through the router's renormalised top-k gates and the
+per-expert products), RG-LRU (through the log-step scan), RWKV-6 (the
+WKV kernel's forward, the plain scan's autograd backward:
+``kernels.wkv.wkv``), enc-dec (the cross-attention's gradient flows into
 the encoder) and the frontends, whose prefix positions the loss skips.
-The full-sequence forward (``model_fwd``) runs all but RWKV-6.
+So does the full-sequence forward (``model_fwd``).
 
 The training forward remats each layer and each cross-entropy chunk with
 ``torch.utils.checkpoint`` (non-reentrant), where the reference wraps its
@@ -38,21 +38,26 @@ attention and the MLP return row-parallel partial sums, all-reduced once
 a sublayer, and once for both in the parallel-residual block; the MoE
 reduces inside its expert-parallel block.  Caches hold this rank's KV
 heads, but the dense cache's sequence dim is split over the axis where M
-divides it (the reference's sequence-parallel decode).  Attention and MLP
-stacks only (``sharding.tp_check``).
+divides it (the reference's sequence-parallel decode).  Attention stacks
+only, with an MLP or a MoE (``sharding.tp_check``).
 
 Training runs on a model axis too (the reference's GSPMD forward and
 backward over ``model``), with the axis's differentiated collectives
 (``launch.mesh.Axis.copy_to``/``reduce_from``): ``reduce_from`` at the
 embedding's lookup sum and at every row-parallel sum, ``copy_to`` on the
 normed input of each attention and MLP sublayer and of the head, and on
-the q/k norms' weights, replicated leaves that each rank reads on its own
-heads only (the other replicated leaves of a trained config, the RMS
-norms, act on replicated activations ahead of a ``copy_to``, so their
-gradients are whole on every rank).  The loss is a vocab-parallel cross-entropy: each rank's head
-columns give its logits, and the max over the axis (detached), one sum of
-the exponentials and of the gold logit from the rank that owns the
-label's column give the loss; the (B, S, V) logits are never gathered.
+the q/k norms' weights and on the MoE router's, replicated leaves that
+each rank reads on its own heads or experts only (the other replicated
+leaves of a trained config, the RMS norms, act on replicated activations
+ahead of a ``copy_to``, so their gradients are whole on every rank).  The
+MoE takes its normed input through ``copy_to`` and sums its experts'
+and its shared expert's partial outputs with ``reduce_from``.  A
+frontend's prefix is replicated: it joins the tokens' embeddings after
+their sum over the axis.  The loss is a vocab-parallel cross-entropy:
+each rank's head columns give its logits, and the max over the axis
+(detached), one sum of the exponentials and of the gold logit from the
+rank that owns the label's column give the loss; the (B, S, V) logits
+are never gathered.
 """
 from __future__ import annotations
 
@@ -70,16 +75,11 @@ from .config import ModelConfig
 from .sharding import (cut_shard, layer_model_dims, param_model_dims,
                        tp_check)
 
-__all__ = ["NOT_PORTED_TRAIN", "NOT_PORTED_TRAIN_ARCH", "port_check",
-           "train_check", "init_model", "embed_inputs", "encoder_fwd",
-           "trunk_fwd", "model_fwd", "loss_fn", "init_cache", "prefill",
-           "decode_step", "paged_arch_check", "init_paged_pools",
+__all__ = ["port_check", "train_check", "init_model", "embed_inputs",
+           "encoder_fwd", "trunk_fwd", "model_fwd", "loss_fn", "init_cache",
+           "prefill", "decode_step", "paged_arch_check", "init_paged_pools",
            "scatter_prefill_cache", "decode_step_paged"]
 
-NOT_PORTED_TRAIN = "ROADMAP.md, Queue 1 item 7: RWKV-6 training"
-NOT_PORTED_TRAIN_ARCH = ("ROADMAP.md, Queue 1 item 9: training of "
-                         "MoE, RG-LRU, enc-dec and the frontends on a model "
-                         "axis")
 KINDS = ("attn", "local", "rglru", "rwkv6")
 
 
@@ -92,30 +92,11 @@ def port_check(cfg: ModelConfig) -> None:
                                   f"not ported")
 
 
-def _wkv_grad_check(cfg: ModelConfig) -> None:
-    if "rwkv6" in cfg.pattern:
-        raise NotImplementedError(f"{cfg.name}: training through the WKV "
-                                  f"recurrence is not ported yet "
-                                  f"({NOT_PORTED_TRAIN})")
-
-
 def train_check(cfg: ModelConfig, model: int = 1) -> None:
-    """``port_check``, and what is served but not trained: RWKV-6, and on
-    a model axis of ``model`` > 1 ranks the MoE (its expert-parallel sums
-    are not differentiated), RG-LRU, enc-dec and the frontends."""
+    """``port_check``, and on a model axis of ``model`` > 1 ranks
+    ``sharding.tp_check``: training runs wherever serving does."""
     port_check(cfg)
-    _wkv_grad_check(cfg)
-    if model <= 1:
-        return
-    missing = (["MoE"] if cfg.moe is not None else []) \
-        + (["RG-LRU"] if "rglru" in cfg.pattern else []) \
-        + (["enc-dec"] if cfg.enc_dec is not None else []) \
-        + ([f"{cfg.frontend} frontend"] if cfg.frontend else [])
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: training of "
-                                  f"{', '.join(missing)} on a model axis of "
-                                  f"{model} is not ported yet "
-                                  f"({NOT_PORTED_TRAIN_ARCH})")
+    tp_check(cfg, model)
 
 
 # ---------------------------------------------------------------------- #
@@ -256,14 +237,18 @@ def _remat(fn, *args):
 
 def _ffn(p, cfg: ModelConfig, x, tp=None):
     """The MLP or MoE sublayer, pre-norm, summed over the model axis."""
-    xn = L.rmsnorm(x, p["norm2"])
+    xn = _copy(tp, L.rmsnorm(x, p["norm2"]))
     if cfg.moe:
         return L.moe_fwd(p["mlp"], cfg, xn, tp=tp)
-    return _psum(tp, L.mlp_fwd(p["mlp"], cfg, _copy(tp, xn)))
+    return _psum(tp, L.mlp_fwd(p["mlp"], cfg, xn))
 
 
 def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
                causal: bool = True, tp=None):
+    if kind == "rwkv6":
+        x = x + L.rwkv6_fwd(p["rwkv"], cfg, L.rmsnorm(x, p["norm1"]))
+        return x + L.rwkv6_channel_mix(p["rwkv"], cfg,
+                                       L.rmsnorm(x, p["norm2"]))
     if kind == "rglru":
         y, _ = L.rglru_fwd(p["rec"], cfg, L.rmsnorm(x, p["norm1"]))
         x = x + y
@@ -306,11 +291,10 @@ def trunk_fwd(params, cfg: ModelConfig, inputs: dict,
               tp=None) -> torch.Tensor:
     """Embeddings (``embeds`` prefix included), the encoder for enc-dec
     (``src_embeds``), the layer stack (each layer rematted) and the final
-    norm -> hidden states (B, S, D).  RWKV-6 is refused.  On a model axis
-    ``tp``, this rank's shard of the work, every rank's hidden states
-    equal; a gradient flows through the axis's collectives."""
+    norm -> hidden states (B, S, D).  On a model axis ``tp``, this rank's
+    shard of the work, every rank's hidden states equal; a gradient flows
+    through the axis's collectives."""
     port_check(cfg)
-    _wkv_grad_check(cfg)
     if tp is not None:
         tp_check(cfg, tp.size)
     enc_out = None
@@ -365,7 +349,6 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, ce_chunk: int = 512,
     A frontend's ``embeds`` prefix positions are dropped before the loss,
     which runs over the token positions only (the reference's
     :173-174)."""
-    train_check(cfg, 1 if tp is None else tp.size)
     x = trunk_fwd(params, cfg, batch, tp)
     if "embeds" in batch:
         x = x[:, batch["embeds"].shape[1]:]

@@ -20,7 +20,7 @@ from repro_torch.launch.step import (device_batch, loss_and_grads,
 from repro_torch.models.convert import (from_numpy, model_dims,
                                         shard_params, stack_runs, to_numpy,
                                         unstack_runs)
-from repro_torch.models.sharding import cut_shard
+from repro_torch.models.sharding import cut_shard, layer_model_dims
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_map
 
@@ -533,4 +533,70 @@ def tp_train(rank, pods, data, model, pair, ce, cases, traj=None):
                     out["grid1/" + name] = _trajectory(
                         sub, cfg, modes, params, batches, opt_kw)
             sub.barrier()
+    return out
+
+
+def _moe_blocks(tp, cfg, layer, x, ct, chunk):
+    """``moe_fwd`` of one layer's MoE shard ``layer`` on the replicated
+    ``x`` (through ``copy_to``) with token blocks of ``chunk``, and the
+    gradients of ``<ct, y>`` for the input and every leaf; the slots
+    this rank dropped (``moe_fwd.dropped``) and the routings read on the
+    host."""
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_leaves as leaves_of
+    from repro_torch.tree import tree_unflatten
+
+    leaves = [t.detach().requires_grad_(True) for t in leaves_of(layer)]
+    xt = _t(x).requires_grad_(True)
+    dropped, s0 = [], L.moe_fwd.host_syncs
+    L.moe_fwd.dropped = dropped
+    try:
+        y = L.moe_fwd(tree_unflatten(layer, leaves), cfg, tp.copy_to(xt),
+                      chunk=chunk, tp=tp)
+        grads = torch.autograd.grad((y * _t(ct)).sum(), [xt] + leaves)
+    finally:
+        L.moe_fwd.dropped = None
+    return {"y": y.detach().numpy(), "grads": [g.numpy() for g in grads],
+            "dropped": dropped, "syncs": L.moe_fwd.host_syncs - s0}
+
+
+def tp_moe(rank, cases, blocks):
+    """This rank of four gloo ranks on the CPU, first on a 1x1x4 grid,
+    then on 2x1x2.  On each grid's first model group: for each case
+    ``(name, cfg, params, batch)`` (the full f32 parameters in the stacked
+    layout, numpy) the loss and gradients of this rank's model shard, the
+    model axis's collectives, the slots each expert-parallel block dropped
+    and the routings read on the host; and with ``blocks`` (cfg, params
+    of one MoE layer, x, cotangent, chunk), :func:`_moe_blocks` of this
+    rank's shard of the layer in token blocks and in one block.  Results
+    under ``(model, name)``."""
+    from repro_torch.models import layers as L
+
+    out = {}
+    for pods, data, model in ((1, 1, 4), (2, 1, 2)):
+        grid = make_grid(pods, data, CPU, model=model)
+        tp = grid.tp
+        if grid.rank != 0:
+            continue
+        for name, cfg, params, batch in cases:
+            p = shard_params(unstack_runs(from_numpy(params, device=CPU),
+                                          cfg), cfg, model, tp.index)
+            calls, dropped, s0 = {}, [], L.moe_fwd.host_syncs
+            L.moe_fwd.dropped = dropped
+            try:
+                loss, grads = loss_and_grads(p, cfg, device_batch(batch, CPU),
+                                             tp, calls)
+            finally:
+                L.moe_fwd.dropped = None
+            out[model, name] = {
+                "loss": loss.numpy(), "calls": calls, "dropped": dropped,
+                "syncs": L.moe_fwd.host_syncs - s0,
+                "grads": to_numpy(stack_runs(grads, cfg))}
+        cfg, layer, x, ct, chunk = blocks
+        full = from_numpy(layer, device=CPU)
+        dims = layer_model_dims({"mlp": full}, model)["mlp"]
+        mine = tree_map(lambda t, d: cut_shard(t, d, model, tp.index), full,
+                        dims)
+        out[model, "blocks"] = [_moe_blocks(tp, cfg, mine, x, ct, c)
+                                for c in (chunk, L.MOE_CHUNK)]
     return out

@@ -234,9 +234,6 @@ def test_analysis_cli_exits_zero():
 POINTERS = [
     ("models/sharding.py", 5, "training on a model axis"),
     ("models/sharding.py", 5, "recurrent and enc-dec families"),
-    ("models/transformer.py", 9, "MoE, RG-LRU, enc-dec"),
-    ("models/transformer.py", 7, "RWKV-6 training"),
-    ("kernels/wkv.py", 7, "RWKV-6 training"),
 ]
 
 

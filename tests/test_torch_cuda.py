@@ -25,7 +25,9 @@ cache leaves, one bf16 ulp on bf16 ones.  The WKV kernel's o and final state agr
 its plain version within 1e-4 times max(1, max|ref|), as
 ``chip_smoke.py`` holds it; the RWKV-6 model in f32 on the card agrees
 with the CPU within 1e-4 on logits and state, and one bf16 ulp on the
-bf16 rows it carries.
+bf16 rows it carries; its training step's loss and gradients within 1e-4
+(``wkv``'s backward is the plain scan's autograd on the card, equal to
+that graph's own gradients bit for bit).
 """
 import numpy as np
 import pytest
@@ -42,6 +44,7 @@ from repro_torch.launch.step import (device_batch, loss_and_grads,
 from repro_torch.launch.train import train
 from repro_torch.models import transformer as T
 from repro_torch.serving import ReqState
+from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -638,16 +641,67 @@ def test_wkv_kernel_pad_leaves_state_exact(dev):
 
 def test_wkv_kernel_refuses_what_it_cannot_take(dev):
     ins = _wkv_inputs(1, 64, 2, 16, "test", dev)
-    leaf = ins[0].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="backward"):
-        kw.wkv_chunked(leaf, *ins[1:])
-    with torch.no_grad():                  # no graph, no refusal
-        kw.wkv_chunked(leaf, *ins[1:])
     with pytest.raises(ValueError, match="one cpu or cuda device"):
         kw.wkv_chunked(ins[0].cpu(), *ins[1:])
     big = [torch.zeros(1, 16, 1, 128, device=dev) for _ in range(4)]
     with pytest.raises(ValueError, match="head_dim"):
         kw.wkv_chunked(*big, torch.zeros(1, 128, device=dev))
+
+
+@pytest.mark.parametrize("B,S,H,hd,decays", [
+    (2, 64, 2, 16, "test"), (1, 304, 32, 64, "model"),
+    (1, 256, 32, 64, "clip")])
+def test_wkv_function_launches_the_kernel_and_its_gradient_is_plain(
+        dev, B, S, H, hd, decays):
+    """With a gradient to take, ``wkv`` launches the kernel once in its
+    forward (o within the kernel's 1e-4 of the plain version), and its
+    backward is autograd through the plain scan on the card: the five
+    gradients equal those of the plain scan's own graph, bit for bit."""
+    ins = _wkv_inputs(B, S, H, hd, decays, dev, seed=5)
+    rng = np.random.default_rng(6)
+    cots = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev) for s in ((B, S, H, hd), (B, H, hd, hd))]
+    a = [t.clone().requires_grad_(True) for t in ins]
+    b = [t.clone().requires_grad_(True) for t in ins]
+    before = kw.wkv_chunked.launches
+    o, st = kw.wkv(*a, return_state=True)
+    torch.cuda.synchronize()
+    assert kw.wkv_chunked.launches == before + 1
+    assert "WKV" in type(o.grad_fn).__name__
+    want_o, want_st = kw.wkv_chunk_scan_ref(*b, kw.CHUNK)
+    for got, want in ((o, want_o), (st, want_st)):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got.detach(), want.detach(), atol=tol,
+                                   rtol=0)
+    got = torch.autograd.grad([o, st], a, cots)
+    want = torch.autograd.grad([want_o, want_st], b, cots)
+    assert kw.wkv_chunked.launches == before + 1     # no kernel backward
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+def test_rwkv6_training_on_card_matches_cpu(dev):
+    """rwkv6-1.6b smoke in f32: the loss and every gradient leaf on the
+    card against the CPU within 1e-4 (loss relative, leaves of their
+    largest entry); the card launches the WKV kernel twice a layer, in
+    the forward and in the remat's re-run."""
+    cfg = get_config("rwkv6_1p6b", smoke=True)
+    params = _f32(T.init_model(cfg, seed=0, device="cpu"), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 100),
+                         generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for d in ("cpu", dev):
+        before = kw.wkv_chunked.launches
+        batch = device_batch({"tokens": toks.numpy(),
+                              "labels": toks.numpy()}, d)
+        runs[d] = loss_and_grads(_f32(params, d), cfg, batch)
+        assert kw.wkv_chunked.launches - before == \
+            (2 * cfg.n_layers if d != "cpu" else 0)
+    (l_c, g_c), (l_g, g_g) = runs["cpu"], runs[dev]
+    assert abs(l_g.item() - l_c.item()) <= 1e-4 * abs(l_c.item())
+    for g, c in zip(tree_leaves(g_g), tree_leaves(g_c)):
+        top = c.abs().max().item()
+        torch.testing.assert_close(g.cpu(), c, atol=1e-4 * top, rtol=0)
 
 
 def test_rwkv6_serving_on_card_matches_cpu(dev):

@@ -290,23 +290,34 @@ def test_serve_olmoe_smoke_matches_jax_executor(monkeypatch):
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_training_new_archs_raises_naming_roadmap(arch):
-    """Trained on one rank, refused on a model axis: ``train_check``, the
-    loss and the train step of a model axis name ROADMAP's item 9, while
-    the one-rank loss and its gradient run, and so does the full
-    forward."""
+    """Trained on one rank: the loss, its gradient and the full forward
+    run.  On a model axis of 2 ``train_check`` refuses what
+    ``sharding.tp_check`` refuses, naming ROADMAP's item 5: RG-LRU and
+    enc-dec, and a smoke config whose one KV head the axis cannot split;
+    the MoE and the frontend pass where the axis divides their heads
+    (``tests/test_torch_tp_train_moe.py`` trains them there)."""
     from types import SimpleNamespace
 
     from repro_torch.launch.step import loss_and_grads
 
     cfg = configs.get_config(arch, smoke=True)
     T.train_check(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        T.train_check(cfg, 2)
+    heads = dataclasses.replace(cfg, n_heads=8, n_kv_heads=4)
     params = T.init_model(cfg, device="cpu")
     _, batch = _inputs(cfg, 1, 8)
     batch["labels"] = batch["tokens"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=2))
+    if cfg.enc_dec is not None or "rglru" in cfg.pattern:
+        for c in (cfg, heads):
+            with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+                T.train_check(c, 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+            T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=2))
+    else:
+        T.train_check(heads, 2)
+        if cfg.n_kv_heads % 2:
+            with pytest.raises(NotImplementedError,
+                               match="KV heads.*ROADMAP.*item 5"):
+                T.train_check(cfg, 2)
     loss, grads = loss_and_grads(params, cfg, batch)
     assert torch.isfinite(loss)
     assert all(torch.isfinite(g.float()).all() for g in tree_leaves(grads))

@@ -1,7 +1,8 @@
 """The port's RWKV-6 layers, its dense prefill and decode, against
 ``repro.models``: the layers, ``prefill`` and a greedy ``decode_step``
 loop on rwkv6-1.6b at smoke size, the dense attention decode on gpt-100m
-and gemma3 (a windowed ring), and the paths that refuse RWKV-6.
+and gemma3 (a windowed ring), the paths that refuse RWKV-6, and that it
+trains.
 
 Weights are the reference's initialisers, carried over by
 ``params_from_jax``.  Tolerances:
@@ -37,6 +38,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import (cache_from_jax, cache_to_numpy,
                                         params_from_jax)
+from repro_torch.tree import tree_leaves
 
 KEY = jax.random.PRNGKey(3)
 DTYPES = ["float32", "bfloat16"]
@@ -232,11 +234,24 @@ def test_paged_serving_refuses_rwkv6_as_the_reference_does():
         torch_serve.serve("rwkv6-1.6b", 2, 8, 2, device="cpu")
 
 
-def test_rwkv6_training_raises_naming_roadmap():
+def test_rwkv6_trains_and_runs_the_full_forward():
+    """RWKV-6 trains (``tests/test_torch_train_rwkv.py`` holds it to the
+    reference): a finite loss and a finite gradient for every leaf, the
+    time mix's included; and the full forward without a gradient gives
+    the prefill's last logits."""
+    from repro_torch.launch.step import loss_and_grads
+
     cfg = configs.get_config("rwkv6_1p6b", smoke=True)
     params = T.init_model(cfg, device="cpu")
-    toks = torch.zeros((1, 16), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        T.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        T.trunk_fwd(params, cfg, {"tokens": toks})
+    toks = torch.randint(0, cfg.vocab, (1, 21),
+                         generator=torch.Generator().manual_seed(0))
+    loss, grads = loss_and_grads(params, cfg, {"tokens": toks,
+                                               "labels": toks})
+    assert torch.isfinite(loss)
+    leaves = [g.float() for g in tree_leaves(grads["layers"][0]["rwkv"])]
+    assert all(torch.isfinite(g).all() and g.abs().max() > 0
+               for g in leaves)
+    with torch.no_grad():
+        logits = T.model_fwd(params, cfg, {"tokens": toks})
+    last, _, _ = T.prefill(params, cfg, {"tokens": toks}, 32)
+    torch.testing.assert_close(logits[:, -1:], last, rtol=0, atol=1e-5)

@@ -278,6 +278,12 @@ class _Rank:
     def psum(self, x):
         return x
 
+    reduce_from = psum
+
+    @staticmethod
+    def copy_to(x):
+        return x
+
 
 class _LaxNoSum:
     """``jax.lax`` with ``psum`` of an array left out (``psum(1, axis)``,

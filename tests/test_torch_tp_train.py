@@ -300,12 +300,9 @@ def test_train_drives_a_model_axis(arch):
 @pytest.mark.parametrize("arch,mesh,kw,item", [
     ("gpt-100m", "1x2x2", dict(fail_at={1: [0]}), "Queue 1 item 5"),
     ("qwen3-4b", "1x1x2", {}, "Queue 1 item 5"),       # 1 KV head
-    ("rwkv6-1.6b", "1x1x2", {}, "Queue 1 item 7"),
-    ("recurrentgemma-2b", "1x1x2", {}, "Queue 1 item 9"),
-    ("seamless-m4t-medium", "1x1x2", {}, "Queue 1 item 9"),
-    ("olmoe-1b-7b", "1x1x2", {}, "Queue 1 item 9"),
-    ("llama4-scout-17b-a16e", "1x1x2", {}, "Queue 1 item 9"),
-    ("pixtral-12b", "2x1x2", {}, "Queue 1 item 9")])
+    ("rwkv6-1.6b", "1x1x2", {}, "Queue 1 item 5"),
+    ("recurrentgemma-2b", "1x1x2", {}, "Queue 1 item 5"),
+    ("seamless-m4t-medium", "2x1x2", {}, "Queue 1 item 5")])
 def test_what_a_model_axis_still_refuses(arch, mesh, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         train(arch, 2, mesh_spec=mesh, seq=32, batch=2, smoke=True,
