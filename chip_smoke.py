@@ -3,7 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (nonzero exit, no result line):
+Phases, each of which fails the run (nonzero exit, no result line).
+Each spawn of ranks costs seconds a rank before any work, so the phases
+that spawn ranks themselves share two spawns: the four ranks of 10, 12,
+24d, 25c's 2x1x2 grid and 26f (``pool4_rank``, at phase 10) and the two
+of 24c, 25c's 1x1x2 and 2x1x1 grids, 27d and 28 (``tp_rs_rank``, at
+phase 24); each rank body sets its counters to 0 and reads them, and
+each phase checks and prints its part where it stands:
 
 1. the card: its name and power limit (nvidia-smi), torch and CUDA versions;
 2. the build of every kernel under src/repro_torch/kernels/csrc (one nvcc
@@ -64,10 +70,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    process and read at its end: every rank launches the fused EF kernel
    and the dequant kernel once per reference leaf (10) per step;
 12. the grid's answer: 2 layers at full width, f32, 2x2x1,
-   ``multilevel_compress``, 3 steps on four ranks on the card and four
-   gloo ranks on the CPU: the losses agree, and so does Adam's first
-   moment of a ``wq`` shard after the first two steps, which carries the
-   synced gradient and the EF residual's effect;
+   ``multilevel_compress``, 3 steps on four gloo ranks on the card, then
+   the same ranks' grid on the CPU (phase 10's ranks): the
+   losses agree, and so does Adam's first moment of a ``wq`` shard after
+   the first two steps, which carries the synced gradient and the EF
+   residual's effect;
 13. the WKV kernel against its plain version on the card: o and the final
    state within 1e-4 of their scale, at the prefill shape of rwkv6-1.6b
    (8 x 512, 32 heads of 64), a 300-token request padded to 304 (whose
@@ -186,9 +193,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    card over gloo (staged through host memory), each a fresh process
    holding its shard of the weights (random from a seed, the one-rank
    model's): 24a ``serve`` on gpt-100m at full width with ``mesh``
-   ``1x1x2`` and ``1x1x4``, 24b on olmoe-1b-7b at full depth on ``1x1x4``
+   ``1x1x2``, 24b on olmoe-1b-7b at full depth on ``1x1x4``
    (16 experts a rank, expert-parallel at its capacity_factor 1.25),
-   both with phase 5's requests; 24c the dense path
+   both with phase 5's batch of 8 requests (one ``serve`` call each: a
+   call spawns its ranks); 24c the dense path
    (``make_prefill_fn``/``make_decode_fn`` with the grid) on gemma3-12b
    cut to its first pattern period (5 windowed layers, 1 global) on
    ``1x1x2``, 4 x 512 and 1 x 2048 prompts whose decode wraps the
@@ -199,7 +207,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    layer and prefill, on its heads), printed with wall s, tok/s, TTFT,
    the model axis's collectives a prefill and a decode step, the bytes
    each rank staged, the MoE's dropped slots per layer and the token
-   agreement.  24d: the three configs at full width and their smoke
+   agreement.  24d (phase 10's 4 ranks, the first group of 2 for M 2):
+   the three configs at full width and their smoke
    configs' depth in f32 on the card (the MoE with room for every slot),
    each model group against the one-rank model: the paged and the dense
    prefill's logits within 1e-5, each paged decode step (pools of the
@@ -221,7 +230,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    beside phases 7 and 11, the model axis's collectives a step (forward,
    the remat's re-run, backward), the bytes staged a rank and the slow
    axis's bytes beside f32's.  25c, the f32 answer: gpt-100m at 2 layers
-   and full width, ``multilevel``, unclipped, 3 steps of 4 x 256 on
+   and full width, ``multilevel``, unclipped, 2 steps of 4 x 128 on
    1x1x2 and 2x1x2 on the card and on the CPU, against one rank and
    2x1x1 on the card: the losses within 1e-4 relative.  25d: qwen3-4b at
    full width cut to 4 layers (its 151,936-word tied head vocab-sharded,
@@ -243,13 +252,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    parameter count, each step's wall ms and loss, peak memory.  26e, the
    answer: the five configs at full width (recurrentgemma one pattern
    period, so the f32 hd-256 backward runs; olmoe and pixtral one layer;
-   seamless 1 + 1; llama4-scout at its smoke size) in f32, one step of
-   ``make_train_step`` on the card and on the CPU: the loss within 1e-5
-   relative, Adam's first moment within 1e-4 of each leaf's largest.
+   seamless 1 + 1; llama4-scout at its smoke size) in f32, the training
+   step's loss and gradient (``step.loss_and_grads``: the forward, the
+   remat's re-run and the backward) on 1 x 256 tokens on the card and on
+   the CPU: the loss within 1e-5 relative, each gradient leaf within 1e-4
+   of its largest (Adam's first moment after the step is 0.1 x the
+   clipped gradient; the CPU's AdamW over every leaf is left out, for the
+   whole script's time).
    26f: olmoe-1b-7b at full width cut to 1 layer, f32, on 2x2x1 ranks
-   sharing the card over gloo, ``multilevel_compress`` with ZeRO-1, 2
-   steps, against one rank on the card (1e-4 relative): #5 and #6 once a
-   stacked leaf (the expert leaves included) a step on each rank.
+   sharing the card over gloo (phase 10's ranks),
+   ``multilevel_compress`` with ZeRO-1, 2 steps, against one rank on the
+   card (1e-4 relative): #5 and #6 once a stacked leaf (the expert leaves
+   included) a step on each rank.
 27. training RWKV-6 on one rank, and the MoE and frontend configs on a
    model axis, the counters and the MoE's host syncs set to 0 just before
    each and read just after (the spawned ranks' from 0 in their fresh
@@ -259,18 +273,47 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (the forward and the remat's re-run; the backward is autograd through
    the plain scan, recomputed from the saved inputs), printed with each
    step's wall ms and loss, tok/s and peak memory; 27b, the answer:
-   rwkv6-1.6b at full width cut to 2 layers in f32, one step of
-   ``make_train_step`` on the card and on the CPU (26e's tolerances);
+   rwkv6-1.6b at full width cut to 2 layers in f32, the loss and
+   gradient on the card and on the CPU as 26e holds them;
    27c ``train`` on olmoe-1b-7b at full width cut to 4 of 16 layers on
    ``1x1x2`` ranks sharing the card over gloo (32 experts a rank), bf16,
    2 steps of 2 x 1024: finite losses, each rank's flash launches (2, 1,
    1 a layer and step), its host reads of the routing (2 a layer and
    step), the slots each layer dropped, the model axis's collectives a
    step, the bytes staged, step ms beside 26c's one rank and each rank's
-   peak memory; 27d, the answer on the axis: olmoe-1b-7b and pixtral-12b
-   at full width cut to 1 layer in f32 on ``1x1x2`` at a capacity factor
+   peak memory; 27d (the ranks of 24c and 28), the answer on the axis:
+   olmoe-1b-7b and pixtral-12b at full width cut to 1 layer in f32 on
+   ``1x1x2`` at a capacity factor
    that drops nothing, one unclipped step against one rank on the card:
    the loss within 1e-4 relative, Adam's first moment within 1e-4 of each
+   leaf's largest.
+28. RWKV-6 and the enc-dec config on a model axis, the two ranks of
+   ``1x1x2`` sharing the card over gloo, each a fresh process holding its
+   shard (random from a seed) and its counters starting at 0, read at its
+   end (24c's, 27d's and the phase's ranks are one spawn): 28a
+   rwkv6-1.6b and 28b
+   seamless-m4t-medium at full width and depth through
+   ``make_prefill_fn``/``make_decode_fn`` with the grid, a 2 x 512
+   prompt (seamless after 512 encoder frames) and 8 greedy decode steps,
+   against the one-rank run on the same weights: the ranks' tokens equal,
+   the first prefill's bf16 logits no farther from the same weights' f32
+   logits on one rank than the one-rank bf16 run's are, plus 5e-2, each
+   rank's WKV launches (one a layer and prefill, on its 16 heads) or
+   flash launches (encoder, decoder and cross attention on its heads);
+   printed with the tokens beside the one-rank run's, the WKV launch
+   plan, prefill and decode ms beside one rank's, the collectives a
+   prefill and a step, the bytes staged.  28c trains on ``1x1x2``
+   (``make_train_step`` with ``train``'s settings) in bf16, 3 steps of
+   2 x 512: rwkv6-1.6b cut to 4 of 24 layers and seamless whole (12 +
+   12 layers): finite
+   losses, the same collectives each step, each rank's launches (2 WKV a
+   layer and step; 2, 1, 1 flash an attention call and step), printed
+   with step ms beside 27a's and 26b's one rank, tok/s, peak memory a
+   rank and the bytes staged.  28d, the answer: rwkv6-1.6b (2 layers)
+   and seamless (1 + 1) at full width in f32 on ``1x1x2`` against one
+   rank on the card: the dense prefill's logits within 1e-5, 4 decode
+   steps from the one-rank cache within 1e-4, one unclipped step's loss
+   within 1e-4 relative and Adam's first moment within 1e-4 of each
    leaf's largest.
 
 The line before the last is the kernels' JSON summary; the last line is
@@ -429,7 +472,7 @@ ELASTIC_REPAIR = dict(steps=6, seq=1024, batch=8, mesh_spec="4x1x1",
 ELASTIC_RESTART = dict(steps=8, seq=1024, batch=8, mesh_spec="2x2x1",
                        comm="multilevel", zero1=True, ckpt_every=3,
                        fail_at={7: [1]}, digests=True)
-ELASTIC_ANSWER = dict(steps=4, seq=256, batch=4, mesh_spec="4x1x1",
+ELASTIC_ANSWER = dict(steps=4, seq=128, batch=4, mesh_spec="4x1x1",
                       comm="multilevel_compress", fail_at={2: [1]})
 # losses: 20b replays step 7 from the checkpoint of step 6
 ELASTIC_LOSSES = {"20a": 6, "20b": 8}
@@ -465,15 +508,20 @@ ARCH_TOL = 1e-4
 NEAR_TIE = 1e-6
 # phase 24: serving on a model axis, the M ranks of one model group
 # sharing the card over gloo (staged through host memory).  24a gpt-100m
-# through serve on each mesh and 24b olmoe-1b-7b (16 experts a rank, its
-# capacity_factor 1.25), phase 5's requests; 24c the dense path on
+# through serve on each mesh (M 4 through serve is 24b's: olmoe's
+# attention on 4 heads a rank, the same path; gpt-100m at M 4 is 24d's)
+# and 24b olmoe-1b-7b (16 experts a rank, its capacity_factor 1.25),
+# phase 5's batch; 24c the dense path on
 # gemma3-12b cut to its first pattern period (5 windowed layers, 1
 # global), caches sized to a multiple of 8 so the model axis divides them
 # (the sequence-parallel decode); the 2048-token prompt wraps the
 # 1024-slot ring; 24d the three configs at their smoke configs' depth and
 # full width in f32, each model group against the one-rank model
-TP_SERVE = ("1x1x2", "1x1x4")
+TP_SERVE = ("1x1x2",)
 TP_MOE_MESH = "1x1x4"
+# each ``serve`` call on a model axis spawns its ranks: one call each, the
+# batch of SERVE_RUNS (the one-request run is phase 5's and 21's alone)
+TP_SERVE_RUNS = SERVE_RUNS[:1]
 TP_DENSE = ("gemma3-12b", 6, "1x1x2", ((4, 512), (1, 2048)))
 TP_ANSWER = {2: ("gpt-100m", "gemma3-12b"), 4: ("gpt-100m", "olmoe-1b-7b")}
 TP_ANSWER_INPUT = (2, 48, 8)    # dense batch, prompt, the paged prompt's pad
@@ -495,7 +543,7 @@ TP_TRAIN = {"25a": dict(steps=4, seq=1024, batch=8, mesh_spec="1x2x2",
                         comm="multilevel", dist_backend="gloo"),
             "25b": dict(steps=4, seq=1024, batch=8, mesh_spec="2x1x2",
                         comm="multilevel_compress", dist_backend="gloo")}
-TP_TRAIN_ANSWER = dict(steps=3, seq=256, batch=4)
+TP_TRAIN_ANSWER = dict(steps=2, seq=128, batch=4)
 # (pods, data, model) grids of 25c and the devices each runs on
 TP_TRAIN_GRIDS = {2: (((1, 1, 2), ("cuda", "cpu")), ((2, 1, 1), ("cuda",))),
                   4: (((2, 1, 2), ("cuda", "cpu")),)}
@@ -515,20 +563,24 @@ FAMILY_TRAIN = {
     "26c": ("olmoe-1b-7b", 4, dict(steps=2, seq=1024, batch=2)),
     "26d": ("pixtral-12b", 4, dict(steps=2, seq=1024, batch=2)),
 }
-# 26e: f32, card against CPU, one step of ``make_train_step`` at full
-# width (arch, layers kept, or None for the smoke config): the loss within
-# 1e-5 relative, and Adam's first moment after the step (0.1 x the clipped
-# gradient) within 1e-4 of each leaf's largest |m| on the CPU, the CPU
-# tests' f32 gradient tolerance (tests/test_torch_train.py)
+# 26e: f32, card against CPU, the training step's loss and gradient
+# (``step.loss_and_grads``, the forward, the remat's re-run and the
+# backward that ``make_train_step`` runs) at full width (arch, layers
+# kept, or None for the smoke config): the loss within 1e-5 relative, and
+# every gradient leaf of the stacked layout within 1e-4 of its largest
+# |g| on the CPU, the CPU tests' f32 gradient tolerance
+# (tests/test_torch_train.py).  Adam's first moment after the step is
+# 0.1 x the clipped gradient, so this holds what it held, without the
+# CPU's AdamW over every parameter, which took most of the phase
 FAMILY_ANSWER = [("recurrentgemma-2b", 3), ("olmoe-1b-7b", 1),
                  ("pixtral-12b", 1), ("seamless-m4t-medium", 1),
                  ("llama4-scout-17b-a16e", None)]
 FAMILY_ANSWER_INPUT = dict(seq=256, batch=1)
 FAMILY_LOSS_TOL = 1e-5
-FAMILY_M_TOL = 1e-4
+FAMILY_G_TOL = 1e-4
 # llama4-scout routes each token to one expert, whose renormalised gate is
 # 1: its router's gradient is zero but for rounding, held on each side
-# under 1e-6 of the largest |m| (as tests/test_torch_train.py holds it)
+# under 1e-6 of the largest |g| (as tests/test_torch_train.py holds it)
 FAMILY_ZERO_TOL = 1e-6
 # 26f: olmoe-1b-7b at full width cut to 1 layer, f32, on 2x2x1 ranks
 # sharing the card over gloo against one rank on the card
@@ -548,6 +600,35 @@ TP_MOE_TRAIN = ("olmoe-1b-7b", 4, dict(steps=2, seq=1024, batch=2,
 TP_FAMILY_ANSWER = [("olmoe-1b-7b", 1), ("pixtral-12b", 1)]
 TP_FAMILY_ANSWER_INPUT = dict(seq=256, batch=2, model=2)
 TP_FAMILY_TOL = 1e-4     # the loss relative, m of each leaf's largest
+# phase 28: RWKV-6 and the enc-dec config on a model axis, the ranks of
+# TP_RS_MESH sharing the card over gloo.  28a-b serve at full width and
+# depth through make_prefill_fn/make_decode_fn: (arch, batch, prompt
+# tokens, encoder frames), TP_RS_GEN greedy tokens (the prefill's and 8
+# decode steps'), the first prefill's bf16 logits no farther from the
+# one-rank f32 model's than the one-rank bf16 run's, plus LOGIT_TOL (the
+# full-depth bf16 models' largest logits, 17.8 and 24.4, sit where a bf16
+# ulp is 0.125: their own rounding moves them by more than LOGIT_TOL,
+# PERF.md section 6); 28c trains in bf16 (arch, layers kept),
+# TP_RS_TRAIN_KW; 28d f32 at full width cut to (arch, layers) against one
+# rank on the card: the dense prefill's logits within TP_F32_TOL, 4
+# decode steps from the one-rank cache within TP_STEP_TOL (RWKV-6's
+# carried rows are bf16, as the k and v of a cache), one unclipped
+# training step's loss and Adam's m within TP_FAMILY_TOL
+TP_RS_MESH = "1x1x2"
+TP_RS_SERVE = {"28a": ("rwkv6-1.6b", 2, 512, 0),
+               "28b": ("seamless-m4t-medium", 2, 512, 512)}
+TP_RS_GEN = 9
+TP_RS_TRAIN = {"rwkv6-1.6b": 4, "seamless-m4t-medium": 12}
+TP_RS_TRAIN_KW = dict(steps=3, seq=512, batch=2)
+TP_RS_ANSWER = [("rwkv6-1.6b", 2), ("seamless-m4t-medium", 1)]
+TP_RS_ANSWER_INPUT = (2, 48, 32)    # batch, prompt, encoder frames
+
+
+def progress(phase: str, t0: float) -> None:
+    """Print the script's elapsed seconds as ``phase`` starts, so that a
+    run cut by its time limit still shows where its time went."""
+    print(json.dumps({"starting_phase": phase,
+                      "elapsed_s": time.perf_counter() - t0}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -984,16 +1065,15 @@ def collectives_rank(rank):
             "slow_wire_bytes": grid.slow.wire_bytes}
 
 
-def collectives_phase(torch) -> dict:
+def collectives_phase(torch, pool) -> dict:
     """``multilevel_psum`` plain, int8 and int8 + EF on four ranks sharing
-    the card, against the same sums in this process (the plain versions
-    on the card): every sum over two ranks is exact, so bit for bit."""
+    the card (``pool``: each rank's ``pool4_rank`` result), against the
+    same sums in this process (the plain versions on the card): every sum
+    over two ranks is exact, so bit for bit."""
     from repro_torch.core import compression as C
-    from repro_torch.launch.mesh import run_ranks
 
-    t0 = time.perf_counter()
-    res = run_ranks(collectives_rank, 4, "gloo", timeout=600.0)
-    wall = time.perf_counter() - t0
+    res = [r["10"] for r in pool]
+    wall = max(r["wall_s"]["10"] for r in pool)
     ins = [[t.cuda() for t in coll_inputs(torch, r)] for r in range(4)]
     pods = [ins[2 * p][0] + ins[2 * p + 1][0] for p in range(2)]
     n = COLL_N // 2
@@ -1035,9 +1115,30 @@ def collectives_phase(torch) -> dict:
     return rec
 
 
-def grid_answer_rank(rank, device):
-    """One rank of the grid's f32 answer: 2 layers of gpt-100m at full
-    width, ``multilevel_compress`` on 2x2x1, 3 steps."""
+def pool4_rank(rank, jobs):
+    """One of the four ranks that phases 10, 12, 24d, 25c (its 2x1x2
+    grid) and 26f share, one spawn: each phase's rank body in turn, its
+    counters from 0 as the body sets them, with its wall s.  ``jobs``:
+    24d's (``tp_answer_rank``)."""
+    import torch
+
+    bodies = (("10", lambda: collectives_rank(rank)),
+              ("12", lambda: {dev: grid_answer_steps(dev)
+                              for dev in ("cuda", "cpu")}),
+              ("26f", lambda: family_grid_rank(rank)),
+              ("24d", lambda: tp_answer_rank(rank, jobs)),
+              ("25c", lambda: tp_train_answer_rank(rank, 4)))
+    out = {"wall_s": {}}
+    for name, body in bodies:
+        t0 = time.perf_counter()
+        out[name] = body()
+        out["wall_s"][name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_answer_steps(device):
+    """This rank's 3 steps of the grid's f32 answer on ``device``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec
@@ -1076,12 +1177,14 @@ def grid_answer_rank(rank, device):
     return {"losses": losses, "m_wq": m}
 
 
-def grid_answer(torch) -> None:
-    from repro_torch.launch.mesh import run_ranks
+def grid_answer(pool) -> None:
+    """Phase 12: the grid's f32 answer, 2 layers of gpt-100m at full
+    width, ``multilevel_compress`` on 2x2x1, 3 steps, on the card and then
+    on the CPU (a grid of each), from ``pool`` (each rank's
+    ``pool4_rank`` result)."""
     import numpy as np
 
-    runs = {dev: run_ranks(grid_answer_rank, 4, "gloo", (dev,),
-                           timeout=900.0) for dev in ("cuda", "cpu")}
+    runs = {dev: [r["12"][dev] for r in pool] for dev in ("cuda", "cpu")}
     l_gpu, l_cpu = runs["cuda"][0]["losses"], runs["cpu"][0]["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     share, m_rel = [], []        # per step, the worst rank
@@ -1097,7 +1200,8 @@ def grid_answer(torch) -> None:
         "loss_tolerance": GRID_LOSS_TOL,
         "m_wq_share_differing_per_step": share,
         "m_wq_max_rel_diff_per_step": m_rel,
-        "m_wq_share_tolerance": GRID_M_SHARE}}), flush=True)
+        "m_wq_share_tolerance": GRID_M_SHARE,
+        "ranks_wall_s": max(r["wall_s"]["12"] for r in pool)}}), flush=True)
     if not math.isfinite(rel) or rel > GRID_LOSS_TOL:
         fail(f"2x2x1 f32 losses differ by {rel} (relative) between card "
              f"and CPU")
@@ -1273,9 +1377,10 @@ def prompt_inputs(torch, cfg, B, L, P, seed):
     return inputs
 
 
-def dense_serve(torch, cfg, params, B, L, P=0, grid=None, align=1):
+def dense_serve(torch, cfg, params, B, L, P=0, grid=None, align=1,
+                gen=DENSE_GEN):
     """Prefill a (B, L) prompt from a seed (after P prefix positions) on
-    the card and decode greedily to DENSE_GEN tokens through
+    the card and decode greedily to ``gen`` tokens through
     make_prefill_fn/make_decode_fn (on this rank's shard where ``grid``
     has a model axis), the cache sized for the tokens rounded up to a
     multiple of ``align``.  Returns the wall times, the tokens and each
@@ -1285,7 +1390,7 @@ def dense_serve(torch, cfg, params, B, L, P=0, grid=None, align=1):
     inputs = {k: v.cuda()
               for k, v in prompt_inputs(torch, cfg, B, L, P, L).items()}
     pre = 0 if cfg.enc_dec else P
-    s_max = pre + L + DENSE_GEN - 1
+    s_max = pre + L + gen - 1
     prefill = make_prefill_fn(cfg, s_max + (-s_max) % align, grid)
     decode = make_decode_fn(cfg, grid)
     calls = (lambda: grid.tp.calls) if grid is not None else (lambda: 0)
@@ -1297,17 +1402,17 @@ def dense_serve(torch, cfg, params, B, L, P=0, grid=None, align=1):
     out, lgs = [logits[:, -1].argmax(-1, keepdim=True)], [logits]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for i in range(DENSE_GEN - 1):
+    for i in range(gen - 1):
         logits, cache = decode(params, cache, out[-1], pos + i)
         out.append(logits[:, -1].argmax(-1, keepdim=True))
         lgs.append(logits)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return {"prefill_ms": (t1 - t0) * 1e3,
-            "decode_ms_per_step": (t2 - t1) * 1e3 / (DENSE_GEN - 1),
+            "decode_ms_per_step": (t2 - t1) * 1e3 / (gen - 1),
             "tokens": torch.cat(out, 1), "logits": lgs, "wall_s": t2 - t0,
             "collectives_prefill": c1 - c0,
-            "collectives_per_decode_step": (calls() - c1) / (DENSE_GEN - 1)}
+            "collectives_per_decode_step": (calls() - c1) / (gen - 1)}
 
 
 def leaf_errs(torch, got, want) -> tuple[dict, bool]:
@@ -1941,13 +2046,14 @@ def discovery_phase(torch, disc) -> None:
         flush=True)
 
 
-def serve_runs(serve, tmp=None, arch="gpt-100m", **kw) -> list:
+def serve_runs(serve, tmp=None, arch="gpt-100m", rows=SERVE_RUNS,
+               **kw) -> list:
     """Phase 5's requests through ``serve`` on ``arch``, one call per row
-    of ``SERVE_RUNS``; with ``tmp``, each call writes its Chrome trace and
+    of ``rows``; with ``tmp``, each call writes its Chrome trace and
     metrics file there, and its result counts the trace's events and the
     metric series."""
     runs = []
-    for n, L in SERVE_RUNS:
+    for n, L in rows:
         if tmp is not None:
             kw.update(trace=f"{tmp}/trace_{n}x{L}.json",
                       metrics_out=f"{tmp}/metrics_{n}x{L}.txt")
@@ -2035,7 +2141,7 @@ def bucket_train_phase(train, cfg) -> dict:
     if not {"est_ms", "slow_crossings", "bucketed"} <= set(plan) \
             or plan["bucketed"]["n_buckets"] < 1:
         fail(f"the train launcher's planning logged {plan}")
-    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+    want = {"wkv": 0, "flash_fwd": 2 * cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
             "dequantize_int8": 0, "quantize_ef_int8": 0}
@@ -2146,7 +2252,7 @@ def elastic_phase(train, get_config) -> dict:
     with tempfile.TemporaryDirectory(prefix="repro_torch_elastic_") as tmp:
         a = elastic_case(train, "20a", ELASTIC_REPAIR, f"{tmp}/a", cfg)
         leaves, steps = 10, ELASTIC_REPAIR["steps"]
-        want = {"flash_fwd": 2 * cfg.n_layers * steps,
+        want = {"wkv": 0, "flash_fwd": 2 * cfg.n_layers * steps,
                 "flash_bwd_dq": cfg.n_layers * steps,
                 "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
                 "dequantize_int8": leaves * steps,
@@ -2462,7 +2568,7 @@ def arch_answer(torch, T, L, get_config) -> dict:
 def tp_serve_phase(serve, arch, mesh, plain, cfg) -> int:
     """Phase 24a/24b: ``serve`` of ``arch`` at full width on ``mesh``, the
     M ranks of one model group sharing the card over gloo, phase 5's
-    requests, against the one-rank runs ``plain`` of the same requests
+    batch (TP_SERVE_RUNS), against the one-rank run ``plain`` of it
     (phase 5's or 21's): every request done, tokens in range, the first
     prefill's bf16 logits within LOGIT_TOL of the one-rank run's, each
     rank's flash launches (each rank is a fresh process whose counter
@@ -2473,9 +2579,9 @@ def tp_serve_phase(serve, arch, mesh, plain, cfg) -> int:
     run.  Returns the flash launches of every rank."""
     launches = 0
     t0 = time.perf_counter()
-    runs = serve_runs(serve, arch=arch, mesh=mesh)
+    runs = serve_runs(serve, arch=arch, rows=TP_SERVE_RUNS, mesh=mesh)
     wall = time.perf_counter() - t0
-    for r, p, (n, L_) in zip(runs, plain, SERVE_RUNS):
+    for r, p, (n, L_) in zip(runs, plain, TP_SERVE_RUNS):
         gen = r["generated"]
         if not all(q.state.name == "DONE" for q in r["requests"]) \
                 or gen.shape != (n, SERVE_GEN) or gen.min() < 0 \
@@ -2496,7 +2602,7 @@ def tp_serve_phase(serve, arch, mesh, plain, cfg) -> int:
                    "collectives_per_prefill", "collectives_per_decode_step",
                    "staged_bytes", "flash_fwd_launches",
                    "moe_dropped_per_layer", "moe_dropped_first_prefill")},
-               "wall_s_both_runs_with_spawn": wall}
+               "wall_s_with_spawn": wall}
         print(json.dumps({"tp_serve": rec}), flush=True)
         if ax["flash_fwd_launches"] != [cfg.n_layers * r["prefills"]] \
                 * ax["model"]:
@@ -2509,13 +2615,17 @@ def tp_serve_phase(serve, arch, mesh, plain, cfg) -> int:
     return launches
 
 
-def tp_dense_rank(rank, mesh, arch, n, prefills):
-    """One rank of phase 24c: ``arch`` cut to ``n`` layers at full width,
-    this rank's shard on ``mesh``'s model axis (gloo, the card shared),
-    the dense path's prefills with the sequence-parallel decode."""
+def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN):
+    """One rank of phase 24c (and 28a-b): ``arch`` cut to ``n`` layers at
+    full width, this rank's shard on ``mesh``'s model axis (gloo, the card
+    shared), the dense path's prefills (after ``P`` prefix positions or
+    encoder frames) and ``gen`` greedy tokens, with the sequence-parallel
+    decode; the flash and WKV counters set to 0 just before the prefills
+    and read just after."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv as kw
     from repro_torch.launch.mesh import make_grid, parse_mesh
     from repro_torch.models import transformer as T
 
@@ -2525,11 +2635,12 @@ def tp_dense_rank(rank, mesh, arch, n, prefills):
     grid = make_grid(1, 1, dev, model=model)
     cfg = cut(get_config, arch, n)
     params = T.init_model(cfg, seed=0, device=dev, model=model, m=rank)
-    fa.flash_attention_fwd.launches = 0
+    reset(fa, kw)
     out = []
     for B, L_ in prefills:
         s0 = grid.staged_bytes
-        r = dense_serve(torch, cfg, params, B, L_, grid=grid, align=8)
+        r = dense_serve(torch, cfg, params, B, L_, P, grid=grid, align=8,
+                        gen=gen)
         out.append({"tokens": r["tokens"].cpu().numpy(),
                     "first_logits": r["logits"][0].cpu().numpy(),
                     "finite": all(bool(torch.isfinite(x).all())
@@ -2539,22 +2650,19 @@ def tp_dense_rank(rank, mesh, arch, n, prefills):
                         "prefill_ms", "decode_ms_per_step", "wall_s",
                         "collectives_prefill",
                         "collectives_per_decode_step")}})
-    return {"runs": out, "flash_fwd": fa.flash_attention_fwd.launches}
+    got = counts(fa, kw)
+    return {"runs": out, "flash_fwd": got["flash_fwd"], "wkv": got["wkv"]}
 
 
-def tp_dense_phase(torch, T, get_config) -> int:
+def tp_dense_phase(torch, T, get_config, ranks) -> int:
     """Phase 24c: the dense path on the model axis, each rank's cache
     split over the sequence (the windowed layers' 1024-slot ring wraps
-    under the 2048-token prompt): against the one-rank dense path in this
-    process on the same weights, the first prefill's bf16 logits within
-    LOGIT_TOL and the token agreement.  Returns the flash launches of
-    every rank."""
-    from repro_torch.launch.mesh import parse_mesh, run_ranks
-
+    under the 2048-token prompt; ``ranks``: each rank's ``tp_dense_rank``
+    result, from the spawn of ``tp_rs_rank``): against the one-rank dense
+    path in this process on the same weights, the first prefill's bf16
+    logits within LOGIT_TOL and the token agreement.  Returns the flash
+    launches of every rank."""
     arch, n, mesh, prefills = TP_DENSE
-    model = parse_mesh(mesh)[2]
-    ranks = run_ranks(tp_dense_rank, model, "gloo",
-                      args=(mesh, arch, n, prefills), timeout=600)
     cfg = cut(get_config, arch, n)
     params = T.init_model(cfg, seed=0, device="cuda")
     one = [dense_serve(torch, cfg, params, B, L_, align=8)
@@ -2623,25 +2731,47 @@ def tp_answer_cfg(get_config, arch, model):
     return cfg
 
 
+def host_state(state):
+    """A one-rank cache or pool list copied to the host (f32 numpy; a
+    copy even of a host tensor, which a decode step may write in place)."""
+    return [{k: v.float().cpu().numpy().copy() for k, v in e.items()}
+            for e in state]
+
+
+def cut_state(torch, full, state, tp):
+    """This rank's part of ``full`` (a one-rank ``host_state``) in the
+    layout of ``state``, this rank's cache or pools."""
+    return [{k: tp_cut(torch, full[r][k], v, tp) for k, v in e.items()}
+            for r, e in enumerate(state)]
+
+
+def dense_answer_paths(torch, T, cfg, params, ins, steps, s_max, tp=None,
+                       before=None):
+    """The dense path of 24d and 28d: the prefill's logits and those of a
+    decode step for each of ``steps`` (fixed tokens).  Each step starts
+    from ``before[i]``, the one-rank cache of that step cut for this rank,
+    where given; the one-rank run records them in ``out["before"]``."""
+    lg, cache, S = T.prefill(params, cfg, ins, s_max, tp=tp)
+    out = {"prefill": lg, "steps": [], "before": []}
+    for i, t in enumerate(steps):
+        if before is None:
+            out["before"].append(host_state(cache))
+        else:
+            cache = cut_state(torch, before[i], cache, tp)
+        lg, cache = T.decode_step(params, cfg, cache, t, S + i, tp=tp)
+        out["steps"].append(lg)
+    return out
+
+
 def tp_answer_paths(torch, T, cfg, params, ins, tp=None, before=None):
     """The paged prefill's logits and TP_ANSWER_STEPS paged decode steps'
     (the prefill's cache scattered into pools of this rank's KV heads),
-    the dense prefill's and TP_ANSWER_STEPS dense decode steps'.  Each
-    step starts from ``before[kind][i]``, the one-rank run's pools or
-    cache of that step cut for this rank, where given; the one-rank run
-    records them (numpy) in ``out["before"]``."""
+    then ``dense_answer_paths``'.  Each paged step starts from
+    ``before["pools"][i]``, the one-rank run's pools of that step cut for
+    this rank, where given; the one-rank run records its pools and cache
+    in ``out["before"]``."""
     B, L_, pad = TP_ANSWER_INPUT
-    out = {"before": {"pools": [], "cache": []}}
-
-    def start(kind, i, state):
-        if before is None:
-            out["before"][kind].append([{k: v.float().cpu().numpy()
-                                         for k, v in ent.items()}
-                                        for ent in state])
-            return state
-        return [{k: tp_cut(torch, before[kind][i][r][k], v, tp)
-                 for k, v in ent.items()} for r, ent in enumerate(state)]
-
+    out = {"before": {"pools": []}}
     lg, cache, _ = T.prefill(params, cfg, {"tokens": ins["paged"].cuda()},
                              L_ + pad, last_pos=torch.tensor([L_ - 1]).cuda(),
                              full_local_cache=True, tp=tp, seq_shard=False)
@@ -2654,55 +2784,74 @@ def tp_answer_paths(torch, T, cfg, params, ins, tp=None, before=None):
     tables = torch.arange(1, nb + 1, device="cuda")[None]
     out["paged_steps"] = []
     for i in range(TP_ANSWER_STEPS):
-        pools = start("pools", i, pools)
+        if before is None:
+            out["before"]["pools"].append(host_state(pools))
+        else:
+            pools = cut_state(torch, before["pools"][i], pools, tp)
         lg, pools = T.decode_step_paged(
             params, cfg, pools, tables, ins["steps"][i][:1].cuda(),
             torch.tensor([L_ + i]).cuda(), tp=tp)
         out["paged_steps"].append(lg.cpu().numpy())
     s_max = L_ + TP_ANSWER_STEPS
     s_max += (-s_max) % 8
-    lg, cache, S = T.prefill(params, cfg, {"tokens": ins["dense"].cuda()},
-                             s_max, tp=tp)
-    out["dense_prefill"] = lg.cpu().numpy()
-    out["dense_steps"] = []
-    for i in range(TP_ANSWER_STEPS):
-        cache = start("cache", i, cache)
-        lg, cache = T.decode_step(params, cfg, cache,
-                                  ins["steps"][i].cuda(), S + i, tp=tp)
-        out["dense_steps"].append(lg.cpu().numpy())
+    dense = dense_answer_paths(
+        torch, T, cfg, params, {"tokens": ins["dense"].cuda()},
+        ins["steps"].cuda(), s_max, tp,
+        None if before is None else before["cache"])
+    out["before"]["cache"] = dense["before"]
+    out["dense_prefill"] = dense["prefill"].cpu().numpy()
+    out["dense_steps"] = [lg.cpu().numpy() for lg in dense["steps"]]
     return out
 
 
 def tp_cut(torch, full, like, tp):
-    """This rank's part of a one-rank cache leaf ``full`` (numpy) in the
-    layout of ``like``: its slice of the sequence where ``like`` holds
-    every KV head, else its KV heads."""
-    t = torch.from_numpy(full).to(like.dtype).cuda()
-    dim = 2 if like.shape[-2] == t.shape[-2] else t.dim() - 2
-    n = like.shape[dim]
-    return t.narrow(dim, tp.index * n, n).contiguous()
+    """This rank's part of a one-rank cache or pool leaf ``full`` (numpy)
+    in the layout of ``like``, a copy on its device: cut along the one
+    dim where they differ (the sequence where ``like`` holds every KV
+    head, else the KV heads; RWKV-6's heads), or whole (RWKV-6's carried
+    rows)."""
+    t = torch.as_tensor(full).to(device=like.device, dtype=like.dtype)
+    dims = [d for d in range(t.dim()) if t.shape[d] != like.shape[d]]
+    if not dims:
+        return t.clone()
+    n = like.shape[dims[0]]
+    return t.narrow(dims[0], tp.index * n, n).contiguous()
 
 
-def tp_answer_rank(rank, model, archs, befores):
-    """One rank of phase 24d: f32 weights of each of ``archs``, this
-    rank's shard, TF32 off, the paths of ``tp_answer_paths``."""
+def tp_answer_rank(rank, jobs):
+    """One of the 4 ranks of phase 24d (one spawn): for each ``(model,
+    archs, befores)`` of ``jobs``, a (1 x 4/model x model) grid whose
+    first model group runs ``tp_answer_on``; results under the model
+    size (the other groups' None)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_grid
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    tp = make_grid(1, 1, dev, model=model).tp
+    out = {}
+    for model, archs, befores in jobs:
+        grid = make_grid(1, 4 // model, dev, model=model)
+        out[model] = tp_answer_on(grid.tp, dev, model, rank % model, archs,
+                                  befores) if grid.rank == 0 else None
+    return out
+
+
+def tp_answer_on(tp, dev, model, m, archs, befores):
+    """Rank ``m`` of the model axis ``tp``: f32 weights of each of
+    ``archs``, this rank's shard, the paths of ``tp_answer_paths``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
     out = {}
     for arch, before in zip(archs, befores):
         cfg = tp_answer_cfg(get_config, arch, model)
         params = tree_map(lambda t: t.float(), T.init_model(
-            cfg, seed=0, device=dev, model=model, m=rank))
+            cfg, seed=0, device=dev, model=model, m=m))
         L.moe_fwd.dropped = []
         out[arch] = tp_answer_paths(torch, T, cfg, params,
                                     tp_answer_inputs(torch, cfg), tp, before)
@@ -2713,33 +2862,41 @@ def tp_answer_rank(rank, model, archs, befores):
     return out
 
 
-def tp_answer_phase(torch, T, get_config) -> None:
-    """Phase 24d: the three configs of 24a-c at full width and their smoke
-    depth in f32 on the card, each model group against the one-rank model
-    in this process on the same weights: the paged and the dense
-    prefill's logits within TP_F32_TOL; each paged and each dense decode
-    step, from the one-rank run's pools or cache, within TP_STEP_TOL (the
-    step rounds the k and v it writes to bf16, and an f32 value a
-    summation order apart may round to the neighbouring bf16 number); no
-    expert slot dropped."""
-    from repro_torch.launch.mesh import run_ranks
+def tp_answer_ones(torch, T, get_config) -> tuple[dict, list]:
+    """Phase 24d's one-rank runs in this process, before the spawn of
+    ``pool4_rank``: the runs, and the ranks' jobs (``tp_answer_rank``)."""
     from repro_torch.tree import tree_map
 
+    ones, jobs = {}, []
     for model, archs in TP_ANSWER.items():
-        ones, befores = {}, []
+        befores = []
         for arch in archs:
             cfg = tp_answer_cfg(get_config, arch, model)
             params = tree_map(lambda t: t.float(),
                               T.init_model(cfg, seed=0, device="cuda"))
-            ones[arch] = tp_answer_paths(torch, T, cfg, params,
-                                         tp_answer_inputs(torch, cfg))
-            befores.append(ones[arch].pop("before"))
+            ones[model, arch] = tp_answer_paths(torch, T, cfg, params,
+                                                tp_answer_inputs(torch, cfg))
+            befores.append(ones[model, arch].pop("before"))
             del params
             torch.cuda.empty_cache()
-        ranks = run_ranks(tp_answer_rank, model, "gloo",
-                          args=(model, archs, befores), timeout=600)
+        jobs.append((model, archs, befores))
+    return ones, jobs
+
+
+def tp_answer_phase(get_config, ones, every) -> None:
+    """Phase 24d: the three configs of 24a-c at full width and their smoke
+    depth in f32 on the card, each model group (``every``: each rank's
+    ``tp_answer_rank`` result) against the one-rank model in this process
+    on the same weights (``ones``, ``tp_answer_ones``): the paged and the
+    dense prefill's logits within TP_F32_TOL; each paged and each dense
+    decode step, from the one-rank run's pools or cache, within
+    TP_STEP_TOL (the step rounds the k and v it writes to bf16, and an f32
+    value a summation order apart may round to the neighbouring bf16
+    number); no expert slot dropped."""
+    for model, archs in TP_ANSWER.items():
+        ranks = [r[model] for r in every[:model]]
         for arch in archs:
-            one, got = ones[arch], ranks[0][arch]
+            one, got = ones[model, arch], ranks[0][arch]
             steps = lambda k: k.endswith("_steps")
             err = lambda k: float(max(abs(a - b).max() for a, b in zip(
                 got[k] if steps(k) else [got[k]],
@@ -2770,7 +2927,7 @@ def tp_train_case(train, name, kw, cfg, refs) -> dict:
     wall = time.perf_counter() - t0
     steps, leaves = kw["steps"], 10
     compress = kw["comm"] == "multilevel_compress"
-    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+    want = {"wkv": 0, "flash_fwd": 2 * cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
             "dequantize_int8": leaves * steps * compress,
@@ -2859,12 +3016,14 @@ def tp_train_answer_rank(rank, world):
     return out
 
 
-def tp_train_answer(torch, T, get_config) -> None:
+def tp_train_answer(torch, T, get_config, pooled) -> None:
     """Phase 25c: gpt-100m's 2 layers at full width in f32, unclipped, on
     1x1x2 and 2x1x2 on the card and on the CPU, against one rank and 2x1x1
-    on the card, the same global batches: the losses within
-    TP_TRAIN_TOL."""
-    from repro_torch.launch.mesh import Grid, run_ranks
+    on the card, the same global batches: the losses within TP_TRAIN_TOL.
+    ``pooled``: the first rank's ``tp_train_answer_rank`` result of each
+    world of TP_TRAIN_GRIDS (the spawns of ``tp_rs_rank`` and
+    ``pool4_rank``)."""
+    from repro_torch.launch.mesh import Grid
     from repro_torch.models.convert import stack_runs
     from repro_torch.tree import tree_map
 
@@ -2876,8 +3035,7 @@ def tp_train_answer(torch, T, get_config) -> None:
                                                  "cuda")}
     torch.cuda.empty_cache()
     for world in TP_TRAIN_GRIDS:
-        runs.update(run_ranks(tp_train_answer_rank, world, "gloo", (world,),
-                              timeout=900.0)[0])
+        runs.update(pooled[world])
     rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(
         runs[a], runs[b]))
     pairs = [("1x1x2 cuda", "1x1x1 cuda"), ("2x1x2 cuda", "1x1x1 cuda"),
@@ -2888,7 +3046,7 @@ def tp_train_answer(torch, T, get_config) -> None:
         **TP_TRAIN_ANSWER, "layers": 2, "comm": "multilevel",
         "clip_norm": 1e30, "losses": runs, "max_rel_loss_diff": errs,
         "tolerance": TP_TRAIN_TOL,
-        "wall_s_with_spawns": time.perf_counter() - t0}}), flush=True)
+        "wall_s_one_rank": time.perf_counter() - t0}}), flush=True)
     if any(len(v) != TP_TRAIN_ANSWER["steps"] for v in runs.values()) \
             or not all(math.isfinite(e) and e <= TP_TRAIN_TOL
                        for e in errs.values()):
@@ -2922,7 +3080,7 @@ def tp_train_qwen(torch, train, get_config) -> list:
         "wall_s_with_spawn": t1 - t0, "wall_s_one_rank": t2 - t1}}),
         flush=True)
     steps = kw["steps"]
-    want = {"flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
+    want = {"wkv": 0, "flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
             "flash_bwd_dkv": n * steps, "quantize_int8": 0,
             "dequantize_int8": 0, "quantize_ef_int8": 0}
     if not all(math.isfinite(x) for x in two["losses"] + one["losses"]) \
@@ -2986,62 +3144,62 @@ def family_train_case(torch, train, fa, kw, L, get_config, name) -> tuple:
 
 
 def answer_step(torch, T, fa, kw, cfg, arch, n, key, phase) -> dict:
-    """One f32 step of ``make_train_step`` of ``cfg`` (``arch`` cut to
-    ``n`` layers, None for the smoke config) on the card and on the CPU
-    from the same weights and batch: the loss within FAMILY_LOSS_TOL
-    relative, Adam's first moment within FAMILY_M_TOL of each leaf's
-    largest; printed under ``key``.  Returns the card's launches."""
+    """The f32 loss and gradient of ``cfg`` (``arch`` cut to ``n`` layers,
+    None for the smoke config) on the card and on the CPU from the same
+    weights and batch (``step.loss_and_grads``, as ``make_train_step``
+    calls it): the loss within FAMILY_LOSS_TOL relative, each gradient
+    leaf of the stacked layout within FAMILY_G_TOL of its largest; printed
+    under ``key``.  Returns the card's launches."""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.data.pipeline import DataPipeline
-    from repro_torch.launch.step import make_train_step
+    from repro_torch.launch.step import device_batch, loss_and_grads
     from repro_torch.models.convert import stack_runs
-    from repro_torch.optim.adamw import OptConfig, init_opt_state
     from repro_torch.tree import tree_map, tree_paths
 
-    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=1)
     pipe = DataPipeline(cfg, ShapeSpec("answer", "train",
                                        FAMILY_ANSWER_INPUT["seq"],
                                        FAMILY_ANSWER_INPUT["batch"]))
+    batch = pipe.host_batch(0)
     # drawn on the card (quicker than on the CPU), the same on both sides
-    full = stack_runs(tree_map(lambda t: t.float().cpu(), T.init_model(
-        cfg, seed=0, device="cuda")), cfg)
+    full = tree_map(lambda t: t.float().cpu(), T.init_model(
+        cfg, seed=0, device="cuda"))
     runs = {}
     for dev in ("cuda", "cpu"):
         params = tree_map(lambda t: t.to(dev), full)
-        opt = init_opt_state(params, opt_cfg)
-        step = make_train_step(cfg, opt_cfg, device=dev)
         reset(fa, kw)
-        params, opt, loss = step(params, opt, pipe.host_batch(0))
-        runs[dev] = (loss.item(), [(k, m.cpu().numpy()) for k, m in
-                                   tree_paths(opt["m"])], counts(fa, kw))
-        del params, opt
+        loss, grads = loss_and_grads(params, cfg, device_batch(batch, dev))
+        runs[dev] = (loss.item(), [(k, g.cpu().numpy()) for k, g in
+                                   tree_paths(stack_runs(grads, cfg))],
+                     counts(fa, kw))
+        del params, grads
         torch.cuda.empty_cache()
-    (l_gpu, m_gpu, launches), (l_cpu, m_cpu, _) = runs["cuda"], runs["cpu"]
+    (l_gpu, g_gpu, launches), (l_cpu, g_cpu, _) = runs["cuda"], runs["cpu"]
     rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    m_rel, zero = m_errs(m_gpu, m_cpu, cfg)
+    g_rel, zero = m_errs(g_gpu, g_cpu, cfg)
     print(json.dumps({key: {
         "arch": arch, "layers": cfg.n_layers, "smoke": n is None,
         **FAMILY_ANSWER_INPUT, "loss_card": l_gpu, "loss_cpu": l_cpu,
         "rel_loss_diff": rel, "loss_tolerance": FAMILY_LOSS_TOL,
-        "m_leaves": len(m_cpu), "m_max_rel_diff": m_rel,
-        "m_tolerance": FAMILY_M_TOL, "top1_router_m_over_max_m": zero,
+        "grad_leaves": len(g_cpu), "grad_max_rel_diff": g_rel,
+        "grad_tolerance": FAMILY_G_TOL,
+        "top1_router_grad_over_max_grad": zero,
         "launches_card": launches}}), flush=True)
     if not math.isfinite(rel) or rel > FAMILY_LOSS_TOL:
         fail(f"phase {phase} {arch}: f32 losses differ by {rel} (relative) "
              f"between card and CPU")
-    if not math.isfinite(m_rel) or m_rel > FAMILY_M_TOL:
-        fail(f"phase {phase} {arch}: Adam's first moment differs by {m_rel} "
-             f"of its largest between card and CPU")
+    if not math.isfinite(g_rel) or g_rel > FAMILY_G_TOL:
+        fail(f"phase {phase} {arch}: the gradient differs by {g_rel} of its "
+             f"largest between card and CPU")
     if not zero <= FAMILY_ZERO_TOL:
-        fail(f"phase {phase} {arch}: the top-1 router's first moment is "
-             f"{zero} of the largest, not a rounding residue")
+        fail(f"phase {phase} {arch}: the top-1 router's gradient is {zero} "
+             f"of the largest, not a rounding residue")
     return launches
 
 
 def m_errs(got, want, cfg) -> tuple[float, float]:
-    """The largest difference of two first moments (lists of (path,
-    numpy leaf)), each leaf's over its largest |m| in ``want``; and for a
-    top-1 router, whose gradient is zero but for rounding (its
+    """The largest difference of two first moments or gradients (lists of
+    (path, numpy leaf)), each leaf's over its largest |m| in ``want``; and
+    for a top-1 router, whose gradient is zero but for rounding (its
     renormalised gate is 1), the larger of its two |m| over the largest
     |m| of all leaves, held under FAMILY_ZERO_TOL."""
     import numpy as np
@@ -3061,9 +3219,9 @@ def m_errs(got, want, cfg) -> tuple[float, float]:
 
 def family_answer(torch, T, fa, kw, get_config) -> None:
     """26e: each family's config at full width (one pattern period, one
-    layer, 1 + 1 for enc-dec, llama4-scout at its smoke size) in f32, one
-    step of ``make_train_step`` on the card and on the CPU from the same
-    weights and batch: the loss and Adam's first moment after the step."""
+    layer, 1 + 1 for enc-dec, llama4-scout at its smoke size) in f32, the
+    training step's loss and gradient on the card and on the CPU from the
+    same weights and batch (``answer_step``)."""
     for arch, n in FAMILY_ANSWER:
         cfg = get_config(arch, smoke=True) if n is None \
             else cut(get_config, arch, n)
@@ -3118,23 +3276,21 @@ def family_grid_rank(rank):
         k: v - before[k] for k, v in launch_counts().items()}}
 
 
-def family_grid(torch, get_config) -> list:
+def family_grid(torch, get_config, res) -> list:
     """26f: olmoe-1b-7b at full width cut to 1 layer, f32, 2x2x1
     ``multilevel_compress`` with ZeRO-1 on ranks sharing the card over
-    gloo, against one rank on the card: every rank's losses within
-    FAMILY_GRID_TOL, #5 and #6 once a stacked leaf (expert leaves
-    included) a step on each rank.  Returns the ranks' launches."""
+    gloo (``res``: each rank's ``family_grid_rank`` result, from the
+    spawn of ``pool4_rank``), against one rank on the card: every rank's
+    losses within FAMILY_GRID_TOL, #5 and #6 once a stacked leaf (expert
+    leaves included) a step on each rank.  Returns the ranks' launches."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from repro_torch.launch.mesh import Grid, run_ranks
+    from repro_torch.launch.mesh import Grid
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import stack_runs
     from repro_torch.tree import tree_leaves
 
     arch, n, kw_ = FAMILY_GRID
     cfg = cut(get_config, arch, n)
-    t0 = time.perf_counter()
-    res = run_ranks(family_grid_rank, 4, "gloo", (), timeout=900.0)
-    t1 = time.perf_counter()
     one = family_grid_losses(Grid.single(), torch.device("cuda"))
     torch.cuda.empty_cache()
     with FakeTensorMode():        # the shapes only; nothing allocated
@@ -3143,7 +3299,7 @@ def family_grid(torch, get_config) -> list:
     rel = max(abs(g - o) / abs(o) for r in res
               for g, o in zip(r["losses"], one))
     steps = kw_["steps"]
-    want = {"flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
+    want = {"wkv": 0, "flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
             "flash_bwd_dkv": n * steps, "quantize_int8": 0,
             "dequantize_int8": leaves * steps,
             "quantize_ef_int8": leaves * steps}
@@ -3152,8 +3308,7 @@ def family_grid(torch, get_config) -> list:
         "comm": "multilevel_compress", "dtype": "float32",
         "losses": [r["losses"] for r in res], "losses_one_rank": one,
         "max_rel_loss_diff": rel, "tolerance": FAMILY_GRID_TOL,
-        "launches_per_rank": [r["launches"] for r in res],
-        "wall_s_with_spawn": t1 - t0}}), flush=True)
+        "launches_per_rank": [r["launches"] for r in res]}}), flush=True)
     if not math.isfinite(rel) or rel > FAMILY_GRID_TOL:
         fail(f"phase 26f: the grid's f32 losses differ by {rel} (relative) "
              f"from one rank's")
@@ -3169,7 +3324,7 @@ def rwkv_train_case(torch, train, fa, kw, get_config) -> dict:
     losses and two WKV launches a layer and step (the forward's and the
     remat's re-run inside the backward); printed with the parameter
     count, each step's wall ms and loss, tok/s and peak memory.  Returns
-    the launches."""
+    the launches and the mean wall ms of a step after the first."""
     from repro_torch.launch.step import layer_grad_bytes
 
     cfg = get_config("rwkv6-1.6b")
@@ -3202,7 +3357,7 @@ def rwkv_train_case(torch, train, fa, kw, get_config) -> dict:
     if got != want:
         fail(f"phase 27a: launched {got}, expected {want}")
     torch.cuda.empty_cache()
-    return got
+    return got, sum(steady) / len(steady)
 
 
 def tp_moe_train(torch, train, get_config, one_rank_ms) -> list:
@@ -3223,7 +3378,7 @@ def tp_moe_train(torch, train, get_config, one_rank_ms) -> list:
                 log_every=1, **kw_)
     wall = time.perf_counter() - t0
     steady = out["step_ms"][1:]
-    want = {"flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
+    want = {"wkv": 0, "flash_fwd": 2 * n * steps, "flash_bwd_dq": n * steps,
             "flash_bwd_dkv": n * steps, "quantize_int8": 0,
             "dequantize_int8": 0, "quantize_ef_int8": 0}
     print(json.dumps({"tp_moe_train_27c": {
@@ -3344,22 +3499,17 @@ def tp_family_rank(rank):
     return out
 
 
-def tp_family_answer(torch, get_config) -> dict:
+def tp_family_answer(get_config, ranks) -> dict:
     """27d: olmoe-1b-7b and pixtral-12b at full width cut to 1 layer in
     f32 on 1x1x2 ranks sharing the card over gloo, against one rank on the
     card, one unclipped step: the loss within TP_FAMILY_TOL relative, each
     rank's Adam first moment within TP_FAMILY_TOL of the one-rank
     moment's shard, each leaf of its largest; no slot dropped.  Each rank
     runs the one-rank step too and compares on the card, so no moment
-    crosses between processes.  Returns the ranks' flash launches on the
-    axis, summed."""
-    from repro_torch.launch.mesh import run_ranks
-
+    crosses between processes.  ``ranks``: each rank's
+    ``tp_family_rank`` result (from phase 28's spawn, ``tp_rs_rank``).
+    Returns the ranks' flash launches on the axis, summed."""
     M = TP_FAMILY_ANSWER_INPUT["model"]
-    t0 = time.perf_counter()
-    ranks = run_ranks(tp_family_rank, M, "gloo", (), timeout=900.0)
-    wall = time.perf_counter() - t0
-    torch.cuda.empty_cache()
     flash = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     for arch, n in TP_FAMILY_ANSWER:
         res = [r[arch] for r in ranks]
@@ -3379,8 +3529,7 @@ def tp_family_answer(torch, get_config) -> dict:
                "m_max_rel_diff": m_rel, "top1_router_m_over_max_m": zero,
                "tolerance": TP_FAMILY_TOL,
                "dropped": [r["dropped"] for r in res],
-               "flash_per_rank": [r["flash"] for r in res],
-               "wall_s_with_spawn": wall}
+               "flash_per_rank": [r["flash"] for r in res]}
         print(json.dumps({"tp_family_f32_vs_one_rank_27d": rec}),
               flush=True)
         want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
@@ -3393,6 +3542,321 @@ def tp_family_answer(torch, get_config) -> dict:
     return flash
 
 
+def tp_rs_rank(rank):
+    """One of the two ranks that 24c, 25c (its 1x1x2 and 2x1x1 grids),
+    27d and phase 28 share, one spawn: 24c's dense path
+    (``tp_dense_rank``), 25c's grids (``tp_train_answer_rank``), 27d's
+    answer (``tp_family_rank``), the dense path of each of TP_RS_SERVE
+    (``tp_dense_rank``), 28c's training of each of TP_RS_TRAIN
+    (``tp_rs_train_rank``), then 28d's answer (``tp_rs_answer_rank``);
+    each body sets its counters to 0."""
+    import torch
+    from repro_torch.launch.mesh import make_grid
+
+    arch, n, mesh, prefills = TP_DENSE
+    out = {"24c": tp_dense_rank(rank, mesh, arch, n, prefills)}
+    torch.cuda.empty_cache()
+    out["25c"] = tp_train_answer_rank(rank, 2)
+    torch.cuda.empty_cache()
+    out["27d"] = tp_family_rank(rank)
+    out.update({name: tp_dense_rank(rank, TP_RS_MESH, arch, None,
+                                    ((B, L_),), P, TP_RS_GEN)
+                for name, (arch, B, L_, P) in TP_RS_SERVE.items()})
+    dev = torch.device("cuda", 0)
+    grid = make_grid(1, 1, dev, model=2)
+    out["28c"] = {arch: tp_rs_train_rank(grid, arch, n, dev)
+                  for arch, n in TP_RS_TRAIN.items()}
+    out["28d"] = tp_rs_answer_rank(rank)
+    return out
+
+
+def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
+    """28a/28b: the dense path of ``TP_RS_SERVE[name]`` at full width and
+    depth on TP_RS_MESH (``ranks``, each rank's ``tp_dense_rank`` result
+    from a fresh process holding its shard, counters from 0), against the
+    one-rank run in this process on the same weights: the ranks' tokens
+    equal; the first prefill's bf16 logits no farther from the one-rank
+    f32 model's (the same weights in f32) than the one-rank bf16 run's
+    are, plus LOGIT_TOL (at full depth
+    the bf16 model's own rounding moves its logits by more than
+    LOGIT_TOL: the model axis may add LOGIT_TOL to that, no more); each
+    rank's WKV launches (one a layer and prefill, on its H/M heads) or
+    flash launches (the encoder's, the decoder's and the cross
+    attention's, on its heads).  Printed: the tokens beside the one-rank
+    run's, the logits' distances, the WKV launch plan at H/M heads,
+    prefill and decode ms beside one rank's, the collectives a prefill and
+    a step, the bytes each rank staged.  Returns the ranks' launches."""
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.tree import tree_map
+
+    arch, B, L_, P = TP_RS_SERVE[name]
+    model = parse_mesh(TP_RS_MESH)[2]
+    cfg = get_config(arch)
+    params = T.init_model(cfg, seed=0, device="cuda")
+    one = dense_serve(torch, cfg, params, B, L_, P, align=8, gen=TP_RS_GEN)
+    params = tree_map(lambda t: t.float(), params)
+    ins = {k: v.cuda() for k, v in prompt_inputs(torch, cfg, B, L_, P,
+                                                   L_).items()}
+    f32, _, _ = T.prefill(params, cfg, ins, L_ + TP_RS_GEN)
+    f32 = f32.cpu().numpy()
+    del params, ins
+    torch.cuda.empty_cache()
+    r = ranks[0]["runs"][0]
+    gen = r["tokens"]
+    one_lg = one["logits"][0].float().cpu().numpy()
+    err = float(abs(r["first_logits"] - one_lg).max())
+    err_f32 = float(abs(r["first_logits"] - f32).max())
+    one_f32 = float(abs(one_lg - f32).max())
+    rec = {"arch": arch, "layers": cfg.n_layers, "mesh": TP_RS_MESH,
+           "batch": B, "prompt": L_, "encoder_frames": P,
+           "generated": TP_RS_GEN, "prefill_wall_ms": r["prefill_ms"],
+           "decode_wall_ms_per_step": r["decode_ms_per_step"],
+           "one_rank_prefill_wall_ms": one["prefill_ms"],
+           "one_rank_decode_wall_ms_per_step": one["decode_ms_per_step"],
+           "collectives_prefill": r["collectives_prefill"],
+           "collectives_per_decode_step": r["collectives_per_decode_step"],
+           "staged_bytes": [x["runs"][0]["staged_bytes"] for x in ranks],
+           "first_prefill_max_abs_logit_err_bf16": err,
+           "first_prefill_max_abs_logit_err_vs_f32": err_f32,
+           "one_rank_max_abs_logit_err_vs_f32": one_f32,
+           "max_abs_logit_f32": float(abs(f32).max()),
+           "logit_tol": LOGIT_TOL, "tokens": gen.tolist(),
+           "tokens_one_rank": one["tokens"].cpu().tolist(),
+           "wkv_launches": [x["wkv"] for x in ranks],
+           "flash_fwd_launches": [x["flash_fwd"] for x in ranks]}
+    if "rwkv6" in cfg.pattern:
+        hd = cfg.rwkv_head_dim
+        rec["wkv_plan_heads_per_rank"] = cfg.d_model // hd // model
+        rec["wkv_launch_plan"] = kw.launch_plan(
+            B, rec["wkv_plan_heads_per_rank"], hd)
+        rec["wkv_launch_plan_batch_1"] = kw.launch_plan(
+            1, rec["wkv_plan_heads_per_rank"], hd)
+    print(json.dumps({f"tp_rs_serve_{name}": rec}), flush=True)
+    want = {"flash_fwd": flash_per_prefill(cfg),
+            "wkv": sum(k == "rwkv6" for k in cfg.pattern)}
+    if not r["finite"] or gen.shape != (B, TP_RS_GEN) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        fail(f"phase {name}: tokens of shape {gen.shape} or non-finite "
+             f"logits")
+    if any(not (x["runs"][0]["tokens"] == gen).all() for x in ranks):
+        fail(f"phase {name}: the ranks took other tokens")
+    if not err_f32 <= one_f32 + LOGIT_TOL:
+        fail(f"phase {name}: first prefill's logits {err_f32} from the f32 "
+             f"model's, the one-rank run's {one_f32}")
+    if any({k: x[k] for k in want} != want for x in ranks):
+        fail(f"phase {name}: the ranks launched "
+             f"{[{k: x[k] for k in want} for x in ranks]}, expected {want} "
+             f"each")
+    return [{k: x[k] for k in want} for x in ranks]
+
+
+def tp_rs_train_rank(grid, arch, n, dev) -> dict:
+    """28c on this rank of ``grid``: ``arch`` at full width cut to ``n``
+    layers, this rank's shard of the seed-0 weights in bf16, the steps of
+    TP_RS_TRAIN_KW through ``make_train_step`` with ``train``'s
+    optimiser settings, the counters set to 0 just before and read just
+    after: the losses, each step's wall ms (until its loss reaches the
+    host), the model axis's collectives and the bytes staged a step, the
+    peak memory over the steps and the launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv as kw
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import model_dims, stack_runs
+    from repro_torch.optim import adamw
+
+    tp, steps = grid.tp, TP_RS_TRAIN_KW["steps"]
+    cfg = cut(get_config, arch, n)
+    params = stack_runs(T.init_model(cfg, seed=0, device=dev, model=tp.size,
+                                     m=tp.index), cfg)
+    opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=20, total_steps=steps)
+    opt = adamw.shard_opt_state(adamw.init_opt_state(params, opt_cfg),
+                                params, opt_cfg, grid,
+                                model_dims(cfg, tp.size))
+    step = make_train_step(cfg, opt_cfg, grid, dev)
+    pipe = DataPipeline(cfg, ShapeSpec("custom", "train",
+                                       TP_RS_TRAIN_KW["seq"],
+                                       TP_RS_TRAIN_KW["batch"]))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset(fa, kw)
+    out = {"losses": [], "step_ms": [], "tp_calls": [], "staged_bytes": []}
+    for i in range(steps):
+        s0, t0 = grid.staged_bytes, time.perf_counter()
+        params, opt, loss = step(params, opt, pipe.host_batch(i))
+        out["losses"].append(loss.item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["tp_calls"].append(dict(step.tp_calls))
+        out["staged_bytes"].append(grid.staged_bytes - s0)
+    out["launches"] = counts(fa, kw)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rs_train(get_config, refs, ranks) -> list:
+    """28c: each of TP_RS_TRAIN at full width (rwkv6-1.6b cut to 4 of 24
+    layers, seamless whole) trained on TP_RS_MESH in bf16
+    (``ranks``: each rank's ``tp_rs_train_rank`` results), the ranks
+    sharing the card over gloo: finite losses, equal on the ranks, the
+    same model-axis collectives each step, each rank's launches (RWKV-6:
+    2 WKV a layer and step; seamless: 2 flash forwards, one dq and one
+    dk/dv an attention call and step).  Printed with the step ms after
+    the first beside the one-rank step of ``refs`` (27a's rwkv6 at 24
+    layers and 8 x 512, 26b's seamless whole at 4 x 1024, each also
+    scaled to the layers kept), tok/s, each rank's peak memory, the
+    collectives a step and the bytes staged.  Returns the ranks'
+    launches."""
+    out_launches = []
+    steps = TP_RS_TRAIN_KW["steps"]
+    for arch, n in TP_RS_TRAIN.items():
+        cfg = cut(get_config, arch, n)
+        res = [r[arch] for r in ranks]
+        out = res[0]
+        steady = out["step_ms"][1:]
+        calls = flash_per_prefill(cfg) * steps
+        wkv = 2 * sum(k == "rwkv6" for k in cfg.pattern) * steps
+        want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
+                "flash_bwd_dkv": calls, "wkv": wkv}
+        tokens = TP_RS_TRAIN_KW["seq"] * TP_RS_TRAIN_KW["batch"]
+        print(json.dumps({"tp_rs_train_28c": {
+            "arch": arch, "layers": cfg.n_layers, "mesh": TP_RS_MESH,
+            **TP_RS_TRAIN_KW, "dtype": "bfloat16", "losses": out["losses"],
+            "step_ms": out["step_ms"],
+            "steady_step_ms_mean": sum(steady) / len(steady),
+            "one_rank_steady_step_ms": refs[arch],
+            "tokens_per_s": tokens * len(steady) / sum(steady) * 1e3,
+            "tp_calls_per_step": out["tp_calls"],
+            "staged_bytes_per_step": out["staged_bytes"],
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in res],
+            "launches_per_rank": [r["launches"] for r in res]}}),
+            flush=True)
+        if len(out["losses"]) != steps \
+                or not all(math.isfinite(x) for x in out["losses"]) \
+                or any(r["losses"] != out["losses"] for r in res):
+            fail(f"phase 28c: {arch} losses "
+                 f"{[r['losses'] for r in res]}")
+        if any(c != out["tp_calls"][0] for r in res for c in r["tp_calls"]) \
+                or min(out["tp_calls"][0].values()) < 1:
+            fail(f"phase 28c: {arch} model-axis collectives a step "
+                 f"{[r['tp_calls'] for r in res]}")
+        if any(r["launches"] != want for r in res):
+            fail(f"phase 28c: {arch} ranks launched "
+                 f"{[r['launches'] for r in res]}, expected {want} each")
+        out_launches += [r["launches"] for r in res]
+    return out_launches
+
+
+def tp_rs_answer_rank(rank):
+    """One rank of 28d on the card: for each of TP_RS_ANSWER, f32 seed-0
+    weights, the dense path and one unclipped train step on one rank
+    (``Grid.single()``, in this process) and on this rank's shard of
+    TP_RS_MESH, compared here; returns the errors, the losses and the
+    shard runs' WKV and flash launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv as kw
+    from repro_torch.launch.mesh import Grid, make_grid, parse_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    from repro_torch.tree import tree_map, tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    M = parse_mesh(TP_RS_MESH)[2]
+    grid = make_grid(1, 1, dev, model=M)
+    B, L_, P = TP_RS_ANSWER_INPUT
+    out = {}
+    for arch, n in TP_RS_ANSWER:
+        cfg = cut(get_config, arch, n)
+        full = tree_map(lambda t: t.float(), T.init_model(cfg, seed=0,
+                                                          device=dev))
+        gen = torch.Generator().manual_seed(28)
+        ins = {"tokens": torch.randint(0, cfg.vocab, (B, L_), generator=gen)}
+        steps = torch.randint(0, cfg.vocab, (4, B, 1), generator=gen).to(dev)
+        if cfg.enc_dec:
+            ins["src_embeds"] = torch.randn((B, P, cfg.d_model),
+                                            generator=gen)
+        ins = {k: v.to(dev) for k, v in ins.items()}
+        s_max = L_ + 8
+        one = dense_answer_paths(torch, T, cfg, full, ins, steps, s_max)
+        shard = shard_params(full, cfg, M, rank)
+        del full
+        reset(fa, kw)
+        got = dense_answer_paths(torch, T, cfg, shard, ins, steps, s_max,
+                                 grid.tp, one["before"])
+        launches = counts(fa, kw)
+        del shard, one["before"]
+        err = lambda a, b: float((a - b).abs().max())
+        rec = {"prefill_err": err(got["prefill"], one["prefill"]),
+               "steps_err": max(err(a, b) for a, b in zip(got["steps"],
+                                                          one["steps"]))}
+        torch.cuda.empty_cache()
+        step_one = tp_family_step(Grid.single(), cfg, dev)
+        want = shard_params(step_one.pop("m"), cfg, M, rank)
+        torch.cuda.empty_cache()
+        f0 = counts(fa, kw)
+        step = tp_family_step(grid, cfg, dev)
+        f1 = counts(fa, kw)
+        host = lambda tree: [(k, t.cpu().numpy())
+                             for k, t in tree_paths(tree)]
+        m_rel, _ = m_errs(host(step.pop("m")), host(want), cfg)
+        out[arch] = {**rec, "loss": step["loss"],
+                     "loss_one_rank": step_one["loss"], "m_rel": m_rel,
+                     "m_leaves": len(tree_paths(want)),
+                     "launches": {k: launches[k] + f1[k] - f0[k]
+                                  for k in launches}}
+        del want
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rs_answer(ranks) -> dict:
+    """28d: rwkv6-1.6b (2 layers) and seamless-m4t-medium (1 + 1) at full
+    width in f32 on TP_RS_MESH ranks sharing the card over gloo, against
+    one rank on the card in each rank's process (nothing crosses between
+    processes): the dense prefill's logits within TP_F32_TOL, 4 decode
+    steps from the one-rank cache within TP_STEP_TOL, one unclipped
+    step's loss within TP_FAMILY_TOL relative and Adam's first moment
+    within TP_FAMILY_TOL of each leaf's largest.  ``ranks``: each rank's
+    ``tp_rs_answer_rank`` result.  Returns the shard runs' launches,
+    summed over the ranks."""
+    total = {}
+    for arch, n in TP_RS_ANSWER:
+        res = [r[arch] for r in ranks]
+        rel = max(abs(r["loss"] - r["loss_one_rank"]) / abs(r["loss_one_rank"])
+                  for r in res)
+        rec = {"arch": arch, "layers": n, "mesh": TP_RS_MESH,
+               "input": TP_RS_ANSWER_INPUT,
+               "prefill_max_abs_err": max(r["prefill_err"] for r in res),
+               "steps_max_abs_err": max(r["steps_err"] for r in res),
+               "prefill_tol": TP_F32_TOL, "step_tol": TP_STEP_TOL,
+               **TP_FAMILY_ANSWER_INPUT,
+               "losses_ranks": [r["loss"] for r in res],
+               "loss_one_rank": res[0]["loss_one_rank"],
+               "rel_loss_diff": rel, "m_leaves": res[0]["m_leaves"],
+               "m_max_rel_diff": max(r["m_rel"] for r in res),
+               "train_tol": TP_FAMILY_TOL,
+               "launches_per_rank": [r["launches"] for r in res]}
+        print(json.dumps({"tp_rs_f32_vs_one_rank_28d": rec}), flush=True)
+        if not (rec["prefill_max_abs_err"] <= TP_F32_TOL
+                and rec["steps_max_abs_err"] <= TP_STEP_TOL
+                and math.isfinite(rel) and rel <= TP_FAMILY_TOL
+                and rec["m_max_rel_diff"] <= TP_FAMILY_TOL):
+            fail(f"phase 28d: {arch} on a model axis in f32: {rec}")
+        for r in res:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-wkv", metavar="LIB", action="append",
@@ -3400,6 +3864,7 @@ def main() -> None:
                     "earlier csrc/wkv.cu, timed in turns with this one "
                     "under its file name (repeatable)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not KERNELS.is_dir():
         fail(f"{KERNELS} not found: run from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
@@ -3428,6 +3893,7 @@ def main() -> None:
     from repro_torch.models import transformer as T
     from repro_torch.serving import ReqState
 
+    progress("2", t_start)
     # 2. build
     t0 = time.perf_counter()
     logs = backend.build()
@@ -3451,11 +3917,13 @@ def main() -> None:
              f"instructions, expected a nonzero count for each of "
              f"{sorted(want)}")
 
+    progress("3-4", t_start)
     # 3-4. kernels against their plain versions
     recs = [flash_phase(torch, fa, s) for s in SHAPES]
     bwd = {i: flash_bwd_phase(torch, fa, s)
            for i, s in enumerate(SHAPES) if i in BWD_SHAPES}
 
+    progress("5", t_start)
     # 5. the serving path
     reset(fa, kw)
     runs = serve_runs(serve)
@@ -3480,9 +3948,11 @@ def main() -> None:
         fail(f"serving launched {serve_counts} for {prefills} prefills of "
              f"{cfg.n_layers} layers")
 
+    progress("17", t_start)
     # 17. serving with the network plane, in turns with phase 5
     net_counts = net_serve_phase(serve, fa, kw, runs, cfg)
 
+    progress("6", t_start)
     # 6. the serving answer: f32 weights, the card against the CPU
     params = T.init_model(cfg, seed=0, device="cuda")
     f32 = lambda t: t.float() if t.is_floating_point() else t
@@ -3503,6 +3973,7 @@ def main() -> None:
         fail(f"f32 prefill logits differ by {diff} between card and CPU")
     del params, p_gpu, p_cpu
 
+    progress("7", t_start)
     # 7. the training path
     reset(fa, kw)
     torch.cuda.reset_peak_memory_stats()
@@ -3524,15 +3995,29 @@ def main() -> None:
     if train_counts != want:
         fail(f"training launched {train_counts}, expected {want}")
 
+    progress("8", t_start)
     # 8. the training answer: f32, the card against the CPU
     train_answer(torch, get_config)
 
+    progress("9", t_start)
     # 9. the int8 kernels against their plain versions
     quant = quant_phase(torch)
 
-    # 10. the collectives on four ranks sharing the card
-    coll = collectives_phase(torch)
+    progress("10", t_start)
+    # 10. the collectives on four ranks sharing the card.  Each spawn
+    # costs seconds a rank before any work, so the ranks of phases 10, 12,
+    # 24d, 25c's 2x1x2 grid and 26f are one spawn (``pool4_rank``): fresh
+    # processes whose counters start at 0, each body setting its own to 0
+    # before it runs; 24d's one-rank runs, whose caches its ranks take,
+    # come first
+    from repro_torch.launch.mesh import run_ranks
 
+    tp_ones, tp_jobs = tp_answer_ones(torch, T, get_config)
+    torch.cuda.empty_cache()
+    pool4 = run_ranks(pool4_rank, 4, "gloo", (tp_jobs,), timeout=900.0)
+    coll = collectives_phase(torch, pool4)
+
+    progress("11", t_start)
     # 11. the grid's training path: each rank is a fresh process whose
     # counters start at 0; train returns every rank's counts at its end
     torch.cuda.reset_peak_memory_stats()
@@ -3551,7 +4036,7 @@ def main() -> None:
             or len(gt["losses"]) != steps:
         fail(f"grid training losses {gt['losses']}")
     leaves = 10                  # the reference's stacked leaves of gpt-100m
-    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+    want = {"wkv": 0, "flash_fwd": 2 * cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps, "quantize_int8": 0,
             "dequantize_int8": leaves * steps,
@@ -3561,16 +4046,19 @@ def main() -> None:
             fail(f"grid training rank {r} launched {got}, expected {want}")
     grid_counts = {k: sum(r[k] for r in gt["launches"]) for k in want}
 
+    progress("12", t_start)
     # 12. the grid's answer: f32, four ranks on the card against four on
-    # the CPU
-    grid_answer(torch)
+    # the CPU (phase 10's spawn)
+    grid_answer(pool4)
 
+    progress("13", t_start)
     # 13. the WKV kernel against its plain version
     parents = {Path(p).stem: parent_wkv(p) for p in args.parent_wkv}
     wkv_recs = [wkv_phase(torch, kw, s, wkv_ptxas,
                           parents if i in WKV_TURNS else None)
                 for i, s in enumerate(WKV_SHAPES)]
 
+    progress("14", t_start)
     # 14. the RWKV-6 serving path
     rcfg = get_config("rwkv6-1.6b")
     params = T.init_model(rcfg, seed=0, device="cuda")
@@ -3595,24 +4083,30 @@ def main() -> None:
         fail(f"rwkv6 serving launched {rwkv_counts}, expected {want}")
     del params, rruns
 
+    progress("15", t_start)
     # 15. the RWKV-6 answer: f32, the card against the CPU
     rwkv_answer(torch, get_config)
 
+    progress("16", t_start)
     # 16. the seven collectives by tree on eight ranks sharing the card;
     # each rank is a fresh process whose counters start at 0
     tree, disc = tree_phase(torch)
 
+    progress("18", t_start)
     # 18. the train launcher's planning on a grid: each rank is a fresh
     # process whose counters start at 0
     bucket_counts = bucket_train_phase(train, cfg)
 
+    progress("19", t_start)
     # 19. discovery on phase 16's ranks
     discovery_phase(torch, disc)
 
+    progress("20", t_start)
     # 20. elastic training on ranks sharing the card: each rank is a fresh
     # process whose counters start at 0
     elastic_counts = elastic_phase(train, get_config)
 
+    progress("21", t_start)
     # 21. the MoE main path: olmoe-1b-7b through the paged scheduler
     from repro_torch.models import layers as L
     walls = [time.perf_counter()]
@@ -3620,25 +4114,36 @@ def main() -> None:
                                            get_config)
     walls.append(time.perf_counter())
 
+    progress("22", t_start)
     # 22. the dense path: recurrentgemma, seamless, pixtral, llama4-scout
     dense_flash = dense_serve_phase(torch, fa, kw, T, get_config)
     walls.append(time.perf_counter())
 
+    progress("23", t_start)
     # 23. the new configs' f32 answer, the card against the CPU
     arch_answer(torch, T, L, get_config)
     walls.append(time.perf_counter())
 
+    progress("24", t_start)
     # 24. serving on a model axis: each rank is a fresh process whose
-    # counters start at 0 and are read at its end
+    # counters start at 0 and are read at its end.  The two ranks of 24c,
+    # 25c's 1x1x2 and 2x1x1 grids, 27d and phase 28 are one spawn
+    # (``tp_rs_rank``), as phase 10's four are
     tp_flash = sum(tp_serve_phase(serve, "gpt-100m", mesh, runs, cfg)
                    for mesh in TP_SERVE)
     tp_flash += tp_serve_phase(serve, MOE_ARCH, TP_MOE_MESH, moe_runs,
                                get_config(MOE_ARCH))
-    tp_flash += tp_dense_phase(torch, T, get_config)
     walls.append(time.perf_counter())
-    tp_answer_phase(torch, T, get_config)
+    torch.cuda.empty_cache()
+    ranks = run_ranks(tp_rs_rank, 2, "gloo", (), timeout=900.0)
+    walls.append(time.perf_counter())
+    tp_flash += tp_dense_phase(torch, T, get_config,
+                               [r["24c"] for r in ranks])
+    walls.append(time.perf_counter())
+    tp_answer_phase(get_config, tp_ones, [r["24d"] for r in pool4])
     walls.append(time.perf_counter())
 
+    progress("25", t_start)
     # 25. training on a model axis: each rank is a fresh process whose
     # counters start at 0 and are read at its end
     refs = {"7": sum(tr["step_ms"][1:]) / len(tr["step_ms"][1:]),
@@ -3647,13 +4152,15 @@ def main() -> None:
     for name, kw_ in TP_TRAIN.items():
         tp_train_launches += tp_train_case(train, name, kw_, cfg, refs)
         walls.append(time.perf_counter())
-    tp_train_answer(torch, T, get_config)
+    tp_train_answer(torch, T, get_config,
+                    {2: ranks[0]["25c"], 4: pool4[0]["25c"]})
     walls.append(time.perf_counter())
     tp_train_launches += tp_train_qwen(torch, train, get_config)
     walls.append(time.perf_counter())
     tp_train_counts = {k: sum(r[k] for r in tp_train_launches)
                        for k in tp_train_launches[0]}
 
+    progress("26", t_start)
     # 26. training the MoE, RG-LRU, enc-dec and frontend configs: 26a-d
     # in this process, counters from 0 before each; 26f's ranks are fresh
     # processes whose counters start at 0 and are read at their end
@@ -3665,18 +4172,19 @@ def main() -> None:
         walls.append(time.perf_counter())
     family_answer(torch, T, fa, kw, get_config)
     walls.append(time.perf_counter())
-    family += family_grid(torch, get_config)
+    family += family_grid(torch, get_config, [r["26f"] for r in pool4])
     walls.append(time.perf_counter())
     family_counts = {k: sum(r[k] for r in family)
                      for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     family_counts.update({k: sum(r.get(k, 0) for r in family) for k in (
         "dequantize_int8", "quantize_ef_int8")})
 
+    progress("27", t_start)
     # 27. training RWKV-6 on one rank (27a-b in this process, counters
     # from 0 before each), and the MoE and the frontend on a model axis
     # (27c-d's ranks are fresh processes whose counters start at 0 and
     # are read at their end)
-    rwkv_train = rwkv_train_case(torch, train, fa, kw, get_config)
+    rwkv_train, rwkv_ms = rwkv_train_case(torch, train, fa, kw, get_config)
     walls.append(time.perf_counter())
     arch, n = RWKV_TRAIN_ANSWER
     rwkv_answer_counts = answer_step(torch, T, fa, kw,
@@ -3687,16 +4195,44 @@ def main() -> None:
     walls.append(time.perf_counter())
     tp_moe = tp_moe_train(torch, train, get_config, family_ms["26c"])
     walls.append(time.perf_counter())
-    tp_family = tp_family_answer(torch, get_config)
+    # 27d's ranks are phase 24's (``tp_rs_rank``)
+    tp_family = tp_family_answer(get_config, [r["27d"] for r in ranks])
     walls.append(time.perf_counter())
     tp_counts = {k: sum(r[k] for r in tp_moe) + tp_family[k]
                  for k in tp_family}
+
+    progress("28", t_start)
+    # 28. RWKV-6 and the enc-dec config on a model axis, on the ranks
+    # that phase 24 spawned (``tp_rs_rank``)
+    tp_rs = []
+    for name in TP_RS_SERVE:
+        tp_rs += tp_rs_serve(torch, T, kw, get_config, name,
+                             [r[name] for r in ranks])
+    tp_rs.append(tp_rs_answer([r["28d"] for r in ranks]))
+    walls.append(time.perf_counter())
+    rwkv_layers = get_config("rwkv6-1.6b").n_layers
+    refs = {"rwkv6-1.6b": {
+        "phase": "27a", **RWKV_TRAIN, "layers": rwkv_layers, "ms": rwkv_ms,
+        "ms_scaled_to_layers": rwkv_ms * TP_RS_TRAIN["rwkv6-1.6b"]
+        / rwkv_layers},
+        "seamless-m4t-medium": {
+            "phase": "26b", **FAMILY_TRAIN["26b"][2], "layers": 12,
+            "ms": family_ms["26b"], "ms_scaled_to_layers": family_ms["26b"]
+            * TP_RS_TRAIN["seamless-m4t-medium"] / 12}}
+    tp_rs += tp_rs_train(get_config, refs, [r["28c"] for r in ranks])
+    del ranks
+    tp_rs_counts = {k: sum(r.get(k, 0) for r in tp_rs) for k in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "wkv")}
     print(json.dumps({"phase_wall_s": {
-        n: b - a for n, a, b in zip(("21", "22", "23", "24a-c", "24d",
-                                     "25a", "25b", "25c", "25d", "26a",
-                                     "26b", "26c", "26d", "26e", "26f",
-                                     "27a", "27b", "27c", "27d"),
-                                    walls, walls[1:])}}), flush=True)
+        n: b - a for n, a, b in zip(
+            ("21", "22", "23", "24a-b",
+             "the ranks of 24c, 25c's 1x1x2 and 2x1x1, 27d and 28", "24c",
+             "24d", "25a", "25b", "25c one rank", "25d", "26a", "26b",
+             "26c", "26d", "26e", "26f one rank", "27a", "27b", "27c",
+             "27d", "28 in this process"),
+            walls, walls[1:])},
+        "pool4_ranks_wall_s": {k: max(r["wall_s"][k] for r in pool4)
+                               for k in pool4[0]["wall_s"]}}), flush=True)
 
     main_fwd = recs[MAIN_SHAPE]
     main_bwd = bwd[TRAIN_SHAPE]
@@ -3710,7 +4246,7 @@ def main() -> None:
                       + moe_counts["flash_fwd"] + dense_flash + tp_flash
                       + tp_train_counts["flash_fwd"]
                       + family_counts["flash_fwd"]
-                      + tp_counts["flash_fwd"]),
+                      + tp_counts["flash_fwd"] + tp_rs_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
@@ -3720,7 +4256,8 @@ def main() -> None:
                          + elastic_counts["flash_bwd_dq"]
                          + tp_train_counts["flash_bwd_dq"]
                          + family_counts["flash_bwd_dq"]
-                         + tp_counts["flash_bwd_dq"]),
+                         + tp_counts["flash_bwd_dq"]
+                         + tp_rs_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
@@ -3730,7 +4267,8 @@ def main() -> None:
                           + elastic_counts["flash_bwd_dkv"]
                           + tp_train_counts["flash_bwd_dkv"]
                           + family_counts["flash_bwd_dkv"]
-                          + tp_counts["flash_bwd_dkv"]),
+                          + tp_counts["flash_bwd_dkv"]
+                          + tp_rs_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
         # training (phases 11, 20 and 25b) runs the fused EF kernel and
         # the dequant; the tree phase's compressed syncs run all three
@@ -3758,7 +4296,7 @@ def main() -> None:
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
                 rwkv_counts["wkv"] + rwkv_train["wkv"]
-                + rwkv_answer_counts["wkv"]),
+                + rwkv_answer_counts["wkv"] + tp_rs_counts["wkv"]),
     }
     for name, (_, _, _, n) in sources.items():
         if n < 1:

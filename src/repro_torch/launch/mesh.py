@@ -33,9 +33,12 @@ is the identity forward and a sum over the axis backward, where a
 replicated tensor enters work that each rank does on its own shard (a
 column-parallel product, a replicated leaf read on the rank's heads);
 ``reduce_from`` is the sum forward and the identity backward, at every
-row-parallel partial sum.  Every rank builds the same graph, so autograd
-issues the backward's sums in the same order on each; ``bwd_calls``
-counts them apart from ``calls``.
+row-parallel partial sum.  ``Axis.gather_from`` joins the ranks'
+column slices of a tensor whose consumer is replicated (RWKV-6's
+channel-mix gate): the all-gather forward, and backward this rank's
+slice of the gradient, no collective.  Every rank builds the same graph,
+so autograd issues the backward's sums in the same order on each;
+``bwd_calls`` counts them apart from ``calls``.
 
 ``run_ranks`` spawns the ranks of a grid on this host, each with a
 ``file://`` rendezvous, and returns what each returned.
@@ -121,6 +124,21 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    """The all-gather along ``dim`` forward; backward this rank's slice of
+    the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.axis.index * ctx.n
+        return g.narrow(ctx.dim, i, ctx.n).contiguous(), None, None
+
+
 class Axis:
     """One axis of the rank grid: its process group (None for a size-1
     axis or for the default group), this rank's index on it, its size."""
@@ -172,6 +190,22 @@ class Axis:
         if self.size == 1 or not torch.is_grad_enabled():
             return self.psum(x)
         return _ReduceFrom.apply(x, self)
+
+    def gather_from(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """:meth:`all_gather` of this rank's slice ``x`` along ``dim``, for
+        a consumer that every rank computes alike: the gradient of the
+        gathered tensor is then the same on every rank, and its backward
+        keeps this rank's slice of it, with no collective.  A sum over
+        the axis there (a reduce-scatter) would count that gradient M
+        times.  The sum is the backward where each rank's consumer reads
+        the gathered tensor for work of its own shard, so that the ranks'
+        gradients are partial: the RG-LRU's square gate products, split
+        by columns, are that case, and this method does not serve it."""
+        if self.size == 1:
+            return x
+        if not torch.is_grad_enabled():
+            return self.all_gather(x, dim)
+        return _GatherFrom.apply(x, self, dim)
 
     def psum_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Sum over the axis, member i keeping chunk i along ``dim``

@@ -31,7 +31,9 @@ the reference's ``:233``/``:243``: plain functions under
 paged path refuses, the recurrent stacks (RWKV-6, RG-LRU) and enc-dec,
 and prompts that carry a frontend's embeddings; given a grid with a model
 axis, this rank's shard of an attention stack, its dense cache's sequence
-split over the axis where the axis divides it.
+split over the axis where the axis divides it, of RWKV-6 (the WKV state
+of its heads) or of the enc-dec config (the encoder on its heads, the
+cross cache of its KV heads).
 
 ``layer_grad_bytes`` is a copy of the reference's ``:41``: the per-layer
 gradient bytes the engine's bucketed-sync estimate takes, from the

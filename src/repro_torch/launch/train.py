@@ -85,6 +85,7 @@ from ..core.engine import overlapped_step_times
 from ..data.pipeline import DataPipeline
 from ..kernels import flash_attention as fa
 from ..kernels import quant as kq
+from ..kernels import wkv as kw
 from ..kernels.backend import resolve_device
 from ..launch.mesh import (Grid, choose_backend, dp_topology, make_grid,
                            parse_mesh, run_ranks)
@@ -112,7 +113,8 @@ KERNELS = {"flash_fwd": fa.flash_attention_fwd,
            "flash_bwd_dkv": fa.flash_bwd_dkv,
            "quantize_int8": kq.quantize_int8,
            "dequantize_int8": kq.dequantize_int8,
-           "quantize_ef_int8": kq.quantize_ef_int8}
+           "quantize_ef_int8": kq.quantize_ef_int8,
+           "wkv": kw.wkv_chunked}
 
 
 def launch_counts() -> dict:

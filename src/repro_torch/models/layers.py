@@ -33,12 +33,16 @@ where the JAX versions return updated copies.
 
 On a model axis (``tp``, a ``launch.mesh.Axis`` over the M ranks of a
 model group, or None) each rank holds its shard of the parameters
-(``sharding.param_model_dims``): the attention layers run on its Hq/M and
-Hkv/M heads (the column-parallel ``wq``/``wk``/``wv``) and return the
-row-parallel ``wo``'s partial sum, as ``mlp_fwd`` on its feature slice
-does; the caller adds what it can and all-reduces once.  The dense decode
-attends a cache whose sequence dim is sharded over the axis through the
-reference's log-sum-exp combine (``_cache_attend_sp``), and the MoE runs
+(``sharding.param_model_dims``): the attention layers, self and cross,
+run on its Hq/M and Hkv/M heads (the column-parallel ``wq``/``wk``/``wv``)
+and return the row-parallel ``wo``'s partial sum, as ``mlp_fwd`` on its
+feature slice does, and RWKV-6's time mix on its H/M heads (the WKV
+kernel and state on those heads) with its ``w_o`` rows; the caller adds
+what it can and all-reduces once.  RWKV-6's channel mix returns the
+whole output: its gate, split by columns, is gathered over the axis.
+The dense decode attends a cache whose sequence dim is sharded over the
+axis through the reference's log-sum-exp combine (``_cache_attend_sp``),
+and the MoE runs
 the reference's expert-parallel block (``_moe_block_ep``: E/M experts a
 rank, capacity-bounded local dispatch, one sum over the axis).
 """
@@ -400,17 +404,22 @@ def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
     return y, ck.to(torch.bfloat16), cv.to(torch.bfloat16)
 
 
-def cross_kv(p, cfg: ModelConfig, enc_out):
-    """Cross-attention K/V (bf16) from the encoder's output (B,Sk,D)."""
+def cross_kv(p, cfg: ModelConfig, enc_out, tp=None):
+    """Cross-attention K/V (bf16) from the encoder's output (B,Sk,D); on a
+    model axis ``tp``, of this rank's KV heads (every source position)."""
+    cfg = local_config(cfg, tp)
     B, Sk, _ = enc_out.shape
     k = (enc_out @ p["wk"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
     v = (enc_out @ p["wv"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
-def cross_attention_decode(p, cfg: ModelConfig, x, ck, cv):
+def cross_attention_decode(p, cfg: ModelConfig, x, ck, cv, tp=None):
     """One-token cross-attention (B,1,D) against the encoder's K/V, every
-    source position visible."""
+    source position visible.  On a model axis ``tp``, this rank's heads
+    against its KV heads' ``ck``/``cv``, and the partial sum of its
+    ``wo`` rows."""
+    cfg = local_config(cfg, tp)
     B = x.shape[0]
     hd = cfg.head_dim
     G = cfg.n_heads // cfg.n_kv_heads
@@ -731,16 +740,45 @@ def _token_shift(x):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False):
+def _mixed(x, xp, mix, tp=None):
+    """The token-shift mixes ``x + mix[i] * (xp - x)`` of each row ``i``
+    of ``mix`` (n, D), elementwise as the reference computes them.  On a
+    model axis they feed column-parallel products, so they enter through
+    one ``copy_to`` of their stack: a backward sums the ranks' partial
+    gradients of ``mix`` and of the normed input in one collective."""
+    mix = mix.view((mix.shape[0],) + (1,) * (x.dim() - 1) + mix.shape[1:])
+    mixed = x + mix * (xp - x)
+    return (mixed if tp is None else tp.copy_to(mixed)).unbind(0)
+
+
+def _rwkv_heads(cfg: ModelConfig, tp) -> int:
+    """RWKV-6's heads on this rank of the model axis ``tp``."""
+    H = cfg.d_model // cfg.rwkv_head_dim
+    return H if tp is None else H // tp.size
+
+
+def _rwkv_u(p, H: int, tp):
+    """The bonus ``u`` (H, hd) of this rank's ``H`` heads: ``u`` is
+    replicated and read on this rank's heads only, so it enters through
+    ``copy_to`` (its gradient summed over the axis)."""
+    if tp is None:
+        return p["u"]
+    return tp.copy_to(p["u"])[tp.index * H:(tp.index + 1) * H]
+
+
+def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False, tp=None):
     """RWKV-6 time-mix sublayer (pre-norm handled by the caller).
     x: (B,S,D).  With ``return_state`` also returns {"S": the WKV state
-    (B,H,hd,hd) f32, "x_tm", "x_cm": x's last row}."""
+    (B,H,hd,hd) f32, "x_tm", "x_cm": x's last row}.  On a model axis
+    ``tp``, this rank's H/M heads (the column-parallel ``w_r``, ``w_k``,
+    ``w_v``, ``w_g``, ``w_w``; the state of its heads) and the partial sum
+    of its ``w_o`` rows, which the caller adds over the axis."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
-    H = D // hd
+    H = _rwkv_heads(cfg, tp)
     xp = _token_shift(x)
     mix = p["mix"].to(x.dtype)
-    xr, xk, xv, xg, xw = (x + mix[i] * (xp - x) for i in range(5))
+    xr, xk, xv, xg, xw = _mixed(x, xp, mix, tp)
     r = (xr @ p["w_r"]).reshape(B, S, H, hd).float()
     k = (xk @ p["w_k"]).reshape(B, S, H, hd).float()
     v = (xv @ p["w_v"]).reshape(B, S, H, hd).float()
@@ -755,47 +793,55 @@ def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False):
     if pad:
         r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-    out = wkv(r, k, v, w, p["u"], return_state=return_state)
+    out = wkv(r, k, v, w, _rwkv_u(p, H, tp), return_state=return_state)
     o, s_fin = out if return_state else (out, None)
     if pad:
         o = o[:, :S]
-    o = (o.reshape(B, S, D) * F.silu(g.float())).to(x.dtype)
+    o = (o.reshape(B, S, H * hd) * F.silu(g.float())).to(x.dtype)
     y = o @ p["w_o"]
     if return_state:
         return y, {"S": s_fin, "x_tm": x[:, -1], "x_cm": x[:, -1]}
     return y
 
 
-def _channel_mix(p, x, xp):
+def _channel_mix(p, x, xp, tp=None):
+    """On a model axis ``tp``: ``cm_k`` and ``cm_r`` split by columns,
+    ``cm_v`` by rows.  The gate ``sigmoid(xr @ cm_r)`` then holds this
+    rank's D/M channels; it is gathered over the axis (``gather_from``:
+    what reads it is replicated) and multiplies the sum over the axis of
+    ``kk @ cm_v``'s partial sums (``reduce_from``), so every rank returns
+    the whole output."""
     mix = p["cm_mix"].to(x.dtype)
-    xk = x + mix[0] * (xp - x)
-    xr = x + mix[1] * (xp - x)
+    xk, xr = _mixed(x, xp, mix, tp)
     kk = torch.square(F.relu(xk @ p["cm_k"]))
-    return torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype) \
-        * (kk @ p["cm_v"])
+    gate = torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype)
+    if tp is None:
+        return gate * (kk @ p["cm_v"])
+    return tp.gather_from(gate, -1) * tp.reduce_from(kk @ p["cm_v"])
 
 
-def rwkv6_channel_mix(p, cfg: ModelConfig, x):
-    return _channel_mix(p, x, _token_shift(x))
+def rwkv6_channel_mix(p, cfg: ModelConfig, x, tp=None):
+    return _channel_mix(p, x, _token_shift(x), tp)
 
 
-def rwkv6_channel_mix_decode(p, cfg: ModelConfig, x, x_cm_prev):
+def rwkv6_channel_mix_decode(p, cfg: ModelConfig, x, x_cm_prev, tp=None):
     """Single-token channel mix.  x: (B,1,D); x_cm_prev: (B,D).  Returns
     (y (B,1,D), x's row to carry)."""
     xt = x[:, 0]
-    return _channel_mix(p, xt, x_cm_prev)[:, None], xt
+    return _channel_mix(p, xt, x_cm_prev, tp)[:, None], xt
 
 
-def rwkv6_decode(p, cfg: ModelConfig, x, state):
+def rwkv6_decode(p, cfg: ModelConfig, x, state, tp=None):
     """Single-token time mix.  state = {"S": (B,H,hd,hd) f32, "x_tm":
-    (B,D)}.  Returns (y (B,1,D), the new state)."""
-    B, _, D = x.shape
+    (B,D)}.  Returns (y (B,1,D), the new state).  On a model axis ``tp``,
+    as :func:`rwkv6_fwd`: the state of this rank's heads, and y the
+    partial sum of its ``w_o`` rows."""
+    B = x.shape[0]
     hd = cfg.rwkv_head_dim
-    H = D // hd
+    H = _rwkv_heads(cfg, tp)
     xt = x[:, 0]
     mix = p["mix"].to(x.dtype)
-    xp = state["x_tm"]
-    xr, xk, xv, xg, xw = (xt + mix[i] * (xp - xt) for i in range(5))
+    xr, xk, xv, xg, xw = _mixed(xt, state["x_tm"], mix, tp)
     r = (xr @ p["w_r"]).reshape(B, H, hd).float()
     k = (xk @ p["w_k"]).reshape(B, H, hd).float()
     v = (xv @ p["w_v"]).reshape(B, H, hd).float()
@@ -804,8 +850,8 @@ def rwkv6_decode(p, cfg: ModelConfig, x, state):
     w = w.reshape(B, H, hd)
     S = state["S"]
     o = torch.einsum("bhd,bhde->bhe", r, S) + torch.einsum(
-        "bhd,bhd->bh", r, p["u"][None] * k)[..., None] * v
+        "bhd,bhd->bh", r, _rwkv_u(p, H, tp)[None] * k)[..., None] * v
     S = w[..., None] * S + k[..., None] * v[:, :, None, :]
-    o = (o.reshape(B, D) * F.silu(g.float())).to(x.dtype)
+    o = (o.reshape(B, H * hd) * F.silu(g.float())).to(x.dtype)
     y = (o @ p["w_o"])[:, None]
     return y, dict(state, S=S, x_tm=xt)

@@ -22,8 +22,10 @@ ranks.  A per-layer tree cannot hold that split: its dim is ``RUN_DIM``,
 and the leaf stays whole on every rank (``tp_check`` refuses RG-LRU).
 
 :func:`tp_check` holds a config to what the port's tensor parallelism
-computes: whole heads and whole experts on each rank, attention and MLP
-stacks only.
+computes: whole heads and whole experts on each rank; attention stacks
+with an MLP or a MoE, RWKV-6 (its heads are ``d_model //
+rwkv_head_dim``) and the enc-dec encoder and cross attention, not the
+RG-LRU.
 """
 from __future__ import annotations
 
@@ -36,8 +38,10 @@ __all__ = ["NOT_PORTED_TP", "NOT_PORTED_TP_ARCH", "RUN_DIM",
 
 NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 5: fail_at and elastic recovery "
                  "of training on a model axis")
-NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: the recurrent and "
-                      "enc-dec families on a model axis")
+NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: the RG-LRU family on a "
+                      "model axis, the last of the recurrent and enc-dec "
+                      "families there, with KV-head counts M does not "
+                      "divide")
 
 RUN_DIM = -2      # the reference splits the run's layers over the axis
 
@@ -148,21 +152,25 @@ def cut_shard(t, dim: int, model: int, m: int):
 
 def tp_check(cfg: ModelConfig, model_size: int) -> None:
     """Raise NotImplementedError where the port cannot serve or train
-    ``cfg`` on a model axis of ``model_size`` ranks: the recurrent and enc-dec families,
+    ``cfg`` on a model axis of ``model_size`` ranks: the RG-LRU family,
     and a head, expert, feature or vocabulary count the axis does not
     divide (where the reference's flat-dim split or its fallback would cut
     inside a head or an expert, which GSPMD absorbs and the port does
-    not)."""
+    not).  An RWKV-6 stack counts ``d_model // rwkv_head_dim`` heads and
+    no KV heads."""
     if model_size <= 1:
         return
-    fam = sorted({k for k in cfg.pattern if k not in ("attn", "local")}) \
-        + (["enc-dec"] if cfg.enc_dec is not None else [])
+    fam = sorted({k for k in cfg.pattern
+                  if k not in ("attn", "local", "rwkv6")})
     if fam:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(fam)} on a model axis of {model_size} "
             f"is not ported ({NOT_PORTED_TP_ARCH})")
-    counts = {"heads": cfg.n_heads, "KV heads": cfg.n_kv_heads,
-              "vocabulary rows": cfg.vocab}
+    if "rwkv6" in cfg.pattern:
+        counts = {"heads": cfg.d_model // cfg.rwkv_head_dim}
+    else:
+        counts = {"heads": cfg.n_heads, "KV heads": cfg.n_kv_heads}
+    counts["vocabulary rows"] = cfg.vocab
     if cfg.moe is not None:
         counts["experts"] = cfg.moe.n_experts
     if cfg.moe is None or cfg.moe.shared_expert:

@@ -38,20 +38,30 @@ attention and the MLP return row-parallel partial sums, all-reduced once
 a sublayer, and once for both in the parallel-residual block; the MoE
 reduces inside its expert-parallel block.  Caches hold this rank's KV
 heads, but the dense cache's sequence dim is split over the axis where M
-divides it (the reference's sequence-parallel decode).  Attention stacks
-only, with an MLP or a MoE (``sharding.tp_check``).
+divides it (the reference's sequence-parallel decode).  RWKV-6 runs its
+time mix on the rank's heads (their WKV state in the cache) and its
+channel mix with the gate gathered over the axis; its carried rows
+``x_tm``/``x_cm`` are whole on every rank.  The enc-dec encoder runs its
+layers under the attention stack's rules, its output whole on every
+rank, and the cross attention on the rank's heads, its cache of the
+rank's KV heads over every source position.  RG-LRU is refused
+(``sharding.tp_check``).
 
 Training runs on a model axis too (the reference's GSPMD forward and
 backward over ``model``), with the axis's differentiated collectives
 (``launch.mesh.Axis.copy_to``/``reduce_from``): ``reduce_from`` at the
 embedding's lookup sum and at every row-parallel sum, ``copy_to`` on the
-normed input of each attention and MLP sublayer and of the head, and on
-the q/k norms' weights and on the MoE router's, replicated leaves that
-each rank reads on its own heads or experts only (the other replicated
-leaves of a trained config, the RMS norms, act on replicated activations
-ahead of a ``copy_to``, so their gradients are whole on every rank).  The
-MoE takes its normed input through ``copy_to`` and sums its experts'
-and its shared expert's partial outputs with ``reduce_from``.  A
+normed input of each attention and MLP sublayer and of the head, on
+RWKV-6's token-shift mixes (one stack a sublayer) and on the encoder's
+output, and on the q/k norms' weights, RWKV-6's ``u`` and the MoE
+router's, replicated leaves that each rank reads on its own heads or
+experts only (the other replicated leaves of a trained config, the RMS
+norms and RWKV-6's ``mix``/``cm_mix``, act on replicated activations
+ahead of a ``copy_to``, so their gradients are whole on every rank).
+RWKV-6's channel-mix gate is gathered with ``gather_from``, whose
+backward keeps the rank's slice.  The MoE takes its normed input through
+``copy_to`` and sums its experts' and its shared expert's partial
+outputs with ``reduce_from``.  A
 frontend's prefix is replicated: it joins the tokens' embeddings after
 their sum over the axis.  The loss is a vocab-parallel cross-entropy:
 each rank's head columns give its logits, and the max over the axis
@@ -140,8 +150,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                          model, m)
 
     def layer(kind, cross):
-        # tp_check holds a sharded model to attention and MLP runs, whose
-        # dims do not depend on the run's length
+        # tp_check holds a sharded model to attention, MLP and RWKV-6
+        # runs, whose dims do not depend on the run's length
         p = _init_layer(gen, cfg, kind, cross, zeros)
         if model == 1:
             return p
@@ -246,9 +256,10 @@ def _ffn(p, cfg: ModelConfig, x, tp=None):
 def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
                causal: bool = True, tp=None):
     if kind == "rwkv6":
-        x = x + L.rwkv6_fwd(p["rwkv"], cfg, L.rmsnorm(x, p["norm1"]))
+        x = x + _psum(tp, L.rwkv6_fwd(p["rwkv"], cfg,
+                                      L.rmsnorm(x, p["norm1"]), tp=tp))
         return x + L.rwkv6_channel_mix(p["rwkv"], cfg,
-                                       L.rmsnorm(x, p["norm2"]))
+                                       L.rmsnorm(x, p["norm2"]), tp)
     if kind == "rglru":
         y, _ = L.rglru_fwd(p["rec"], cfg, L.rmsnorm(x, p["norm1"]))
         x = x + y
@@ -266,24 +277,30 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
             p["attn"], cfg, _copy(tp, L.rmsnorm(x, p["norm1"])),
             causal=causal, window=window, tp=tp))
     if enc_out is not None:
-        x = x + L.attention_fwd(p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]),
-                                kv_src=enc_out)
+        # on a model axis enc_out arrives through one copy_to
+        # (trunk_fwd), which sums every layer's partial gradient at once
+        x = x + _psum(tp, L.attention_fwd(
+            p["xattn"], cfg, _copy(tp, L.rmsnorm(x, p["norm_x"])),
+            kv_src=enc_out, tp=tp))
     return x + _ffn(p, cfg, x, tp)
 
 
-def encoder_fwd(params, cfg: ModelConfig, src_embeds) -> torch.Tensor:
+def encoder_fwd(params, cfg: ModelConfig, src_embeds,
+                tp=None) -> torch.Tensor:
     """The enc-dec encoder: ``src_embeds`` (B,Ss,D), rounded to bf16 as
     the reference's, through its non-causal attention layers and final
     norm.  The layers' carry keeps the weights' dtype from the first layer
     on, as the reference's layer scan requires: an f32 model promotes the
     rounded input to f32 before the first norm (the reference's scan
-    refuses an f32 model outright)."""
+    refuses an f32 model outright).  On a model axis ``tp`` the layers
+    run on this rank's heads and features, and the output is whole on
+    every rank."""
     x = src_embeds.to(torch.bfloat16)
     x = x.to(torch.promote_types(
         x.dtype, params["enc"]["layers"][0]["attn"]["wq"].dtype))
     for p in params["enc"]["layers"]:
         x = _remat(functools.partial(_layer_fwd, p, cfg, "attn",
-                                     causal=False), x)
+                                     causal=False, tp=tp), x)
     return L.rmsnorm(x, params["enc"]["final_norm"])
 
 
@@ -299,7 +316,8 @@ def trunk_fwd(params, cfg: ModelConfig, inputs: dict,
         tp_check(cfg, tp.size)
     enc_out = None
     if cfg.enc_dec:
-        enc_out = encoder_fwd(params, cfg, inputs["src_embeds"])
+        enc_out = _copy(tp, encoder_fwd(params, cfg, inputs["src_embeds"],
+                                        tp))
     x = embed_inputs(params, cfg, inputs, tp)
     for kind, layers in _runs(params, cfg):
         for p in layers:
@@ -390,19 +408,22 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
     bf16; RG-LRU {"h"} (n, B, R) f32 and {"conv"} (n, B, 3, R) bf16;
     RWKV-6 {"S"} (n, B, H, hd, hd) f32 and {"x_tm", "x_cm"} (n, B, D)
     bf16.  On a model axis ``tp`` an attention entry is (n, B, S_c/M,
-    Hkv, hd) where M divides S_c, else (n, B, S_c, Hkv/M, hd)."""
+    Hkv, hd) where M divides S_c, else (n, B, S_c, Hkv/M, hd); the cross
+    entry (n, B, src_len, Hkv/M, hd), and RWKV-6's state (n, B, H/M, hd,
+    hd)."""
     port_check(cfg)
     if tp is not None:
         tp_check(cfg, tp.size)
     dev = resolve_device(device)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     R = cfg.d_rnn or cfg.d_model
+    M = 1 if tp is None else tp.size
     cache = []
     for kind, n in cfg.runs():
         if kind == "rwkv6":
             hd = cfg.rwkv_head_dim
             cache.append({
-                "S": torch.zeros((n, B, cfg.d_model // hd, hd, hd),
+                "S": torch.zeros((n, B, cfg.d_model // hd // M, hd, hd),
                                  dtype=torch.float32, device=dev),
                 "x_tm": torch.zeros((n, B, cfg.d_model), **bf16),
                 "x_cm": torch.zeros((n, B, cfg.d_model), **bf16)})
@@ -420,7 +441,7 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
             ent = {"k": torch.zeros(shape, **bf16),
                    "v": torch.zeros(shape, **bf16)}
             if cfg.enc_dec:
-                xshape = (n, B, src_len, cfg.n_kv_heads, cfg.head_dim)
+                xshape = (n, B, src_len, cfg.n_kv_heads // M, cfg.head_dim)
                 ent["xk"] = torch.zeros(xshape, **bf16)
                 ent["xv"] = torch.zeros(xshape, **bf16)
             cache.append(ent)
@@ -433,10 +454,10 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
     axis)."""
     if kind == "rwkv6":
         xn = L.rmsnorm(x, p["norm1"])
-        y, st = L.rwkv6_fwd(p["rwkv"], cfg, xn, return_state=True)
-        x = x + y
+        y, st = L.rwkv6_fwd(p["rwkv"], cfg, xn, return_state=True, tp=tp)
+        x = x + _psum(tp, y)
         xn2 = L.rmsnorm(x, p["norm2"])
-        x = x + L.rwkv6_channel_mix(p["rwkv"], cfg, xn2)
+        x = x + L.rwkv6_channel_mix(p["rwkv"], cfg, xn2, tp)
         return x, {"S": st["S"], "x_tm": xn[:, -1].to(torch.bfloat16),
                    "x_cm": xn2[:, -1].to(torch.bfloat16)}
     if kind == "rglru":
@@ -451,9 +472,10 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
     x = x + _psum(tp, y)
     ent = {"k": ck, "v": cv}
     if enc_out is not None:
-        ent["xk"], ent["xv"] = L.cross_kv(p["xattn"], cfg, enc_out)
-        x = x + L.attention_fwd(p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]),
-                                kv_src=enc_out)
+        ent["xk"], ent["xv"] = L.cross_kv(p["xattn"], cfg, enc_out, tp)
+        x = x + _psum(tp, L.attention_fwd(
+            p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]), kv_src=enc_out,
+            tp=tp))
     return x + _ffn(p, cfg, x, tp), ent
 
 
@@ -489,7 +511,7 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
         tp_check(cfg, tp.size)
     enc_out = None
     if cfg.enc_dec:
-        enc_out = encoder_fwd(params, cfg, inputs["src_embeds"])
+        enc_out = encoder_fwd(params, cfg, inputs["src_embeds"], tp)
     x = embed_inputs(params, cfg, inputs, tp)
     B, S = x.shape[:2]
     cache = []
@@ -527,11 +549,12 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
         xn = L.rmsnorm(x, p["norm1"])
         y, st = L.rwkv6_decode(p["rwkv"], cfg, xn,
                                {"S": ent["S"][i],
-                                "x_tm": ent["x_tm"][i].to(xn.dtype)})
-        x = x + y
+                                "x_tm": ent["x_tm"][i].to(xn.dtype)}, tp)
+        x = x + _psum(tp, y)
         xn2 = L.rmsnorm(x, p["norm2"])
         y2, x_cm = L.rwkv6_channel_mix_decode(p["rwkv"], cfg, xn2,
-                                              ent["x_cm"][i].to(xn2.dtype))
+                                              ent["x_cm"][i].to(xn2.dtype),
+                                              tp)
         ent["S"][i] = st["S"]
         ent["x_tm"][i] = st["x_tm"].to(torch.bfloat16)
         ent["x_cm"][i] = x_cm.to(torch.bfloat16)
@@ -548,9 +571,9 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
                                  windowed=kind == "local", tp=tp)
     x = x + _psum(tp, y)
     if "xk" in ent:
-        x = x + L.cross_attention_decode(p["xattn"], cfg,
-                                         L.rmsnorm(x, p["norm_x"]),
-                                         ent["xk"][i], ent["xv"][i])
+        x = x + _psum(tp, L.cross_attention_decode(
+            p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]), ent["xk"][i],
+            ent["xv"][i], tp))
     return x + _ffn(p, cfg, x, tp)
 
 

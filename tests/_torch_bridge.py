@@ -9,6 +9,7 @@ a reference check never runs at TF32 precision.
 import jax
 import jax.numpy as jnp
 from jax import lax
+from jax.sharding import PartitionSpec
 import numpy as np
 import torch
 
@@ -84,6 +85,19 @@ def model_cut(a, dim, model, m, lead=0):
         return a
     n = a.shape[dim + lead] // model
     return lax.slice_in_dim(a, m * n, (m + 1) * n, axis=dim + lead)
+
+
+def ref_cut(tree, specs, model, m):
+    """Rank ``m``'s slice of each leaf of ``tree`` (numpy) along the dim
+    its PartitionSpec in ``specs`` gives ``"model"``."""
+    def cut(a, spec):
+        for i, s in enumerate(spec):
+            if s == "model":
+                n = a.shape[i] // model
+                return np.take(a, np.arange(m * n, (m + 1) * n), axis=i)
+        return a
+    return jax.tree.map(cut, tree, specs,
+                        is_leaf=lambda x: isinstance(x, PartitionSpec))
 
 
 def rank_opt(opt, params, cfg, pods, data, model=1, mdims=None):

@@ -334,14 +334,16 @@ def grid_state(rank, params, ckpt_dir, cases, xs):
 
 def _from_full(t, like, tp):
     """This rank's part of an unsharded cache or pool leaf ``t`` (numpy)
-    in the layout of ``like``: its slice of the sequence (dim 2) where
-    ``like`` holds every KV head, else its KV heads (dim -2)."""
+    in the layout of ``like``: cut along the one dim where they differ
+    (the sequence where ``like`` holds every KV head, else the KV heads;
+    RWKV-6's heads), or whole (RWKV-6's carried rows), as chip_smoke.py's
+    ``tp_cut``."""
     t = torch.from_numpy(np.array(t)).to(like.dtype)
-    if tp is None:
+    dims = [d for d in range(t.dim()) if t.shape[d] != like.shape[d]]
+    if not dims:
         return t
-    dim = 2 if like.shape[-2] == t.shape[-2] else t.dim() - 2
-    n = like.shape[dim]
-    return t.narrow(dim, tp.index * n, n).contiguous()
+    n = like.shape[dims[0]]
+    return t.narrow(dims[0], tp.index * n, n).contiguous()
 
 
 def model_paths(params, cfg, ins, tp=None):
@@ -600,3 +602,132 @@ def tp_moe(rank, cases, blocks):
         out[model, "blocks"] = [_moe_blocks(tp, cfg, mine, x, ct, c)
                                 for c in (chunk, L.MOE_CHUNK)]
     return out
+
+
+# ---------------------------------------------------------------------- #
+# RWKV-6 and the enc-dec config on a model axis
+# ---------------------------------------------------------------------- #
+
+def family_paths(params, cfg, ins, tp=None):
+    """The dense serving path of ``params`` (the whole model, or this
+    rank's shard on the model axis ``tp``): a prefill of ``ins["tokens"]``
+    (and the encoder's ``ins["src_embeds"]``) into a cache for
+    ``ins["s_max"]`` tokens, then one decode step for each of
+    ``ins["forced"]``, each from ``ins["caches_before"][i]`` (the
+    unsharded run's cache of that step, cut for this rank) where the
+    inputs have them, and the full forward.  Returns numpy logits, the
+    prefill's cache beside ``init_cache(tp=)``'s shapes, the caches before
+    each step (unsharded runs only), and the axis's collectives of the
+    prefill and of each step."""
+    from repro_torch.models import transformer as T
+
+    calls = (lambda: tp.calls) if tp is not None else (lambda: 0)
+    inputs = {k: _t(ins[k]) for k in ("tokens", "src_embeds") if k in ins}
+    inputs["tokens"] = inputs["tokens"].long()
+    keep = lambda cache: [{k: v.float().numpy().copy()
+                           for k, v in ent.items()} for ent in cache]
+    B = inputs["tokens"].shape[0]
+    src = inputs["src_embeds"].shape[1] if "src_embeds" in inputs else 0
+    c0 = calls()
+    lg, cache, S = T.prefill(params, cfg, inputs, ins["s_max"], tp=tp)
+    out = {"prefill_calls": np.array(calls() - c0), "prefill": lg.numpy(),
+           "cache": keep(cache), "caches_before": [], "step_calls": [],
+           "init_shapes": [{k: tuple(v.shape) for k, v in ent.items()}
+                           for ent in T.init_cache(cfg, B, ins["s_max"], src,
+                                                   device=CPU, tp=tp)]}
+    steps = []
+    for i, t in enumerate(ins["forced"]):
+        if "caches_before" in ins:
+            cache = [{k: _from_full(ins["caches_before"][i][r][k], v, tp)
+                      for k, v in ent.items()} for r, ent in enumerate(cache)]
+        else:
+            out["caches_before"].append(keep(cache))
+        c0 = calls()
+        lg, cache = T.decode_step(params, cfg, cache, _t(t).long(), S + i,
+                                  tp=tp)
+        out["step_calls"].append(calls() - c0)
+        steps.append(lg.numpy())
+    out["steps"] = np.stack(steps)
+    with torch.no_grad():
+        out["fwd"] = T.model_fwd(params, cfg, inputs, tp).numpy()
+    if tp is not None:
+        del out["caches_before"]
+    return out
+
+
+def _gather_ops(tp, xs, c):
+    """``gather_from`` of this rank's slice ``xs[m]`` (n, k) along its
+    last dim, through a backward against the weights ``c`` (n, M k) that
+    every rank shares; returns the forward, the slice's gradient and the
+    axis's counters (forward, backward)."""
+    c0 = (tp.calls, tp.bwd_calls)
+    x = _t(xs[tp.index]).requires_grad_(True)
+    y = tp.gather_from(x, -1)
+    (y * _t(c)).sum().backward()
+    return {"y": y.detach().numpy(), "grad": x.grad.numpy(),
+            "calls": np.array([tp.calls - c0[0], tp.bwd_calls - c0[1]])}
+
+
+def tp_families(rank, cases, gather):
+    """This rank of four gloo ranks on the CPU, on a 1x1x4 grid, then on
+    1x2x2.  On each grid's first model group, for each case ``(name,
+    cfg, models, params, ins, batch)`` whose ``models`` hold the grid's
+    model size: :func:`family_paths` of this rank's shard of the
+    reference's f32 weights ``params`` (numpy, the reference's layout),
+    and where ``batch`` is given the loss and gradients of the same shard
+    (in the stacked layout) with the model axis's collectives; and
+    :func:`_gather_ops` of ``gather[model]``.  Results under ``(model,
+    name)``."""
+    from repro_torch.models.convert import params_from_jax
+
+    out = {}
+    for pods, data, model in ((1, 1, 4), (1, 2, 2)):
+        grid = make_grid(pods, data, CPU, model=model)
+        tp = grid.tp
+        if grid.rank != 0:
+            continue
+        out[model, "gather"] = _gather_ops(tp, *gather[model])
+        for name, cfg, models, params, ins, batch in cases:
+            if model not in models:
+                continue
+            p = shard_params(params_from_jax(params, cfg, device=CPU), cfg,
+                             model, tp.index)
+            res = family_paths(p, cfg, ins, tp)
+            if batch is not None:
+                calls = {}
+                loss, grads = loss_and_grads(p, cfg, device_batch(batch, CPU),
+                                             tp, calls)
+                res.update(loss=loss.numpy(), calls=calls,
+                           grads=to_numpy(stack_runs(grads, cfg)))
+            out[model, name] = res
+    return out
+
+
+def family_prefill_on_card(rank, name, ins, s_max):
+    """This rank of 1x1x2 gloo ranks sharing the card: the smoke config
+    of ``name`` in f32 (seed 0), this rank's shard on the card, the dense
+    prefill of ``ins`` (numpy tokens, and an enc-dec config's
+    ``src_embeds``) through ``make_prefill_fn``; returns the logits and
+    the cache (numpy f32) and this process's flash and WKV launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv as kw
+    from repro_torch.launch.step import make_prefill_fn
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    grid = make_grid(1, 1, dev, model=2)
+    cfg = get_config(name, smoke=True)
+    params = tree_map(lambda t: t.float().to(dev), shard_params(
+        T.init_model(cfg, seed=0, device="cpu"), cfg, 2, rank))
+    inputs = {k: _t(v).to(dev) for k, v in ins.items()}
+    inputs["tokens"] = inputs["tokens"].long()
+    f0, w0 = fa.flash_attention_fwd.launches, kw.wkv_chunked.launches
+    lg, cache, _ = make_prefill_fn(cfg, s_max, grid)(params, inputs)
+    return {"logits": lg.cpu().numpy(),
+            "cache": [{k: v.float().cpu().numpy() for k, v in e.items()}
+                      for e in cache],
+            "flash_fwd": fa.flash_attention_fwd.launches - f0,
+            "wkv": kw.wkv_chunked.launches - w0}

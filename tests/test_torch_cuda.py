@@ -737,3 +737,52 @@ def test_rwkv6_serving_on_card_matches_cpu(dev):
         for name in ("x_tm", "x_cm"):
             torch.testing.assert_close(eg[name].float(), ec[name].float(),
                                        rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "seamless_m4t_medium"])
+def test_model_axis_prefill_of_the_families_on_card(dev, arch):
+    """RWKV-6 and enc-dec on a model axis on the card: two gloo ranks
+    share it, each its shard of the smoke config in f32; the dense
+    prefill's logits within 1e-5 of one rank's on the card (chip_smoke's
+    phase 24d), every cache leaf of the rank joined over the axis within
+    1e-4 of its scale (the f32 WKV state) or one bf16 ulp (bf16 leaves);
+    each rank launches the WKV kernel once a layer on its heads, or the
+    flash forward once an encoder layer and twice a decoder layer (self
+    and cross attention)."""
+    import _torch_ranks
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(0)
+    ins = {"tokens": rng.integers(0, cfg.vocab, (2, 21))}
+    if cfg.enc_dec is not None:
+        ins["src_embeds"] = rng.standard_normal(
+            (2, 12, cfg.d_model)).astype(np.float32)
+    s_max = 32
+    ranks = run_ranks(_torch_ranks.family_prefill_on_card, 2, "gloo",
+                      (arch, ins, s_max), timeout=600.0)
+    params = _f32(T.init_model(cfg, seed=0, device="cpu"), dev)
+    inputs = {k: torch.from_numpy(v).to(dev) for k, v in ins.items()}
+    lg, cache, _ = make_prefill_fn(cfg, s_max)(params, inputs)
+    for r in ranks:
+        np.testing.assert_allclose(r["logits"], lg.cpu().numpy(), atol=1e-5,
+                                   rtol=0)
+        if cfg.enc_dec is None:
+            assert (r["wkv"], r["flash_fwd"]) == (cfg.n_layers, 0)
+        else:
+            assert (r["wkv"], r["flash_fwd"]) == (
+                0, cfg.enc_dec.n_enc_layers + 2 * cfg.n_layers)
+    for i, ent in enumerate(cache):
+        for k, want in ent.items():
+            want = want.float().cpu()
+            parts = [torch.from_numpy(r["cache"][i][k]) for r in ranks]
+            dims = [d for d in range(want.dim())
+                    if parts[0].shape[d] != want.shape[d]]
+            got = torch.cat(parts, dims[0]) if dims else parts[0]
+            if ent[k].dtype == torch.float32:
+                top = want.abs().max().item()
+                torch.testing.assert_close(got, want, atol=1e-4 * top,
+                                           rtol=0)
+            else:
+                torch.testing.assert_close(got, want, rtol=2.0 ** -7,
+                                           atol=1e-6)

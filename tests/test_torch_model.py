@@ -292,10 +292,11 @@ def test_serve_olmoe_smoke_matches_jax_executor(monkeypatch):
 def test_training_new_archs_raises_naming_roadmap(arch):
     """Trained on one rank: the loss, its gradient and the full forward
     run.  On a model axis of 2 ``train_check`` refuses what
-    ``sharding.tp_check`` refuses, naming ROADMAP's item 5: RG-LRU and
-    enc-dec, and a smoke config whose one KV head the axis cannot split;
-    the MoE and the frontend pass where the axis divides their heads
-    (``tests/test_torch_tp_train_moe.py`` trains them there)."""
+    ``sharding.tp_check`` refuses, naming ROADMAP's item 5: RG-LRU, and
+    a smoke config whose one KV head the axis cannot split; the MoE, the
+    frontend and enc-dec pass where the axis divides their heads
+    (``tests/test_torch_tp_train_moe.py`` and
+    ``tests/test_torch_tp_families.py`` train them there)."""
     from types import SimpleNamespace
 
     from repro_torch.launch.step import loss_and_grads
@@ -306,7 +307,7 @@ def test_training_new_archs_raises_naming_roadmap(arch):
     params = T.init_model(cfg, device="cpu")
     _, batch = _inputs(cfg, 1, 8)
     batch["labels"] = batch["tokens"]
-    if cfg.enc_dec is not None or "rglru" in cfg.pattern:
+    if "rglru" in cfg.pattern:
         for c in (cfg, heads):
             with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
                 T.train_check(c, 2)

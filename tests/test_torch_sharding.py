@@ -124,9 +124,9 @@ def test_sharded_init_is_the_shard_of_the_full_init(name, model):
 
 
 @pytest.mark.parametrize("arch,model,match", [
-    ("rwkv6_1p6b", 2, "recurrent and enc-dec families"),
+    ("rwkv6_1p6b", 64, "32 heads"),
     ("recurrentgemma_2b", 2, "recurrent and enc-dec families"),
-    ("seamless_m4t_medium", 2, "recurrent and enc-dec families"),
+    ("seamless_m4t_medium", 4, "vocabulary rows"),
     ("tinyllama_1p1b", 8, "4 KV heads"),
     ("gemma3_12b", 32, "16 heads"),
     ("olmoe_1b_7b", 128, "64 experts"),
@@ -140,15 +140,16 @@ def test_model_axis_refusals_name_roadmap_item_5(arch, model, match):
 def test_a_gradient_through_the_model_axis_is_refused():
     """Training on a model axis is ported for the attention stacks, with
     an MLP or a MoE (``tests/test_torch_tp_train.py``,
-    ``tests/test_torch_tp_train_moe.py``); the forward with a model axis
+    ``tests/test_torch_tp_train_moe.py``), RWKV-6 and enc-dec
+    (``tests/test_torch_tp_families.py``); the forward with a model axis
     still refuses autograd where the axis does not divide the config's KV
-    heads (qwen3's smoke config has one) and for RWKV-6, naming the item
+    heads (qwen3's smoke config has one) and for RG-LRU, naming the item
     that brings them."""
     import types
 
     tp = types.SimpleNamespace(size=2, index=0)
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for arch in ("qwen3_4b", "rwkv6_1p6b"):
+    for arch in ("qwen3_4b", "recurrentgemma_2b"):
         cfg = configs.get_config(arch, smoke=True)
         params = T.init_model(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):

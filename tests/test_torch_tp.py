@@ -420,3 +420,54 @@ def test_shard_params_of_reference_weights_feed_the_ranks():
             np.asarray(jax.lax.bitcast_convert_type(
                 jp["runs"][0]["attn"]["wq"][1][:, m * q:(m + 1) * q],
                 jnp.int16)))
+
+
+# (config, a path of the reference's tree to a stacked leaf, the port's
+# path in layer 1, the split: columns "col", rows "row", or whole)
+FAMILY_LEAVES = [
+    ("rwkv6_1p6b", ("runs", 0, "rwkv", "w_r"), ("rwkv", "w_r"), "col"),
+    ("rwkv6_1p6b", ("runs", 0, "rwkv", "w_o"), ("rwkv", "w_o"), "row"),
+    ("rwkv6_1p6b", ("runs", 0, "rwkv", "cm_r"), ("rwkv", "cm_r"), "col"),
+    ("rwkv6_1p6b", ("runs", 0, "rwkv", "u"), ("rwkv", "u"), None),
+    ("seamless_m4t_medium", ("runs", 0, "xattn", "wk"), ("xattn", "wk"),
+     "col"),
+    ("seamless_m4t_medium", ("runs", 0, "xattn", "wo"), ("xattn", "wo"),
+     "row"),
+    ("seamless_m4t_medium", ("enc", "runs", 0, "attn", "wq"),
+     ("enc", "attn", "wq"), "col"),
+]
+
+
+@pytest.mark.parametrize("arch,ref,ours,split", FAMILY_LEAVES,
+                         ids=[f"{a}-{'/'.join(map(str, r))}"
+                              for a, r, _, _ in FAMILY_LEAVES])
+def test_shard_params_of_reference_weights_feed_the_families(arch, ref,
+                                                            ours, split):
+    """``params_from_jax`` then ``shard_params`` for RWKV-6 and enc-dec:
+    rank m's leaf of layer 1 is the reference's columns or rows of its
+    heads (``w_o`` and the cross attention's ``wo`` by rows), or the
+    whole leaf (``u``), bit for bit; the encoder's layers as the
+    decoder's."""
+    cfg = configs.get_config(arch, smoke=True)
+    jp = jax_to_numpy(JT.init_model(jax.random.PRNGKey(0), cfg))
+    full = params_from_jax(jp, cfg, device="cpu")
+    want = jp
+    for k in ref:
+        want = want[k]
+    want = np.asarray(want[1])
+    for m in range(2):
+        got = shard_params(full, cfg, 2, m)
+        if ours[0] == "enc":
+            got = got["enc"]["layers"][1][ours[1]][ours[2]]
+        else:
+            got = got["layers"][1][ours[0]][ours[1]]
+        got = got.view(torch.int16).numpy() if got.dtype == torch.bfloat16 \
+            else got.numpy()
+        w = want.view(np.int16) if want.dtype == np.uint16 else want
+        if split == "col":
+            n = w.shape[1] // 2
+            w = w[:, m * n:(m + 1) * n]
+        elif split == "row":
+            n = w.shape[0] // 2
+            w = w[m * n:(m + 1) * n]
+        np.testing.assert_array_equal(got, w)
