@@ -7,8 +7,8 @@ Phases, each of which fails the run (nonzero exit, no result line).
 Each spawn of ranks costs seconds a rank before any work, so the phases
 that spawn ranks themselves share two spawns: the four ranks of 10, 12,
 24d, 25c's 2x1x2 grid and 26f (``pool4_rank``, at phase 10) and the two
-of 24c, 25c's 1x1x2 and 2x1x1 grids, 27d and 28 (``tp_rs_rank``, at
-phase 24); each rank body sets its counters to 0 and reads them, and
+of 24c, 25c's 1x1x2 and 2x1x1 grids, 27d, 28 and 29 (``tp_rs_rank``,
+at phase 24); each rank body sets its counters to 0 and reads them, and
 each phase checks and prints its part where it stands:
 
 1. the card: its name and power limit (nvidia-smi), torch and CUDA versions;
@@ -22,8 +22,9 @@ each phase checks and prints its part where it stands:
    at the shapes of the models the port serves and trains (gemma3-12b's
    local layer at hd 256 among them, and the serving regimes of phases
    21-22: olmoe's prefill, recurrentgemma-2b's local layer (G 10, hd 256,
-   window 2048), seamless's encoder and cross attention (not causal, the
-   cross with Sq != Sk), pixtral and llama4-scout (G 4, 5)), and in bf16
+   window 2048, and on each rank of a model axis of 2: G 5), seamless's
+   encoder and cross attention (not causal, the cross with Sq != Sk),
+   pixtral and llama4-scout (G 4, 5)), and in bf16
    also against the plain
    version that mirrors the tensor-core kernel's bf16 rounding of P, more
    tightly; its time in turns with the library call's (kernel, SDPA, SDPA,
@@ -33,7 +34,8 @@ each phase checks and prints its part where it stands:
    (``mma_bf16`` or ``fma_f32``);
 4. the two flash backward kernels (dq, dk/dv) the same way, at the same
    shapes but the serving-only regimes, and at the local layers of
-   recurrentgemma-2b's training (1 x 4096, G 10, hd 256, window 2048) and
+   recurrentgemma-2b's training (1 x 4096, G 10, hd 256, window 2048;
+   and 1 x 2048 at G 5, a rank's heads on a model axis of 2) and
    gemma3-12b in bf16 and f32 (hd 256: the bf16 kernels' column split,
    the f32 kernels' 32-key tile): against the f32
    plain version, and in bf16 also against the plain version that mirrors
@@ -315,6 +317,15 @@ each phase checks and prints its part where it stands:
    steps from the one-rank cache within 1e-4, one unclipped step's loss
    within 1e-4 relative and Adam's first moment within 1e-4 of each
    leaf's largest.
+29. The RG-LRU family and the KV-head split on a model axis, on phase
+   28's ranks: 29a recurrentgemma-2b whole (26 layers, d 2560, one KV
+   head cut inside it, 5 query heads a rank; the RG-LRU on 1280
+   channels a rank, ``w_out`` on its run's layers) as 28a, its tokens
+   also equal to the one-rank run's; 29b trains it at full width cut to
+   3 layers (one whole period: its run of two RG-LRU layers, so that
+   ``w_out``'s run-dim gather runs; 6 until a whole run passed 1000 s)
+   as 28c; 29c holds it at 3 layers in f32 as 28d, its decode steps
+   within 1e-5.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -389,11 +400,17 @@ SHAPES = [
      "float32"),
     ("gemma3-12b local", 1, 2048, 2048, 16, 8, 256, True, 1024, 0,
      "float32"),
+    # recurrentgemma-2b's local layer on a rank of a model axis of 2: 5
+    # query heads on the one KV head (phase 29)
+    ("recurrentgemma-2b local M 2", 1, 2048, 2048, 5, 1, 256, True, 2048, 0,
+     "bfloat16"),
+    ("recurrentgemma-2b local M 2", 1, 2048, 2048, 5, 1, 256, True, 2048, 0,
+     "float32"),
 ]
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
 TRAIN_SHAPE = 12        # the shape the training path gives all three
 # phase 4 runs these; the others serve only
-BWD_SHAPES = set(range(15)) | {21, 22, 23}
+BWD_SHAPES = set(range(15)) | {21, 22, 23, 24, 25}
 TRAIN = dict(steps=5, seq=1024, batch=8)
 GRID_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
                   comm="multilevel_compress", dist_backend="gloo")
@@ -613,14 +630,25 @@ TP_FAMILY_TOL = 1e-4     # the loss relative, m of each leaf's largest
 # rank on the card: the dense prefill's logits within TP_F32_TOL, 4
 # decode steps from the one-rank cache within TP_STEP_TOL (RWKV-6's
 # carried rows are bf16, as the k and v of a cache), one unclipped
-# training step's loss and Adam's m within TP_FAMILY_TOL
+# training step's loss and Adam's m within TP_FAMILY_TOL.  Phase 29: the
+# RG-LRU family and the KV-head split on the same ranks, recurrentgemma-2b
+# served whole (29a, its tokens also equal to one rank's), trained at 3
+# layers (29b: one whole period, its RG-LRU run on the run dim) and held
+# in f32 at 3 (29c, its decode steps within TP_F32_TOL)
 TP_RS_MESH = "1x1x2"
 TP_RS_SERVE = {"28a": ("rwkv6-1.6b", 2, 512, 0),
-               "28b": ("seamless-m4t-medium", 2, 512, 512)}
+               "28b": ("seamless-m4t-medium", 2, 512, 512),
+               "29a": ("recurrentgemma-2b", 2, 512, 0)}
+TP_RS_SAME_TOKENS = {"29a"}     # tokens held to the one-rank run's too
 TP_RS_GEN = 9
-TP_RS_TRAIN = {"rwkv6-1.6b": 4, "seamless-m4t-medium": 12}
+# arch -> (layers kept, phase)
+TP_RS_TRAIN = {"rwkv6-1.6b": (4, "28c"), "seamless-m4t-medium": (12, "28c"),
+               "recurrentgemma-2b": (3, "29b")}
 TP_RS_TRAIN_KW = dict(steps=3, seq=512, batch=2)
-TP_RS_ANSWER = [("rwkv6-1.6b", 2), ("seamless-m4t-medium", 1)]
+# (arch, layers, phase, the decode steps' tolerance)
+TP_RS_ANSWER = [("rwkv6-1.6b", 2, "28d", TP_STEP_TOL),
+                ("seamless-m4t-medium", 1, "28d", TP_STEP_TOL),
+                ("recurrentgemma-2b", 3, "29c", TP_F32_TOL)]
 TP_RS_ANSWER_INPUT = (2, 48, 32)    # batch, prompt, encoder frames
 
 
@@ -1391,8 +1419,9 @@ def dense_serve(torch, cfg, params, B, L, P=0, grid=None, align=1,
               for k, v in prompt_inputs(torch, cfg, B, L, P, L).items()}
     pre = 0 if cfg.enc_dec else P
     s_max = pre + L + gen - 1
-    prefill = make_prefill_fn(cfg, s_max + (-s_max) % align, grid)
-    decode = make_decode_fn(cfg, grid)
+    s_max += (-s_max) % align
+    prefill = make_prefill_fn(cfg, s_max, grid)
+    decode = make_decode_fn(cfg, grid, s_max)
     calls = (lambda: grid.tp.calls) if grid is not None else (lambda: 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2747,7 +2776,7 @@ def cut_state(torch, full, state, tp):
 
 def dense_answer_paths(torch, T, cfg, params, ins, steps, s_max, tp=None,
                        before=None):
-    """The dense path of 24d and 28d: the prefill's logits and those of a
+    """The dense path of 24d, 28d and 29c: the prefill's logits and those of a
     decode step for each of ``steps`` (fixed tokens).  Each step starts
     from ``before[i]``, the one-rank cache of that step cut for this rank,
     where given; the one-rank run records them in ``out["before"]``."""
@@ -2758,7 +2787,8 @@ def dense_answer_paths(torch, T, cfg, params, ins, steps, s_max, tp=None,
             out["before"].append(host_state(cache))
         else:
             cache = cut_state(torch, before[i], cache, tp)
-        lg, cache = T.decode_step(params, cfg, cache, t, S + i, tp=tp)
+        lg, cache = T.decode_step(params, cfg, cache, t, S + i, tp=tp,
+                                  s_max=s_max)
         out["steps"].append(lg)
     return out
 
@@ -3544,12 +3574,12 @@ def tp_family_answer(get_config, ranks) -> dict:
 
 def tp_rs_rank(rank):
     """One of the two ranks that 24c, 25c (its 1x1x2 and 2x1x1 grids),
-    27d and phase 28 share, one spawn: 24c's dense path
+    27d and phases 28-29 share, one spawn: 24c's dense path
     (``tp_dense_rank``), 25c's grids (``tp_train_answer_rank``), 27d's
     answer (``tp_family_rank``), the dense path of each of TP_RS_SERVE
-    (``tp_dense_rank``), 28c's training of each of TP_RS_TRAIN
-    (``tp_rs_train_rank``), then 28d's answer (``tp_rs_answer_rank``);
-    each body sets its counters to 0."""
+    (``tp_dense_rank``), the training of each of TP_RS_TRAIN (28c, 29b:
+    ``tp_rs_train_rank``), then the answers of TP_RS_ANSWER (28d, 29c:
+    ``tp_rs_answer_rank``); each body sets its counters to 0."""
     import torch
     from repro_torch.launch.mesh import make_grid
 
@@ -3564,21 +3594,22 @@ def tp_rs_rank(rank):
                 for name, (arch, B, L_, P) in TP_RS_SERVE.items()})
     dev = torch.device("cuda", 0)
     grid = make_grid(1, 1, dev, model=2)
-    out["28c"] = {arch: tp_rs_train_rank(grid, arch, n, dev)
-                  for arch, n in TP_RS_TRAIN.items()}
-    out["28d"] = tp_rs_answer_rank(rank)
+    out["train"] = {arch: tp_rs_train_rank(grid, arch, n, dev)
+                    for arch, (n, _) in TP_RS_TRAIN.items()}
+    out["answer"] = tp_rs_answer_rank(rank)
     return out
 
 
 def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
-    """28a/28b: the dense path of ``TP_RS_SERVE[name]`` at full width and
-    depth on TP_RS_MESH (``ranks``, each rank's ``tp_dense_rank`` result
-    from a fresh process holding its shard, counters from 0), against the
-    one-rank run in this process on the same weights: the ranks' tokens
-    equal; the first prefill's bf16 logits no farther from the one-rank
-    f32 model's (the same weights in f32) than the one-rank bf16 run's
-    are, plus LOGIT_TOL (at full depth
-    the bf16 model's own rounding moves its logits by more than
+    """28a/28b/29a: the dense path of ``TP_RS_SERVE[name]`` at full width
+    and depth on TP_RS_MESH (``ranks``, each rank's ``tp_dense_rank``
+    result from a fresh process holding its shard, counters from 0),
+    against the one-rank run in this process on the same weights: the
+    ranks' tokens equal (and equal to the one-rank run's, for the phases
+    of TP_RS_SAME_TOKENS); the first prefill's bf16 logits no farther
+    from the one-rank f32 model's (the same weights in f32) than the
+    one-rank bf16 run's are, plus LOGIT_TOL (at full depth the bf16
+    model's own rounding moves its logits by more than
     LOGIT_TOL: the model axis may add LOGIT_TOL to that, no more); each
     rank's WKV launches (one a layer and prefill, on its H/M heads) or
     flash launches (the encoder's, the decoder's and the cross
@@ -3640,6 +3671,10 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
              f"logits")
     if any(not (x["runs"][0]["tokens"] == gen).all() for x in ranks):
         fail(f"phase {name}: the ranks took other tokens")
+    if name in TP_RS_SAME_TOKENS \
+            and not (gen == one["tokens"].cpu().numpy()).all():
+        fail(f"phase {name}: tokens {gen.tolist()}, one rank's "
+             f"{one['tokens'].cpu().tolist()}")
     if not err_f32 <= one_f32 + LOGIT_TOL:
         fail(f"phase {name}: first prefill's logits {err_f32} from the f32 "
              f"model's, the one-rank run's {one_f32}")
@@ -3651,7 +3686,7 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
 
 
 def tp_rs_train_rank(grid, arch, n, dev) -> dict:
-    """28c on this rank of ``grid``: ``arch`` at full width cut to ``n``
+    """28c/29b on this rank of ``grid``: ``arch`` at full width cut to ``n``
     layers, this rank's shard of the seed-0 weights in bf16, the steps of
     TP_RS_TRAIN_KW through ``make_train_step`` with ``train``'s
     optimiser settings, the counters set to 0 just before and read just
@@ -3672,7 +3707,7 @@ def tp_rs_train_rank(grid, arch, n, dev) -> dict:
     tp, steps = grid.tp, TP_RS_TRAIN_KW["steps"]
     cfg = cut(get_config, arch, n)
     params = stack_runs(T.init_model(cfg, seed=0, device=dev, model=tp.size,
-                                     m=tp.index), cfg)
+                                     m=tp.index), cfg, tp.size, tp.index)
     opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=20, total_steps=steps)
     opt = adamw.shard_opt_state(adamw.init_opt_state(params, opt_cfg),
                                 params, opt_cfg, grid,
@@ -3698,22 +3733,25 @@ def tp_rs_train_rank(grid, arch, n, dev) -> dict:
     return out
 
 
-def tp_rs_train(get_config, refs, ranks) -> list:
-    """28c: each of TP_RS_TRAIN at full width (rwkv6-1.6b cut to 4 of 24
-    layers, seamless whole) trained on TP_RS_MESH in bf16
-    (``ranks``: each rank's ``tp_rs_train_rank`` results), the ranks
-    sharing the card over gloo: finite losses, equal on the ranks, the
-    same model-axis collectives each step, each rank's launches (RWKV-6:
-    2 WKV a layer and step; seamless: 2 flash forwards, one dq and one
-    dk/dv an attention call and step).  Printed with the step ms after
-    the first beside the one-rank step of ``refs`` (27a's rwkv6 at 24
-    layers and 8 x 512, 26b's seamless whole at 4 x 1024, each also
-    scaled to the layers kept), tok/s, each rank's peak memory, the
-    collectives a step and the bytes staged.  Returns the ranks'
-    launches."""
+def tp_rs_train(get_config, refs, ranks, phase) -> list:
+    """28c/29b: each of TP_RS_TRAIN of ``phase`` at full width (rwkv6-1.6b
+    cut to 4 of 24 layers, seamless whole; recurrentgemma-2b cut to 3 of
+    26) trained on TP_RS_MESH in bf16 (``ranks``: each rank's
+    ``tp_rs_train_rank`` results), the ranks sharing the card over gloo:
+    finite losses, equal on the ranks, the same model-axis collectives
+    each step, each rank's launches (RWKV-6: 2 WKV a layer and step;
+    seamless and recurrentgemma: 2 flash forwards, one dq and one dk/dv
+    an attention call and step).  Printed with the step ms after the
+    first beside the one-rank step of ``refs`` (27a's rwkv6 at 24 layers
+    and 8 x 512, 26b's seamless whole at 4 x 1024, 26a's recurrentgemma
+    whole at 1 x 4096, each also scaled to the layers kept), tok/s, each
+    rank's peak memory, the collectives a step and the bytes staged.
+    Returns the ranks' launches."""
     out_launches = []
     steps = TP_RS_TRAIN_KW["steps"]
-    for arch, n in TP_RS_TRAIN.items():
+    for arch, (n, ph) in TP_RS_TRAIN.items():
+        if ph != phase:
+            continue
         cfg = cut(get_config, arch, n)
         res = [r[arch] for r in ranks]
         out = res[0]
@@ -3723,7 +3761,7 @@ def tp_rs_train(get_config, refs, ranks) -> list:
         want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
                 "flash_bwd_dkv": calls, "wkv": wkv}
         tokens = TP_RS_TRAIN_KW["seq"] * TP_RS_TRAIN_KW["batch"]
-        print(json.dumps({"tp_rs_train_28c": {
+        print(json.dumps({f"tp_rs_train_{phase}": {
             "arch": arch, "layers": cfg.n_layers, "mesh": TP_RS_MESH,
             **TP_RS_TRAIN_KW, "dtype": "bfloat16", "losses": out["losses"],
             "step_ms": out["step_ms"],
@@ -3738,21 +3776,21 @@ def tp_rs_train(get_config, refs, ranks) -> list:
         if len(out["losses"]) != steps \
                 or not all(math.isfinite(x) for x in out["losses"]) \
                 or any(r["losses"] != out["losses"] for r in res):
-            fail(f"phase 28c: {arch} losses "
+            fail(f"phase {phase}: {arch} losses "
                  f"{[r['losses'] for r in res]}")
         if any(c != out["tp_calls"][0] for r in res for c in r["tp_calls"]) \
                 or min(out["tp_calls"][0].values()) < 1:
-            fail(f"phase 28c: {arch} model-axis collectives a step "
+            fail(f"phase {phase}: {arch} model-axis collectives a step "
                  f"{[r['tp_calls'] for r in res]}")
         if any(r["launches"] != want for r in res):
-            fail(f"phase 28c: {arch} ranks launched "
+            fail(f"phase {phase}: {arch} ranks launched "
                  f"{[r['launches'] for r in res]}, expected {want} each")
         out_launches += [r["launches"] for r in res]
     return out_launches
 
 
 def tp_rs_answer_rank(rank):
-    """One rank of 28d on the card: for each of TP_RS_ANSWER, f32 seed-0
+    """One rank of 28d/29c on the card: for each of TP_RS_ANSWER, f32 seed-0
     weights, the dense path and one unclipped train step on one rank
     (``Grid.single()``, in this process) and on this rank's shard of
     TP_RS_MESH, compared here; returns the errors, the losses and the
@@ -3774,7 +3812,7 @@ def tp_rs_answer_rank(rank):
     grid = make_grid(1, 1, dev, model=M)
     B, L_, P = TP_RS_ANSWER_INPUT
     out = {}
-    for arch, n in TP_RS_ANSWER:
+    for arch, n, _, _ in TP_RS_ANSWER:
         cfg = cut(get_config, arch, n)
         full = tree_map(lambda t: t.float(), T.init_model(cfg, seed=0,
                                                           device=dev))
@@ -3818,18 +3856,21 @@ def tp_rs_answer_rank(rank):
     return out
 
 
-def tp_rs_answer(ranks) -> dict:
-    """28d: rwkv6-1.6b (2 layers) and seamless-m4t-medium (1 + 1) at full
-    width in f32 on TP_RS_MESH ranks sharing the card over gloo, against
-    one rank on the card in each rank's process (nothing crosses between
-    processes): the dense prefill's logits within TP_F32_TOL, 4 decode
-    steps from the one-rank cache within TP_STEP_TOL, one unclipped
-    step's loss within TP_FAMILY_TOL relative and Adam's first moment
-    within TP_FAMILY_TOL of each leaf's largest.  ``ranks``: each rank's
-    ``tp_rs_answer_rank`` result.  Returns the shard runs' launches,
-    summed over the ranks."""
+def tp_rs_answer(ranks, phase) -> dict:
+    """28d/29c: the configs of TP_RS_ANSWER of ``phase`` (rwkv6-1.6b at 2
+    layers and seamless-m4t-medium at 1 + 1; recurrentgemma-2b at 3) at
+    full width in f32 on TP_RS_MESH ranks sharing the card over gloo,
+    against one rank on the card in each rank's process (nothing crosses
+    between processes): the dense prefill's logits within TP_F32_TOL, 4
+    decode steps from the one-rank cache within the entry's tolerance,
+    one unclipped step's loss within TP_FAMILY_TOL relative and Adam's
+    first moment (0.1 x the gradient) within TP_FAMILY_TOL of each leaf's
+    largest.  ``ranks``: each rank's ``tp_rs_answer_rank`` result.
+    Returns the shard runs' launches, summed over the ranks."""
     total = {}
-    for arch, n in TP_RS_ANSWER:
+    for arch, n, ph, step_tol in TP_RS_ANSWER:
+        if ph != phase:
+            continue
         res = [r[arch] for r in ranks]
         rel = max(abs(r["loss"] - r["loss_one_rank"]) / abs(r["loss_one_rank"])
                   for r in res)
@@ -3837,7 +3878,7 @@ def tp_rs_answer(ranks) -> dict:
                "input": TP_RS_ANSWER_INPUT,
                "prefill_max_abs_err": max(r["prefill_err"] for r in res),
                "steps_max_abs_err": max(r["steps_err"] for r in res),
-               "prefill_tol": TP_F32_TOL, "step_tol": TP_STEP_TOL,
+               "prefill_tol": TP_F32_TOL, "step_tol": step_tol,
                **TP_FAMILY_ANSWER_INPUT,
                "losses_ranks": [r["loss"] for r in res],
                "loss_one_rank": res[0]["loss_one_rank"],
@@ -3845,12 +3886,13 @@ def tp_rs_answer(ranks) -> dict:
                "m_max_rel_diff": max(r["m_rel"] for r in res),
                "train_tol": TP_FAMILY_TOL,
                "launches_per_rank": [r["launches"] for r in res]}
-        print(json.dumps({"tp_rs_f32_vs_one_rank_28d": rec}), flush=True)
+        print(json.dumps({f"tp_rs_f32_vs_one_rank_{phase}": rec}),
+              flush=True)
         if not (rec["prefill_max_abs_err"] <= TP_F32_TOL
-                and rec["steps_max_abs_err"] <= TP_STEP_TOL
+                and rec["steps_max_abs_err"] <= step_tol
                 and math.isfinite(rel) and rel <= TP_FAMILY_TOL
                 and rec["m_max_rel_diff"] <= TP_FAMILY_TOL):
-            fail(f"phase 28d: {arch} on a model axis in f32: {rec}")
+            fail(f"phase {phase}: {arch} on a model axis in f32: {rec}")
         for r in res:
             for k, v in r["launches"].items():
                 total[k] = total.get(k, 0) + v
@@ -4201,25 +4243,32 @@ def main() -> None:
     tp_counts = {k: sum(r[k] for r in tp_moe) + tp_family[k]
                  for k in tp_family}
 
-    progress("28", t_start)
-    # 28. RWKV-6 and the enc-dec config on a model axis, on the ranks
-    # that phase 24 spawned (``tp_rs_rank``)
+    # 28. RWKV-6 and the enc-dec config, and 29. the RG-LRU family and
+    # the KV-head split, on a model axis, on the ranks that phase 24
+    # spawned (``tp_rs_rank``)
+    refs = {}
+    for arch, phase, kw_ in (("rwkv6-1.6b", "27a", RWKV_TRAIN),
+                             ("seamless-m4t-medium", "26b",
+                              FAMILY_TRAIN["26b"][2]),
+                             ("recurrentgemma-2b", "26a",
+                              FAMILY_TRAIN["26a"][2])):
+        ms = rwkv_ms if phase == "27a" else family_ms[phase]
+        layers = get_config(arch).n_layers
+        refs[arch] = {"phase": phase, **kw_, "layers": layers, "ms": ms,
+                      "ms_scaled_to_layers": ms * TP_RS_TRAIN[arch][0]
+                      / layers}
     tp_rs = []
-    for name in TP_RS_SERVE:
-        tp_rs += tp_rs_serve(torch, T, kw, get_config, name,
-                             [r[name] for r in ranks])
-    tp_rs.append(tp_rs_answer([r["28d"] for r in ranks]))
-    walls.append(time.perf_counter())
-    rwkv_layers = get_config("rwkv6-1.6b").n_layers
-    refs = {"rwkv6-1.6b": {
-        "phase": "27a", **RWKV_TRAIN, "layers": rwkv_layers, "ms": rwkv_ms,
-        "ms_scaled_to_layers": rwkv_ms * TP_RS_TRAIN["rwkv6-1.6b"]
-        / rwkv_layers},
-        "seamless-m4t-medium": {
-            "phase": "26b", **FAMILY_TRAIN["26b"][2], "layers": 12,
-            "ms": family_ms["26b"], "ms_scaled_to_layers": family_ms["26b"]
-            * TP_RS_TRAIN["seamless-m4t-medium"] / 12}}
-    tp_rs += tp_rs_train(get_config, refs, [r["28c"] for r in ranks])
+    for phase, answer, training in (("28", "28d", "28c"),
+                                    ("29", "29c", "29b")):
+        progress(phase, t_start)
+        for name in TP_RS_SERVE:
+            if name.startswith(phase):
+                tp_rs += tp_rs_serve(torch, T, kw, get_config, name,
+                                     [r[name] for r in ranks])
+        tp_rs.append(tp_rs_answer([r["answer"] for r in ranks], answer))
+        tp_rs += tp_rs_train(get_config, refs, [r["train"] for r in ranks],
+                             training)
+        walls.append(time.perf_counter())
     del ranks
     tp_rs_counts = {k: sum(r.get(k, 0) for r in tp_rs) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "wkv")}
@@ -4229,7 +4278,7 @@ def main() -> None:
              "the ranks of 24c, 25c's 1x1x2 and 2x1x1, 27d and 28", "24c",
              "24d", "25a", "25b", "25c one rank", "25d", "26a", "26b",
              "26c", "26d", "26e", "26f one rank", "27a", "27b", "27c",
-             "27d", "28 in this process"),
+             "27d", "28 in this process", "29 in this process"),
             walls, walls[1:])},
         "pool4_ranks_wall_s": {k: max(r["wall_s"][k] for r in pool4)
                                for k in pool4[0]["wall_s"]}}), flush=True)

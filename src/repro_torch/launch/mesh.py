@@ -36,9 +36,13 @@ column-parallel product, a replicated leaf read on the rank's heads);
 row-parallel partial sum.  ``Axis.gather_from`` joins the ranks'
 column slices of a tensor whose consumer is replicated (RWKV-6's
 channel-mix gate): the all-gather forward, and backward this rank's
-slice of the gradient, no collective.  Every rank builds the same graph,
-so autograd issues the backward's sums in the same order on each;
-``bwd_calls`` counts them apart from ``calls``.
+slice of the gradient, no collective.  ``Axis.gather_to`` joins them for
+a consumer that differs per rank (the RG-LRU's conv output before its
+column-split gate products, k and v cut inside a head, a run's layers
+split over the axis): the all-gather forward, and backward a
+reduce-scatter of the ranks' partial gradients.  Every rank builds the
+same graph, so autograd issues the backward's collectives in the same
+order on each; ``bwd_calls`` counts them apart from ``calls``.
 
 ``run_ranks`` spawns the ranks of a grid on this host, each with a
 ``file://`` rendezvous, and returns what each returned.
@@ -139,6 +143,22 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, i, ctx.n).contiguous(), None, None
 
 
+class _GatherTo(torch.autograd.Function):
+    """The all-gather along ``dim`` forward; backward the sum over the
+    axis of the gradient, this rank keeping its slice (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.axis.bwd_calls += 1
+        return ctx.axis.psum_scatter(g, ctx.dim), None, None
+
+
 class Axis:
     """One axis of the rank grid: its process group (None for a size-1
     axis or for the default group), this rank's index on it, its size."""
@@ -148,7 +168,8 @@ class Axis:
         self.name, self.size, self.index = name, size, index
         self.group, self.stage = group, stage
         self.calls = 0            # collectives this rank joined
-        self.bwd_calls = 0        # of them, copy_to's sums in a backward
+        self.bwd_calls = 0        # of them, copy_to's and gather_to's in
+                                  # a backward
         self.wire_bytes = 0       # payload this rank put into collectives
         self.staged_bytes = 0     # host copies made for gloo
 
@@ -197,15 +218,28 @@ class Axis:
         gathered tensor is then the same on every rank, and its backward
         keeps this rank's slice of it, with no collective.  A sum over
         the axis there (a reduce-scatter) would count that gradient M
-        times.  The sum is the backward where each rank's consumer reads
-        the gathered tensor for work of its own shard, so that the ranks'
-        gradients are partial: the RG-LRU's square gate products, split
-        by columns, are that case, and this method does not serve it."""
+        times.  Where each rank's consumer reads the gathered tensor for
+        work of its own shard, :meth:`gather_to` is the op."""
         if self.size == 1:
             return x
         if not torch.is_grad_enabled():
             return self.all_gather(x, dim)
         return _GatherFrom.apply(x, self, dim)
+
+    def gather_to(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """:meth:`all_gather` of this rank's slice ``x`` along ``dim``, for
+        a consumer that differs per rank (work on this rank's own shard:
+        the RG-LRU's column-split gate products, the KV heads that its
+        query heads read): each rank's gradient of the gathered tensor is
+        then partial, and the backward sums it over the axis, this rank
+        keeping its slice (:meth:`psum_scatter`), counted in
+        ``bwd_calls``.  The counterpart of :meth:`copy_to` for a tensor
+        the ranks hold in slices."""
+        if self.size == 1:
+            return x
+        if not torch.is_grad_enabled():
+            return self.all_gather(x, dim)
+        return _GatherTo.apply(x, self, dim)
 
     def psum_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Sum over the axis, member i keeping chunk i along ``dim``

@@ -6,8 +6,9 @@ runs ``value_and_grad(loss_fn)`` and ``apply_updates`` inside a
 ``launch.mesh.Grid`` runs the step on its rows of the global batch
 (``P(dp)``: rows split over the ranks in row-major (pod, data) order),
 takes the loss and its gradients (autograd, through the flash kernels'
-backward on the card), stacks the per-layer gradients into the reference's
-run layout once, and calls ``apply_updates``, whose sync runs over the
+backward on the card) with respect to the reference's stacked run layout
+(the layers read views of it, so a backward stacks each run's gradients
+once), and calls ``apply_updates``, whose sync runs over the
 grid's process groups.  The returned loss is the mean over the ranks
 (``lax.pmean(loss, dp)``).  One rank is the grid of size 1.
 
@@ -17,7 +18,9 @@ inner ``shard_map`` manual over it; here each rank holds its model shard
 (``models.convert.shard_params``), the M ranks of a model group take the
 same rows (``rank_rows`` indexes by the data-parallel rank), the forward
 and backward run the model axis's differentiated collectives
-(``transformer.loss_fn(tp=)``), and ``apply_updates`` syncs each shard
+(``transformer.loss_fn(tp=)``; a run's layers that the axis splits, the
+RG-LRU's ``w_out``, are gathered along the run dim first), and
+``apply_updates`` syncs each shard
 over the data-parallel axes of its model index, with the model's
 ``convert.model_dims``.  ``Grid.tp``'s counters split the model axis's
 collectives of a step: ``tp_calls`` holds the forward's, the backward's
@@ -32,8 +35,9 @@ paged path refuses, the recurrent stacks (RWKV-6, RG-LRU) and enc-dec,
 and prompts that carry a frontend's embeddings; given a grid with a model
 axis, this rank's shard of an attention stack, its dense cache's sequence
 split over the axis where the axis divides it, of RWKV-6 (the WKV state
-of its heads) or of the enc-dec config (the encoder on its heads, the
-cross cache of its KV heads).
+of its heads), of the RG-LRU (the state of its channels) or of the
+enc-dec config (the encoder on its heads, the cross cache of its KV
+heads).
 
 ``layer_grad_bytes`` is a copy of the reference's ``:41``: the per-layer
 gradient bytes the engine's bucketed-sync estimate takes, from the
@@ -47,7 +51,7 @@ import torch
 from ..kernels.backend import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..models.convert import model_dims, stack_runs, unstack_runs
+from ..models.convert import model_dims, unstack_runs
 from ..models.sharding import tp_check
 from ..optim import adamw
 from ..tree import tree_leaves, tree_unflatten
@@ -118,13 +122,23 @@ def rank_rows(batch: dict, grid: Grid) -> dict:
 def loss_and_grads(params, cfg: ModelConfig, batch: dict, tp=None,
                    calls: dict | None = None):
     """(loss, grads): the mean cross-entropy and its gradient with respect
-    to every parameter leaf, in the parameters' structure and dtypes.  On
-    a model axis ``tp``, of this rank's shard ``params``; ``calls`` gets
-    the axis's collectives of the forward (``fwd``), of the backward's
-    sums (``bwd``) and of the forward re-run under remat (``remat``)."""
+    to every parameter leaf, in the parameters' structure and dtypes:
+    the per-layer tree, or the stacked layout (``convert.stack_runs``),
+    whose per-layer views the loss reads (``convert.unstack_runs``).  On
+    a model axis ``tp``, of this rank's shard ``params``; a stacked
+    shard's leaves cut along the run dim (the RG-LRU's ``w_out``) are
+    gathered over the axis inside the differentiated region
+    (``Axis.gather_to``), whose backward hands each rank its layers' whole
+    gradient.  ``calls`` gets the axis's collectives of the forward
+    (``fwd``), of the backward (``bwd``: ``copy_to``'s sums and
+    ``gather_to``'s reduce-scatters) and of the forward re-run under remat
+    (``remat``)."""
     leaves = [l.detach().requires_grad_(True) for l in tree_leaves(params)]
     c0 = (tp.calls, tp.bwd_calls) if tp is not None else (0, 0)
-    loss = T.loss_fn(tree_unflatten(params, leaves), cfg, batch, tp=tp)
+    p = tree_unflatten(params, leaves)
+    if "runs" in p:
+        p = unstack_runs(p, cfg, tp)
+    loss = T.loss_fn(p, cfg, batch, tp=tp)
     c1 = tp.calls if tp is not None else 0
     grads = torch.autograd.grad(loss, leaves)
     if tp is not None and calls is not None:
@@ -155,9 +169,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
 
     def step(params, opt, batch):
         rows = device_batch(rank_rows(batch, grid), dev)
-        loss, grads = loss_and_grads(unstack_runs(params, cfg), cfg, rows,
-                                     tp, step.tp_calls)
-        grads = stack_runs(grads, cfg)
+        loss, grads = loss_and_grads(params, cfg, rows, tp, step.tp_calls)
         params, opt = adamw.apply_updates(params, grads, opt, opt_cfg, grid,
                                           mdims)
         loss = grid.dp.psum(loss.reshape(1))[0] / grid.world
@@ -190,13 +202,16 @@ def make_prefill_fn(cfg: ModelConfig, s_max: int, grid: Grid | None = None):
     return run
 
 
-def make_decode_fn(cfg: ModelConfig, grid: Grid | None = None):
+def make_decode_fn(cfg: ModelConfig, grid: Grid | None = None,
+                   s_max: int | None = None):
     """``run(params, cache, tokens, pos) -> (logits (B,1,V) f32, cache)``:
     one greedy step over the dense cache, updated in place
     (``transformer.decode_step``), on this rank of ``grid``'s model axis
-    where it has one."""
+    where it has one.  ``s_max``, the prefill's, gives the cache's layout
+    there (a model axis needs it)."""
     tp = _tp(cfg, grid)
 
     def run(params, cache, tokens, pos):
-        return T.decode_step(params, cfg, cache, tokens, pos, tp=tp)
+        return T.decode_step(params, cfg, cache, tokens, pos, tp=tp,
+                             s_max=s_max)
     return run

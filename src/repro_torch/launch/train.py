@@ -360,9 +360,9 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
     straggler = StragglerMonitor()
     ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
     if init_params is None:
-        params = stack_runs(T.init_model(
-            cfg, seed=0, device=dev, model=model,
-            m=0 if tp is None else tp.index), cfg)
+        m = 0 if tp is None else tp.index
+        params = stack_runs(T.init_model(cfg, seed=0, device=dev,
+                                         model=model, m=m), cfg, model, m)
     elif tp is None:
         params = from_numpy(init_params, device=dev)
     else:

@@ -7,7 +7,8 @@ run): ``{"embed", "final_norm", ["lm_head"], "runs": [run, ...],
 ["enc": {"runs": [run], "final_norm"}]}``.  The port's model keeps one
 dict per layer (``"layers"``, and ``enc["layers"]``).  ``stack_runs`` and
 ``unstack_runs`` go between the two on the device; ``unstack_runs`` gives
-views, so a model can run on stacked parameters without a copy.  The
+views, so a model can run on stacked parameters without a copy (the
+train step differentiates the stacked leaves through them).  The
 training path keeps parameters, gradients for the sync and the optimiser
 state in the stacked layout, so scatter axes, int8 blocks and EF rows are
 the reference's.
@@ -83,9 +84,25 @@ def _stack(layers: list) -> dict:
             else torch.stack([l[k] for l in layers]) for k in layers[0]}
 
 
-def _layer(run: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in run.items()}
+def _unbind(run: dict, n: int, tp) -> list:
+    """The ``n`` layers' dicts of one run's stacked leaves, views (a
+    backward stacks their gradients once).  A leaf that holds fewer layers
+    is this rank's part of a run that the model axis ``tp`` splits
+    (``sharding.RUN_DIM``): it is gathered along the run dim with
+    ``tp.gather_to`` first, whose backward hands each rank its layers'
+    whole gradient."""
+    cols = {}
+    for k, v in run.items():
+        if isinstance(v, dict):
+            cols[k] = _unbind(v, n, tp)
+            continue
+        if v.shape[0] != n:
+            if tp is None or v.shape[0] * tp.size != n:
+                raise ValueError(f"{k} stacks {v.shape[0]} of a run of {n} "
+                                 f"layers")
+            v = tp.gather_to(v, 0)
+        cols[k] = v.unbind(0)
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def _enc_runs(cfg: ModelConfig) -> list:
@@ -100,7 +117,8 @@ def _stack_layers(layers: list, runs: list) -> list:
     return out
 
 
-def _unstack_layers(stacked: list, runs: list, cfg: ModelConfig) -> list:
+def _unstack_layers(stacked: list, runs: list, cfg: ModelConfig,
+                    tp=None) -> list:
     if len(stacked) != len(runs):
         raise ValueError(f"tree has {len(stacked)} runs, config "
                          f"{cfg.name} has {len(runs)}")
@@ -109,27 +127,39 @@ def _unstack_layers(stacked: list, runs: list, cfg: ModelConfig) -> list:
         if run["norm1"].shape[0] != n:
             raise ValueError(f"run of {kind} stacks {run['norm1'].shape[0]} "
                              f"layers, config says {n}")
-        out += [_layer(run, i) for i in range(n)]
+        out += _unbind(run, n, tp)
     return out
 
 
-def stack_runs(params: dict, cfg: ModelConfig) -> dict:
+def stack_runs(params: dict, cfg: ModelConfig, model: int = 1,
+               m: int = 0) -> dict:
     """The port's per-layer tree -> the reference's stacked layout (a copy
-    of the layer leaves)."""
+    of the layer leaves).  With ``model`` > 1, ``params`` is rank ``m``'s
+    per-layer model shard (``transformer.init_model(model=, m=)``), whose
+    leaves on the run dim (``sharding.RUN_DIM``) are whole: the stacked
+    shard holds the rank's layers of them, as ``shard_params`` of the
+    stacked layout cuts them."""
     out = {k: v for k, v in params.items() if k != "layers"}
     out["runs"] = _stack_layers(params["layers"], cfg.runs())
     if cfg.enc_dec:
         out["enc"] = {"runs": _stack_layers(params["enc"]["layers"],
                                             _enc_runs(cfg)),
                       "final_norm": params["enc"]["final_norm"]}
+    if model > 1:                       # a run's leaf on dim 0: RUN_DIM
+        out["runs"] = tree_map(lambda t, d: cut_shard(t, 0, model, m)
+                               if d == 0 else t, out["runs"],
+                               model_dims(cfg, model)["runs"])
     return out
 
 
-def unstack_runs(tree: dict, cfg: ModelConfig) -> dict:
+def unstack_runs(tree: dict, cfg: ModelConfig, tp=None) -> dict:
     """The reference's stacked layout -> the port's per-layer tree, each
-    layer leaf a view into its run's stacked leaf."""
+    layer leaf a view into its run's stacked leaf.  On a model axis
+    ``tp``, a model shard of it: a leaf cut along the run dim (the
+    RG-LRU's ``w_out`` on a run the axis divides) is gathered over the
+    axis first, so every layer gets its whole leaf."""
     out = {k: v for k, v in tree.items() if k != "runs"}
-    out["layers"] = _unstack_layers(tree["runs"], cfg.runs(), cfg)
+    out["layers"] = _unstack_layers(tree["runs"], cfg.runs(), cfg, tp)
     if cfg.enc_dec:
         out["enc"] = {"layers": _unstack_layers(tree["enc"]["runs"],
                                                 _enc_runs(cfg), cfg),

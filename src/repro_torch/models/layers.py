@@ -34,12 +34,16 @@ where the JAX versions return updated copies.
 On a model axis (``tp``, a ``launch.mesh.Axis`` over the M ranks of a
 model group, or None) each rank holds its shard of the parameters
 (``sharding.param_model_dims``): the attention layers, self and cross,
-run on its Hq/M and Hkv/M heads (the column-parallel ``wq``/``wk``/``wv``)
-and return the row-parallel ``wo``'s partial sum, as ``mlp_fwd`` on its
+run on its Hq/M query heads (the column-parallel ``wq``) and the KV heads
+they read (``wk``/``wv``'s columns where M divides the KV heads; else k
+and v gathered from the reference's cut inside a head, ``_kv``) and
+return the row-parallel ``wo``'s partial sum, as ``mlp_fwd`` on its
 feature slice does, and RWKV-6's time mix on its H/M heads (the WKV
 kernel and state on those heads) with its ``w_o`` rows; the caller adds
 what it can and all-reduces once.  RWKV-6's channel mix returns the
-whole output: its gate, split by columns, is gathered over the axis.
+whole output: its gate, split by columns, is gathered over the axis.  So
+does the RG-LRU, on R/M channels (its conv output gathered for the gate
+products, ``w_out`` by rows or by columns: ``_rglru_out``).
 The dense decode attends a cache whose sequence dim is sharded over the
 axis through the reference's log-sum-exp combine (``_cache_attend_sp``),
 and the MoE runs
@@ -76,14 +80,26 @@ __all__ = ["local_config", "rmsnorm", "rope", "dense_init", "init_attention",
 
 @functools.lru_cache(maxsize=None)
 def _local_cfg(cfg: ModelConfig, model: int) -> ModelConfig:
+    kv = cfg.n_kv_heads
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // model,
-                               n_kv_heads=cfg.n_kv_heads // model)
+                               n_kv_heads=kv // model if kv % model == 0
+                               else 1)
 
 
 def local_config(cfg: ModelConfig, tp) -> ModelConfig:
     """``cfg`` with the heads of one rank of the model axis ``tp`` (``cfg``
-    itself where ``tp`` is None)."""
+    itself where ``tp`` is None): its query heads, and the KV heads they
+    read (one where the axis does not divide the KV heads: the rank's
+    query heads then lie inside one, ``sharding.kv_split_ok``)."""
     return cfg if tp is None else _local_cfg(cfg, tp.size)
+
+
+def _first_kv_head(cfg: ModelConfig, tp) -> int:
+    """The first KV head that this rank's query heads read."""
+    if tp is None:
+        return 0
+    return tp.index * local_config(cfg, tp).n_heads \
+        // (cfg.n_heads // cfg.n_kv_heads)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -195,15 +211,50 @@ def _mm(x, w):
     return x @ w
 
 
-def _qkv(p, cfg: ModelConfig, x, src=None):
-    """q from ``x``, k and v from ``src`` (``x`` if None), with the q/k
-    norms where ``p`` has them."""
+def _kv(p, cfg: ModelConfig, src, tp=None, every: bool = False):
+    """k and v (B,S,n,hd) of ``src`` (B,S,D): of the KV heads that this
+    rank's query heads read on the model axis ``tp``, or of every KV head
+    (``every``).  Where the axis divides the KV heads and ``every`` is
+    not asked, the rank's columns of ``wk``/``wv`` are its KV heads.
+    Otherwise k and v are made whole first, from the rank's cut of the
+    two leaves (the reference's, ``sharding.param_model_dims``): columns
+    cut inside a head give the rank's columns of k and v, gathered with
+    one ``gather_to`` of the two stacked (each rank keeps its own KV
+    heads of them, so the backward sums the ranks' partial gradients);
+    rows give a partial sum, summed over the axis with a sum backward
+    too; a replicated leaf is read whole through ``copy_to``."""
+    B, S, D = src.shape
+    hd = cfg.head_dim
+    wk, wv = p["wk"], p["wv"]
+    if tp is None or (cfg.n_kv_heads % tp.size == 0 and not every):
+        k, v = _mm(src, wk), _mm(src, wv)
+    else:
+        if wk.shape[1] < cfg.kv_dim:
+            kv = tp.gather_to(torch.stack([_mm(src, wk), _mm(src, wv)]), -1)
+        elif wk.shape[0] < D:
+            n = wk.shape[0]
+            xs = src[..., tp.index * n:(tp.index + 1) * n]
+            kv = tp.copy_to(tp.reduce_from(torch.stack([_mm(xs, wk),
+                                                        _mm(xs, wv)])))
+        else:
+            kv = _mm(src[None], tp.copy_to(torch.stack([wk, wv]))[:, None])
+        k, v = kv.unbind(0)
+        if not every:
+            lo = _first_kv_head(cfg, tp) * hd
+            n = local_config(cfg, tp).n_kv_heads * hd
+            k, v = k[..., lo:lo + n], v[..., lo:lo + n]
+    return (k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd))
+
+
+def _qkv(p, cfg: ModelConfig, x, src=None, tp=None, every_kv: bool = False):
+    """q of this rank's query heads from ``x``, k and v from ``src``
+    (``x`` if None) as :func:`_kv` gives them, with the q/k norms where
+    ``p`` has them (on whole heads: k's after its gather)."""
     src = x if src is None else src
     B, S, _ = x.shape
-    hd = cfg.head_dim
-    q = _mm(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = _mm(src, p["wk"]).reshape(B, src.shape[1], cfg.n_kv_heads, hd)
-    v = _mm(src, p["wv"]).reshape(B, src.shape[1], cfg.n_kv_heads, hd)
+    q = _mm(x, p["wq"]).reshape(B, S, local_config(cfg, tp).n_heads,
+                                cfg.head_dim)
+    k, v = _kv(p, cfg, src, tp, every_kv)
     if "q_norm" in p:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     return q, k, v
@@ -222,9 +273,9 @@ def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
     if tp is not None and "q_norm" in p:
         p = dict(p, q_norm=tp.copy_to(p["q_norm"]),
                  k_norm=tp.copy_to(p["k_norm"]))
-    cfg = local_config(cfg, tp)
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, kv_src)
+    q, k, v = _qkv(p, cfg, x, kv_src, tp)
+    cfg = local_config(cfg, tp)
     if kv_src is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
@@ -245,12 +296,13 @@ def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
     block to a physical one (0 = the reserved null block, where idle slots
     write harmlessly); pos: (B,) per-slot token count.  Windowed layers
     store the full sequence and mask ``pos - idx >= window`` at read.
-    With ``tp``, the pools hold this rank's KV heads and y is the partial
-    sum of its ``wo`` rows.  Returns (y, pool_k, pool_v)."""
+    With ``tp``, the pools hold the KV heads that this rank's query heads
+    read and y is the partial sum of its ``wo`` rows.  Returns (y, pool_k,
+    pool_v)."""
+    q, k, v = _qkv(p, cfg, x, tp=tp)
     cfg = local_config(cfg, tp)
     B = x.shape[0]
     hd = cfg.head_dim
-    q, k, v = _qkv(p, cfg, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
 
@@ -323,29 +375,36 @@ def _gather_heads(tp, *ts):
 
 
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
-                     windowed: bool, tp=None):
+                     windowed: bool, tp=None, seq_shard: bool = False):
     """One-token decode against a dense cache.  x: (B,1,D); cache_k/v:
     (B,S_cache,Hkv,hd), written in place; pos: the number of tokens
     already in the cache (a Python int).  A windowed cache is a ring of
     ``S_cache`` slots.  Returns (y, cache_k, cache_v).
 
-    With ``tp``, y is the partial sum of this rank's ``wo`` rows.  A cache
-    that holds every KV head is this rank's slice of the sequence (the
-    reference's sequence-parallel decode, taken where the model axis
-    divides ``S_cache``): the heads' q, k and v are gathered over the axis,
-    as the reference's q enters its combine whole, and the combine's
-    output is cut back to this rank's heads.  Otherwise the cache holds
-    this rank's KV heads, and so does the attention."""
+    With ``tp``, y is the partial sum of this rank's ``wo`` rows.  With
+    ``seq_shard`` the cache is this rank's slice of the sequence with
+    every KV head (the reference's sequence-parallel decode, taken where
+    the model axis divides ``S_cache``): the heads' q, k and v are
+    gathered over the axis, as the reference's q enters its combine whole
+    (k and v come whole out of :func:`_kv` where the axis does not divide
+    the KV heads), and the combine's output is cut back to this rank's
+    heads.  Otherwise the cache holds the KV heads that this rank's query
+    heads read, and so does the attention."""
     B = x.shape[0]
     lcfg = local_config(cfg, tp)
     hd = cfg.head_dim
-    q, k, v = _qkv(p, lcfg, x)
+    sp = seq_shard and tp is not None and tp.size > 1
+    split = tp is not None and cfg.n_kv_heads % tp.size != 0
+    q, k, v = _qkv(p, cfg, x, tp=tp, every_kv=sp and split)
     pos_t = torch.tensor([pos], device=x.device)
     q = rope(q, pos_t, cfg.rope_theta)
     k = rope(k, pos_t, cfg.rope_theta)
     G = cfg.n_heads // cfg.n_kv_heads
-    if tp is not None and tp.size > 1 and cache_k.shape[2] == cfg.n_kv_heads:
-        q, k, v = _gather_heads(tp, q, k, v)
+    if sp:
+        if split:
+            q, = _gather_heads(tp, q)
+        else:
+            q, k, v = _gather_heads(tp, q, k, v)
         o = _cache_attend_sp(q.reshape(B, cfg.n_kv_heads, G, hd), k, v,
                              cache_k, cache_v, pos, windowed, tp)
         h = lcfg.n_heads
@@ -383,11 +442,11 @@ def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
     """Causal self-attention sublayer that also returns the KV cache slice
     (bf16).  Windowed layers keep the last ``window`` keys (prefill length
     must then be a multiple of the window) unless ``keep_full``.  With
-    ``tp``, this rank's heads (and their cache) and the partial sum of its
-    ``wo`` rows."""
+    ``tp``, this rank's heads (and the cache of the KV heads they read)
+    and the partial sum of its ``wo`` rows."""
+    q, k, v = _qkv(p, cfg, x, tp=tp)
     cfg = local_config(cfg, tp)
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
     pos = torch.arange(S, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
@@ -406,19 +465,17 @@ def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
 
 def cross_kv(p, cfg: ModelConfig, enc_out, tp=None):
     """Cross-attention K/V (bf16) from the encoder's output (B,Sk,D); on a
-    model axis ``tp``, of this rank's KV heads (every source position)."""
-    cfg = local_config(cfg, tp)
-    B, Sk, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"]).reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    model axis ``tp``, of the KV heads that this rank's query heads read
+    (every source position)."""
+    k, v = _kv(p, cfg, enc_out, tp)
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
 def cross_attention_decode(p, cfg: ModelConfig, x, ck, cv, tp=None):
     """One-token cross-attention (B,1,D) against the encoder's K/V, every
     source position visible.  On a model axis ``tp``, this rank's heads
-    against its KV heads' ``ck``/``cv``, and the partial sum of its
-    ``wo`` rows."""
+    against the ``ck``/``cv`` of the KV heads they read, and the partial
+    sum of its ``wo`` rows."""
     cfg = local_config(cfg, tp)
     B = x.shape[0]
     hd = cfg.head_dim
@@ -631,17 +688,18 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _rglru_gates(p, u):
-    """u: (..., R) conv output -> (a, gated input b), both f32.  softplus
-    is ``logaddexp(x, 0)``, as ``jax.nn.softplus``."""
+def _rglru_gates(p, u, u_own, lam):
+    """u: (..., R) conv output, every channel; ``u_own`` this rank's
+    channels of it (``u`` itself on one rank), ``lam`` theirs -> (a,
+    gated input b) of those channels, both f32.  softplus is
+    ``logaddexp(x, 0)``, as ``jax.nn.softplus``."""
     uf = u.float()
     r = torch.sigmoid(uf @ p["w_a"].float())
     i = torch.sigmoid(uf @ p["w_i"].float())
-    lam = p["lam"]
     log_a = -8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
-        * (i * uf)
+        * (i * u_own.float())
     return a, b
 
 
@@ -663,50 +721,98 @@ def _gelu_gate(gate, h, dtype):
     return (F.gelu(gate.float(), approximate="tanh") * h).to(dtype)
 
 
-def _rglru(p, x, h0=None):
-    """(y, h (B,S,R) f32, the pre-conv inputs u) of the recurrent block."""
+def _rglru_channels(p, tp):
+    """``conv`` (4, r) and ``lam`` (r,) of this rank's r = R/M channels.
+    Both are replicated leaves that each rank reads on its channels only,
+    so on a model axis ``tp`` they enter through one ``copy_to`` of their
+    stack (in f32, ``lam``'s dtype, which holds ``conv``'s values
+    exactly): a backward sums their partial gradients over the axis."""
+    if tp is None:
+        return p["conv"], p["lam"]
+    n = p["w_x"].shape[1]
+    cl = tp.copy_to(torch.cat([p["conv"].float(), p["lam"][None]]))
+    cl = cl[:, tp.index * n:(tp.index + 1) * n]
+    return cl[:4].to(p["conv"].dtype), cl[4]
+
+
+def _rglru_out(p, y, tp):
+    """The block's output (…, D), whole on every rank, from the gated
+    activations ``y`` of this rank's channels.  On a model axis ``tp``:
+    where ``w_out`` is whole (the reference splits a run's layers over
+    the axis, ``sharding.RUN_DIM``, and the per-layer tree keeps the leaf)
+    the rank's rows give a partial sum, summed over the axis
+    (``reduce_from``); where it holds the rank's columns (a run the axis
+    does not divide), ``y`` is gathered (``gather_to``: each rank reads it
+    for its own columns) and the output's columns with ``gather_from``."""
+    w = p["w_out"]
+    if tp is None:
+        return y @ w
+    if w.shape[1] == p["w_x"].shape[0]:             # whole: (R, D)
+        n = y.shape[-1]
+        return tp.reduce_from(y @ w[tp.index * n:(tp.index + 1) * n])
+    return tp.gather_from(tp.gather_to(y, -1) @ w, -1)
+
+
+def _gather_channels(tp, u):
+    return u if tp is None else tp.gather_to(u, -1)
+
+
+def _rglru(p, x, h0=None, tp=None):
+    """(y, h (B,S,r) f32, the pre-conv inputs u (B,S,r)) of the recurrent
+    block on this rank's r = R/M channels (all of them on one rank)."""
     S = x.shape[1]
+    conv, lam = _rglru_channels(p, tp)
     u_pre = x @ p["w_x"]
     gate = x @ p["w_gate"]
     # causal depthwise conv, kernel 4, rounded after each add as the
     # reference's Python sum
     upad = F.pad(u_pre, (0, 0, 3, 0))
-    u = sum(upad[:, i:i + S] * p["conv"][i] for i in range(4))
-    a, b = _rglru_gates(p, u)
+    u = sum(upad[:, i:i + S] * conv[i] for i in range(4))
+    a, b = _rglru_gates(p, _gather_channels(tp, u), u, lam)
     if h0 is not None:
         # out of place: autograd may have saved b
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
     h = linear_scan(a, b)
-    return _gelu_gate(gate, h, x.dtype) @ p["w_out"], h, u_pre
+    return _rglru_out(p, _gelu_gate(gate, h, x.dtype), tp), h, u_pre
 
 
-def rglru_fwd(p, cfg: ModelConfig, x, h0=None):
-    """x: (B,S,D) -> (y (B,S,D), the last state (B,R) f32)."""
-    y, h, _ = _rglru(p, x, h0)
+def rglru_fwd(p, cfg: ModelConfig, x, h0=None, tp=None):
+    """x: (B,S,D) -> (y (B,S,D), the last state (B,R) f32).  On a model
+    axis ``tp`` (the RG-LRU's ``d_rnn`` split over it): ``w_x``,
+    ``w_gate``, ``w_a`` and ``w_i`` by columns, the conv, the gates, the
+    scan and the state on this rank's R/M channels, the conv output
+    gathered for the gate products (``gather_to``), and ``w_out`` as
+    :func:`_rglru_out` takes it; y is whole on every rank, and the state
+    of the rank's channels.  Where a gradient is taken ``x`` arrives
+    through ``copy_to``."""
+    y, h, _ = _rglru(p, x, h0, tp)
     return y, h[:, -1]
 
 
-def rglru_prefill(p, cfg: ModelConfig, x):
+def rglru_prefill(p, cfg: ModelConfig, x, tp=None):
     """Forward plus the state decode continues from: (y, h (B,R) f32, the
-    last 3 pre-conv inputs (B,3,R), zero-padded in front if S < 3)."""
-    y, h, u_pre = _rglru(p, x)
+    last 3 pre-conv inputs (B,3,R), zero-padded in front if S < 3); on a
+    model axis ``tp``, the state of this rank's R/M channels."""
+    y, h, u_pre = _rglru(p, x, tp=tp)
     S = x.shape[1]
     conv = u_pre[:, -3:] if S >= 3 else F.pad(u_pre, (0, 0, 3 - S, 0))
     return y, h[:, -1].float(), conv
 
 
-def rglru_decode(p, cfg: ModelConfig, x, h_prev, conv_state):
-    """x: (B,1,D); h_prev: (B,R); conv_state: (B,3,R).  The conv's four
-    taps are summed in f32 and rounded once, as XLA's bf16 dot.  Returns
-    (y (B,1,D), h, the next conv state)."""
+def rglru_decode(p, cfg: ModelConfig, x, h_prev, conv_state, tp=None):
+    """x: (B,1,D); h_prev: (B,R); conv_state: (B,3,R) (on a model axis
+    ``tp``, of this rank's R/M channels).  The conv's four taps are summed
+    in f32 and rounded once, as XLA's bf16 dot.  Returns (y (B,1,D), h,
+    the next conv state)."""
+    conv, lam = _rglru_channels(p, tp)
     u_new = (x @ p["w_x"])[:, 0]
     gate = (x @ p["w_gate"])[:, 0]
     window = torch.cat([conv_state, u_new[:, None]], 1)      # (B,4,R)
-    u = (window.float() * p["conv"].float()).sum(1).to(
-        torch.promote_types(window.dtype, p["conv"].dtype))
-    a, b = _rglru_gates(p, u)
+    u = (window.float() * conv.float()).sum(1).to(
+        torch.promote_types(window.dtype, conv.dtype))
+    a, b = _rglru_gates(p, _gather_channels(tp, u), u, lam)
     h = a * h_prev + b
-    return (_gelu_gate(gate, h, x.dtype) @ p["w_out"])[:, None], h, \
+    return _rglru_out(p, _gelu_gate(gate, h, x.dtype), tp)[:, None], h, \
         window[:, 1:]
 
 

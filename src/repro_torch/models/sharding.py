@@ -19,29 +19,38 @@ input gate (3-D once stacked).  One rule lands on the run dim itself: the
 RG-LRU's ``w_out`` shares the expert stacks' name, and on a run whose
 length the axis divides the reference splits the run's layers over the
 ranks.  A per-layer tree cannot hold that split: its dim is ``RUN_DIM``,
-and the leaf stays whole on every rank (``tp_check`` refuses RG-LRU).
+the per-layer leaf stays whole on every rank, and the RG-LRU uses the
+rows of its channels (``layers.rglru_fwd``); the stacked training layout
+holds the rank's layers of the run (``convert.model_dims``: dim 0).
+
+The flat-dim rule cuts ``wk``/``wv`` inside a head where the axis does
+not divide the KV heads (recurrentgemma's one KV head at M 2: 128 of its
+256 columns a rank).  The port keeps that cut, which ZeRO-1's scatter
+dims, the checkpoints and the clipped norm read, and gathers the ranks'
+columns of k and v before it keeps the KV heads its query heads read
+(``layers._kv``).
 
 :func:`tp_check` holds a config to what the port's tensor parallelism
-computes: whole heads and whole experts on each rank; attention stacks
+computes: whole query heads and whole experts on each rank, each rank's
+query heads reading whole KV heads or lying inside one; attention stacks
 with an MLP or a MoE, RWKV-6 (its heads are ``d_model //
-rwkv_head_dim``) and the enc-dec encoder and cross attention, not the
-RG-LRU.
+rwkv_head_dim``), the RG-LRU on ``d_rnn / M`` channels, and the enc-dec
+encoder and cross attention.
 """
 from __future__ import annotations
 
 from .config import ModelConfig
 
 __all__ = ["NOT_PORTED_TP", "NOT_PORTED_TP_ARCH", "RUN_DIM",
-           "param_model_dims",
+           "param_model_dims", "kv_split_ok",
            "layer_model_dims", "cut_shard", "tp_check", "dp_axes",
            "batch_pspec"]
 
 NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 5: fail_at and elastic recovery "
                  "of training on a model axis")
-NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: the RG-LRU family on a "
-                      "model axis, the last of the recurrent and enc-dec "
-                      "families there, with KV-head counts M does not "
-                      "divide")
+NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: head, KV-head, expert, "
+                      "feature, vocabulary and recurrence-width counts a "
+                      "model axis does not divide")
 
 RUN_DIM = -2      # the reference splits the run's layers over the axis
 
@@ -150,37 +159,53 @@ def cut_shard(t, dim: int, model: int, m: int):
     return part.clone() if part.is_contiguous() else part.contiguous()
 
 
+def kv_split_ok(n_heads: int, n_kv: int, model_size: int) -> bool:
+    """Whether each rank's ``n_heads / M`` query heads read whole KV heads
+    (``M`` divides ``n_kv``) or lie inside one (``M / n_kv`` divides the
+    group ``n_heads / n_kv``); ``M`` must divide ``n_heads``."""
+    if n_heads % model_size:
+        return False
+    if n_kv % model_size == 0:
+        return True
+    return model_size % n_kv == 0 and \
+        (n_heads // n_kv) % (model_size // n_kv) == 0
+
+
 def tp_check(cfg: ModelConfig, model_size: int) -> None:
     """Raise NotImplementedError where the port cannot serve or train
-    ``cfg`` on a model axis of ``model_size`` ranks: the RG-LRU family,
-    and a head, expert, feature or vocabulary count the axis does not
-    divide (where the reference's flat-dim split or its fallback would cut
-    inside a head or an expert, which GSPMD absorbs and the port does
-    not).  An RWKV-6 stack counts ``d_model // rwkv_head_dim`` heads and
-    no KV heads."""
+    ``cfg`` on a model axis of ``model_size`` ranks: a query-head, expert,
+    MLP-feature, vocabulary or RG-LRU-width (``d_rnn``) count the axis
+    does not divide, or KV heads that :func:`kv_split_ok` refuses (where
+    the reference's flat-dim split or its fallback would cut inside a head
+    or an expert, which GSPMD absorbs and the port does not).  An RWKV-6
+    stack counts ``d_model // rwkv_head_dim`` heads and no KV heads; an
+    RG-LRU run whose length the axis does not divide splits ``w_out`` by
+    columns, so ``d_model`` must divide too."""
     if model_size <= 1:
         return
-    fam = sorted({k for k in cfg.pattern
-                  if k not in ("attn", "local", "rwkv6")})
-    if fam:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(fam)} on a model axis of {model_size} "
-            f"is not ported ({NOT_PORTED_TP_ARCH})")
     if "rwkv6" in cfg.pattern:
         counts = {"heads": cfg.d_model // cfg.rwkv_head_dim}
     else:
-        counts = {"heads": cfg.n_heads, "KV heads": cfg.n_kv_heads}
+        counts = {"heads": cfg.n_heads}
     counts["vocabulary rows"] = cfg.vocab
     if cfg.moe is not None:
         counts["experts"] = cfg.moe.n_experts
     if cfg.moe is None or cfg.moe.shared_expert:
         counts["MLP features"] = cfg.d_ff
+    if "rglru" in cfg.pattern:
+        counts["RG-LRU channels"] = cfg.d_rnn or cfg.d_model
+        if any(n % model_size for k, n in cfg.runs() if k == "rglru"):
+            counts["model width"] = cfg.d_model
     bad = [f"{n} {k}" for k, n in counts.items() if n % model_size]
+    if "rwkv6" not in cfg.pattern and not kv_split_ok(
+            cfg.n_heads, cfg.n_kv_heads, model_size):
+        bad.append(f"{cfg.n_kv_heads} KV heads (each rank's query heads "
+                   f"must read whole KV heads or lie inside one)")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {model_size} does not divide its "
             f"{', '.join(bad)}; the port shards whole heads, experts and "
-            f"rows only (ROADMAP.md, Queue 1 item 5 lists the split)")
+            f"rows only ({NOT_PORTED_TP_ARCH})")
 
 
 def dp_axes(pods: int) -> tuple[str, ...]:

@@ -36,16 +36,18 @@ it owns, then one all-reduce), the tied head gives this rank's columns of
 the logits, all-gathered so that every rank takes the same greedy token;
 attention and the MLP return row-parallel partial sums, all-reduced once
 a sublayer, and once for both in the parallel-residual block; the MoE
-reduces inside its expert-parallel block.  Caches hold this rank's KV
-heads, but the dense cache's sequence dim is split over the axis where M
-divides it (the reference's sequence-parallel decode).  RWKV-6 runs its
+reduces inside its expert-parallel block.  Caches hold the KV heads this
+rank's query heads read (one, which ranks share, where M does not divide
+the KV heads), but the dense cache's sequence dim is split over the axis
+where M divides it (the reference's sequence-parallel decode).  The
+RG-LRU runs on the rank's R/M channels, its state and conv inputs in the
+cache on them, and returns the whole output.  RWKV-6 runs its
 time mix on the rank's heads (their WKV state in the cache) and its
 channel mix with the gate gathered over the axis; its carried rows
 ``x_tm``/``x_cm`` are whole on every rank.  The enc-dec encoder runs its
 layers under the attention stack's rules, its output whole on every
 rank, and the cross attention on the rank's heads, its cache of the
-rank's KV heads over every source position.  RG-LRU is refused
-(``sharding.tp_check``).
+rank's KV heads over every source position.
 
 Training runs on a model axis too (the reference's GSPMD forward and
 backward over ``model``), with the axis's differentiated collectives
@@ -57,17 +59,19 @@ output, and on the q/k norms' weights, RWKV-6's ``u`` and the MoE
 router's, replicated leaves that each rank reads on its own heads or
 experts only (the other replicated leaves of a trained config, the RMS
 norms and RWKV-6's ``mix``/``cm_mix``, act on replicated activations
-ahead of a ``copy_to``, so their gradients are whole on every rank).
-RWKV-6's channel-mix gate is gathered with ``gather_from``, whose
-backward keeps the rank's slice.  The MoE takes its normed input through
-``copy_to`` and sums its experts' and its shared expert's partial
-outputs with ``reduce_from``.  A
-frontend's prefix is replicated: it joins the tokens' embeddings after
-their sum over the axis.  The loss is a vocab-parallel cross-entropy:
-each rank's head columns give its logits, and the max over the axis
-(detached), one sum of the exponentials and of the gold logit from the
-rank that owns the label's column give the loss; the (B, S, V) logits
-are never gathered.
+ahead of a ``copy_to``, so their gradients are whole on every rank), and
+on the RG-LRU's ``conv`` and ``lam`` (one stack).  RWKV-6's channel-mix
+gate is gathered with ``gather_from``, whose backward keeps the rank's
+slice; the RG-LRU's conv output, k and v cut inside a head, and a run's
+layers that the axis splits are gathered with ``gather_to``, whose
+backward sums the ranks' partial gradients.  The MoE takes its normed
+input through ``copy_to`` and sums its experts' and its shared expert's
+partial outputs with ``reduce_from``.  A frontend's prefix is
+replicated: it joins the tokens' embeddings after their sum over the
+axis.  The loss is a vocab-parallel cross-entropy: each rank's head
+columns give its logits, and the max over the axis (detached), one sum
+of the exponentials and of the gold logit from the rank that owns the
+label's column give the loss; the (B, S, V) logits are never gathered.
 """
 from __future__ import annotations
 
@@ -149,26 +153,27 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
         return cut_shard(t, param_model_dims({name: t}, model)[name],
                          model, m)
 
-    def layer(kind, cross):
-        # tp_check holds a sharded model to attention, MLP and RWKV-6
-        # runs, whose dims do not depend on the run's length
+    def layer(kind, cross, run):
+        # cut as param_model_dims decides it on the run's stacked shapes
+        # (the RG-LRU's w_out lands on the run dim where M divides the run)
         p = _init_layer(gen, cfg, kind, cross, zeros)
         if model == 1:
             return p
-        return _tree_cut(p, layer_model_dims(p, model), model, m)
+        return _tree_cut(p, layer_model_dims(p, model, run), model, m)
 
     embed = torch.randn((V, D), generator=gen, device=dev) / math.sqrt(D)
     cross = cfg.enc_dec is not None
     params = {"embed": cut("embed", embed.to(torch.bfloat16)),
               "final_norm": zeros()}
     del embed
-    params["layers"] = [layer(kind, cross) for kind in cfg.pattern]
+    params["layers"] = [layer(kind, cross, n) for kind, n in cfg.runs()
+                        for _ in range(n)]
     if not cfg.tie_embeddings:
         params["lm_head"] = cut("lm_head", L.dense_init(gen, D, V))
     if cross:
+        n_enc = cfg.enc_dec.n_enc_layers
         params["enc"] = {
-            "layers": [layer("attn", False)
-                       for _ in range(cfg.enc_dec.n_enc_layers)],
+            "layers": [layer("attn", False, n_enc) for _ in range(n_enc)],
             "final_norm": zeros()}
     return params
 
@@ -261,7 +266,8 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
         return x + L.rwkv6_channel_mix(p["rwkv"], cfg,
                                        L.rmsnorm(x, p["norm2"]), tp)
     if kind == "rglru":
-        y, _ = L.rglru_fwd(p["rec"], cfg, L.rmsnorm(x, p["norm1"]))
+        y, _ = L.rglru_fwd(p["rec"], cfg, _copy(tp, L.rmsnorm(x, p["norm1"])),
+                           tp=tp)
         x = x + y
     else:
         window = cfg.window if kind == "local" else None
@@ -408,16 +414,18 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
     bf16; RG-LRU {"h"} (n, B, R) f32 and {"conv"} (n, B, 3, R) bf16;
     RWKV-6 {"S"} (n, B, H, hd, hd) f32 and {"x_tm", "x_cm"} (n, B, D)
     bf16.  On a model axis ``tp`` an attention entry is (n, B, S_c/M,
-    Hkv, hd) where M divides S_c, else (n, B, S_c, Hkv/M, hd); the cross
-    entry (n, B, src_len, Hkv/M, hd), and RWKV-6's state (n, B, H/M, hd,
-    hd)."""
+    Hkv, hd) where M divides S_c, else (n, B, S_c, h, hd) with h the KV
+    heads that the rank's query heads read (Hkv/M, or 1 where M does not
+    divide Hkv); the cross entry (n, B, src_len, h, hd), RWKV-6's state
+    (n, B, H/M, hd, hd), and the RG-LRU's h and conv of R/M channels."""
     port_check(cfg)
     if tp is not None:
         tp_check(cfg, tp.size)
     dev = resolve_device(device)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
-    R = cfg.d_rnn or cfg.d_model
     M = 1 if tp is None else tp.size
+    R = (cfg.d_rnn or cfg.d_model) // M
+    h_kv = L.local_config(cfg, tp).n_kv_heads
     cache = []
     for kind, n in cfg.runs():
         if kind == "rwkv6":
@@ -433,15 +441,13 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
                           "conv": torch.zeros((n, B, 3, R), **bf16)})
         else:
             s_c = _cache_len(cfg, kind, s_max)
-            shape = (n, B, s_c, cfg.n_kv_heads, cfg.head_dim)
+            shape = (n, B, s_c, h_kv, cfg.head_dim)
             if _seq_sharded(tp, s_c):
                 shape = (n, B, s_c // tp.size, cfg.n_kv_heads, cfg.head_dim)
-            elif tp is not None:
-                shape = (n, B, s_c, cfg.n_kv_heads // tp.size, cfg.head_dim)
             ent = {"k": torch.zeros(shape, **bf16),
                    "v": torch.zeros(shape, **bf16)}
             if cfg.enc_dec:
-                xshape = (n, B, src_len, cfg.n_kv_heads // M, cfg.head_dim)
+                xshape = (n, B, src_len, h_kv, cfg.head_dim)
                 ent["xk"] = torch.zeros(xshape, **bf16)
                 ent["xv"] = torch.zeros(xshape, **bf16)
             cache.append(ent)
@@ -461,10 +467,11 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
         return x, {"S": st["S"], "x_tm": xn[:, -1].to(torch.bfloat16),
                    "x_cm": xn2[:, -1].to(torch.bfloat16)}
     if kind == "rglru":
-        y, h, conv = L.rglru_prefill(p["rec"], cfg, L.rmsnorm(x, p["norm1"]))
+        y, h, conv = L.rglru_prefill(p["rec"], cfg, L.rmsnorm(x, p["norm1"]),
+                                     tp)
         x = x + y
-        return x + _ffn(p, cfg, x), {"h": h,
-                                     "conv": conv.to(torch.bfloat16)}
+        return x + _ffn(p, cfg, x, tp), {"h": h,
+                                         "conv": conv.to(torch.bfloat16)}
     y, ck, cv = L.attention_prefill(
         p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
         window=cfg.window if kind == "local" else None, keep_full=keep_full,
@@ -479,11 +486,15 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
     return x + _ffn(p, cfg, x, tp), ent
 
 
-def _seq_slice(tp, t, s_c: int):
-    """A run's cache (n, B, s_c, Hkv/M, hd) of this rank's heads -> its
-    slice of the sequence with every head, (n, B, s_c/M, Hkv, hd): one
-    all-gather over the model axis."""
+def _seq_slice(tp, t, s_c: int, n_kv: int):
+    """A run's cache (n, B, s_c, h, hd) of the KV heads that this rank's
+    query heads read -> its slice of the sequence with every KV head,
+    (n, B, s_c/M, n_kv, hd): one all-gather over the model axis.  Where
+    the ranks share a KV head (M a multiple of ``n_kv``), each head is
+    taken from the first rank that reads it (they hold equal values)."""
     t = tp.all_gather(t, dim=3)
+    if t.shape[3] > n_kv:
+        t = t[:, :, :, ::t.shape[3] // n_kv]
     n = s_c // tp.size
     return t[:, :, tp.index * n:(tp.index + 1) * n].contiguous()
 
@@ -530,8 +541,8 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
                 ent["k"], ent["v"] = F.pad(ent["k"], pad), F.pad(ent["v"],
                                                                  pad)
             if seq_shard and _seq_sharded(tp, tgt):
-                ent["k"] = _seq_slice(tp, ent["k"], tgt)
-                ent["v"] = _seq_slice(tp, ent["v"], tgt)
+                ent["k"] = _seq_slice(tp, ent["k"], tgt, cfg.n_kv_heads)
+                ent["v"] = _seq_slice(tp, ent["v"], tgt, cfg.n_kv_heads)
         cache.append(ent)
     x = L.rmsnorm(x, params["final_norm"])
     if last_pos is None:
@@ -542,9 +553,10 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
 
 
 def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
-                  pos: int, tp=None):
+                  pos: int, tp=None, seq_shard: bool = False):
     """One layer's decode step; writes layer ``i`` of the run's cache
-    entry ``ent`` in place."""
+    entry ``ent`` in place (an attention run's split over the sequence
+    where ``seq_shard``)."""
     if kind == "rwkv6":
         xn = L.rmsnorm(x, p["norm1"])
         y, st = L.rwkv6_decode(p["rwkv"], cfg, xn,
@@ -561,14 +573,15 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
         return x + y2
     if kind == "rglru":
         y, h, conv = L.rglru_decode(p["rec"], cfg, L.rmsnorm(x, p["norm1"]),
-                                    ent["h"][i], ent["conv"][i])
+                                    ent["h"][i], ent["conv"][i], tp)
         ent["h"][i] = h
         ent["conv"][i] = conv.to(torch.bfloat16)
         x = x + y
-        return x + _ffn(p, cfg, x)
+        return x + _ffn(p, cfg, x, tp)
     y, _, _ = L.attention_decode(p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
                                  ent["k"][i], ent["v"][i], pos,
-                                 windowed=kind == "local", tp=tp)
+                                 windowed=kind == "local", tp=tp,
+                                 seq_shard=seq_shard)
     x = x + _psum(tp, y)
     if "xk" in ent:
         x = x + _psum(tp, L.cross_attention_decode(
@@ -579,16 +592,26 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
 
 @torch.inference_mode()
 def decode_step(params, cfg: ModelConfig, cache: list, tokens, pos,
-                tp=None):
+                tp=None, s_max: int | None = None):
     """One-token serve step over the dense cache of :func:`prefill` or
     :func:`init_cache`, updated in place.  tokens: (B,1) int; pos: the
     number of tokens already in the cache, one for the whole batch (an int
-    or a 0-d tensor).  Returns (logits (B,1,V) f32, cache)."""
+    or a 0-d tensor).  Returns (logits (B,1,V) f32, cache).  On a model
+    axis ``s_max``, the length the cache was made for, gives each
+    attention run's layout (:func:`init_cache`): a rank's cache cannot
+    say it where every rank holds the one KV head."""
     pos = int(pos)
+    attn = [k in ("attn", "local") for k, _ in cfg.runs()]
+    if tp is not None and tp.size > 1 and any(attn) and s_max is None:
+        raise ValueError(f"{cfg.name}: a dense decode on a model axis takes "
+                         f"the prefill's s_max, which gives the cache's "
+                         f"layout")
     x = embed_inputs(params, cfg, {"tokens": tokens}, tp)
-    for ent, (kind, layers) in zip(cache, _runs(params, cfg)):
+    for ent, a, (kind, layers) in zip(cache, attn, _runs(params, cfg)):
+        sp = a and s_max is not None \
+            and _seq_sharded(tp, _cache_len(cfg, kind, s_max))
         for i, p in enumerate(layers):
-            x = _layer_decode(p, cfg, kind, x, ent, i, pos, tp)
+            x = _layer_decode(p, cfg, kind, x, ent, i, pos, tp, sp)
     x = L.rmsnorm(x, params["final_norm"])
     return _logits(params, cfg, x, tp), cache
 
@@ -614,15 +637,15 @@ def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int, *,
                      device: str | torch.device = "cuda", tp=None) -> list:
     """One k/v pool pair per run: (run, n_blocks, block_size, Hkv, hd)
     bf16.  Physical block 0 is the null block no request ever owns.  On a
-    model axis ``tp``, this rank's Hkv/M heads (the reference's
-    ``paged_pool_shardings``: any request's blocks live anywhere in the
-    pool, so only the KV-head dim splits)."""
+    model axis ``tp``, the KV heads that this rank's query heads read,
+    Hkv/M or one of them (the reference's ``paged_pool_shardings``: any
+    request's blocks live anywhere in the pool, so only the KV-head dim
+    splits)."""
     paged_arch_check(cfg)
     dev = resolve_device(device)
-    Hkv = cfg.n_kv_heads
     if tp is not None:
         tp_check(cfg, tp.size)
-        Hkv //= tp.size
+    Hkv = L.local_config(cfg, tp).n_kv_heads
     shape = (n_blocks, block_size, Hkv, cfg.head_dim)
     return [{"k": torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev),
              "v": torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev)}

@@ -332,18 +332,31 @@ def grid_state(rank, params, ckpt_dir, cases, xs):
 # A model axis: tensor parallelism, the sequence-parallel decode, EP
 # ---------------------------------------------------------------------- #
 
-def _from_full(t, like, tp):
+def _from_full(t, like, tp, first=None):
     """This rank's part of an unsharded cache or pool leaf ``t`` (numpy)
     in the layout of ``like``: cut along the one dim where they differ
-    (the sequence where ``like`` holds every KV head, else the KV heads;
-    RWKV-6's heads), or whole (RWKV-6's carried rows), as chip_smoke.py's
-    ``tp_cut``."""
+    (the sequence where ``like`` holds every KV head, else the KV heads,
+    from ``first`` where given: the first KV head that the rank's query
+    heads read; RWKV-6's heads, the RG-LRU's channels), or whole (RWKV-6's
+    carried rows), as chip_smoke.py's ``tp_cut``."""
     t = torch.from_numpy(np.array(t)).to(like.dtype)
     dims = [d for d in range(t.dim()) if t.shape[d] != like.shape[d]]
     if not dims:
         return t
     n = like.shape[dims[0]]
-    return t.narrow(dims[0], tp.index * n, n).contiguous()
+    start = tp.index * n if first is None or dims[0] != 3 else first
+    return t.narrow(dims[0], start, n).contiguous()
+
+
+def _cut_state(ins, key, i, state, cfg, tp):
+    """This rank's part of ``ins[key][i]``, the unsharded run's cache or
+    pools before step ``i``, in the layout of ``state``."""
+    from repro_torch.models import layers as L
+
+    first = L._first_kv_head(cfg, tp)
+    return [{k: _from_full(ins[key][i][r][k], v, tp,
+                           first if k in ("k", "v", "xk", "xv") else None)
+             for k, v in ent.items()} for r, ent in enumerate(state)]
 
 
 def model_paths(params, cfg, ins, tp=None):
@@ -365,8 +378,7 @@ def model_paths(params, cfg, ins, tp=None):
 
     calls = (lambda: tp.calls) if tp is not None else (lambda: 0)
     start = lambda kind, i, cache: cache if f"{kind}_before" not in ins \
-        else [{k: _from_full(ins[f"{kind}_before"][i][r][k], v, tp)
-               for k, v in ent.items()} for r, ent in enumerate(cache)]
+        else _cut_state(ins, f"{kind}_before", i, cache, cfg, tp)
     keep = lambda cache: [{k: v.float().numpy() for k, v in ent.items()}
                           for ent in cache]
     out = {"pools_before": [], "caches_before": []}
@@ -404,7 +416,7 @@ def model_paths(params, cfg, ins, tp=None):
         out["caches_before"].append(keep(cache))
         c0 = calls()
         lg, cache = T.decode_step(params, cfg, cache, _t(t).long(), S + i,
-                                  tp=tp)
+                                  tp=tp, s_max=ins["s_max"])
         out["dense_step_calls"] = np.array(calls() - c0)
         steps.append(lg.numpy())
     out["dense_steps"] = np.stack(steps)
@@ -638,13 +650,12 @@ def family_paths(params, cfg, ins, tp=None):
     steps = []
     for i, t in enumerate(ins["forced"]):
         if "caches_before" in ins:
-            cache = [{k: _from_full(ins["caches_before"][i][r][k], v, tp)
-                      for k, v in ent.items()} for r, ent in enumerate(cache)]
+            cache = _cut_state(ins, "caches_before", i, cache, cfg, tp)
         else:
             out["caches_before"].append(keep(cache))
         c0 = calls()
         lg, cache = T.decode_step(params, cfg, cache, _t(t).long(), S + i,
-                                  tp=tp)
+                                  tp=tp, s_max=ins["s_max"])
         out["step_calls"].append(calls() - c0)
         steps.append(lg.numpy())
     out["steps"] = np.stack(steps)
@@ -731,3 +742,87 @@ def family_prefill_on_card(rank, name, ins, s_max):
                       for e in cache],
             "flash_fwd": fa.flash_attention_fwd.launches - f0,
             "wkv": kw.wkv_chunked.launches - w0}
+
+
+# ---------------------------------------------------------------------- #
+# The RG-LRU family and the KV-head split on a model axis
+# ---------------------------------------------------------------------- #
+
+def _gather_to_ops(tp, xs, ws, c):
+    """``gather_to`` of this rank's slice ``xs[m]`` (n, k) along its last
+    dim, read by a consumer of this rank's own, ``gathered @ ws[m]``,
+    through a backward against ``c``; returns the forward, the slice's
+    gradient and the axis's counters (forward, backward)."""
+    c0 = (tp.calls, tp.bwd_calls)
+    x = _t(xs[tp.index]).requires_grad_(True)
+    y = tp.gather_to(x, -1)
+    ((y @ _t(ws[tp.index])) * _t(c)).sum().backward()
+    return {"y": y.detach().numpy(), "grad": x.grad.numpy(),
+            "calls": np.array([tp.calls - c0[0], tp.bwd_calls - c0[1]])}
+
+
+def _tp_step(grid, cfg, params, batch, opt_kw):
+    """One train step (``make_train_step``) of this rank's shard of the
+    stacked f32 ``params`` (numpy) on ``grid``, with the gradients it
+    syncs (``loss_and_grads``, the same computation) and the stacked
+    layout's model dims; numpy."""
+    tp = grid.tp
+    p = shard_params(from_numpy(params, device=CPU), cfg, tp.size, tp.index)
+    _, grads = loss_and_grads(p, cfg, device_batch(batch, CPU), tp)
+    opt_cfg = adamw.OptConfig(**opt_kw)
+    mdims = model_dims(cfg, tp.size)
+    opt = adamw.shard_opt_state(adamw.init_opt_state(p, opt_cfg), p,
+                                opt_cfg, grid, mdims)
+    new_p, new_opt, loss = make_train_step(cfg, opt_cfg, grid, CPU)(
+        p, opt, batch)
+    return {"grads": to_numpy(grads), "params": to_numpy(new_p),
+            "opt": to_numpy(new_opt), "loss": loss.numpy(),
+            "mdims": mdims}
+
+
+def tp_rglru(rank, cases, gather, step):
+    """This rank of four gloo ranks on the CPU, on a 1x1x4 grid, then on
+    1x2x2, whose first model group computes.  For each case ``(name, cfg,
+    models, paths, params, ins, batch)`` whose ``models`` hold the grid's
+    model size: this rank's shard of the reference's f32 weights
+    ``params`` (numpy, the stacked layout), cut per layer, through
+    ``paths`` (:func:`family_paths`, the dense path, or
+    :func:`model_paths`, the paged and the dense paths) and, where
+    ``batch`` is given, the loss and gradients of the stacked shard
+    (``loss_and_grads``, which gathers the RG-LRU's ``w_out`` along its
+    run dim where the axis splits the run) with the model axis's
+    collectives; :func:`_gather_to_ops` of ``gather[model]``.  On the
+    first model group of 1x2x2, as a 1x1x2 grid, :func:`_tp_step` of
+    ``step`` (cfg, params, batch, opt_kw).  Results under ``(model,
+    name)``."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import Grid
+
+    out = {}
+    for pods, data, model in ((1, 1, 4), (1, 2, 2)):
+        grid = make_grid(pods, data, CPU, model=model)
+        tp = grid.tp
+        if grid.rank != 0:
+            continue
+        out[model, "gather"] = _gather_to_ops(tp, *gather[model])
+        for name, cfg, models, paths, params, ins, batch in cases:
+            if model not in models:
+                continue
+            full = from_numpy(params, device=CPU)
+            fn = family_paths if paths == "family" else model_paths
+            res = fn(shard_params(unstack_runs(full, cfg), cfg, model,
+                                  tp.index), cfg, ins, tp)
+            if batch is not None:
+                calls = {}
+                stacked = shard_params(full, cfg, model, tp.index)
+                loss, grads = loss_and_grads(stacked, cfg,
+                                             device_batch(batch, CPU), tp,
+                                             calls)
+                res.update(loss=loss.numpy(), calls=calls,
+                           grads=to_numpy(grads))
+            out[model, name] = res
+        if model == 2:
+            one = dataclasses.replace(Grid.single(), model=2, tp=tp)
+            out["step"] = _tp_step(one, *step)
+    return out

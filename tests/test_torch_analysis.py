@@ -233,7 +233,7 @@ def test_analysis_cli_exits_zero():
 # phrase that names the subject in both the pointer and the item)
 POINTERS = [
     ("models/sharding.py", 5, "training on a model axis"),
-    ("models/sharding.py", 5, "RG-LRU family"),
+    ("models/sharding.py", 5, "model axis does not divide"),
 ]
 
 

@@ -83,6 +83,7 @@ LSE_MIRROR_TOL = 1e-4
     (1, 300, 300, 10, 1, 256, True, 128, 0),       # recurrentgemma: G = 10
     (1, 512, 512, 16, 16, 128, True, None, 0),     # olmoe prefill
     (1, 2048, 2048, 10, 1, 256, True, 2048, 0),    # recurrentgemma local
+    (1, 2048, 2048, 5, 1, 256, True, 2048, 0),     # its rank at M 2: G 5
     (4, 512, 512, 16, 16, 64, False, None, 0),     # seamless encoder
     (4, 128, 512, 16, 16, 64, False, None, 0),     # seamless cross
     (4, 512, 512, 32, 8, 128, True, None, 0),      # pixtral
@@ -224,15 +225,10 @@ def test_olmoe_serve_on_card(dev):
     assert L.moe_fwd.host_syncs >= cfg.n_layers * out["prefills"]
 
 
-def test_serve_on_a_model_axis_on_card(dev):
-    """``serve --mesh 1x1x2`` on the card: two gloo ranks share it, each
-    with its shard and its heads (the flash kernel on 2 of gpt-100m's 4
-    smoke heads, one launch a layer and prefill on each rank), their
-    collectives staged through host memory; the tokens are the one-rank
-    serve's and the first prefill's bf16 logits within 5e-2 of its."""
-    cfg = get_config("gpt_100m", smoke=True)
-    one = serve("gpt-100m", 3, 21, 5, smoke=True, device="cuda")
-    two = serve("gpt-100m", 3, 21, 5, "1x1x2", smoke=True, device="cuda")
+def _serve_on_a_model_axis(arch):
+    cfg = get_config(arch, smoke=True)
+    one = serve(arch, 3, 21, 5, smoke=True, device="cuda")
+    two = serve(arch, 3, 21, 5, "1x1x2", smoke=True, device="cuda")
     assert all(r.state is ReqState.DONE for r in two["requests"])
     np.testing.assert_array_equal(two["generated"], one["generated"])
     np.testing.assert_allclose(two["first_logits"], one["first_logits"],
@@ -240,6 +236,24 @@ def test_serve_on_a_model_axis_on_card(dev):
     ax = two["model_axis"]
     assert ax["flash_fwd_launches"] == [cfg.n_layers * two["prefills"]] * 2
     assert all(b > 0 for b in ax["staged_bytes"])
+
+
+def test_serve_on_a_model_axis_on_card(dev):
+    """``serve --mesh 1x1x2`` on the card: two gloo ranks share it, each
+    with its shard and its heads (the flash kernel on 2 of gpt-100m's 4
+    smoke heads, one launch a layer and prefill on each rank), their
+    collectives staged through host memory; the tokens are the one-rank
+    serve's and the first prefill's bf16 logits within 5e-2 of its."""
+    _serve_on_a_model_axis("gpt-100m")
+
+
+def test_kv_head_split_served_paged_on_card(dev):
+    """qwen3-4b's smoke config, whose one KV head the two ranks share
+    (``wk``/``wv`` cut inside it, k and v gathered), through the paged
+    ``serve --mesh 1x1x2`` on the card, as the test above holds
+    gpt-100m: the flash kernel on 2 query heads and the one KV head a
+    rank, the pools holding that head on each rank."""
+    _serve_on_a_model_axis("qwen3-4b")
 
 
 def test_serve_on_card_launches_the_kernel(dev):
@@ -264,6 +278,7 @@ def test_serve_on_card_launches_the_kernel(dev):
     (1, 96, 96, 6, 3, 32, True, None, 0),          # G = 3 leaves a row idle
     # hd 256: the bf16 column split and the f32 32-key tile
     (1, 512, 512, 10, 1, 256, True, 128, 0),       # recurrentgemma: G 10
+    (1, 2048, 2048, 5, 1, 256, True, 2048, 0),     # its rank at M 2: G 5
     (2, 333, 333, 8, 1, 256, True, None, 0),       # ragged, G 8
     (1, 300, 300, 16, 8, 256, True, 100, 0),       # gemma3 local, G 2
     (1, 128, 384, 4, 4, 256, True, None, 256),     # continuation, G 1
@@ -739,22 +754,26 @@ def test_rwkv6_serving_on_card_matches_cpu(dev):
                                        rtol=2.0 ** -7, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "seamless_m4t_medium"])
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "seamless_m4t_medium",
+                                  "recurrentgemma_2b"])
 def test_model_axis_prefill_of_the_families_on_card(dev, arch):
-    """RWKV-6 and enc-dec on a model axis on the card: two gloo ranks
-    share it, each its shard of the smoke config in f32; the dense
-    prefill's logits within 1e-5 of one rank's on the card (chip_smoke's
-    phase 24d), every cache leaf of the rank joined over the axis within
-    1e-4 of its scale (the f32 WKV state) or one bf16 ulp (bf16 leaves);
-    each rank launches the WKV kernel once a layer on its heads, or the
-    flash forward once an encoder layer and twice a decoder layer (self
-    and cross attention)."""
+    """RWKV-6, enc-dec and the RG-LRU on a model axis on the card: two
+    gloo ranks share it, each its shard of the smoke config in f32; the
+    dense prefill's logits within 1e-5 of one rank's on the card
+    (chip_smoke's phase 24d), every cache leaf of the rank joined over the
+    axis within 1e-4 of its scale (the f32 WKV and RG-LRU states) or one
+    bf16 ulp (bf16 leaves); each rank launches the WKV kernel once a
+    layer on its heads, or the flash forward once an attention layer
+    (recurrentgemma's local layer on 2 query heads and the one KV head),
+    and for enc-dec once an encoder layer and a cross attention."""
     import _torch_ranks
     from repro_torch.launch.mesh import run_ranks
 
     cfg = get_config(arch, smoke=True)
     rng = np.random.default_rng(0)
-    ins = {"tokens": rng.integers(0, cfg.vocab, (2, 21))}
+    # a windowed layer's dense prefill takes whole windows (8)
+    L_ = 16 if "local" in cfg.pattern else 21
+    ins = {"tokens": rng.integers(0, cfg.vocab, (2, L_))}
     if cfg.enc_dec is not None:
         ins["src_embeds"] = rng.standard_normal(
             (2, 12, cfg.d_model)).astype(np.float32)
@@ -764,14 +783,14 @@ def test_model_axis_prefill_of_the_families_on_card(dev, arch):
     params = _f32(T.init_model(cfg, seed=0, device="cpu"), dev)
     inputs = {k: torch.from_numpy(v).to(dev) for k, v in ins.items()}
     lg, cache, _ = make_prefill_fn(cfg, s_max)(params, inputs)
+    n_attn = sum(k in ("attn", "local") for k in cfg.pattern)
+    flash = n_attn + (cfg.enc_dec.n_enc_layers + n_attn if cfg.enc_dec
+                      else 0)
     for r in ranks:
         np.testing.assert_allclose(r["logits"], lg.cpu().numpy(), atol=1e-5,
                                    rtol=0)
-        if cfg.enc_dec is None:
-            assert (r["wkv"], r["flash_fwd"]) == (cfg.n_layers, 0)
-        else:
-            assert (r["wkv"], r["flash_fwd"]) == (
-                0, cfg.enc_dec.n_enc_layers + 2 * cfg.n_layers)
+        assert (r["wkv"], r["flash_fwd"]) == (
+            sum(k == "rwkv6" for k in cfg.pattern), flash)
     for i, ent in enumerate(cache):
         for k, want in ent.items():
             want = want.float().cpu()

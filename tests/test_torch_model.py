@@ -291,12 +291,15 @@ def test_serve_olmoe_smoke_matches_jax_executor(monkeypatch):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_training_new_archs_raises_naming_roadmap(arch):
     """Trained on one rank: the loss, its gradient and the full forward
-    run.  On a model axis of 2 ``train_check`` refuses what
-    ``sharding.tp_check`` refuses, naming ROADMAP's item 5: RG-LRU, and
-    a smoke config whose one KV head the axis cannot split; the MoE, the
-    frontend and enc-dec pass where the axis divides their heads
-    (``tests/test_torch_tp_train_moe.py`` and
-    ``tests/test_torch_tp_families.py`` train them there)."""
+    run.  On a model axis ``train_check`` passes what ``sharding.tp_check``
+    admits (the smoke config's one KV head split over 2 ranks, 8 heads on
+    4 KV heads, the RG-LRU's channels; ``tests/test_torch_tp_rglru.py``,
+    ``tests/test_torch_tp_train_moe.py`` and
+    ``tests/test_torch_tp_families.py`` train them there) and refuses,
+    naming ROADMAP's item 5, what it still refuses: a KV layout outside
+    the split's rule (6 heads on 2 KV heads at M 3), an RG-LRU width the
+    axis does not divide (d_rnn 62 at M 4), and the forward on a model
+    axis of 8, which does not divide the 4 heads."""
     from types import SimpleNamespace
 
     from repro_torch.launch.step import loss_and_grads
@@ -307,18 +310,17 @@ def test_training_new_archs_raises_naming_roadmap(arch):
     params = T.init_model(cfg, device="cpu")
     _, batch = _inputs(cfg, 1, 8)
     batch["labels"] = batch["tokens"]
+    T.train_check(heads, 2)
+    T.train_check(cfg, 2)
+    with pytest.raises(NotImplementedError,
+                       match="2 KV heads.*ROADMAP.*item 5"):
+        T.train_check(dataclasses.replace(cfg, n_heads=6, n_kv_heads=2), 3)
     if "rglru" in cfg.pattern:
-        for c in (cfg, heads):
-            with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-                T.train_check(c, 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-            T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=2))
-    else:
-        T.train_check(heads, 2)
-        if cfg.n_kv_heads % 2:
-            with pytest.raises(NotImplementedError,
-                               match="KV heads.*ROADMAP.*item 5"):
-                T.train_check(cfg, 2)
+        with pytest.raises(NotImplementedError,
+                           match="62 RG-LRU channels.*ROADMAP.*item 5"):
+            T.train_check(dataclasses.replace(cfg, d_rnn=62), 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+        T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=8))
     loss, grads = loss_and_grads(params, cfg, batch)
     assert torch.isfinite(loss)
     assert all(torch.isfinite(g.float()).all() for g in tree_leaves(grads))

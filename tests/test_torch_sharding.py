@@ -6,6 +6,7 @@ rank grid's groups (the model group innermost, never across a pod).
 """
 import dataclasses
 import functools
+import types
 
 import jax
 import pytest
@@ -18,8 +19,10 @@ from repro.models import transformer as JT
 from repro_torch import configs
 from repro_torch.launch.mesh import (Grid, grid_groups, grid_topology,
                                      parse_mesh)
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.convert import shard_params, unshard_params
+from repro_torch.models.convert import (shard_params, stack_runs,
+                                        unshard_params)
 from repro_torch.models.sharding import (RUN_DIM, batch_pspec, dp_axes,
                                          param_model_dims, tp_check)
 from repro_torch.tree import tree_leaves
@@ -110,10 +113,13 @@ def _tp_config(name):
 
 @pytest.mark.parametrize("name,model", [
     ("gpt_100m", 2), ("gpt_100m", 4), ("olmoe_1b_7b", 4),
-    ("gemma3_12b", 2), (LLAMA4_KV4, 2)])
+    ("gemma3_12b", 2), (LLAMA4_KV4, 2), ("recurrentgemma_2b", 2),
+    ("recurrentgemma_2b", 4), ("qwen3_4b", 4)])
 def test_sharded_init_is_the_shard_of_the_full_init(name, model):
     """``init_model(model=, m=)`` cuts each layer as it is drawn: the same
-    numbers as ``shard_params`` of the whole model, bit for bit."""
+    numbers as ``shard_params`` of the whole model, bit for bit (the
+    RG-LRU's ``w_out`` decided on its run's stacked shape: whole at M 2,
+    ``RUN_DIM``, by columns at M 4; one KV head's ``wk`` cut inside it)."""
     cfg = _tp_config(name)
     full = T.init_model(cfg, seed=5, device="cpu")
     for m in range(model):
@@ -125,33 +131,72 @@ def test_sharded_init_is_the_shard_of_the_full_init(name, model):
 
 @pytest.mark.parametrize("arch,model,match", [
     ("rwkv6_1p6b", 64, "32 heads"),
-    ("recurrentgemma_2b", 2, "recurrent and enc-dec families"),
+    ("recurrentgemma_2b", 4, "10 heads"),
     ("seamless_m4t_medium", 4, "vocabulary rows"),
-    ("tinyllama_1p1b", 8, "4 KV heads"),
+    ("phi4_mini_3p8b", 12, "8 KV heads"),
     ("gemma3_12b", 32, "16 heads"),
     ("olmoe_1b_7b", 128, "64 experts"),
 ])
 def test_model_axis_refusals_name_roadmap_item_5(arch, model, match):
+    """What a model axis still refuses, naming ROADMAP's item 5: a head,
+    expert, vocabulary or feature count it does not divide
+    (recurrentgemma's 10 heads at M 4), and KV heads that each rank's
+    query heads neither read whole nor lie inside one of (phi4-mini's 24
+    heads on 8 KV heads at M 12: 2 query heads a rank, groups of 3)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 5") as e:
         tp_check(configs.get_config(arch), model)
     assert match in str(e.value)
+
+
+# (arch, smoke config?, model-axis size): the KV-head split's zoo cases
+# (a rank's query heads inside one KV head), and the RG-LRU's
+ADMITTED = [("recurrentgemma_2b", False, 2), ("recurrentgemma_2b", False, 5),
+            ("recurrentgemma_2b", False, 10), ("tinyllama_1p1b", False, 8),
+            ("tinyllama_1p1b", False, 16), ("qwen3_4b", False, 16),
+            ("gemma3_12b", False, 16), ("pixtral_12b", False, 16),
+            ("recurrentgemma_2b", True, 2), ("recurrentgemma_2b", True, 4),
+            ("qwen3_4b", True, 2), ("qwen3_4b", True, 4),
+            ("tinyllama_1p1b", True, 4)]
+
+
+@pytest.mark.parametrize("arch,smoke,model", ADMITTED,
+                         ids=[f"{a}{'-smoke' * s}-{m}"
+                              for a, s, m in ADMITTED])
+def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
+                                                          model):
+    """Where M divides the query heads and each rank's query heads read
+    whole KV heads or lie inside one (``kv_split_ok``), and M divides the
+    RG-LRU's ``d_rnn``: ``tp_check`` admits the config, and each rank
+    reads ``max(Hkv / M, 1)`` KV heads, starting at the one its first
+    query head reads."""
+    cfg = configs.get_config(arch, smoke=smoke)
+    tp_check(cfg, model)
+    G = cfg.n_heads // cfg.n_kv_heads
+    for m in range(model):
+        tp = types.SimpleNamespace(size=model, index=m)
+        local = L.local_config(cfg, tp)
+        first = L._first_kv_head(cfg, tp)
+        heads = range(m * local.n_heads, (m + 1) * local.n_heads)
+        assert sorted({h // G for h in heads}) == list(
+            range(first, first + local.n_kv_heads))
 
 
 def test_a_gradient_through_the_model_axis_is_refused():
     """Training on a model axis is ported for the attention stacks, with
     an MLP or a MoE (``tests/test_torch_tp_train.py``,
     ``tests/test_torch_tp_train_moe.py``), RWKV-6 and enc-dec
-    (``tests/test_torch_tp_families.py``); the forward with a model axis
-    still refuses autograd where the axis does not divide the config's KV
-    heads (qwen3's smoke config has one) and for RG-LRU, naming the item
-    that brings them."""
-    import types
-
-    tp = types.SimpleNamespace(size=2, index=0)
+    (``tests/test_torch_tp_families.py``), the RG-LRU and the KV-head
+    split (``tests/test_torch_tp_rglru.py``); the forward with a model
+    axis still refuses autograd for a KV layout outside the split's rule
+    (qwen3's smoke config with 6 heads on 2 KV heads at M 3) and an RG-LRU
+    width the axis does not divide (recurrentgemma's, d_rnn 62 at M 4),
+    naming the item that lists them."""
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for arch in ("qwen3_4b", "recurrentgemma_2b"):
-        cfg = configs.get_config(arch, smoke=True)
+    for arch, kw, model in (("qwen3_4b", dict(n_heads=6, n_kv_heads=2), 3),
+                            ("recurrentgemma_2b", dict(d_rnn=62), 4)):
+        cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **kw)
         params = T.init_model(cfg, device="cpu")
+        tp = types.SimpleNamespace(size=model, index=0)
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             T.trunk_fwd(params, cfg, toks, tp)
 
@@ -198,3 +243,20 @@ def test_model_groups_are_innermost_and_never_span_a_pod(pods, data,
     shape = Grid.shape_only(pods, data, model)
     assert (shape.world, shape.model) == (pods * data, model)
     assert (shape.tp is None) == (model == 1)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_stacked_shard_of_a_sharded_init_is_the_shard_of_the_stacked(model):
+    """``stack_runs(init_model(model=, m=), cfg, model, m)``, the train
+    driver's start on a model axis, is ``shard_params`` of the whole
+    model's stacked layout, bit for bit: the RG-LRU's ``w_out``, whole in
+    a per-layer shard, holds the rank's layers of its run at M 2."""
+    cfg = configs.get_config("recurrentgemma_2b", smoke=True)
+    full = stack_runs(T.init_model(cfg, seed=5, device="cpu"), cfg)
+    for m in range(model):
+        got = stack_runs(T.init_model(cfg, seed=5, device="cpu",
+                                      model=model, m=m), cfg, model, m)
+        want = shard_params(full, cfg, model, m)
+        assert got["runs"][0]["rec"]["w_out"].shape[0] == {2: 1, 4: 2}[model]
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a, b)

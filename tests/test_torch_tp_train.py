@@ -287,14 +287,20 @@ def test_train_drives_a_model_axis(arch):
 
 @pytest.mark.parametrize("arch,mesh,kw,item", [
     ("gpt-100m", "1x2x2", dict(fail_at={1: [0]}), "Queue 1 item 5"),
-    ("qwen3-4b", "1x1x2", {}, "Queue 1 item 5"),       # 1 KV head
-    ("recurrentgemma-2b", "1x2x2", {}, "Queue 1 item 5"),
-    ("recurrentgemma-2b", "1x1x2", {}, "Queue 1 item 5"),
+    # 24 heads on 8 KV heads: 2 query heads a rank, groups of 3
+    ("phi4-mini-3.8b", "1x1x12", dict(smoke=False), "8 KV heads"),
+    ("recurrentgemma-2b", "1x2x4", dict(smoke=False), "10 heads"),
+    ("recurrentgemma-2b", "1x1x2", dict(fail_at={1: [0]}),
+     "Queue 1 item 5"),
     ("rwkv6-1.6b", "1x1x8", {}, "Queue 1 item 5")])      # 4 heads
 def test_what_a_model_axis_still_refuses(arch, mesh, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train(arch, 2, mesh_spec=mesh, seq=32, batch=2, smoke=True,
-              device="cpu", **kw)
+    """Refused before any rank is spawned, naming ROADMAP's Queue 1 item
+    5: ``fail_at`` on a model axis, a KV layout outside the split's rule,
+    recurrentgemma's 10 heads on 4 ranks, RWKV-6's 4 smoke heads on 8."""
+    with pytest.raises(NotImplementedError, match=item) as e:
+        train(arch, 2, mesh_spec=mesh, seq=32, batch=2, device="cpu",
+              **{"smoke": True, **kw})
+    assert "Queue 1 item 5" in str(e.value)
 
 
 def _run(mesh, steps, ckpt_dir, **kw):

@@ -187,21 +187,20 @@ def test_moe_token_blocks_remat(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_on_a_model_axis_raises(arch):
-    """``make_train_step`` on a grid with a model axis of 2 refuses, before
-    it builds anything and naming ROADMAP's Queue 1 item 5, RG-LRU, and
-    the smoke configs whose one KV head the axis cannot split
-    (llama4-scout, pixtral); it builds olmoe's and seamless's steps, and
-    the MoE and the frontend train there at 8 heads
-    (``tests/test_torch_tp_train_moe.py``), enc-dec at its own 4
-    (``tests/test_torch_tp_families.py``)."""
+    """``make_train_step`` on a grid with a model axis builds every
+    family's step where ``sharding.tp_check`` admits it: at M 2 all five
+    smoke configs (the RG-LRU, and the one KV head of llama4-scout's and
+    pixtral's split over the axis; ``tests/test_torch_tp_rglru.py``,
+    ``tests/test_torch_tp_train_moe.py`` and
+    ``tests/test_torch_tp_families.py`` train them there).  At M 8, which
+    does not divide their 4 heads, it refuses before it builds anything,
+    naming ROADMAP's Queue 1 item 5."""
     cfg = _cfg(arch)
-    build = lambda c: make_train_step(c, adamw.OptConfig(),
-                                      Grid.shape_only(1, 1, 2), device="cpu")
-    if cfg.n_kv_heads % 2 == 0 and "rglru" not in cfg.pattern:
-        assert callable(build(cfg))
-    else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            build(cfg)
+    build = lambda c, m: make_train_step(
+        c, adamw.OptConfig(), Grid.shape_only(1, 1, m), device="cpu")
+    assert callable(build(cfg, 2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        build(cfg, 8)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
