@@ -326,6 +326,24 @@ each phase checks and prints its part where it stands:
    ``w_out``'s run-dim gather runs; 6 until a whole run passed 1000 s)
    as 28c; 29c holds it at 3 layers in f32 as 28d, its decode steps
    within 1e-5.
+30. Elastic training on a model axis, through ``train``, which spawns its
+   own six ranks (a rank that has left can make no group a shared spawn
+   makes later): 30a gpt-100m at full width cut to 2 layers, bf16, on
+   ``3x1x2`` sharing the card over gloo, ``multilevel_compress`` with
+   ZeRO-1, 6 steps of 6 x 256, a checkpoint every 2 steps; pod 1 of 3
+   fails before step 2 (a quorum holds: an in-place repair, each survivor
+   carrying its model shard), pod 1 of the 2 left before step 4 (below
+   quorum: a restart from step 2's checkpoint onto ``1x1x2`` with accum
+   2).  The decisions, 7 finite losses, the tokens a step, the saves
+   (steps 2 and 4 from 2 and 1 pods, their EF leaves leading with those
+   pods), the restore (bit for bit the state gathered at step 2's save)
+   and the two survivors' model-axis collectives, equal step by step, are
+   the reference's 3x1x1 decisions that ``tests/test_torch_tp_elastic.py``
+   holds the port to; each survivor's launches are counted (10
+   micro-steps: the flash kernels on its 6 heads, the EF and dequant
+   kernels in the 4 steps with a slow axis).  Printed: step ms,
+   ``recovery_s``, each save's bytes and seconds, the bytes staged a
+   step, the peak memory a rank, the wall.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -650,6 +668,25 @@ TP_RS_ANSWER = [("rwkv6-1.6b", 2, "28d", TP_STEP_TOL),
                 ("seamless-m4t-medium", 1, "28d", TP_STEP_TOL),
                 ("recurrentgemma-2b", 3, "29c", TP_F32_TOL)]
 TP_RS_ANSWER_INPUT = (2, 48, 32)    # batch, prompt, encoder frames
+# phase 30: elastic training on a model axis, gpt-100m at full width cut
+# to TP_ELASTIC_LAYERS layers: pod 1 of 3 lost before step 2 (an in-place
+# repair), pod 1 of the 2 left before step 4 (a restart from step 2's
+# checkpoint with accum 2); the reference's 3x1x1 decisions
+# (tests/test_torch_tp_elastic.py): the events as (event, in_place or
+# survivors), the counts, the final grid, the saves as (step, pods).
+# seq 256: at 512 the whole script passed 1000 s (1012 s)
+TP_ELASTIC = dict(steps=6, seq=256, batch=6, mesh_spec="3x1x2",
+                  comm="multilevel_compress", zero1=True, ckpt_every=2,
+                  fail_at={2: [1], 4: [1]}, digests=True,
+                  dist_backend="gloo")
+TP_ELASTIC_LAYERS = 2
+TP_ELASTIC_EVENTS = [("failure", True), ("repair", 2), ("failure", False)]
+TP_ELASTIC_WANT = {"repairs": 1, "recoveries": 1, "accum": 2, "pods": 1,
+                   "world": 1, "model": 2}
+TP_ELASTIC_SAVES = [(2, 2), (4, 1)]
+# steps 0-3 run once each (3 pods, then 2: a slow axis); the restart
+# replays steps 3-5 on one pod, 2 micro-steps each
+TP_ELASTIC_MICRO, TP_ELASTIC_SLOW = 4 + 3 * 2, 4
 
 
 def progress(phase: str, t0: float) -> None:
@@ -2323,6 +2360,73 @@ def elastic_phase(train, get_config) -> dict:
           flush=True)
     return {k: sum(r[k] for r in a["launches"] + b["launches"])
             for k in a["launches"][0]}
+
+
+def tp_elastic_phase(train, get_config) -> dict:
+    """Phase 30: ``TP_ELASTIC`` through ``train`` on the card (six spawned
+    ranks, fresh processes whose counters start at 0 and are read at
+    their end).  Returns the launches summed over the two surviving
+    ranks."""
+    cfg = cut(get_config, "gpt-100m", TP_ELASTIC_LAYERS)
+    kw = TP_ELASTIC
+    with tempfile.TemporaryDirectory(prefix="repro_torch_tp_elastic_") as tmp:
+        t0 = time.perf_counter()
+        out = train("gpt-100m", config=cfg, device="cuda", log_every=1,
+                    ckpt_dir=tmp, **kw)
+        wall = time.perf_counter() - t0
+        ef = {s: ef_rows_of(tmp, s) for s, _ in TP_ELASTIC_SAVES}
+    saved = {s["step"]: s["digest"] for s in out["saves"]}
+    rows, seq, n, leaves = kw["batch"], kw["seq"], cfg.n_layers, 10
+    micro = TP_ELASTIC_MICRO
+    want = {"wkv": 0, "flash_fwd": 2 * n * micro, "flash_bwd_dq": n * micro,
+            "flash_bwd_dkv": n * micro, "quantize_int8": 0,
+            "dequantize_int8": leaves * TP_ELASTIC_SLOW,
+            "quantize_ef_int8": leaves * TP_ELASTIC_SLOW}
+    print(json.dumps({"tp_elastic_30a": {
+        **{k: v for k, v in kw.items() if k != "fail_at"},
+        "fail_at": {str(k): v for k, v in kw["fail_at"].items()},
+        "layers": n, "wall_s_with_spawn": wall, "losses": out["losses"],
+        "step_ms": out["step_ms"], "step_tokens": out["step_tokens"],
+        "recovery_s": out["recovery_s"], "events": out["events"],
+        **{k: out[k] for k in TP_ELASTIC_WANT},
+        "saves": [{k: v for k, v in s.items() if k != "digest"}
+                  for s in out["saves"]],
+        "ckpt_writes": out["ckpt_writes"], "ef_rows": {
+            str(s): sorted(r) for s, (r, _) in ef.items()},
+        "staged_bytes_per_step": out["staged_bytes"],
+        "tp_calls_per_rank": out["tp_calls_ranks"],
+        "peak_mem_bytes_per_rank": out["peak_mem_bytes"],
+        "launches_per_rank": out["launches"]}}), flush=True)
+    got = {k: out[k] for k in TP_ELASTIC_WANT}
+    events = [(e["event"], e.get("in_place", e.get("survivors")))
+              for e in out["events"]]
+    if events != TP_ELASTIC_EVENTS or got != TP_ELASTIC_WANT:
+        fail(f"phase 30a: events {out['events']}, {got}; expected "
+             f"{TP_ELASTIC_EVENTS}, {TP_ELASTIC_WANT}")
+    if len(out["losses"]) != 7 \
+            or not all(math.isfinite(x) for x in out["losses"]) \
+            or out["step_tokens"] != [rows * seq] * 4 + [2 * rows * seq] * 3:
+        fail(f"phase 30a: losses {out['losses']}, tokens a step "
+             f"{out['step_tokens']}")
+    if [(s["step"], s["pods"]) for s in out["saves"]] != TP_ELASTIC_SAVES \
+            or any(ef[s] != ({p}, 0) for s, p in TP_ELASTIC_SAVES):
+        fail(f"phase 30a: saves {out['saves']}; the EF leaves lead with "
+             f"{ef}")
+    if out["restored"] != [{"step": 2, "digest": saved.get(2)}]:
+        fail(f"phase 30a: restored {out['restored']}, saved {saved}")
+    print(json.dumps({"tp_elastic_30a_restore": {
+        "step": 2, "digest_saved": saved[2],
+        "digest_restored": out["restored"][0]["digest"],
+        "check": "bit for bit"}}), flush=True)
+    ranks = out["tp_calls_ranks"]
+    if len(ranks) != 2 or ranks[0] != ranks[1] or len(ranks[0]) != 7 \
+            or min(ranks[0][0].values()) < 1:
+        fail(f"phase 30a: the survivors' model-axis collectives a step "
+             f"{ranks}")
+    if len(out["launches"]) != 2 or any(r != want for r in out["launches"]):
+        fail(f"phase 30a: the surviving ranks launched {out['launches']}, "
+             f"expected {want} each")
+    return {k: sum(r[k] for r in out["launches"]) for k in want}
 
 
 def cut(get_config, arch, n):
@@ -4270,6 +4374,11 @@ def main() -> None:
                              training)
         walls.append(time.perf_counter())
     del ranks
+
+    progress("30", t_start)
+    # 30. elastic training on a model axis: train spawns its six ranks
+    tp_elastic_counts = tp_elastic_phase(train, get_config)
+    walls.append(time.perf_counter())
     tp_rs_counts = {k: sum(r.get(k, 0) for r in tp_rs) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "wkv")}
     print(json.dumps({"phase_wall_s": {
@@ -4278,7 +4387,7 @@ def main() -> None:
              "the ranks of 24c, 25c's 1x1x2 and 2x1x1, 27d and 28", "24c",
              "24d", "25a", "25b", "25c one rank", "25d", "26a", "26b",
              "26c", "26d", "26e", "26f one rank", "27a", "27b", "27c",
-             "27d", "28 in this process", "29 in this process"),
+             "27d", "28 in this process", "29 in this process", "30"),
             walls, walls[1:])},
         "pool4_ranks_wall_s": {k: max(r["wall_s"][k] for r in pool4)
                                for k in pool4[0]["wall_s"]}}), flush=True)
@@ -4295,7 +4404,8 @@ def main() -> None:
                       + moe_counts["flash_fwd"] + dense_flash + tp_flash
                       + tp_train_counts["flash_fwd"]
                       + family_counts["flash_fwd"]
-                      + tp_counts["flash_fwd"] + tp_rs_counts["flash_fwd"]),
+                      + tp_counts["flash_fwd"] + tp_rs_counts["flash_fwd"]
+                      + tp_elastic_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
@@ -4306,7 +4416,8 @@ def main() -> None:
                          + tp_train_counts["flash_bwd_dq"]
                          + family_counts["flash_bwd_dq"]
                          + tp_counts["flash_bwd_dq"]
-                         + tp_rs_counts["flash_bwd_dq"]),
+                         + tp_rs_counts["flash_bwd_dq"]
+                         + tp_elastic_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
@@ -4317,9 +4428,10 @@ def main() -> None:
                           + tp_train_counts["flash_bwd_dkv"]
                           + family_counts["flash_bwd_dkv"]
                           + tp_counts["flash_bwd_dkv"]
-                          + tp_rs_counts["flash_bwd_dkv"]),
+                          + tp_rs_counts["flash_bwd_dkv"]
+                          + tp_elastic_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
-        # training (phases 11, 20 and 25b) runs the fused EF kernel and
+        # training (phases 11, 20, 25b and 30) runs the fused EF kernel and
         # the dequant; the tree phase's compressed syncs run all three
         "quantize_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                           "src/repro/kernels/quant.py:30",
@@ -4333,7 +4445,8 @@ def main() -> None:
                             + tree["launches"]["dequantize_int8"]
                             + elastic_counts["dequantize_int8"]
                             + tp_train_counts["dequantize_int8"]
-                            + family_counts["dequantize_int8"]),
+                            + family_counts["dequantize_int8"]
+                            + tp_elastic_counts["dequantize_int8"]),
         "quantize_ef_int8": ("src/repro_torch/kernels/csrc/quant.cu",
                              "src/repro/kernels/quant.py:44",
                              quant["quantize_ef_int8"],
@@ -4341,7 +4454,8 @@ def main() -> None:
                              + tree["launches"]["quantize_ef_int8"]
                              + elastic_counts["quantize_ef_int8"]
                              + tp_train_counts["quantize_ef_int8"]
-                             + family_counts["quantize_ef_int8"]),
+                             + family_counts["quantize_ef_int8"]
+                             + tp_elastic_counts["quantize_ef_int8"]),
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
                 rwkv_counts["wkv"] + rwkv_train["wkv"]

@@ -14,10 +14,12 @@ that share its data index and m (``pod``: the one exchange across pods),
 model group (the tensor-parallel collectives of every layer).  One pod
 means no slow axis, as the reference's mesh then has no ``pod`` axis.
 ``Grid.rank`` and ``Grid.world`` count the data-parallel ranks (pod *
-data + d of pods * data); ``tp.index`` is m.  After a pod fails, the
-survivors' grid is a subset of the ranks (``make_grid(..., members=)``,
-model axis 1): its three axes are groups of their own, created by the
-members alone, and its ranks count from 0 in their row-major order.
+data + d of pods * data); ``tp.index`` is m; ``Grid.group`` holds all
+the grid's ranks (its barrier).  After a pod fails, the survivors' grid
+is a subset of the ranks (``make_grid(..., members=)``): the M ranks of
+each kept (pod, data) cell, whose axes and whole-grid group are groups of
+their own, created by the members alone; its ranks count from 0 in their
+row-major (pod, data, model) order.
 
 ``Axis`` runs the collectives the sync and the model axis need on its
 group, along any dim (moved to the front and made contiguous, as the group
@@ -271,7 +273,8 @@ class Axis:
 @dataclasses.dataclass
 class Grid:
     """This rank's place in the (pods x data x model) grid and its four
-    axes; ``rank`` and ``world`` count the data-parallel ranks."""
+    axes; ``rank`` and ``world`` count the data-parallel ranks.  ``group``
+    holds every rank of the grid (None: the default group)."""
     pods: int
     data: int
     rank: int
@@ -281,10 +284,16 @@ class Grid:
     backend: str | None = None
     model: int = 1
     tp: Axis | None = None
+    group: Any = None
 
     @property
     def world(self) -> int:
         return self.pods * self.data
+
+    @property
+    def size(self) -> int:
+        """Every rank of the grid, the model axis's included."""
+        return self.world * self.model
 
     @property
     def staging(self) -> str:
@@ -300,8 +309,8 @@ class Grid:
 
     def barrier(self) -> None:
         """Wait for every rank of the grid."""
-        if self.world > 1:
-            dist.barrier(group=self.dp.group)
+        if self.size > 1:
+            dist.barrier(group=self.group)
 
     @classmethod
     def single(cls) -> "Grid":
@@ -373,17 +382,18 @@ def make_grid(pods: int, data: int, device: torch.device, model: int = 1,
               members: "list[int] | None" = None) -> Grid:
     """This rank's ``Grid`` over the initialised default group, whose size
     must be ``pods * data * model``, or over ``members``: the global ranks
-    of a grid that holds only some of them (the survivors of a failure,
-    model axis 1), in row-major (pod, data) order, this rank among them.
-    Every rank creates every group of the default group, in the order of
-    :func:`grid_groups`; a grid of ``members`` creates its groups with the
-    members alone (``use_local_synchronization``), so ranks that have left
-    need not join, and each member creates its own fast, slow and dp
-    groups in that order.  torch names such a group by its ranks and the
-    number of groups the process has made, so the members must have made
-    equally many before: a rank outside ``members`` leaves for good.
-    Collectives of CUDA tensors are staged through the host when the
-    backend is gloo."""
+    of a grid that holds only some of them (the survivors of a failure:
+    the M ranks of each kept (pod, data) cell), in row-major (pod, data,
+    model) order, this rank among them.  Every rank creates every group of
+    the default group, in the order of :func:`grid_groups`; a grid of
+    ``members`` creates its groups with the members alone
+    (``use_local_synchronization``), so ranks that have left need not
+    join: each member creates the group of all the members, then its own
+    fast, slow, dp and tp groups in that order.  torch names such a group
+    by its ranks and the number of groups the process has made, so the
+    members must have made equally many before: a rank outside
+    ``members`` leaves for good.  Collectives of CUDA tensors are staged
+    through the host when the backend is gloo."""
     if members is None and pods * data * model == 1 \
             and not dist.is_initialized():
         return Grid.single()
@@ -396,7 +406,7 @@ def make_grid(pods: int, data: int, device: torch.device, model: int = 1,
         local = False
     else:
         members = list(members)
-        if model != 1 or len(members) != pods * data or rank not in members:
+        if len(members) != pods * data * model or rank not in members:
             raise ValueError(f"members {members} for a {pods}x{data}x"
                              f"{model} grid on rank {rank}")
         local = True
@@ -406,6 +416,8 @@ def make_grid(pods: int, data: int, device: torch.device, model: int = 1,
     cell, m = divmod(me, model)
     pod, d = divmod(cell, data)
     sizes = {"fast": data, "slow": pods, "dp": pods * data, "tp": model}
+    whole = _group(members, range(len(members)), local) \
+        if local and len(members) > 1 else None
     mine = {}
     for kind, lists in grid_groups(pods, data, model).items():
         if sizes[kind] == 1 or (kind == "dp" and model == 1 and not local):
@@ -420,7 +432,8 @@ def make_grid(pods: int, data: int, device: torch.device, model: int = 1,
     return Grid(pods, data, cell, axis("data", "fast", data, d),
                 axis("pod", "slow", pods, pod) if pods > 1 else None,
                 axis("dp", "dp", pods * data, cell), backend, model,
-                axis("model", "tp", model, m) if model > 1 else None)
+                axis("model", "tp", model, m) if model > 1 else None,
+                whole)
 
 
 def _group(members: list[int], ids: list[int], local: bool):

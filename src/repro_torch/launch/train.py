@@ -24,6 +24,9 @@ Elastic recovery (no CLI flag, as the reference's driver):
   train("gpt-100m", 6, mesh_spec="4x1x1", seq=32, batch=4,
         comm="multilevel_compress", fail_at={2: [1]}, smoke=True,
         device="cpu")
+  train("gpt-100m", 6, mesh_spec="3x1x2", seq=32, batch=6,
+        comm="multilevel_compress", ckpt_dir="/tmp/c", ckpt_every=2,
+        fail_at={2: [1], 4: [1]}, smoke=True, device="cpu")
 
 Counterpart of ``repro/launch/train.py:79 train``.  ``--mesh PxDxM`` runs
 P*D*M ranks, rank = (pod * D + d) * M + m (``mesh.grid_groups``): under
@@ -35,8 +38,7 @@ planning plane prices 1/M of the gradient, as the reference's
 ``train.py:124-126``, and checkpoints keep the reference's global layout:
 gathered over the data axes, then over the model axis; a restore cuts the
 model shard, then the data shard, so a checkpoint crosses between grids
-of any shape.  ``fail_at`` on a model axis is refused
-(``sharding.NOT_PORTED_TP``).  Each step takes
+of any shape.  Each step takes
 ``DataPipeline.host_batch`` (the reference's tokens, bit for bit), this
 rank's rows of it, the loss and its gradients, and ``apply_updates`` with
 the sync over the grid's groups.  The backend is NCCL where every rank has
@@ -54,8 +56,13 @@ cuts this rank's shard; a run resumes from the newest checkpoint in
 survivors keep a quorum, an in-place repair of the planning communicator
 and the live state carried onto the shrunk grid; below it, a restart from
 the newest checkpoint; on a shrunk grid the reference's accumulation
-factor.  The failed pods' ranks leave at that step; the survivors go on
-over a grid of their own groups (``mesh.make_grid(members=)``).
+factor.  The plan is the reference's, on the (pod, data, model) shape:
+the pod axis shrinks, ``data`` and ``model`` stay whole, and quorum,
+repair and accumulation read only the data-parallel ranks.  The failed
+pods' ranks, whole model groups, leave at that step; the survivors go on
+over a grid of their own groups, model axis included
+(``mesh.make_grid(members=)``), each carrying its model shard through a
+repair, or restoring its model and data shard from the checkpoint.
 
 Every rank runs the reference's planning plane, so that each makes the
 same decisions: a sim ``Communicator`` over the grid's data-parallel
@@ -95,7 +102,6 @@ from ..models import transformer as T
 from ..models.convert import (from_numpy, gather_shards, model_dims,
                               shard_params, stack_runs, to_numpy,
                               unshard_params)
-from ..models.sharding import NOT_PORTED_TP
 from ..obs import Tracer, get_logger, set_json
 from ..optim.adamw import (OptConfig, gather_opt_state, init_opt_state,
                            scatter_axes, shard_opt_state)
@@ -178,7 +184,8 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
           log_every: int = 10, profile: str | None = None,
           dist_backend: str | None = None, log_json: bool = False,
           bucket_mb: float = 0.0, trace: str | None = None,
-          digests: bool = False, config=None, init_params=None) -> dict:
+          digests: bool = False, ef_trees: bool = False, config=None,
+          init_params=None) -> dict:
     """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens
     (the global batch, split over the data-parallel ranks) from random
     weights (seed 0),
@@ -197,16 +204,19 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     step, pods, bytes and the seconds of its gather and host copy) and
     ``ckpt_writes`` (the writer's bytes and seconds on disk).  A run
     restarts from the newest checkpoint in ``ckpt_dir``; ``fail_at`` maps
-    a step to the pods that fail before it.  On a model axis: ``model``,
-    ``model_rank`` (this rank's index on it; ``rank`` is the data-parallel
-    one) and ``tp_calls``, the model-axis collectives of each step on this
-    rank (``launch.step.loss_and_grads``' ``fwd``, ``remat``, ``bwd``).
-    For a MoE config, ``moe``: each step's host reads of the routing
-    (``syncs``) and, on a model axis, the slots each layer's
-    expert-parallel blocks dropped in the forward (``dropped``).  On the
-    card, ``peak_mem_bytes``: the process's peak allocation.  With more
-    than one rank, ``launches``, ``moe`` and ``peak_mem_bytes`` hold every
-    rank's, in rank order.
+    a step to the pods that fail before it, on any grid: a failed pod's
+    model groups leave whole, and ``pods`` and ``world`` are the final
+    grid's.  On a model axis: ``model``, ``model_rank`` (this rank's index
+    on it; ``rank`` is the data-parallel one), ``tp_calls``, the
+    model-axis collectives of each step on this rank
+    (``launch.step.loss_and_grads``' ``fwd``, ``remat``, ``bwd``), and
+    ``tp_calls_ranks``, every surviving rank's.  For a MoE config,
+    ``moe``: each step's host reads of the routing (``syncs``) and, on a
+    model axis, the slots each layer's expert-parallel blocks dropped in
+    the forward (``dropped``).  On the card, ``peak_mem_bytes``: the
+    process's peak allocation.  With more than one rank, ``launches``,
+    ``moe`` and ``peak_mem_bytes`` hold every surviving rank's, in rank
+    order.
 
     ``bucket_mb`` > 0 switches the gradient sync to size-targeted buckets
     (reverse-layer order, one fused collective per bucket); it forces
@@ -217,15 +227,16 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     ``torch.profiler`` and writes its op table to that path
     (``_write_profile``).  For checks: ``digests`` adds the SHA-256 of
     each saved global state (``saves``) and of each restored one
-    (``restored``); ``config`` trains that ``ModelConfig`` instead of
+    (``restored``); ``ef_trees`` adds, at each live carry of the state
+    onto a shrunk grid, the global EF rows (numpy) gathered on the old grid
+    just before the failure and on the new one just after the carry
+    (``carried``: step, lost pods, ``before``, ``after``); ``config``
+    trains that ``ModelConfig`` instead of
     ``arch``'s; ``init_params`` (numpy, the stacked layout) replaces the
     seed-0 weights."""
     pods, data, model = parse_mesh(mesh_spec)
     cfg = config or get_config(arch, smoke=smoke)
     T.train_check(cfg, model)
-    if model != 1 and fail_at:
-        raise NotImplementedError(f"mesh {mesh_spec}: fail_at on a model "
-                                  f"axis of {model} ({NOT_PORTED_TP})")
     world = pods * data * model
     dev = resolve_device(device)
     kw = dict(arch=arch, steps=steps, pods=pods, data=data, model=model,
@@ -233,7 +244,8 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
               ckpt_every=ckpt_every, fail_at=fail_at, smoke=smoke,
               device=str(dev), log_every=log_every, profile=profile,
               log_json=log_json, bucket_mb=bucket_mb, trace=trace,
-              digests=digests, config=config, init_params=init_params)
+              digests=digests, ef_trees=ef_trees, config=config,
+              init_params=init_params)
     if world == 1:
         return _train_rank(**kw)
     if "WORLD_SIZE" in os.environ:          # torchrun: this process is a rank
@@ -293,6 +305,15 @@ def _save(ckpt, step: int, params, opt, opt_cfg, grid: Grid, cfg,
     return rec
 
 
+def _global_ef(opt, params, opt_cfg, grid: Grid, cfg, mdims) -> dict:
+    """The global EF rows (numpy; empty without EF), gathered as a save
+    gathers them."""
+    if "ef" not in opt:
+        return {}
+    return to_numpy(gather_shards(gather_opt_state(
+        opt, params, opt_cfg, grid, mdims), cfg, grid.tp)["ef"])
+
+
 def _restore(ckpt, step: int, params, opt_cfg, grid: Grid, saved_pods: int,
              lost_pods, dev: torch.device, cfg=None, mdims=None) -> tuple:
     """Checkpoint ``step`` read on this rank: the global state, whose EF
@@ -319,8 +340,8 @@ def _restore(ckpt, step: int, params, opt_cfg, grid: Grid, saved_pods: int,
 def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
                 ckpt_dir, ckpt_every, fail_at, smoke, device, log_every,
                 profile,
-                log_json, bucket_mb, trace, digests, config, init_params,
-                local_rank: int = 0) -> dict:
+                log_json, bucket_mb, trace, digests, ef_trees, config,
+                init_params, local_rank: int = 0) -> dict:
     """The training loop of one rank (of a grid whose process group is
     initialised, or alone)."""
     set_json(log_json)
@@ -331,7 +352,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
     grid = make_grid(pods, data, dev, model=model)
     tp = grid.tp
     me = dist.get_rank() if dist.is_initialized() else 0
-    members = list(range(grid.world))     # the grid's global ranks
+    members = list(range(grid.size))      # the grid's global ranks
     orig_dp = grid.world
     events: list[dict] = []
 
@@ -382,10 +403,10 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
         est = _plan_estimates(cfg, sim, grid.world, bucket_bytes, model)
         info(f"{cfg.name} on {dev}: {steps} steps of {batch} x {seq} "
              f"tokens, comm '{comm}' over a {grid.pods}x{grid.data}"
-             f"x{model} grid of {grid.world * model} rank(s)"
+             f"x{model} grid of {grid.size} rank(s)"
              + (f", backend {grid.backend}, collectives staged through "
                 f"host memory: {'yes' if grid.staging == 'host' else 'no'}"
-                if grid.world * model > 1 else "")
+                if grid.size > 1 else "")
              + f"; grad sync est {est['est_ms']:.1f} ms/step, "
              f"{est['slow_crossings']} slow-link crossing(s)",
              event="setup", arch=cfg.name, device=str(dev),
@@ -426,6 +447,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
     tp_calls: list[dict] = []
     moe = {"syncs": [], "dropped": []} if cfg.moe is not None else None
     saves: list[dict] = []
+    carried: list[dict] = []
     recovery_s: list[float] = []
     recoveries = repairs = 0
     accum = 1
@@ -437,7 +459,8 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
         # ---- failure injection / elastic recovery --------------------- #
         failed = injector.failed_pods_at(step_i)
         if failed:
-            plan = plan_recovery((grid.pods, grid.data, 1), AXES, failed)
+            plan = plan_recovery((grid.pods, grid.data, model), AXES,
+                                 failed)
             # the grid's dp ranks of the lost pods, translated to the
             # ORIGINAL rank ids the planning communicator still speaks
             dead = [sim.members[r] for r in
@@ -451,6 +474,8 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
                  f"({'in-place repair' if in_place else 'restart'})",
                  event="failure", step=step_i, failed=list(failed),
                  accum=plan.accum_factor, in_place=in_place)
+            if ef_trees and plan.changed:
+                ef_before = _global_ef(opt, params, opt_cfg, grid, cfg, mdims)
             if ckpt:
                 # the newest checkpoint is whole before anyone leaves or
                 # reads it
@@ -460,12 +485,14 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
             if plan.changed:
                 keep = [p for p in range(old_pods)
                         if p not in plan.lost_pods] or [0]
-                members = [members[p * grid.data + i] for p in keep
-                           for i in range(grid.data)]
+                # the M ranks of each kept (pod, data) cell
+                cells = grid.data * model
+                members = [members[p * cells + i] for p in keep
+                           for i in range(cells)]
                 if me not in members:
                     left_at = step_i
                     break
-                grid = make_grid(plan.new_shape[0], grid.data, dev,
+                grid = make_grid(plan.new_shape[0], grid.data, dev, model,
                                  members=members)
                 if in_place:
                     rep = sim.repair(failed=dead)
@@ -495,12 +522,12 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
                 if latest is not None:
                     params, opt, state = _restore(
                         ckpt, latest, params, opt_cfg, grid, ckpt_pods,
-                        plan.lost_pods, dev)
+                        plan.lost_pods, dev, cfg, mdims)
                     if digests:
                         restored.append({"step": latest,
                                          "digest": _digest(state)})
                     info(f"restart from checkpoint step {latest} on "
-                         f"{grid.world} rank(s)", event="restore",
+                         f"{grid.size} rank(s)", event="restore",
                          step=latest)
                     recovery_s.append(time.monotonic() - t0)
                     step_i = latest + 1
@@ -508,6 +535,12 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
                 carry_live = plan.changed
             if carry_live:
                 opt = _fit_ef_rows(opt, old_pods, plan.lost_pods, grid.pods)
+                if ef_trees:
+                    carried.append({"step": step_i,
+                                    "lost": list(plan.lost_pods),
+                                    "before": ef_before,
+                                    "after": _global_ef(opt, params, opt_cfg,
+                                                        grid, cfg, mdims)})
             recovery_s.append(time.monotonic() - t0)
 
         # ---- the step (with grad accumulation on a shrunk grid) ------- #
@@ -574,14 +607,15 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
         return {"left": True, "left_at": left_at, "losses": losses,
                 "events": events, "launches": launches}
     if orig_dp * model > 1:
-        # every rank's, in rank order: the grid's data-parallel ranks, or
-        # with a model axis all the ranks
-        mine = (launches, moe, peak)
-        every = [mine] * grid.world * model
+        # every surviving rank's, in rank order
+        mine = (launches, moe, peak, tp_calls)
+        every = [mine] * grid.size
         if len(every) > 1:
-            dist.all_gather_object(every, mine, group=grid.dp.group
-                                   if tp is None else None)
-        launches, moe, peak = ([e[i] for e in every] for i in range(3))
+            dist.all_gather_object(every, mine, group=grid.group)
+        launches, moe, peak, tp_ranks = ([e[i] for e in every]
+                                         for i in range(4))
+    else:
+        tp_ranks = [tp_calls]
     steady = step_ms[1:]
     out = {"left": False, "rank": grid.rank, "losses": losses,
            "step_ms": step_ms,
@@ -593,7 +627,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
            "recoveries": recoveries, "repairs": repairs, "events": events,
            "step_tokens": tokens, "recovery_s": recovery_s,
            "accum": accum, "pods": grid.pods,
-           "saves": saves, "restored": restored,
+           "saves": saves, "restored": restored, "carried": carried,
            "ckpt_writes": ckpt.writes if ckpt else [],
            "world": grid.world, "model": model,
            "model_rank": 0 if tp is None else tp.index, "mode": comm,
@@ -601,7 +635,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
            "staging": grid.staging, "staged_bytes": staged,
            "slow_wire_bytes": wire,
            "slow_f32_bytes": _slow_f32_bytes(params, grid, mdims),
-           "tp_calls": tp_calls, "moe": moe, "peak_mem_bytes": peak,
+           "tp_calls": tp_calls, "tp_calls_ranks": tp_ranks, "moe": moe, "peak_mem_bytes": peak,
            "launches": launches, "plan": est}
     if prof is not None:
         prof.stop()

@@ -41,13 +41,11 @@ from __future__ import annotations
 
 from .config import ModelConfig
 
-__all__ = ["NOT_PORTED_TP", "NOT_PORTED_TP_ARCH", "RUN_DIM",
+__all__ = ["NOT_PORTED_TP_ARCH", "RUN_DIM",
            "param_model_dims", "kv_split_ok",
            "layer_model_dims", "cut_shard", "tp_check", "dp_axes",
            "batch_pspec"]
 
-NOT_PORTED_TP = ("ROADMAP.md, Queue 1 item 5: fail_at and elastic recovery "
-                 "of training on a model axis")
 NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: head, KV-head, expert, "
                       "feature, vocabulary and recurrence-width counts a "
                       "model axis does not divide")

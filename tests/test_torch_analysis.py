@@ -232,7 +232,6 @@ def test_analysis_cli_exits_zero():
 # Every pointer of the port into ROADMAP.md's Queue 1: (file, item, a
 # phrase that names the subject in both the pointer and the item)
 POINTERS = [
-    ("models/sharding.py", 5, "training on a model axis"),
     ("models/sharding.py", 5, "model axis does not divide"),
 ]
 

@@ -538,6 +538,32 @@ def test_elastic_grid_on_card(dev, tmp_path):
         assert rank["quantize_ef_int8"] == rank["dequantize_int8"] == 30
 
 
+def test_elastic_model_axis_on_card(dev, tmp_path):
+    """2x1x2 ``multilevel_compress`` ranks sharing the card over gloo,
+    pod 1 failing before step 2: below quorum, a restart from step 1's
+    checkpoint onto 1x1x2 with accum 2, its state restored bit for bit,
+    and each survivor launching the fused EF and dequant kernels once per
+    stacked leaf in the two steps that had two pods, and no more."""
+    cfg = get_config("gpt_100m", smoke=True)
+    out = train("gpt-100m", steps=3, mesh_spec="2x1x2", seq=64, batch=4,
+                comm="multilevel_compress", ckpt_dir=str(tmp_path),
+                ckpt_every=1, fail_at={2: [1]}, smoke=True, device="cuda",
+                digests=True)
+    assert (out["recoveries"], out["repairs"], out["accum"]) == (1, 0, 2)
+    assert (out["world"], out["model"]) == (1, 2)
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert [(s["step"], s["pods"]) for s in out["saves"]] == [(1, 2), (2, 1)]
+    assert out["restored"] == [{"step": 1,
+                                "digest": out["saves"][0]["digest"]}]
+    micro = 2 + 2                     # steps 0-1, then step 2 with accum 2
+    assert len(out["launches"]) == 2
+    for rank in out["launches"]:
+        assert rank["quantize_ef_int8"] == rank["dequantize_int8"] == 2 * 10
+        assert rank["flash_fwd"] == 2 * cfg.n_layers * micro
+        assert rank["flash_bwd_dq"] == rank["flash_bwd_dkv"] \
+            == cfg.n_layers * micro
+
+
 def test_train_on_a_model_axis_on_card(dev):
     """``train --mesh 2x1x2 --comm multilevel_compress`` on the card: four
     gloo ranks share it, each with its model shard, the model axis's

@@ -285,18 +285,32 @@ def test_train_drives_a_model_axis(arch):
     assert all(n == 0 for rank in out["launches"] for n in rank.values())
 
 
+@pytest.mark.parametrize("arch,mesh", [("gpt-100m", "1x2x2"),
+                                       ("recurrentgemma-2b", "1x1x2")])
+def test_one_pod_failure_on_a_model_axis_carries_on(arch, mesh):
+    """``fail_at`` on a model axis of one pod makes the reference's
+    one-pod decision (``tests/test_torch_elastic.py``'s ``one_rank``
+    case): nothing to shrink and no checkpoint, so a restart that carries
+    on, with every step's loss."""
+    out = train(arch, 2, mesh_spec=mesh, seq=32, batch=2, device="cpu",
+                smoke=True, fail_at={1: [0]})
+    assert (out["recoveries"], out["repairs"]) == (1, 0)
+    assert out["events"] == [{"event": "failure", "step": 1, "failed": [0],
+                              "accum": 1, "in_place": False}]
+    assert out["model"] == 2 and out["pods"] == 1
+    assert len(out["losses"]) == 2 and all(map(math.isfinite,
+                                               out["losses"]))
+
+
 @pytest.mark.parametrize("arch,mesh,kw,item", [
-    ("gpt-100m", "1x2x2", dict(fail_at={1: [0]}), "Queue 1 item 5"),
     # 24 heads on 8 KV heads: 2 query heads a rank, groups of 3
     ("phi4-mini-3.8b", "1x1x12", dict(smoke=False), "8 KV heads"),
     ("recurrentgemma-2b", "1x2x4", dict(smoke=False), "10 heads"),
-    ("recurrentgemma-2b", "1x1x2", dict(fail_at={1: [0]}),
-     "Queue 1 item 5"),
     ("rwkv6-1.6b", "1x1x8", {}, "Queue 1 item 5")])      # 4 heads
 def test_what_a_model_axis_still_refuses(arch, mesh, kw, item):
     """Refused before any rank is spawned, naming ROADMAP's Queue 1 item
-    5: ``fail_at`` on a model axis, a KV layout outside the split's rule,
-    recurrentgemma's 10 heads on 4 ranks, RWKV-6's 4 smoke heads on 8."""
+    5: a KV layout outside the split's rule, recurrentgemma's 10 heads on
+    4 ranks, RWKV-6's 4 smoke heads on 8."""
     with pytest.raises(NotImplementedError, match=item) as e:
         train(arch, 2, mesh_spec=mesh, seq=32, batch=2, device="cpu",
               **{"smoke": True, **kw})

@@ -506,7 +506,8 @@ def test_grid_and_a_model_axis_train():
     losses, the int8 slow hop at about a quarter of the f32 bytes, and no
     kernel launch (the CPU takes the plain versions).  On 1x2x2 it trains
     too, four ranks of two model groups, with finite losses; ``fail_at``
-    on a model axis is refused, naming the ROADMAP item that brings it."""
+    on its one pod makes the reference's one-pod decision, a restart that
+    carries on with no checkpoint."""
     out = train("gpt-100m", 2, mesh_spec="2x2x1", seq=32, batch=4,
                 smoke=True, device="cpu", comm="multilevel_compress")
     assert out["world"] == 4 and out["backend"] == "gloo"
@@ -521,9 +522,10 @@ def test_grid_and_a_model_axis_train():
     assert out["world"] == 2 and out["model"] == 2
     assert len(out["losses"]) == 2 and all(map(math.isfinite, out["losses"]))
     assert len(out["launches"]) == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train("gpt-100m", 2, mesh_spec="1x2x2", smoke=True, device="cpu",
-              fail_at={1: [0]})
+    out = train("gpt-100m", 2, mesh_spec="1x2x2", smoke=True, device="cpu",
+                fail_at={1: [0]})
+    assert (out["recoveries"], out["repairs"]) == (1, 0)
+    assert len(out["losses"]) == 2 and all(map(math.isfinite, out["losses"]))
 
 
 def test_stacked_params_unstack_to_views():
