@@ -6,7 +6,7 @@
 Phases, each of which fails the run (nonzero exit, no result line).
 Each spawn of ranks costs seconds a rank before any work, so the phases
 that spawn ranks themselves share two spawns: the four ranks of 10, 12,
-24d, 25c's 2x1x2 grid and 26f (``pool4_rank``, at phase 10) and the two
+24d, 25c's 2x1x2 grid, 26f and 31 (``pool4_rank``, at phase 10) and the two
 of 24c, 25c's 1x1x2 and 2x1x1 grids, 27d, 28 and 29 (``tp_rs_rank``,
 at phase 24); each rank body sets its counters to 0 and reads them, and
 each phase checks and prints its part where it stands:
@@ -22,7 +22,8 @@ each phase checks and prints its part where it stands:
    at the shapes of the models the port serves and trains (gemma3-12b's
    local layer at hd 256 among them, and the serving regimes of phases
    21-22: olmoe's prefill, recurrentgemma-2b's local layer (G 10, hd 256,
-   window 2048, and on each rank of a model axis of 2: G 5), seamless's
+   window 2048, and on each rank of a model axis of 2: G 5, and of 4: G
+   3, a rank's 2.5 heads computed as 3), seamless's
    encoder and cross attention (not causal, the cross with Sq != Sk),
    pixtral and llama4-scout (G 4, 5)), and in bf16
    also against the plain
@@ -35,7 +36,8 @@ each phase checks and prints its part where it stands:
 4. the two flash backward kernels (dq, dk/dv) the same way, at the same
    shapes but the serving-only regimes, and at the local layers of
    recurrentgemma-2b's training (1 x 4096, G 10, hd 256, window 2048;
-   and 1 x 2048 at G 5, a rank's heads on a model axis of 2) and
+   and 1 x 2048 at G 5 and G 3, a rank's heads on a model axis of 2 and
+   of 4) and
    gemma3-12b in bf16 and f32 (hd 256: the bf16 kernels' column split,
    the f32 kernels' 32-key tile): against the f32
    plain version, and in bf16 also against the plain version that mirrors
@@ -344,6 +346,23 @@ each phase checks and prints its part where it stands:
    kernels in the 4 steps with a slow axis).  Printed: step ms,
    ``recovery_s``, each save's bytes and seconds, the bytes staged a
    step, the peak memory a rank, the wall.
+31. A model axis that cuts inside a head, and a vocabulary it does not
+   divide, on phase 10's four ranks (``pool4_rank``: the ranks compute
+   there, this phase checks): recurrentgemma-2b on ``1x1x4``, 640 of its
+   2560 query columns a rank (2.5 of its 10 heads of 256; the rank gathers
+   q by columns and computes the 3 heads its columns meet), its one KV head
+   gathered, the RG-LRU on 640 channels a rank. 31a serves it whole as 29a,
+   against 29a's one-rank run: its 5 tokens equal the first 5 of 29a's (9
+   until whole runs passed 1000 s), its first prefill's bf16 logits as 29a
+   holds them but for one bf16 step of the largest logit (0.25 at 42.7,
+   where LOGIT_TOL is below the logits' own resolution), and the same
+   weights' f32 prefill on the ranks within TP_F32_TOL of one rank's, all
+   26 layers; 31b trains it at 3 layers as 29b, 2 steps (3 until a whole
+   run passed 1000 s); 31c holds it at 3 layers in f32 as 29c; 31d holds
+   seamless-m4t-medium (1 + 1 layers, its 256,206 vocabulary rows, which 4
+   does not divide, replicated with the tied head) as 28d. Each rank's
+   flash launches are asserted: 8 forwards in 31a; 4, 2 and 2 in 31b; 3, 1
+   and 1 in 31c; 9, 3 and 3 in 31d.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -424,11 +443,16 @@ SHAPES = [
      "bfloat16"),
     ("recurrentgemma-2b local M 2", 1, 2048, 2048, 5, 1, 256, True, 2048, 0,
      "float32"),
+    # and of 4: the 3 heads that a rank's 640 query columns meet (phase 31)
+    ("recurrentgemma-2b local M 4", 1, 2048, 2048, 3, 1, 256, True, 2048, 0,
+     "bfloat16"),
+    ("recurrentgemma-2b local M 4", 1, 2048, 2048, 3, 1, 256, True, 2048, 0,
+     "float32"),
 ]
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
 TRAIN_SHAPE = 12        # the shape the training path gives all three
 # phase 4 runs these; the others serve only
-BWD_SHAPES = set(range(15)) | {21, 22, 23, 24, 25}
+BWD_SHAPES = set(range(15)) | {21, 22, 23, 24, 25, 26, 27}
 TRAIN = dict(steps=5, seq=1024, batch=8)
 GRID_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
                   comm="multilevel_compress", dist_backend="gloo")
@@ -657,7 +681,7 @@ TP_RS_MESH = "1x1x2"
 TP_RS_SERVE = {"28a": ("rwkv6-1.6b", 2, 512, 0),
                "28b": ("seamless-m4t-medium", 2, 512, 512),
                "29a": ("recurrentgemma-2b", 2, 512, 0)}
-TP_RS_SAME_TOKENS = {"29a"}     # tokens held to the one-rank run's too
+TP_RS_SAME_TOKENS = {"29a", "31a"}  # tokens held to the one-rank run's too
 TP_RS_GEN = 9
 # arch -> (layers kept, phase)
 TP_RS_TRAIN = {"rwkv6-1.6b": (4, "28c"), "seamless-m4t-medium": (12, "28c"),
@@ -668,6 +692,22 @@ TP_RS_ANSWER = [("rwkv6-1.6b", 2, "28d", TP_STEP_TOL),
                 ("seamless-m4t-medium", 1, "28d", TP_STEP_TOL),
                 ("recurrentgemma-2b", 3, "29c", TP_F32_TOL)]
 TP_RS_ANSWER_INPUT = (2, 48, 32)    # batch, prompt, encoder frames
+# phase 31: a model axis of 4 that cuts recurrentgemma-2b's heads (640
+# query columns a rank) and leaves seamless-m4t-medium's 256,206-row
+# vocabulary replicated, on phase 10's four ranks: 31a serves 29a's model
+# and input (held to 29a's one-rank run; its bf16 bound takes one bf16
+# step of the largest logit, and its f32 prefill is held to one rank's:
+# PERF.md section 6), 31b trains as 29b, 31c-d hold f32 as 29c and 28d
+# (arch, layers, phase, the decode steps' tolerance)
+HEADCUT_MESH = "1x1x4"
+HEADCUT_SERVE = TP_RS_SERVE["29a"]
+HEADCUT_TRAIN = {"recurrentgemma-2b": (3, "31b")}
+# 31b's steps and 31a's tokens (held to the first of 29a's): 3 and 9
+# until whole runs passed 1000 s (PERF.md section 6)
+HEADCUT_TRAIN_KW = dict(TP_RS_TRAIN_KW, steps=2)
+HEADCUT_GEN = 5
+HEADCUT_ANSWER = [("recurrentgemma-2b", 3, "31c", TP_F32_TOL),
+                  ("seamless-m4t-medium", 1, "31d", TP_STEP_TOL)]
 # phase 30: elastic training on a model axis, gpt-100m at full width cut
 # to TP_ELASTIC_LAYERS layers: pod 1 of 3 lost before step 2 (an in-place
 # repair), pod 1 of the 2 left before step 4 (a restart from step 2's
@@ -1182,8 +1222,8 @@ def collectives_phase(torch, pool) -> dict:
 
 def pool4_rank(rank, jobs):
     """One of the four ranks that phases 10, 12, 24d, 25c (its 2x1x2
-    grid) and 26f share, one spawn: each phase's rank body in turn, its
-    counters from 0 as the body sets them, with its wall s.  ``jobs``:
+    grid), 26f and 31 share, one spawn: each phase's rank body in turn,
+    its counters from 0 as the body sets them, with its wall s.  ``jobs``:
     24d's (``tp_answer_rank``)."""
     import torch
 
@@ -1192,7 +1232,8 @@ def pool4_rank(rank, jobs):
                               for dev in ("cuda", "cpu")}),
               ("26f", lambda: family_grid_rank(rank)),
               ("24d", lambda: tp_answer_rank(rank, jobs)),
-              ("25c", lambda: tp_train_answer_rank(rank, 4)))
+              ("25c", lambda: tp_train_answer_rank(rank, 4)),
+              ("31", lambda: headcut_rank(rank)))
     out = {"wall_s": {}}
     for name, body in bodies:
         t0 = time.perf_counter()
@@ -2748,13 +2789,16 @@ def tp_serve_phase(serve, arch, mesh, plain, cfg) -> int:
     return launches
 
 
-def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN):
-    """One rank of phase 24c (and 28a-b): ``arch`` cut to ``n`` layers at
-    full width, this rank's shard on ``mesh``'s model axis (gloo, the card
-    shared), the dense path's prefills (after ``P`` prefix positions or
-    encoder frames) and ``gen`` greedy tokens, with the sequence-parallel
-    decode; the flash and WKV counters set to 0 just before the prefills
-    and read just after."""
+def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN,
+                  f32_first=False):
+    """One rank of phase 24c (and 28a-b, 29a, 31a): ``arch`` cut to ``n``
+    layers at full width, this rank's shard on ``mesh``'s model axis
+    (gloo, the card shared), the dense path's prefills (after ``P`` prefix
+    positions or encoder frames) and ``gen`` greedy tokens, with the
+    sequence-parallel decode; the flash and WKV counters set to 0 just
+    before the prefills and read just after.  ``f32_first``: then the
+    same shard in f32, the first prompt's prefill logits
+    (``f32_first_logits``), uncounted."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -2784,7 +2828,22 @@ def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN):
                         "collectives_prefill",
                         "collectives_per_decode_step")}})
     got = counts(fa, kw)
-    return {"runs": out, "flash_fwd": got["flash_fwd"], "wkv": got["wkv"]}
+    res = {"runs": out, "flash_fwd": got["flash_fwd"], "wkv": got["wkv"]}
+    if f32_first:
+        from repro_torch.launch.step import make_prefill_fn
+        from repro_torch.tree import tree_map
+
+        params = tree_map(lambda t: t.float(), params)
+        B, L_ = prefills[0]
+        ins = {k: v.cuda()
+               for k, v in prompt_inputs(torch, cfg, B, L_, P, L_).items()}
+        s_max = L_ + gen - 1
+        lg, _, _ = make_prefill_fn(cfg, s_max + (-s_max) % 8, grid)(params,
+                                                                    ins)
+        res["f32_first_logits"] = lg.float().cpu().numpy()
+        del params
+        torch.cuda.empty_cache()
+    return res
 
 
 def tp_dense_phase(torch, T, get_config, ranks) -> int:
@@ -3704,11 +3763,16 @@ def tp_rs_rank(rank):
     return out
 
 
-def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
-    """28a/28b/29a: the dense path of ``TP_RS_SERVE[name]`` at full width
-    and depth on TP_RS_MESH (``ranks``, each rank's ``tp_dense_rank``
-    result from a fresh process holding its shard, counters from 0),
-    against the one-rank run in this process on the same weights: the
+def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
+                mesh=TP_RS_MESH, one=None, quantum=False,
+                n_gen=TP_RS_GEN) -> tuple[list, dict]:
+    """28a/28b/29a/31a: the dense path of ``spec`` (arch, batch, prompt,
+    encoder frames; ``TP_RS_SERVE[name]`` by default) at full width and
+    depth on ``mesh`` (``ranks``, each rank's ``tp_dense_rank`` result
+    from a fresh process holding its shard, counters from 0), against the
+    one-rank run on the same weights (in this process, or ``one``, what
+    an earlier call on the same spec returned: the model is not run
+    whole a second time; ``n_gen`` tokens, at most its TP_RS_GEN): the
     ranks' tokens equal (and equal to the one-rank run's, for the phases
     of TP_RS_SAME_TOKENS); the first prefill's bf16 logits no farther
     from the one-rank f32 model's (the same weights in f32) than the
@@ -3720,31 +3784,47 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
     attention's, on its heads).  Printed: the tokens beside the one-rank
     run's, the logits' distances, the WKV launch plan at H/M heads,
     prefill and decode ms beside one rank's, the collectives a prefill and
-    a step, the bytes each rank staged.  Returns the ranks' launches."""
+    a step, the bytes each rank staged.  ``quantum`` (31a, the logits far
+    from 1): the bound on the bf16 logits takes one bf16 step of the
+    largest f32 logit where that is above LOGIT_TOL (the logits leave the
+    model as bf16 products, so two bf16 runs whose hidden states differ
+    at all may land a step apart), and the ranks' f32 prefill of the same
+    weights (``f32_first_logits``) is held to the one-rank f32 model's
+    within TP_F32_TOL.  Returns the ranks' launches and the one-rank run
+    (its tokens, first logits and times, and the f32 model's first
+    logits)."""
     from repro_torch.launch.mesh import parse_mesh
     from repro_torch.tree import tree_map
 
-    arch, B, L_, P = TP_RS_SERVE[name]
-    model = parse_mesh(TP_RS_MESH)[2]
+    arch, B, L_, P = spec or TP_RS_SERVE[name]
+    model = parse_mesh(mesh)[2]
     cfg = get_config(arch)
-    params = T.init_model(cfg, seed=0, device="cuda")
-    one = dense_serve(torch, cfg, params, B, L_, P, align=8, gen=TP_RS_GEN)
-    params = tree_map(lambda t: t.float(), params)
-    ins = {k: v.cuda() for k, v in prompt_inputs(torch, cfg, B, L_, P,
-                                                   L_).items()}
-    f32, _, _ = T.prefill(params, cfg, ins, L_ + TP_RS_GEN)
-    f32 = f32.cpu().numpy()
-    del params, ins
-    torch.cuda.empty_cache()
+    if one is None:
+        params = T.init_model(cfg, seed=0, device="cuda")
+        run = dense_serve(torch, cfg, params, B, L_, P, align=8,
+                          gen=TP_RS_GEN)
+        params = tree_map(lambda t: t.float(), params)
+        ins = {k: v.cuda() for k, v in prompt_inputs(torch, cfg, B, L_, P,
+                                                       L_).items()}
+        f32, _, _ = T.prefill(params, cfg, ins, L_ + TP_RS_GEN)
+        one = {"tokens": run["tokens"].cpu().numpy(),
+               "logits": run["logits"][0].float().cpu().numpy(),
+               "f32": f32.cpu().numpy(), "prefill_ms": run["prefill_ms"],
+               "decode_ms_per_step": run["decode_ms_per_step"]}
+        del params, ins, run, f32
+        torch.cuda.empty_cache()
+    f32, one_lg = one["f32"], one["logits"]
     r = ranks[0]["runs"][0]
     gen = r["tokens"]
-    one_lg = one["logits"][0].float().cpu().numpy()
     err = float(abs(r["first_logits"] - one_lg).max())
     err_f32 = float(abs(r["first_logits"] - f32).max())
     one_f32 = float(abs(one_lg - f32).max())
-    rec = {"arch": arch, "layers": cfg.n_layers, "mesh": TP_RS_MESH,
+    top = float(abs(f32).max())
+    tol = max(LOGIT_TOL, 2.0 ** (math.floor(math.log2(top)) - 7)) \
+        if quantum else LOGIT_TOL
+    rec = {"arch": arch, "layers": cfg.n_layers, "mesh": mesh,
            "batch": B, "prompt": L_, "encoder_frames": P,
-           "generated": TP_RS_GEN, "prefill_wall_ms": r["prefill_ms"],
+           "generated": n_gen, "prefill_wall_ms": r["prefill_ms"],
            "decode_wall_ms_per_step": r["decode_ms_per_step"],
            "one_rank_prefill_wall_ms": one["prefill_ms"],
            "one_rank_decode_wall_ms_per_step": one["decode_ms_per_step"],
@@ -3754,9 +3834,9 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
            "first_prefill_max_abs_logit_err_bf16": err,
            "first_prefill_max_abs_logit_err_vs_f32": err_f32,
            "one_rank_max_abs_logit_err_vs_f32": one_f32,
-           "max_abs_logit_f32": float(abs(f32).max()),
-           "logit_tol": LOGIT_TOL, "tokens": gen.tolist(),
-           "tokens_one_rank": one["tokens"].cpu().tolist(),
+           "max_abs_logit_f32": top, "logit_tol": tol,
+           "tokens": gen.tolist(),
+           "tokens_one_rank": one["tokens"][:, :n_gen].tolist(),
            "wkv_launches": [x["wkv"] for x in ranks],
            "flash_fwd_launches": [x["flash_fwd"] for x in ranks]}
     if "rwkv6" in cfg.pattern:
@@ -3766,33 +3846,39 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks) -> list:
             B, rec["wkv_plan_heads_per_rank"], hd)
         rec["wkv_launch_plan_batch_1"] = kw.launch_plan(
             1, rec["wkv_plan_heads_per_rank"], hd)
+    if quantum:
+        rec["f32_first_prefill_max_abs_err"] = max(
+            float(abs(x["f32_first_logits"] - f32).max()) for x in ranks)
     print(json.dumps({f"tp_rs_serve_{name}": rec}), flush=True)
     want = {"flash_fwd": flash_per_prefill(cfg),
             "wkv": sum(k == "rwkv6" for k in cfg.pattern)}
-    if not r["finite"] or gen.shape != (B, TP_RS_GEN) or gen.min() < 0 \
+    if not r["finite"] or gen.shape != (B, n_gen) or gen.min() < 0 \
             or gen.max() >= cfg.vocab:
         fail(f"phase {name}: tokens of shape {gen.shape} or non-finite "
              f"logits")
     if any(not (x["runs"][0]["tokens"] == gen).all() for x in ranks):
         fail(f"phase {name}: the ranks took other tokens")
     if name in TP_RS_SAME_TOKENS \
-            and not (gen == one["tokens"].cpu().numpy()).all():
+            and not (gen == one["tokens"][:, :n_gen]).all():
         fail(f"phase {name}: tokens {gen.tolist()}, one rank's "
-             f"{one['tokens'].cpu().tolist()}")
-    if not err_f32 <= one_f32 + LOGIT_TOL:
+             f"{one['tokens'][:, :n_gen].tolist()}")
+    if not err_f32 <= one_f32 + tol:
         fail(f"phase {name}: first prefill's logits {err_f32} from the f32 "
              f"model's, the one-rank run's {one_f32}")
+    if quantum and not rec["f32_first_prefill_max_abs_err"] <= TP_F32_TOL:
+        fail(f"phase {name}: the f32 prefill on {mesh} is "
+             f"{rec['f32_first_prefill_max_abs_err']} from one rank's")
     if any({k: x[k] for k in want} != want for x in ranks):
         fail(f"phase {name}: the ranks launched "
              f"{[{k: x[k] for k in want} for x in ranks]}, expected {want} "
              f"each")
-    return [{k: x[k] for k in want} for x in ranks]
+    return [{k: x[k] for k in want} for x in ranks], one
 
 
-def tp_rs_train_rank(grid, arch, n, dev) -> dict:
-    """28c/29b on this rank of ``grid``: ``arch`` at full width cut to ``n``
-    layers, this rank's shard of the seed-0 weights in bf16, the steps of
-    TP_RS_TRAIN_KW through ``make_train_step`` with ``train``'s
+def tp_rs_train_rank(grid, arch, n, dev, train_kw=TP_RS_TRAIN_KW) -> dict:
+    """28c/29b/31b on this rank of ``grid``: ``arch`` at full width cut to
+    ``n`` layers, this rank's shard of the seed-0 weights in bf16, the
+    steps of ``train_kw`` through ``make_train_step`` with ``train``'s
     optimiser settings, the counters set to 0 just before and read just
     after: the losses, each step's wall ms (until its loss reaches the
     host), the model axis's collectives and the bytes staged a step, the
@@ -3808,7 +3894,7 @@ def tp_rs_train_rank(grid, arch, n, dev) -> dict:
     from repro_torch.models.convert import model_dims, stack_runs
     from repro_torch.optim import adamw
 
-    tp, steps = grid.tp, TP_RS_TRAIN_KW["steps"]
+    tp, steps = grid.tp, train_kw["steps"]
     cfg = cut(get_config, arch, n)
     params = stack_runs(T.init_model(cfg, seed=0, device=dev, model=tp.size,
                                      m=tp.index), cfg, tp.size, tp.index)
@@ -3818,8 +3904,7 @@ def tp_rs_train_rank(grid, arch, n, dev) -> dict:
                                 model_dims(cfg, tp.size))
     step = make_train_step(cfg, opt_cfg, grid, dev)
     pipe = DataPipeline(cfg, ShapeSpec("custom", "train",
-                                       TP_RS_TRAIN_KW["seq"],
-                                       TP_RS_TRAIN_KW["batch"]))
+                                       train_kw["seq"], train_kw["batch"]))
     torch.cuda.reset_peak_memory_stats(dev)
     reset(fa, kw)
     out = {"losses": [], "step_ms": [], "tp_calls": [], "staged_bytes": []}
@@ -3837,10 +3922,12 @@ def tp_rs_train_rank(grid, arch, n, dev) -> dict:
     return out
 
 
-def tp_rs_train(get_config, refs, ranks, phase) -> list:
-    """28c/29b: each of TP_RS_TRAIN of ``phase`` at full width (rwkv6-1.6b
-    cut to 4 of 24 layers, seamless whole; recurrentgemma-2b cut to 3 of
-    26) trained on TP_RS_MESH in bf16 (``ranks``: each rank's
+def tp_rs_train(get_config, refs, ranks, phase, table=TP_RS_TRAIN,
+                mesh=TP_RS_MESH, train_kw=TP_RS_TRAIN_KW) -> list:
+    """28c/29b/31b: each entry of ``table`` (arch -> layers kept, phase)
+    of ``phase`` at full width (rwkv6-1.6b cut to 4 of 24 layers, seamless
+    whole; recurrentgemma-2b cut to 3 of 26) trained on ``mesh`` in bf16
+    (``ranks``: each rank's
     ``tp_rs_train_rank`` results), the ranks sharing the card over gloo:
     finite losses, equal on the ranks, the same model-axis collectives
     each step, each rank's launches (RWKV-6: 2 WKV a layer and step;
@@ -3852,8 +3939,8 @@ def tp_rs_train(get_config, refs, ranks, phase) -> list:
     rank's peak memory, the collectives a step and the bytes staged.
     Returns the ranks' launches."""
     out_launches = []
-    steps = TP_RS_TRAIN_KW["steps"]
-    for arch, (n, ph) in TP_RS_TRAIN.items():
+    steps = train_kw["steps"]
+    for arch, (n, ph) in table.items():
         if ph != phase:
             continue
         cfg = cut(get_config, arch, n)
@@ -3864,10 +3951,10 @@ def tp_rs_train(get_config, refs, ranks, phase) -> list:
         wkv = 2 * sum(k == "rwkv6" for k in cfg.pattern) * steps
         want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
                 "flash_bwd_dkv": calls, "wkv": wkv}
-        tokens = TP_RS_TRAIN_KW["seq"] * TP_RS_TRAIN_KW["batch"]
+        tokens = train_kw["seq"] * train_kw["batch"]
         print(json.dumps({f"tp_rs_train_{phase}": {
-            "arch": arch, "layers": cfg.n_layers, "mesh": TP_RS_MESH,
-            **TP_RS_TRAIN_KW, "dtype": "bfloat16", "losses": out["losses"],
+            "arch": arch, "layers": cfg.n_layers, "mesh": mesh,
+            **train_kw, "dtype": "bfloat16", "losses": out["losses"],
             "step_ms": out["step_ms"],
             "steady_step_ms_mean": sum(steady) / len(steady),
             "one_rank_steady_step_ms": refs[arch],
@@ -3893,12 +3980,15 @@ def tp_rs_train(get_config, refs, ranks, phase) -> list:
     return out_launches
 
 
-def tp_rs_answer_rank(rank):
-    """One rank of 28d/29c on the card: for each of TP_RS_ANSWER, f32 seed-0
-    weights, the dense path and one unclipped train step on one rank
-    (``Grid.single()``, in this process) and on this rank's shard of
-    TP_RS_MESH, compared here; returns the errors, the losses and the
-    shard runs' WKV and flash launches."""
+def tp_rs_answer_rank(rank, table=TP_RS_ANSWER, mesh=TP_RS_MESH,
+                      turns=False):
+    """One rank of 28d/29c/31c-d on the card: for each entry of ``table``,
+    f32 seed-0 weights, the dense path and one unclipped train step on
+    one rank (``Grid.single()``, in this process) and on this rank's shard
+    of ``mesh``, compared here; returns the errors, the losses and the
+    shard runs' WKV and flash launches.  With ``turns`` the ranks take
+    the one-rank step one at a time (four one-rank f32 optimiser states
+    of recurrentgemma-2b at 3 layers do not fit the card at once)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -3912,11 +4002,11 @@ def tp_rs_answer_rank(rank):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    M = parse_mesh(TP_RS_MESH)[2]
+    M = parse_mesh(mesh)[2]
     grid = make_grid(1, 1, dev, model=M)
     B, L_, P = TP_RS_ANSWER_INPUT
     out = {}
-    for arch, n, _, _ in TP_RS_ANSWER:
+    for arch, n, _, _ in table:
         cfg = cut(get_config, arch, n)
         full = tree_map(lambda t: t.float(), T.init_model(cfg, seed=0,
                                                           device=dev))
@@ -3941,9 +4031,13 @@ def tp_rs_answer_rank(rank):
                "steps_err": max(err(a, b) for a, b in zip(got["steps"],
                                                           one["steps"]))}
         torch.cuda.empty_cache()
-        step_one = tp_family_step(Grid.single(), cfg, dev)
-        want = shard_params(step_one.pop("m"), cfg, M, rank)
-        torch.cuda.empty_cache()
+        for turn in range(M if turns else 1):
+            if not turns or turn == rank:
+                step_one = tp_family_step(Grid.single(), cfg, dev)
+                want = shard_params(step_one.pop("m"), cfg, M, rank)
+                torch.cuda.empty_cache()
+            if turns:
+                grid.barrier()
         f0 = counts(fa, kw)
         step = tp_family_step(grid, cfg, dev)
         f1 = counts(fa, kw)
@@ -3960,25 +4054,28 @@ def tp_rs_answer_rank(rank):
     return out
 
 
-def tp_rs_answer(ranks, phase) -> dict:
-    """28d/29c: the configs of TP_RS_ANSWER of ``phase`` (rwkv6-1.6b at 2
+def tp_rs_answer(ranks, phase, table=TP_RS_ANSWER, mesh=TP_RS_MESH,
+                 want=None) -> dict:
+    """28d/29c/31c-d: the entries of ``table`` of ``phase`` (rwkv6-1.6b at 2
     layers and seamless-m4t-medium at 1 + 1; recurrentgemma-2b at 3) at
-    full width in f32 on TP_RS_MESH ranks sharing the card over gloo,
+    full width in f32 on ``mesh``'s ranks sharing the card over gloo,
     against one rank on the card in each rank's process (nothing crosses
     between processes): the dense prefill's logits within TP_F32_TOL, 4
     decode steps from the one-rank cache within the entry's tolerance,
     one unclipped step's loss within TP_FAMILY_TOL relative and Adam's
     first moment (0.1 x the gradient) within TP_FAMILY_TOL of each leaf's
     largest.  ``ranks``: each rank's ``tp_rs_answer_rank`` result.
-    Returns the shard runs' launches, summed over the ranks."""
+    ``want`` (arch -> launches), where given, is each rank's count of the
+    shard runs' launches.  Returns those launches, summed over the
+    ranks."""
     total = {}
-    for arch, n, ph, step_tol in TP_RS_ANSWER:
+    for arch, n, ph, step_tol in table:
         if ph != phase:
             continue
         res = [r[arch] for r in ranks]
         rel = max(abs(r["loss"] - r["loss_one_rank"]) / abs(r["loss_one_rank"])
                   for r in res)
-        rec = {"arch": arch, "layers": n, "mesh": TP_RS_MESH,
+        rec = {"arch": arch, "layers": n, "mesh": mesh,
                "input": TP_RS_ANSWER_INPUT,
                "prefill_max_abs_err": max(r["prefill_err"] for r in res),
                "steps_max_abs_err": max(r["steps_err"] for r in res),
@@ -3997,10 +4094,61 @@ def tp_rs_answer(ranks, phase) -> dict:
                 and math.isfinite(rel) and rel <= TP_FAMILY_TOL
                 and rec["m_max_rel_diff"] <= TP_FAMILY_TOL):
             fail(f"phase {phase}: {arch} on a model axis in f32: {rec}")
+        if want is not None and any(r["launches"] != want[arch]
+                                    for r in res):
+            fail(f"phase {phase}: {arch} ranks launched "
+                 f"{[r['launches'] for r in res]}, expected {want[arch]} "
+                 f"each")
         for r in res:
             for k, v in r["launches"].items():
                 total[k] = total.get(k, 0) + v
     return total
+
+
+def headcut_rank(rank):
+    """Phase 31 on this rank of phase 10's four, a 1x1x4 grid: 31a's dense
+    path (``tp_dense_rank``), 31b's training (``tp_rs_train_rank``) and
+    31c-d's answers (``tp_rs_answer_rank``); each sets its counters to
+    0."""
+    import torch
+    from repro_torch.launch.mesh import make_grid, parse_mesh
+
+    arch, B, L_, P = HEADCUT_SERVE
+    out = {"31a": tp_dense_rank(rank, HEADCUT_MESH, arch, None, ((B, L_),),
+                                P, HEADCUT_GEN, f32_first=True)}
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    grid = make_grid(1, 1, dev, model=parse_mesh(HEADCUT_MESH)[2])
+    out["train"] = {arch: tp_rs_train_rank(grid, arch, n, dev,
+                                           HEADCUT_TRAIN_KW)
+                    for arch, (n, _) in HEADCUT_TRAIN.items()}
+    torch.cuda.empty_cache()
+    out["answer"] = tp_rs_answer_rank(rank, HEADCUT_ANSWER, HEADCUT_MESH,
+                                      turns=True)
+    return out
+
+
+def headcut_phase(torch, T, kw, get_config, refs, ranks, one) -> list:
+    """Phase 31's checks, of ``ranks`` (each rank's ``headcut_rank``
+    result): 31a against ``one``, 29a's one-rank run of the same model
+    and input; 31b; 31c-d, with each rank's flash launches of the shard
+    runs (a prefill, and a training step's two forwards, dq and dk/dv,
+    of each attention call).  Returns the ranks' launches."""
+    out, _ = tp_rs_serve(torch, T, kw, get_config, "31a",
+                         [r["31a"] for r in ranks], HEADCUT_SERVE,
+                         HEADCUT_MESH, one, quantum=True,
+                         n_gen=HEADCUT_GEN)
+    out += tp_rs_train(get_config, refs, [r["train"] for r in ranks], "31b",
+                       HEADCUT_TRAIN, HEADCUT_MESH, HEADCUT_TRAIN_KW)
+    want = {}
+    for arch, n, _, _ in HEADCUT_ANSWER:
+        f = flash_per_prefill(cut(get_config, arch, n))
+        want[arch] = {"flash_fwd": 3 * f, "flash_bwd_dq": f,
+                      "flash_bwd_dkv": f, "wkv": 0}
+    for phase in ("31c", "31d"):
+        out.append(tp_rs_answer([r["answer"] for r in ranks], phase,
+                                HEADCUT_ANSWER, HEADCUT_MESH, want))
+    return out
 
 
 def main() -> None:
@@ -4361,14 +4509,15 @@ def main() -> None:
         refs[arch] = {"phase": phase, **kw_, "layers": layers, "ms": ms,
                       "ms_scaled_to_layers": ms * TP_RS_TRAIN[arch][0]
                       / layers}
-    tp_rs = []
+    tp_rs, ones = [], {}
     for phase, answer, training in (("28", "28d", "28c"),
                                     ("29", "29c", "29b")):
         progress(phase, t_start)
         for name in TP_RS_SERVE:
             if name.startswith(phase):
-                tp_rs += tp_rs_serve(torch, T, kw, get_config, name,
-                                     [r[name] for r in ranks])
+                got, ones[name] = tp_rs_serve(torch, T, kw, get_config, name,
+                                              [r[name] for r in ranks])
+                tp_rs += got
         tp_rs.append(tp_rs_answer([r["answer"] for r in ranks], answer))
         tp_rs += tp_rs_train(get_config, refs, [r["train"] for r in ranks],
                              training)
@@ -4379,6 +4528,14 @@ def main() -> None:
     # 30. elastic training on a model axis: train spawns its six ranks
     tp_elastic_counts = tp_elastic_phase(train, get_config)
     walls.append(time.perf_counter())
+
+    progress("31", t_start)
+    # 31. a model axis that cuts inside a head, and a vocabulary it does
+    # not divide: phase 10's ranks computed it (``headcut_rank``)
+    tp_rs += headcut_phase(torch, T, kw, get_config, refs,
+                           [r["31"] for r in pool4], ones["29a"])
+    del ones
+    walls.append(time.perf_counter())
     tp_rs_counts = {k: sum(r.get(k, 0) for r in tp_rs) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "wkv")}
     print(json.dumps({"phase_wall_s": {
@@ -4387,7 +4544,8 @@ def main() -> None:
              "the ranks of 24c, 25c's 1x1x2 and 2x1x1, 27d and 28", "24c",
              "24d", "25a", "25b", "25c one rank", "25d", "26a", "26b",
              "26c", "26d", "26e", "26f one rank", "27a", "27b", "27c",
-             "27d", "28 in this process", "29 in this process", "30"),
+             "27d", "28 in this process", "29 in this process", "30",
+             "31 in this process"),
             walls, walls[1:])},
         "pool4_ranks_wall_s": {k: max(r["wall_s"][k] for r in pool4)
                                for k in pool4[0]["wall_s"]}}), flush=True)

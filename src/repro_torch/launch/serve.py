@@ -180,7 +180,7 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
           device: str | torch.device = "cuda", policy: str = "priority",
           block_size: int = 8, rate: float | None = None,
           trace: str | None = None, monitor: bool = False,
-          metrics_out: str | None = None) -> dict:
+          metrics_out: str | None = None, config=None) -> dict:
     """Run ``n_requests`` through the continuous-batching scheduler with
     the model on ``device`` (random weights from seed 0) and, given a
     ``mesh`` ("PxDxM"), the network plane on the topology of that grid
@@ -193,18 +193,19 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
     Chrome trace (request lifecycles, engine spans, link occupancy).
     ``monitor`` attaches a :class:`~repro_torch.obs.HealthMonitor` to the
     engine (drift detection + auto-refit, periodic health snapshots in the
-    log); ``metrics_out`` writes the run's Prometheus text exposition."""
+    log); ``metrics_out`` writes the run's Prometheus text exposition.
+    ``config`` (a ``ModelConfig``) stands in for ``arch``'s."""
     if mesh is None and monitor:
         raise ValueError("the monitor watches the network plane: give a "
                          "mesh")
     model = parse_mesh(mesh)[2] if mesh is not None else 1
-    cfg = get_config(arch, smoke=smoke)
+    cfg = config or get_config(arch, smoke=smoke)
     T.paged_arch_check(cfg)
     tp_check(cfg, model)
     kw = dict(arch=arch, n_requests=n_requests, prompt_len=prompt_len,
               gen_len=gen_len, mesh=mesh, smoke=smoke, device=str(device),
               policy=policy, block_size=block_size, rate=rate, trace=trace,
-              monitor=monitor, metrics_out=metrics_out)
+              monitor=monitor, metrics_out=metrics_out, config=config)
     if model == 1:
         return _serve(grid=None, **kw)
     outs = run_ranks(_serve_rank, model,
@@ -241,11 +242,12 @@ def _serve_rank(rank: int, kw: dict) -> dict:
 def _serve(arch: str, n_requests: int, prompt_len: int, gen_len: int,
            mesh: str | None, *, smoke: bool, device: str, policy: str,
            block_size: int, rate: float | None, trace: str | None,
-           monitor: bool, metrics_out: str | None, grid: Grid | None) -> dict:
+           monitor: bool, metrics_out: str | None, grid: Grid | None,
+           config=None) -> dict:
     """:func:`serve` on this process: the whole model (``grid`` None) or
     this rank's shard of it on ``grid``'s model axis."""
     dev = resolve_device(device)
-    cfg = get_config(arch, smoke=smoke)
+    cfg = config or get_config(arch, smoke=smoke)
     tp = grid.tp if grid is not None else None
     tracer = Tracer() if trace else None
     s_max = prompt_len + gen_len

@@ -34,11 +34,14 @@ where the JAX versions return updated copies.
 On a model axis (``tp``, a ``launch.mesh.Axis`` over the M ranks of a
 model group, or None) each rank holds its shard of the parameters
 (``sharding.param_model_dims``): the attention layers, self and cross,
-run on its Hq/M query heads (the column-parallel ``wq``) and the KV heads
-they read (``wk``/``wv``'s columns where M divides the KV heads; else k
-and v gathered from the reference's cut inside a head, ``_kv``) and
-return the row-parallel ``wo``'s partial sum, as ``mlp_fwd`` on its
-feature slice does, and RWKV-6's time mix on its H/M heads (the WKV
+run on the query heads that its Q/M columns of ``wq`` meet
+(``sharding.rank_heads``: Hq/M heads where M divides them; else q is
+gathered by columns, ``_q``, and a head cut between two ranks is computed
+on both) and the KV heads they read (``wk``/``wv``'s columns where M
+divides the KV heads; else k and v gathered from the reference's cut
+inside a head, ``_kv``), and return the rank's columns of the output
+times its rows of ``wo`` (``_out``), a partial sum, as ``mlp_fwd`` on
+its feature slice does, and RWKV-6's time mix on its H/M heads (the WKV
 kernel and state on those heads) with its ``w_o`` rows; the caller adds
 what it can and all-reduces once.  RWKV-6's channel mix returns the
 whole output: its gate, split by columns, is gathered over the axis.  So
@@ -52,8 +55,6 @@ rank, capacity-bounded local dispatch, one sum over the axis).
 """
 from __future__ import annotations
 
-import dataclasses
-import functools
 import math
 
 import torch
@@ -64,8 +65,9 @@ from ..kernels.flash_attention import NEG_INF
 from ..kernels.ops import flash_attention, wkv
 from ..kernels.wkv import CHUNK
 from .config import ModelConfig
+from .sharding import RankHeads, rank_heads
 
-__all__ = ["local_config", "rmsnorm", "rope", "dense_init", "init_attention",
+__all__ = ["heads", "rmsnorm", "rope", "dense_init", "init_attention",
            "naive_attention", "chunked_attention", "attention_fwd",
            "attention_prefill", "attention_decode", "paged_attention_decode",
            "cross_kv", "cross_attention_decode", "init_mlp", "mlp_fwd",
@@ -78,28 +80,12 @@ __all__ = ["local_config", "rmsnorm", "rope", "dense_init", "init_attention",
 # Small pieces
 # ---------------------------------------------------------------------- #
 
-@functools.lru_cache(maxsize=None)
-def _local_cfg(cfg: ModelConfig, model: int) -> ModelConfig:
-    kv = cfg.n_kv_heads
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // model,
-                               n_kv_heads=kv // model if kv % model == 0
-                               else 1)
-
-
-def local_config(cfg: ModelConfig, tp) -> ModelConfig:
-    """``cfg`` with the heads of one rank of the model axis ``tp`` (``cfg``
-    itself where ``tp`` is None): its query heads, and the KV heads they
-    read (one where the axis does not divide the KV heads: the rank's
-    query heads then lie inside one, ``sharding.kv_split_ok``)."""
-    return cfg if tp is None else _local_cfg(cfg, tp.size)
-
-
-def _first_kv_head(cfg: ModelConfig, tp) -> int:
-    """The first KV head that this rank's query heads read."""
-    if tp is None:
-        return 0
-    return tp.index * local_config(cfg, tp).n_heads \
-        // (cfg.n_heads // cfg.n_kv_heads)
+def heads(cfg: ModelConfig, tp) -> RankHeads:
+    """This rank's :class:`~.sharding.RankHeads` on the model axis ``tp``:
+    the query heads that its columns of ``wq`` meet and the KV heads they
+    read (every head where ``tp`` is None)."""
+    return rank_heads(cfg) if tp is None else rank_heads(cfg, tp.size,
+                                                          tp.index)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -213,16 +199,16 @@ def _mm(x, w):
 
 def _kv(p, cfg: ModelConfig, src, tp=None, every: bool = False):
     """k and v (B,S,n,hd) of ``src`` (B,S,D): of the KV heads that this
-    rank's query heads read on the model axis ``tp``, or of every KV head
-    (``every``).  Where the axis divides the KV heads and ``every`` is
-    not asked, the rank's columns of ``wk``/``wv`` are its KV heads.
-    Otherwise k and v are made whole first, from the rank's cut of the
-    two leaves (the reference's, ``sharding.param_model_dims``): columns
-    cut inside a head give the rank's columns of k and v, gathered with
-    one ``gather_to`` of the two stacked (each rank keeps its own KV
+    rank's query heads read on the model axis ``tp`` (``rank_heads``), or
+    of every KV head (``every``).  Where the axis divides the KV heads and
+    ``every`` is not asked, the rank's columns of ``wk``/``wv`` are its KV
+    heads.  Otherwise k and v are made whole first, from the rank's cut of
+    the two leaves (the reference's, ``sharding.param_model_dims``):
+    columns cut inside a head give the rank's columns of k and v, gathered
+    with one ``gather_to`` of the two stacked (each rank keeps its own KV
     heads of them, so the backward sums the ranks' partial gradients);
-    rows give a partial sum, summed over the axis with a sum backward
-    too; a replicated leaf is read whole through ``copy_to``."""
+    rows give a partial sum, summed over the axis with a sum backward too;
+    a replicated leaf is read whole through ``copy_to``."""
     B, S, D = src.shape
     hd = cfg.head_dim
     wk, wv = p["wk"], p["wv"]
@@ -240,24 +226,76 @@ def _kv(p, cfg: ModelConfig, src, tp=None, every: bool = False):
             kv = _mm(src[None], tp.copy_to(torch.stack([wk, wv]))[:, None])
         k, v = kv.unbind(0)
         if not every:
-            lo = _first_kv_head(cfg, tp) * hd
-            n = local_config(cfg, tp).n_kv_heads * hd
-            k, v = k[..., lo:lo + n], v[..., lo:lo + n]
+            sh = heads(cfg, tp)
+            k = k[..., sh.kv0 * hd:(sh.kv0 + sh.nkv) * hd]
+            v = v[..., sh.kv0 * hd:(sh.kv0 + sh.nkv) * hd]
     return (k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd))
 
 
-def _qkv(p, cfg: ModelConfig, x, src=None, tp=None, every_kv: bool = False):
-    """q of this rank's query heads from ``x``, k and v from ``src``
-    (``x`` if None) as :func:`_kv` gives them, with the q/k norms where
-    ``p`` has them (on whole heads: k's after its gather)."""
-    src = x if src is None else src
+def _q(p, cfg: ModelConfig, x, tp=None, every: bool = False):
+    """q (B,S,n,hd) of ``x``: of this rank's query heads on the model axis
+    ``tp``, or of every head (``every``).  Where the axis divides the
+    heads, the rank's columns of ``wq`` are its heads.  Otherwise (and
+    for ``every``) the ranks' columns, cut inside a head, are gathered
+    with ``gather_to`` and the rank keeps the heads its columns meet: its
+    gradient of the whole q is partial, and the backward sums the ranks'
+    (a head that spans two ranks gets both ranks' parts)."""
     B, S, _ = x.shape
-    q = _mm(x, p["wq"]).reshape(B, S, local_config(cfg, tp).n_heads,
-                                cfg.head_dim)
-    k, v = _kv(p, cfg, src, tp, every_kv)
+    hd = cfg.head_dim
+    q = _mm(x, p["wq"])
+    if tp is not None and tp.size > 1 and (every or cfg.n_heads % tp.size):
+        q = tp.gather_to(q, -1)
+        if not every:
+            sh = heads(cfg, tp)
+            q = q[..., sh.q0 * hd:(sh.q0 + sh.nq) * hd]
+    return q.reshape(B, S, -1, hd)
+
+
+def _gather_cols(tp, *ts):
+    """Each of ``ts`` (..., c), this rank's columns, with every rank's
+    columns in rank order: one all-gather over the model axis."""
+    n = [t.shape[-1] for t in ts]
+    g = tp.all_gather(torch.cat(ts, -1), dim=-1)
+    g = g.reshape(*g.shape[:-1], tp.size, sum(n))
+    return [t.reshape(*t.shape[:-2], -1) for t in g.split(n, dim=-1)]
+
+
+def _qkv(p, cfg: ModelConfig, x, src=None, tp=None, every: bool = False):
+    """q from ``x`` as :func:`_q` gives it, k and v from ``src`` (``x`` if
+    None) as :func:`_kv` gives them, with the q/k norms where ``p`` has
+    them (on whole heads: after the gathers).  ``every`` (inference only)
+    gathers the three in one call where the rank's columns of ``wk`` and
+    ``wv`` are whole KV heads."""
+    src = x if src is None else src
+    if every and tp is not None and tp.size > 1 \
+            and cfg.n_kv_heads % tp.size == 0:
+        B, S, _ = x.shape
+        q, k, v = [t.reshape(B, S, -1, cfg.head_dim) for t in _gather_cols(
+            tp, _mm(x, p["wq"]), _mm(src, p["wk"]), _mm(src, p["wv"]))]
+    else:
+        q = _q(p, cfg, x, tp, every)
+        k, v = _kv(p, cfg, src, tp, every)
     if "q_norm" in p:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     return q, k, v
+
+
+def _rank_kv(k, v, sh: RankHeads):
+    """k and v (B,S,nkv,hd) of this rank's KV heads, laid out for its
+    query heads: as they are where those read them in equal groups
+    (``sh.grouped``), else one KV head for each query head."""
+    if sh.grouped:
+        return k, v
+    idx = torch.tensor(sh.kv_of, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out(o, p, sh: RankHeads):
+    """The output projection of this rank's heads' o (B,S,nq,hd): its
+    columns of o (``sh.off`` into the first head) times its rows of
+    ``wo``, the row-parallel partial sum on a model axis."""
+    o = o.reshape(o.shape[0], o.shape[1], -1)
+    return o[..., sh.off:sh.off + p["wo"].shape[0]] @ p["wo"]
 
 
 def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
@@ -275,15 +313,33 @@ def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
                  k_norm=tp.copy_to(p["k_norm"]))
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, kv_src, tp)
-    cfg = local_config(cfg, tp)
     if kv_src is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, torch.arange(S, device=x.device), cfg.rope_theta)
+    sh = heads(cfg, tp)
+    k, v = _rank_kv(k, v, sh)
     o = chunked_attention(q, k, v, causal=causal and kv_src is None,
                           window=window)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return _out(o, p, sh)
+
+
+def _decode_attend(q, k, v, valid):
+    """One query token's attention over a cache: q (B,n,hd); k/v
+    (B,S,nkv,hd), whose head i // (n / nkv) each query head reads; valid
+    (B,S) or (S,).  Returns o (B,1,n,hd) f32."""
+    B, n, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(B, nkv, n // nkv, hd)
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                      k.float()) / math.sqrt(hd)
+    if valid is not None:
+        mask = valid[:, None, None, :] if valid.dim() == 2 else valid
+        sc = sc.masked_fill(~mask, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", pr, v.float())
+    return o.reshape(B, 1, n, hd)
 
 
 def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
@@ -300,9 +356,7 @@ def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
     read and y is the partial sum of its ``wo`` rows.  Returns (y, pool_k,
     pool_v)."""
     q, k, v = _qkv(p, cfg, x, tp=tp)
-    cfg = local_config(cfg, tp)
     B = x.shape[0]
-    hd = cfg.head_dim
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
 
@@ -320,15 +374,9 @@ def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
     valid = idx[None, :] <= pos[:, None]
     if window is not None:
         valid &= pos[:, None] - idx[None, :] < window
-    G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, cfg.n_kv_heads, G, hd)
-    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
-                      gk.float()) / math.sqrt(hd)
-    sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", pr, gv.float())
-    o = o.reshape(B, 1, cfg.q_dim).to(x.dtype)
-    return o @ p["wo"], pool_k, pool_v
+    sh = heads(cfg, tp)
+    o = _decode_attend(q[:, 0], *_rank_kv(gk, gv, sh), valid)
+    return _out(o.to(x.dtype), p, sh), pool_k, pool_v
 
 
 def _cache_attend_sp(q, k_new, v_new, cache_k, cache_v, pos: int,
@@ -364,16 +412,6 @@ def _cache_attend_sp(q, k_new, v_new, cache_k, cache_v, pos: int,
     return o / torch.clamp_min(l, 1e-30)[..., None]
 
 
-def _gather_heads(tp, *ts):
-    """Each of ``ts`` (B,1,h,hd), this rank's heads, with every rank's
-    heads in rank order: one all-gather over the model axis."""
-    n = [t.shape[2] for t in ts]
-    g = tp.all_gather(torch.cat(ts, 2), dim=2)       # (B,1,M*sum(n),hd)
-    g = g.reshape(g.shape[0], 1, tp.size, sum(n), g.shape[-1])
-    return [t.reshape(t.shape[0], 1, -1, t.shape[-1])
-            for t in g.split(n, dim=3)]
-
-
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
                      windowed: bool, tp=None, seq_shard: bool = False):
     """One-token decode against a dense cache.  x: (B,1,D); cache_k/v:
@@ -384,35 +422,26 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
     With ``tp``, y is the partial sum of this rank's ``wo`` rows.  With
     ``seq_shard`` the cache is this rank's slice of the sequence with
     every KV head (the reference's sequence-parallel decode, taken where
-    the model axis divides ``S_cache``): the heads' q, k and v are
-    gathered over the axis, as the reference's q enters its combine whole
-    (k and v come whole out of :func:`_kv` where the axis does not divide
-    the KV heads), and the combine's output is cut back to this rank's
-    heads.  Otherwise the cache holds the KV heads that this rank's query
+    the model axis divides ``S_cache``): q, k and v are gathered by their
+    columns over the axis, as the reference's q enters its combine whole,
+    the combine runs on every head, and the rank keeps its columns of its
+    output.  Otherwise the cache holds the KV heads that this rank's query
     heads read, and so does the attention."""
     B = x.shape[0]
-    lcfg = local_config(cfg, tp)
     hd = cfg.head_dim
     sp = seq_shard and tp is not None and tp.size > 1
-    split = tp is not None and cfg.n_kv_heads % tp.size != 0
-    q, k, v = _qkv(p, cfg, x, tp=tp, every_kv=sp and split)
+    q, k, v = _qkv(p, cfg, x, tp=tp, every=sp)
     pos_t = torch.tensor([pos], device=x.device)
     q = rope(q, pos_t, cfg.rope_theta)
     k = rope(k, pos_t, cfg.rope_theta)
-    G = cfg.n_heads // cfg.n_kv_heads
     if sp:
-        if split:
-            q, = _gather_heads(tp, q)
-        else:
-            q, k, v = _gather_heads(tp, q, k, v)
+        G = cfg.n_heads // cfg.n_kv_heads
         o = _cache_attend_sp(q.reshape(B, cfg.n_kv_heads, G, hd), k, v,
                              cache_k, cache_v, pos, windowed, tp)
-        h = lcfg.n_heads
-        o = o.reshape(B, 1, cfg.n_heads, hd)[:, :, tp.index * h:
-                                             (tp.index + 1) * h]
-        o = o.reshape(B, 1, lcfg.q_dim).to(x.dtype)
+        n = p["wo"].shape[0]
+        o = o.reshape(B, 1, cfg.q_dim)[..., tp.index * n:
+                                       (tp.index + 1) * n].to(x.dtype)
         return o @ p["wo"], cache_k, cache_v
-    cfg = lcfg
 
     s_cache = cache_k.shape[1]
     slot = pos % s_cache if windowed else min(pos, s_cache - 1)
@@ -426,15 +455,9 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
             & (abs_pos <= pos)
     else:
         valid = idx <= pos
-    G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, cfg.n_kv_heads, G, hd)
-    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
-                      cache_k.float()) / math.sqrt(hd)
-    sc = sc.masked_fill(~valid, NEG_INF)
-    pr = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", pr, cache_v.float())
-    o = o.reshape(B, 1, cfg.q_dim).to(x.dtype)
-    return o @ p["wo"], cache_k, cache_v
+    sh = heads(cfg, tp)
+    o = _decode_attend(q[:, 0], *_rank_kv(cache_k, cache_v, sh), valid)
+    return _out(o.to(x.dtype), p, sh), cache_k, cache_v
 
 
 def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
@@ -445,13 +468,14 @@ def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
     ``tp``, this rank's heads (and the cache of the KV heads they read)
     and the partial sum of its ``wo`` rows."""
     q, k, v = _qkv(p, cfg, x, tp=tp)
-    cfg = local_config(cfg, tp)
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
-    o = chunked_attention(q, k, v, causal=True, window=window)
-    y = o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    sh = heads(cfg, tp)
+    o = chunked_attention(q, *_rank_kv(k, v, sh), causal=True,
+                          window=window)
+    y = _out(o, p, sh)
     if window is not None and S >= window and not keep_full:
         if S % window != 0:
             raise ValueError(
@@ -476,16 +500,9 @@ def cross_attention_decode(p, cfg: ModelConfig, x, ck, cv, tp=None):
     source position visible.  On a model axis ``tp``, this rank's heads
     against the ``ck``/``cv`` of the KV heads they read, and the partial
     sum of its ``wo`` rows."""
-    cfg = local_config(cfg, tp)
-    B = x.shape[0]
-    hd = cfg.head_dim
-    G = cfg.n_heads // cfg.n_kv_heads
-    qg = (x @ p["wq"]).reshape(B, cfg.n_kv_heads, G, hd)
-    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
-                      ck.float()) / math.sqrt(hd)
-    pr = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", pr, cv.float())
-    return o.reshape(B, 1, cfg.q_dim).to(x.dtype) @ p["wo"]
+    sh = heads(cfg, tp)
+    o = _decode_attend(_q(p, cfg, x, tp)[:, 0], *_rank_kv(ck, cv, sh), None)
+    return _out(o.to(x.dtype), p, sh)
 
 
 # ---------------------------------------------------------------------- #

@@ -23,32 +23,42 @@ the per-layer leaf stays whole on every rank, and the RG-LRU uses the
 rows of its channels (``layers.rglru_fwd``); the stacked training layout
 holds the rank's layers of the run (``convert.model_dims``: dim 0).
 
-The flat-dim rule cuts ``wk``/``wv`` inside a head where the axis does
-not divide the KV heads (recurrentgemma's one KV head at M 2: 128 of its
-256 columns a rank).  The port keeps that cut, which ZeRO-1's scatter
-dims, the checkpoints and the clipped norm read, and gathers the ranks'
-columns of k and v before it keeps the KV heads its query heads read
-(``layers._kv``).
+The flat-dim rule cuts ``wq``, ``wk`` and ``wv`` inside a head where the
+axis does not divide the heads (recurrentgemma-2b's 10 query heads of 256
+at M 4: 640 columns a rank, two and a half heads; its one KV head at M 2:
+128 of its 256 columns).  The port keeps that cut, which ZeRO-1's scatter
+dims, the checkpoints and the clipped norm read.  :func:`rank_heads`
+gives a rank the query heads that its columns of ``wq`` meet and the KV
+heads those read: the rank gathers the ranks' columns of q (and of k and
+v, ``layers._kv``), computes attention on whole heads, and keeps its own
+columns of the output for its rows of ``wo``.  A head that spans two
+ranks is computed on both.  The embedding falls back to replicated where
+the axis does not divide the vocabulary; a tied head is then whole on
+every rank.
 
 :func:`tp_check` holds a config to what the port's tensor parallelism
-computes: whole query heads and whole experts on each rank, each rank's
-query heads reading whole KV heads or lying inside one; attention stacks
-with an MLP or a MoE, RWKV-6 (its heads are ``d_model //
-rwkv_head_dim``), the RG-LRU on ``d_rnn / M`` channels, and the enc-dec
-encoder and cross attention.
+computes: a ``wq`` cut by columns (M divides ``n_heads * head_dim``), any
+KV count (``wk``/``wv`` by columns, by rows or whole), whole experts on
+each rank, MLP features, the RG-LRU on ``d_rnn / M`` channels, RWKV-6's
+heads (``d_model // rwkv_head_dim``), and a vocabulary that M divides or
+a tied head; attention stacks with an MLP or a MoE, RWKV-6, the RG-LRU
+and the enc-dec encoder and cross attention.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 from .config import ModelConfig
 
 __all__ = ["NOT_PORTED_TP_ARCH", "RUN_DIM",
-           "param_model_dims", "kv_split_ok",
+           "param_model_dims", "RankHeads", "rank_heads",
            "layer_model_dims", "cut_shard", "tp_check", "dp_axes",
            "batch_pspec"]
 
-NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: head, KV-head, expert, "
-                      "feature, vocabulary and recurrence-width counts a "
-                      "model axis does not divide")
+NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: query-width, expert, "
+                      "feature, RWKV-6 head, untied-vocabulary and "
+                      "recurrence-width counts a model axis does not divide")
 
 RUN_DIM = -2      # the reference splits the run's layers over the axis
 
@@ -157,35 +167,67 @@ def cut_shard(t, dim: int, model: int, m: int):
     return part.clone() if part.is_contiguous() else part.contiguous()
 
 
-def kv_split_ok(n_heads: int, n_kv: int, model_size: int) -> bool:
-    """Whether each rank's ``n_heads / M`` query heads read whole KV heads
-    (``M`` divides ``n_kv``) or lie inside one (``M / n_kv`` divides the
-    group ``n_heads / n_kv``); ``M`` must divide ``n_heads``."""
-    if n_heads % model_size:
-        return False
-    if n_kv % model_size == 0:
-        return True
-    return model_size % n_kv == 0 and \
-        (n_heads // n_kv) % (model_size // n_kv) == 0
+class RankHeads(NamedTuple):
+    """Rank ``m``'s share of the attention heads on a model axis: its
+    query heads ``q0 .. q0 + nq - 1`` (those that its columns of ``wq``
+    meet), ``off`` the first of its columns inside head ``q0``, its KV
+    heads ``kv0 .. kv0 + nkv - 1`` (those that its query heads read) and
+    ``kv_of``, the KV head (counted from ``kv0``) that each of its query
+    heads reads."""
+    q0: int
+    nq: int
+    off: int
+    kv0: int
+    nkv: int
+    kv_of: tuple
+
+    @property
+    def grouped(self) -> bool:
+        """Whether the query heads read the KV heads in equal groups, in
+        order (head i reads KV head i // (nq / nkv)), as GQA lays them
+        out."""
+        g = self.nq // self.nkv
+        return self.nq % self.nkv == 0 and \
+            self.kv_of == tuple(i // g for i in range(self.nq))
+
+
+@functools.lru_cache(maxsize=None)
+def rank_heads(cfg: ModelConfig, model: int = 1, m: int = 0) -> RankHeads:
+    """Rank ``m``'s :class:`RankHeads` on a model axis of ``model``, whose
+    cut of ``wq`` is the columns ``[m Q/M, (m+1) Q/M)`` of ``Q = n_heads
+    * head_dim``.  Where M divides the heads: ``H/M`` heads from ``m
+    H/M``, no offset."""
+    hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    c = cfg.q_dim // model
+    lo, hi = m * c, (m + 1) * c
+    q0, q1 = lo // hd, (hi - 1) // hd + 1
+    kv0 = q0 // G
+    return RankHeads(q0, q1 - q0, lo - q0 * hd, kv0, (q1 - 1) // G + 1 - kv0,
+                     tuple(h // G - kv0 for h in range(q0, q1)))
 
 
 def tp_check(cfg: ModelConfig, model_size: int) -> None:
     """Raise NotImplementedError where the port cannot serve or train
-    ``cfg`` on a model axis of ``model_size`` ranks: a query-head, expert,
-    MLP-feature, vocabulary or RG-LRU-width (``d_rnn``) count the axis
-    does not divide, or KV heads that :func:`kv_split_ok` refuses (where
-    the reference's flat-dim split or its fallback would cut inside a head
-    or an expert, which GSPMD absorbs and the port does not).  An RWKV-6
-    stack counts ``d_model // rwkv_head_dim`` heads and no KV heads; an
-    RG-LRU run whose length the axis does not divide splits ``w_out`` by
-    columns, so ``d_model`` must divide too."""
+    ``cfg`` on a model axis of ``model_size`` ranks: a ``wq`` width
+    (``n_heads * head_dim``), expert, MLP-feature or RG-LRU-width
+    (``d_rnn``) count the axis does not divide, or a vocabulary it does
+    not divide under an untied head (where the reference moves ``wq`` to
+    rows or replicates it, splits ``lm_head`` by rows, or cuts inside an
+    expert, which GSPMD absorbs and the port does not).  Any KV count
+    passes (:func:`rank_heads`), and so does a tied vocabulary (the
+    embedding is then replicated).  An RWKV-6 stack counts ``d_model //
+    rwkv_head_dim`` heads and no KV heads; an RG-LRU run whose length the
+    axis does not divide splits ``w_out`` by columns, so ``d_model`` must
+    divide too."""
     if model_size <= 1:
         return
     if "rwkv6" in cfg.pattern:
         counts = {"heads": cfg.d_model // cfg.rwkv_head_dim}
     else:
-        counts = {"heads": cfg.n_heads}
-    counts["vocabulary rows"] = cfg.vocab
+        counts = {f"-column wq ({cfg.n_heads} heads of {cfg.head_dim})":
+                  cfg.q_dim}
+    if not cfg.tie_embeddings:
+        counts["vocabulary rows (an untied head)"] = cfg.vocab
     if cfg.moe is not None:
         counts["experts"] = cfg.moe.n_experts
     if cfg.moe is None or cfg.moe.shared_expert:
@@ -194,16 +236,13 @@ def tp_check(cfg: ModelConfig, model_size: int) -> None:
         counts["RG-LRU channels"] = cfg.d_rnn or cfg.d_model
         if any(n % model_size for k, n in cfg.runs() if k == "rglru"):
             counts["model width"] = cfg.d_model
-    bad = [f"{n} {k}" for k, n in counts.items() if n % model_size]
-    if "rwkv6" not in cfg.pattern and not kv_split_ok(
-            cfg.n_heads, cfg.n_kv_heads, model_size):
-        bad.append(f"{cfg.n_kv_heads} KV heads (each rank's query heads "
-                   f"must read whole KV heads or lie inside one)")
+    bad = [f"{n}{'' if k[0] == '-' else ' '}{k}" for k, n in counts.items()
+           if n % model_size]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {model_size} does not divide its "
-            f"{', '.join(bad)}; the port shards whole heads, experts and "
-            f"rows only ({NOT_PORTED_TP_ARCH})")
+            f"{', '.join(bad)}; the port cuts query columns, experts, "
+            f"features and rows evenly only ({NOT_PORTED_TP_ARCH})")
 
 
 def dp_axes(pods: int) -> tuple[str, ...]:

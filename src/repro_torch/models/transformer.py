@@ -31,15 +31,19 @@ forward, flash attention included, a second time.  Serving runs under
 Serving and the forward also run on a model axis: ``tp``, the
 ``launch.mesh.Axis`` of this rank's model group (None: one rank), with
 parameters from ``init_model(model=, m=)`` or ``convert.shard_params``.
-The embedding's rows are split over the axis (each rank looks up the ids
-it owns, then one all-reduce), the tied head gives this rank's columns of
-the logits, all-gathered so that every rank takes the same greedy token;
-attention and the MLP return row-parallel partial sums, all-reduced once
-a sublayer, and once for both in the parallel-residual block; the MoE
-reduces inside its expert-parallel block.  Caches hold the KV heads this
-rank's query heads read (one, which ranks share, where M does not divide
-the KV heads), but the dense cache's sequence dim is split over the axis
-where M divides it (the reference's sequence-parallel decode).  The
+The embedding's rows are split over the axis where M divides the
+vocabulary (each rank looks up the ids it owns, then one all-reduce), the
+tied head gives this rank's columns of the logits, all-gathered so that
+every rank takes the same greedy token; where M does not divide it the
+embedding and its tied head are replicated (whole logits, no collective).
+Attention (on the query heads that the rank's columns of ``wq`` meet,
+``sharding.rank_heads``) and the MLP return row-parallel partial sums,
+all-reduced once a sublayer, and once for both in the parallel-residual
+block; the MoE reduces inside its expert-parallel block.  Caches hold the
+KV heads this rank's query heads read (ranks may share one, and hold
+unequal counts: gpt-100m on M 8 holds 2 of its 12 a rank), but the dense
+cache's sequence dim is split over the axis where M divides it (the
+reference's sequence-parallel decode).  The
 RG-LRU runs on the rank's R/M channels, its state and conv inputs in the
 cache on them, and returns the whole output.  RWKV-6 runs its
 time mix on the rank's heads (their WKV state in the cache) and its
@@ -72,6 +76,8 @@ axis.  The loss is a vocab-parallel cross-entropy: each rank's head
 columns give its logits, and the max over the axis (detached), one sum
 of the exponentials and of the gold logit from the rank that owns the
 label's column give the loss; the (B, S, V) logits are never gathered.
+A replicated head takes the plain cross-entropy on every rank, and its
+hidden states no ``copy_to``.
 """
 from __future__ import annotations
 
@@ -87,7 +93,7 @@ from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
 from .sharding import (cut_shard, layer_model_dims, param_model_dims,
-                       tp_check)
+                       rank_heads, tp_check)
 
 __all__ = ["port_check", "train_check", "init_model", "embed_inputs",
            "encoder_fwd", "trunk_fwd", "model_fwd", "loss_fn", "init_cache",
@@ -187,16 +193,26 @@ def _tree_cut(tree: dict, dims: dict, model: int, m: int) -> dict:
 # Train / full-sequence forward
 # ---------------------------------------------------------------------- #
 
+def _vocab_axis(cfg: ModelConfig, tp):
+    """``tp`` where it splits the vocabulary (the embedding's rows and a
+    tied head's columns, or an untied head's columns), else None: one rank,
+    or a vocabulary the axis does not divide, whose embedding and tied head
+    are replicated (``sharding.param_model_dims``)."""
+    return tp if tp is not None and cfg.vocab % tp.size == 0 else None
+
+
 def embed_inputs(params, cfg: ModelConfig, inputs: dict,
                  tp=None) -> torch.Tensor:
     """tokens (B,S), and the frontends' ``embeds`` (B,P,D) as a prefix ->
     (B,P+S,D).  The scale is rounded to the embedding's dtype before the
     product, as JAX does with a weakly typed scalar.  On a model axis
-    ``tp`` the embedding holds this rank's rows of the vocabulary: the ids
-    outside them look up zeros, and one all-reduce adds the ranks' rows
-    (each id has one owner, so the sum is exact; the gradient of a row
-    is its owner's)."""
+    ``tp`` that divides the vocabulary the embedding holds this rank's
+    rows of it: the ids outside them look up zeros, and one all-reduce
+    adds the ranks' rows (each id has one owner, so the sum is exact; the
+    gradient of a row is its owner's).  A replicated embedding looks up
+    every id on every rank, with no sum."""
     emb, ids = params["embed"], inputs["tokens"]
+    tp = _vocab_axis(cfg, tp)
     if tp is None:
         x = emb[ids]
     else:
@@ -217,8 +233,10 @@ def _head(params, cfg: ModelConfig):
 
 
 def _logits(params, cfg: ModelConfig, x, tp=None) -> torch.Tensor:
-    """(…, V) f32 logits of hidden states ``x``; on a model axis this
-    rank's vocabulary columns, all-gathered in rank order."""
+    """(…, V) f32 logits of hidden states ``x``; on a model axis that
+    splits the vocabulary this rank's columns, all-gathered in rank order
+    (a replicated head gives them whole)."""
+    tp = _vocab_axis(cfg, tp)
     logits = (x @ _head(params, cfg).to(x.dtype)).float()
     return logits if tp is None else tp.all_gather(logits, dim=-1)
 
@@ -369,13 +387,17 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, ce_chunk: int = 512,
     The unembedding and softmax run over sequence chunks of ``ce_chunk``,
     each rematted, so the (B, S, V) logits are never held whole.  On a
     model axis ``tp`` (``params`` this rank's shard), the vocab-parallel
-    cross-entropy of :func:`_ce_chunk`; every rank returns the same loss.
-    A frontend's ``embeds`` prefix positions are dropped before the loss,
+    cross-entropy of :func:`_ce_chunk` where the axis splits the
+    vocabulary, else the plain one on every rank, whose hidden states then
+    skip ``copy_to``: each rank's gradient of them is whole, and a sum
+    would count it M times; every rank returns the same loss.  A
+    frontend's ``embeds`` prefix positions are dropped before the loss,
     which runs over the token positions only (the reference's
     :173-174)."""
     x = trunk_fwd(params, cfg, batch, tp)
     if "embeds" in batch:
         x = x[:, batch["embeds"].shape[1]:]
+    tp = _vocab_axis(cfg, tp)
     x = _copy(tp, x)
     labels = batch["labels"]
     head = _head(params, cfg)
@@ -415,8 +437,9 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
     RWKV-6 {"S"} (n, B, H, hd, hd) f32 and {"x_tm", "x_cm"} (n, B, D)
     bf16.  On a model axis ``tp`` an attention entry is (n, B, S_c/M,
     Hkv, hd) where M divides S_c, else (n, B, S_c, h, hd) with h the KV
-    heads that the rank's query heads read (Hkv/M, or 1 where M does not
-    divide Hkv); the cross entry (n, B, src_len, h, hd), RWKV-6's state
+    heads that the rank's query heads read (``sharding.rank_heads``: Hkv/M
+    where M divides the heads, else one or more, which ranks may share);
+    the cross entry (n, B, src_len, h, hd), RWKV-6's state
     (n, B, H/M, hd, hd), and the RG-LRU's h and conv of R/M channels."""
     port_check(cfg)
     if tp is not None:
@@ -425,7 +448,7 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     M = 1 if tp is None else tp.size
     R = (cfg.d_rnn or cfg.d_model) // M
-    h_kv = L.local_config(cfg, tp).n_kv_heads
+    h_kv = L.heads(cfg, tp).nkv
     cache = []
     for kind, n in cfg.runs():
         if kind == "rwkv6":
@@ -486,15 +509,21 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
     return x + _ffn(p, cfg, x, tp), ent
 
 
-def _seq_slice(tp, t, s_c: int, n_kv: int):
+def _seq_slice(tp, t, s_c: int, cfg: ModelConfig):
     """A run's cache (n, B, s_c, h, hd) of the KV heads that this rank's
-    query heads read -> its slice of the sequence with every KV head,
-    (n, B, s_c/M, n_kv, hd): one all-gather over the model axis.  Where
-    the ranks share a KV head (M a multiple of ``n_kv``), each head is
-    taken from the first rank that reads it (they hold equal values)."""
-    t = tp.all_gather(t, dim=3)
-    if t.shape[3] > n_kv:
-        t = t[:, :, :, ::t.shape[3] // n_kv]
+    query heads read (``sharding.rank_heads``) -> its slice of the
+    sequence with every KV head, (n, B, s_c/M, Hkv, hd): one all-gather
+    over the model axis of the ranks' heads, padded to the largest count.
+    Each KV head is taken from the first rank that reads it (the ranks
+    that share one hold equal values)."""
+    shares = [rank_heads(cfg, tp.size, r) for r in range(tp.size)]
+    h = max(sh.nkv for sh in shares)
+    t = tp.all_gather(F.pad(t, (0, 0, 0, h - t.shape[3])), dim=3)
+    idx = [next(r * h + j - sh.kv0 for r, sh in enumerate(shares)
+                if sh.kv0 <= j < sh.kv0 + sh.nkv)
+           for j in range(cfg.n_kv_heads)]
+    if idx != list(range(t.shape[3])):
+        t = t[:, :, :, idx]
     n = s_c // tp.size
     return t[:, :, tp.index * n:(tp.index + 1) * n].contiguous()
 
@@ -541,8 +570,8 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
                 ent["k"], ent["v"] = F.pad(ent["k"], pad), F.pad(ent["v"],
                                                                  pad)
             if seq_shard and _seq_sharded(tp, tgt):
-                ent["k"] = _seq_slice(tp, ent["k"], tgt, cfg.n_kv_heads)
-                ent["v"] = _seq_slice(tp, ent["v"], tgt, cfg.n_kv_heads)
+                ent["k"] = _seq_slice(tp, ent["k"], tgt, cfg)
+                ent["v"] = _seq_slice(tp, ent["v"], tgt, cfg)
         cache.append(ent)
     x = L.rmsnorm(x, params["final_norm"])
     if last_pos is None:
@@ -637,15 +666,15 @@ def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int, *,
                      device: str | torch.device = "cuda", tp=None) -> list:
     """One k/v pool pair per run: (run, n_blocks, block_size, Hkv, hd)
     bf16.  Physical block 0 is the null block no request ever owns.  On a
-    model axis ``tp``, the KV heads that this rank's query heads read,
-    Hkv/M or one of them (the reference's ``paged_pool_shardings``: any
-    request's blocks live anywhere in the pool, so only the KV-head dim
-    splits)."""
+    model axis ``tp``, the KV heads that this rank's query heads read
+    (``sharding.rank_heads``; their count may differ across ranks): as
+    in the reference's ``paged_pool_shardings``, only the KV-head dim
+    splits, since any request's blocks live anywhere in the pool."""
     paged_arch_check(cfg)
     dev = resolve_device(device)
     if tp is not None:
         tp_check(cfg, tp.size)
-    Hkv = L.local_config(cfg, tp).n_kv_heads
+    Hkv = L.heads(cfg, tp).nkv
     shape = (n_blocks, block_size, Hkv, cfg.head_dim)
     return [{"k": torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev),
              "v": torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev)}

@@ -353,7 +353,7 @@ def _cut_state(ins, key, i, state, cfg, tp):
     pools before step ``i``, in the layout of ``state``."""
     from repro_torch.models import layers as L
 
-    first = L._first_kv_head(cfg, tp)
+    first = L.heads(cfg, tp).kv0
     return [{k: _from_full(ins[key][i][r][k], v, tp,
                            first if k in ("k", "v", "xk", "xv") else None)
              for k, v in ent.items()} for r, ent in enumerate(state)]
@@ -780,6 +780,33 @@ def _tp_step(grid, cfg, params, batch, opt_kw):
             "mdims": mdims}
 
 
+def _group_cases(tp, cases):
+    """For each case ``(name, cfg, models, paths, params, ins, batch)``
+    whose ``models`` hold the size of the model axis ``tp``: this rank's
+    shard of the reference's f32 weights ``params`` (numpy, the stacked
+    layout), cut per layer, through ``paths`` (:func:`family_paths`, the
+    dense path, or :func:`model_paths`, the paged and the dense paths)
+    and, where ``batch`` is given, the loss and gradients of the stacked
+    shard (``loss_and_grads``) with the model axis's collectives.
+    Results under ``(M, name)``."""
+    out = {}
+    for name, cfg, models, paths, params, ins, batch in cases:
+        if tp.size not in models:
+            continue
+        full = from_numpy(params, device=CPU)
+        fn = family_paths if paths == "family" else model_paths
+        res = fn(shard_params(unstack_runs(full, cfg), cfg, tp.size,
+                              tp.index), cfg, ins, tp)
+        if batch is not None:
+            calls = {}
+            stacked = shard_params(full, cfg, tp.size, tp.index)
+            loss, grads = loss_and_grads(stacked, cfg,
+                                         device_batch(batch, CPU), tp, calls)
+            res.update(loss=loss.numpy(), calls=calls, grads=to_numpy(grads))
+        out[tp.size, name] = res
+    return out
+
+
 def tp_rglru(rank, cases, gather, step):
     """This rank of four gloo ranks on the CPU, on a 1x1x4 grid, then on
     1x2x2, whose first model group computes.  For each case ``(name, cfg,
@@ -806,23 +833,62 @@ def tp_rglru(rank, cases, gather, step):
         if grid.rank != 0:
             continue
         out[model, "gather"] = _gather_to_ops(tp, *gather[model])
-        for name, cfg, models, paths, params, ins, batch in cases:
-            if model not in models:
-                continue
-            full = from_numpy(params, device=CPU)
-            fn = family_paths if paths == "family" else model_paths
-            res = fn(shard_params(unstack_runs(full, cfg), cfg, model,
-                                  tp.index), cfg, ins, tp)
-            if batch is not None:
-                calls = {}
-                stacked = shard_params(full, cfg, model, tp.index)
-                loss, grads = loss_and_grads(stacked, cfg,
-                                             device_batch(batch, CPU), tp,
-                                             calls)
-                res.update(loss=loss.numpy(), calls=calls,
-                           grads=to_numpy(grads))
-            out[model, name] = res
+        out.update(_group_cases(tp, cases))
         if model == 2:
             one = dataclasses.replace(Grid.single(), model=2, tp=tp)
             out["step"] = _tp_step(one, *step)
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# A model axis that cuts inside a head, and a replicated vocabulary
+# ---------------------------------------------------------------------- #
+
+def tp_headcut(rank, cases, steps):
+    """This rank of four gloo ranks on the CPU, on a 1x1x4 grid:
+    :func:`_group_cases` of ``cases``, and for each of ``steps`` (name ->
+    cfg, params, batch, opt_kw) one train step, :func:`_tp_step`, under
+    ``(4, name, "step")``."""
+    grid = make_grid(1, 1, CPU, model=4)
+    out = _group_cases(grid.tp, cases)
+    for name, step in steps.items():
+        out[4, name, "step"] = _tp_step(grid, *step)
+    return out
+
+
+def headcut_on_card(rank, cfg, ins, s_max, batch, before):
+    """This rank of 1x1x4 gloo ranks sharing the card: the f32 seed-0
+    weights of ``cfg`` (drawn on the CPU), this rank's shard on the card:
+    the dense prefill of ``ins["tokens"]`` into a cache for ``s_max``
+    tokens, a decode step of each of ``ins["forced"]`` from ``before[i]``
+    (the one-rank cache of that step, numpy, cut for the rank), and the
+    loss and gradients of ``batch`` on the stacked shard.  Returns them in
+    numpy, with this process's flash launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tp = make_grid(1, 1, dev, model=4).tp
+    full = tree_map(lambda t: t.float(), T.init_model(cfg, seed=0,
+                                                      device=CPU))
+    p = tree_map(lambda t: t.to(dev), shard_params(full, cfg, 4, rank))
+    kernels = (fa.flash_attention_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for f in kernels:
+        f.launches = 0
+    lg, cache, S = T.prefill(p, cfg, {"tokens": _t(ins["tokens"]).long()
+                                      .to(dev)}, s_max, tp=tp)
+    out = {"prefill": lg.cpu().numpy(), "steps": []}
+    for i, t in enumerate(ins["forced"]):
+        cache = [{k: v.to(dev) for k, v in ent.items()} for ent in
+                 _cut_state({"b": before}, "b", i, cache, cfg, tp)]
+        lg, cache = T.decode_step(p, cfg, cache, _t(t).long().to(dev),
+                                  S + i, tp=tp, s_max=s_max)
+        out["steps"].append(lg.cpu().numpy())
+    stacked = tree_map(lambda t: t.to(dev), shard_params(
+        stack_runs(full, cfg), cfg, 4, rank))
+    loss, grads = loss_and_grads(stacked, cfg, device_batch(batch, dev), tp)
+    out.update(loss=loss.item(), grads=to_numpy(grads),
+               launches=[f.launches for f in kernels])
     return out

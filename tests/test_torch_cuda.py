@@ -831,3 +831,61 @@ def test_model_axis_prefill_of_the_families_on_card(dev, arch):
             else:
                 torch.testing.assert_close(got, want, rtol=2.0 ** -7,
                                            atol=1e-6)
+
+
+def test_head_cut_on_a_model_axis_of_4_on_card(dev):
+    """recurrentgemma's smoke config with 10 heads on 1x1x4 on the card:
+    four gloo ranks share it, each its f32 shard, its 40 query columns
+    (2.5 heads of 16) gathered and the 3 heads they meet computed; the
+    dense prefill's logits within 1e-5 of one rank's on the card, each
+    decode step from the one-rank cache within 1e-4, the loss within
+    1e-5 relative and each gradient leaf of the rank within 1e-4 of its
+    largest; each rank launches the flash forward once in the prefill
+    (the local layer) and twice in the training step, and each backward
+    kernel once, on its 3 heads."""
+    import dataclasses
+
+    import _torch_ranks
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.convert import shard_params, stack_runs
+    from repro_torch.models.sharding import rank_heads
+
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b", smoke=True),
+                              n_heads=10)
+    assert [rank_heads(cfg, 4, m).nq for m in range(4)] == [3] * 4
+    rng = np.random.default_rng(3)
+    ins = {"tokens": rng.integers(0, cfg.vocab, (2, 16)),
+           "forced": rng.integers(0, cfg.vocab, (3, 2, 1))}
+    s_max = 24
+    batch = DataPipeline(cfg, ShapeSpec("test", "train", 64, 2)).host_batch(0)
+    full = _f32(T.init_model(cfg, seed=0, device="cpu"), dev)
+    lg, cache, S = T.prefill(full, cfg, {"tokens": torch.from_numpy(
+        ins["tokens"]).to(dev)}, s_max)
+    steps, before = [], []
+    for i, t in enumerate(ins["forced"]):
+        before.append([{k: v.float().cpu().numpy().copy()
+                        for k, v in ent.items()}
+                       for ent in cache])
+        step, cache = T.decode_step(full, cfg, cache,
+                                    torch.from_numpy(t).to(dev), S + i)
+        steps.append(step.cpu().numpy())
+    loss, grads = loss_and_grads(stack_runs(full, cfg), cfg,
+                                 device_batch(batch, dev))
+    ranks = run_ranks(_torch_ranks.headcut_on_card, 4, "gloo",
+                      (cfg, ins, s_max, batch, before), timeout=600.0)
+    for m, r in enumerate(ranks):
+        np.testing.assert_allclose(r["prefill"], lg.cpu().numpy(),
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(np.stack(r["steps"]), np.stack(steps),
+                                   atol=1e-4, rtol=0)
+        assert abs(r["loss"] - loss.item()) <= 1e-5 * abs(loss.item())
+        want = tree_leaves(shard_params(grads, cfg, 4, m))
+        got = tree_leaves(r["grads"])
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            w = w.cpu().numpy()
+            assert g.shape == w.shape
+            assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+        assert r["launches"] == [3, 1, 1]

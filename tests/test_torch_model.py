@@ -296,10 +296,11 @@ def test_training_new_archs_raises_naming_roadmap(arch):
     4 KV heads, the RG-LRU's channels; ``tests/test_torch_tp_rglru.py``,
     ``tests/test_torch_tp_train_moe.py`` and
     ``tests/test_torch_tp_families.py`` train them there) and refuses,
-    naming ROADMAP's item 5, what it still refuses: a KV layout outside
-    the split's rule (6 heads on 2 KV heads at M 3), an RG-LRU width the
-    axis does not divide (d_rnn 62 at M 4), and the forward on a model
-    axis of 8, which does not divide the 4 heads."""
+    naming ROADMAP's item 5, what it still refuses: a ``wq`` width the
+    axis does not divide (5 heads of 16 at M 3), an RG-LRU width the axis
+    does not divide (d_rnn 62 at M 4), and the forward on a model axis of
+    3, which does not divide the 64 query columns (at M 8 it cuts them, 8
+    a rank, inside a head: ``tests/test_torch_tp_headcut.py``)."""
     from types import SimpleNamespace
 
     from repro_torch.launch.step import loss_and_grads
@@ -313,14 +314,14 @@ def test_training_new_archs_raises_naming_roadmap(arch):
     T.train_check(heads, 2)
     T.train_check(cfg, 2)
     with pytest.raises(NotImplementedError,
-                       match="2 KV heads.*ROADMAP.*item 5"):
-        T.train_check(dataclasses.replace(cfg, n_heads=6, n_kv_heads=2), 3)
+                       match="80-column wq.*ROADMAP.*item 5"):
+        T.train_check(dataclasses.replace(cfg, n_heads=5, n_kv_heads=1), 3)
     if "rglru" in cfg.pattern:
         with pytest.raises(NotImplementedError,
                            match="62 RG-LRU channels.*ROADMAP.*item 5"):
             T.train_check(dataclasses.replace(cfg, d_rnn=62), 4)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=8))
+        T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=3))
     loss, grads = loss_and_grads(params, cfg, batch)
     assert torch.isfinite(loss)
     assert all(torch.isfinite(g.float()).all() for g in tree_leaves(grads))

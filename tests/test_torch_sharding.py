@@ -24,7 +24,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import (shard_params, stack_runs,
                                         unshard_params)
 from repro_torch.models.sharding import (RUN_DIM, batch_pspec, dp_axes,
-                                         param_model_dims, tp_check)
+                                         param_model_dims, rank_heads,
+                                         tp_check)
 from repro_torch.tree import tree_leaves
 
 ARCHS = jconfigs.list_archs()
@@ -131,32 +132,36 @@ def test_sharded_init_is_the_shard_of_the_full_init(name, model):
 
 @pytest.mark.parametrize("arch,model,match", [
     ("rwkv6_1p6b", 64, "32 heads"),
-    ("recurrentgemma_2b", 4, "10 heads"),
-    ("seamless_m4t_medium", 4, "vocabulary rows"),
-    ("phi4_mini_3p8b", 12, "8 KV heads"),
-    ("gemma3_12b", 32, "16 heads"),
+    ("recurrentgemma_2b", 3, "2560-column wq"),
+    ("tinyllama_1p1b", 3, "32000 vocabulary rows"),
+    ("phi4_mini_3p8b", 12, "8192 MLP features"),
     ("olmoe_1b_7b", 128, "64 experts"),
 ])
 def test_model_axis_refusals_name_roadmap_item_5(arch, model, match):
-    """What a model axis still refuses, naming ROADMAP's item 5: a head,
-    expert, vocabulary or feature count it does not divide
-    (recurrentgemma's 10 heads at M 4), and KV heads that each rank's
-    query heads neither read whole nor lie inside one of (phi4-mini's 24
-    heads on 8 KV heads at M 12: 2 query heads a rank, groups of 3)."""
+    """What a model axis still refuses, naming ROADMAP's item 5: the
+    reference's fallbacks that the port does not compute, an RWKV-6 head,
+    ``wq`` column, vocabulary (under an untied head: tinyllama's
+    ``lm_head`` by rows), MLP-feature or expert count it does not divide
+    (recurrentgemma's 2560-column ``wq`` at M 3; phi4-mini at M 12 cuts
+    its 24 heads on 8 KV heads, but not its 8192 MLP features)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 5") as e:
         tp_check(configs.get_config(arch), model)
     assert match in str(e.value)
 
 
-# (arch, smoke config?, model-axis size): the KV-head split's zoo cases
-# (a rank's query heads inside one KV head), and the RG-LRU's
+# (arch, smoke config?, model-axis size): a rank's query heads inside one
+# KV head, the RG-LRU's, and the cuts inside a head (recurrentgemma's 10
+# heads of 256 at M 4: 640 columns; gemma3's 16 at M 32: 128) and a
+# vocabulary that the axis does not divide under a tied head (seamless's
+# 256,206 rows at M 4)
 ADMITTED = [("recurrentgemma_2b", False, 2), ("recurrentgemma_2b", False, 5),
             ("recurrentgemma_2b", False, 10), ("tinyllama_1p1b", False, 8),
             ("tinyllama_1p1b", False, 16), ("qwen3_4b", False, 16),
             ("gemma3_12b", False, 16), ("pixtral_12b", False, 16),
             ("recurrentgemma_2b", True, 2), ("recurrentgemma_2b", True, 4),
             ("qwen3_4b", True, 2), ("qwen3_4b", True, 4),
-            ("tinyllama_1p1b", True, 4)]
+            ("tinyllama_1p1b", True, 4), ("recurrentgemma_2b", False, 4),
+            ("seamless_m4t_medium", False, 4), ("gemma3_12b", False, 32)]
 
 
 @pytest.mark.parametrize("arch,smoke,model", ADMITTED,
@@ -164,21 +169,32 @@ ADMITTED = [("recurrentgemma_2b", False, 2), ("recurrentgemma_2b", False, 5),
                               for a, s, m in ADMITTED])
 def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
                                                           model):
-    """Where M divides the query heads and each rank's query heads read
-    whole KV heads or lie inside one (``kv_split_ok``), and M divides the
-    RG-LRU's ``d_rnn``: ``tp_check`` admits the config, and each rank
-    reads ``max(Hkv / M, 1)`` KV heads, starting at the one its first
-    query head reads."""
+    """``tp_check`` admits the config, and each rank's share
+    (``sharding.rank_heads``, which ``layers.heads`` gives the rank of a
+    model axis) holds its cut of ``wq``, from
+    ``off`` inside its first query head, and the KV heads those heads
+    read; where M divides the heads, ``H / M`` heads from ``m H / M`` and
+    ``max(Hkv / M, 1)`` KV heads.  A vocabulary that M does not divide
+    leaves the embedding replicated."""
     cfg = configs.get_config(arch, smoke=smoke)
     tp_check(cfg, model)
-    G = cfg.n_heads // cfg.n_kv_heads
+    H, hd, G = cfg.n_heads, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    c = cfg.q_dim // model
     for m in range(model):
-        tp = types.SimpleNamespace(size=model, index=m)
-        local = L.local_config(cfg, tp)
-        first = L._first_kv_head(cfg, tp)
-        heads = range(m * local.n_heads, (m + 1) * local.n_heads)
+        sh = rank_heads(cfg, model, m)
+        assert L.heads(cfg, types.SimpleNamespace(size=model, index=m)) \
+            == sh
+        assert sh.q0 * hd + sh.off == m * c and 0 <= sh.off < hd
+        assert (sh.q0 + sh.nq - 1) * hd < (m + 1) * c <= (sh.q0 + sh.nq) * hd
+        heads = range(sh.q0, sh.q0 + sh.nq)
         assert sorted({h // G for h in heads}) == list(
-            range(first, first + local.n_kv_heads))
+            range(sh.kv0, sh.kv0 + sh.nkv))
+        if H % model == 0:
+            assert (sh.q0, sh.nq, sh.off) == (m * H // model, H // model, 0)
+            assert sh.nkv == max(cfg.n_kv_heads // model, 1)
+    dims = param_model_dims({"embed": types.SimpleNamespace(
+        shape=(cfg.vocab, cfg.d_model))}, model)
+    assert (dims["embed"] == -1) == (cfg.vocab % model != 0)
 
 
 def test_a_gradient_through_the_model_axis_is_refused():

@@ -303,14 +303,15 @@ def test_one_pod_failure_on_a_model_axis_carries_on(arch, mesh):
 
 
 @pytest.mark.parametrize("arch,mesh,kw,item", [
-    # 24 heads on 8 KV heads: 2 query heads a rank, groups of 3
-    ("phi4-mini-3.8b", "1x1x12", dict(smoke=False), "8 KV heads"),
-    ("recurrentgemma-2b", "1x2x4", dict(smoke=False), "10 heads"),
+    # 24 heads on 8 KV heads cut evenly, but not 8192 MLP features
+    ("phi4-mini-3.8b", "1x1x12", dict(smoke=False), "8192 MLP features"),
+    ("recurrentgemma-2b", "1x2x3", dict(smoke=False), "2560-column wq"),
     ("rwkv6-1.6b", "1x1x8", {}, "Queue 1 item 5")])      # 4 heads
 def test_what_a_model_axis_still_refuses(arch, mesh, kw, item):
     """Refused before any rank is spawned, naming ROADMAP's Queue 1 item
-    5: a KV layout outside the split's rule, recurrentgemma's 10 heads on
-    4 ranks, RWKV-6's 4 smoke heads on 8."""
+    5: phi4-mini's MLP features on 12 ranks, recurrentgemma's 2560 query
+    columns on 3 (on 4 it cuts them inside a head,
+    ``tests/test_torch_tp_headcut.py``), RWKV-6's 4 smoke heads on 8."""
     with pytest.raises(NotImplementedError, match=item) as e:
         train(arch, 2, mesh_spec=mesh, seq=32, batch=2, device="cpu",
               **{"smoke": True, **kw})

@@ -192,15 +192,15 @@ def test_training_on_a_model_axis_raises(arch):
     smoke configs (the RG-LRU, and the one KV head of llama4-scout's and
     pixtral's split over the axis; ``tests/test_torch_tp_rglru.py``,
     ``tests/test_torch_tp_train_moe.py`` and
-    ``tests/test_torch_tp_families.py`` train them there).  At M 8, which
-    does not divide their 4 heads, it refuses before it builds anything,
-    naming ROADMAP's Queue 1 item 5."""
+    ``tests/test_torch_tp_families.py`` train them there).  At M 3, which
+    does not divide their 64 query columns, it refuses before it builds
+    anything, naming ROADMAP's Queue 1 item 5."""
     cfg = _cfg(arch)
     build = lambda c, m: make_train_step(
         c, adamw.OptConfig(), Grid.shape_only(1, 1, m), device="cpu")
     assert callable(build(cfg, 2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build(cfg, 8)
+        build(cfg, 3)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
