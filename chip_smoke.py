@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (nonzero exit, no result line).
-Each spawn of ranks costs seconds a rank before any work, so the phases
+Each spawn of ranks costs seconds a rank before any work.  So every
+rank forks from one server that imported torch and the port once, at
+the script's start (``mesh.preload_ranks``), and the phases
 that spawn ranks themselves share two spawns: the four ranks of 10, 12,
 24d, 25c's 2x1x2 grid, 26f and 31 (``pool4_rank``, at phase 10) and the two
 of 24c, 25c's 1x1x2 and 2x1x1 grids, 27d, 28 and 29 (``tp_rs_rank``,
@@ -363,15 +365,37 @@ each phase checks and prints its part where it stands:
    does not divide, replicated with the tied head) as 28d. Each rank's
    flash launches are asserted: 8 forwards in 31a; 4, 2 and 2 in 31b; 3, 1
    and 1 in 31c; 9, 3 and 3 in 31d.
+32. The dry run (``repro_torch.launch.dryrun.run_rank``: each cell on the
+   ``meta`` device, nothing computed, the kernels counted by their work)
+   against the card, computed in a CPU subprocess that this script starts
+   at its beginning (``--dry-runs``): 32a phase 7's one-rank step of
+   gpt-100m (8 x 1024, bf16), whose ``bytes_per_device`` must lie within
+   0.85-1.15 of phase 7's ``torch.cuda.max_memory_allocated``; 32b those
+   of 26a (recurrentgemma-2b whole, 1 x 4096) and 27a (rwkv6-1.6b whole,
+   8 x 512), printed beside the card's peaks with their breakdown
+   (arguments, outputs, temporaries, aliased); 32c 31b's cell
+   (recurrentgemma-2b, 3 layers, 2 x 512, 1x1x4), whose every rank's
+   calls, backward calls and wire bytes of every axis must equal what that
+   rank of 31b counted on the card in each step.
+
+Phases 3, 4, 9 and 13 take their bounds from
+``repro_torch.core.costmodel.kernel_roofline`` (the H100's datasheet
+ceilings, ``H100`` for bf16 and ``H100_F32`` for f32) and the kernels'
+work from the port (``flash_attention.fwd_work``/``bwd_dq_work``/
+``bwd_dkv_work``, ``quant.work``, ``wkv.work``); each record also gives
+the fractions of the peak rates its time achieved, and after phase 13 the
+``refit_hw`` H100 that the best of them give is printed.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 """
 import argparse
+import atexit
 import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -382,6 +406,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+# what the ranks' fork server imports once: every rank plans its sync
+# under a fake-tensor mode, which imports torch._dynamo
+RANK_PRELOAD = ("numpy", "torch._dynamo", "repro_torch.launch.train",
+                "repro_torch.launch.serve")
 
 # (tolerance on o and lse, the kernel tests' own: f32 3e-5, bf16 2e-2)
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -397,10 +425,6 @@ MIRROR_TOL = 4e-3
 # the forward's lse against its mirror, relative to max(1, max|lse|): it is
 # not rounded to bf16, so only f32 sums and exp2 against exp differ
 LSE_MIRROR_TOL = 1e-4
-# Peak rates of one H100 SXM (NVIDIA data sheet, dense): bf16 on the tensor
-# cores, f32 on the CUDA cores; HBM3 bandwidth.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
 # (name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dtype)
 SHAPES = [
     ("gpt-100m prefill", 1, 512, 512, 12, 12, 64, True, None, 0, "bfloat16"),
@@ -454,14 +478,11 @@ TRAIN_SHAPE = 12        # the shape the training path gives all three
 # phase 4 runs these; the others serve only
 BWD_SHAPES = set(range(15)) | {21, 22, 23, 24, 25, 26, 27}
 TRAIN = dict(steps=5, seq=1024, batch=8)
+PEAK_GB = {}            # the card's peak memory of phases 7, 26a and 27a
 GRID_TRAIN = dict(steps=3, seq=1024, batch=8, mesh_spec="2x2x1",
                   comm="multilevel_compress", dist_backend="gloo")
 GPT_100M_PARAMS = 109_529_856
 QUANT_MAIN_N = GPT_100M_PARAMS // 2   # the gradient over data = 2
-# bytes each kernel moves per element (scales: 4 bytes per 256 elements)
-QUANT_BYTES = {"quantize_int8": 4 + 1 + 4 / 256,
-               "dequantize_int8": 1 + 4 / 256 + 4,
-               "quantize_ef_int8": 4 + 4 + 1 + 4 / 256 + 4}
 COLL_N = 1_000_448      # divides by 2 and 256, its shard not by QTILE
 # The grid's f32 answer, card against CPU: the losses (7.2e-8 apart when
 # measured), and Adam's first moment of the layer-0 wq shard after steps 1
@@ -705,6 +726,12 @@ HEADCUT_TRAIN = {"recurrentgemma-2b": (3, "31b")}
 # 31b's steps and 31a's tokens (held to the first of 29a's): 3 and 9
 # until whole runs passed 1000 s (PERF.md section 6)
 HEADCUT_TRAIN_KW = dict(TP_RS_TRAIN_KW, steps=2)
+# phase 32: the dry runs of phase 7's and 26a's and 27a's training steps,
+# and the band phase 7's peak must hold the dry run's bytes in
+DRY_TRAIN = {"7": ("gpt-100m", None, TRAIN),
+             "26a": FAMILY_TRAIN["26a"],
+             "27a": ("rwkv6-1.6b", None, RWKV_TRAIN)}
+DRY_MEM_RATIO = (0.85, 1.15)
 HEADCUT_GEN = 5
 HEADCUT_ANSWER = [("recurrentgemma-2b", 3, "31c", TP_F32_TOL),
                   ("seamless-m4t-medium", 1, "31d", TP_STEP_TOL)]
@@ -788,10 +815,39 @@ def inputs_of(torch, shape, seed=0):
                       (B, Sq, H, hd))]
 
 
-def bound(flops, nbytes, dt):
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+ACHIEVED = []       # (hw name, achieved_flops_frac, achieved_bw_frac)
+
+
+def bound(flops, nbytes, dt, rec) -> None:
+    """Writes into ``rec``, a kernel's record with its ``kernel_ms``, the
+    bound of ``flops`` and ``nbytes`` on the card's datasheet ceilings for
+    ``dt`` (``costmodel.kernel_roofline``: ``bound_ms``, ``bound_by``) and
+    the fractions of the peaks that time achieved."""
+    from repro_torch.core.costmodel import H100, H100_F32, kernel_roofline
+
+    hw = H100 if dt == "bfloat16" else H100_F32
+    r = kernel_roofline(flops, nbytes, hw=hw, wall_s=rec["kernel_ms"] / 1e3)
+    rec.update(bound_ms=r["model_s"] * 1e3,
+               bound_by="operations" if r["bound"] == "compute" else "bytes",
+               achieved_flops_frac=r["achieved_flops_frac"],
+               achieved_bw_frac=r["achieved_bw_frac"])
+    ACHIEVED.append((hw.name, r["achieved_flops_frac"],
+                     r["achieved_bw_frac"]))
+
+
+def refit_phase() -> None:
+    """After phases 3, 4, 9 and 13: the best fractions of the peaks the
+    kernels achieved, bf16 FLOPs on the tensor cores and HBM bytes, and the
+    ``costmodel.refit_hw`` H100 they give."""
+    from repro_torch.core.costmodel import H100, refit_hw
+
+    flops = max(f for hw, f, _ in ACHIEVED if hw == H100.name)
+    bw = max(b for _, _, b in ACHIEVED)
+    fit = refit_hw(H100, flops_frac=flops, bw_frac=bw, name="h100_fit")
+    print(json.dumps({"refit_hw": {
+        "best_achieved_flops_frac_bf16": flops,
+        "best_achieved_bw_frac": bw, "hw": dataclasses.asdict(fit)}}),
+        flush=True)
 
 
 def flash_phase(torch, fa, shape) -> dict:
@@ -821,10 +877,8 @@ def flash_phase(torch, fa, shape) -> dict:
     mask = mask_of(torch, shape)
     sdpa = sdpa_of(torch, shape, mask)
     # the work this run's inputs need: unmasked (q, k) pairs, two products
-    flops = 4.0 * B * H * hd * mask.sum().item()
-    nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
-        * q.element_size() + lse.numel() * 4
-    bound_ms, bound_by = bound(flops, nbytes, dt)
+    flops, nbytes = fa.fwd_work(B, Sq, Sk, H, Hkv, hd, **kw,
+                                esz=q.element_size())
     run = lambda: fa.flash_attention_fwd(q, k, v, **kw)
     lib = lambda: sdpa(q, k, v)
     turns = [cuda_ms(torch, run, 20), cuda_ms(torch, lib, 20),
@@ -840,13 +894,13 @@ def flash_phase(torch, fa, shape) -> dict:
             q, k, v, **kw), 3),
         "library_ms": (turns[1] + turns[2]) / 2,
         "library_ms_turns": turns[1:3],
-        "bound_ms": bound_ms, "bound_by": bound_by,
     }
     if dt == "bfloat16":      # at 1 x 512 the events time the host
         rec["kernel_device_ms"] = device_time(torch, run)[0]
         rec["library_device_ms"], rec["library_kernels"] = \
             device_time(torch, lib)
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
+    bound(flops, nbytes, dt, rec)
     print(json.dumps({"flash_fwd": rec}), flush=True)
     return rec
 
@@ -892,20 +946,19 @@ def flash_bwd_phase(torch, fa, shape) -> dict:
                                            retain_graph=True)
     sdpa_device_ms, sdpa_kernels = device_time(torch, sdpa_bwd)
 
-    pairs = B * H * mask.sum().item()
-    esz = q.element_size()
-    ins = (2 * q.numel() + k.numel() + v.numel()) * esz + 2 * lse.numel() * 4
+    dims = (B, Sq, Sk, H, Hkv, hd)
     out = {}
-    for kern, flops, out_bytes, run, plain, what in (
-            ("flash_bwd_dq", 6.0 * hd * pairs, q.numel() * esz,
+    for kern, (flops, nbytes), run, plain, what in (
+            ("flash_bwd_dq", fa.bwd_dq_work(*dims, **kw,
+                                            esz=q.element_size()),
              lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
              lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
              ("dq",)),
-            ("flash_bwd_dkv", 8.0 * hd * pairs, 2 * k.numel() * esz,
+            ("flash_bwd_dkv", fa.bwd_dkv_work(*dims, **kw,
+                                              esz=q.element_size()),
              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
              lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw),
              ("dk", "dv"))):
-        bound_ms, bound_by = bound(flops, ins + out_bytes, dt)
         turns = [cuda_ms(torch, run, 20), cuda_ms(torch, sdpa_bwd, 20),
                  cuda_ms(torch, sdpa_bwd, 20), cuda_ms(torch, run, 20)]
         rec = {"shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
@@ -922,9 +975,9 @@ def flash_bwd_phase(torch, fa, shape) -> dict:
                "library_ms": (turns[1] + turns[2]) / 2,
                "library_ms_turns": turns[1:3],
                "library_device_ms": sdpa_device_ms,
-               "library_kernels": sdpa_kernels,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "library_kernels": sdpa_kernels}
         rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
+        bound(flops, nbytes, dt, rec)
         print(json.dumps({kern: rec}), flush=True)
         out[kern] = rec
     return out
@@ -1124,11 +1177,11 @@ def quant_phase(torch) -> dict:
         rec = {"n": n, "max_abs_err": err[name],
                "kernel_ms": cuda_ms(torch, run, 20),
                "plain_ms": cuda_ms(torch, plain, 3),
-               "bound_ms": QUANT_BYTES[name] * n / PEAK_BYTES * 1e3,
-               "bound_by": "bytes",
                "library_ms": lib and cuda_ms(torch, lib, 20),
                "edge_cases": sorted(cases)}
-        rec["kernel_gb_per_s"] = QUANT_BYTES[name] * n / rec["kernel_ms"] / 1e6
+        flops, nbytes = kq.work(name, n)
+        bound(flops, nbytes, "float32", rec)
+        rec["kernel_gb_per_s"] = nbytes / rec["kernel_ms"] / 1e6
         print(json.dumps({name: rec}), flush=True)
         out[name] = rec
     return out
@@ -1344,20 +1397,6 @@ def pad_wkv(torch, ins, S):
     return [F.pad(t, pad) for t in (r, k, v)] + [F.pad(w, pad, value=1.0), u]
 
 
-def wkv_work(B, S, H, hd, C=16):
-    """(flops, bytes) of one chunked WKV with its final state: per chunk
-    and (b, h) the inter-chunk product and the state update (2 C hd^2
-    each), the decay and sum of the old state (2 hd^2), the strictly lower
-    scores and their product with v (C (C-1) hd each), the bonus (5 C hd),
-    the decays (6 C hd, log and exp counted as one each) and k/e times e_C
-    (C hd); each input read and each output written once."""
-    per_chunk = 4 * C * hd * hd + 2 * C * (C - 1) * hd + 2 * hd * hd \
-        + 12 * C * hd
-    flops = B * H * (S // C) * per_chunk
-    nbytes = 4 * (5 * B * S * H * hd + B * H * hd * hd + H * hd)
-    return flops, nbytes
-
-
 def ptxas_of(log: str, kernel: str) -> dict:
     """Registers and spilled bytes of each instance of ``kernel`` in a
     ``-Xptxas -v`` log, by its template arguments."""
@@ -1431,8 +1470,7 @@ def wkv_phase(torch, kw, shape, ptxas, parents=None) -> dict:
         torch.cuda.synchronize()
         if not (torch.equal(st, st2) and torch.equal(o[:, :S0], o2[:, :S0])):
             fail(f"wkv {name}: the state or outputs move across the pad")
-    flops, nbytes = wkv_work(B, S, H, hd)
-    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    flops, nbytes = kw.work(B, S, H, hd)
     rec = {"shape": name, "B": B, "S": S, "H": H, "hd": hd,
            "decays": decays, "max_abs_err": max(errs.values()),
            "max_abs_err_o_S": errs,
@@ -1440,11 +1478,10 @@ def wkv_phase(torch, kw, shape, ptxas, parents=None) -> dict:
                *ins, return_state=True), 20),
            "plain_ms": cuda_ms(torch, lambda: kw.wkv_chunk_scan_ref(
                *ins, kw.CHUNK), 3),
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "bound_rates": "3.35 TB/s; 67 TFLOP/s f32 (non-tensor)",
            "flops": flops, "bytes": nbytes, "library_ms": None}
     rec["kernel_gflops"] = flops / rec["kernel_ms"] / 1e6
+    bound(flops, nbytes, "float32", rec)
     rec["launch"] = kw.launch_plan(B, H, hd)
     rec["ptxas"] = ptxas
     if parents is not None:
@@ -3320,6 +3357,7 @@ def family_train_case(torch, train, fa, kw, L, get_config, name) -> tuple:
            "tokens_per_s": out["tokens_per_s"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": got, "head_dim": cfg.head_dim, "wall_s": wall}
+    PEAK_GB[name] = rec["peak_mem_gb"]
     if cfg.moe:
         rec["moe_host_syncs"] = syncs
         rec["moe_host_syncs_per_step"] = syncs / kw_["steps"]
@@ -3533,6 +3571,7 @@ def rwkv_train_case(torch, train, fa, kw, get_config) -> dict:
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "wkv": 2 * cfg.n_layers * steps}
     steady = out["step_ms"][1:]
+    PEAK_GB["27a"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"rwkv_train_27a": {
         "arch": cfg.name, "layers": cfg.n_layers,
         "params": int(sum(layer_grad_bytes(cfg)) // 4), **RWKV_TRAIN,
@@ -3540,7 +3579,7 @@ def rwkv_train_case(torch, train, fa, kw, get_config) -> dict:
         "step_ms": out["step_ms"],
         "steady_step_ms_mean": sum(steady) / len(steady),
         "tokens_per_s": out["tokens_per_s"],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_gb": PEAK_GB["27a"],
         "launches": got,
         "wkv_per_layer_and_step": got["wkv"] / (cfg.n_layers * steps),
         "wall_s": wall}}), flush=True)
@@ -3875,6 +3914,13 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
     return [{k: x[k] for k in want} for x in ranks], one
 
 
+def axis_counts(grid) -> dict:
+    """Each axis's calls, backward calls and wire bytes so far, as
+    ``launch.dryrun.run_rank`` gives them."""
+    return {a.name: {"calls": a.calls, "bwd_calls": a.bwd_calls,
+                     "wire_bytes": a.wire_bytes} for a in grid.axes()}
+
+
 def tp_rs_train_rank(grid, arch, n, dev, train_kw=TP_RS_TRAIN_KW) -> dict:
     """28c/29b/31b on this rank of ``grid``: ``arch`` at full width cut to
     ``n`` layers, this rank's shard of the seed-0 weights in bf16, the
@@ -3907,14 +3953,18 @@ def tp_rs_train_rank(grid, arch, n, dev, train_kw=TP_RS_TRAIN_KW) -> dict:
                                        train_kw["seq"], train_kw["batch"]))
     torch.cuda.reset_peak_memory_stats(dev)
     reset(fa, kw)
-    out = {"losses": [], "step_ms": [], "tp_calls": [], "staged_bytes": []}
+    out = {"losses": [], "step_ms": [], "tp_calls": [], "staged_bytes": [],
+           "axes": []}
     for i in range(steps):
         s0, t0 = grid.staged_bytes, time.perf_counter()
+        a0 = axis_counts(grid)
         params, opt, loss = step(params, opt, pipe.host_batch(i))
         out["losses"].append(loss.item())
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["tp_calls"].append(dict(step.tp_calls))
         out["staged_bytes"].append(grid.staged_bytes - s0)
+        out["axes"].append({n: {k: v - a0[n][k] for k, v in c.items()}
+                            for n, c in axis_counts(grid).items()})
     out["launches"] = counts(fa, kw)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     del params, opt
@@ -4151,21 +4201,111 @@ def headcut_phase(torch, T, kw, get_config, refs, ranks, one) -> list:
     return out
 
 
+def dry_runs(path: str) -> None:
+    """Phase 32's dry runs, on the CPU (``--dry-runs PATH``, the
+    subprocess main starts): 32a-b the one-rank training steps of phases
+    7, 26a and 27a, 32c every rank of 31b's cell; written to ``path`` as
+    JSON."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import run_rank
+    from repro_torch.launch.mesh import parse_mesh
+
+    t0 = time.perf_counter()
+    shape = lambda kw_: ShapeSpec("custom", "train", kw_["seq"],
+                                  kw_["batch"])
+    out = {}
+    for phase, (arch, n, kw_) in DRY_TRAIN.items():
+        r = run_rank(cut(get_config, arch, n), shape(kw_), 1, 1, 1)
+        out[phase] = {"arch": arch, **kw_, "memory": r["memory"],
+                      "gflops": r["flops"] / 1e9, "gbytes": r["bytes"] / 1e9,
+                      "kernels": r["kernels"], "trace_s": r["trace_s"]}
+    (arch, (n, _)), = HEADCUT_TRAIN.items()
+    M = parse_mesh(HEADCUT_MESH)[2]
+    out["32c"] = [run_rank(cut(get_config, arch, n),
+                           shape(HEADCUT_TRAIN_KW), 1, 1, M, m)["calls"]
+                  for m in range(M)]
+    out["wall_s"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dry_runs() -> tuple:
+    """Start :func:`dry_runs` in a CPU subprocess (no card visible to it);
+    it is killed if this script ends first."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dry_"))
+    log = open(tmp / "log.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dry-runs",
+         str(tmp / "dry.json")], stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, tmp
+
+
+def dry_phase(proc, tmp, pool4) -> None:
+    """32: the dry runs against the card (phases 7, 26a, 27a and 31b)."""
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("phase 32: the dry runs took more than 300 s")
+    if rc:
+        fail(f"phase 32: the dry runs failed:\n"
+             f"{(tmp / 'log.txt').read_text()[-3000:]}")
+    dry = json.loads((tmp / "dry.json").read_text())
+    shutil.rmtree(tmp, ignore_errors=True)
+    for phase, key in (("32a", "7"), ("32b", "26a"), ("32b", "27a")):
+        d = dry[key]
+        gb = d["memory"]["bytes_per_device"] / 1e9
+        ratio = gb / PEAK_GB[key]
+        print(json.dumps({f"dry_run_{phase}_{key}": {
+            **d, "bytes_per_device_gb": gb, "card_peak_gb": PEAK_GB[key],
+            "dry_over_card": ratio,
+            "breakdown_gb": {k: v / 1e9 for k, v in d["memory"].items()}}}),
+            flush=True)
+        if phase == "32a" and not DRY_MEM_RATIO[0] <= ratio \
+                <= DRY_MEM_RATIO[1]:
+            fail(f"phase 32a: the dry run holds {gb:.3f} GB, the card "
+                 f"{PEAK_GB[key]:.3f} GB at most: {ratio:.3f} outside "
+                 f"{DRY_MEM_RATIO}")
+    arch = next(iter(HEADCUT_TRAIN))
+    for m, r in enumerate(pool4):
+        for i, got in enumerate(r["31"]["train"][arch]["axes"]):
+            if got != dry["32c"][m]:
+                fail(f"phase 32c: rank {m} step {i} counted {got} on the "
+                     f"card, the dry run {dry['32c'][m]}")
+    print(json.dumps({"dry_run_32c": {
+        "mesh": HEADCUT_MESH, "per_rank": dry["32c"],
+        "equal_on_card": True, "dry_runs_wall_s": dry["wall_s"]}}),
+        flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-wkv", metavar="LIB", action="append",
                     default=[], help="a shared library built from an "
                     "earlier csrc/wkv.cu, timed in turns with this one "
                     "under its file name (repeatable)")
+    ap.add_argument("--dry-runs", metavar="PATH", help="run phase 32's "
+                    "dry runs on the CPU, write them to PATH and exit "
+                    "(the subprocess the script starts)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not KERNELS.is_dir():
         fail(f"{KERNELS} not found: run from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    if args.dry_runs:
+        dry_runs(args.dry_runs)
+        return
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
+    dry_proc, dry_tmp = start_dry_runs()
+    # the ranks' fork server imports while the kernels build
+    from repro_torch.launch.mesh import preload_ranks
+    preload_ranks(*RANK_PRELOAD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4274,12 +4414,12 @@ def main() -> None:
     tr = train("gpt-100m", device="cuda", log_every=1, **TRAIN)
     train_counts = counts(fa, kw)
     steady = tr["step_ms"][1:]
+    PEAK_GB["7"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"train": {
         **TRAIN, "losses": tr["losses"], "step_ms": tr["step_ms"],
         "steady_step_ms_mean": sum(steady) / len(steady),
         "tokens_per_s": tr["tokens_per_s"], "launches": train_counts,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}),
-        flush=True)
+        "peak_mem_gb": PEAK_GB["7"]}}), flush=True)
     if not all(math.isfinite(x) for x in tr["losses"]) \
             or len(tr["losses"]) != TRAIN["steps"]:
         fail(f"training losses {tr['losses']}")
@@ -4351,6 +4491,7 @@ def main() -> None:
     wkv_recs = [wkv_phase(torch, kw, s, wkv_ptxas,
                           parents if i in WKV_TURNS else None)
                 for i, s in enumerate(WKV_SHAPES)]
+    refit_phase()
 
     progress("14", t_start)
     # 14. the RWKV-6 serving path
@@ -4536,6 +4677,12 @@ def main() -> None:
                            [r["31"] for r in pool4], ones["29a"])
     del ones
     walls.append(time.perf_counter())
+
+    progress("32", t_start)
+    # 32. the dry run against the card, computed in the subprocess started
+    # at the beginning
+    dry_phase(dry_proc, dry_tmp, pool4)
+    walls.append(time.perf_counter())
     tp_rs_counts = {k: sum(r.get(k, 0) for r in tp_rs) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "wkv")}
     print(json.dumps({"phase_wall_s": {
@@ -4545,7 +4692,7 @@ def main() -> None:
              "24d", "25a", "25b", "25c one rank", "25d", "26a", "26b",
              "26c", "26d", "26e", "26f one rank", "27a", "27b", "27c",
              "27d", "28 in this process", "29 in this process", "30",
-             "31 in this process"),
+             "31 in this process", "32 in this process"),
             walls, walls[1:])},
         "pool4_ranks_wall_s": {k: max(r["wall_s"][k] for r in pool4)
                                for k in pool4[0]["wall_s"]}}), flush=True)

@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(arch_id)``.
 
-The values are those of ``repro.configs``; its shape registry
-(``shapes.py``) builds JAX shape structs and is not ported.
+The values are those of ``repro.configs``; its shape registry is
+``shapes.py``, whose specs are ``meta`` tensors.
 
 Each assigned architecture lives in its own module exposing ``config()``
 (exact published configuration) and ``smoke_config()`` (reduced same-family

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.backend import on_card
+
 __all__ = ["BLOCK", "TILE", "QTILE", "WIRE_BYTES_PER_ELEM", "F32_MAX",
            "pad_to_block", "quantize_int8", "dequantize_int8",
            "quantize_ef_int8", "compressed_psum", "apply_error_feedback"]
@@ -100,14 +102,15 @@ def quantize_ef_int8(x: torch.Tensor, ef: torch.Tensor,
 
 def _resolve_use_kernel(use_kernel: bool | None, block: int,
                         x: torch.Tensor) -> bool:
-    """None -> the kernel for a CUDA tensor, the plain path for a CPU one.
-    A CUDA tensor never takes the plain path."""
+    """None -> the kernel for a CUDA tensor (and a ``meta`` one, the dry
+    run's), the plain path for a CPU one.  A CUDA tensor never takes the
+    plain path."""
     if use_kernel is None:
-        use_kernel = x.is_cuda
+        use_kernel = on_card(x)
     if use_kernel and block != BLOCK:
         raise ValueError(f"the int8 kernels are tiled for block={BLOCK}; "
                          f"pass use_kernel=False for block={block}")
-    if x.is_cuda and not use_kernel:
+    if on_card(x) and not use_kernel:
         raise ValueError("a CUDA tensor takes the int8 kernels "
                          "(use_kernel=False is for CPU tensors)")
     return bool(use_kernel)

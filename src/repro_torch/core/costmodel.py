@@ -1,15 +1,22 @@
-"""Closed-form postal cost models.
+"""Closed-form postal cost models and the card's roofline.
 
 The paper's §4 napkin math — binomial vs multilevel bcast cost over C
 clusters of P processes — used to validate the simulator against the
 paper's own claim (log C -> 1 slow messages), the pipelining segment
-sizes, and the affine link fit.  A copy of the postal half of
-``repro/core/costmodel.py``; its TPU roofline (``HW``, ``TPU_V5E``,
-``roofline_terms``, ``kernel_roofline``, ``refit_hw``) is left out, and
-the card's counterpart comes with the port's benchmark.
+sizes, and the affine link fit: a copy of the postal half of
+``repro/core/costmodel.py``.
+
+The roofline half (``HW``, ``roofline_terms``, ``kernel_roofline``,
+``refit_hw``) has the reference's numerics, read against the ceilings of
+an NVIDIA H100 SXM5 80GB HBM3 at 700 W from its datasheet (``H100``;
+``H100_F32`` for the kernels that run f32 on the CUDA cores) instead of a
+TPU's.  The two link rates are named for the levels they serve:
+``fast_bw`` inside a pod (NVLink), ``slow_bw`` across pods (the card's
+network port), where the reference has ``ici_bw`` and ``dcn_bw``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -23,6 +30,12 @@ __all__ = [
     "MAX_SEGMENTS",
     "MIN_CHUNK_BYTES",
     "link_affine_fit",
+    "HW",
+    "H100",
+    "H100_F32",
+    "roofline_terms",
+    "kernel_roofline",
+    "refit_hw",
 ]
 
 
@@ -140,3 +153,112 @@ def link_affine_fit(samples, *, fallback_latency: float = 0.0,
     slope = max(float(slope), 1e-30)
     return lat, 1.0 / slope
 
+
+
+# ---------------------------------------------------------------------- #
+# The card's roofline
+# ---------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class HW:
+    name: str
+    peak_flops: float        # FLOP/s per card (dense)
+    hbm_bw: float            # bytes/s per card
+    fast_bw: float           # bytes/s per card each way, inside a pod
+    slow_bw: float           # bytes/s per card, across pods
+    hbm_bytes: float         # HBM capacity per card
+    smem_bytes: float        # shared memory per SM
+
+
+# NVIDIA H100 SXM5 80GB HBM3, 700 W (datasheet): dense bf16 on the tensor
+# cores, HBM3, NVLink 4 (900 GB/s both ways), one 400 Gb/s NDR port a card
+H100 = HW(
+    name="h100",
+    peak_flops=989e12,
+    hbm_bw=3.35e12,
+    fast_bw=450e9,
+    slow_bw=50e9,
+    hbm_bytes=80e9,
+    smem_bytes=228 * 2**10,
+)
+
+# the same card for the f32 kernels, on the CUDA cores (67 TFLOP/s)
+H100_F32 = dataclasses.replace(H100, name="h100_f32", peak_flops=67e12)
+
+
+def roofline_terms(
+    flops: float,
+    hbm_bytes: float,
+    fast_bytes: float,
+    chips: int,
+    hw: HW = H100,
+    slow_bytes: float = 0.0,
+) -> dict[str, float]:
+    """The three roofline terms, in seconds, for one step on ``chips``
+    cards.
+
+    ``flops`` / ``hbm_bytes`` are GLOBAL totals (over the ``chips``);
+    ``fast_bytes`` is the per-card collective traffic inside a pod,
+    ``slow_bytes`` the per-card traffic crossing the pod boundary.
+    """
+    compute = flops / (chips * hw.peak_flops)
+    memory = hbm_bytes / (chips * hw.hbm_bw)
+    collective = fast_bytes / hw.fast_bw + slow_bytes / hw.slow_bw
+    terms = {"compute_s": compute, "memory_s": memory,
+             "collective_s": collective}
+    terms["bound"] = max(terms, key=terms.get).replace("_s", "")
+    terms["step_s"] = max(compute, memory, collective)
+    return terms
+
+
+def kernel_roofline(
+    flops: float,
+    hbm_bytes: float,
+    hw: HW = H100,
+    wall_s: float | None = None,
+) -> dict[str, float]:
+    """One card's roofline for ONE kernel: its FLOPs and HBM bytes against
+    the card's two ceilings (no collective term — kernels are local).
+
+    Returns compute_s / memory_s, the kernel's arithmetic intensity vs the
+    card's ridge point (FLOP/byte where the two ceilings meet), which
+    ceiling binds, and the model wall ``model_s = max(...)``.  With a
+    measured ``wall_s``, adds the achieved-vs-peak fractions
+    (``achieved_flops_frac`` / ``achieved_bw_frac``) and the model/measured
+    ratio, which :func:`refit_hw` consumes to derate the HW constants to a
+    machine.
+    """
+    if flops < 0 or hbm_bytes <= 0:
+        raise ValueError(f"kernel_roofline needs flops >= 0 and "
+                         f"hbm_bytes > 0, got {flops=} {hbm_bytes=}")
+    compute = flops / hw.peak_flops
+    memory = hbm_bytes / hw.hbm_bw
+    out = {
+        "compute_s": compute,
+        "memory_s": memory,
+        "intensity": flops / hbm_bytes,
+        "ridge": hw.peak_flops / hw.hbm_bw,
+        "bound": "compute" if compute >= memory else "memory",
+        "model_s": max(compute, memory),
+    }
+    if wall_s is not None:
+        if wall_s <= 0:
+            raise ValueError(f"wall_s must be positive, got {wall_s}")
+        out["wall_s"] = wall_s
+        out["achieved_flops_frac"] = (flops / wall_s) / hw.peak_flops
+        out["achieved_bw_frac"] = (hbm_bytes / wall_s) / hw.hbm_bw
+        out["model_over_wall"] = out["model_s"] / wall_s
+    return out
+
+
+def refit_hw(hw: HW, *, flops_frac: float, bw_frac: float, name: str) -> HW:
+    """Derate a datasheet :class:`HW` to MEASURED ceilings: scale
+    ``peak_flops`` / ``hbm_bw`` by the best achieved fractions the kernels
+    showed, so that later :func:`roofline_terms` / :func:`kernel_roofline`
+    calls model this machine instead of the datasheet.  Fractions are
+    clamped to (0, 1] — a kernel cannot beat the roof; measuring above it
+    means the byte/FLOP model is wrong, not the silicon generous."""
+    f = min(max(flops_frac, 1e-6), 1.0)
+    b = min(max(bw_frac, 1e-6), 1.0)
+    return dataclasses.replace(
+        hw, name=name, peak_flops=hw.peak_flops * f, hbm_bw=hw.hbm_bw * b)

@@ -4,7 +4,10 @@ Counterpart of ``repro/kernels/backend.py``, which decides between Pallas
 interpret mode and a TPU compile.  Here the decision is by tensor: a CPU
 tensor takes a kernel's plain PyTorch version, a CUDA tensor takes the
 kernel, which needs a Hopper card (compute capability 9.0) because it is
-compiled for ``sm_90a`` only.
+compiled for ``sm_90a`` only.  A ``meta`` tensor, which holds no data, is
+the dry run's (``launch.dryrun``): it takes the path the card takes
+(:func:`on_card`), and a wrapper gives it outputs of the kernel's shapes
+and counts the kernel's work, launching and building nothing.
 
 Kernels live in ``csrc/<name>.cu`` with a plain C interface; building
 blocks shared between sources live in ``csrc/*.cuh``.  They are compiled
@@ -24,8 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "resolve_device", "on_hopper",
-           "build", "sass", "load"]
+__all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "resolve_device", "on_card",
+           "on_hopper", "build", "sass", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -37,15 +40,22 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
-    """The device an entry point runs on.  Asking for CUDA where there is
-    none raises: an entry point never quietly drops to the CPU."""
+    """The device an entry point runs on: cuda, cpu, or meta for the dry
+    run.  Asking for CUDA where there is none raises: an entry point
+    never quietly drops to the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but torch.cuda."
                            f"is_available() is False")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device must be cuda, cpu or meta, got {dev}")
     return dev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's path: a CUDA tensor, or a ``meta``
+    one in the dry run."""
+    return t.is_cuda or t.is_meta
 
 
 def on_hopper(device: torch.device | None = None) -> bool:

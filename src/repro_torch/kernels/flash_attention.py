@@ -13,7 +13,11 @@ two designs chosen by the dtype: bf16 inputs run on the tensor cores
 caller goes through.  They take the plain version only for tensors on the
 CPU; for a CUDA tensor they launch the kernels or raise, and count each
 launch (``flash_attention_fwd.launches``, ``flash_bwd_dq.launches``,
-``flash_bwd_dkv.launches``).  ``FlashAttention`` wires them into a
+``flash_bwd_dkv.launches``); for a ``meta`` tensor (the dry run) they
+return empty outputs of the kernels' shapes.  While a
+``kernels.work.WorkCounter`` is active they add each kernel's work
+(:func:`fwd_work`, :func:`bwd_dq_work`, :func:`bwd_dkv_work`) on every
+device.  ``FlashAttention`` wires them into a
 ``torch.autograd.Function``, the analogue of the reference's custom VJP.
 
 The plain versions compute in f32, as the Pallas kernels do.  The bf16
@@ -40,10 +44,12 @@ import math
 
 import torch
 
-from . import backend
+from . import backend, work
+from .backend import on_card
 
-__all__ = ["NEG_INF", "DEFAULT_BLOCK_K", "KERNEL_HEAD_DIMS",
-           "KERNEL_BWD_HEAD_DIMS", "KERNEL_MAX_GROUP", "flash_attention_fwd",
+__all__ = ["NEG_INF", "pairs", "fwd_work", "bwd_dq_work", "bwd_dkv_work",
+           "DEFAULT_BLOCK_K", "KERNEL_HEAD_DIMS", "KERNEL_BWD_HEAD_DIMS",
+           "KERNEL_MAX_GROUP", "flash_attention_fwd",
            "flash_attention_fwd_ref", "flash_attention_fwd_bf16_ref",
            "kernel_block_k", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_bwd_dq", "flash_bwd_dkv",
@@ -59,6 +65,72 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_MAX_GROUP = 64          # G query heads must fit the 64-row tile
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _ramp(n: int, Sk: int) -> int:
+    """sum over t in [0, n) of clamp(t, 0, Sk)."""
+    if n <= 0:
+        return 0
+    if n <= Sk + 1:
+        return n * (n - 1) // 2
+    return Sk * (Sk + 1) // 2 + (n - Sk - 1) * Sk
+
+
+def pairs(Sq: int, Sk: int, causal: bool = True, window: int | None = None,
+          q_offset: int = 0) -> int:
+    """The unmasked (query, key) pairs of one head, in closed form: query
+    i sits at p = q_offset + i and sees the keys j in [0, Sk) with j <= p
+    (causal) and p - j < window; their count is clamp(p + 1, 0, Sk) -
+    clamp(p - window + 1, 0, Sk), summed over p as two ramps."""
+    lo, hi = q_offset, q_offset + Sq
+    ramp = lambda c: _ramp(max(hi + c, 0), Sk) - _ramp(max(lo + c, 0), Sk)
+    upper = ramp(1) if causal else Sq * Sk
+    lower = ramp(1 - window) if window is not None else 0
+    return upper - lower
+
+
+def fwd_work(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int, *,
+             causal: bool = True, window: int | None = None,
+             q_offset: int = 0, esz: int = 2) -> tuple[float, float]:
+    """(flops, hbm_bytes) of the forward kernel: two products (q k^T and
+    p v) over the unmasked pairs; q, k, v read and o written once in
+    ``esz``-byte elements, lse (f32) written once."""
+    n = B * H * pairs(Sq, Sk, causal, window, q_offset)
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd) * esz \
+        + B * H * Sq * 4
+    return 4.0 * hd * n, float(nbytes)
+
+
+def _bwd_in_bytes(B, Sq, Sk, H, Hkv, hd, esz):
+    # q, do, k, v, and lse and delta (f32)
+    return (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd) * esz \
+        + 2 * B * H * Sq * 4
+
+
+def bwd_dq_work(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int, *,
+                causal: bool = True, window: int | None = None,
+                q_offset: int = 0, esz: int = 2) -> tuple[float, float]:
+    """(flops, hbm_bytes) of the dq kernel: three products (q k^T, do v^T,
+    ds k) over the unmasked pairs; its inputs read and dq written once."""
+    n = B * H * pairs(Sq, Sk, causal, window, q_offset)
+    return 6.0 * hd * n, float(_bwd_in_bytes(B, Sq, Sk, H, Hkv, hd, esz)
+                                + B * Sq * H * hd * esz)
+
+
+def bwd_dkv_work(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int, *,
+                 causal: bool = True, window: int | None = None,
+                 q_offset: int = 0, esz: int = 2) -> tuple[float, float]:
+    """(flops, hbm_bytes) of the dk/dv kernel: four products (q k^T,
+    do v^T, p^T do, ds^T q) over the unmasked pairs; its inputs read and
+    dk, dv written once."""
+    n = B * H * pairs(Sq, Sk, causal, window, q_offset)
+    return 8.0 * hd * n, float(_bwd_in_bytes(B, Sq, Sk, H, Hkv, hd, esz)
+                                + 2 * B * Sk * Hkv * hd * esz)
+
+
+def _dims(q, k):
+    B, Sq, H, hd = q.shape
+    return B, Sq, k.shape[1], H, k.shape[2], hd
 
 
 def _block_mask(q_pos, k_pos, causal: bool, window: int | None):
@@ -153,10 +225,11 @@ def _check(q, k, v, window, head_dims=KERNEL_HEAD_DIMS) -> None:
             raise ValueError(f"flash attention: q, k, v must share one dtype "
                              f"of {DTYPES}, got {q.dtype}/{k.dtype}/"
                              f"{v.dtype}")
-        if t.device != q.device or t.device.type not in ("cpu", "cuda"):
+        if t.device != q.device or \
+                t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"flash attention: q, k, v must be on one cpu "
-                             f"or cuda device, got {q.device}/{k.device}/"
-                             f"{v.device}")
+                             f"or cuda device (or all on meta), got "
+                             f"{q.device}/{k.device}/{v.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash attention: {name} must be contiguous")
     B, Sq, H, hd = q.shape
@@ -170,13 +243,13 @@ def _check(q, k, v, window, head_dims=KERNEL_HEAD_DIMS) -> None:
     if window is not None and window < 1:
         raise ValueError(f"flash attention: window must be None or >= 1, "
                          f"got {window}")
-    if q.is_cuda and (hd not in head_dims or H // Hkv > KERNEL_MAX_GROUP):
+    if on_card(q) and (hd not in head_dims or H // Hkv > KERNEL_MAX_GROUP):
         raise ValueError(f"flash attention kernel takes head_dim in "
                          f"{head_dims} and at most "
                          f"{KERNEL_MAX_GROUP} query heads per KV head, got "
                          f"hd={hd} G={H // Hkv}")
     # the bf16 kernels stage rows with 16-byte copies
-    if q.is_cuda and q.dtype == torch.bfloat16 and any(
+    if on_card(q) and q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash attention: bf16 q, k and v must be 16-byte "
                          "aligned on the card")
@@ -199,12 +272,21 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 
     Any Sq and Sk are taken: the kernel masks the ragged edge itself."""
     _check(q, k, v, window)
-    if not q.is_cuda:
-        return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)
-    lib = _lib()
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    job = fwd_work(*_dims(q, k), **mask, esz=q.element_size())
+    if not q.is_cuda:
+        with work.quiet():
+            if q.is_meta:
+                o = torch.empty_like(q)
+                lse = q.new_empty((B, Hkv, H // Hkv, Sq),
+                                  dtype=torch.float32)
+            else:
+                o, lse = flash_attention_fwd_ref(q, k, v, **mask)
+        work.count("flash_fwd", *job, o, lse)
+        return o, lse
+    lib = _lib()
     o = torch.empty_like(q)
     lse = torch.empty((B, Hkv, H // Hkv, Sq), dtype=torch.float32,
                       device=q.device)
@@ -217,6 +299,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         raise RuntimeError(f"flash_fwd launch failed: "
                            f"{lib.flash_fwd_error_string(err).decode()}")
     flash_attention_fwd.launches += 1
+    work.count("flash_fwd", *job, o, lse)
     return o, lse
 
 
@@ -360,7 +443,7 @@ def _check_bwd(q, k, v, o, lse, do, window) -> None:
         raise ValueError(f"flash attention backward: lse must be a "
                          f"contiguous f32 tensor {(B, Hkv, H // Hkv, Sq)} "
                          f"on {q.device}")
-    if q.is_cuda and q.dtype == torch.bfloat16 and do.data_ptr() % 16:
+    if on_card(q) and q.dtype == torch.bfloat16 and do.data_ptr() % 16:
         raise ValueError("flash attention backward: bf16 do must be "
                          "16-byte aligned on the card")
 
@@ -427,13 +510,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     from :func:`flash_attention_fwd`; delta = rowsum(do * o) is a torch op
     on the stored o.  Any Sq and Sk are taken on the card."""
     _check_bwd(q, k, v, o, lse, do, window)
-    if not q.is_cuda:
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       window=window, q_offset=q_offset)
-    delta = _delta(o, do, lse)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    delta = _delta(o, do, lse)
+    dims, esz = _dims(q, k), q.element_size()
+    if q.is_cuda:
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    else:
+        with work.quiet():
+            if q.is_meta:
+                dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            else:
+                dq = flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+                dk, dv = flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    work.count("flash_bwd_dq", *bwd_dq_work(*dims, **kw, esz=esz), dq)
+    work.count("flash_bwd_dkv", *bwd_dkv_work(*dims, **kw, esz=esz), dk, dv)
     return dq, dk, dv
 
 

@@ -12,8 +12,11 @@ jnp path (``repro_torch.core.compression``): ``quantize_int8_ref``,
 The wrappers pad to ``QTILE`` as ``ops.py`` does and return the pad.  They
 take the plain versions only for CPU tensors; for a CUDA tensor they
 launch the kernel or raise, and count each launch (``quantize_int8.
-launches``, ``dequantize_int8.launches``, ``quantize_ef_int8.launches``).
-The kernels themselves take any length that is a multiple of ``BLOCK``.
+launches``, ``dequantize_int8.launches``, ``quantize_ef_int8.launches``);
+for a ``meta`` tensor (the dry run) they return empty outputs of the
+kernels' shapes.  While a ``kernels.work.WorkCounter`` is active they add
+each kernel's :func:`work` on every device.  The kernels themselves take
+any length that is a multiple of ``BLOCK``.
 """
 from __future__ import annotations
 
@@ -25,11 +28,25 @@ from ..core.compression import (BLOCK, QTILE, pad_to_block,
                                 dequantize_int8 as dequantize_int8_ref,
                                 quantize_ef_int8 as quantize_ef_int8_ref,
                                 quantize_int8 as quantize_int8_ref)
-from . import backend
+from . import backend, work as _work
 
-__all__ = ["quantize_int8", "dequantize_int8", "quantize_ef_int8",
+__all__ = ["QUANT_BYTES", "work", "quantize_int8", "dequantize_int8",
+           "quantize_ef_int8",
            "quantize_int8_ref", "dequantize_int8_ref",
            "quantize_ef_int8_ref"]
+
+# HBM bytes each kernel moves per element: its inputs read and outputs
+# written once (scales: 4 bytes per BLOCK elements)
+QUANT_BYTES = {"quantize_int8": 4 + 1 + 4 / BLOCK,
+               "dequantize_int8": 1 + 4 / BLOCK + 4,
+               "quantize_ef_int8": 4 + 4 + 1 + 4 / BLOCK + 4}
+
+
+def work(name: str, n: int) -> tuple[float, float]:
+    """(flops, hbm_bytes) of kernel ``name`` over ``n`` elements: no
+    products (the counter's FLOPs are those of products alone), and
+    ``QUANT_BYTES[name]`` a element."""
+    return 0.0, QUANT_BYTES[name] * n
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
@@ -37,9 +54,17 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} must be a 1-D {dtype} tensor, got "
                          f"{getattr(t, 'dtype', type(t))} "
                          f"{tuple(getattr(t, 'shape', ()))}")
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} must be on a cpu or cuda device, got "
-                         f"{t.device}")
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} must be on a cpu or cuda device (or on "
+                         f"meta), got {t.device}")
+
+
+def _q_out(xp: torch.Tensor):
+    """Empty q (int8, like ``xp``) and scales (f32, one per block) on
+    ``xp``'s device: the kernels' outputs."""
+    return (torch.empty(xp.shape, dtype=torch.int8, device=xp.device),
+            torch.empty((xp.numel() // BLOCK,), dtype=torch.float32,
+                        device=xp.device))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -79,16 +104,18 @@ def quantize_int8(x: torch.Tensor):
     _check(x, "quantize_int8: x", torch.float32)
     xp, pad = pad_to_block(x, QTILE)
     if not xp.is_cuda:
-        q, s = quantize_int8_ref(xp)
-        return q, s, pad
-    xp = _aligned(xp)
-    q = torch.empty(xp.shape, dtype=torch.int8, device=xp.device)
-    s = torch.empty((xp.numel() // BLOCK,), dtype=torch.float32,
-                    device=xp.device)
+        with _work.quiet():
+            q, s = _q_out(xp) if xp.is_meta else quantize_int8_ref(xp)
+    else:
+        xp = _aligned(xp)
+        q, s = _q_out(xp)
+        if xp.numel():
+            _launch("quant_int8", (xp.data_ptr(), q.data_ptr(),
+                                   s.data_ptr()), s.numel(), xp)
+            quantize_int8.launches += 1
     if xp.numel():
-        _launch("quant_int8", (xp.data_ptr(), q.data_ptr(), s.data_ptr()),
-                s.numel(), xp)
-        quantize_int8.launches += 1
+        _work.count("quantize_int8", *work("quantize_int8", xp.numel()),
+                    q, s)
     return q, s, pad
 
 
@@ -105,7 +132,9 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
                          f"got q {tuple(q.shape)} on {q.device}, scales "
                          f"{tuple(scales.shape)} on {scales.device}")
     if not q.is_cuda:
-        x = dequantize_int8_ref(q, scales)
+        with _work.quiet():
+            x = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+                if q.is_meta else dequantize_int8_ref(q, scales)
     else:
         q, scales = _aligned(q), scales.contiguous()
         x = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -113,6 +142,9 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
             _launch("dequant_int8", (q.data_ptr(), scales.data_ptr(),
                                      x.data_ptr()), scales.numel(), q)
             dequantize_int8.launches += 1
+    if q.numel():
+        _work.count("dequantize_int8", *work("dequantize_int8", q.numel()),
+                    x)
     return x[:x.numel() - pad] if pad else x
 
 
@@ -131,18 +163,22 @@ def quantize_ef_int8(x: torch.Tensor, ef: torch.Tensor):
     xp, pad = pad_to_block(x, QTILE)
     efp, _ = pad_to_block(ef, QTILE)
     if not xp.is_cuda:
-        q, s, r = quantize_ef_int8_ref(xp, efp)
-        return q, s, r[:n], pad
-    xp, efp = _aligned(xp), _aligned(efp)
-    q = torch.empty(xp.shape, dtype=torch.int8, device=xp.device)
-    s = torch.empty((xp.numel() // BLOCK,), dtype=torch.float32,
-                    device=xp.device)
-    r = torch.empty_like(xp)
+        with _work.quiet():
+            if xp.is_meta:
+                (q, s), r = _q_out(xp), torch.empty_like(xp)
+            else:
+                q, s, r = quantize_ef_int8_ref(xp, efp)
+    else:
+        xp, efp = _aligned(xp), _aligned(efp)
+        (q, s), r = _q_out(xp), torch.empty_like(xp)
+        if xp.numel():
+            _launch("quant_ef_int8", (xp.data_ptr(), efp.data_ptr(),
+                                      q.data_ptr(), s.data_ptr(),
+                                      r.data_ptr()), s.numel(), xp)
+            quantize_ef_int8.launches += 1
     if xp.numel():
-        _launch("quant_ef_int8", (xp.data_ptr(), efp.data_ptr(),
-                                  q.data_ptr(), s.data_ptr(), r.data_ptr()),
-                s.numel(), xp)
-        quantize_ef_int8.launches += 1
+        _work.count("quantize_ef_int8",
+                    *work("quantize_ef_int8", xp.numel()), q, s, r)
     return q, s, r[:n], pad
 
 

@@ -10,8 +10,11 @@ Pallas kernel was written to replace and the function the reference's
 
 :func:`wkv_chunked` takes the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises, and counts each launch in
-``wkv_chunked.launches``.  Unlike the Pallas wrapper it can also return the
-final state, the oracle's second result, which the prefill cache holds.
+``wkv_chunked.launches``; for a ``meta`` tensor (the dry run) it returns
+empty outputs of the kernel's shapes.  While a
+``kernels.work.WorkCounter`` is active it adds the kernel's :func:`work`
+on every device.  Unlike the Pallas wrapper it can also return the final
+state, the oracle's second result, which the prefill cache holds.
 
 :func:`wkv` is what the model calls.  Where no gradient is taken it is
 :func:`wkv_chunked` itself.  Where one is, it runs :class:`WKV`, whose
@@ -27,13 +30,29 @@ import ctypes
 
 import torch
 
-from . import backend
+from . import backend, work as _work
 
 __all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "WKV", "launch_plan", "wkv",
-           "wkv_chunk_scan_ref", "wkv_chunked"]
+           "wkv_chunk_scan_ref", "wkv_chunked", "work"]
 
 CHUNK = 16
 KERNEL_MAX_HEAD_DIM = 64        # 4 hd threads a block, 16 state floats each
+
+
+def work(B: int, S: int, H: int, hd: int, C: int = CHUNK,
+         state: bool = True) -> tuple[float, float]:
+    """(flops, hbm_bytes) of one chunked WKV: per chunk and (b, h) the
+    inter-chunk product and the state update (2 C hd^2 each), the decay
+    and sum of the old state (2 hd^2), the strictly lower scores and their
+    product with v (C (C-1) hd each), the bonus (5 C hd), the decays (6 C
+    hd, log and exp counted as one each) and k/e times e_C (C hd); r, k,
+    v, w and u read and o (and the final state, with ``state``) written
+    once, in f32."""
+    per_chunk = 4 * C * hd * hd + 2 * C * (C - 1) * hd + 2 * hd * hd \
+        + 12 * C * hd
+    flops = B * H * (S // C) * per_chunk
+    nbytes = 4 * (5 * B * S * H * hd + state * B * H * hd * hd + H * hd)
+    return flops, nbytes
 
 
 def wkv_chunk_scan_ref(r, k, v, w, u, chunk: int):
@@ -88,9 +107,11 @@ def _check(r, k, v, w, u, chunk: int, n_split: int) -> None:
                              f"of one (B,S,H,hd) shape, got {name} "
                              f"{getattr(t, 'dtype', type(t))} "
                              f"{tuple(getattr(t, 'shape', ()))}")
-        if t.device != r.device or t.device.type not in ("cpu", "cuda"):
+        if t.device != r.device or \
+                t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"wkv_chunked: inputs must be on one cpu or "
-                             f"cuda device, got {name} on {t.device}")
+                             f"cuda device (or all on meta), got {name} on "
+                             f"{t.device}")
     B, S, H, hd = r.shape
     if not isinstance(u, torch.Tensor) or u.dtype != torch.float32 \
             or u.shape != (H, hd) or u.device != r.device:
@@ -147,11 +168,18 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
     blocks share a head's value columns, 1..hd asks for that many; the
     plain version ignores it (its columns are independent either way)."""
     _check(r, k, v, w, u, chunk, n_split)
+    B, S, H, hd = r.shape
+    job = work(B, S, H, hd, chunk, return_state)
     if not r.is_cuda:
-        o, state = wkv_chunk_scan_ref(r, k, v, w, u, chunk)
+        with _work.quiet():
+            if r.is_meta:
+                o = torch.empty_like(r)
+                state = r.new_empty((B, H, hd, hd))
+            else:
+                o, state = wkv_chunk_scan_ref(r, k, v, w, u, chunk)
+        _work.count("wkv", *job, o, *(state,) * return_state)
         return (o, state) if return_state else o
     r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
-    B, S, H, hd = r.shape
     o = torch.empty_like(r)
     state = torch.empty((B, H, hd, hd), dtype=torch.float32,
                         device=r.device) if return_state else None
@@ -166,6 +194,7 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
         raise RuntimeError(f"wkv_fwd launch failed: "
                            f"{lib.wkv_error_string(err).decode()}")
     wkv_chunked.launches += 1
+    _work.count("wkv", *job, o, state)
     return (o, state) if return_state else o
 
 

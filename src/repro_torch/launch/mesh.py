@@ -28,6 +28,10 @@ the calls and the payload this rank puts on it (``calls``,
 ``wire_bytes``), and, where the backend is gloo and the tensors live on a
 card (the ranks share one card, which NCCL refuses), copies them to the
 host and back in ``stage_through_host``, counting those bytes too.
+``Grid.dry`` is one rank's grid for the dry run (``launch.dryrun``): its
+axes (``DryAxis``) run no collective and make no process group, count
+alike, and keep one record a call (its kind, its result's bytes, its
+group's global ranks) for ``launch.census``.
 
 ``Axis.copy_to`` and ``Axis.reduce_from`` are the model axis's two
 collectives that autograd differentiates, the Megatron pair: ``copy_to``
@@ -47,7 +51,9 @@ same graph, so autograd issues the backward's collectives in the same
 order on each; ``bwd_calls`` counts them apart from ``calls``.
 
 ``run_ranks`` spawns the ranks of a grid on this host, each with a
-``file://`` rendezvous, and returns what each returned.
+``file://`` rendezvous, and returns what each returned.  Each rank is a
+fresh interpreter that imports torch anew, unless ``preload_ranks`` has
+started a fork server that imported it (and the modules named) once.
 
 ``grid_topology``, ``dp_topology`` and ``grid_communicator`` are the
 counterparts of the reference's ``mesh_topology`` (:30), ``dp_topology``
@@ -60,11 +66,15 @@ policy, ``"paper"``, builds its trees from the coordinates alone.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
+import multiprocessing.forkserver
+import os
 import pickle
 import queue as queue_mod
 import shutil
+import signal
 import tempfile
 import time
 import traceback
@@ -75,10 +85,11 @@ import torch
 import torch.distributed as dist
 
 from ..core.topology import Level, Topology
+from ..kernels import work
 
-__all__ = ["Axis", "Grid", "parse_mesh", "choose_backend", "grid_groups",
-           "make_grid", "stage_through_host", "run_ranks", "grid_topology",
-           "dp_topology", "grid_communicator"]
+__all__ = ["Axis", "DryAxis", "Grid", "parse_mesh", "choose_backend",
+           "grid_groups", "make_grid", "stage_through_host", "run_ranks",
+           "preload_ranks", "grid_topology", "dp_topology", "grid_communicator"]
 
 
 # torch 2.13 renames the two single-tensor collectives; older releases
@@ -175,29 +186,32 @@ class Axis:
         self.wire_bytes = 0       # payload this rank put into collectives
         self.staged_bytes = 0     # host copies made for gloo
 
-    def _run(self, fn: Callable, out: torch.Tensor,
+    def _run(self, kind: str, fn: Callable, out: torch.Tensor,
              inp: torch.Tensor | None) -> torch.Tensor:
+        """``fn(out, inp)``, collective ``kind`` ("all-reduce",
+        "all-gather", "reduce-scatter"), counted."""
         self.calls += 1
         self.wire_bytes += (out if inp is None else inp).nbytes
-        if self.stage and out.is_cuda:
-            stage_through_host(fn, out, inp, self)
-        else:
-            fn(out, out if inp is None else inp)
+        with work.quiet():     # the census counts it, a work counter not
+            if self.stage and out.is_cuda:
+                stage_through_host(fn, out, inp, self)
+            else:
+                fn(out, out if inp is None else inp)
         return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the axis, on every member."""
         if self.size == 1:
             return x
-        return self._run(lambda o, _: dist.all_reduce(o, group=self.group),
-                         x.contiguous().clone(), None)
+        return self._run("all-reduce", lambda o, _: dist.all_reduce(
+            o, group=self.group), x.contiguous().clone(), None)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum of ``x`` over the axis, on every
         member."""
         if self.size == 1:
             return x
-        return self._run(lambda o, _: dist.all_reduce(
+        return self._run("all-reduce", lambda o, _: dist.all_reduce(
             o, op=dist.ReduceOp.MAX, group=self.group),
             x.contiguous().clone(), None)
 
@@ -254,7 +268,7 @@ class Axis:
                              f"{tuple(x.shape)} does not divide by "
                              f"{self.size}")
         out = xf.new_empty((xf.shape[0] // self.size,) + xf.shape[1:])
-        self._run(lambda o, i: _reduce_scatter(
+        self._run("reduce-scatter", lambda o, i: _reduce_scatter(
             o, i, group=self.group), out, xf)
         return out.movedim(0, dim).contiguous()
 
@@ -265,9 +279,28 @@ class Axis:
             return x
         xf = x.movedim(dim, 0).contiguous()
         out = xf.new_empty((xf.shape[0] * self.size,) + xf.shape[1:])
-        self._run(lambda o, i: _all_gather(
+        self._run("all-gather", lambda o, i: _all_gather(
             o, i, group=self.group), out, xf)
         return out.movedim(0, dim).contiguous()
+
+
+class DryAxis(Axis):
+    """An axis of the dry run's grid: it runs no collective and has no
+    group; it counts as :class:`Axis` does and keeps one record a call in
+    ``records``: ``{"kind", "bytes"`` (the result's: the reduced tensor,
+    the gathered one, or this rank's scattered shard), ``"ranks"`` (the
+    global ranks of its group)``}``.  Its result has the collective's
+    shape and dtype, on the input's device (``meta``: no values)."""
+
+    def __init__(self, name: str, ranks: list[int], index: int):
+        super().__init__(name, len(ranks), index)
+        self.ranks = list(ranks)
+        self.records: list[dict] = []
+
+    def _run(self, kind, fn, out, inp):
+        self.records.append({"kind": kind, "bytes": out.nbytes,
+                             "ranks": self.ranks})
+        return super()._run(kind, lambda o, i: None, out, inp)
 
 
 @dataclasses.dataclass
@@ -326,6 +359,28 @@ class Grid:
                    Axis("pod", pods, 0) if pods > 1 else None,
                    Axis("dp", pods * data, 0), model=model,
                    tp=Axis("model", model, 0) if model > 1 else None)
+
+
+    @classmethod
+    def dry(cls, pods: int, data: int, model: int = 1,
+            m: int = 0) -> "Grid":
+        """Rank m of the (pod 0, data 0) cell of a (pods x data x model)
+        grid, for the dry run: every axis a :class:`DryAxis` over its
+        group's global ranks (``grid_groups``), size-1 axes included (they
+        record nothing: a size-1 collective returns its input)."""
+        groups = grid_groups(pods, data, model)
+        mine = lambda kind: next(g for g in groups[kind] if m in g)
+        axis = lambda name, kind: DryAxis(name, mine(kind),
+                                          mine(kind).index(m))
+        return cls(pods, data, 0, axis("data", "fast"),
+                   axis("pod", "slow") if pods > 1 else None,
+                   axis("dp", "dp"), "dry", model,
+                   axis("model", "tp") if model > 1 else None)
+
+    def records(self) -> list[dict]:
+        """Every record of the grid's dry axes, in call order within each
+        axis."""
+        return [r for a in self.axes() for r in getattr(a, "records", ())]
 
 
 def parse_mesh(spec: str) -> tuple[int, int, int]:
@@ -503,6 +558,45 @@ def _rank_entry(fn, rank, world, backend, init_method, timeout_s,
         results.put((rank, False, traceback.format_exc()))
 
 
+_PRELOADED: list[str] = []      # what the ranks' fork server imported
+
+
+def preload_ranks(*modules: str) -> None:
+    """Start the ranks of every later ``run_ranks`` from a fork server
+    that imports torch and ``modules`` once, instead of one fresh
+    interpreter a rank that imports them all again; and start that server
+    now, so that it imports while the caller goes on.  The server touches
+    no card (each rank makes its own CUDA context); this process waits for
+    it to end as it exits."""
+    mods = ["torch", *modules]
+    torch.multiprocessing.get_context("forkserver").set_forkserver_preload(
+        mods)
+    if not _PRELOADED:
+        atexit.register(_stop_fork_server)
+    _PRELOADED[:] = mods
+    multiprocessing.forkserver.ensure_running()
+
+
+def _stop_fork_server(timeout: float = 30.0) -> None:
+    """Close this process's end of the fork server's "alive" pipe, which
+    ends the server once no rank it forked is left, and wait for it to
+    exit (it tears down torch), killing it after ``timeout`` seconds."""
+    fs = multiprocessing.forkserver._forkserver
+    pid, fd = fs._forkserver_pid, fs._forkserver_alive_fd
+    if pid is None:
+        return
+    fs._forkserver_pid = fs._forkserver_alive_fd = None
+    fs._forkserver_address = None
+    os.close(fd)
+    deadline = time.monotonic() + timeout
+    while os.waitpid(pid, os.WNOHANG) == (0, 0):
+        if time.monotonic() > deadline:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+            return
+        time.sleep(0.02)
+
+
 def run_ranks(fn: Callable, world: int, backend: str, args: tuple = (),
               timeout: float = 900.0) -> list[Any]:
     """Spawn ``world`` ranks on this host, rendezvous through a file in a
@@ -514,7 +608,8 @@ def run_ranks(fn: Callable, world: int, backend: str, args: tuple = (),
     shared memory) and return their results in rank order.  Raises if a
     rank raises, dies, or the ranks take longer than ``timeout`` seconds;
     no rank outlives the call."""
-    ctx = torch.multiprocessing.get_context("spawn")
+    ctx = torch.multiprocessing.get_context(
+        "forkserver" if _PRELOADED else "spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
     results = ctx.Queue()
     with open(f"{tmp}/args.pkl", "wb") as f:

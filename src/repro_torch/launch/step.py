@@ -42,6 +42,8 @@ heads).
 ``layer_grad_bytes`` is a copy of the reference's ``:41``: the per-layer
 gradient bytes the engine's bucketed-sync estimate takes, from the
 parameter shapes alone (fake tensors; nothing is allocated).
+``abstract_params`` is the reference's ``:31`` for the dry run: one model
+rank's stacked shard on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -51,14 +53,24 @@ import torch
 from ..kernels.backend import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..models.convert import model_dims, unstack_runs
+from ..models.convert import model_dims, stack_runs, unstack_runs
 from ..models.sharding import tp_check
 from ..optim import adamw
 from ..tree import tree_leaves, tree_unflatten
 from .mesh import Grid
 
-__all__ = ["device_batch", "rank_rows", "loss_and_grads", "make_train_step",
-           "make_prefill_fn", "make_decode_fn", "layer_grad_bytes"]
+__all__ = ["abstract_params", "device_batch", "rank_rows", "loss_and_grads",
+           "make_train_step", "make_prefill_fn", "make_decode_fn",
+           "layer_grad_bytes"]
+
+
+def abstract_params(cfg: ModelConfig, model: int = 1, m: int = 0) -> dict:
+    """Rank ``m``'s shard of the parameters on a model axis of ``model``
+    (all of them on one rank), in the stacked run layout the train step
+    takes, on the ``meta`` device: their shapes and dtypes, nothing
+    drawn or allocated."""
+    return stack_runs(T.init_model(cfg, device="meta", model=model, m=m),
+                      cfg, model, m)
 
 
 def layer_grad_bytes(cfg: ModelConfig, model_size: int = 1) -> list[float]:
@@ -98,19 +110,20 @@ def device_batch(batch: dict, device) -> dict:
     ``src_embeds``) as f32, as the reference's ``global_batch`` places
     them; ``transformer.embed_inputs`` casts them to the model's dtype."""
     def put(v):
-        t = torch.as_tensor(np.asarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
         return t.to(device, torch.float32 if t.is_floating_point()
                     else torch.long)
     return {k: put(v) for k, v in batch.items()}
 
 
 def rank_rows(batch: dict, grid: Grid) -> dict:
-    """This rank's rows of a global host batch, whose rows must divide by
-    the number of data-parallel ranks (a model group's ranks take the
-    same rows)."""
+    """This rank's rows of a global host batch (arrays, or the dry run's
+    ``meta`` tensors), whose rows must divide by the number of
+    data-parallel ranks (a model group's ranks take the same rows)."""
     out = {}
     for k, v in batch.items():
-        v = np.asarray(v)
+        v = v if isinstance(v, torch.Tensor) else np.asarray(v)
         if v.shape[0] % grid.world:
             raise ValueError(f"batch of {v.shape[0]} rows does not split "
                              f"over {grid.world} ranks")

@@ -61,6 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.backend import on_card
 from ..kernels.flash_attention import NEG_INF
 from ..kernels.ops import flash_attention, wkv
 from ..kernels.wkv import CHUNK
@@ -112,10 +113,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+class MetaDraws:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device (the dry
+    run's): its draws are tensors of their shapes and dtypes that hold no
+    values."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """N(0, 1) in f32 drawn from ``gen`` on its device."""
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def _uniform(gen: torch.Generator, shape, scale: float,
              dtype=torch.float32):
     """U(-scale, scale) drawn from ``gen`` on its device (in f32, in
     place, then cast: an expert stack's f32 draw is its largest buffer)."""
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, dtype=dtype, device="meta")
     u = torch.rand(shape, generator=gen, device=gen.device)
     return u.mul_(2.0).sub_(1.0).mul_(scale).to(dtype)
 
@@ -175,14 +192,17 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       chunk_k: int = 512, q_offset: int = 0):
     """Differentiable flash attention, GQA-aware.  A CUDA tensor of any
     length goes to the Hopper kernels, which mask the ragged edge
-    themselves.  On the CPU, lengths that are not a multiple of the chunk
-    take the naive oracle, as in the reference."""
+    themselves (a ``meta`` one too, as the card's).  On the CPU, lengths
+    that are not a multiple of the chunk take the naive oracle, as in the
+    reference."""
     Sq, Sk = q.shape[1], k.shape[1]
-    if not q.is_cuda and (Sq % chunk_q or Sk % chunk_k):
+    if not on_card(q) and (Sq % chunk_q or Sk % chunk_k):
         q_pos = q_offset + torch.arange(Sq, device=q.device)
         return naive_attention(q, k, v, causal=causal, window=window,
                                q_pos=q_pos,
                                k_pos=torch.arange(Sk, device=q.device))
+    # k and v of a model axis's KV heads cut by columns are slices
+    q, k, v = (t.contiguous() for t in (q, k, v))
     return flash_attention(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
 
@@ -565,9 +585,17 @@ def _moe_route(p, m, xt):
     (T*k,), sizes list)."""
     gates, flat_e = _moe_gates(p, m, xt)
     order = torch.argsort(flat_e, stable=True)
-    sizes = torch.bincount(flat_e, minlength=m.n_experts).tolist()
+    sizes = even_sizes(flat_e.numel(), m.n_experts) if flat_e.is_meta \
+        else torch.bincount(flat_e, minlength=m.n_experts).tolist()
     moe_fwd.host_syncs += 1
     return gates, order, sizes
+
+
+def even_sizes(n: int, E: int) -> list[int]:
+    """The dry run's group sizes, which a ``meta`` tensor cannot give: an
+    even share of the ``n`` routed rows per expert, the first ``n mod E``
+    experts one more.  A real run never takes them."""
+    return [n // E + (e < n % E) for e in range(E)]
 
 
 def _moe_experts(p, xs, sizes):
@@ -621,12 +649,17 @@ def _moe_block_ep(p, m, xt, tp):
     C = max(C - C % 8, 8)
     key = torch.where(mine, local, E_local)
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=E_local + 1).tolist()
+    if key.is_meta:             # the dry run: even shares, none dropped
+        sizes = even_sizes(key.numel(), m.n_experts)[
+            tp.index * E_local:(tp.index + 1) * E_local]
+        counts = sizes + [key.numel() - sum(sizes)]
+    else:
+        counts = torch.bincount(key, minlength=E_local + 1).tolist()
+        sizes, left = [], C
+        for n in counts[:E_local]:
+            sizes.append(min(n, left))
+            left -= sizes[-1]
     moe_fwd.host_syncs += 1
-    sizes, left = [], C
-    for n in counts[:E_local]:
-        sizes.append(min(n, left))
-        left -= sizes[-1]
     kept = sum(sizes)
     if moe_fwd.dropped is not None and not _in_backward():
         moe_fwd.dropped.append(sum(counts[:E_local]) - kept)

@@ -147,11 +147,14 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     not the JAX ones; ``convert.params_from_jax`` carries those over).
     With ``model`` > 1, rank ``m``'s share of the same weights
     (``convert.shard_params`` of the full model), cut as each layer is
-    drawn, so that one full layer at most is held beside the shares."""
+    drawn, so that one full layer at most is held beside the shares.  On
+    the ``meta`` device (the dry run) the leaves have their shapes and
+    dtypes and nothing is drawn."""
     port_check(cfg)
     tp_check(cfg, model)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.MetaDraws() if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     D, V = cfg.d_model, cfg.vocab
     zeros = lambda: torch.zeros((D,), dtype=torch.float32, device=dev)
 
@@ -167,7 +170,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
             return p
         return _tree_cut(p, layer_model_dims(p, model, run), model, m)
 
-    embed = torch.randn((V, D), generator=gen, device=dev) / math.sqrt(D)
+    embed = L.randn(gen, (V, D)) / math.sqrt(D)
     cross = cfg.enc_dec is not None
     params = {"embed": cut("embed", embed.to(torch.bfloat16)),
               "final_norm": zeros()}

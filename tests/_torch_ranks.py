@@ -892,3 +892,65 @@ def headcut_on_card(rank, cfg, ins, s_max, batch, before):
     out.update(loss=loss.item(), grads=to_numpy(grads),
                launches=[f.launches for f in kernels])
     return out
+
+
+def _axis_counts(grid) -> dict:
+    return {a.name: [a.calls, a.bwd_calls, a.wire_bytes]
+            for a in grid.axes()}
+
+
+def dry_counts(rank, cases):
+    """The real counterpart of the dry run (``launch.dryrun.run_rank``):
+    for each case ``(name, cfg, mesh, S, B, comm_mode, zero1)`` on the
+    4-rank 2x1x2 grid or this rank's 1x1x2 pair (ranks 0-1, 2-3), one
+    train step of an int32 (B, S) batch, a prefill of this rank's rows
+    (``s_max`` S) and a decode step after a prefill with ``s_max`` 2 S,
+    each under a ``WorkCounter`` with the grid's counters from 0.
+    Returns each one's axis counters (calls, bwd_calls, wire_bytes),
+    FLOPs, bytes and kernels, by case name."""
+    from repro_torch.kernels.work import WorkCounter
+    from repro_torch.launch.step import make_decode_fn, make_prefill_fn
+    from repro_torch.models import transformer as T
+
+    grids = {(2, 1, 2): make_grid(2, 1, CPU, model=2)}
+    grids[1, 1, 2] = make_grid(1, 1, CPU, model=2,
+                               members=[0, 1] if rank < 2 else [2, 3])
+    out = {}
+    for name, cfg, mesh, S, B, comm, zero1 in cases:
+        grid = grids[mesh]
+        m, res = grid.tp.index, {}
+
+        def measure(key, fn):
+            for a in grid.axes():
+                a.calls = a.bwd_calls = a.wire_bytes = 0
+            with WorkCounter() as wc:
+                fn()
+            res[key] = {"calls": _axis_counts(grid), "flops": wc.flops,
+                        "bytes": wc.bytes, "kernels": wc.kernels}
+
+        # the compressed exchange on the card's path (the kernels'
+        # wrappers, padded to QTILE), which meta takes
+        opt_cfg = adamw.OptConfig(comm_mode=comm, zero1=zero1, quant_kernel=(
+            True if comm == "multilevel_compress" else None))
+        params = stack_runs(T.init_model(cfg, seed=0, device=CPU, model=2,
+                                         m=m), cfg, 2, m)
+        opt = adamw.shard_opt_state(
+            adamw.init_opt_state(params, opt_cfg, n_slow=mesh[0]), params,
+            opt_cfg, grid, model_dims(cfg, 2))
+        step = make_train_step(cfg, opt_cfg, grid, CPU)
+        rng = np.random.default_rng(0)
+        batch = {k: rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
+                 for k in ("tokens", "labels")}
+        measure("train", lambda: step(params, opt, batch))
+        layers = T.init_model(cfg, seed=0, device=CPU, model=2, m=m)
+        rows = B // grid.world
+        toks = torch.from_numpy(batch["tokens"][:rows]).long()
+        with torch.inference_mode():
+            measure("prefill", lambda: make_prefill_fn(cfg, S, grid)(
+                layers, {"tokens": toks}))
+            _, cache, n = make_prefill_fn(cfg, 2 * S, grid)(
+                layers, {"tokens": toks})
+            dec = make_decode_fn(cfg, grid, s_max=2 * S)
+            measure("decode", lambda: dec(layers, cache, toks[:, -1:], n))
+        out[name] = res
+    return out

@@ -136,3 +136,46 @@ def test_compressed_slow_hop_sends_int8():
     assert np.all(got["slow_bytes_multilevel"] == 4 * n)
     assert np.all(got["slow_bytes_compressed"]
                   == n + 4 * (n // JCOMP.BLOCK))
+
+
+PRELOADED = """
+import sys
+import multiprocessing.forkserver as fs
+import numpy as np
+sys.path[:0] = [{tests!r}, {src!r}]
+import _torch_ranks as ranks
+from repro_torch.launch import mesh
+
+ins = np.load({path!r})
+mesh.preload_ranks("numpy", "_torch_ranks")
+out = mesh.run_ranks(ranks.collectives, 4, "gloo", (
+    2, 2, ins["x"], ins["ef"], {{k[2:]: ins[k] for k in ins if k[:2] == "t_"}}),
+    timeout=300.0)
+assert fs._forkserver._forkserver_pid is not None
+np.savez({out!r}, **{{k: np.stack([o[k] for o in out]) for k in out[0]}})
+"""
+
+
+def test_preloaded_ranks_compute_what_spawned_ones_do(tmp_path):
+    """``mesh.preload_ranks``: the ranks fork from a server that imported
+    torch and the named modules once; the 2x2 grid's collectives equal
+    the spawned ranks' bit for bit.  In a process of its own, since the
+    choice holds for the rest of the process that makes it."""
+    import os
+    import subprocess
+    import sys
+
+    x, ef, tree = _inputs(2, 2)
+    np.savez(tmp_path / "ins.npz", x=x, ef=ef,
+             **{f"t_{k}": v for k, v in tree.items()})
+    here = os.path.dirname(os.path.abspath(__file__))
+    subprocess.run([sys.executable, "-c", PRELOADED.format(
+        tests=here, src=os.path.join(os.path.dirname(here), "src"),
+        path=str(tmp_path / "ins.npz"), out=str(tmp_path / "out.npz"))],
+        check=True, timeout=TIMEOUT)
+    got = np.load(tmp_path / "out.npz")
+    want = _port(2, 2)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].reshape(want[k].shape),
+                                      want[k], err_msg=k)

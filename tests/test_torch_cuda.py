@@ -889,3 +889,42 @@ def test_head_cut_on_a_model_axis_of_4_on_card(dev):
             assert g.shape == w.shape
             assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
         assert r["launches"] == [3, 1, 1]
+
+
+def test_wrappers_on_meta_give_the_cards_shapes(dev):
+    """The dry run's ``meta`` tensors in a CUDA build: each wrapper gives
+    the shapes and dtypes its kernel gives on the card, and launches
+    nothing."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    meta = lambda ts: [t.to("meta") for t in ts]
+    spec = lambda ts: [(tuple(t.shape), t.dtype) if isinstance(
+        t, torch.Tensor) else t for t in tree_leaves(ts)]
+    q = rnd(2, 96, 8, 64).bfloat16()
+    k, v = rnd(2, 128, 2, 64).bfloat16(), rnd(2, 128, 2, 64).bfloat16()
+    kwm = dict(causal=True, window=48, q_offset=32)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kwm)
+    do = rnd(*q.shape).bfloat16()
+    x, ef = rnd(5000), rnd(5000)
+    q8, s, _ = kq.quantize_int8(x)
+    r, kk, vv, u = rnd(1, 64, 4, 32), rnd(1, 64, 4, 32), rnd(1, 64, 4, 32), \
+        rnd(4, 32)
+    w = torch.rand((1, 64, 4, 32), generator=g, device=dev)
+    calls = [
+        (fa.flash_attention_fwd, (q, k, v), kwm),
+        (fa.flash_attention_bwd, (q, k, v, o, lse, do), kwm),
+        (kq.quantize_int8, (x,), {}),
+        (kq.dequantize_int8, (q8, s), {}),
+        (kq.quantize_ef_int8, (x, ef), {}),
+        (kw.wkv_chunked, (r, kk, vv, w, u), {"return_state": True})]
+    kernels = (fa.flash_attention_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+               kq.quantize_int8, kq.dequantize_int8, kq.quantize_ef_int8,
+               kw.wkv_chunked)
+    for fn, args, kw_ in calls:
+        card = fn(*args, **kw_)
+        before = [f.launches for f in kernels]
+        dry = fn(*meta(args), **kw_)
+        assert [f.launches for f in kernels] == before
+        assert spec(dry) == spec(card)
+        assert all(t.is_meta for t in tree_leaves(dry)
+                   if isinstance(t, torch.Tensor))

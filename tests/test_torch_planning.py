@@ -158,9 +158,11 @@ def test_no_tpu_constants_in_the_port():
     for name in ("DCN", "ICI_FAR", "ICI", "tpu_v5e_multipod"):
         assert not hasattr(TT, name), name
     assert not hasattr(T, "tpu_v5e_multipod")
-    for name in ("HW", "TPU_V5E", "roofline_terms", "kernel_roofline",
-                 "refit_hw"):
-        assert not hasattr(TCM, name), name
+    # the roofline is the card's: no TPU constant, the H100 the default
+    assert not hasattr(TCM, "TPU_V5E")
+    for fn in (TCM.roofline_terms, TCM.kernel_roofline):
+        assert TCM.H100 in fn.__defaults__, fn.__name__
+    assert TCM.H100.name == "h100"
     assert not hasattr(TTR, "best_tree")
 
 
