@@ -702,7 +702,8 @@ TP_RS_MESH = "1x1x2"
 TP_RS_SERVE = {"28a": ("rwkv6-1.6b", 2, 512, 0),
                "28b": ("seamless-m4t-medium", 2, 512, 512),
                "29a": ("recurrentgemma-2b", 2, 512, 0)}
-TP_RS_SAME_TOKENS = {"29a", "31a"}  # tokens held to the one-rank run's too
+# tokens held to the one-rank run's too
+TP_RS_SAME_TOKENS = {"29a", "31a", "33a", "33c", "33d", "33e"}
 TP_RS_GEN = 9
 # arch -> (layers kept, phase)
 TP_RS_TRAIN = {"rwkv6-1.6b": (4, "28c"), "seamless-m4t-medium": (12, "28c"),
@@ -735,6 +736,30 @@ DRY_MEM_RATIO = (0.85, 1.15)
 HEADCUT_GEN = 5
 HEADCUT_ANSWER = [("recurrentgemma-2b", 3, "31c", TP_F32_TOL),
                   ("seamless-m4t-medium", 1, "31d", TP_STEP_TOL)]
+# phase 33: a model axis of 3, which the reference's fallbacks meet by
+# moving a leaf to its other matmul dim or replicating it, on members 0-2
+# of phase 10's four ranks (rank 3 leaves): 33a serves phi4-mini-3.8b
+# whole (MLP wi/wg by rows and wo by columns, wk/wv by rows), 33b trains
+# it at 3 layers (bf16) and holds it in f32 to one rank, 33c serves
+# gemma3-12b at 6 layers (wq/wk/wv by rows, wo by columns, the embedding
+# whole), 33d olmoe-1b-7b at 4 (attention and the 64 experts whole: the
+# dense block), 33e rwkv6-1.6b at 4 (every leaf whole).  Each served
+# phase's tokens equal one rank's, its bf16 logits held as 31a's, and
+# (33a, 33c) the f32 prefill of the same weights within TP_F32_TOL of one
+# rank's; the caches are sized to a multiple of 24, which M 3 divides:
+# the sequence-parallel decode
+FALLBACK_MESH = "1x1x3"
+FALLBACK_MEMBERS = [0, 1, 2]
+# phase -> (arch, layers kept, batch, prompt)
+FALLBACK_SERVE = {"33a": ("phi4-mini-3.8b", None, 2, 512),
+                  "33c": ("gemma3-12b", 6, 2, 512),
+                  "33d": ("olmoe-1b-7b", 4, 2, 512),
+                  "33e": ("rwkv6-1.6b", 4, 2, 512)}
+FALLBACK_F32 = {"33a", "33c"}
+FALLBACK_ALIGN = 24
+FALLBACK_TRAIN = {"phi4-mini-3.8b": (3, "33b")}
+FALLBACK_TRAIN_KW = dict(TP_RS_TRAIN_KW, steps=2)
+FALLBACK_ANSWER = [("phi4-mini-3.8b", 3, "33b", TP_STEP_TOL)]
 # phase 30: elastic training on a model axis, gpt-100m at full width cut
 # to TP_ELASTIC_LAYERS layers: pod 1 of 3 lost before step 2 (an in-place
 # repair), pod 1 of the 2 left before step 4 (a restart from step 2's
@@ -1275,7 +1300,8 @@ def collectives_phase(torch, pool) -> dict:
 
 def pool4_rank(rank, jobs):
     """One of the four ranks that phases 10, 12, 24d, 25c (its 2x1x2
-    grid), 26f and 31 share, one spawn: each phase's rank body in turn,
+    grid), 26f, 31 and 33 (members 0-2; rank 3 leaves there) share, one
+    spawn: each phase's rank body in turn,
     its counters from 0 as the body sets them, with its wall s.  ``jobs``:
     24d's (``tp_answer_rank``)."""
     import torch
@@ -1286,7 +1312,8 @@ def pool4_rank(rank, jobs):
               ("26f", lambda: family_grid_rank(rank)),
               ("24d", lambda: tp_answer_rank(rank, jobs)),
               ("25c", lambda: tp_train_answer_rank(rank, 4)),
-              ("31", lambda: headcut_rank(rank)))
+              ("31", lambda: headcut_rank(rank)),
+              ("33", lambda: fallback_rank(rank)))
     out = {"wall_s": {}}
     for name, body in bodies:
         t0 = time.perf_counter()
@@ -2827,7 +2854,7 @@ def tp_serve_phase(serve, arch, mesh, plain, cfg) -> int:
 
 
 def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN,
-                  f32_first=False):
+                  f32_first=False, members=None, align=8):
     """One rank of phase 24c (and 28a-b, 29a, 31a): ``arch`` cut to ``n``
     layers at full width, this rank's shard on ``mesh``'s model axis
     (gloo, the card shared), the dense path's prefills (after ``P`` prefix
@@ -2835,25 +2862,33 @@ def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN,
     sequence-parallel decode; the flash and WKV counters set to 0 just
     before the prefills and read just after.  ``f32_first``: then the
     same shard in f32, the first prompt's prefill logits
-    (``f32_first_logits``), uncounted."""
+    (``f32_first_logits``), uncounted.  ``members``: the ranks of the
+    grid, where they are not all (``make_grid``); ``align``: what the
+    cache's length is rounded up to a multiple of.  Also returns the
+    process's peak memory over the prefills and the slots a MoE's
+    expert-parallel block dropped."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv as kw
     from repro_torch.launch.mesh import make_grid, parse_mesh
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     model = parse_mesh(mesh)[2]
-    grid = make_grid(1, 1, dev, model=model)
+    grid = make_grid(1, 1, dev, model=model, members=members)
     cfg = cut(get_config, arch, n)
-    params = T.init_model(cfg, seed=0, device=dev, model=model, m=rank)
+    params = T.init_model(cfg, seed=0, device=dev, model=model,
+                          m=grid.tp.index)
     reset(fa, kw)
+    torch.cuda.reset_peak_memory_stats(dev)
     out = []
+    L.moe_fwd.dropped = dropped = []
     for B, L_ in prefills:
         s0 = grid.staged_bytes
-        r = dense_serve(torch, cfg, params, B, L_, P, grid=grid, align=8,
+        r = dense_serve(torch, cfg, params, B, L_, P, grid=grid, align=align,
                         gen=gen)
         out.append({"tokens": r["tokens"].cpu().numpy(),
                     "first_logits": r["logits"][0].cpu().numpy(),
@@ -2864,8 +2899,11 @@ def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN,
                         "prefill_ms", "decode_ms_per_step", "wall_s",
                         "collectives_prefill",
                         "collectives_per_decode_step")}})
+    L.moe_fwd.dropped = None
     got = counts(fa, kw)
-    res = {"runs": out, "flash_fwd": got["flash_fwd"], "wkv": got["wkv"]}
+    res = {"runs": out, "flash_fwd": got["flash_fwd"], "wkv": got["wkv"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "dropped": dropped}
     if f32_first:
         from repro_torch.launch.step import make_prefill_fn
         from repro_torch.tree import tree_map
@@ -2875,8 +2913,8 @@ def tp_dense_rank(rank, mesh, arch, n, prefills, P=0, gen=DENSE_GEN,
         ins = {k: v.cuda()
                for k, v in prompt_inputs(torch, cfg, B, L_, P, L_).items()}
         s_max = L_ + gen - 1
-        lg, _, _ = make_prefill_fn(cfg, s_max + (-s_max) % 8, grid)(params,
-                                                                    ins)
+        lg, _, _ = make_prefill_fn(cfg, s_max + (-s_max) % align, grid)(
+            params, ins)
         res["f32_first_logits"] = lg.float().cpu().numpy()
         del params
         torch.cuda.empty_cache()
@@ -2967,11 +3005,16 @@ def host_state(state):
             for e in state]
 
 
-def cut_state(torch, full, state, tp):
+def cut_state(torch, full, state, tp, cfg):
     """This rank's part of ``full`` (a one-rank ``host_state``) in the
-    layout of ``state``, this rank's cache or pools."""
-    return [{k: tp_cut(torch, full[r][k], v, tp) for k, v in e.items()}
-            for r, e in enumerate(state)]
+    layout of ``state``, this rank's cache or pools (its KV heads from the
+    first that its query heads read)."""
+    from repro_torch.models import layers as L
+
+    first = L.heads(cfg, tp).kv0
+    return [{k: tp_cut(torch, full[r][k], v, tp, first if k in
+                       ("k", "v", "xk", "xv") else None)
+             for k, v in e.items()} for r, e in enumerate(state)]
 
 
 def dense_answer_paths(torch, T, cfg, params, ins, steps, s_max, tp=None,
@@ -2986,7 +3029,7 @@ def dense_answer_paths(torch, T, cfg, params, ins, steps, s_max, tp=None,
         if before is None:
             out["before"].append(host_state(cache))
         else:
-            cache = cut_state(torch, before[i], cache, tp)
+            cache = cut_state(torch, before[i], cache, tp, cfg)
         lg, cache = T.decode_step(params, cfg, cache, t, S + i, tp=tp,
                                   s_max=s_max)
         out["steps"].append(lg)
@@ -3017,7 +3060,7 @@ def tp_answer_paths(torch, T, cfg, params, ins, tp=None, before=None):
         if before is None:
             out["before"]["pools"].append(host_state(pools))
         else:
-            pools = cut_state(torch, before["pools"][i], pools, tp)
+            pools = cut_state(torch, before["pools"][i], pools, tp, cfg)
         lg, pools = T.decode_step_paged(
             params, cfg, pools, tables, ins["steps"][i][:1].cuda(),
             torch.tensor([L_ + i]).cuda(), tp=tp)
@@ -3034,18 +3077,19 @@ def tp_answer_paths(torch, T, cfg, params, ins, tp=None, before=None):
     return out
 
 
-def tp_cut(torch, full, like, tp):
+def tp_cut(torch, full, like, tp, first=None):
     """This rank's part of a one-rank cache or pool leaf ``full`` (numpy)
     in the layout of ``like``, a copy on its device: cut along the one
     dim where they differ (the sequence where ``like`` holds every KV
-    head, else the KV heads; RWKV-6's heads), or whole (RWKV-6's carried
-    rows)."""
+    head, else the KV heads, from ``first`` where given; RWKV-6's
+    heads), or whole (RWKV-6's carried rows)."""
     t = torch.as_tensor(full).to(device=like.device, dtype=like.dtype)
     dims = [d for d in range(t.dim()) if t.shape[d] != like.shape[d]]
     if not dims:
         return t.clone()
     n = like.shape[dims[0]]
-    return t.narrow(dims[0], tp.index * n, n).contiguous()
+    start = first if first is not None and dims[0] == 3 else tp.index * n
+    return t.narrow(dims[0], start, n).contiguous()
 
 
 def tp_answer_rank(rank, jobs):
@@ -3804,7 +3848,7 @@ def tp_rs_rank(rank):
 
 def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
                 mesh=TP_RS_MESH, one=None, quantum=False,
-                n_gen=TP_RS_GEN) -> tuple[list, dict]:
+                n_gen=TP_RS_GEN, layers=None) -> tuple[list, dict]:
     """28a/28b/29a/31a: the dense path of ``spec`` (arch, batch, prompt,
     encoder frames; ``TP_RS_SERVE[name]`` by default) at full width and
     depth on ``mesh`` (``ranks``, each rank's ``tp_dense_rank`` result
@@ -3829,15 +3873,17 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
     model as bf16 products, so two bf16 runs whose hidden states differ
     at all may land a step apart), and the ranks' f32 prefill of the same
     weights (``f32_first_logits``) is held to the one-rank f32 model's
-    within TP_F32_TOL.  Returns the ranks' launches and the one-rank run
-    (its tokens, first logits and times, and the f32 model's first
-    logits)."""
+    within TP_F32_TOL.  ``layers``: the layers kept (all where None).  No
+    rank's expert-parallel block may drop a slot.  Returns the ranks'
+    launches and the one-rank run (its tokens, first logits and times,
+    and the f32 model's first logits)."""
     from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models.sharding import rank_count
     from repro_torch.tree import tree_map
 
     arch, B, L_, P = spec or TP_RS_SERVE[name]
     model = parse_mesh(mesh)[2]
-    cfg = get_config(arch)
+    cfg = cut(get_config, arch, layers)
     if one is None:
         params = T.init_model(cfg, seed=0, device="cuda")
         run = dense_serve(torch, cfg, params, B, L_, P, align=8,
@@ -3877,10 +3923,13 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
            "tokens": gen.tolist(),
            "tokens_one_rank": one["tokens"][:, :n_gen].tolist(),
            "wkv_launches": [x["wkv"] for x in ranks],
-           "flash_fwd_launches": [x["flash_fwd"] for x in ranks]}
+           "flash_fwd_launches": [x["flash_fwd"] for x in ranks],
+           "peak_mem_gb_per_rank": [x["peak_mem_gb"] for x in ranks],
+           "dropped_per_rank": [sum(x["dropped"]) for x in ranks]}
     if "rwkv6" in cfg.pattern:
         hd = cfg.rwkv_head_dim
-        rec["wkv_plan_heads_per_rank"] = cfg.d_model // hd // model
+        rec["wkv_plan_heads_per_rank"] = rank_count(cfg.d_model // hd,
+                                                    model)
         rec["wkv_launch_plan"] = kw.launch_plan(
             B, rec["wkv_plan_heads_per_rank"], hd)
         rec["wkv_launch_plan_batch_1"] = kw.launch_plan(
@@ -3897,6 +3946,8 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
              f"logits")
     if any(not (x["runs"][0]["tokens"] == gen).all() for x in ranks):
         fail(f"phase {name}: the ranks took other tokens")
+    if any(rec["dropped_per_rank"]):
+        fail(f"phase {name}: slots dropped {rec['dropped_per_rank']}")
     if name in TP_RS_SAME_TOKENS \
             and not (gen == one["tokens"][:, :n_gen]).all():
         fail(f"phase {name}: tokens {gen.tolist()}, one rank's "
@@ -4031,14 +4082,15 @@ def tp_rs_train(get_config, refs, ranks, phase, table=TP_RS_TRAIN,
 
 
 def tp_rs_answer_rank(rank, table=TP_RS_ANSWER, mesh=TP_RS_MESH,
-                      turns=False):
+                      turns=False, members=None):
     """One rank of 28d/29c/31c-d on the card: for each entry of ``table``,
     f32 seed-0 weights, the dense path and one unclipped train step on
     one rank (``Grid.single()``, in this process) and on this rank's shard
     of ``mesh``, compared here; returns the errors, the losses and the
     shard runs' WKV and flash launches.  With ``turns`` the ranks take
     the one-rank step one at a time (four one-rank f32 optimiser states
-    of recurrentgemma-2b at 3 layers do not fit the card at once)."""
+    of recurrentgemma-2b at 3 layers do not fit the card at once).
+    ``members``: the ranks of the grid, where they are not all."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -4053,7 +4105,8 @@ def tp_rs_answer_rank(rank, table=TP_RS_ANSWER, mesh=TP_RS_MESH,
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     M = parse_mesh(mesh)[2]
-    grid = make_grid(1, 1, dev, model=M)
+    grid = make_grid(1, 1, dev, model=M, members=members)
+    rank = grid.tp.index
     B, L_, P = TP_RS_ANSWER_INPUT
     out = {}
     for arch, n, _, _ in table:
@@ -4178,6 +4231,75 @@ def headcut_rank(rank):
     return out
 
 
+def fallback_rank(rank):
+    """Phase 33 on members 0-2 of phase 10's four ranks, a 1x1x3 grid
+    (``make_grid(members=)``; rank 3 leaves): each of FALLBACK_SERVE's
+    dense paths (``tp_dense_rank``, the f32 prefill of FALLBACK_F32's
+    too), 33b's training (``tp_rs_train_rank``) and its f32 answer
+    (``tp_rs_answer_rank``), each with its counters from 0 and its wall
+    s."""
+    import torch
+    from repro_torch.launch.mesh import make_grid, parse_mesh
+
+    if rank not in FALLBACK_MEMBERS:
+        return None
+    out, wall = {}, {}
+    dev = torch.device("cuda", 0)
+    for name, (arch, n, B, L_) in FALLBACK_SERVE.items():
+        t0 = time.perf_counter()
+        out[name] = tp_dense_rank(rank, FALLBACK_MESH, arch, n, ((B, L_),),
+                                  0, HEADCUT_GEN, name in FALLBACK_F32,
+                                  FALLBACK_MEMBERS, FALLBACK_ALIGN)
+        torch.cuda.empty_cache()
+        wall[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = make_grid(1, 1, dev, model=parse_mesh(FALLBACK_MESH)[2],
+                     members=FALLBACK_MEMBERS)
+    out["train"] = {arch: tp_rs_train_rank(grid, arch, n, dev,
+                                           FALLBACK_TRAIN_KW)
+                    for arch, (n, _) in FALLBACK_TRAIN.items()}
+    torch.cuda.empty_cache()
+    out["answer"] = tp_rs_answer_rank(rank, FALLBACK_ANSWER, FALLBACK_MESH,
+                                      turns=True, members=FALLBACK_MEMBERS)
+    wall["33b"] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    return out
+
+
+def fallback_phase(torch, T, kw, get_config, refs, ranks, smi) -> list:
+    """Phase 33's checks, of ``ranks`` (members 0-2's ``fallback_rank``
+    results): each served phase against the one-rank run of its model in
+    this process (tokens equal; FALLBACK_F32's bf16 logits as 31a's and
+    f32 prefill within TP_F32_TOL, the others' bf16 logits within
+    LOGIT_TOL; no slot dropped; each rank's flash or WKV launches), 33b's training and its f32 answer (each rank's flash
+    launches of the shard runs).  Printed with each sub-phase's wall s
+    and the card's name and power limit (``smi``; 33b's one-rank step
+    time is not measured here: null).  Returns the ranks' launches."""
+    out = []
+    for name, (arch, n, B, L_) in FALLBACK_SERVE.items():
+        got, _ = tp_rs_serve(torch, T, kw, get_config, name,
+                             [r[name] for r in ranks], (arch, B, L_, 0),
+                             FALLBACK_MESH, None,
+                             quantum=name in FALLBACK_F32,
+                             n_gen=HEADCUT_GEN, layers=n)
+        out += got
+    out += tp_rs_train(get_config, {**refs, **dict.fromkeys(FALLBACK_TRAIN)},
+                       [r["train"] for r in ranks], "33b", FALLBACK_TRAIN,
+                       FALLBACK_MESH, FALLBACK_TRAIN_KW)
+    want = {}
+    for arch, n, _, _ in FALLBACK_ANSWER:
+        f = flash_per_prefill(cut(get_config, arch, n))
+        want[arch] = {"flash_fwd": 3 * f, "flash_bwd_dq": f,
+                      "flash_bwd_dkv": f, "wkv": 0}
+    out.append(tp_rs_answer([r["answer"] for r in ranks], "33b",
+                            FALLBACK_ANSWER, FALLBACK_MESH, want))
+    print(json.dumps({"fallback_phase_33": {
+        "card": smi, "mesh": FALLBACK_MESH, "members": FALLBACK_MEMBERS,
+        "ranks_wall_s": {k: max(r["wall_s"][k] for r in ranks)
+                         for k in ranks[0]["wall_s"]}}}), flush=True)
+    return out
+
+
 def headcut_phase(torch, T, kw, get_config, refs, ranks, one) -> list:
     """Phase 31's checks, of ``ranks`` (each rank's ``headcut_rank``
     result): 31a against ``one``, 29a's one-rank run of the same model
@@ -4290,6 +4412,9 @@ def main() -> None:
     ap.add_argument("--dry-runs", metavar="PATH", help="run phase 32's "
                     "dry runs on the CPU, write them to PATH and exit "
                     "(the subprocess the script starts)")
+    ap.add_argument("--phase-33", action="store_true", help="build the "
+                    "kernels, run phase 33 alone on three ranks of its own "
+                    "and exit (no result line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not KERNELS.is_dir():
@@ -4337,6 +4462,17 @@ def main() -> None:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}: {line.strip()}")
+    if args.phase_33:
+        from repro_torch.launch.mesh import run_ranks
+
+        t0 = time.perf_counter()
+        ranks = run_ranks(fallback_rank, len(FALLBACK_MEMBERS), "gloo", (),
+                          timeout=900.0)
+        fallback_phase(torch, T, kw, get_config, {}, ranks,
+                       smi.splitlines()[0])
+        print(json.dumps({"phase_33_alone_wall_s":
+                          time.perf_counter() - t0}), flush=True)
+        return
     wkv_ptxas = ptxas_of(logs.get("wkv", ""), "wkv_kernel")
     print(json.dumps({"wkv_ptxas": wkv_ptxas}), flush=True)
     mma = {**tensor_core_ops(backend.sass("flash_fwd")),
@@ -4683,6 +4819,14 @@ def main() -> None:
     # at the beginning
     dry_phase(dry_proc, dry_tmp, pool4)
     walls.append(time.perf_counter())
+
+    progress("33", t_start)
+    # 33. a model axis of 3 through the reference's fallback placements:
+    # members 0-2 of phase 10's ranks computed it (``fallback_rank``)
+    tp_rs += fallback_phase(torch, T, kw, get_config, refs,
+                            [r["33"] for r in pool4[:3]],
+                            smi.splitlines()[0])
+    walls.append(time.perf_counter())
     tp_rs_counts = {k: sum(r.get(k, 0) for r in tp_rs) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "wkv")}
     print(json.dumps({"phase_wall_s": {
@@ -4692,7 +4836,8 @@ def main() -> None:
              "24d", "25a", "25b", "25c one rank", "25d", "26a", "26b",
              "26c", "26d", "26e", "26f one rank", "27a", "27b", "27c",
              "27d", "28 in this process", "29 in this process", "30",
-             "31 in this process", "32 in this process"),
+             "31 in this process", "32 in this process",
+             "33 in this process"),
             walls, walls[1:])},
         "pool4_ranks_wall_s": {k: max(r["wall_s"][k] for r in pool4)
                                for k in pool4[0]["wall_s"]}}), flush=True)

@@ -89,7 +89,8 @@ def _moe_block(tokens: int) -> int:
 def rank_key(cfg, shape: ShapeSpec, world: int, model: int, m: int):
     """What rank m's program depends on: its query and KV heads
     (``rank_heads``: how many, and which KV head each reads) and, for the
-    MoE, the even shares of its experts.  Ranks of one key run alike."""
+    MoE, the even shares of its experts (every expert's where the axis
+    does not divide them).  Ranks of one key run alike."""
     if model == 1:
         return ()
     sh = rank_heads(cfg, model, m)
@@ -98,8 +99,8 @@ def rank_key(cfg, shape: ShapeSpec, world: int, model: int, m: int):
         E = cfg.moe.n_experts
         seq = 1 if shape.kind == "decode" else shape.seq_len
         n = _moe_block(_rows(shape, world) * seq) * cfg.moe.top_k
-        el = E // model
-        key += (tuple(L.even_sizes(n, E)[m * el:(m + 1) * el]),)
+        el, lo = (E // model, m * E // model) if E % model == 0 else (E, 0)
+        key += (tuple(L.even_sizes(n, E)[lo:lo + el]),)
     return key
 
 

@@ -52,6 +52,19 @@ axis through the reference's log-sum-exp combine (``_cache_attend_sp``),
 and the MoE runs
 the reference's expert-parallel block (``_moe_block_ep``: E/M experts a
 rank, capacity-bounded local dispatch, one sum over the axis).
+
+Where the axis does not divide the dim a leaf's rule cuts, the
+reference's fallback moves the leaf to its other matmul dim or
+replicates it, and each product reads that cut from the leaf's shape: a
+whole input times a leaf's rows gives a partial sum (``_whole`` adds it
+over the axis), times its columns the rank's columns of the output
+(``_gathered``), times a whole leaf a whole output on every rank.  Then
+a ``wq`` not cut by columns gives every rank every head, whole q, k and
+v and a whole output; the MLP by rows and columns a whole output; a MoE
+whose experts the axis does not divide the dense block on every rank; a
+whole RG-LRU or RWKV-6 every channel or head.  :func:`cuts` tells the
+caller which sublayers take their input through ``copy_to`` and return
+a partial sum.
 """
 from __future__ import annotations
 
@@ -87,6 +100,60 @@ def heads(cfg: ModelConfig, tp) -> RankHeads:
     read (every head where ``tp`` is None)."""
     return rank_heads(cfg) if tp is None else rank_heads(cfg, tp.size,
                                                           tp.index)
+
+
+def cuts(p: dict, cfg: ModelConfig) -> tuple[bool, bool]:
+    """How sublayer ``p`` meets the model axis, read from its leaves'
+    shapes: (whether a product reads its whole input through a cut leaf,
+    so that each rank's gradient of that input is partial and the input
+    enters through ``copy_to``; whether its output is a partial sum, its
+    output projection cut by rows, which the caller adds over the axis
+    once).  Attention (self or cross), the MLP, the RG-LRU block (which
+    returns a whole output) and RWKV-6's time mix (whose token-shift
+    mixes enter through ``copy_to`` inside it); a MoE takes care of both
+    itself.  Whole leaves, as on one rank: (False, False)."""
+    D = cfg.d_model
+    if "wq" in p:
+        w_in, w_out, mid = p["wq"], p["wo"], cfg.q_dim
+    elif "wi" in p:
+        w_in, w_out, mid = p["wi"], p["wo"], cfg.d_ff
+    elif "w_x" in p:
+        return tuple(p["w_x"].shape) != (D, p["conv"].shape[1]), False
+    elif "w_o" in p:
+        return False, p["w_o"].shape[0] < D
+    else:
+        return False, False
+    return tuple(w_in.shape) != (D, mid), w_out.shape[0] < mid
+
+
+def _whole(tp, x, *ws):
+    """``x @ w`` for each of ``ws``, whole on every rank: ``x`` is whole
+    (through ``copy_to`` where a ``w`` is cut), each ``w`` whole or this
+    rank's rows (the reference's "col" leaf moved to rows), whose product
+    with the rank's slice of ``x`` is a partial sum; those are added over
+    the axis ``tp`` in one all-reduce of them all, flattened (its backward
+    passes each gradient through)."""
+    cut = [tp is not None and w.shape[0] < x.shape[-1] for w in ws]
+    outs = [_mm(x[..., tp.index * w.shape[0]:(tp.index + 1) * w.shape[0]],
+                w) if c else _mm(x, w) for w, c in zip(ws, cut)]
+    parts = [o for o, c in zip(outs, cut) if c]
+    if not parts:
+        return outs
+    flat = tp.reduce_from(torch.cat([t.reshape(-1) for t in parts]))
+    summed = iter([f.view(t.shape) for f, t in
+                   zip(flat.split([t.numel() for t in parts]), parts)])
+    return [next(summed) if c else o for o, c in zip(outs, cut)]
+
+
+def _gathered(tp, h, w, d: int):
+    """``h @ w`` whole on every rank, of ``h`` (…, K) whole and ``w`` (K,
+    d) whole or this rank's columns (the reference's "row" leaf moved to
+    columns): then ``h`` enters through ``copy_to`` (each rank's columns
+    of the output give a partial gradient of it) and the columns are
+    gathered with ``gather_from`` (every rank reads them whole)."""
+    if tp is None or w.shape[-1] == d:
+        return _mm(h, w)
+    return tp.gather_from(_mm(tp.copy_to(h), w), -1)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -228,11 +295,16 @@ def _kv(p, cfg: ModelConfig, src, tp=None, every: bool = False):
     with one ``gather_to`` of the two stacked (each rank keeps its own KV
     heads of them, so the backward sums the ranks' partial gradients);
     rows give a partial sum, summed over the axis with a sum backward too;
-    a replicated leaf is read whole through ``copy_to``."""
+    a replicated leaf is read whole through ``copy_to``.  Where every
+    rank computes every head (``wq`` not cut by columns: ``wk``/``wv``
+    by rows or whole), k and v are whole (:func:`_whole`), with no
+    ``copy_to``: each rank's gradient of them is whole."""
     B, S, D = src.shape
     hd = cfg.head_dim
     wk, wv = p["wk"], p["wv"]
-    if tp is None or (cfg.n_kv_heads % tp.size == 0 and not every):
+    if tp is not None and not _heads_cut(p, cfg):
+        k, v = _whole(tp, src, wk, wv)
+    elif tp is None or (cfg.n_kv_heads % tp.size == 0 and not every):
         k, v = _mm(src, wk), _mm(src, wv)
     else:
         if wk.shape[1] < cfg.kv_dim:
@@ -259,9 +331,12 @@ def _q(p, cfg: ModelConfig, x, tp=None, every: bool = False):
     for ``every``) the ranks' columns, cut inside a head, are gathered
     with ``gather_to`` and the rank keeps the heads its columns meet: its
     gradient of the whole q is partial, and the backward sums the ranks'
-    (a head that spans two ranks gets both ranks' parts)."""
+    (a head that spans two ranks gets both ranks' parts).  Where the
+    axis does not cut ``wq`` by columns, q is whole (:func:`_whole`)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
+    if tp is not None and not _heads_cut(p, cfg):
+        return _whole(tp, x, p["wq"])[0].reshape(B, S, -1, hd)
     q = _mm(x, p["wq"])
     if tp is not None and tp.size > 1 and (every or cfg.n_heads % tp.size):
         q = tp.gather_to(q, -1)
@@ -269,6 +344,13 @@ def _q(p, cfg: ModelConfig, x, tp=None, every: bool = False):
             sh = heads(cfg, tp)
             q = q[..., sh.q0 * hd:(sh.q0 + sh.nq) * hd]
     return q.reshape(B, S, -1, hd)
+
+
+def _heads_cut(p, cfg: ModelConfig) -> bool:
+    """Whether the model axis cuts attention ``p``'s ``wq`` by columns,
+    giving each rank the heads that its columns meet; else every rank
+    computes every head."""
+    return p["wq"].shape[1] < cfg.q_dim
 
 
 def _gather_cols(tp, *ts):
@@ -285,7 +367,12 @@ def _qkv(p, cfg: ModelConfig, x, src=None, tp=None, every: bool = False):
     None) as :func:`_kv` gives them, with the q/k norms where ``p`` has
     them (on whole heads: after the gathers).  ``every`` (inference only)
     gathers the three in one call where the rank's columns of ``wk`` and
-    ``wv`` are whole KV heads."""
+    ``wv`` are whole KV heads.  Where every rank computes every head, a
+    self attention's three partial sums by rows take one all-reduce."""
+    if src is None and tp is not None and not _heads_cut(p, cfg):
+        B, S, _ = x.shape
+        return _norm_qk(p, *[t.reshape(B, S, -1, cfg.head_dim) for t in
+                             _whole(tp, x, p["wq"], p["wk"], p["wv"])])
     src = x if src is None else src
     if every and tp is not None and tp.size > 1 \
             and cfg.n_kv_heads % tp.size == 0:
@@ -295,6 +382,10 @@ def _qkv(p, cfg: ModelConfig, x, src=None, tp=None, every: bool = False):
     else:
         q = _q(p, cfg, x, tp, every)
         k, v = _kv(p, cfg, src, tp, every)
+    return _norm_qk(p, q, k, v)
+
+
+def _norm_qk(p, q, k, v):
     if "q_norm" in p:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     return q, k, v
@@ -310,11 +401,15 @@ def _rank_kv(k, v, sh: RankHeads):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def _out(o, p, sh: RankHeads):
+def _out(o, p, sh: RankHeads, cfg: ModelConfig, tp=None):
     """The output projection of this rank's heads' o (B,S,nq,hd): its
     columns of o (``sh.off`` into the first head) times its rows of
-    ``wo``, the row-parallel partial sum on a model axis."""
+    ``wo``, the row-parallel partial sum on a model axis.  Where every
+    rank computes every head, o is whole and so is the result: ``wo``
+    whole, or by columns (:func:`_gathered`)."""
     o = o.reshape(o.shape[0], o.shape[1], -1)
+    if tp is not None and not _heads_cut(p, cfg):
+        return _gathered(tp, o, p["wo"], cfg.d_model)
     return o[..., sh.off:sh.off + p["wo"].shape[0]] @ p["wo"]
 
 
@@ -327,8 +422,10 @@ def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
     causal mask.  With ``tp``, this rank's heads and the partial sum of
     its ``wo`` rows; the q/k norms' weights, replicated but read on this
     rank's heads only, go through ``tp.copy_to``, so that a backward sums
-    their gradient over the axis."""
-    if tp is not None and "q_norm" in p:
+    their gradient over the axis.  Where the axis does not cut ``wq`` by
+    columns, every head on every rank and a whole output (:func:`cuts`
+    tells the caller which)."""
+    if tp is not None and "q_norm" in p and _heads_cut(p, cfg):
         p = dict(p, q_norm=tp.copy_to(p["q_norm"]),
                  k_norm=tp.copy_to(p["k_norm"]))
     B, S, _ = x.shape
@@ -342,7 +439,7 @@ def attention_fwd(p, cfg: ModelConfig, x, *, causal: bool = True,
     k, v = _rank_kv(k, v, sh)
     o = chunked_attention(q, k, v, causal=causal and kv_src is None,
                           window=window)
-    return _out(o, p, sh)
+    return _out(o, p, sh, cfg, tp)
 
 
 def _decode_attend(q, k, v, valid):
@@ -396,7 +493,7 @@ def paged_attention_decode(p, cfg: ModelConfig, x, pool_k, pool_v,
         valid &= pos[:, None] - idx[None, :] < window
     sh = heads(cfg, tp)
     o = _decode_attend(q[:, 0], *_rank_kv(gk, gv, sh), valid)
-    return _out(o.to(x.dtype), p, sh), pool_k, pool_v
+    return _out(o.to(x.dtype), p, sh, cfg, tp), pool_k, pool_v
 
 
 def _cache_attend_sp(q, k_new, v_new, cache_k, cache_v, pos: int,
@@ -458,6 +555,9 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
         G = cfg.n_heads // cfg.n_kv_heads
         o = _cache_attend_sp(q.reshape(B, cfg.n_kv_heads, G, hd), k, v,
                              cache_k, cache_v, pos, windowed, tp)
+        if not _heads_cut(p, cfg):
+            return _out(o.reshape(B, 1, cfg.q_dim).to(x.dtype), p,
+                        heads(cfg, tp), cfg, tp), cache_k, cache_v
         n = p["wo"].shape[0]
         o = o.reshape(B, 1, cfg.q_dim)[..., tp.index * n:
                                        (tp.index + 1) * n].to(x.dtype)
@@ -477,7 +577,7 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
         valid = idx <= pos
     sh = heads(cfg, tp)
     o = _decode_attend(q[:, 0], *_rank_kv(cache_k, cache_v, sh), valid)
-    return _out(o.to(x.dtype), p, sh), cache_k, cache_v
+    return _out(o.to(x.dtype), p, sh, cfg, tp), cache_k, cache_v
 
 
 def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
@@ -495,7 +595,7 @@ def attention_prefill(p, cfg: ModelConfig, x, *, window=None,
     sh = heads(cfg, tp)
     o = chunked_attention(q, *_rank_kv(k, v, sh), causal=True,
                           window=window)
-    y = _out(o, p, sh)
+    y = _out(o, p, sh, cfg, tp)
     if window is not None and S >= window and not keep_full:
         if S % window != 0:
             raise ValueError(
@@ -522,7 +622,7 @@ def cross_attention_decode(p, cfg: ModelConfig, x, ck, cv, tp=None):
     sum of its ``wo`` rows."""
     sh = heads(cfg, tp)
     o = _decode_attend(_q(p, cfg, x, tp)[:, 0], *_rank_kv(ck, cv, sh), None)
-    return _out(o.to(x.dtype), p, sh)
+    return _out(o.to(x.dtype), p, sh, cfg, tp)
 
 
 # ---------------------------------------------------------------------- #
@@ -537,15 +637,28 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def mlp_fwd(p, cfg: ModelConfig, x):
+def mlp_fwd(p, cfg: ModelConfig, x, tp=None):
+    """The MLP of ``x`` (B,S,D).  On a model axis ``tp`` the leaves' cut
+    decides (:func:`cuts`): ``wi``/``wg`` by columns give this rank's
+    features and the partial sum of its ``wo`` rows; by rows (the axis
+    does not divide ``d_ff``) the whole hidden activations, their partial
+    sums added in one all-reduce, and ``wo``'s columns of the output,
+    gathered whole; whole leaves a whole output."""
+    if tp is not None and p["wi"].shape[1] == cfg.d_ff:
+        hg = _whole(tp, x, *[p[k] for k in ("wi", "wg") if k in p])
+        return _gathered(tp, _activate(cfg, *hg), p["wo"], cfg.d_model)
     h = x @ p["wi"]
+    return _activate(cfg, h, x @ p["wg"] if "wg" in p else None) @ p["wo"]
+
+
+def _activate(cfg: ModelConfig, h, g=None):
+    """The MLP's hidden activations of ``h = x @ wi`` and, for a gated
+    activation, ``g = x @ wg``."""
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["wg"]) * h
-    elif cfg.activation == "geglu":
-        h = F.gelu(x @ p["wg"], approximate="tanh") * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"]
+        return F.silu(g) * h
+    if cfg.activation == "geglu":
+        return F.gelu(g, approximate="tanh") * h
+    return F.gelu(h, approximate="tanh")
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -598,31 +711,53 @@ def even_sizes(n: int, E: int) -> list[int]:
     return [n // E + (e < n % E) for e in range(E)]
 
 
-def _moe_experts(p, xs, sizes):
+def _moe_experts(p, xs, sizes, tp=None):
     """The three grouped products and ``silu(g) * h`` over the
     expert-sorted rows ``xs``: one matmul per non-empty expert on its
-    slice (``lax.ragged_dot`` in the reference)."""
-    yo = xs.new_empty(xs.shape)
-    start = 0
+    slice (``lax.ragged_dot`` in the reference).  ``tp``, where ``w_out``
+    holds this rank's columns of every expert's output (the axis divides
+    ``d_model`` but not the experts): every expert's ``silu(g) * h``
+    first, whole, then one ``copy_to`` of them all (the rank's columns of
+    the output give a partial gradient of them), then its columns."""
+    spans, start = [], 0
     for e, n in enumerate(sizes):
         if n:
-            xe = xs[start:start + n]
-            h = F.silu(xe @ p["w_gate"][e]) * (xe @ p["w_in"][e])
-            yo[start:start + n] = h @ p["w_out"][e]
+            spans.append((e, start, start + n))
         start += n
+    hidden = lambda e, xe: F.silu(xe @ p["w_gate"][e]) * (xe @ p["w_in"][e])
+    yo = xs.new_empty(xs.shape[:-1] + p["w_out"].shape[-1:])
+    if tp is None:
+        for e, a, b in spans:
+            yo[a:b] = hidden(e, xs[a:b]) @ p["w_out"][e]
+        return yo
+    hs = xs.new_empty(xs.shape[:-1] + p["w_in"].shape[-1:])
+    for e, a, b in spans:
+        hs[a:b] = hidden(e, xs[a:b])
+    hs = tp.copy_to(hs)
+    for e, a, b in spans:
+        yo[a:b] = hs[a:b] @ p["w_out"][e]
     return yo
 
 
-def _moe_block(p, m, xt):
+def _moe_block(p, m, xt, tp=None):
     """Route, dispatch and expert compute for one block of tokens (T,D);
-    every routed token is computed (no capacity)."""
+    every routed token is computed (no capacity).  On a model axis ``tp``
+    that does not divide the experts every rank computes every expert on
+    the whole input, router and experts whole, and returns the whole
+    output (the reference's dense block there); where ``w_out`` holds the
+    rank's columns the gates enter the combine through ``copy_to`` and its
+    columns are gathered (``gather_from``)."""
     T, D = xt.shape
     gates, order, sizes = _moe_route(p, m, xt)
-    yo = _moe_experts(p, xt[order // m.top_k], sizes)
+    cols = tp if tp is not None and p["w_out"].shape[-1] < D else None
+    if cols is not None:
+        gates = tp.copy_to(gates)
+    yo = _moe_experts(p, xt[order // m.top_k], sizes, cols)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
-    yo = yo[inv].reshape(T, m.top_k, D)
-    return torch.einsum("tk,tkd->td", gates.to(yo.dtype), yo)
+    yo = yo[inv].reshape(T, m.top_k, -1)
+    y = torch.einsum("tk,tkd->td", gates.to(yo.dtype), yo)
+    return y if cols is None else tp.gather_from(y, -1)
 
 
 def _moe_block_ep(p, m, xt, tp):
@@ -682,17 +817,23 @@ def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
     the router through the renormalised top-k gates, and every non-empty
     expert's three weights through its products (autograd through one
     ``torch.matmul`` each, where the reference differentiates
-    ``lax.ragged_dot``).  On a model axis ``tp`` each block
-    takes the expert-parallel path (``sharding.tp_check`` holds E to a
-    multiple of M, the reference's condition for it) and the shared
-    expert is a tensor-parallel MLP; either way the output is summed over
-    the axis (``reduce_from``).  There ``x`` is the replicated input as
-    the caller passed it through ``copy_to``, which sums the ranks'
-    partial input gradients."""
+    ``lax.ragged_dot``).  On a model axis ``tp`` that divides the experts
+    each block takes the expert-parallel path (the reference's condition
+    for it), whose output is summed over the axis (``reduce_from``); on
+    one that does not, every rank runs the dense block on every expert
+    (:func:`_moe_block`).  The shared expert is an MLP on the axis
+    (:func:`mlp_fwd`), summed where its output is a partial sum.  ``x``
+    is the whole input; it enters through one ``copy_to`` (which sums the
+    ranks' partial input gradients) where the expert-parallel block or a
+    cut shared expert reads it."""
     m = cfg.moe
     B, S, D = x.shape
-    xt = x.reshape(B * S, D)
-    block = (lambda xb: _moe_block(p, m, xb)) if tp is None else \
+    ep = tp is not None and p["w_in"].shape[0] < m.n_experts
+    shared_cut = tp is not None and m.shared_expert \
+        and cuts(p["shared"], cfg)[0]
+    xc = tp.copy_to(x) if ep or shared_cut else x
+    xt = (xc if ep else x).reshape(B * S, D)
+    block = (lambda xb: _moe_block(p, m, xb, tp)) if not ep else \
         (lambda xb: _moe_block_ep(p, m, xb, tp))
     if B * S <= chunk or (B * S) % chunk:
         y = block(xt)
@@ -703,8 +844,9 @@ def moe_fwd(p, cfg: ModelConfig, x, chunk: int = MOE_CHUNK, tp=None):
         y = torch.cat([block(xb) for xb in xt.split(chunk)])
     y = y.reshape(B, S, D)
     if m.shared_expert:
-        sh = mlp_fwd(p["shared"], cfg, x)
-        y = y + (sh if tp is None else tp.reduce_from(sh))
+        sh = mlp_fwd(p["shared"], cfg, xc if shared_cut else x, tp)
+        y = y + (tp.reduce_from(sh) if tp is not None
+                 and cuts(p["shared"], cfg)[1] else sh)
     return y.to(x.dtype)
 
 
@@ -771,13 +913,21 @@ def _gelu_gate(gate, h, dtype):
     return (F.gelu(gate.float(), approximate="tanh") * h).to(dtype)
 
 
+def _rglru_cut(p, tp) -> bool:
+    """Whether the model axis ``tp`` cuts the RG-LRU's channels (``w_x``
+    by columns); else every rank runs every channel, its leaves whole
+    (``w_x`` and ``w_gate`` perhaps by rows)."""
+    return tp is not None and p["w_x"].shape[1] < p["conv"].shape[1]
+
+
 def _rglru_channels(p, tp):
     """``conv`` (4, r) and ``lam`` (r,) of this rank's r = R/M channels.
     Both are replicated leaves that each rank reads on its channels only,
     so on a model axis ``tp`` they enter through one ``copy_to`` of their
     stack (in f32, ``lam``'s dtype, which holds ``conv``'s values
-    exactly): a backward sums their partial gradients over the axis."""
-    if tp is None:
+    exactly): a backward sums their partial gradients over the axis.
+    Whole channels read them whole."""
+    if not _rglru_cut(p, tp):
         return p["conv"], p["lam"]
     n = p["w_x"].shape[1]
     cl = tp.copy_to(torch.cat([p["conv"].float(), p["lam"][None]]))
@@ -785,7 +935,7 @@ def _rglru_channels(p, tp):
     return cl[:4].to(p["conv"].dtype), cl[4]
 
 
-def _rglru_out(p, y, tp):
+def _rglru_out(p, y, tp, D: int):
     """The block's output (…, D), whole on every rank, from the gated
     activations ``y`` of this rank's channels.  On a model axis ``tp``:
     where ``w_out`` is whole (the reference splits a run's layers over
@@ -793,37 +943,43 @@ def _rglru_out(p, y, tp):
     the rank's rows give a partial sum, summed over the axis
     (``reduce_from``); where it holds the rank's columns (a run the axis
     does not divide), ``y`` is gathered (``gather_to``: each rank reads it
-    for its own columns) and the output's columns with ``gather_from``."""
+    for its own columns) and the output's columns with ``gather_from``.
+    With whole channels ``y`` is whole, and so is the output of ``D``
+    columns (``w_out`` whole, or by columns: :func:`_gathered`)."""
     w = p["w_out"]
-    if tp is None:
-        return y @ w
+    if not _rglru_cut(p, tp):
+        return _gathered(tp, y, w, D)
     if w.shape[1] == p["w_x"].shape[0]:             # whole: (R, D)
         n = y.shape[-1]
         return tp.reduce_from(y @ w[tp.index * n:(tp.index + 1) * n])
     return tp.gather_from(tp.gather_to(y, -1) @ w, -1)
 
 
-def _gather_channels(tp, u):
-    return u if tp is None else tp.gather_to(u, -1)
+def _gather_channels(p, tp, u):
+    return tp.gather_to(u, -1) if _rglru_cut(p, tp) else u
 
 
 def _rglru(p, x, h0=None, tp=None):
     """(y, h (B,S,r) f32, the pre-conv inputs u (B,S,r)) of the recurrent
-    block on this rank's r = R/M channels (all of them on one rank)."""
+    block on this rank's r = R/M channels (all of them on one rank, or
+    where the axis does not cut them)."""
     S = x.shape[1]
     conv, lam = _rglru_channels(p, tp)
-    u_pre = x @ p["w_x"]
-    gate = x @ p["w_gate"]
+    if _rglru_cut(p, tp):
+        u_pre, gate = x @ p["w_x"], x @ p["w_gate"]
+    else:
+        u_pre, gate = _whole(tp, x, p["w_x"], p["w_gate"])
     # causal depthwise conv, kernel 4, rounded after each add as the
     # reference's Python sum
     upad = F.pad(u_pre, (0, 0, 3, 0))
     u = sum(upad[:, i:i + S] * conv[i] for i in range(4))
-    a, b = _rglru_gates(p, _gather_channels(tp, u), u, lam)
+    a, b = _rglru_gates(p, _gather_channels(p, tp, u), u, lam)
     if h0 is not None:
         # out of place: autograd may have saved b
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
     h = linear_scan(a, b)
-    return _rglru_out(p, _gelu_gate(gate, h, x.dtype), tp), h, u_pre
+    return _rglru_out(p, _gelu_gate(gate, h, x.dtype), tp, x.shape[-1]), \
+        h, u_pre
 
 
 def rglru_fwd(p, cfg: ModelConfig, x, h0=None, tp=None):
@@ -855,15 +1011,18 @@ def rglru_decode(p, cfg: ModelConfig, x, h_prev, conv_state, tp=None):
     in f32 and rounded once, as XLA's bf16 dot.  Returns (y (B,1,D), h,
     the next conv state)."""
     conv, lam = _rglru_channels(p, tp)
-    u_new = (x @ p["w_x"])[:, 0]
-    gate = (x @ p["w_gate"])[:, 0]
+    if _rglru_cut(p, tp):
+        u_new, gate = (x @ p["w_x"])[:, 0], (x @ p["w_gate"])[:, 0]
+    else:
+        u_new, gate = (t[:, 0] for t in _whole(tp, x, p["w_x"],
+                                               p["w_gate"]))
     window = torch.cat([conv_state, u_new[:, None]], 1)      # (B,4,R)
     u = (window.float() * conv.float()).sum(1).to(
         torch.promote_types(window.dtype, conv.dtype))
-    a, b = _rglru_gates(p, _gather_channels(tp, u), u, lam)
+    a, b = _rglru_gates(p, _gather_channels(p, tp, u), u, lam)
     h = a * h_prev + b
-    return _rglru_out(p, _gelu_gate(gate, h, x.dtype), tp)[:, None], h, \
-        window[:, 1:]
+    y = _rglru_out(p, _gelu_gate(gate, h, x.dtype), tp, x.shape[-1])
+    return y[:, None], h, window[:, 1:]
 
 
 # ---------------------------------------------------------------------- #
@@ -896,28 +1055,39 @@ def _token_shift(x):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def _mixed(x, xp, mix, tp=None):
+def _mixed(x, xp, mix, tp=None, cut=None):
     """The token-shift mixes ``x + mix[i] * (xp - x)`` of each row ``i``
     of ``mix`` (n, D), elementwise as the reference computes them.  On a
-    model axis they feed column-parallel products, so they enter through
-    one ``copy_to`` of their stack: a backward sums the ranks' partial
-    gradients of ``mix`` and of the normed input in one collective."""
+    model axis those that feed cut products (``cut[i]``) enter through one
+    ``copy_to`` of their stack: a backward sums the ranks' partial
+    gradients of ``mix`` and of the normed input in one collective.  Those
+    that feed whole leaves do not: their gradients are whole."""
     mix = mix.view((mix.shape[0],) + (1,) * (x.dim() - 1) + mix.shape[1:])
     mixed = x + mix * (xp - x)
-    return (mixed if tp is None else tp.copy_to(mixed)).unbind(0)
+    if tp is None or not any(cut):
+        return mixed.unbind(0)
+    if all(cut):
+        return tp.copy_to(mixed).unbind(0)
+    out = list(mixed.unbind(0))
+    idx = [i for i, c in enumerate(cut) if c]
+    for i, t in zip(idx, tp.copy_to(torch.stack([out[i] for i in idx]))
+                    .unbind(0)):
+        out[i] = t
+    return out
 
 
-def _rwkv_heads(cfg: ModelConfig, tp) -> int:
-    """RWKV-6's heads on this rank of the model axis ``tp``."""
-    H = cfg.d_model // cfg.rwkv_head_dim
-    return H if tp is None else H // tp.size
+def _rwkv_heads(p, cfg: ModelConfig) -> int:
+    """RWKV-6's heads on this rank: those of its columns of ``w_r``
+    (every head where the model axis does not cut them)."""
+    return p["w_r"].shape[1] // cfg.rwkv_head_dim
 
 
 def _rwkv_u(p, H: int, tp):
     """The bonus ``u`` (H, hd) of this rank's ``H`` heads: ``u`` is
     replicated and read on this rank's heads only, so it enters through
-    ``copy_to`` (its gradient summed over the axis)."""
-    if tp is None:
+    ``copy_to`` (its gradient summed over the axis); whole where the rank
+    has every head."""
+    if tp is None or H == p["u"].shape[0]:
         return p["u"]
     return tp.copy_to(p["u"])[tp.index * H:(tp.index + 1) * H]
 
@@ -928,13 +1098,15 @@ def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False, tp=None):
     (B,H,hd,hd) f32, "x_tm", "x_cm": x's last row}.  On a model axis
     ``tp``, this rank's H/M heads (the column-parallel ``w_r``, ``w_k``,
     ``w_v``, ``w_g``, ``w_w``; the state of its heads) and the partial sum
-    of its ``w_o`` rows, which the caller adds over the axis."""
+    of its ``w_o`` rows, which the caller adds over the axis.  Where the
+    axis does not divide ``d_model``, every leaf is whole: every head on
+    every rank, the whole state and a whole output."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
-    H = _rwkv_heads(cfg, tp)
+    H = _rwkv_heads(p, cfg)
     xp = _token_shift(x)
     mix = p["mix"].to(x.dtype)
-    xr, xk, xv, xg, xw = _mixed(x, xp, mix, tp)
+    xr, xk, xv, xg, xw = _mixed(x, xp, mix, tp, [H * hd < D] * 5)
     r = (xr @ p["w_r"]).reshape(B, S, H, hd).float()
     k = (xk @ p["w_k"]).reshape(B, S, H, hd).float()
     v = (xv @ p["w_v"]).reshape(B, S, H, hd).float()
@@ -960,31 +1132,42 @@ def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False, tp=None):
     return y
 
 
-def _channel_mix(p, x, xp, tp=None):
+def _channel_mix(p, cfg: ModelConfig, x, xp, tp=None):
     """On a model axis ``tp``: ``cm_k`` and ``cm_r`` split by columns,
     ``cm_v`` by rows.  The gate ``sigmoid(xr @ cm_r)`` then holds this
     rank's D/M channels; it is gathered over the axis (``gather_from``:
     what reads it is replicated) and multiplies the sum over the axis of
     ``kk @ cm_v``'s partial sums (``reduce_from``), so every rank returns
-    the whole output."""
+    the whole output.  Where the axis does not divide ``d_ff``, ``cm_k``
+    is by rows or whole and ``kk`` whole (:func:`_whole`), ``cm_v`` by
+    columns or whole (:func:`_gathered`); where it does not divide
+    ``d_model``, ``cm_r`` is whole and so is the gate."""
+    D, F_ = cfg.d_model, cfg.d_ff
+    k_cut = tp is not None and tuple(p["cm_k"].shape) != (D, F_)
+    r_cut = tp is not None and p["cm_r"].shape[1] < D
     mix = p["cm_mix"].to(x.dtype)
-    xk, xr = _mixed(x, xp, mix, tp)
-    kk = torch.square(F.relu(xk @ p["cm_k"]))
+    xk, xr = _mixed(x, xp, mix, tp, (k_cut, r_cut))
     gate = torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype)
+    if r_cut:
+        gate = tp.gather_from(gate, -1)
+    if tp is not None and p["cm_k"].shape[1] == F_:
+        kk = torch.square(F.relu(_whole(tp, xk, p["cm_k"])[0]))
+        return gate * _gathered(tp, kk, p["cm_v"], D)
+    kk = torch.square(F.relu(xk @ p["cm_k"]))
     if tp is None:
         return gate * (kk @ p["cm_v"])
-    return tp.gather_from(gate, -1) * tp.reduce_from(kk @ p["cm_v"])
+    return gate * tp.reduce_from(kk @ p["cm_v"])
 
 
 def rwkv6_channel_mix(p, cfg: ModelConfig, x, tp=None):
-    return _channel_mix(p, x, _token_shift(x), tp)
+    return _channel_mix(p, cfg, x, _token_shift(x), tp)
 
 
 def rwkv6_channel_mix_decode(p, cfg: ModelConfig, x, x_cm_prev, tp=None):
     """Single-token channel mix.  x: (B,1,D); x_cm_prev: (B,D).  Returns
     (y (B,1,D), x's row to carry)."""
     xt = x[:, 0]
-    return _channel_mix(p, xt, x_cm_prev, tp)[:, None], xt
+    return _channel_mix(p, cfg, xt, x_cm_prev, tp)[:, None], xt
 
 
 def rwkv6_decode(p, cfg: ModelConfig, x, state, tp=None):
@@ -994,10 +1177,11 @@ def rwkv6_decode(p, cfg: ModelConfig, x, state, tp=None):
     partial sum of its ``w_o`` rows."""
     B = x.shape[0]
     hd = cfg.rwkv_head_dim
-    H = _rwkv_heads(cfg, tp)
+    H = _rwkv_heads(p, cfg)
     xt = x[:, 0]
     mix = p["mix"].to(x.dtype)
-    xr, xk, xv, xg, xw = _mixed(xt, state["x_tm"], mix, tp)
+    xr, xk, xv, xg, xw = _mixed(xt, state["x_tm"], mix, tp,
+                                [H * hd < cfg.d_model] * 5)
     r = (xr @ p["w_r"]).reshape(B, H, hd).float()
     k = (xk @ p["w_k"]).reshape(B, H, hd).float()
     v = (xv @ p["w_v"]).reshape(B, H, hd).float()

@@ -36,13 +36,24 @@ ranks is computed on both.  The embedding falls back to replicated where
 the axis does not divide the vocabulary; a tied head is then whole on
 every rank.
 
-:func:`tp_check` holds a config to what the port's tensor parallelism
-computes: a ``wq`` cut by columns (M divides ``n_heads * head_dim``), any
-KV count (``wk``/``wv`` by columns, by rows or whole), whole experts on
-each rank, MLP features, the RG-LRU on ``d_rnn / M`` channels, RWKV-6's
-heads (``d_model // rwkv_head_dim``), and a vocabulary that M divides or
-a tied head; attention stacks with an MLP or a MoE, RWKV-6, the RG-LRU
-and the enc-dec encoder and cross attention.
+Where the axis does not divide a leaf's dim, the fallback's placement is
+computed as it lands: a leaf moved to its other matmul dim (``wq``,
+``wk``, ``wv``, an MLP's ``wi``/``wg`` by rows; ``wo``, an expert's
+``w_out`` by columns) or replicated.  A whole input times a leaf's rows
+gives a partial sum over the axis, times its columns the rank's columns
+of the output (gathered whole), times a whole leaf a whole output,
+computed on every rank.  Where ``wq`` is not cut by columns every rank
+computes every head (:func:`rank_heads`); where the axis does not divide
+the experts, every rank runs every expert (the reference's dense block,
+no drops); a whole RG-LRU or RWKV-6 runs on every channel or head
+(:func:`rank_count`).
+
+:func:`tp_check` refuses the three cuts the port does not compute, each
+a leaf cut inside the unit its consumer reads whole: an expert's
+``w_in``/``w_gate`` by its features (the axis divides those but not the
+experts), RWKV-6's columns inside a head (it divides ``d_model`` but not
+the heads) and an untied head by rows (it divides ``d_model`` but not the
+vocabulary).
 """
 from __future__ import annotations
 
@@ -52,13 +63,13 @@ from typing import NamedTuple
 from .config import ModelConfig
 
 __all__ = ["NOT_PORTED_TP_ARCH", "RUN_DIM",
-           "param_model_dims", "RankHeads", "rank_heads",
+           "param_model_dims", "RankHeads", "rank_heads", "rank_count",
            "layer_model_dims", "cut_shard", "tp_check", "dp_axes",
            "batch_pspec"]
 
-NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: query-width, expert, "
-                      "feature, RWKV-6 head, untied-vocabulary and "
-                      "recurrence-width counts a model axis does not divide")
+NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: the cuts inside an "
+                      "expert, an RWKV-6 head or an untied head's rows "
+                      "where the model axis does not divide a count")
 
 RUN_DIM = -2      # the reference splits the run's layers over the axis
 
@@ -196,8 +207,12 @@ def rank_heads(cfg: ModelConfig, model: int = 1, m: int = 0) -> RankHeads:
     """Rank ``m``'s :class:`RankHeads` on a model axis of ``model``, whose
     cut of ``wq`` is the columns ``[m Q/M, (m+1) Q/M)`` of ``Q = n_heads
     * head_dim``.  Where M divides the heads: ``H/M`` heads from ``m
-    H/M``, no offset."""
+    H/M``, no offset.  Where M does not divide ``Q``, ``wq`` is cut by
+    rows or whole, q is whole, and every rank has every head."""
     hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    if cfg.q_dim % model:
+        return RankHeads(0, cfg.n_heads, 0, 0, cfg.n_kv_heads,
+                         tuple(h // G for h in range(cfg.n_heads)))
     c = cfg.q_dim // model
     lo, hi = m * c, (m + 1) * c
     q0, q1 = lo // hd, (hi - 1) // hd + 1
@@ -206,43 +221,43 @@ def rank_heads(cfg: ModelConfig, model: int = 1, m: int = 0) -> RankHeads:
                      tuple(h // G - kv0 for h in range(q0, q1)))
 
 
+def rank_count(n: int, model: int) -> int:
+    """A rank's share of ``n`` units (the RG-LRU's channels, RWKV-6's
+    heads) that the axis cuts where it divides them: ``n / M``, else
+    ``n``, their leaves whole and every unit computed on every rank."""
+    return n if n % model else n // model
+
+
 def tp_check(cfg: ModelConfig, model_size: int) -> None:
     """Raise NotImplementedError where the port cannot serve or train
-    ``cfg`` on a model axis of ``model_size`` ranks: a ``wq`` width
-    (``n_heads * head_dim``), expert, MLP-feature or RG-LRU-width
-    (``d_rnn``) count the axis does not divide, or a vocabulary it does
-    not divide under an untied head (where the reference moves ``wq`` to
-    rows or replicates it, splits ``lm_head`` by rows, or cuts inside an
-    expert, which GSPMD absorbs and the port does not).  Any KV count
-    passes (:func:`rank_heads`), and so does a tied vocabulary (the
-    embedding is then replicated).  An RWKV-6 stack counts ``d_model //
-    rwkv_head_dim`` heads and no KV heads; an RG-LRU run whose length the
-    axis does not divide splits ``w_out`` by columns, so ``d_model`` must
-    divide too."""
+    ``cfg`` on a model axis of ``model_size`` ranks: where the
+    reference's fallback cuts a leaf inside the unit that its consumer
+    reads whole.  That is an expert's ``w_in``/``w_gate`` by their
+    features (M divides ``d_ff_expert`` but not the experts), RWKV-6's
+    time-mix columns inside a head (M divides ``d_model`` but not ``d_model
+    // rwkv_head_dim``) and an untied ``lm_head`` by rows (M divides
+    ``d_model`` but not the vocabulary).  Every other count passes: a leaf
+    the axis cuts by its rule, moved to its other matmul dim, or
+    replicated."""
     if model_size <= 1:
         return
-    if "rwkv6" in cfg.pattern:
-        counts = {"heads": cfg.d_model // cfg.rwkv_head_dim}
-    else:
-        counts = {f"-column wq ({cfg.n_heads} heads of {cfg.head_dim})":
-                  cfg.q_dim}
-    if not cfg.tie_embeddings:
-        counts["vocabulary rows (an untied head)"] = cfg.vocab
-    if cfg.moe is not None:
-        counts["experts"] = cfg.moe.n_experts
-    if cfg.moe is None or cfg.moe.shared_expert:
-        counts["MLP features"] = cfg.d_ff
-    if "rglru" in cfg.pattern:
-        counts["RG-LRU channels"] = cfg.d_rnn or cfg.d_model
-        if any(n % model_size for k, n in cfg.runs() if k == "rglru"):
-            counts["model width"] = cfg.d_model
-    bad = [f"{n}{'' if k[0] == '-' else ' '}{k}" for k, n in counts.items()
-           if n % model_size]
+    M, bad = model_size, []
+    if cfg.moe is not None and cfg.moe.n_experts % M \
+            and cfg.moe.d_ff_expert % M == 0:
+        bad.append(f"{cfg.moe.n_experts} experts (their "
+                   f"{cfg.moe.d_ff_expert} features cut inside each)")
+    if "rwkv6" in cfg.pattern and cfg.d_model % M == 0 \
+            and (cfg.d_model // cfg.rwkv_head_dim) % M:
+        bad.append(f"{cfg.d_model // cfg.rwkv_head_dim} heads (their "
+                   f"{cfg.d_model} columns cut inside a head)")
+    if not cfg.tie_embeddings and cfg.vocab % M and cfg.d_model % M == 0:
+        bad.append(f"{cfg.vocab} vocabulary rows (an untied head cut by "
+                   f"its {cfg.d_model} rows)")
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: a model axis of {model_size} does not divide its "
-            f"{', '.join(bad)}; the port cuts query columns, experts, "
-            f"features and rows evenly only ({NOT_PORTED_TP_ARCH})")
+            f"{cfg.name}: a model axis of {M} does not divide its "
+            f"{', '.join(bad)}; the port computes the reference's "
+            f"fallbacks but these cuts ({NOT_PORTED_TP_ARCH})")
 
 
 def dp_axes(pods: int) -> tuple[str, ...]:

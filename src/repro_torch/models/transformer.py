@@ -78,6 +78,15 @@ of the exponentials and of the gold logit from the rank that owns the
 label's column give the loss; the (B, S, V) logits are never gathered.
 A replicated head takes the plain cross-entropy on every rank, and its
 hidden states no ``copy_to``.
+
+Where the reference's fallback moves a sublayer's leaves to their other
+matmul dim or replicates them (``layers.cuts`` reads it from their
+shapes), a sublayer whose leaves that read its input are whole takes it
+without ``copy_to`` (each rank's gradient of it is whole), and a
+sublayer whose output is whole (gathered, or computed on every rank) is
+not summed: each output is summed over the axis exactly once.  The
+encoder's output enters through ``copy_to`` only where the cross
+attention cuts it.
 """
 from __future__ import annotations
 
@@ -93,7 +102,7 @@ from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
 from .sharding import (cut_shard, layer_model_dims, param_model_dims,
-                       rank_heads, tp_check)
+                       rank_count, rank_heads, tp_check)
 
 __all__ = ["port_check", "train_check", "init_model", "embed_inputs",
            "encoder_fwd", "trunk_fwd", "model_fwd", "loss_fn", "init_cache",
@@ -244,16 +253,22 @@ def _logits(params, cfg: ModelConfig, x, tp=None) -> torch.Tensor:
     return logits if tp is None else tp.all_gather(logits, dim=-1)
 
 
-def _psum(tp, y):
-    """A row-parallel partial sum, all-reduced over the model axis (the
-    gradient passes through to each rank's part)."""
-    return y if tp is None else tp.reduce_from(y)
+def _psum(tp, y, p, cfg: ModelConfig):
+    """Sublayer ``p``'s output ``y``, all-reduced over the model axis
+    where it is a row-parallel partial sum (``layers.cuts``; the gradient
+    passes through to each rank's part); a whole output as it is."""
+    return y if tp is None or not L.cuts(p, cfg)[1] else tp.reduce_from(y)
 
 
-def _copy(tp, x):
-    """A replicated ``x`` entering this rank's shard of the work: its
-    gradient, a partial sum on each rank, summed over the model axis."""
-    return x if tp is None else tp.copy_to(x)
+def _copy(tp, x, p=None, cfg: ModelConfig | None = None):
+    """A replicated ``x`` entering this rank's shard of the work of
+    sublayer ``p`` through a cut leaf (``layers.cuts``): its gradient, a
+    partial sum on each rank, summed over the model axis.  Where ``p``'s
+    leaves that read it are whole, ``x`` as it is: each rank's gradient
+    is whole.  Without ``p``, ``x`` enters a cut product."""
+    if tp is None or (p is not None and not L.cuts(p, cfg)[0]):
+        return x
+    return tp.copy_to(x)
 
 
 def _runs(params, cfg: ModelConfig):
@@ -272,43 +287,54 @@ def _remat(fn, *args):
 
 
 def _ffn(p, cfg: ModelConfig, x, tp=None):
-    """The MLP or MoE sublayer, pre-norm, summed over the model axis."""
-    xn = _copy(tp, L.rmsnorm(x, p["norm2"]))
+    """The MLP or MoE sublayer, pre-norm, whole on every rank (a partial
+    sum summed over the model axis; the MoE's input enters its cut
+    products through ``copy_to`` inside it)."""
+    xn = L.rmsnorm(x, p["norm2"])
     if cfg.moe:
         return L.moe_fwd(p["mlp"], cfg, xn, tp=tp)
-    return _psum(tp, L.mlp_fwd(p["mlp"], cfg, xn))
+    return _psum(tp, L.mlp_fwd(p["mlp"], cfg, _copy(tp, xn, p["mlp"], cfg),
+                               tp), p["mlp"], cfg)
 
 
 def _layer_fwd(p, cfg: ModelConfig, kind: str, x, enc_out=None,
                causal: bool = True, tp=None):
     if kind == "rwkv6":
         x = x + _psum(tp, L.rwkv6_fwd(p["rwkv"], cfg,
-                                      L.rmsnorm(x, p["norm1"]), tp=tp))
+                                      L.rmsnorm(x, p["norm1"]), tp=tp),
+                      p["rwkv"], cfg)
         return x + L.rwkv6_channel_mix(p["rwkv"], cfg,
                                        L.rmsnorm(x, p["norm2"]), tp)
     if kind == "rglru":
-        y, _ = L.rglru_fwd(p["rec"], cfg, _copy(tp, L.rmsnorm(x, p["norm1"])),
-                           tp=tp)
+        y, _ = L.rglru_fwd(p["rec"], cfg, _copy(
+            tp, L.rmsnorm(x, p["norm1"]), p["rec"], cfg), tp=tp)
         x = x + y
     else:
         window = cfg.window if kind == "local" else None
+        pa = p["attn"]
         if cfg.parallel_block and enc_out is None and not cfg.moe:
             # parallel residual: both sublayers read x, and their partial
             # sums are added before one all-reduce (transformer.py:84-91)
-            xn = _copy(tp, L.rmsnorm(x, p["norm1"]))
-            return x + _psum(tp, L.attention_fwd(
-                p["attn"], cfg, xn, causal=causal, window=window, tp=tp)
-                + L.mlp_fwd(p["mlp"], cfg,
-                            _copy(tp, L.rmsnorm(x, p["norm2"]))))
+            ya = L.attention_fwd(pa, cfg, _copy(tp, L.rmsnorm(
+                x, p["norm1"]), pa, cfg), causal=causal, window=window,
+                tp=tp)
+            ym = L.mlp_fwd(p["mlp"], cfg, _copy(tp, L.rmsnorm(
+                x, p["norm2"]), p["mlp"], cfg), tp)
+            if L.cuts(pa, cfg)[1] and L.cuts(p["mlp"], cfg)[1]:
+                return x + tp.reduce_from(ya + ym)
+            return x + (_psum(tp, ya, pa, cfg)
+                        + _psum(tp, ym, p["mlp"], cfg))
         x = x + _psum(tp, L.attention_fwd(
-            p["attn"], cfg, _copy(tp, L.rmsnorm(x, p["norm1"])),
-            causal=causal, window=window, tp=tp))
+            pa, cfg, _copy(tp, L.rmsnorm(x, p["norm1"]), pa, cfg),
+            causal=causal, window=window, tp=tp), pa, cfg)
     if enc_out is not None:
-        # on a model axis enc_out arrives through one copy_to
-        # (trunk_fwd), which sums every layer's partial gradient at once
+        # on a model axis enc_out arrives through one copy_to where the
+        # cross attention cuts it (trunk_fwd), which sums every layer's
+        # partial gradient at once
+        px = p["xattn"]
         x = x + _psum(tp, L.attention_fwd(
-            p["xattn"], cfg, _copy(tp, L.rmsnorm(x, p["norm_x"])),
-            kv_src=enc_out, tp=tp))
+            px, cfg, _copy(tp, L.rmsnorm(x, p["norm_x"]), px, cfg),
+            kv_src=enc_out, tp=tp), px, cfg)
     return x + _ffn(p, cfg, x, tp)
 
 
@@ -344,7 +370,8 @@ def trunk_fwd(params, cfg: ModelConfig, inputs: dict,
     enc_out = None
     if cfg.enc_dec:
         enc_out = _copy(tp, encoder_fwd(params, cfg, inputs["src_embeds"],
-                                        tp))
+                                        tp), params["layers"][0]["xattn"],
+                        cfg)
     x = embed_inputs(params, cfg, inputs, tp)
     for kind, layers in _runs(params, cfg):
         for p in layers:
@@ -450,14 +477,15 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
     dev = resolve_device(device)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     M = 1 if tp is None else tp.size
-    R = (cfg.d_rnn or cfg.d_model) // M
+    R = rank_count(cfg.d_rnn or cfg.d_model, M)
     h_kv = L.heads(cfg, tp).nkv
     cache = []
     for kind, n in cfg.runs():
         if kind == "rwkv6":
             hd = cfg.rwkv_head_dim
             cache.append({
-                "S": torch.zeros((n, B, cfg.d_model // hd // M, hd, hd),
+                "S": torch.zeros((n, B, rank_count(cfg.d_model // hd, M),
+                                  hd, hd),
                                  dtype=torch.float32, device=dev),
                 "x_tm": torch.zeros((n, B, cfg.d_model), **bf16),
                 "x_cm": torch.zeros((n, B, cfg.d_model), **bf16)})
@@ -487,7 +515,7 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
     if kind == "rwkv6":
         xn = L.rmsnorm(x, p["norm1"])
         y, st = L.rwkv6_fwd(p["rwkv"], cfg, xn, return_state=True, tp=tp)
-        x = x + _psum(tp, y)
+        x = x + _psum(tp, y, p["rwkv"], cfg)
         xn2 = L.rmsnorm(x, p["norm2"])
         x = x + L.rwkv6_channel_mix(p["rwkv"], cfg, xn2, tp)
         return x, {"S": st["S"], "x_tm": xn[:, -1].to(torch.bfloat16),
@@ -502,13 +530,13 @@ def _layer_prefill(p, cfg: ModelConfig, kind: str, x, enc_out,
         p["attn"], cfg, L.rmsnorm(x, p["norm1"]),
         window=cfg.window if kind == "local" else None, keep_full=keep_full,
         tp=tp)
-    x = x + _psum(tp, y)
+    x = x + _psum(tp, y, p["attn"], cfg)
     ent = {"k": ck, "v": cv}
     if enc_out is not None:
         ent["xk"], ent["xv"] = L.cross_kv(p["xattn"], cfg, enc_out, tp)
         x = x + _psum(tp, L.attention_fwd(
             p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]), kv_src=enc_out,
-            tp=tp))
+            tp=tp), p["xattn"], cfg)
     return x + _ffn(p, cfg, x, tp), ent
 
 
@@ -516,9 +544,13 @@ def _seq_slice(tp, t, s_c: int, cfg: ModelConfig):
     """A run's cache (n, B, s_c, h, hd) of the KV heads that this rank's
     query heads read (``sharding.rank_heads``) -> its slice of the
     sequence with every KV head, (n, B, s_c/M, Hkv, hd): one all-gather
-    over the model axis of the ranks' heads, padded to the largest count.
-    Each KV head is taken from the first rank that reads it (the ranks
-    that share one hold equal values)."""
+    over the model axis of the ranks' heads, padded to the largest count
+    (none where every rank computes every head).  Each KV head is taken
+    from the first rank that reads it (the ranks that share one hold
+    equal values)."""
+    n = s_c // tp.size
+    if cfg.q_dim % tp.size:         # every rank computes every head
+        return t[:, :, tp.index * n:(tp.index + 1) * n].contiguous()
     shares = [rank_heads(cfg, tp.size, r) for r in range(tp.size)]
     h = max(sh.nkv for sh in shares)
     t = tp.all_gather(F.pad(t, (0, 0, 0, h - t.shape[3])), dim=3)
@@ -527,7 +559,6 @@ def _seq_slice(tp, t, s_c: int, cfg: ModelConfig):
            for j in range(cfg.n_kv_heads)]
     if idx != list(range(t.shape[3])):
         t = t[:, :, :, idx]
-    n = s_c // tp.size
     return t[:, :, tp.index * n:(tp.index + 1) * n].contiguous()
 
 
@@ -594,7 +625,7 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
         y, st = L.rwkv6_decode(p["rwkv"], cfg, xn,
                                {"S": ent["S"][i],
                                 "x_tm": ent["x_tm"][i].to(xn.dtype)}, tp)
-        x = x + _psum(tp, y)
+        x = x + _psum(tp, y, p["rwkv"], cfg)
         xn2 = L.rmsnorm(x, p["norm2"])
         y2, x_cm = L.rwkv6_channel_mix_decode(p["rwkv"], cfg, xn2,
                                               ent["x_cm"][i].to(xn2.dtype),
@@ -614,11 +645,11 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, ent: dict, i: int,
                                  ent["k"][i], ent["v"][i], pos,
                                  windowed=kind == "local", tp=tp,
                                  seq_shard=seq_shard)
-    x = x + _psum(tp, y)
+    x = x + _psum(tp, y, p["attn"], cfg)
     if "xk" in ent:
         x = x + _psum(tp, L.cross_attention_decode(
             p["xattn"], cfg, L.rmsnorm(x, p["norm_x"]), ent["xk"][i],
-            ent["xv"][i], tp))
+            ent["xv"][i], tp), p["xattn"], cfg)
     return x + _ffn(p, cfg, x, tp)
 
 
@@ -722,7 +753,7 @@ def decode_step_paged(params, cfg: ModelConfig, pools: list, block_tables,
             y, _, _ = L.paged_attention_decode(
                 p["attn"], cfg, L.rmsnorm(x, p["norm1"]), ent["k"][i],
                 ent["v"][i], block_tables, pos, window=window, tp=tp)
-            x = x + _psum(tp, y)
+            x = x + _psum(tp, y, p["attn"], cfg)
             x = x + _ffn(p, cfg, x, tp)
     x = L.rmsnorm(x, params["final_norm"])
     return _logits(params, cfg, x, tp), pools

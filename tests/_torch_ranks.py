@@ -552,7 +552,8 @@ def tp_train(rank, pods, data, model, pair, ce, cases, traj=None):
 
 def _moe_blocks(tp, cfg, layer, x, ct, chunk):
     """``moe_fwd`` of one layer's MoE shard ``layer`` on the replicated
-    ``x`` (through ``copy_to``) with token blocks of ``chunk``, and the
+    ``x`` (which it takes through ``copy_to``) with token blocks of
+    ``chunk``, and the
     gradients of ``<ct, y>`` for the input and every leaf; the slots
     this rank dropped (``moe_fwd.dropped``) and the routings read on the
     host."""
@@ -565,8 +566,8 @@ def _moe_blocks(tp, cfg, layer, x, ct, chunk):
     dropped, s0 = [], L.moe_fwd.host_syncs
     L.moe_fwd.dropped = dropped
     try:
-        y = L.moe_fwd(tree_unflatten(layer, leaves), cfg, tp.copy_to(xt),
-                      chunk=chunk, tp=tp)
+        y = L.moe_fwd(tree_unflatten(layer, leaves), cfg, xt, chunk=chunk,
+                      tp=tp)
         grads = torch.autograd.grad((y * _t(ct)).sum(), [xt] + leaves)
     finally:
         L.moe_fwd.dropped = None
@@ -954,3 +955,14 @@ def dry_counts(rank, cases):
             measure("decode", lambda: dec(layers, cache, toks[:, -1:], n))
         out[name] = res
     return out
+
+
+# ---------------------------------------------------------------------- #
+# The reference's fallback placements: leaves moved to their other
+# matmul dim, or replicated
+# ---------------------------------------------------------------------- #
+
+def tp_fallback(rank, cases):
+    """This rank of three gloo ranks on the CPU, a 1x1x3 grid:
+    :func:`_group_cases` of ``cases``."""
+    return _group_cases(make_grid(1, 1, CPU, model=3).tp, cases)

@@ -330,14 +330,27 @@ def test_devices_meta_is_asked_for_and_cuda_still_raises():
 
 
 def test_refusals_are_the_references_and_tp_checks():
-    got = D.lower_cell("recurrentgemma-2b", "train_4k", False,
-                       mesh=(1, 16, 3))
+    got = D.lower_cell("rwkv6-1.6b", "train_4k", False, mesh=(1, 16, 64))
     assert list(got) == ["skipped"] and "does not divide" in got["skipped"]
     for arch, shape in (("qwen3-4b", "long_500k"), ("gpt-100m",
                                                     "long_500k")):
         jc = jconfigs.get_config(arch)
         assert D.lower_cell(arch, shape, True) == {
             "skipped": JSH.applicable(jc, JSH.SHAPES[shape])[1]}
+
+
+def test_a_cell_at_m3_is_recorded_through_the_fallbacks():
+    """gemma3-12b's decode_32k on 16x3, where M 3 divides neither its 4096
+    query columns nor its 262,144 vocabulary rows: ``wq``/``wk``/``wv``
+    by rows (one all-reduce a layer), ``wo`` by columns (one all-gather),
+    the MLP by features (one all-reduce), the embedding and head whole;
+    every rank computes every head, so one rank's run stands for all."""
+    got = D.lower_cell("gemma3-12b", "decode_32k", False, mesh=(1, 16, 3))
+    assert RECORD_KEYS <= set(got) and got["mesh"] == "16x3"
+    n = configs.get_config("gemma3-12b").n_layers
+    assert got["collective_counts"] == {"all-reduce/fast": 2 * n,
+                                        "all-gather/fast": n}
+    assert [p["members"] for p in got["per_rank"].values()] == [[0, 1, 2]]
 
 
 RECORD_KEYS = {"arch", "shape", "mesh", "comm_mode", "zero1", "trace_s",

@@ -296,11 +296,13 @@ def test_training_new_archs_raises_naming_roadmap(arch):
     4 KV heads, the RG-LRU's channels; ``tests/test_torch_tp_rglru.py``,
     ``tests/test_torch_tp_train_moe.py`` and
     ``tests/test_torch_tp_families.py`` train them there) and refuses,
-    naming ROADMAP's item 5, what it still refuses: a ``wq`` width the
-    axis does not divide (5 heads of 16 at M 3), an RG-LRU width the axis
-    does not divide (d_rnn 62 at M 4), and the forward on a model axis of
-    3, which does not divide the 64 query columns (at M 8 it cuts them, 8
-    a rank, inside a head: ``tests/test_torch_tp_headcut.py``)."""
+    naming ROADMAP's item 5, what it still refuses: an untied head cut by
+    rows (a 510-row vocabulary at M 4, which divides the 64 rows), the
+    forward there, and an expert cut inside (the MoE's 4 experts of 32
+    features at M 8).  A model axis of 3, which divides neither the 64
+    query columns nor the MLP's features, passes: the reference's
+    fallbacks replicate those leaves (``tests/test_torch_tp_fallback.py``
+    computes them)."""
     from types import SimpleNamespace
 
     from repro_torch.launch.step import loss_and_grads
@@ -313,15 +315,17 @@ def test_training_new_archs_raises_naming_roadmap(arch):
     batch["labels"] = batch["tokens"]
     T.train_check(heads, 2)
     T.train_check(cfg, 2)
+    T.train_check(cfg, 3)
+    untied = dataclasses.replace(cfg, tie_embeddings=False, vocab=510)
     with pytest.raises(NotImplementedError,
-                       match="80-column wq.*ROADMAP.*item 5"):
-        T.train_check(dataclasses.replace(cfg, n_heads=5, n_kv_heads=1), 3)
-    if "rglru" in cfg.pattern:
+                       match="510 vocabulary rows.*ROADMAP.*item 5"):
+        T.train_check(untied, 4)
+    if cfg.moe is not None:
         with pytest.raises(NotImplementedError,
-                           match="62 RG-LRU channels.*ROADMAP.*item 5"):
-            T.train_check(dataclasses.replace(cfg, d_rnn=62), 4)
+                           match="4 experts.*ROADMAP.*item 5"):
+            T.train_check(cfg, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        T.loss_fn(params, cfg, batch, tp=SimpleNamespace(size=3))
+        T.loss_fn(params, untied, batch, tp=SimpleNamespace(size=4))
     loss, grads = loss_and_grads(params, cfg, batch)
     assert torch.isfinite(loss)
     assert all(torch.isfinite(g.float()).all() for g in tree_leaves(grads))

@@ -92,10 +92,11 @@ def test_serve_network_plane_same_tokens_and_reference_numbers(
 
 
 def test_serve_model_axis_and_monitor_without_mesh_raise():
-    # a model axis that does not divide the query columns (gemma3's smoke
-    # config has 4 heads of 16) is refused before any rank is spawned
+    # a model axis that cuts inside an expert (olmoe's smoke config has 4
+    # experts of 32 features; 8 ranks divide the features, not the
+    # experts) is refused before any rank is spawned
     with pytest.raises(NotImplementedError, match="item 5"):
-        serve("gemma3-12b", 1, 4, 2, "1x1x3", smoke=True, device="cpu")
+        serve("olmoe-1b-7b", 1, 4, 2, "1x1x8", smoke=True, device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         serve("gpt-100m", 1, 4, 2, smoke=True, device="cpu", monitor=True)
 

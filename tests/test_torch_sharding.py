@@ -73,11 +73,12 @@ def _ref_dims(spec_tree, cfg):
     return out
 
 
-@pytest.mark.parametrize("model", [2, 4, 8, 16])
+@pytest.mark.parametrize("model", [2, 3, 4, 5, 6, 8, 12, 16])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_model_dims_equal_reference_pspecs(arch, model):
     """The dim of every leaf, decided on the full config's shapes, is the
-    reference's, its fallbacks and the MoE/RG-LRU ``w_gate`` split
+    reference's, its fallbacks (a leaf moved to its other matmul dim, or
+    replicated: M 3, 5, 6 and 12) and the MoE/RG-LRU ``w_gate`` split
     included."""
     cfg, ref, ours = _shapes(arch)
     want = _ref_dims(JS.param_pspecs(ref, model), cfg)
@@ -132,18 +133,17 @@ def test_sharded_init_is_the_shard_of_the_full_init(name, model):
 
 @pytest.mark.parametrize("arch,model,match", [
     ("rwkv6_1p6b", 64, "32 heads"),
-    ("recurrentgemma_2b", 3, "2560-column wq"),
-    ("tinyllama_1p1b", 3, "32000 vocabulary rows"),
-    ("phi4_mini_3p8b", 12, "8192 MLP features"),
+    ("llama4_scout_17b_a16e", 32, "16 experts"),
+    ("tinyllama_1p1b", 512, "32000 vocabulary rows"),
     ("olmoe_1b_7b", 128, "64 experts"),
 ])
 def test_model_axis_refusals_name_roadmap_item_5(arch, model, match):
     """What a model axis still refuses, naming ROADMAP's item 5: the
-    reference's fallbacks that the port does not compute, an RWKV-6 head,
-    ``wq`` column, vocabulary (under an untied head: tinyllama's
-    ``lm_head`` by rows), MLP-feature or expert count it does not divide
-    (recurrentgemma's 2560-column ``wq`` at M 3; phi4-mini at M 12 cuts
-    its 24 heads on 8 KV heads, but not its 8192 MLP features)."""
+    reference's fallbacks that cut a leaf inside the unit its consumer
+    reads whole: RWKV-6's 2048 columns inside its 32 heads at M 64, an
+    expert's features where M does not divide the experts (llama4-scout's
+    16 at M 32, olmoe's 64 at M 128), an untied head by rows where M does
+    not divide the vocabulary (tinyllama's 32,000 rows at M 512)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 5") as e:
         tp_check(configs.get_config(arch), model)
     assert match in str(e.value)
@@ -154,7 +154,9 @@ def test_model_axis_refusals_name_roadmap_item_5(arch, model, match):
 # heads of 256 at M 4: 640 columns; gemma3's 16 at M 32: 128) and a
 # vocabulary that the axis does not divide under a tied head (seamless's
 # 256,206 rows at M 4)
-ADMITTED = [("recurrentgemma_2b", False, 2), ("recurrentgemma_2b", False, 5),
+ADMITTED = [("recurrentgemma_2b", False, 3), ("tinyllama_1p1b", False, 3),
+            ("phi4_mini_3p8b", False, 12),
+            ("recurrentgemma_2b", False, 2), ("recurrentgemma_2b", False, 5),
             ("recurrentgemma_2b", False, 10), ("tinyllama_1p1b", False, 8),
             ("tinyllama_1p1b", False, 16), ("qwen3_4b", False, 16),
             ("gemma3_12b", False, 16), ("pixtral_12b", False, 16),
@@ -174,8 +176,11 @@ def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
     model axis) holds its cut of ``wq``, from
     ``off`` inside its first query head, and the KV heads those heads
     read; where M divides the heads, ``H / M`` heads from ``m H / M`` and
-    ``max(Hkv / M, 1)`` KV heads.  A vocabulary that M does not divide
-    leaves the embedding replicated."""
+    ``max(Hkv / M, 1)`` KV heads (two where its heads straddle a KV
+    group: phi4-mini's 2 of G 3 at M 12); where M does not divide ``wq``'s
+    columns (recurrentgemma's 2560 at M 3), every head and every KV head.
+    A vocabulary that M does not divide leaves the embedding
+    replicated."""
     cfg = configs.get_config(arch, smoke=smoke)
     tp_check(cfg, model)
     H, hd, G = cfg.n_heads, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
@@ -184,6 +189,9 @@ def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
         sh = rank_heads(cfg, model, m)
         assert L.heads(cfg, types.SimpleNamespace(size=model, index=m)) \
             == sh
+        if cfg.q_dim % model:
+            assert sh == rank_heads(cfg)
+            continue
         assert sh.q0 * hd + sh.off == m * c and 0 <= sh.off < hd
         assert (sh.q0 + sh.nq - 1) * hd < (m + 1) * c <= (sh.q0 + sh.nq) * hd
         heads = range(sh.q0, sh.q0 + sh.nq)
@@ -191,10 +199,23 @@ def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
             range(sh.kv0, sh.kv0 + sh.nkv))
         if H % model == 0:
             assert (sh.q0, sh.nq, sh.off) == (m * H // model, H // model, 0)
-            assert sh.nkv == max(cfg.n_kv_heads // model, 1)
+            if (H // model) % G == 0 or G % (H // model) == 0:
+                assert sh.nkv == max(cfg.n_kv_heads // model, 1)
     dims = param_model_dims({"embed": types.SimpleNamespace(
         shape=(cfg.vocab, cfg.d_model))}, model)
     assert (dims["embed"] == -1) == (cfg.vocab % model != 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_config_is_admitted_at_every_model_axis_below_32(arch):
+    """``tp_check`` admits each full config at every M from 2 to 31 (the
+    reference's fallbacks computed), and ``rank_heads`` gives every head
+    on every rank exactly where M does not divide ``wq``'s columns."""
+    cfg = configs.get_config(arch)
+    for model in range(2, 32):
+        tp_check(cfg, model)
+        assert (rank_heads(cfg, model, model - 1) == rank_heads(cfg)) == \
+            (cfg.q_dim % model != 0), model
 
 
 def test_a_gradient_through_the_model_axis_is_refused():
@@ -202,14 +223,15 @@ def test_a_gradient_through_the_model_axis_is_refused():
     an MLP or a MoE (``tests/test_torch_tp_train.py``,
     ``tests/test_torch_tp_train_moe.py``), RWKV-6 and enc-dec
     (``tests/test_torch_tp_families.py``), the RG-LRU and the KV-head
-    split (``tests/test_torch_tp_rglru.py``); the forward with a model
-    axis still refuses autograd for a KV layout outside the split's rule
-    (qwen3's smoke config with 6 heads on 2 KV heads at M 3) and an RG-LRU
-    width the axis does not divide (recurrentgemma's, d_rnn 62 at M 4),
-    naming the item that lists them."""
+    split (``tests/test_torch_tp_rglru.py``), and the reference's
+    fallback placements (``tests/test_torch_tp_fallback.py``); the
+    forward with a model axis still refuses the cuts inside a unit
+    (RWKV-6's smoke config, 4 heads of 16 columns, at M 8; olmoe's 4
+    experts of 32 features at M 8; tinyllama's untied head over 510 rows
+    at M 4, its 64 rows cut), naming the item that lists them."""
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for arch, kw, model in (("qwen3_4b", dict(n_heads=6, n_kv_heads=2), 3),
-                            ("recurrentgemma_2b", dict(d_rnn=62), 4)):
+    for arch, kw, model in (("rwkv6_1p6b", {}, 8), ("olmoe_1b_7b", {}, 8),
+                            ("tinyllama_1p1b", dict(vocab=510), 4)):
         cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **kw)
         params = T.init_model(cfg, device="cpu")
         tp = types.SimpleNamespace(size=model, index=0)

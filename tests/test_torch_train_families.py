@@ -30,6 +30,7 @@ to f32 (``_torch_bridge.ref_encoder_f32``): the reference's own layer
 scan refuses the f32 model, whose first layer would change the carry's
 dtype.
 """
+import dataclasses
 import functools
 
 import jax
@@ -192,15 +193,17 @@ def test_training_on_a_model_axis_raises(arch):
     smoke configs (the RG-LRU, and the one KV head of llama4-scout's and
     pixtral's split over the axis; ``tests/test_torch_tp_rglru.py``,
     ``tests/test_torch_tp_train_moe.py`` and
-    ``tests/test_torch_tp_families.py`` train them there).  At M 3, which
-    does not divide their 64 query columns, it refuses before it builds
-    anything, naming ROADMAP's Queue 1 item 5."""
+    ``tests/test_torch_tp_families.py`` train them there), and at M 3,
+    which divides neither their 64 query columns nor their features (the
+    reference's fallbacks: ``tests/test_torch_tp_fallback.py``).  An
+    untied head over 510 rows at M 4, cut by its 64 rows, it refuses
+    before it builds anything, naming ROADMAP's Queue 1 item 5."""
     cfg = _cfg(arch)
     build = lambda c, m: make_train_step(
         c, adamw.OptConfig(), Grid.shape_only(1, 1, m), device="cpu")
-    assert callable(build(cfg, 2))
+    assert callable(build(cfg, 2)) and callable(build(cfg, 3))
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build(cfg, 3)
+        build(dataclasses.replace(cfg, tie_embeddings=False, vocab=510), 4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
