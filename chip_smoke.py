@@ -27,7 +27,8 @@ each phase checks and prints its part where it stands:
    window 2048, and on each rank of a model axis of 2: G 5, and of 4: G
    3, a rank's 2.5 heads computed as 3), seamless's
    encoder and cross attention (not causal, the cross with Sq != Sk),
-   pixtral and llama4-scout (G 4, 5)), and in bf16
+   pixtral and llama4-scout (G 4, 5), and llama4-scout's rank on a model
+   axis of 32 (phase 34: 2 heads on one KV head)), and in bf16
    also against the plain
    version that mirrors the tensor-core kernel's bf16 rounding of P, more
    tightly; its time in turns with the library call's (kernel, SDPA, SDPA,
@@ -377,6 +378,25 @@ each phase checks and prints its part where it stands:
    (recurrentgemma-2b, 3 layers, 2 x 512, 1x1x4), whose every rank's
    calls, backward calls and wire bytes of every axis must equal what that
    rank of 31b counted on the card in each step.
+34. The cuts inside a unit on a model axis of 32 ranks forked for it
+   (``inside_rank``): llama4-scout-17b-a16e at full width, its weights
+   drawn part by part from a seed so that each rank draws its own shard
+   (``drawn_params``), the memory reckoned and printed first, the one-rank
+   runs made and freed before the ranks start.  34a serves 2 of its 48
+   layers, a 1 x 512 prompt and 4 new tokens, on the dense path (the
+   sequence-parallel decode) and on the paged path: every rank's tokens
+   equal the one-rank run's, its bf16 first logits as 31a's bound holds
+   them, the same weights' f32 prefill within TP_F32_TOL, the collectives
+   of a prefill and of a step as INSIDE_CALLS predicts them, each rank's
+   flash launches (2 a prefill); 34b one f32 ``loss_and_grads`` of 1 layer
+   at 1 x 256: the loss within 1e-5 relative of one rank's and equal on
+   the ranks, the gradients of ``w_in``, ``w_gate`` and ``w_out`` (128
+   rows of every expert of every rank's shard, and each leaf's largest
+   entry) within 1e-4 of the leaf's largest entry, the collectives and the
+   flash launches (2, 1 and 1) as counted; 34c the WKV kernel against its
+   plain version at a rank of rwkv6-1.6b on M 64 (one head of 64, 2 x
+   512).  Printed with the card's name and power limit, staged bytes,
+   peak memory a rank, prefill and decode ms beside one rank's.
 
 Phases 3, 4, 9 and 13 take their bounds from
 ``repro_torch.core.costmodel.kernel_roofline`` (the H100's datasheet
@@ -472,6 +492,11 @@ SHAPES = [
      "bfloat16"),
     ("recurrentgemma-2b local M 4", 1, 2048, 2048, 3, 1, 256, True, 2048, 0,
      "float32"),
+    # llama4-scout on a rank of a model axis of 32 (phase 34): the 2 query
+    # heads of 128 that every rank's 160 columns meet (one cut inside),
+    # both in one KV head's group of 5
+    ("llama4-scout M 32", 1, 512, 512, 2, 1, 128, True, None, 0,
+     "bfloat16"),
 ]
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
 TRAIN_SHAPE = 12        # the shape the training path gives all three
@@ -760,6 +785,43 @@ FALLBACK_ALIGN = 24
 FALLBACK_TRAIN = {"phi4-mini-3.8b": (3, "33b")}
 FALLBACK_TRAIN_KW = dict(TP_RS_TRAIN_KW, steps=2)
 FALLBACK_ANSWER = [("phi4-mini-3.8b", 3, "33b", TP_STEP_TOL)]
+# phase 34: the cuts inside a unit, llama4-scout-17b-a16e on a model axis
+# of 32 (its 16 experts' 8192 features cut, 256 a rank, w_out by the 160
+# columns of its output; 2 or 3 of the 40 query heads, one cut inside, on
+# 1-2 of the 8 KV heads) on 32 ranks forked for it; the weights drawn
+# part by part (``drawn_params``) so that a rank draws only its shard.
+# 34a serves INSIDE_LAYERS of its 48 layers, a 1 x 512 prompt and
+# INSIDE_GEN new tokens on the dense and the paged path; 34b trains one
+# layer in f32 at 1 x 256; 34c holds the WKV kernel at a rank of
+# rwkv6-1.6b on M 64 (the one head of 64 its 32 columns meet)
+INSIDE_ARCH = "llama4-scout-17b-a16e"
+INSIDE_MODEL = 32
+INSIDE_LAYERS = 2
+INSIDE_PROMPT = (1, 512)
+INSIDE_GEN = 4
+INSIDE_BLOCK = 16               # the paged pools' block size
+INSIDE_SEED = 34
+INSIDE_TRAIN = (1, (1, 256))    # 34b: layers, (batch, seq)
+INSIDE_SAMPLE = 128             # 34b: rows of each expert compared
+# the collectives of each call, predicted from the code (n layers): the
+# embedding's sum; a layer's q and k/v gathers (gather_to: 40 heads and 8
+# KV heads on 32 ranks), wo's partial sum, the experts' hidden gathered
+# and the combine's columns (gather_from), the shared MLP's partial sum;
+# the dense prefill's two gathers of k and v into the sequence split;
+# the decode's sequence-parallel combine (a max and two sums); the
+# logits' gather.  34b's forward adds the vocab-parallel loss's max and
+# sums; its backward holds a copy_to sum each (the attention's input,
+# the MoE's input, its gates and its routed rows, the loss's hidden) and
+# a reduce-scatter each gather_to; the remat re-runs the layer to the
+# last tensor the backward saved: all but the shared MLP's sum
+INSIDE_CALLS = {"dense_prefill": lambda n: 1 + 6 * n + 2 + 1,
+                "dense_step": lambda n: 1 + 9 * n + 1,
+                "paged_prefill": lambda n: 1 + 6 * n + 1,
+                "paged_step": lambda n: 1 + 6 * n + 1,
+                "train": lambda n: {"fwd": 1 + 6 * n + 2,
+                                    "bwd": 4 * n + 1 + 3 * n,
+                                    "remat": 5 * n}}
+INSIDE_WKV = ("rwkv6-1.6b rank of M 64", 2, 512, 1, 64, "model")
 # phase 30: elastic training on a model axis, gpt-100m at full width cut
 # to TP_ELASTIC_LAYERS layers: pod 1 of 3 lost before step 2 (an in-place
 # repair), pod 1 of the 2 left before step 4 (a restart from step 2's
@@ -3878,7 +3940,7 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
     launches and the one-rank run (its tokens, first logits and times,
     and the f32 model's first logits)."""
     from repro_torch.launch.mesh import parse_mesh
-    from repro_torch.models.sharding import rank_count
+    from repro_torch.models.sharding import rwkv_heads
     from repro_torch.tree import tree_map
 
     arch, B, L_, P = spec or TP_RS_SERVE[name]
@@ -3928,8 +3990,7 @@ def tp_rs_serve(torch, T, kw, get_config, name, ranks, spec=None,
            "dropped_per_rank": [sum(x["dropped"]) for x in ranks]}
     if "rwkv6" in cfg.pattern:
         hd = cfg.rwkv_head_dim
-        rec["wkv_plan_heads_per_rank"] = rank_count(cfg.d_model // hd,
-                                                    model)
+        rec["wkv_plan_heads_per_rank"] = rwkv_heads(cfg, model, 0).nh
         rec["wkv_launch_plan"] = kw.launch_plan(
             B, rec["wkv_plan_heads_per_rank"], hd)
         rec["wkv_launch_plan_batch_1"] = kw.launch_plan(
@@ -4323,6 +4384,346 @@ def headcut_phase(torch, T, kw, get_config, refs, ranks, one) -> list:
     return out
 
 
+def drawn_params(torch, T, cfg, model, m=None, device="cuda",
+                 f32=False) -> dict:
+    """Weights of ``cfg`` from INSIDE_SEED, drawn part by part: each leaf
+    that a model axis of ``model`` cuts (``sharding.param_model_dims``) as
+    its ``model`` parts along its dim, each from a generator of its own,
+    a whole leaf from one.  Rank ``m``'s shard draws its parts only; the
+    whole model (``m`` None) draws every part and concatenates them: the
+    same numbers, and no rank holds more than its shard.  The leaves'
+    shapes and dtypes are ``init_model``'s (f32 with ``f32``), their
+    distributions its kinds: U(-1/sqrt(fan-in), 1/sqrt(fan-in)), the
+    embedding N(0, 1/D), the norms 0."""
+    import zlib
+
+    from repro_torch.models.sharding import param_model_dims
+
+    meta = T.init_model(cfg, device="meta")
+    dims = param_model_dims(meta, model, cfg)
+
+    def draw(path, t, d):
+        shape = list(t.shape)
+        if d >= 0:
+            shape[d] //= model
+        parts = [0] if d < 0 else range(model) if m is None else [m]
+        dt = torch.float32 if f32 else t.dtype
+        out = []
+        for i in parts:
+            gen = torch.Generator(device=device).manual_seed(
+                INSIDE_SEED * 1_000_003 + zlib.crc32(path.encode()) * 97 + i)
+            if t.dim() == 1:
+                x = torch.zeros(shape, device=device)
+            elif path == "embed":
+                x = torch.randn(shape, generator=gen, device=device).div_(
+                    math.sqrt(cfg.d_model))
+            else:
+                x = torch.rand(shape, generator=gen, device=device).mul_(
+                    2.0).sub_(1.0).mul_(1.0 / math.sqrt(t.shape[-2]))
+            out.append(x.to(dt))
+        return out[0] if len(out) == 1 else torch.cat(out, d)
+
+    def walk(tree, dim, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, dim[k], f"{path}/{k}" if path else k)
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, d, f"{path}/{i}")
+                    for i, (v, d) in enumerate(zip(tree, dim))]
+        return draw(path, tree, dim)
+
+    return walk(meta, dims, "")
+
+
+def paged_serve(torch, T, cfg, params, B, L, tp=None, gen=INSIDE_GEN,
+                block=INSIDE_BLOCK) -> dict:
+    """The paged path of ``dense_serve``'s prompt: its prefill (the cache
+    at full length, of the rank's KV heads on a model axis ``tp``)
+    scattered into block pools, then greedy steps of
+    ``decode_step_paged`` to ``gen`` tokens.  Returns the tokens, each
+    step's logits, the wall times and the collectives of each call."""
+    dev = params["embed"].device
+    inputs = {k: v.to(dev)
+              for k, v in prompt_inputs(torch, cfg, B, L, 0, L).items()}
+    calls = (lambda: tp.calls) if tp is not None else (lambda: 0)
+    nb = -(-(L + gen) // block)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    sync()
+    t0 = time.perf_counter()
+    c0 = calls()
+    lg, cache, _ = T.prefill(params, cfg, inputs, L, full_local_cache=True,
+                             tp=tp, seq_shard=False)
+    c1 = calls()
+    pools = T.init_paged_pools(cfg, 1 + B * nb, block, device=dev, tp=tp)
+    tables = torch.arange(1, 1 + B * nb, device=dev).reshape(B, nb)
+    for b in range(B):
+        T.scatter_prefill_cache(pools, cache, tables[b, :L // block].tolist(),
+                                block, row=b)
+    del cache
+    out, lgs = [lg[:, -1].argmax(-1, keepdim=True)], [lg]
+    sync()
+    t1 = time.perf_counter()
+    c2 = calls()
+    for i in range(gen - 1):
+        pos = torch.full((B,), L + i, device=dev)
+        lg, pools = T.decode_step_paged(params, cfg, pools, tables, out[-1],
+                                        pos, tp=tp)
+        out.append(lg[:, -1].argmax(-1, keepdim=True))
+        lgs.append(lg)
+    sync()
+    t2 = time.perf_counter()
+    return {"prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_step": (t2 - t1) * 1e3 / (gen - 1),
+            "tokens": torch.cat(out, 1), "logits": lgs,
+            "collectives_prefill": c1 - c0,
+            "collectives_per_decode_step": (calls() - c2) / (gen - 1)}
+
+
+def inside_batch(torch, cfg, device) -> dict:
+    """34b's (B, S) tokens and next-token labels from a seed."""
+    _, (B, S) = INSIDE_TRAIN
+    t = torch.randint(0, cfg.vocab, (B, S + 1),
+                      generator=torch.Generator().manual_seed(INSIDE_SEED))
+    return {"tokens": t[:, :-1].to(device), "labels": t[:, 1:].to(device)}
+
+
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
+
+
+def served(run) -> dict:
+    """What a rank returns of a ``dense_serve``/``paged_serve`` run."""
+    return {"tokens": run["tokens"].cpu().numpy(),
+            "first_logits": run["logits"][0].float().cpu().numpy(),
+            "finite": all(bool(x.isfinite().all()) for x in run["logits"]),
+            **{k: run[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                   "collectives_prefill",
+                                   "collectives_per_decode_step")}}
+
+
+def inside_rank(rank):
+    """Phase 34 on this rank of INSIDE_MODEL forked for it, a 1x1x32 grid
+    sharing the card (gloo): its shard of 34a's model (``drawn_params``),
+    the dense and the paged path with the counters from 0 (and the bytes
+    each staged), the same shard's f32 prefill (uncounted), then 34b's
+    one f32 ``loss_and_grads`` of 1 layer with the counters from 0: the
+    loss, the axis's collectives, the launches, and of each expert leaf
+    its largest |gradient| and INSIDE_SAMPLE rows of every expert."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv as kw
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.step import loss_and_grads, make_prefill_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    grid = make_grid(1, 1, dev, model=INSIDE_MODEL)
+    tp = grid.tp
+    cfg = cut(get_config, INSIDE_ARCH, INSIDE_LAYERS)
+    B, L_ = INSIDE_PROMPT
+    params = drawn_params(torch, T, cfg, INSIDE_MODEL, tp.index, dev)
+    reset(fa, kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    s0 = grid.staged_bytes
+    dense = served(dense_serve(torch, cfg, params, B, L_, grid=grid,
+                               align=INSIDE_MODEL, gen=INSIDE_GEN))
+    s1 = grid.staged_bytes
+    paged = served(paged_serve(torch, T, cfg, params, B, L_, tp))
+    out = {"dense": dense, "paged": paged, "launches": counts(fa, kw),
+           "staged_bytes": [s1 - s0, grid.staged_bytes - s1],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    params = tree_map(lambda t: t.float(), params)
+    ins = {k: v.cuda()
+           for k, v in prompt_inputs(torch, cfg, B, L_, 0, L_).items()}
+    s_max = L_ + INSIDE_GEN - 1
+    lg, _, _ = make_prefill_fn(cfg, s_max + (-s_max) % INSIDE_MODEL, grid)(
+        params, ins)
+    out["f32_first_logits"] = lg.float().cpu().numpy()
+    del params, lg
+    torch.cuda.empty_cache()
+    n, _ = INSIDE_TRAIN
+    cfg1 = cut(get_config, INSIDE_ARCH, n)
+    p1 = drawn_params(torch, T, cfg1, INSIDE_MODEL, tp.index, dev, f32=True)
+    batch = inside_batch(torch, cfg1, dev)
+    reset(fa, kw)
+    calls = {}
+    loss, grads = loss_and_grads(p1, cfg1, batch, tp, calls)
+    mlp = grads["layers"][0]["mlp"]
+    out["train"] = {
+        "loss": loss.item(), "calls": calls, "launches": counts(fa, kw),
+        "grad_max": {k: mlp[k].abs().max().item() for k in EXPERT_LEAVES},
+        "grad_sample": {k: mlp[k][:, :INSIDE_SAMPLE].cpu().numpy()
+                        for k in EXPERT_LEAVES}}
+    del p1, grads, mlp
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def inside_phase(torch, T, fa, kw, get_config, smi, wkv_ptxas) -> dict:
+    """Phase 34: the memory reckoned and printed, the one-rank runs of 34a
+    (bf16 dense and paged paths, the f32 prefill) and 34b (f32, 1 layer)
+    on the whole drawn model in this process, freed, then INSIDE_MODEL
+    ranks forked (``inside_rank``) and held to them; 34c.  Returns the
+    flash launches of the phase's runs, the ranks' and this process's."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.step import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    M = INSIDE_MODEL
+    cfg = cut(get_config, INSIDE_ARCH, INSIDE_LAYERS)
+    B, L_ = INSIDE_PROMPT
+    params = drawn_params(torch, T, cfg, M)
+    numel = sum(t.numel() for t in tree_leaves(params))
+    layer = sum(t.numel() for t in tree_leaves(params["layers"][0]))
+    print(json.dumps({"inside_memory_reckoning": {
+        "arch": INSIDE_ARCH, "layers": cfg.n_layers,
+        "params_per_layer": layer, "embedding": params["embed"].numel(),
+        "params": numel, "bf16_gb": 2 * numel / 1e9,
+        "f32_gb": 4 * numel / 1e9, "ranks": M,
+        "bf16_gb_per_rank": 2 * numel / M / 1e9,
+        "f32_gb_per_rank": 4 * numel / M / 1e9}}), flush=True)
+    reset(fa, kw)
+    one = {"dense": served(dense_serve(torch, cfg, params, B, L_, align=M,
+                                       gen=INSIDE_GEN)),
+           "paged": served(paged_serve(torch, T, cfg, params, B, L_))}
+    one_launches = counts(fa, kw)
+    params = tree_map(lambda t: t.float(), params)
+    ins = {k: v.cuda()
+           for k, v in prompt_inputs(torch, cfg, B, L_, 0, L_).items()}
+    s_max = L_ + INSIDE_GEN - 1
+    f32, _, _ = T.prefill(params, cfg, ins, s_max + (-s_max) % M)
+    f32 = f32.float().cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    n, _ = INSIDE_TRAIN
+    cfg1 = cut(get_config, INSIDE_ARCH, n)
+    p1 = drawn_params(torch, T, cfg1, M, None, "cuda", f32=True)
+    batch = inside_batch(torch, cfg1, "cuda")
+    reset(fa, kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss, grads = loss_and_grads(p1, cfg1, batch)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t1) * 1e3
+    one_train = counts(fa, kw)
+    mlp = grads["layers"][0]["mlp"]
+    ref_max = {k: mlp[k].abs().max().item() for k in EXPERT_LEAVES}
+    ref = {k: mlp[k][:, :INSIDE_SAMPLE].cpu().numpy() for k in EXPERT_LEAVES}
+    loss = loss.item()
+    del p1, grads, mlp
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    ranks = run_ranks(inside_rank, M, "gloo", (), timeout=900.0)
+    t_ranks = time.perf_counter() - t1
+
+    # 34a
+    top = float(abs(f32).max())
+    tol = max(LOGIT_TOL, 2.0 ** (math.floor(math.log2(top)) - 7))
+    rec = {"card": smi, "arch": INSIDE_ARCH, "layers": cfg.n_layers,
+           "mesh": f"1x1x{M}", "prompt": list(INSIDE_PROMPT),
+           "generated": INSIDE_GEN, "one_rank_wall_s": t_one,
+           "ranks_wall_s": t_ranks,
+           "rank_body_wall_s_max": max(r["wall_s"] for r in ranks),
+           "staged_bytes_rank0": ranks[0]["staged_bytes"],
+           "peak_mem_gb_per_rank_max": max(r["peak_mem_gb"] for r in ranks),
+           "one_rank_launches": one_launches,
+           "rank_launches": ranks[0]["launches"], "logit_tol": tol,
+           "max_abs_logit_f32": top}
+    for path in ("dense", "paged"):
+        got = [r[path] for r in ranks]
+        want = one[path]
+        if not all(g["finite"] for g in got) or not want["finite"]:
+            fail(f"phase 34a {path}: non-finite logits")
+        for m, g in enumerate(got):
+            if (g["tokens"] != want["tokens"]).any():
+                fail(f"phase 34a {path}: rank {m}'s tokens "
+                     f"{g['tokens'].tolist()} differ from one rank's "
+                     f"{want['tokens'].tolist()}")
+        err = max(float(abs(g["first_logits"] - want["first_logits"]).max())
+                  for g in got)
+        calls = {"prefill": INSIDE_CALLS[f"{path}_prefill"](cfg.n_layers),
+                 "step": INSIDE_CALLS[f"{path}_step"](cfg.n_layers)}
+        seen = {"prefill": sorted({g["collectives_prefill"] for g in got}),
+                "step": sorted({g["collectives_per_decode_step"]
+                                for g in got})}
+        rec[path] = {
+            "tokens": want["tokens"].tolist(),
+            "first_prefill_max_abs_logit_err_bf16": err,
+            "prefill_wall_ms": max(g["prefill_ms"] for g in got),
+            "decode_wall_ms_per_step": max(g["decode_ms_per_step"]
+                                           for g in got),
+            "one_rank_prefill_wall_ms": want["prefill_ms"],
+            "one_rank_decode_wall_ms_per_step": want["decode_ms_per_step"],
+            "collectives_predicted": calls, "collectives": seen}
+        if err > tol:
+            fail(f"phase 34a {path}: bf16 first logits {err} from one "
+                 f"rank's, bound {tol}")
+        if seen != {k: [v] for k, v in calls.items()}:
+            fail(f"phase 34a {path}: collectives {seen}, predicted {calls}")
+    err = max(float(abs(r["f32_first_logits"] - f32).max()) for r in ranks)
+    rec["f32_first_prefill_max_abs_err"] = err
+    if not err <= TP_F32_TOL:
+        fail(f"phase 34a: f32 prefill {err} from one rank's, bound "
+             f"{TP_F32_TOL}")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "wkv": 0}
+    for m, r in enumerate(ranks):
+        if r["launches"] != want:
+            fail(f"phase 34a: rank {m} launched {r['launches']}, expected "
+                 f"{want}")
+
+    # 34b
+    tr = [r["train"] for r in ranks]
+    rel = abs(tr[0]["loss"] - loss) / abs(loss)
+    g_err = {}
+    for k in EXPERT_LEAVES:
+        w = tr[0]["grad_sample"][k].shape[-1]
+        g_err[k] = max(float(abs(t["grad_sample"][k]
+                                 - ref[k][..., m * w:(m + 1) * w]).max())
+                       for m, t in enumerate(tr)) / ref_max[k]
+        g_err[k + "_max"] = abs(max(t["grad_max"][k] for t in tr)
+                                - ref_max[k]) / ref_max[k]
+    want_calls = INSIDE_CALLS["train"](n)
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "wkv": 0}
+    rec["34b"] = {"layers": n, "batch_seq": list(INSIDE_TRAIN[1]),
+                  "loss": tr[0]["loss"], "one_rank_loss": loss,
+                  "loss_rel_err": rel, "grad_err_over_max": g_err,
+                  "one_rank_step_ms": train_ms,
+                  "calls": tr[0]["calls"], "calls_predicted": want_calls,
+                  "launches": tr[0]["launches"],
+                  "one_rank_launches": one_train}
+    print(json.dumps({"inside_phase_34": rec}), flush=True)
+    if any(t["loss"] != tr[0]["loss"] for t in tr) or not rel <= 1e-5:
+        fail(f"phase 34b: losses {sorted({t['loss'] for t in tr})} against "
+             f"one rank's {loss}")
+    if not all(v <= TP_FAMILY_TOL for v in g_err.values()):
+        fail(f"phase 34b: expert gradients {g_err} over their largest "
+             f"entry, bound {TP_FAMILY_TOL}")
+    for m, t in enumerate(tr):
+        if t["calls"] != want_calls or t["launches"] != want:
+            fail(f"phase 34b: rank {m} made {t['calls']} collectives and "
+                 f"{t['launches']} launches, predicted {want_calls} and "
+                 f"{want}")
+
+    # 34c
+    wkv_phase(torch, kw, INSIDE_WKV, wkv_ptxas)
+    total = {k: sum(r["launches"][k] + r["train"]["launches"][k]
+                    for r in ranks) + one_launches[k] + one_train[k]
+             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    print(json.dumps({"inside_phase_34_launches": total}), flush=True)
+    return total
+
+
 def dry_runs(path: str) -> None:
     """Phase 32's dry runs, on the CPU (``--dry-runs PATH``, the
     subprocess main starts): 32a-b the one-rank training steps of phases
@@ -4415,6 +4816,9 @@ def main() -> None:
     ap.add_argument("--phase-33", action="store_true", help="build the "
                     "kernels, run phase 33 alone on three ranks of its own "
                     "and exit (no result line)")
+    ap.add_argument("--phase-34", action="store_true", help="build the "
+                    "kernels, run phase 3's shape of phase 34 and phase 34 "
+                    "alone and exit (no result line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not KERNELS.is_dir():
@@ -4475,6 +4879,14 @@ def main() -> None:
         return
     wkv_ptxas = ptxas_of(logs.get("wkv", ""), "wkv_kernel")
     print(json.dumps({"wkv_ptxas": wkv_ptxas}), flush=True)
+    if args.phase_34:
+        t0 = time.perf_counter()
+        flash_phase(torch, fa, SHAPES[-1])
+        inside_phase(torch, T, fa, kw, get_config, smi.splitlines()[0],
+                     wkv_ptxas)
+        print(json.dumps({"phase_34_alone_wall_s":
+                          time.perf_counter() - t0}), flush=True)
+        return
     mma = {**tensor_core_ops(backend.sass("flash_fwd")),
            **tensor_core_ops(backend.sass("flash_bwd"))}
     print(json.dumps({"flash_sass_hmma": mma}), flush=True)
@@ -4827,6 +5239,12 @@ def main() -> None:
                             [r["33"] for r in pool4[:3]],
                             smi.splitlines()[0])
     walls.append(time.perf_counter())
+
+    progress("34", t_start)
+    # 34. the cuts inside a unit on a model axis of 32 ranks forked for it
+    inside = inside_phase(torch, T, fa, kw, get_config,
+                          smi.splitlines()[0], wkv_ptxas)
+    walls.append(time.perf_counter())
     tp_rs_counts = {k: sum(r.get(k, 0) for r in tp_rs) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "wkv")}
     print(json.dumps({"phase_wall_s": {
@@ -4837,7 +5255,7 @@ def main() -> None:
              "26c", "26d", "26e", "26f one rank", "27a", "27b", "27c",
              "27d", "28 in this process", "29 in this process", "30",
              "31 in this process", "32 in this process",
-             "33 in this process"),
+             "33 in this process", "34"),
             walls, walls[1:])},
         "pool4_ranks_wall_s": {k: max(r["wall_s"][k] for r in pool4)
                                for k in pool4[0]["wall_s"]}}), flush=True)
@@ -4855,7 +5273,8 @@ def main() -> None:
                       + tp_train_counts["flash_fwd"]
                       + family_counts["flash_fwd"]
                       + tp_counts["flash_fwd"] + tp_rs_counts["flash_fwd"]
-                      + tp_elastic_counts["flash_fwd"]),
+                      + tp_elastic_counts["flash_fwd"]
+                      + inside["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
@@ -4867,7 +5286,8 @@ def main() -> None:
                          + family_counts["flash_bwd_dq"]
                          + tp_counts["flash_bwd_dq"]
                          + tp_rs_counts["flash_bwd_dq"]
-                         + tp_elastic_counts["flash_bwd_dq"]),
+                         + tp_elastic_counts["flash_bwd_dq"]
+                         + inside["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
@@ -4879,7 +5299,8 @@ def main() -> None:
                           + family_counts["flash_bwd_dkv"]
                           + tp_counts["flash_bwd_dkv"]
                           + tp_rs_counts["flash_bwd_dkv"]
-                          + tp_elastic_counts["flash_bwd_dkv"]),
+                          + tp_elastic_counts["flash_bwd_dkv"]
+                          + inside["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
         # training (phases 11, 20, 25b and 30) runs the fused EF kernel and
         # the dequant; the tree phase's compressed syncs run all three

@@ -10,16 +10,17 @@ the card takes (``kernels.backend.on_card``), on a dry grid
 model mesh or the 2x16x16 pod x data x model one, ``launch/mesh.py:17-20``
 of the reference).  Nothing is computed, nothing is communicated, and no
 kernel is built: each hand-written kernel is counted by its work.  A cell
-thus shows (a) that the sharding holds on the mesh (``sharding.tp_check``
-refuses what the port cannot cut), (b) what a card holds
+thus shows (a) that the sharding holds on the mesh (every rank program
+builds, the reference's fallbacks included), (b) what a card holds
 (``bytes_per_device``: the peak of the rank's live bytes), and (c) the
 roofline terms, with the per-level collective census (``launch.census``),
 the paper's own metric: bytes on the slow level.
 
 Each data rank takes its ``global_batch / (pods * data)`` rows, or the
 whole batch where that does not divide (the reference replicates it).
-Ranks whose programs are alike (the same query and KV heads, and for the
-MoE the same even shares of its experts; ``rank_key``) run once; the
+Ranks whose programs are alike (the same query and KV heads, the same
+count of RWKV-6 heads met from the same offset inside the first, and for
+the MoE the same even shares of its experts; ``rank_key``) run once; the
 record is the maximum over the model ranks, its rank named.  The MoE's
 group sizes cannot be read from a ``meta`` tensor: each expert takes an
 even share of the routed rows (``layers.even_sizes``), and the record
@@ -57,7 +58,7 @@ from ..core.costmodel import H100, roofline_terms
 from ..kernels.work import WorkCounter
 from ..models import layers as L
 from ..models.convert import model_dims
-from ..models.sharding import rank_heads, tp_check
+from ..models.sharding import rank_heads, rwkv_heads
 from ..models import transformer as T
 from ..optim.adamw import OptConfig, init_opt_state, shard_opt_state
 from ..tree import tree_leaves
@@ -88,13 +89,19 @@ def _moe_block(tokens: int) -> int:
 
 def rank_key(cfg, shape: ShapeSpec, world: int, model: int, m: int):
     """What rank m's program depends on: its query and KV heads
-    (``rank_heads``: how many, and which KV head each reads) and, for the
-    MoE, the even shares of its experts (every expert's where the axis
-    does not divide them).  Ranks of one key run alike."""
+    (``rank_heads``: how many, and which KV head each reads), RWKV-6's
+    heads that its columns meet and the offset of its first column in
+    them (``rwkv_heads``), and, for the MoE, the even shares of its
+    experts (every expert's where the axis does not divide them; an
+    expert cut by its features is cut evenly, so that its ranks run
+    alike).  Ranks of one key run alike."""
     if model == 1:
         return ()
     sh = rank_heads(cfg, model, m)
     key = (sh.nq, sh.nkv, sh.kv_of)
+    if "rwkv6" in cfg.pattern:
+        rw = rwkv_heads(cfg, model, m)
+        key += (rw.nh, rw.off)
     if cfg.moe is not None:
         E = cfg.moe.n_experts
         seq = 1 if shape.kind == "decode" else shape.seq_len
@@ -251,8 +258,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                mesh: tuple[int, int, int] | None = None) -> dict:
     """One cell of the sweep on its production mesh (``mesh``, a (pods,
     data, model) triple, stands in for it); the roofline record, or
-    ``{"skipped": why}`` where the cell does not apply or the port cannot
-    cut the config on the mesh's model axis."""
+    ``{"skipped": why}`` where the cell does not apply."""
     cfg = get_config(arch)
     if parallel_block:
         cfg = dataclasses.replace(cfg, parallel_block=True)
@@ -261,10 +267,6 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     if not ok:
         return {"skipped": why}
     pods, data, model = mesh or PRODUCTION_MESHES[multi_pod]
-    try:
-        tp_check(cfg, model)
-    except NotImplementedError as e:
-        return {"skipped": str(e)}
     rec = dry_cell(cfg, shape, pods, data, model, comm_mode, zero1)
     name = "x".join(map(str, (pods, data, model) if pods > 1
                         else (data, model)))

@@ -55,7 +55,6 @@ from ..kernels.backend import resolve_device
 from ..launch.mesh import (Grid, choose_backend, grid_communicator,
                            make_grid, parse_mesh, run_ranks)
 from ..models import transformer as T
-from ..models.sharding import tp_check
 from ..obs import (HealthMonitor, MetricsRegistry, Tracer, get_logger,
                    set_json)
 from ..obs.metrics import percentile
@@ -201,7 +200,6 @@ def serve(arch: str = "gpt-100m", n_requests: int = 4, prompt_len: int = 32,
     model = parse_mesh(mesh)[2] if mesh is not None else 1
     cfg = config or get_config(arch, smoke=smoke)
     T.paged_arch_check(cfg)
-    tp_check(cfg, model)
     kw = dict(arch=arch, n_requests=n_requests, prompt_len=prompt_len,
               gen_len=gen_len, mesh=mesh, smoke=smoke, device=str(device),
               policy=policy, block_size=block_size, rate=rate, trace=trace,

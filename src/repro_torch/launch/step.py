@@ -54,7 +54,6 @@ from ..kernels.backend import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..models.convert import model_dims, stack_runs, unstack_runs
-from ..models.sharding import tp_check
 from ..optim import adamw
 from ..tree import tree_leaves, tree_unflatten
 from .mesh import Grid
@@ -176,7 +175,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     collectives (:func:`loss_and_grads`' ``calls``)."""
     grid = grid or Grid.single()
     tp = grid.tp
-    T.train_check(cfg, 1 if tp is None else tp.size)
+    T.port_check(cfg)
     dev = resolve_device(device)
     mdims = model_dims(cfg, tp.size) if tp is not None else None
 
@@ -194,10 +193,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
 
 def _tp(cfg: ModelConfig, grid: Grid | None):
     T.port_check(cfg)
-    tp = grid.tp if grid is not None else None
-    if tp is not None:
-        tp_check(cfg, tp.size)
-    return tp
+    return grid.tp if grid is not None else None
 
 
 def make_prefill_fn(cfg: ModelConfig, s_max: int, grid: Grid | None = None):

@@ -236,7 +236,7 @@ def train(arch: str = "gpt-100m", steps: int = 100, mesh_spec: str = "1x1x1",
     seed-0 weights."""
     pods, data, model = parse_mesh(mesh_spec)
     cfg = config or get_config(arch, smoke=smoke)
-    T.train_check(cfg, model)
+    T.port_check(cfg)
     world = pods * data * model
     dev = resolve_device(device)
     kw = dict(arch=arch, steps=steps, pods=pods, data=data, model=model,
@@ -366,7 +366,7 @@ def _train_rank(arch, steps, pods, data, model, seq, batch, comm, zero1,
         info(msg, **fields)
 
     cfg = config or get_config(arch, smoke=smoke)
-    T.train_check(cfg, model)
+    T.port_check(cfg)
     mdims = model_dims(cfg, model) if tp is not None else None
     bucket_bytes = bucket_mb * 2 ** 20 if bucket_mb > 0 else None
     if bucket_bytes and zero1 and comm != "flat":

@@ -41,7 +41,9 @@ on both) and the KV heads they read (``wk``/``wv``'s columns where M
 divides the KV heads; else k and v gathered from the reference's cut
 inside a head, ``_kv``), and return the rank's columns of the output
 times its rows of ``wo`` (``_out``), a partial sum, as ``mlp_fwd`` on
-its feature slice does, and RWKV-6's time mix on its H/M heads (the WKV
+its feature slice does, and RWKV-6's time mix on the heads its columns
+meet (``sharding.rwkv_heads``: H/M where M divides them, else a head cut
+between two ranks computed on both from the gathered columns; the WKV
 kernel and state on those heads) with its ``w_o`` rows; the caller adds
 what it can and all-reduces once.  RWKV-6's channel mix returns the
 whole output: its gate, split by columns, is gathered over the axis.  So
@@ -61,10 +63,12 @@ over the axis), times its columns the rank's columns of the output
 (``_gathered``), times a whole leaf a whole output on every rank.  Then
 a ``wq`` not cut by columns gives every rank every head, whole q, k and
 v and a whole output; the MLP by rows and columns a whole output; a MoE
-whose experts the axis does not divide the dense block on every rank; a
-whole RG-LRU or RWKV-6 every channel or head.  :func:`cuts` tells the
-caller which sublayers take their input through ``copy_to`` and return
-a partial sum.
+whose experts the axis does not divide the dense block on every rank
+(an expert cut by its features: the rank's columns of every expert's
+hidden, gathered whole for ``w_out``'s columns, or times its rows of a
+whole ``w_out``, a partial sum); a whole RG-LRU or RWKV-6 every channel
+or head.  :func:`cuts` tells the caller which sublayers take their input
+through ``copy_to`` and return a partial sum.
 """
 from __future__ import annotations
 
@@ -79,7 +83,7 @@ from ..kernels.flash_attention import NEG_INF
 from ..kernels.ops import flash_attention, wkv
 from ..kernels.wkv import CHUNK
 from .config import ModelConfig
-from .sharding import RankHeads, rank_heads
+from .sharding import RankHeads, RwkvHeads, rank_heads, rwkv_heads
 
 __all__ = ["heads", "rmsnorm", "rope", "dense_init", "init_attention",
            "naive_attention", "chunked_attention", "attention_fwd",
@@ -711,14 +715,24 @@ def even_sizes(n: int, E: int) -> list[int]:
     return [n // E + (e < n % E) for e in range(E)]
 
 
-def _moe_experts(p, xs, sizes, tp=None):
+def _moe_experts(p, xs, sizes, tp=None, feats: bool = False):
     """The three grouped products and ``silu(g) * h`` over the
     expert-sorted rows ``xs``: one matmul per non-empty expert on its
-    slice (``lax.ragged_dot`` in the reference).  ``tp``, where ``w_out``
-    holds this rank's columns of every expert's output (the axis divides
-    ``d_model`` but not the experts): every expert's ``silu(g) * h``
-    first, whole, then one ``copy_to`` of them all (the rank's columns of
-    the output give a partial gradient of them), then its columns."""
+    slice (``lax.ragged_dot`` in the reference).  On a model axis ``tp``
+    that does not divide the experts (the dense block) the leaves' cuts
+    decide.  Where ``feats`` (``w_in``/``w_gate`` hold this rank's
+    feature columns of every expert) ``xs`` enters through ``copy_to``
+    and each rank computes its columns of the hidden; then, where
+    ``w_out`` holds its columns of the output, one ``gather_to`` of the
+    hidden of every row gives it whole (each rank reads it for its own
+    columns: the backward is a reduce-scatter), and where ``w_out`` is
+    whole the rank's hidden times its rows of it is a partial sum, which
+    the caller adds over the axis (``w_out`` enters through ``copy_to``:
+    each rank's gradient holds its rows).  Where the experts are whole
+    but ``w_out`` holds the rank's columns, every expert's ``silu(g) *
+    h`` first, whole, then one ``copy_to`` of them all (the rank's
+    columns of the output give a partial gradient of them), then its
+    columns."""
     spans, start = [], 0
     for e, n in enumerate(sizes):
         if n:
@@ -730,34 +744,51 @@ def _moe_experts(p, xs, sizes, tp=None):
         for e, a, b in spans:
             yo[a:b] = hidden(e, xs[a:b]) @ p["w_out"][e]
         return yo
+    if feats:
+        xs = tp.copy_to(xs)
     hs = xs.new_empty(xs.shape[:-1] + p["w_in"].shape[-1:])
     for e, a, b in spans:
         hs[a:b] = hidden(e, xs[a:b])
-    hs = tp.copy_to(hs)
+    w_out = p["w_out"]
+    if not feats:
+        hs = tp.copy_to(hs)
+    elif w_out.shape[-1] == xs.shape[-1]:       # whole: the rank's rows
+        n = hs.shape[-1]
+        w_out = tp.copy_to(w_out)[:, tp.index * n:(tp.index + 1) * n]
+    else:
+        hs = tp.gather_to(hs, -1)
     for e, a, b in spans:
-        yo[a:b] = hs[a:b] @ p["w_out"][e]
+        yo[a:b] = hs[a:b] @ w_out[e]
     return yo
 
 
 def _moe_block(p, m, xt, tp=None):
     """Route, dispatch and expert compute for one block of tokens (T,D);
     every routed token is computed (no capacity).  On a model axis ``tp``
-    that does not divide the experts every rank computes every expert on
-    the whole input, router and experts whole, and returns the whole
-    output (the reference's dense block there); where ``w_out`` holds the
-    rank's columns the gates enter the combine through ``copy_to`` and its
-    columns are gathered (``gather_from``)."""
+    that does not divide the experts every rank routes every token, the
+    router whole, and runs the dense block on every expert (the
+    reference's there; :func:`_moe_experts`): the output is whole where
+    the experts are whole; where ``w_out`` holds the rank's columns of
+    the output the gates enter the combine through ``copy_to`` and its
+    columns are gathered (``gather_from``); where ``w_in``/``w_gate``
+    hold its features and ``w_out`` is whole, the combine of its partial
+    sums (gates through ``copy_to``) is added over the axis
+    (``reduce_from``)."""
     T, D = xt.shape
     gates, order, sizes = _moe_route(p, m, xt)
-    cols = tp if tp is not None and p["w_out"].shape[-1] < D else None
-    if cols is not None:
+    feats = tp is not None and p["w_in"].shape[-1] < m.d_ff_expert
+    cols = tp is not None and p["w_out"].shape[-1] < D
+    if cols or feats:
         gates = tp.copy_to(gates)
-    yo = _moe_experts(p, xt[order // m.top_k], sizes, cols)
+    yo = _moe_experts(p, xt[order // m.top_k], sizes,
+                      tp if cols or feats else None, feats)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     yo = yo[inv].reshape(T, m.top_k, -1)
     y = torch.einsum("tk,tkd->td", gates.to(yo.dtype), yo)
-    return y if cols is None else tp.gather_from(y, -1)
+    if cols:
+        return tp.gather_from(y, -1)
+    return tp.reduce_from(y) if feats else y
 
 
 def _moe_block_ep(p, m, xt, tp):
@@ -1076,57 +1107,89 @@ def _mixed(x, xp, mix, tp=None, cut=None):
     return out
 
 
-def _rwkv_heads(p, cfg: ModelConfig) -> int:
-    """RWKV-6's heads on this rank: those of its columns of ``w_r``
-    (every head where the model axis does not cut them)."""
-    return p["w_r"].shape[1] // cfg.rwkv_head_dim
+def _rwkv_span(cfg: ModelConfig, tp) -> RwkvHeads:
+    """This rank's :class:`~.sharding.RwkvHeads` on the model axis ``tp``
+    (every head where ``tp`` is None)."""
+    return rwkv_heads(cfg) if tp is None else rwkv_heads(cfg, tp.size,
+                                                         tp.index)
 
 
-def _rwkv_u(p, H: int, tp):
-    """The bonus ``u`` (H, hd) of this rank's ``H`` heads: ``u`` is
-    replicated and read on this rank's heads only, so it enters through
-    ``copy_to`` (its gradient summed over the axis); whole where the rank
-    has every head."""
-    if tp is None or H == p["u"].shape[0]:
+def _rwkv_u(p, sh: RwkvHeads, tp):
+    """The bonus ``u`` (nh, hd) of the heads this rank meets: ``u`` is
+    replicated and read for this rank's columns only (on a rank that
+    meets every head too), so it enters through ``copy_to`` (its
+    gradient summed over the axis); whole where the rank has every
+    column."""
+    if tp is None or sh.cols == p["w_o"].shape[1]:
         return p["u"]
-    return tp.copy_to(p["u"])[tp.index * H:(tp.index + 1) * H]
+    return tp.copy_to(p["u"])[sh.h0:sh.h0 + sh.nh]
+
+
+def _rwkv_met(p, xs, sh: RwkvHeads, hd: int, tp):
+    """``x_r @ w_r``, ``x_k @ w_k``, ``x_v @ w_v`` and ``x_w @ w_w`` (…,
+    nh hd) of the heads this rank's columns meet.  Where those columns are
+    whole heads they are the products themselves.  Where they cut inside
+    a head, the ranks' columns of the four are gathered (one ``gather_to``
+    of their stack: each rank reads them for its own heads, so the
+    backward sums the ranks' partial gradients) and the rank keeps the
+    heads it meets: a head that spans two ranks is computed on both."""
+    outs = [x @ p[k] for x, k in zip(xs, ("w_r", "w_k", "w_v", "w_w"))]
+    if sh.cols == sh.nh * hd:
+        return outs
+    full = tp.gather_to(torch.stack(outs), -1)
+    return full[..., sh.h0 * hd:(sh.h0 + sh.nh) * hd].unbind(0)
+
+
+def _decay(w_pre):
+    """The data-dependent decay ``exp(-exp(w))`` in f32; the clamp keeps
+    the factored chunk recurrence in f32 range for chunks of 16."""
+    return torch.exp(-torch.exp(torch.clamp(w_pre.float(), -8, 0.5)))
+
+
+def _rwkv_out(p, o, g, sh: RwkvHeads, dtype):
+    """This rank's columns of the WKV output ``o`` (…, nh hd), from
+    ``sh.off`` into its first head, gated by its columns of ``silu(g)``,
+    times its rows of ``w_o``: a partial sum on a model axis that cuts
+    them."""
+    o = o[..., sh.off:sh.off + sh.cols]
+    return (o * F.silu(g.float())).to(dtype) @ p["w_o"]
 
 
 def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False, tp=None):
     """RWKV-6 time-mix sublayer (pre-norm handled by the caller).
     x: (B,S,D).  With ``return_state`` also returns {"S": the WKV state
     (B,H,hd,hd) f32, "x_tm", "x_cm": x's last row}.  On a model axis
-    ``tp``, this rank's H/M heads (the column-parallel ``w_r``, ``w_k``,
-    ``w_v``, ``w_g``, ``w_w``; the state of its heads) and the partial sum
-    of its ``w_o`` rows, which the caller adds over the axis.  Where the
-    axis does not divide ``d_model``, every leaf is whole: every head on
-    every rank, the whole state and a whole output."""
+    ``tp``, the heads that this rank's columns of the column-parallel
+    ``w_r``, ``w_k``, ``w_v``, ``w_g``, ``w_w`` meet (``sharding.rwkv_heads``:
+    H/M heads where M divides them, else the columns gathered and a head
+    cut between two ranks computed on both, :func:`_rwkv_met`), the WKV
+    kernel and the state on those heads, and the partial sum of its
+    columns of the output times its ``w_o`` rows, which the caller adds
+    over the axis.  Where the axis does not divide ``d_model``, every
+    leaf is whole: every head on every rank, the whole state and a whole
+    output."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
-    H = _rwkv_heads(p, cfg)
+    sh = _rwkv_span(cfg, tp)
+    H = sh.nh
     xp = _token_shift(x)
     mix = p["mix"].to(x.dtype)
-    xr, xk, xv, xg, xw = _mixed(x, xp, mix, tp, [H * hd < D] * 5)
-    r = (xr @ p["w_r"]).reshape(B, S, H, hd).float()
-    k = (xk @ p["w_k"]).reshape(B, S, H, hd).float()
-    v = (xv @ p["w_v"]).reshape(B, S, H, hd).float()
+    xr, xk, xv, xg, xw = _mixed(x, xp, mix, tp, [sh.cols < D] * 5)
+    r, k, v, w = _rwkv_met(p, (xr, xk, xv, xw), sh, hd, tp)
+    r, k, v = (t.reshape(B, S, H, hd).float() for t in (r, k, v))
     g = xg @ p["w_g"]
-    # the decay clamp keeps the factored chunk recurrence in f32 range for
-    # chunks of 16
-    w = torch.exp(-torch.exp(torch.clamp((xw @ p["w_w"]).float(), -8, 0.5)))
-    w = w.reshape(B, S, H, hd)
+    w = _decay(w).reshape(B, S, H, hd)
     # pad the sequence to a chunk multiple: zero k adds nothing and w = 1
     # keeps the state unchanged, so the final state stays exact
     pad = (-S) % CHUNK
     if pad:
         r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-    out = wkv(r, k, v, w, _rwkv_u(p, H, tp), return_state=return_state)
+    out = wkv(r, k, v, w, _rwkv_u(p, sh, tp), return_state=return_state)
     o, s_fin = out if return_state else (out, None)
     if pad:
         o = o[:, :S]
-    o = (o.reshape(B, S, H * hd) * F.silu(g.float())).to(x.dtype)
-    y = o @ p["w_o"]
+    y = _rwkv_out(p, o.reshape(B, S, H * hd), g, sh, x.dtype)
     if return_state:
         return y, {"S": s_fin, "x_tm": x[:, -1], "x_cm": x[:, -1]}
     return y
@@ -1173,25 +1236,23 @@ def rwkv6_channel_mix_decode(p, cfg: ModelConfig, x, x_cm_prev, tp=None):
 def rwkv6_decode(p, cfg: ModelConfig, x, state, tp=None):
     """Single-token time mix.  state = {"S": (B,H,hd,hd) f32, "x_tm":
     (B,D)}.  Returns (y (B,1,D), the new state).  On a model axis ``tp``,
-    as :func:`rwkv6_fwd`: the state of this rank's heads, and y the
-    partial sum of its ``w_o`` rows."""
+    as :func:`rwkv6_fwd`: the state of the heads this rank meets, and y
+    the partial sum of its ``w_o`` rows."""
     B = x.shape[0]
     hd = cfg.rwkv_head_dim
-    H = _rwkv_heads(p, cfg)
+    sh = _rwkv_span(cfg, tp)
+    H = sh.nh
     xt = x[:, 0]
     mix = p["mix"].to(x.dtype)
     xr, xk, xv, xg, xw = _mixed(xt, state["x_tm"], mix, tp,
-                                [H * hd < cfg.d_model] * 5)
-    r = (xr @ p["w_r"]).reshape(B, H, hd).float()
-    k = (xk @ p["w_k"]).reshape(B, H, hd).float()
-    v = (xv @ p["w_v"]).reshape(B, H, hd).float()
+                                [sh.cols < cfg.d_model] * 5)
+    r, k, v, w = _rwkv_met(p, (xr, xk, xv, xw), sh, hd, tp)
+    r, k, v = (t.reshape(B, H, hd).float() for t in (r, k, v))
     g = xg @ p["w_g"]
-    w = torch.exp(-torch.exp(torch.clamp((xw @ p["w_w"]).float(), -8, 0.5)))
-    w = w.reshape(B, H, hd)
+    w = _decay(w).reshape(B, H, hd)
     S = state["S"]
     o = torch.einsum("bhd,bhde->bhe", r, S) + torch.einsum(
-        "bhd,bhd->bh", r, _rwkv_u(p, H, tp)[None] * k)[..., None] * v
+        "bhd,bhd->bh", r, _rwkv_u(p, sh, tp)[None] * k)[..., None] * v
     S = w[..., None] * S + k[..., None] * v[:, :, None, :]
-    o = (o.reshape(B, H * hd) * F.silu(g.float())).to(x.dtype)
-    y = (o @ p["w_o"])[:, None]
+    y = _rwkv_out(p, o.reshape(B, H * hd), g, sh, x.dtype)[:, None]
     return y, dict(state, S=S, x_tm=xt)

@@ -46,14 +46,21 @@ computed on every rank.  Where ``wq`` is not cut by columns every rank
 computes every head (:func:`rank_heads`); where the axis does not divide
 the experts, every rank runs every expert (the reference's dense block,
 no drops); a whole RG-LRU or RWKV-6 runs on every channel or head
-(:func:`rank_count`).
+(:func:`rank_count`, :func:`rwkv_heads`).
 
-:func:`tp_check` refuses the three cuts the port does not compute, each
-a leaf cut inside the unit its consumer reads whole: an expert's
+Three fallbacks cut a leaf inside the unit its consumer reads whole, and
+each is computed from the leaf's shard as it lands.  An expert's
 ``w_in``/``w_gate`` by its features (the axis divides those but not the
-experts), RWKV-6's columns inside a head (it divides ``d_model`` but not
-the heads) and an untied head by rows (it divides ``d_model`` but not the
-vocabulary).
+experts): every rank computes its feature columns of every expert's
+hidden, gathers them whole (``layers._moe_experts``) and multiplies by
+its columns of ``w_out``, or, where ``w_out`` stays whole, by its rows
+of it, a partial sum.  RWKV-6's time-mix columns inside a head (the axis
+divides ``d_model`` but not the heads): :func:`rwkv_heads` gives a rank
+the heads its columns meet, which it computes whole from the gathered
+columns, keeping its own columns of the output.  An untied head by rows
+(the axis divides ``d_model`` but not the vocabulary): the rank's slice
+of the hidden states times its rows gives partial logits, summed over
+the axis.
 """
 from __future__ import annotations
 
@@ -62,14 +69,9 @@ from typing import NamedTuple
 
 from .config import ModelConfig
 
-__all__ = ["NOT_PORTED_TP_ARCH", "RUN_DIM",
-           "param_model_dims", "RankHeads", "rank_heads", "rank_count",
-           "layer_model_dims", "cut_shard", "tp_check", "dp_axes",
-           "batch_pspec"]
-
-NOT_PORTED_TP_ARCH = ("ROADMAP.md, Queue 1 item 5: the cuts inside an "
-                      "expert, an RWKV-6 head or an untied head's rows "
-                      "where the model axis does not divide a count")
+__all__ = ["RUN_DIM", "param_model_dims", "RankHeads", "rank_heads",
+           "RwkvHeads", "rwkv_heads", "rank_count", "layer_model_dims",
+           "cut_shard", "dp_axes", "batch_pspec"]
 
 RUN_DIM = -2      # the reference splits the run's layers over the axis
 
@@ -222,42 +224,38 @@ def rank_heads(cfg: ModelConfig, model: int = 1, m: int = 0) -> RankHeads:
 
 
 def rank_count(n: int, model: int) -> int:
-    """A rank's share of ``n`` units (the RG-LRU's channels, RWKV-6's
-    heads) that the axis cuts where it divides them: ``n / M``, else
-    ``n``, their leaves whole and every unit computed on every rank."""
+    """A rank's share of the RG-LRU's ``n`` channels, which the axis cuts
+    where it divides them: ``n / M``, else ``n``, their leaves whole and
+    every channel computed on every rank."""
     return n if n % model else n // model
 
 
-def tp_check(cfg: ModelConfig, model_size: int) -> None:
-    """Raise NotImplementedError where the port cannot serve or train
-    ``cfg`` on a model axis of ``model_size`` ranks: where the
-    reference's fallback cuts a leaf inside the unit that its consumer
-    reads whole.  That is an expert's ``w_in``/``w_gate`` by their
-    features (M divides ``d_ff_expert`` but not the experts), RWKV-6's
-    time-mix columns inside a head (M divides ``d_model`` but not ``d_model
-    // rwkv_head_dim``) and an untied ``lm_head`` by rows (M divides
-    ``d_model`` but not the vocabulary).  Every other count passes: a leaf
-    the axis cuts by its rule, moved to its other matmul dim, or
-    replicated."""
-    if model_size <= 1:
-        return
-    M, bad = model_size, []
-    if cfg.moe is not None and cfg.moe.n_experts % M \
-            and cfg.moe.d_ff_expert % M == 0:
-        bad.append(f"{cfg.moe.n_experts} experts (their "
-                   f"{cfg.moe.d_ff_expert} features cut inside each)")
-    if "rwkv6" in cfg.pattern and cfg.d_model % M == 0 \
-            and (cfg.d_model // cfg.rwkv_head_dim) % M:
-        bad.append(f"{cfg.d_model // cfg.rwkv_head_dim} heads (their "
-                   f"{cfg.d_model} columns cut inside a head)")
-    if not cfg.tie_embeddings and cfg.vocab % M and cfg.d_model % M == 0:
-        bad.append(f"{cfg.vocab} vocabulary rows (an untied head cut by "
-                   f"its {cfg.d_model} rows)")
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {M} does not divide its "
-            f"{', '.join(bad)}; the port computes the reference's "
-            f"fallbacks but these cuts ({NOT_PORTED_TP_ARCH})")
+class RwkvHeads(NamedTuple):
+    """Rank ``m``'s share of RWKV-6's time mix on a model axis: its
+    ``cols`` columns of ``w_r``, ``w_k``, ``w_v``, ``w_g``, ``w_w`` (and
+    rows of ``w_o``), from ``off`` inside head ``h0``, meet the heads
+    ``h0 .. h0 + nh - 1``."""
+    h0: int
+    nh: int
+    off: int
+    cols: int
+
+
+@functools.lru_cache(maxsize=None)
+def rwkv_heads(cfg: ModelConfig, model: int = 1, m: int = 0) -> RwkvHeads:
+    """Rank ``m``'s :class:`RwkvHeads` on a model axis of ``model``, whose
+    cut of the time mix is the columns ``[m D/M, (m+1) D/M)``.  Where M
+    divides the heads: ``H/M`` heads from ``m H/M``, no offset; where it
+    divides ``d_model`` but not the heads, the heads its columns meet (a
+    head that spans two ranks is met by both); where it does not divide
+    ``d_model``, the leaves are whole and every rank has every head."""
+    D, hd = cfg.d_model, cfg.rwkv_head_dim
+    if D % model:
+        return RwkvHeads(0, D // hd, 0, D)
+    c = D // model
+    lo, hi = m * c, (m + 1) * c
+    h0 = lo // hd
+    return RwkvHeads(h0, (hi - 1) // hd + 1 - h0, lo - h0 * hd, c)
 
 
 def dp_axes(pods: int) -> tuple[str, ...]:

@@ -46,7 +46,8 @@ cache's sequence dim is split over the axis where M divides it (the
 reference's sequence-parallel decode).  The
 RG-LRU runs on the rank's R/M channels, its state and conv inputs in the
 cache on them, and returns the whole output.  RWKV-6 runs its
-time mix on the rank's heads (their WKV state in the cache) and its
+time mix on the heads the rank's columns meet (their WKV state in the
+cache; ``sharding.rwkv_heads``) and its
 channel mix with the gate gathered over the axis; its carried rows
 ``x_tm``/``x_cm`` are whole on every rank.  The enc-dec encoder runs its
 layers under the attention stack's rules, its output whole on every
@@ -77,7 +78,10 @@ columns give its logits, and the max over the axis (detached), one sum
 of the exponentials and of the gold logit from the rank that owns the
 label's column give the loss; the (B, S, V) logits are never gathered.
 A replicated head takes the plain cross-entropy on every rank, and its
-hidden states no ``copy_to``.
+hidden states no ``copy_to``; an untied head cut by its rows (the axis
+divides ``d_model`` but not the vocabulary) sums the ranks' partial
+logits over the axis, whole logits then the plain cross-entropy, its
+hidden states through ``copy_to``.
 
 Where the reference's fallback moves a sublayer's leaves to their other
 matmul dim or replicates them (``layers.cuts`` reads it from their
@@ -102,9 +106,9 @@ from ..kernels.backend import resolve_device
 from . import layers as L
 from .config import ModelConfig
 from .sharding import (cut_shard, layer_model_dims, param_model_dims,
-                       rank_count, rank_heads, tp_check)
+                       rank_count, rank_heads, rwkv_heads)
 
-__all__ = ["port_check", "train_check", "init_model", "embed_inputs",
+__all__ = ["port_check", "init_model", "embed_inputs",
            "encoder_fwd", "trunk_fwd", "model_fwd", "loss_fn", "init_cache",
            "prefill", "decode_step", "paged_arch_check", "init_paged_pools",
            "scatter_prefill_cache", "decode_step_paged"]
@@ -119,13 +123,6 @@ def port_check(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(f"{cfg.name}: block kinds {missing} are "
                                   f"not ported")
-
-
-def train_check(cfg: ModelConfig, model: int = 1) -> None:
-    """``port_check``, and on a model axis of ``model`` > 1 ranks
-    ``sharding.tp_check``: training runs wherever serving does."""
-    port_check(cfg)
-    tp_check(cfg, model)
 
 
 # ---------------------------------------------------------------------- #
@@ -160,7 +157,6 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     the ``meta`` device (the dry run) the leaves have their shapes and
     dtypes and nothing is drawn."""
     port_check(cfg)
-    tp_check(cfg, model)
     dev = resolve_device(device)
     gen = L.MetaDraws() if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(seed)
@@ -244,10 +240,34 @@ def _head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _head_rows(params, cfg: ModelConfig, tp):
+    """``tp`` where it cuts an untied head by its rows (the reference's
+    fallback where the axis divides ``d_model`` but not the vocabulary),
+    else None."""
+    if tp is None or cfg.tie_embeddings \
+            or params["lm_head"].shape[0] == cfg.d_model:
+        return None
+    return tp
+
+
+def _row_logits(x, head, tp):
+    """Whole (…, V) f32 logits of ``x`` from this rank's rows of the head:
+    the rank's slice of ``x`` times them, partial logits in f32, summed
+    over the axis ``tp`` (``reduce_from``: the gradient passes through to
+    each rank's part)."""
+    n = head.shape[0]
+    part = x[..., tp.index * n:(tp.index + 1) * n] @ head.to(x.dtype)
+    return tp.reduce_from(part.float())
+
+
 def _logits(params, cfg: ModelConfig, x, tp=None) -> torch.Tensor:
     """(…, V) f32 logits of hidden states ``x``; on a model axis that
     splits the vocabulary this rank's columns, all-gathered in rank order
-    (a replicated head gives them whole)."""
+    (a replicated head gives them whole, a head cut by rows the sum of
+    the ranks' partial logits)."""
+    rows = _head_rows(params, cfg, tp)
+    if rows is not None:
+        return _row_logits(x, params["lm_head"], rows)
     tp = _vocab_axis(cfg, tp)
     logits = (x @ _head(params, cfg).to(x.dtype)).float()
     return logits if tp is None else tp.all_gather(logits, dim=-1)
@@ -365,8 +385,6 @@ def trunk_fwd(params, cfg: ModelConfig, inputs: dict,
     shard of the work, every rank's hidden states equal; a gradient flows
     through the axis's collectives."""
     port_check(cfg)
-    if tp is not None:
-        tp_check(cfg, tp.size)
     enc_out = None
     if cfg.enc_dec:
         enc_out = _copy(tp, encoder_fwd(params, cfg, inputs["src_embeds"],
@@ -386,13 +404,17 @@ def model_fwd(params, cfg: ModelConfig, inputs: dict,
     return _logits(params, cfg, trunk_fwd(params, cfg, inputs, tp), tp)
 
 
-def _ce_chunk(x, labels, head, tp=None):
+def _ce_chunk(x, labels, head, tp=None, rows=None):
     """Cross-entropy partial sums (nll, count) for one sequence chunk.  On
-    a model axis ``head`` holds this rank's vocabulary columns: the max
-    over the axis (detached: the log-sum-exp does not depend on it), then
-    one sum over the axis of each row's exponentials and of its gold
-    logit, which only the rank owning the label's column contributes."""
-    logits = (x @ head.to(x.dtype)).float()
+    a model axis ``tp`` ``head`` holds this rank's vocabulary columns: the
+    max over the axis (detached: the log-sum-exp does not depend on it),
+    then one sum over the axis of each row's exponentials and of its gold
+    logit, which only the rank owning the label's column contributes.  On
+    a model axis ``rows`` that cuts ``head`` by rows the whole logits are
+    the sum of the ranks' partial logits (:func:`_row_logits`), and the
+    cross-entropy is the plain one."""
+    logits = _row_logits(x, head, rows) if rows is not None \
+        else (x @ head.to(x.dtype)).float()
     mask = (labels >= 0).float()
     if tp is None:
         lse = torch.logsumexp(logits, -1)
@@ -418,27 +440,31 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, ce_chunk: int = 512,
     each rematted, so the (B, S, V) logits are never held whole.  On a
     model axis ``tp`` (``params`` this rank's shard), the vocab-parallel
     cross-entropy of :func:`_ce_chunk` where the axis splits the
-    vocabulary, else the plain one on every rank, whose hidden states then
-    skip ``copy_to``: each rank's gradient of them is whole, and a sum
-    would count it M times; every rank returns the same loss.  A
+    vocabulary, else the plain one on every rank: of the summed partial
+    logits where it cuts an untied head by rows (the hidden states enter
+    through ``copy_to``: each rank's gradient of them holds its slice),
+    else of a replicated head, whose hidden states skip ``copy_to`` (each
+    rank's gradient of them is whole, and a sum would count it M times);
+    every rank returns the same loss.  A
     frontend's ``embeds`` prefix positions are dropped before the loss,
     which runs over the token positions only (the reference's
     :173-174)."""
     x = trunk_fwd(params, cfg, batch, tp)
     if "embeds" in batch:
         x = x[:, batch["embeds"].shape[1]:]
+    rows = _head_rows(params, cfg, tp)
     tp = _vocab_axis(cfg, tp)
-    x = _copy(tp, x)
+    x = _copy(rows if rows is not None else tp, x)
     labels = batch["labels"]
     head = _head(params, cfg)
     S = x.shape[1]
     if S % ce_chunk or S <= ce_chunk:
-        nll, cnt = _ce_chunk(x, labels, head, tp)
+        nll, cnt = _ce_chunk(x, labels, head, tp, rows)
         return nll / torch.clamp_min(cnt, 1.0)
     nll = cnt = 0.0
     for s0 in range(0, S, ce_chunk):
         dn, dc = _remat(_ce_chunk, x[:, s0:s0 + ce_chunk],
-                        labels[:, s0:s0 + ce_chunk], head, tp)
+                        labels[:, s0:s0 + ce_chunk], head, tp, rows)
         nll, cnt = nll + dn, cnt + dc
     return nll / torch.clamp_min(cnt, 1.0)
 
@@ -469,23 +495,23 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, src_len: int = 0, *,
     Hkv, hd) where M divides S_c, else (n, B, S_c, h, hd) with h the KV
     heads that the rank's query heads read (``sharding.rank_heads``: Hkv/M
     where M divides the heads, else one or more, which ranks may share);
-    the cross entry (n, B, src_len, h, hd), RWKV-6's state
-    (n, B, H/M, hd, hd), and the RG-LRU's h and conv of R/M channels."""
+    the cross entry (n, B, src_len, h, hd), RWKV-6's state (n, B, h, hd,
+    hd) of the heads that the rank's columns meet (``sharding.rwkv_heads``:
+    H/M where M divides them, else one or more, which ranks may share), and
+    the RG-LRU's h and conv of R/M channels."""
     port_check(cfg)
-    if tp is not None:
-        tp_check(cfg, tp.size)
     dev = resolve_device(device)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     M = 1 if tp is None else tp.size
     R = rank_count(cfg.d_rnn or cfg.d_model, M)
     h_kv = L.heads(cfg, tp).nkv
+    n_rwkv = rwkv_heads(cfg, M, 0 if tp is None else tp.index).nh
     cache = []
     for kind, n in cfg.runs():
         if kind == "rwkv6":
             hd = cfg.rwkv_head_dim
             cache.append({
-                "S": torch.zeros((n, B, rank_count(cfg.d_model // hd, M),
-                                  hd, hd),
+                "S": torch.zeros((n, B, n_rwkv, hd, hd),
                                  dtype=torch.float32, device=dev),
                 "x_tm": torch.zeros((n, B, cfg.d_model), **bf16),
                 "x_cm": torch.zeros((n, B, cfg.d_model), **bf16)})
@@ -581,8 +607,6 @@ def prefill(params, cfg: ModelConfig, inputs: dict, s_max: int, *,
     On a model axis ``tp`` the cache is in :func:`init_cache`'s layout;
     ``seq_shard`` False keeps every run's entry on this rank's KV heads
     (the paged pools' split)."""
-    if tp is not None:
-        tp_check(cfg, tp.size)
     enc_out = None
     if cfg.enc_dec:
         enc_out = encoder_fwd(params, cfg, inputs["src_embeds"], tp)
@@ -706,8 +730,6 @@ def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int, *,
     splits, since any request's blocks live anywhere in the pool."""
     paged_arch_check(cfg)
     dev = resolve_device(device)
-    if tp is not None:
-        tp_check(cfg, tp.size)
     Hkv = L.heads(cfg, tp).nkv
     shape = (n_blocks, block_size, Hkv, cfg.head_dim)
     return [{"k": torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev),

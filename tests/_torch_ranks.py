@@ -332,19 +332,20 @@ def grid_state(rank, params, ckpt_dir, cases, xs):
 # A model axis: tensor parallelism, the sequence-parallel decode, EP
 # ---------------------------------------------------------------------- #
 
-def _from_full(t, like, tp, first=None):
+def _from_full(t, like, tp, first=None, at=3):
     """This rank's part of an unsharded cache or pool leaf ``t`` (numpy)
     in the layout of ``like``: cut along the one dim where they differ
     (the sequence where ``like`` holds every KV head, else the KV heads,
     from ``first`` where given: the first KV head that the rank's query
-    heads read; RWKV-6's heads, the RG-LRU's channels), or whole (RWKV-6's
-    carried rows), as chip_smoke.py's ``tp_cut``."""
+    heads read, or with ``at`` 2 the first RWKV-6 head that its columns
+    meet; the RG-LRU's channels), or whole (RWKV-6's carried rows), as
+    chip_smoke.py's ``tp_cut``."""
     t = torch.from_numpy(np.array(t)).to(like.dtype)
     dims = [d for d in range(t.dim()) if t.shape[d] != like.shape[d]]
     if not dims:
         return t
     n = like.shape[dims[0]]
-    start = tp.index * n if first is None or dims[0] != 3 else first
+    start = tp.index * n if first is None or dims[0] != at else first
     return t.narrow(dims[0], start, n).contiguous()
 
 
@@ -352,11 +353,14 @@ def _cut_state(ins, key, i, state, cfg, tp):
     """This rank's part of ``ins[key][i]``, the unsharded run's cache or
     pools before step ``i``, in the layout of ``state``."""
     from repro_torch.models import layers as L
+    from repro_torch.models.sharding import rwkv_heads
 
     first = L.heads(cfg, tp).kv0
-    return [{k: _from_full(ins[key][i][r][k], v, tp,
-                           first if k in ("k", "v", "xk", "xv") else None)
-             for k, v in ent.items()} for r, ent in enumerate(state)]
+    h0 = rwkv_heads(cfg, tp.size, tp.index).h0
+    cut = lambda k, v, t: _from_full(t, v, tp, h0, 2) if k == "S" else \
+        _from_full(t, v, tp, first if k in ("k", "v", "xk", "xv") else None)
+    return [{k: cut(k, v, ins[key][i][r][k]) for k, v in ent.items()}
+            for r, ent in enumerate(state)]
 
 
 def model_paths(params, cfg, ins, tp=None):

@@ -229,47 +229,12 @@ def test_analysis_cli_exits_zero():
     assert res.returncode == 2 and "nothing to do" in res.stderr
 
 
-# Every pointer of the port into ROADMAP.md's Queue 1: (file, item, a
-# phrase that names the subject in both the pointer and the item)
-POINTERS = [
-    ("models/sharding.py", 5, "model axis does not divide"),
-]
-
-
-def _queue1_items() -> dict:
-    """ROADMAP.md's Queue 1, item number -> its text."""
-    text = (REPO / "ROADMAP.md").read_text()
-    q1 = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
-    items, cur = {}, None
-    for line in q1.splitlines():
-        head = line.split(". ", 1)[0]
-        if head.isdigit() and not line.startswith(" "):
-            cur = int(head)
-            items[cur] = ""
-        if cur is not None:
-            items[cur] += line + "\n"
-    return items
-
-
-@pytest.mark.parametrize("path,item,subject", POINTERS,
-                         ids=lambda p: str(p))
-def test_not_ported_pointer_names_the_roadmap_item_of_its_subject(
-        path, item, subject):
-    """Each ROADMAP pointer in the port names the Queue 1 item whose text
-    is about the same subject, so a renumbering cannot leave it stale."""
-    src = (PORT_ROOT / path).read_text()
-    mentions = [m for m in src.split("Queue 1 item ")[1:]
-                if int(m.split()[0].rstrip(":).,")) == item]
-    assert mentions, f"{path} names no Queue 1 item {item}"
-    assert subject.lower() in src.lower()
-    assert subject.lower() in _queue1_items()[item].lower(), \
-        f"ROADMAP Queue 1 item {item} does not mention {subject!r}"
-
-
 def test_every_roadmap_pointer_of_the_port_is_checked():
+    """The port points into ROADMAP.md's Queue 1 nowhere: the last item
+    it pointed to (the cuts inside a unit on a model axis) is ported."""
     found = set()
     for path in PORT_ROOT.rglob("*.py"):
         for m in path.read_text().split("Queue 1 item ")[1:]:
             found.add((str(path.relative_to(PORT_ROOT)),
                        int(m.split()[0].rstrip(":).,"))))
-    assert found == {(p, n) for p, n, _ in POINTERS}
+    assert found == set()

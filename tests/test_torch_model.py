@@ -291,41 +291,37 @@ def test_serve_olmoe_smoke_matches_jax_executor(monkeypatch):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_training_new_archs_raises_naming_roadmap(arch):
     """Trained on one rank: the loss, its gradient and the full forward
-    run.  On a model axis ``train_check`` passes what ``sharding.tp_check``
-    admits (the smoke config's one KV head split over 2 ranks, 8 heads on
-    4 KV heads, the RG-LRU's channels; ``tests/test_torch_tp_rglru.py``,
+    run.  Training runs on a model axis of every size (the smoke
+    config's one KV head split over 2 ranks, 8 heads on 4 KV heads, the
+    RG-LRU's channels; ``tests/test_torch_tp_rglru.py``,
     ``tests/test_torch_tp_train_moe.py`` and
-    ``tests/test_torch_tp_families.py`` train them there) and refuses,
-    naming ROADMAP's item 5, what it still refuses: an untied head cut by
-    rows (a 510-row vocabulary at M 4, which divides the 64 rows), the
-    forward there, and an expert cut inside (the MoE's 4 experts of 32
-    features at M 8).  A model axis of 3, which divides neither the 64
+    ``tests/test_torch_tp_families.py`` train them there), the cuts inside
+    a unit too: an untied head cut by rows (a 510-row vocabulary at M 4,
+    which divides the 64 rows) and an expert cut inside (the MoE's 4
+    experts of 32 features at M 8; ``tests/test_torch_tp_inside.py``
+    trains both cuts), whose ``loss_fn`` runs on a rank's shard over a
+    stand-in axis (a ``DryAxis``: the collectives keep their shapes and
+    move no data).  A model axis of 3, which divides neither the 64
     query columns nor the MLP's features, passes: the reference's
     fallbacks replicate those leaves (``tests/test_torch_tp_fallback.py``
     computes them)."""
-    from types import SimpleNamespace
-
+    from repro_torch.launch.mesh import DryAxis
     from repro_torch.launch.step import loss_and_grads
 
     cfg = configs.get_config(arch, smoke=True)
-    T.train_check(cfg)
-    heads = dataclasses.replace(cfg, n_heads=8, n_kv_heads=4)
+    T.port_check(cfg)
     params = T.init_model(cfg, device="cpu")
     _, batch = _inputs(cfg, 1, 8)
     batch["labels"] = batch["tokens"]
-    T.train_check(heads, 2)
-    T.train_check(cfg, 2)
-    T.train_check(cfg, 3)
     untied = dataclasses.replace(cfg, tie_embeddings=False, vocab=510)
-    with pytest.raises(NotImplementedError,
-                       match="510 vocabulary rows.*ROADMAP.*item 5"):
-        T.train_check(untied, 4)
-    if cfg.moe is not None:
-        with pytest.raises(NotImplementedError,
-                           match="4 experts.*ROADMAP.*item 5"):
-            T.train_check(cfg, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        T.loss_fn(params, untied, batch, tp=SimpleNamespace(size=4))
+    heads = dataclasses.replace(cfg, n_heads=8, n_kv_heads=4)
+    cases = [(heads, 2), (cfg, 2), (cfg, 3), (untied, 4)] + \
+        [(cfg, 8)] * (cfg.moe is not None)
+    for c, model in cases:
+        shard = T.init_model(c, device="cpu", model=model, m=1)
+        loss = T.loss_fn(shard, c, batch, tp=DryAxis(
+            "model", list(range(model)), 1))
+        assert loss.shape == () and loss.dtype == torch.float32
     loss, grads = loss_and_grads(params, cfg, batch)
     assert torch.isfinite(loss)
     assert all(torch.isfinite(g.float()).all() for g in tree_leaves(grads))

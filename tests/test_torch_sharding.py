@@ -1,8 +1,9 @@
 """The model axis's placement in the port against ``repro.models.sharding``
 and ``repro.launch.mesh``: which dim of each parameter a model axis shards
 (exactly the reference's ``param_pspecs``, all 11 configs at their full
-shapes), the cut and its inverse, the sharded init, the refusals, and the
-rank grid's groups (the model group innermost, never across a pod).
+shapes), the cut and its inverse, the sharded init, the cuts inside a
+unit, and the rank grid's groups (the model group innermost, never across
+a pod).
 """
 import dataclasses
 import functools
@@ -23,9 +24,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import (shard_params, stack_runs,
                                         unshard_params)
+from repro_torch.launch.mesh import DryAxis
 from repro_torch.models.sharding import (RUN_DIM, batch_pspec, dp_axes,
                                          param_model_dims, rank_heads,
-                                         tp_check)
+                                         rwkv_heads)
 from repro_torch.tree import tree_leaves
 
 ARCHS = jconfigs.list_archs()
@@ -131,6 +133,18 @@ def test_sharded_init_is_the_shard_of_the_full_init(name, model):
             assert torch.equal(a, b)
 
 
+# the leaves (of the first layer; top-level ones by name) that each cut
+# inside a unit, and their dim in the per-layer tree
+INSIDE_DIMS = {
+    "rwkv6_1p6b": {"rwkv/w_r": 1, "rwkv/w_w": 1, "rwkv/w_o": 0,
+                   "rwkv/u": -1},
+    "llama4_scout_17b_a16e": {"mlp/w_in": 2, "mlp/w_gate": 2,
+                              "mlp/w_out": 2, "mlp/router": -1},
+    "tinyllama_1p1b": {"lm_head": 0, "embed": -1},
+    "olmoe_1b_7b": {"mlp/w_in": 2, "mlp/w_gate": 2, "mlp/w_out": 2},
+}
+
+
 @pytest.mark.parametrize("arch,model,match", [
     ("rwkv6_1p6b", 64, "32 heads"),
     ("llama4_scout_17b_a16e", 32, "16 experts"),
@@ -138,15 +152,37 @@ def test_sharded_init_is_the_shard_of_the_full_init(name, model):
     ("olmoe_1b_7b", 128, "64 experts"),
 ])
 def test_model_axis_refusals_name_roadmap_item_5(arch, model, match):
-    """What a model axis still refuses, naming ROADMAP's item 5: the
-    reference's fallbacks that cut a leaf inside the unit its consumer
-    reads whole: RWKV-6's 2048 columns inside its 32 heads at M 64, an
-    expert's features where M does not divide the experts (llama4-scout's
-    16 at M 32, olmoe's 64 at M 128), an untied head by rows where M does
-    not divide the vocabulary (tinyllama's 32,000 rows at M 512)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5") as e:
-        tp_check(configs.get_config(arch), model)
-    assert match in str(e.value)
+    """The cuts inside a unit, once refused, are admitted and placed as
+    the reference places them: RWKV-6's 2048 columns inside its 32 heads
+    at M 64 (32 columns a rank, each head met by two ranks, from offset 0
+    and 32), an expert's features where M does not divide the experts
+    (llama4-scout's 16 at M 32, olmoe's 64 at M 128: ``w_in``/``w_gate``
+    by features, ``w_out`` by the columns of its output), an untied head
+    by rows where M does not divide the vocabulary (tinyllama's 32,000
+    rows at M 512, its 2048 rows cut, the embedding whole); the sharded
+    init builds every leaf at its shard's shape."""
+    cfg, _, ours = _shapes(arch)
+    dims = param_model_dims(ours, model, cfg)
+    for path, want in INSIDE_DIMS[arch].items():
+        d = dims
+        for k in (path.split("/") if "/" in path else [path]):
+            d = d[0][k] if isinstance(d, list) else d[k] if k in d \
+                else d["layers"][0][k]
+        assert d == want, path
+    if arch == "rwkv6_1p6b":
+        D, hd = cfg.d_model, cfg.rwkv_head_dim
+        spans = [rwkv_heads(cfg, model, m) for m in range(model)]
+        assert all(s.cols == D // model and s.nh == 1 for s in spans)
+        assert [(s.h0, s.off) for s in spans] == [
+            (m // 2, (m % 2) * hd // 2) for m in range(model)]
+    with FakeTensorMode():
+        got = T.init_model(cfg, device="cpu", model=model, m=model - 1)
+    for t, d, full in zip(tree_leaves(got), tree_leaves(dims),
+                          tree_leaves(ours)):
+        want = list(full.shape)
+        if d >= 0:
+            want[d] //= model
+        assert list(t.shape) == want
 
 
 # (arch, smoke config?, model-axis size): a rank's query heads inside one
@@ -171,7 +207,7 @@ ADMITTED = [("recurrentgemma_2b", False, 3), ("tinyllama_1p1b", False, 3),
                               for a, s, m in ADMITTED])
 def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
                                                           model):
-    """``tp_check`` admits the config, and each rank's share
+    """Each rank's share
     (``sharding.rank_heads``, which ``layers.heads`` gives the rank of a
     model axis) holds its cut of ``wq``, from
     ``off`` inside its first query head, and the KV heads those heads
@@ -182,7 +218,6 @@ def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
     A vocabulary that M does not divide leaves the embedding
     replicated."""
     cfg = configs.get_config(arch, smoke=smoke)
-    tp_check(cfg, model)
     H, hd, G = cfg.n_heads, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
     c = cfg.q_dim // model
     for m in range(model):
@@ -208,35 +243,58 @@ def test_model_axis_admits_the_kv_head_split_and_the_rglru(arch, smoke,
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_every_config_is_admitted_at_every_model_axis_below_32(arch):
-    """``tp_check`` admits each full config at every M from 2 to 31 (the
-    reference's fallbacks computed), and ``rank_heads`` gives every head
-    on every rank exactly where M does not divide ``wq``'s columns."""
-    cfg = configs.get_config(arch)
-    for model in range(2, 32):
-        tp_check(cfg, model)
+    """Each full config is placed at every M from 2 to 64 and at 128, 256
+    and 512, the reference's fallbacks and the cuts inside a unit
+    included: every leaf's dim divides by M (or the leaf is whole), and
+    ``rank_heads`` gives every head on every rank exactly where M does not
+    divide ``wq``'s columns; RWKV-6's ranks' columns cover ``d_model``
+    once, each inside the heads it meets."""
+    cfg, _, ours = _shapes(arch)
+    for model in list(range(2, 65)) + [128, 256, 512]:
+        dims = param_model_dims(ours, model, cfg)
+        for t, d in zip(tree_leaves(ours), tree_leaves(dims)):
+            assert d == -1 or d == RUN_DIM or t.shape[d] % model == 0, model
         assert (rank_heads(cfg, model, model - 1) == rank_heads(cfg)) == \
             (cfg.q_dim % model != 0), model
+        if "rwkv6" in cfg.pattern:
+            hd, cols = cfg.rwkv_head_dim, []
+            for m in range(model):
+                sh = rwkv_heads(cfg, model, m)
+                assert sh.off + sh.cols <= sh.nh * hd and sh.off < hd
+                cols += range(sh.h0 * hd + sh.off,
+                              sh.h0 * hd + sh.off + sh.cols)
+            assert cols == list(range(cfg.d_model)) * (
+                1 if cfg.d_model % model == 0 else model)
 
 
 def test_a_gradient_through_the_model_axis_is_refused():
-    """Training on a model axis is ported for the attention stacks, with
-    an MLP or a MoE (``tests/test_torch_tp_train.py``,
-    ``tests/test_torch_tp_train_moe.py``), RWKV-6 and enc-dec
-    (``tests/test_torch_tp_families.py``), the RG-LRU and the KV-head
-    split (``tests/test_torch_tp_rglru.py``), and the reference's
-    fallback placements (``tests/test_torch_tp_fallback.py``); the
-    forward with a model axis still refuses the cuts inside a unit
-    (RWKV-6's smoke config, 4 heads of 16 columns, at M 8; olmoe's 4
-    experts of 32 features at M 8; tinyllama's untied head over 510 rows
-    at M 4, its 64 rows cut), naming the item that lists them."""
+    """Training on a model axis is ported for every family and every cut
+    (``tests/test_torch_tp_train.py``, ``tests/test_torch_tp_train_moe.py``,
+    ``tests/test_torch_tp_families.py``, ``tests/test_torch_tp_rglru.py``,
+    ``tests/test_torch_tp_fallback.py``, ``tests/test_torch_tp_inside.py``);
+    the forward of the cuts inside a unit, once refused, runs on a
+    stand-in axis (a ``DryAxis``: its collectives keep their shapes and
+    move no data): RWKV-6's smoke config, 4 heads of 16 columns, at M 8;
+    olmoe's 4 experts of 32 features at M 8; tinyllama's untied head over
+    510 rows at M 4, its 64 rows cut; each a rank's hidden states of the
+    whole model's shape, with the collectives of the cut made."""
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
     for arch, kw, model in (("rwkv6_1p6b", {}, 8), ("olmoe_1b_7b", {}, 8),
                             ("tinyllama_1p1b", dict(vocab=510), 4)):
         cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **kw)
-        params = T.init_model(cfg, device="cpu")
-        tp = types.SimpleNamespace(size=model, index=0)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            T.trunk_fwd(params, cfg, toks, tp)
+        params = T.init_model(cfg, device="cpu", model=model, m=1)
+        tp = DryAxis("model", list(range(model)), 1)
+        x = T.trunk_fwd(params, cfg, toks, tp)
+        assert x.shape == (1, 4, cfg.d_model)
+        kinds = [r["kind"] for r in tp.records]
+        assert "all-gather" in kinds or arch == "tinyllama_1p1b"
+        if arch == "tinyllama_1p1b":
+            n = len(tp.records)
+            assert T.model_fwd(params, cfg, toks, tp).shape == \
+                (1, 4, cfg.vocab)
+            assert tp.records[-1]["kind"] == "all-reduce" and \
+                tp.records[-1]["bytes"] == 4 * cfg.vocab * 4
+            assert len(tp.records) == 2 * n + 1
 
 
 def test_parse_mesh_gives_the_model_axis_and_dp_names_are_the_reference():

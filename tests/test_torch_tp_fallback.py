@@ -68,7 +68,7 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.step import device_batch, loss_and_grads
 from repro_torch.models.convert import (from_numpy, model_dims,
                                         shard_params, unstack_runs)
-from repro_torch.models.sharding import rank_heads, tp_check
+from repro_torch.models.sharding import rank_heads
 from repro_torch.tree import tree_leaves, tree_paths
 
 TOL = 1e-5           # f32 logits, sharded against unsharded and reference
@@ -196,11 +196,9 @@ def _leaf(tree, path):
 @pytest.mark.parametrize("name", NAMES)
 def test_the_variant_has_the_full_configs_placements(name):
     """Each variant's leaves are cut on M 3 as the description says (the
-    reference's rule and fallbacks: ``param_pspecs``), ``tp_check``
-    admits it, and where ``wq`` is not cut by columns every rank has
-    every head."""
+    reference's rule and fallbacks: ``param_pspecs``), and where ``wq``
+    is not cut by columns every rank has every head."""
     cfg = _cfg(name)
-    tp_check(cfg, M)
     dims = model_dims(cfg, M)
     shapes = _weights(name)
     for path, want in CASES[name][2].items():

@@ -68,7 +68,7 @@ from repro_torch.launch.serve import serve
 from repro_torch.launch.step import device_batch, loss_and_grads
 from repro_torch.launch.train import train
 from repro_torch.models.convert import from_numpy, shard_params, unstack_runs
-from repro_torch.models.sharding import param_model_dims, rank_heads, tp_check
+from repro_torch.models.sharding import param_model_dims, rank_heads
 from repro_torch.tree import tree_leaves, tree_paths
 
 TOL = 1e-5           # f32 logits, sharded against unsharded and reference
@@ -432,14 +432,13 @@ def test_serve_on_1x1x4_gives_the_one_rank_tokens():
 
 @pytest.mark.parametrize("arch,model", ZOO, ids=[f"{a}-{m}" for a, m in ZOO])
 def test_zoo_is_admitted_and_the_heads_are_covered(arch, model):
-    """``tp_check`` admits the full config; the ranks' query heads cover
+    """The ranks' query heads cover
     every head in order, each rank's cut of ``wq`` lies inside its heads
     (from ``off`` into the first), its KV range is the KV heads those
     heads read, and ``kv_of`` maps each head to its KV head; the
     embedding is replicated exactly where M does not divide the
     vocabulary (then the head is tied)."""
     cfg = configs.get_config(arch)
-    tp_check(cfg, model)
     hd, c = cfg.head_dim, cfg.q_dim // model
     G = cfg.n_heads // cfg.n_kv_heads
     covered = set()

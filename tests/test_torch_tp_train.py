@@ -13,7 +13,7 @@ update is held to the reference's ``apply_updates`` under ``jax.vmap``
 over (pod, data, model) in ``tests/test_torch_sync_updates.py``.
 
 The smoke configs of tinyllama and qwen3 have 4 heads and one KV head,
-which no model axis divides (``sharding.tp_check``); their cases take 8
+which no model axis of 2 or 4 divides as whole heads; their cases take 8
 heads and 4 KV heads (GQA, G 2 on every rank at M 2 and 4), phi4-mini's
 2 KV heads.  Each grid runs once per module (a fixture): 2x2x2 (8 ranks;
 the first model group computes the gradient cases, then every rank trains
@@ -310,16 +310,32 @@ def test_one_pod_failure_on_a_model_axis_carries_on(arch, mesh):
      "32000 vocabulary rows"),
     ("rwkv6-1.6b", "1x1x8", {}, "Queue 1 item 5")])      # 4 heads
 def test_what_a_model_axis_still_refuses(arch, mesh, kw, item):
-    """Refused before any rank is spawned, naming ROADMAP's Queue 1 item
-    5: llama4-scout's experts cut inside on 32 ranks, tinyllama's untied
-    head cut by rows on 512, RWKV-6's 4 smoke heads cut inside on 8
-    (phi4-mini on 12 ranks and recurrentgemma on 3, refused before, are
-    the reference's fallbacks the port now computes:
-    ``tests/test_torch_tp_fallback.py``)."""
-    with pytest.raises(NotImplementedError, match=item) as e:
-        train(arch, 2, mesh_spec=mesh, seq=32, batch=2, device="cpu",
-              **{"smoke": True, **kw})
-    assert "Queue 1 item 5" in str(e.value)
+    """Once refused, now admitted: llama4-scout's experts cut inside on
+    32 ranks, tinyllama's untied head cut by rows on 512, RWKV-6's 4
+    smoke heads cut inside on 8 (``tests/test_torch_tp_inside.py``
+    trains each cut on 3 gloo ranks).  So many ranks are not spawned
+    here: ``port_check`` admits the config, and a training step of the
+    mesh builds every rank program on ``meta`` (``dryrun.dry_cell``; the
+    full configs cut to 2 layers), with one reduce-scatter in the
+    backward for each ``gather_to`` of a layer: q's, k's and v's, and the
+    experts' hidden for llama4-scout, q's for tinyllama (4 columns a
+    rank), the time mix's four for RWKV-6."""
+    from repro_torch.launch.dryrun import dry_cell
+    from repro_torch.launch.mesh import parse_mesh
+
+    cfg = configs.get_config(arch, **{"smoke": True, **kw})
+    if not kw.get("smoke", True):
+        cfg = dataclasses.replace(cfg, n_layers=2, pattern=cfg.pattern[:2])
+    pods, data, model = parse_mesh(mesh)
+    T.port_check(cfg)
+    rec = dry_cell(cfg, ShapeSpec("train", "train", 32, 2), pods, data,
+                   model)
+    assert sorted(m for p in rec["per_rank"].values()
+                  for m in p["members"]) == list(range(model))
+    gathers = {"llama4-scout-17b-a16e": 3, "tinyllama-1.1b": 1,
+               "rwkv6-1.6b": 1}[arch]
+    assert rec["collective_counts"]["reduce-scatter/fast"] == \
+        gathers * cfg.n_layers
 
 
 def _run(mesh, steps, ckpt_dir, **kw):

@@ -11,8 +11,8 @@ held to ``jax.value_and_grad(loss_fn)`` in ``test_torch_train.py``; here:
   the device, and the loss skips the frontend's prefix positions;
 * the MoE's remat routes the recomputed forward as the forward, both
   where the layer remats and where the token blocks do;
-* on a model axis the train step refuses what ``sharding.tp_check``
-  refuses, naming ROADMAP's item;
+* on a model axis of any size the train step builds, the cuts inside a
+  unit included;
 * ``apply_updates`` on each family's parameter tree fed identical f32
   gradients against the reference's, to 1e-6 x max|ref| per leaf (as
   ``test_apply_updates_matches_reference``); the update writes the state
@@ -189,21 +189,21 @@ def test_moe_token_blocks_remat(arch, monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_on_a_model_axis_raises(arch):
     """``make_train_step`` on a grid with a model axis builds every
-    family's step where ``sharding.tp_check`` admits it: at M 2 all five
+    family's step on a model axis of any size: at M 2 all five
     smoke configs (the RG-LRU, and the one KV head of llama4-scout's and
     pixtral's split over the axis; ``tests/test_torch_tp_rglru.py``,
     ``tests/test_torch_tp_train_moe.py`` and
     ``tests/test_torch_tp_families.py`` train them there), and at M 3,
     which divides neither their 64 query columns nor their features (the
-    reference's fallbacks: ``tests/test_torch_tp_fallback.py``).  An
-    untied head over 510 rows at M 4, cut by its 64 rows, it refuses
-    before it builds anything, naming ROADMAP's Queue 1 item 5."""
+    reference's fallbacks: ``tests/test_torch_tp_fallback.py``), and an
+    untied head over 510 rows at M 4, cut by its 64 rows
+    (``tests/test_torch_tp_inside.py`` trains that cut)."""
     cfg = _cfg(arch)
     build = lambda c, m: make_train_step(
         c, adamw.OptConfig(), Grid.shape_only(1, 1, m), device="cpu")
     assert callable(build(cfg, 2)) and callable(build(cfg, 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build(dataclasses.replace(cfg, tie_embeddings=False, vocab=510), 4)
+    assert callable(build(dataclasses.replace(
+        cfg, tie_embeddings=False, vocab=510), 4))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
