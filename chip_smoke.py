@@ -17,9 +17,10 @@ each phase checks and prints its part where it stands:
 2. the build of every kernel under src/repro_torch/kernels/csrc (one nvcc
    per source, all started together), timed as set-up, and the count of
    tensor-core instructions (HMMA/HGMMA) in the SASS of each bf16 flash
-   kernel (the forward and the two backward ones at every head dim
-   16-256), which must not be 0; the f32 kernels' counts are printed
-   beside them;
+   kernel (the forward and the two backward ones at every tile width,
+   ``KERNEL_HEAD_WIDTHS`` 16-256), which must not be 0; the f32 kernels'
+   counts are printed beside them, and every flash instantiation's
+   registers and spills (``flash_ptxas``);
 3. the flash forward kernel against its plain PyTorch version on the card,
    at the shapes of the models the port serves and trains (gemma3-12b's
    local layer at hd 256 among them, and the serving regimes of phases
@@ -397,6 +398,20 @@ each phase checks and prints its part where it stands:
    plain version at a rank of rwkv6-1.6b on M 64 (one head of 64, 2 x
    512).  Printed with the card's name and power limit, staged bytes,
    peak memory a rank, prefill and decode ms beside one rank's.
+35. Head dims other than 16, 32, 64, 128 and 256 (run right after 3-4):
+   the three flash kernels at hd 48, 80 and 96 (their widths' exact
+   instances) and 72, 100, 33 and 200 (padded instances: rows 16-, 8- and
+   2-byte aligned; 200 at width 224) (``WIDTH_SHAPES``: GQA, a window, an
+   offset, ragged lengths) in bf16 and f32 against their plain versions
+   and the bf16 mirrors, as 3-4 hold them;
+   ``layers.chunked_attention`` forward and backward through autograd at
+   phi-3-mini's shape (32 heads of 96, 1 x 2048, causal, bf16), its
+   launches counted from 0 (one of each kernel) and its o, dq, dk, dv held
+   to the plain versions; phi-3-mini's and phi-2's (32 of 80) shapes
+   timed as in 3-4, and 32 heads of 72 and of 100 (padded to 80 and 112),
+   with the share of the work that padding to the tile width adds.  ``python3
+   chip_smoke.py --phase-35`` builds the kernels, checks their SASS and
+   runs it alone.
 
 Phases 3, 4, 9 and 13 take their bounds from
 ``repro_torch.core.costmodel.kernel_roofline`` (the H100's datasheet
@@ -496,6 +511,35 @@ SHAPES = [
     # heads of 128 that every rank's 160 columns meet (one cut inside),
     # both in one KV head's group of 5
     ("llama4-scout M 32", 1, 512, 512, 2, 1, 128, True, None, 0,
+     "bfloat16"),
+]
+# phase 35: head dims other than 16, 32, 64, 128 and 256, each run at the
+# least width that holds it (``fa.kernel_width``): 48, 80 and 96 at their
+# own (the exact instances), 72, 100, 33 and 200 below one (the padded
+# instances; rows 16-, 8- and 2-byte aligned; 200 at width 224, the design
+# above 128); GQA, a window, an offset and ragged lengths among them;
+# (name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset), each in bf16
+# and f32
+WIDTH_SHAPES = [
+    ("hd 48", 1, 300, 300, 8, 8, 48, True, None, 0),
+    ("hd 72 G 4", 1, 300, 300, 8, 2, 72, True, None, 0),
+    ("hd 80 non-causal", 1, 300, 300, 8, 8, 80, False, None, 0),
+    ("hd 96 window offset", 1, 256, 512, 8, 2, 96, True, 100, 256),
+    ("hd 100 ragged window", 2, 333, 333, 8, 2, 100, True, 100, 0),
+    ("hd 33 offset", 1, 128, 384, 4, 1, 33, True, None, 256),
+    ("hd 200 G 10", 1, 300, 300, 10, 1, 200, True, 128, 0),
+]
+# and timed, with SDPA: phi-3-mini's attention (32 heads of 96,
+# hf:microsoft/Phi-3-mini-4k-instruct) and phi-2's (32 of 80), MHA,
+# 1 x 2048, causal, each at its own tile width; the first also through
+# layers.chunked_attention; and 32 heads of 72 and of 100 at that shape,
+# below their widths (80, 112: the kernels' padded instances; 100 % 8 != 0
+# stages rows an element at a time)
+WIDTH_TIMED = [
+    ("phi-3-mini", 1, 2048, 2048, 32, 32, 96, True, None, 0, "bfloat16"),
+    ("phi-2", 1, 2048, 2048, 32, 32, 80, True, None, 0, "bfloat16"),
+    ("hd 72 padded", 1, 2048, 2048, 32, 32, 72, True, None, 0, "bfloat16"),
+    ("hd 100 padded", 1, 2048, 2048, 32, 32, 100, True, None, 0,
      "bfloat16"),
 ]
 MAIN_SHAPE = 0          # the shape the serving path gives the forward
@@ -937,9 +981,11 @@ def refit_phase() -> None:
         flush=True)
 
 
-def flash_phase(torch, fa, shape) -> dict:
+def fwd_check(torch, fa, shape, q, k, v) -> tuple[float, dict]:
+    """The forward kernel against its plain version (``TOL``) and, in
+    bf16, its mirror (``MIRROR_TOL``, ``LSE_MIRROR_TOL``); fails past
+    them.  Returns the max abs error and the errors over max|mirror|."""
     name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
-    q, k, v, _ = inputs_of(torch, shape)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -960,6 +1006,14 @@ def flash_phase(torch, fa, shape) -> dict:
             fail(f"flash_fwd {name} {dt} against the mirror: err over "
                  f"max|mirror| {mirror}, limits o {MIRROR_TOL} lse "
                  f"{LSE_MIRROR_TOL}")
+    return err, mirror
+
+
+def flash_phase(torch, fa, shape) -> dict:
+    name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
+    q, k, v, _ = inputs_of(torch, shape)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    err, mirror = fwd_check(torch, fa, shape, q, k, v)
 
     mask = mask_of(torch, shape)
     sdpa = sdpa_of(torch, shape, mask)
@@ -972,7 +1026,9 @@ def flash_phase(torch, fa, shape) -> dict:
              cuda_ms(torch, lib, 20), cuda_ms(torch, run, 20)]
     rec = {
         "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "Hkv": Hkv,
-        "hd": hd, "causal": causal, "window": window, "q_offset": q_offset,
+        "hd": hd, "width": fa.kernel_width(hd),
+        "padding_share": fa.kernel_width(hd) / hd - 1, "causal": causal,
+        "window": window, "q_offset": q_offset,
         "dtype": dt, "design": "mma_bf16" if dt == "bfloat16" else "fma_f32",
         "max_abs_err": err, "err_over_max_mirror": mirror,
         "kernel_ms": (turns[0] + turns[3]) / 2,
@@ -992,11 +1048,12 @@ def flash_phase(torch, fa, shape) -> dict:
     return rec
 
 
-def flash_bwd_phase(torch, fa, shape) -> dict:
-    """dq and dk/dv kernels against their plain versions on the same
-    (q, k, v, do, lse, delta); one record per kernel."""
+def bwd_check(torch, fa, shape, q, k, v, do):
+    """The dq and dk/dv kernels against their plain versions (``BWD_TOL``
+    of max|ref|) and, in bf16, their mirrors (``MIRROR_TOL``), on the same
+    (q, k, v, do, lse, delta); fails past them.  Returns the errors, the
+    errors over max|ref|, the tolerances, lse and delta."""
     name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
-    q, k, v, do = inputs_of(torch, shape)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1021,6 +1078,16 @@ def flash_bwd_phase(torch, fa, shape) -> dict:
                      f"version: max abs err {err} > {tols[ref]} x {top}")
             errs.setdefault(ref, {})[what] = err
             rel.setdefault(ref, {})[what] = err / top
+    return errs, rel, tols, lse, delta
+
+
+def flash_bwd_phase(torch, fa, shape) -> dict:
+    """dq and dk/dv kernels against their plain versions on the same
+    (q, k, v, do, lse, delta); one record per kernel."""
+    name, B, Sq, Sk, H, Hkv, hd, causal, window, q_offset, dt = shape
+    q, k, v, do = inputs_of(torch, shape)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    errs, rel, tols, lse, delta = bwd_check(torch, fa, shape, q, k, v, do)
 
     # SDPA's backward on its own: one forward, then the gradient over the
     # retained graph, timed in turns with each kernel
@@ -1049,7 +1116,9 @@ def flash_bwd_phase(torch, fa, shape) -> dict:
         turns = [cuda_ms(torch, run, 20), cuda_ms(torch, sdpa_bwd, 20),
                  cuda_ms(torch, sdpa_bwd, 20), cuda_ms(torch, run, 20)]
         rec = {"shape": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
-               "Hkv": Hkv, "hd": hd, "causal": causal, "window": window,
+               "Hkv": Hkv, "hd": hd, "width": fa.kernel_width(hd),
+               "padding_share": fa.kernel_width(hd) / hd - 1,
+               "causal": causal, "window": window,
                "q_offset": q_offset, "dtype": dt,
                "design": "mma_bf16" if dt == "bfloat16" else "fma_f32",
                "max_abs_err": max(errs["f32"][w] for w in what),
@@ -1068,6 +1137,73 @@ def flash_bwd_phase(torch, fa, shape) -> dict:
         print(json.dumps({kern: rec}), flush=True)
         out[kern] = rec
     return out
+
+
+def width_phase(torch, fa, kw, L) -> dict:
+    """35: the three flash kernels at head dims between their tile widths
+    (``WIDTH_SHAPES``, bf16 and f32) against their plain versions and
+    mirrors; ``layers.chunked_attention`` forward and backward through
+    autograd at phi-3-mini's shape, its launches counted; the two timed
+    shapes.  Returns the launches of the autograd run."""
+    t0 = time.perf_counter()
+    checks = {}
+    for shape in WIDTH_SHAPES:
+        for dt in ("bfloat16", "float32"):
+            s = (*shape, dt)
+            q, k, v, do = inputs_of(torch, s)
+            err, mirror = fwd_check(torch, fa, s, q, k, v)
+            errs, rel, _, _, _ = bwd_check(torch, fa, s, q, k, v, do)
+            checks[f"{shape[0]} {dt}"] = {
+                "width": fa.kernel_width(shape[6]), "fwd_max_abs_err": err,
+                "fwd_err_over_max_mirror": mirror,
+                "bwd_err_over_max_ref": rel}
+
+    # the model's attention at hd 96: forward and backward by autograd
+    shape = WIDTH_TIMED[0]
+    q, k, v, do = inputs_of(torch, shape)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    reset(fa, kw)
+    o = L.chunked_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    launched = counts(fa, kw)
+    want = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "wkv": 0}
+    if launched != want:
+        fail(f"phase 35: chunked_attention at hd 96 launched {launched}, "
+             f"expected {want}")
+    o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, causal=True)
+    auto = {"o": (o.float() - o_ref.float()).abs().max().item()}
+    if not auto["o"] <= TOL["bfloat16"]:
+        fail(f"phase 35: chunked_attention's o at hd 96 {auto['o']} from "
+             f"the plain version, tolerance {TOL['bfloat16']}")
+    for g, w, what in zip(grads, fa.flash_attention_bwd_ref(
+            q, k, v, o.detach(), lse_ref, do, causal=True),
+            ("dq", "dk", "dv")):
+        top = w.float().abs().max().item()
+        auto[what] = (g.float() - w.float()).abs().max().item() / top
+        if not (torch.isfinite(g.float()).all()
+                and auto[what] <= BWD_TOL["bfloat16"]):
+            fail(f"phase 35: chunked_attention's {what} at hd 96 "
+                 f"{auto[what]} of max|ref| from the plain version, "
+                 f"tolerance {BWD_TOL['bfloat16']}")
+    del o, grads, leaves
+
+    timed = {}
+    for shape in WIDTH_TIMED:
+        f = flash_phase(torch, fa, shape)
+        b = flash_bwd_phase(torch, fa, shape)
+        timed[shape[0]] = {
+            kern: {x: r[x] for x in (
+                "hd", "width", "padding_share", "kernel_ms",
+                "kernel_device_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms", "plain_ms")}
+            for kern, r in (("flash_fwd", f), *b.items())}
+    print(json.dumps({"phase_35": {
+        "checks": checks, "chunked_attention_hd96": {
+            "launches": launched, "err_o": auto["o"],
+            "err_over_max_ref": {w: auto[w] for w in ("dq", "dk", "dv")}},
+        "timed": timed, "wall_s": time.perf_counter() - t0}}), flush=True)
+    return launched
 
 
 def device_time(torch, fn, reps: int = 10) -> tuple[float, list]:
@@ -1089,14 +1225,16 @@ def device_time(torch, fn, reps: int = 10) -> tuple[float, list]:
 
 
 def tensor_core_ops(sass: str) -> dict:
-    """HMMA/HGMMA instructions in the SASS of each flash kernel, by kernel
-    and head dim, from ``cuobjdump -sass``."""
+    """HMMA/HGMMA instructions in the SASS of each flash kernel, by kernel,
+    tile width and instance (``exact``: hd equal to the width; ``padded``:
+    below it), from ``cuobjdump -sass``."""
     counts, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16)?)"
-                          r"_kernelILi(\d+)E", line)
-            cur = m and f"{m.group(1)} hd {m.group(2)}"
+                          r"_kernelILi(\d+)ELb([01])E", line)
+            cur = m and (f"{m.group(1)} hd {m.group(2)} "
+                         f"{'exact' if m.group(3) == '1' else 'padded'}")
             if cur:
                 counts[cur] = 0
         elif cur and re.search(r"\bHG?MMA\b", line):
@@ -1497,7 +1635,7 @@ def ptxas_of(log: str, kernel: str) -> dict:
             cur = None
             if kernel in name:
                 cur = kernel + "".join(
-                    f"<{a}>" for a in re.findall(r"ILi(\d+)E", name))
+                    f"<{a}>" for a in re.findall(r"L[ib](\d+)E", name))
                 out[cur] = {}
         elif cur:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -4819,6 +4957,9 @@ def main() -> None:
     ap.add_argument("--phase-34", action="store_true", help="build the "
                     "kernels, run phase 3's shape of phase 34 and phase 34 "
                     "alone and exit (no result line)")
+    ap.add_argument("--phase-35", action="store_true", help="build the "
+                    "kernels, check their SASS, run phase 35 alone and "
+                    "exit (no result line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not KERNELS.is_dir():
@@ -4853,6 +4994,7 @@ def main() -> None:
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
     from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serving import ReqState
 
@@ -4879,6 +5021,14 @@ def main() -> None:
         return
     wkv_ptxas = ptxas_of(logs.get("wkv", ""), "wkv_kernel")
     print(json.dumps({"wkv_ptxas": wkv_ptxas}), flush=True)
+    print(json.dumps({"flash_ptxas": {
+        f"{kern}_kernel": ptxas_of(logs.get(src, ""), f"{kern}_kernel")
+        for src, kern in (("flash_fwd", "flash_fwd"),
+                          ("flash_fwd", "flash_fwd_bf16"),
+                          ("flash_bwd", "flash_bwd_dq"),
+                          ("flash_bwd", "flash_bwd_dq_bf16"),
+                          ("flash_bwd", "flash_bwd_dkv"),
+                          ("flash_bwd", "flash_bwd_dkv_bf16"))}}), flush=True)
     if args.phase_34:
         t0 = time.perf_counter()
         flash_phase(torch, fa, SHAPES[-1])
@@ -4890,20 +5040,30 @@ def main() -> None:
     mma = {**tensor_core_ops(backend.sass("flash_fwd")),
            **tensor_core_ops(backend.sass("flash_bwd"))}
     print(json.dumps({"flash_sass_hmma": mma}), flush=True)
-    want = {f"flash_fwd_bf16 hd {d}" for d in fa.KERNEL_HEAD_DIMS} | {
-        f"flash_bwd_{k}_bf16 hd {d}" for k in ("dq", "dkv")
-        for d in fa.KERNEL_BWD_HEAD_DIMS}
+    want = {f"flash_{k}_bf16 hd {d} {e}"
+            for k in ("fwd", "bwd_dq", "bwd_dkv")
+            for d in fa.KERNEL_HEAD_WIDTHS for e in ("exact", "padded")}
     bf16 = {k: n for k, n in mma.items() if "_bf16 " in k}
     if set(bf16) != want or not all(bf16.values()):
         fail(f"the bf16 flash kernels' SASS holds {bf16} tensor-core "
              f"instructions, expected a nonzero count for each of "
              f"{sorted(want)}")
+    if args.phase_35:
+        t0 = time.perf_counter()
+        width_phase(torch, fa, kw, L)
+        print(json.dumps({"phase_35_alone_wall_s":
+                          time.perf_counter() - t0}), flush=True)
+        return
 
     progress("3-4", t_start)
     # 3-4. kernels against their plain versions
     recs = [flash_phase(torch, fa, s) for s in SHAPES]
     bwd = {i: flash_bwd_phase(torch, fa, s)
            for i, s in enumerate(SHAPES) if i in BWD_SHAPES}
+
+    progress("35", t_start)
+    # 35. the head dims between the kernels' tile widths
+    width_counts = width_phase(torch, fa, kw, L)
 
     progress("5", t_start)
     # 5. the serving path
@@ -5274,7 +5434,7 @@ def main() -> None:
                       + family_counts["flash_fwd"]
                       + tp_counts["flash_fwd"] + tp_rs_counts["flash_fwd"]
                       + tp_elastic_counts["flash_fwd"]
-                      + inside["flash_fwd"]),
+                      + inside["flash_fwd"] + width_counts["flash_fwd"]),
         "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                          "src/repro/kernels/flash_attention.py:186",
                          main_bwd["flash_bwd_dq"],
@@ -5287,7 +5447,8 @@ def main() -> None:
                          + tp_counts["flash_bwd_dq"]
                          + tp_rs_counts["flash_bwd_dq"]
                          + tp_elastic_counts["flash_bwd_dq"]
-                         + inside["flash_bwd_dq"]),
+                         + inside["flash_bwd_dq"]
+                         + width_counts["flash_bwd_dq"]),
         "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                           "src/repro/kernels/flash_attention.py:224",
                           main_bwd["flash_bwd_dkv"],
@@ -5300,7 +5461,8 @@ def main() -> None:
                           + tp_counts["flash_bwd_dkv"]
                           + tp_rs_counts["flash_bwd_dkv"]
                           + tp_elastic_counts["flash_bwd_dkv"]
-                          + inside["flash_bwd_dkv"]),
+                          + inside["flash_bwd_dkv"]
+                          + width_counts["flash_bwd_dkv"]),
         # quantise without EF runs in the collectives phase; the grid's
         # training (phases 11, 20, 25b and 30) runs the fused EF kernel and
         # the dequant; the tree phase's compressed syncs run all three

@@ -32,8 +32,11 @@ __all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "resolve_device", "on_card",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
+# --split-compile 0: each nvcc optimises its kernels on every core (the
+# flash sources hold many instances; the code is the same)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 HOPPER = (9, 0)
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -58,15 +58,23 @@
 //     one numerical difference (`flash_bwd_dq_bf16_ref` and
 //     `flash_bwd_dkv_bf16_ref` in flash_attention.py mirror it);
 //   * the next K/V tile (dq) or Q/dO tile with its lse and delta (dk/dv) is
-//     loaded with 16-byte `cp.async` into the second buffer of a 2-stage
-//     ring while the current one is computed;
+//     loaded with 16-byte `cp.async` (plain loads where hd % 8 != 0) into
+//     the second buffer of a 2-stage ring while the current one is
+//     computed;
 //   * lse and delta of a dq block's rows sit in registers; in dk/dv, where
 //     they index the columns of S^T, in shared memory beside the Q tile;
 //   * tiles inside the band skip the per-element mask, and the longest dq
 //     rows start first, so the causal tail of the grid is short.
-// dk/dv computes S^T in chunks of 32 query rows (16 at hd 128 and 256), so
-// that the dk and dv accumulators (hd / 2 f32 each a thread) and the scores
-// fit the registers up to hd 128.
+// dk/dv computes S^T in chunks of 32 query rows (16 at the widths above
+// 96), so that the dk and dv accumulators (HD / 2 f32 each a thread) and the
+// scores fit the registers up to width 128.
+//
+// Head dims.  Any hd from 1 to 256 runs at the tile width of flash_mma.cuh's
+// `head_width` (every multiple of 16 up to 128, of 32 above): the columns
+// past hd are zeros in shared memory and are never stored; each kernel is
+// instantiated twice a width (EXACT, see flash_mma.cuh).  The widths above
+// 128 take the design of hd 256 below, the f32 kernels' 32-key tiles
+// included.
 //
 // hd 256 (recurrentgemma-2b's and gemma3-12b's local layers).  A warp's dk
 // and dv of 16 keys would be 256 f32 registers a thread, and dq's 16 rows x
@@ -86,11 +94,12 @@
 // cores (67 TFLOP/s peak), 4x4 register micro-tiles for the two score
 // products and 4 x (hd/16) micro-tiles for the accumulating products, with
 // padded f32 tiles and P and dS staged through shared memory.  Its tiles
-// are 64 query rows and NK keys: NK = 64 up to hd 128; at hd 256 four f32
+// are 64 query rows and NK keys: NK = 64 up to width 128; at 256 four f32
 // tiles of 64 rows (263,168 bytes) exceed a block's shared memory, so the
 // key tile is halved to 32 (a thread then holds 4 x 2 scores and, in
 // dk/dv, 2 keys x 16 columns of each accumulator): 210,176 bytes (dq) and
-// 222,464 (dk/dv).
+// 222,464 (dk/dv), and at every width above 128 (224 with 64 keys would
+// take 251,392 bytes in dq).
 //
 // Interface: plain C, launched on the caller's stream; returns
 // cudaGetLastError() (0 on success).  Inputs must be contiguous, and bf16
@@ -153,44 +162,48 @@ __device__ __forceinline__ bool keeps(const Args& a, int q0, int r, int kpos) {
 
 constexpr int THREADS = 256;
 
-// Keys a tile of the f32 kernels at head dim HD (see the note at the top).
-__host__ __device__ constexpr int f32_keys(int hd) {
-  return hd >= 256 ? 32 : BK;
+// Keys a tile of the f32 kernels at width HD (see the note at the top).
+__host__ __device__ constexpr int f32_keys(int HD) {
+  return HD > 128 ? 32 : BK;
 }
 // p / ds row stride of an NK-key tile (conflict-free)
 template <int NK>
 __host__ __device__ constexpr int s_stride() { return NK + 16; }
 
-// ROWS rows of a (B,Sq,H,HD) tensor into a padded f32 tile: row r is query
-// q0 + r % bq of head hkv * G + r / bq; zeros past the ragged edge.
-template <int HD>
+// ROWS rows of a (B,Sq,H,hd) tensor into a padded f32 tile: row r is query
+// q0 + r % bq of head hkv * G + r / bq; zeros past the ragged edge and in
+// the columns from hd on.
+template <int HD, bool EXACT>
 __device__ __forceinline__ void load_rows(float* dst,
                                           const float* __restrict__ src,
                                           const Args& a, int b, int hkv,
                                           int q0) {
   constexpr int QS = HD + 1;
+  const int hd = EXACT ? HD : a.hd;
   for (int i = threadIdx.x; i < ROWS * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
     const int s = q0 + r % a.bq;
     float x = 0.f;
-    if (r < a.rows && s < a.Sq)
-      x = src[((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD + d];
+    if (r < a.rows && s < a.Sq && (EXACT || d < hd))
+      x = src[((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * hd + d];
     dst[r * QS + d] = x;
   }
 }
 
-// NK keys of a (B,Sk,Hkv,HD) tensor into a padded f32 tile; zeros past Sk.
-template <int HD, int NK>
+// NK keys of a (B,Sk,Hkv,hd) tensor into a padded f32 tile; zeros past Sk
+// and in the columns from hd on.
+template <int HD, int NK, bool EXACT>
 __device__ __forceinline__ void load_keys(float* dst,
                                           const float* __restrict__ src,
                                           const Args& a, int b, int hkv,
                                           int k0) {
   constexpr int QS = HD + 1;
+  const int hd = EXACT ? HD : a.hd;
   for (int i = threadIdx.x; i < NK * HD; i += THREADS) {
     const int c = i / HD, d = i % HD;
     float x = 0.f;
-    if (k0 + c < a.Sk)
-      x = src[((size_t)(b * a.Sk + k0 + c) * a.Hkv + hkv) * HD + d];
+    if (k0 + c < a.Sk && (EXACT || d < hd))
+      x = src[((size_t)(b * a.Sk + k0 + c) * a.Hkv + hkv) * hd + d];
     dst[c * QS + d] = x;
   }
 }
@@ -279,7 +292,7 @@ constexpr size_t dkv_smem_bytes() {
                                   2 * ROWS * s_stride<NK>() + 2 * ROWS);
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -290,6 +303,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 16;          // output columns per thread
   constexpr int NK = f32_keys(HD), NJ = NK / 16, SS = s_stride<NK>();
+  const int hd = EXACT ? HD : a.hd;
   extern __shared__ float smem[];
   float* q_s = smem;                    // ROWS x QS
   float* do_s = q_s + ROWS * QS;        // ROWS x QS
@@ -304,8 +318,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * a.bq;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 
-  load_rows<HD>(q_s, q, a, b, hkv, q0);
-  load_rows<HD>(do_s, dout, a, b, hkv, q0);
+  load_rows<HD, EXACT>(q_s, q, a, b, hkv, q0);
+  load_rows<HD, EXACT>(do_s, dout, a, b, hkv, q0);
   load_stats(lse_s, dl_s, lse, delta, a, b, hkv, q0);
 
   float acc[4][CPT];
@@ -319,8 +333,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * NK;
     __syncthreads();  // the previous tile is done with k_s, v_s, ds_s
-    load_keys<HD, NK>(k_s, k, a, b, hkv, k0);
-    load_keys<HD, NK>(v_s, v, a, b, hkv, k0);
+    load_keys<HD, NK, EXACT>(k_s, k, a, b, hkv, k0);
+    load_keys<HD, NK, EXACT>(v_s, v, a, b, hkv, k0);
     __syncthreads();
 
     float p[4][NJ], ds[4][NJ];
@@ -352,13 +366,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = tr + 16 * i;
     const int s = q0 + r % a.bq;
     if (r >= a.rows || s >= a.Sq) continue;
-    float* row = dq + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD;
+    float* row =
+        dq + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * hd;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) row[tc + 16 * j] = acc[i][j];
+    for (int j = 0; j < CPT; ++j)
+      if (EXACT || tc + 16 * j < hd) row[tc + 16 * j] = acc[i][j];
   }
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -369,6 +385,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 16;
   constexpr int NK = f32_keys(HD), NJ = NK / 16, SS = s_stride<NK>();
+  const int hd = EXACT ? HD : a.hd;
   extern __shared__ float smem[];
   float* k_s = smem;                    // NK x QS
   float* v_s = k_s + NK * QS;           // NK x QS
@@ -384,8 +401,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * NK;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 
-  load_keys<HD, NK>(k_s, k, a, b, hkv, k0);
-  load_keys<HD, NK>(v_s, v, a, b, hkv, k0);
+  load_keys<HD, NK, EXACT>(k_s, k, a, b, hkv, k0);
+  load_keys<HD, NK, EXACT>(v_s, v, a, b, hkv, k0);
 
   // keys k0 + tr + 16 i, columns tc + 16 j
   float dk_acc[NJ][CPT], dv_acc[NJ][CPT];
@@ -399,8 +416,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int qt = qt0; qt < qt1; ++qt) {
     const int q0 = qt * a.bq;
     __syncthreads();  // the previous tile is done with q_s, do_s, p_s, ds_s
-    load_rows<HD>(q_s, q, a, b, hkv, q0);
-    load_rows<HD>(do_s, dout, a, b, hkv, q0);
+    load_rows<HD, EXACT>(q_s, q, a, b, hkv, q0);
+    load_rows<HD, EXACT>(do_s, dout, a, b, hkv, q0);
     load_stats(lse_s, dl_s, lse, delta, a, b, hkv, q0);
     __syncthreads();
 
@@ -443,9 +460,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < NJ; ++i) {
     const int key = k0 + tr + 16 * i;
     if (key >= a.Sk) continue;
-    const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * HD;
+    const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * hd;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
+      if (!EXACT && tc + 16 * j >= hd) continue;
       dk[off + tc + 16 * j] = dk_acc[i][j];
       dv[off + tc + 16 * j] = dv_acc[i][j];
     }
@@ -458,10 +476,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 static_assert(MMA_THREADS == 2 * ROWS, "stage_stats: one thread a value");
 
-// Blocks a tile's output columns are split over at head dim HD (see the
-// note at the top): each owns HD / NS of them.
-__host__ __device__ constexpr int col_splits(int hd) {
-  return hd >= 256 ? 2 : 1;
+// Blocks a tile's output columns are split over at width HD (see the note
+// at the top): each owns HD / NS of them.
+__host__ __device__ constexpr int col_splits(int HD) {
+  return HD > 128 ? 2 : 1;
 }
 static_assert(BK == ROWS, "four warps of 16 keys");
 
@@ -490,7 +508,7 @@ constexpr size_t dkv_bf16_smem_bytes() {  // K, V, two stages of Q, dO, stats
   return sizeof(bf16) * 6 * (size_t)tile<HD>() + sizeof(float) * 4 * ROWS;
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -504,6 +522,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   // 0 at compile time where there is no split, so that hd <= 128 keeps
   // constant fragment offsets
   const int col0 = col_splits(HD) > 1 ? blockIdx.z * OUT : 0;
+  const int hd = EXACT ? HD : a.hd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* do_s = q_s + TILE;
@@ -542,10 +561,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   int kt0, kt1;
   key_tiles<BK>(a, q0, kt0, kt1);
   if (kt0 < kt1) {
-    stage_rows<HD>(q_s, q, a, b, hkv, q0);
-    stage_rows<HD>(do_s, dout, a, b, hkv, q0);
-    stage_keys<HD, BK>(kv_s, k, a, b, hkv, kt0 * BK);
-    stage_keys<HD, BK>(kv_s + TILE, v, a, b, hkv, kt0 * BK);
+    stage_rows<HD, EXACT>(q_s, q, a, b, hkv, q0);
+    stage_rows<HD, EXACT>(do_s, dout, a, b, hkv, q0);
+    stage_keys<HD, BK, EXACT>(kv_s, k, a, b, hkv, kt0 * BK);
+    stage_keys<HD, BK, EXACT>(kv_s + TILE, v, a, b, hkv, kt0 * BK);
     cp_async_commit();
   }
   for (int kt = kt0; kt < kt1; ++kt) {
@@ -553,8 +572,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     const bf16* v_s = k_s + TILE;
     if (kt + 1 < kt1) {               // the next tile into the other stage
       bf16* nk = kv_s + ((kt + 1 - kt0) & 1) * 2 * TILE;
-      stage_keys<HD, BK>(nk, k, a, b, hkv, (kt + 1) * BK);
-      stage_keys<HD, BK>(nk + TILE, v, a, b, hkv, (kt + 1) * BK);
+      stage_keys<HD, BK, EXACT>(nk, k, a, b, hkv, (kt + 1) * BK);
+      stage_keys<HD, BK, EXACT>(nk + TILE, v, a, b, hkv, (kt + 1) * BK);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -626,15 +645,15 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     if (!rok[h]) continue;
     const int r = warp * 16 + g + 8 * h;
     bf16* row = dq + ((size_t)(b * a.Sq + q0 + r % a.bq) * a.H + hkv * a.G +
-                      r / a.bq) * HD + col0;
+                      r / a.bq) * hd;
 #pragma unroll
     for (int j = 0; j < OUT / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
-          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+      store_pair<EXACT>(row, col0 + 8 * j + 2 * t, hd, acc[j][2 * h],
+                 acc[j][2 * h + 1]);
   }
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -645,9 +664,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           Args a) {
   constexpr int LD = ld<HD>(), TILE = tile<HD>();
-  constexpr int QC = HD >= 128 ? 16 : 32;   // query rows per S^T chunk
+  constexpr int QC = HD > 96 ? 16 : 32;     // query rows per S^T chunk
   constexpr int OUT = HD / col_splits(HD);  // this block's dk, dv columns
   const int col0 = col_splits(HD) > 1 ? blockIdx.z * OUT : 0;
+  const int hd = EXACT ? HD : a.hd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* v_s = k_s + TILE;
@@ -670,10 +690,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   int qt0, qt1;
   query_tiles<BK>(a, k0, qt0, qt1);
   if (qt0 < qt1) {
-    stage_keys<HD, BK>(k_s, k, a, b, hkv, k0);
-    stage_keys<HD, BK>(v_s, v, a, b, hkv, k0);
-    stage_rows<HD>(qo_s, q, a, b, hkv, qt0 * a.bq);
-    stage_rows<HD>(qo_s + TILE, dout, a, b, hkv, qt0 * a.bq);
+    stage_keys<HD, BK, EXACT>(k_s, k, a, b, hkv, k0);
+    stage_keys<HD, BK, EXACT>(v_s, v, a, b, hkv, k0);
+    stage_rows<HD, EXACT>(qo_s, q, a, b, hkv, qt0 * a.bq);
+    stage_rows<HD, EXACT>(qo_s + TILE, dout, a, b, hkv, qt0 * a.bq);
     stage_stats(st_s, lse, delta, a, b, hkv, qt0 * a.bq);
     cp_async_commit();
   }
@@ -686,8 +706,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     if (qt + 1 < qt1) {               // the next tile into the other stage
       const int nq0 = (qt + 1) * a.bq;
       bf16* nq = qo_s + (stage ^ 1) * 2 * TILE;
-      stage_rows<HD>(nq, q, a, b, hkv, nq0);
-      stage_rows<HD>(nq + TILE, dout, a, b, hkv, nq0);
+      stage_rows<HD, EXACT>(nq, q, a, b, hkv, nq0);
+      stage_rows<HD, EXACT>(nq + TILE, dout, a, b, hkv, nq0);
       stage_stats(st_s + (stage ^ 1) * 2 * ROWS, lse, delta, a, b, hkv, nq0);
       cp_async_commit();
       cp_async_wait<1>();
@@ -768,13 +788,14 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + warp * 16 + g + 8 * h;
     if (key >= a.Sk) continue;
-    const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * HD + col0;
+    const size_t off = ((size_t)(b * a.Sk + key) * a.Hkv + hkv) * hd;
 #pragma unroll
     for (int j = 0; j < OUT / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
-          pack_bf16(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
-          pack_bf16(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+      const int col = col0 + 8 * j + 2 * t;
+      store_pair<EXACT>(dk + off, col, hd, dk_acc[j][2 * h],
+                        dk_acc[j][2 * h + 1]);
+      store_pair<EXACT>(dv + off, col, hd, dv_acc[j][2 * h],
+                        dv_acc[j][2 * h + 1]);
     }
   }
 }
@@ -795,44 +816,43 @@ int launch(Kernel kern, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B,
               const Args& a, bool bf, cudaStream_t st) {
   const int tiles = (a.Sq + a.bq - 1) / a.bq;
   if (bf)
-    return launch(flash_bwd_dq_bf16_kernel<HD>,
+    return launch(flash_bwd_dq_bf16_kernel<HD, EXACT>,
                   dim3(B * a.Hkv, tiles, col_splits(HD)),
                   MMA_THREADS, dq_bf16_smem_bytes<HD>(), st, a,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v,
                   (const bf16*)dout, (const float*)lse, (const float*)delta,
                   (bf16*)dq);
-  return launch(flash_bwd_dq_kernel<HD>, dim3(tiles, B * a.Hkv), THREADS,
-                dq_smem_bytes<HD>(), st, a, (const float*)q, (const float*)k,
+  return launch(flash_bwd_dq_kernel<HD, EXACT>, dim3(tiles, B * a.Hkv),
+                THREADS, dq_smem_bytes<HD>(), st, a, (const float*)q,
+                (const float*)k,
                 (const float*)v, (const float*)dout, (const float*)lse,
                 (const float*)delta, (float*)dq);
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                const Args& a, bool bf, cudaStream_t st) {
   if (bf)
-    return launch(flash_bwd_dkv_bf16_kernel<HD>,
+    return launch(flash_bwd_dkv_bf16_kernel<HD, EXACT>,
                   dim3(B * a.Hkv, (a.Sk + BK - 1) / BK, col_splits(HD)),
                   MMA_THREADS, dkv_bf16_smem_bytes<HD>(), st, a,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v,
                   (const bf16*)dout, (const float*)lse, (const float*)delta,
                   (bf16*)dk, (bf16*)dv);
   constexpr int NK = f32_keys(HD);
-  return launch(flash_bwd_dkv_kernel<HD>,
+  return launch(flash_bwd_dkv_kernel<HD, EXACT>,
                 dim3((a.Sk + NK - 1) / NK, B * a.Hkv), THREADS,
                 dkv_smem_bytes<HD>(), st, a, (const float*)q, (const float*)k,
                 (const float*)v, (const float*)dout, (const float*)lse,
                 (const float*)delta, (float*)dk, (float*)dv);
 }
-
-#define FLASH_BWD_HEAD_DIMS(X) X(16) X(32) X(64) X(128) X(256)
 
 bool bad_shape(int B, int Sq, int Sk, int H, int Hkv) {
   return B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv || H / Hkv > ROWS;
@@ -843,9 +863,10 @@ bool bad_shape(int B, int Sq, int Sk, int H, int Hkv) {
 extern "C" {
 
 // q, do (B,Sq,H,hd); k, v (B,Sk,Hkv,hd); lse, delta (B,Hkv,G,Sq) f32; dq
-// like q; all contiguous on `device`.  window <= 0 means no window.  The
-// wrapper checks shapes and types; the bounds here only keep a bad call
-// from launching.
+// like q; all contiguous on `device`, bf16 ones 16-byte aligned; 1 <= hd <=
+// 256, run at the tile width `head_width(hd)`.  window <= 0 means no
+// window.  The wrapper checks shapes and types; the bounds here only keep a
+// bad call from launching.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int B, int Sq, int Sk, int H, int Hkv, int hd,
@@ -856,11 +877,14 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(Sq, Sk, H, Hkv, hd, causal, window, q_offset);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
+  switch (head_width(hd)) {
+#define LAUNCH(D, EXACT) \
+  launch_dq<D, EXACT>(q, k, v, dout, lse, delta, dq, B, a, is_bf16, st)
 #define CASE(D) \
-  case D: return launch_dq<D>(q, k, v, dout, lse, delta, dq, B, a, is_bf16, st);
-    FLASH_BWD_HEAD_DIMS(CASE)
+  case D: return hd == D ? LAUNCH(D, true) : LAUNCH(D, false);
+    FLASH_HEAD_WIDTHS(CASE)
 #undef CASE
+#undef LAUNCH
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -876,13 +900,14 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(Sq, Sk, H, Hkv, hd, causal, window, q_offset);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-#define CASE(D)                                                           \
-  case D:                                                                 \
-    return launch_dkv<D>(q, k, v, dout, lse, delta, dk, dv, B, a, is_bf16, \
-                         st);
-    FLASH_BWD_HEAD_DIMS(CASE)
+  switch (head_width(hd)) {
+#define LAUNCH(D, EXACT)                                                  \
+  launch_dkv<D, EXACT>(q, k, v, dout, lse, delta, dk, dv, B, a, is_bf16, st)
+#define CASE(D) \
+  case D: return hd == D ? LAUNCH(D, true) : LAUNCH(D, false);
+    FLASH_HEAD_WIDTHS(CASE)
 #undef CASE
+#undef LAUNCH
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -41,14 +41,15 @@
 //     rounding is the one numerical difference from the Pallas kernel,
 //     which keeps p in f32; l sums the unrounded f32 p.
 //     `flash_attention_fwd_bf16_ref` in flash_attention.py mirrors both;
-//   * the next K/V tile is loaded with 16-byte `cp.async` into the second
-//     buffer of a 2-stage ring while the current tile is computed;
+//   * the next K/V tile is loaded with 16-byte `cp.async` (plain loads
+//     where hd % 8 != 0) into the second buffer of a 2-stage ring while
+//     the current tile is computed;
 //   * tiles inside the causal and window band skip the per-element mask;
-//   * Q's A fragments are held in registers up to hd 128.  At hd 256 the O
-//     accumulator of a 16-row warp tile alone is 128 f32 registers a
-//     thread, so Q is read from shared memory for each KV tile and the KV
-//     tiles are 32 keys instead of 64 (the S fragments then take 16
-//     registers, not 32);
+//   * Q's A fragments are held in registers up to width 128.  Above it (at
+//     256 the O accumulator of a 16-row warp tile alone is 128 f32
+//     registers a thread) Q is read from shared memory for each KV tile
+//     and the KV tiles are 32 keys instead of 64 (the S fragments then take
+//     16 registers, not 32);
 //   * blocks are ordered longest rows first, so the causal tail of the
 //     grid is short.
 // Tile skipping: tiles outside the causal and window band are fully masked
@@ -65,6 +66,12 @@
 // padded f32 tiles, S and P staged through shared memory, three
 // __syncthreads per KV tile.  For causal attention without a window and
 // q_offset >= 0 its KV loop stops at the tile's last query position.
+//
+// Any head dim from 1 to 256 runs, at the tile width of flash_mma.cuh's
+// `head_width`: the columns past hd are zeros in shared memory and are
+// never stored.  Both designs are instantiated twice a width (EXACT: hd
+// equal to it, the code of a kernel written for that head dim; or below
+// it, hd read at run time; see flash_mma.cuh).
 //
 // Interface: plain C, launched on the caller's stream; returns
 // cudaGetLastError() (0 on success).  Inputs must be contiguous, and bf16
@@ -97,13 +104,15 @@ constexpr size_t smem_bytes() {
                                   ROWS * S_STRIDE + 3 * ROWS);
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
-                 int bq, float scale, int causal, int window, int q_offset) {
+                 int hd_arg, int bq, float scale, int causal, int window,
+                 int q_offset) {
   constexpr int QS = HD + 1;   // padded row stride of the Q and K tiles
+  const int hd = EXACT ? HD : hd_arg;
   constexpr int CPT = HD / 16; // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                    // ROWS x QS
@@ -123,13 +132,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tr = tid / 16;              // micro-tile rows tr + 16 i
   const int tc = tid % 16;              // micro-tile cols tc + 16 j
 
-  // Row r of the tile is query q0 + r % bq of head hkv * G + r / bq.
+  // Row r of the tile is query q0 + r % bq of head hkv * G + r / bq; the
+  // columns from hd on are zeros.
   for (int i = tid; i < ROWS * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
     float x = 0.f;
     const int s = q0 + r % bq;
-    if (r < rows && s < Sq)
-      x = q[((size_t)(b * Sq + s) * H + hkv * G + r / bq) * HD + d];
+    if (r < rows && s < Sq && (EXACT || d < hd))
+      x = q[((size_t)(b * Sq + s) * H + hkv * G + r / bq) * hd + d];
     q_s[r * QS + d] = x;
   }
   for (int r = tid; r < ROWS; r += THREADS) {
@@ -156,8 +166,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK * HD; i += THREADS) {
       const int c = i / HD, d = i % HD;
       float kx = 0.f, vx = 0.f;
-      if (k0 + c < Sk) {
-        const size_t off = ((size_t)(b * Sk + k0 + c) * Hkv + hkv) * HD + d;
+      if (k0 + c < Sk && (EXACT || d < hd)) {
+        const size_t off = ((size_t)(b * Sk + k0 + c) * Hkv + hkv) * hd + d;
         kx = k[off];
         vx = v[off];
       }
@@ -259,30 +269,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (r >= rows || s >= Sq) continue;
     const int g = r / bq;
     const float l = fmaxf(l_s[r], 1e-30f);
-    float* orow = o + ((size_t)(b * Sq + s) * H + hkv * G + g) * HD;
+    float* orow = o + ((size_t)(b * Sq + s) * H + hkv * G + g) * hd;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) orow[tc + 16 * j] = acc[i][j] / l;
+    for (int j = 0; j < CPT; ++j)
+      if (EXACT || tc + 16 * j < hd) orow[tc + 16 * j] = acc[i][j] / l;
     if (tc == 0)
       lse[((size_t)(b * Hkv + hkv) * G + g) * Sq + s] = m_s[r] + logf(l);
   }
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
-               int window, int q_offset, cudaStream_t stream) {
+               void* lse, int B, int Sq, int Sk, int H, int Hkv, int hd,
+               int causal, int window, int q_offset, cudaStream_t stream) {
   const int G = H / Hkv;
   const int bq = ROWS / G;
   const size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<HD>;
+  auto kern = flash_fwd_kernel<HD, EXACT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const float scale = (float)(1.0 / sqrt((double)(HD)));
+  const float scale = (float)(1.0 / sqrt((double)hd));
   dim3 grid((Sq + bq - 1) / bq, B * Hkv);
   kern<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, Sq, Sk, H, Hkv, bq, scale, causal, window, q_offset);
+      (float*)lse, Sq, Sk, H, Hkv, hd, bq, scale, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -293,11 +304,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG2 = NEG_INF * LOG2E;   // a masked score in log2 units
 
-// Keys per KV tile: 32 at hd 256, where registers are short, else 64
-// (`kernel_block_k` in flash_attention.py, the mirror's tiles, must agree).
+// Keys per KV tile: 32 at the widths above 128, where registers are short,
+// else 64 (`kernel_block_k` in flash_attention.py, the mirror's tiles, must
+// agree).
 template <int HD>
 __host__ __device__ constexpr int keys_per_tile() {
-  return HD >= 256 ? 32 : 64;
+  return HD > 128 ? 32 : 64;
 }
 
 template <int HD>
@@ -325,13 +337,14 @@ __device__ __forceinline__ void fwd_key_tiles(const Args& a, int q0, int& kt0,
   if (a.window > 0) kt0 = max(0, first - a.window + 1) / NK;
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ lse, int BH, Args a) {
   constexpr int NK = keys_per_tile<HD>(), LD = ld<HD>(), KT = NK * LD;
   constexpr bool QREG = HD <= 128;      // Q's A fragments in registers
+  const int hd = EXACT ? HD : a.hd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* kv_s = q_s + tile<HD>();        // [stage][K, V][KT]
@@ -369,9 +382,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   int kt0, kt1;                         // kt0 < kt1 always
   fwd_key_tiles<NK>(a, q0, kt0, kt1);
-  stage_rows<HD>(q_s, q, a, b, hkv, q0);
-  stage_keys<HD, NK>(kv_s, k, a, b, hkv, kt0 * NK);
-  stage_keys<HD, NK>(kv_s + KT, v, a, b, hkv, kt0 * NK);
+  stage_rows<HD, EXACT>(q_s, q, a, b, hkv, q0);
+  stage_keys<HD, NK, EXACT>(kv_s, k, a, b, hkv, kt0 * NK);
+  stage_keys<HD, NK, EXACT>(kv_s + KT, v, a, b, hkv, kt0 * NK);
   cp_async_commit();
 
   [[maybe_unused]] uint32_t qa[QREG ? HD / 16 : 1][4];
@@ -380,8 +393,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* v_s = k_s + KT;
     if (kt + 1 < kt1) {               // the next tile into the other stage
       bf16* nk = kv_s + ((kt + 1 - kt0) & 1) * 2 * KT;
-      stage_keys<HD, NK>(nk, k, a, b, hkv, (kt + 1) * NK);
-      stage_keys<HD, NK>(nk + KT, v, a, b, hkv, (kt + 1) * NK);
+      stage_keys<HD, NK, EXACT>(nk, k, a, b, hkv, (kt + 1) * NK);
+      stage_keys<HD, NK, EXACT>(nk + KT, v, a, b, hkv, (kt + 1) * NK);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -495,11 +508,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = warp * 16 + g + 8 * h;
     const int s = q0 + r % a.bq;
     const float lh = fmaxf(l[h], 1e-30f);
-    bf16* row = o + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD;
+    bf16* row =
+        o + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * hd;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
-          pack_bf16(acc[j][2 * h] / lh, acc[j][2 * h + 1] / lh);
+      store_pair<EXACT>(row, 8 * j + 2 * t, hd, acc[j][2 * h] / lh,
+                 acc[j][2 * h + 1] / lh);
     if (t == 0) {
       const float mn = m[h] == NEG2 ? NEG_INF : m[h] * LN2;
       lse[((size_t)(b * a.Hkv + hkv) * a.G + r / a.bq) * a.Sq + s] =
@@ -508,14 +522,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, const Args& a, cudaStream_t stream) {
   const long long bh = (long long)B * a.Hkv;
   const long long blocks = bh * ((a.Sq + a.bq - 1) / a.bq);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const size_t smem = bf16_smem_bytes<HD>();
-  auto kern = flash_fwd_bf16_kernel<HD>;
+  auto kern = flash_fwd_bf16_kernel<HD, EXACT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -525,16 +539,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-#define FLASH_FWD_HEAD_DIMS(X) X(16) X(32) X(64) X(128) X(256)
-
 }  // namespace
 
 extern "C" {
 
 // q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd), o like q, lse (B,Hkv,G,Sq) f32; all
-// contiguous on `device`, bf16 ones 16-byte aligned.  window <= 0 means no
-// window.  The wrapper checks shapes and types; the bounds here only keep
-// a bad call from launching.
+// contiguous on `device`, bf16 ones 16-byte aligned; 1 <= hd <= 256, run at
+// the tile width `head_width(hd)`.  window <= 0 means no window.  The
+// wrapper checks shapes and types; the bounds here only keep a bad call
+// from launching.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int B, int Sq, int Sk, int H, int Hkv, int hd, int is_bf16,
               int causal, int window, int q_offset, int device,
@@ -545,14 +558,16 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const Args a = make_args(Sq, Sk, H, Hkv, hd, causal, window, q_offset);
-  switch (hd) {
-#define CASE(D)                                                            \
-  case D:                                                                  \
-    return is_bf16 ? launch_bf16<D>(q, k, v, o, lse, B, a, st)             \
-                   : launch_f32<D>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,     \
-                                   causal, window, q_offset, st);
-    FLASH_FWD_HEAD_DIMS(CASE)
+  switch (head_width(hd)) {
+#define LAUNCH(D, EXACT)                                                   \
+  (is_bf16 ? launch_bf16<D, EXACT>(q, k, v, o, lse, B, a, st)              \
+           : launch_f32<D, EXACT>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd,  \
+                                  causal, window, q_offset, st))
+#define CASE(D) \
+  case D: return hd == D ? LAUNCH(D, true) : LAUNCH(D, false);
+    FLASH_HEAD_WIDTHS(CASE)
 #undef CASE
+#undef LAUNCH
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
 // bf16 tensor-core building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): the call's fixed arguments, 16-byte
-// `cp.async` staging of query rows and key tiles into bf16 shared-memory
-// tiles, `ldmatrix` fragment loads and `mma.sync.m16n8k16` with bf16
-// operands and f32 accumulators.  wkv.cu takes its `cp.async` helpers.
+// (flash_fwd.cu, flash_bwd.cu): the call's fixed arguments, the tile widths
+// and the head dims they take, `cp.async` staging of query rows and key
+// tiles into bf16 shared-memory tiles, `ldmatrix` fragment loads and
+// `mma.sync.m16n8k16` with bf16 operands and f32 accumulators, and the
+// outputs' stores.  wkv.cu takes its `cp.async` helpers.
 //
 // Layouts.  Query rows are folded: row r of a ROWS-row tile is query
 // q0 + r % bq of head hkv * G + r / bq (G * bq <= ROWS), so one K/V tile in
@@ -10,6 +11,21 @@
 // bf16 with each row padded by 8 elements (16 bytes): the 8 rows one
 // `ldmatrix` reads then start in 8 different bank groups.  Every tensor a
 // tile is staged from must be contiguous and 16-byte aligned.
+//
+// Head dims.  The kernels are instantiated at a few tile widths HD
+// (FLASH_HEAD_WIDTHS: every multiple of 16 up to 128, of 32 above, so that
+// `m16n8k16` steps 16 along HD in S = Q K^T and 8 in P V), and a call at
+// head dim hd runs the least width that holds it (`head_width`).  The
+// columns hd..HD - 1 of a tile are zeros, staged in shared memory only: a
+// zero column of Q and K adds exactly nothing to S, and the outputs'
+// columns from hd on are never stored.  Each kernel is instantiated twice a
+// width (template argument EXACT): at hd == HD, the head dims of the
+// configs, with HD as the row stride and 16-byte `cp.async` staging, the
+// code of a kernel written for that one head dim; and below it with hd
+// read at run time and the padding masked.  Rows hd elements apart are
+// 16-byte aligned only where hd % 8 == 0: there the padded instance stages
+// by 16-byte `cp.async` too, elsewhere an element at a time by plain
+// loads, outside the asynchronous ring.
 
 #pragma once
 
@@ -28,15 +44,28 @@ constexpr int MMA_THREADS = 128;    // 4 warps of 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(ROWS == 4 * 16, "four warps of 16 rows");
 
-// The fixed arguments of one call.
+// The tile widths the kernels are instantiated at.
+#define FLASH_HEAD_WIDTHS(X) \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(160) X(192) X(224) X(256)
+
+// The width a call at head dim hd runs: the least multiple of 16 (hd <= 128)
+// or 32 (above) that holds it; 0 outside 1..256 (no kernel).
+inline int head_width(int hd) {
+  if (hd < 1 || hd > 256) return 0;
+  return hd <= 128 ? (hd + 15) / 16 * 16 : (hd + 31) / 32 * 32;
+}
+
+// The fixed arguments of one call.  hd is the real head dim: the row stride
+// in device memory; the scale is 1/sqrt(hd).
 struct Args {
-  int Sq, Sk, H, Hkv, G, bq, rows, causal, window, q_offset;
+  int Sq, Sk, H, Hkv, G, bq, rows, causal, window, q_offset, hd;
   float scale;
 };
 
 Args make_args(int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
                int q_offset) {
   Args a;
+  a.hd = hd;
   a.Sq = Sq;
   a.Sk = Sk;
   a.H = H;
@@ -147,40 +176,80 @@ __device__ __forceinline__ void load_b_kn(uint32_t b[4], const bf16* t,
                 (lane >> 4) * 8);
 }
 
-// ROWS rows of a (B,Sq,H,HD) tensor into a bf16 tile, asynchronously: row r
-// is query q0 + r % bq of head hkv * G + r / bq; zeros past the ragged edge.
-template <int HD>
+// ROWS rows of a (B,Sq,H,hd) tensor into a bf16 tile of HD columns: row r
+// is query q0 + r % bq of head hkv * G + r / bq; zeros past the ragged edge
+// and in the columns from hd on.  By 16-byte `cp.async` copies,
+// asynchronous, where hd % 8 == 0 (always where EXACT: hd == HD), else one
+// element a plain load.
+template <int HD, bool EXACT>
 __device__ __forceinline__ void stage_rows(bf16* dst,
                                            const bf16* __restrict__ src,
                                            const Args& a, int b, int hkv,
                                            int q0) {
+  const int hd = EXACT ? HD : a.hd;
+  if (!EXACT && hd % 8) {
+    for (int i = threadIdx.x; i < ROWS * HD; i += MMA_THREADS) {
+      const int r = i / HD, c = i % HD;
+      const int s = q0 + r % a.bq;
+      const bool ok = r < a.rows && s < a.Sq && c < hd;
+      dst[r * ld<HD>() + c] =
+          ok ? src[((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * hd +
+                   c]
+             : __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
   constexpr int CH = HD / 8;           // 16-byte chunks a row
   for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = i % CH;
+    const int r = i / CH, c = i % CH * 8;
     const int s = q0 + r % a.bq;
-    const bool ok = r < a.rows && s < a.Sq;
+    const bool ok = r < a.rows && s < a.Sq && (EXACT || c < hd);
     const bf16* p =
-        ok ? src + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * HD +
-                 c * 8
+        ok ? src + ((size_t)(b * a.Sq + s) * a.H + hkv * a.G + r / a.bq) * hd +
+                 c
            : src;
-    cp_async16(dst + r * ld<HD>() + c * 8, p, ok);
+    cp_async16(dst + r * ld<HD>() + c, p, ok);
   }
 }
 
-// NK keys of a (B,Sk,Hkv,HD) tensor into a bf16 tile; zeros past Sk.
-template <int HD, int NK>
+// NK keys of a (B,Sk,Hkv,hd) tensor into a bf16 tile, as stage_rows; zeros
+// past Sk and in the columns from hd on.
+template <int HD, int NK, bool EXACT>
 __device__ __forceinline__ void stage_keys(bf16* dst,
                                            const bf16* __restrict__ src,
                                            const Args& a, int b, int hkv,
                                            int k0) {
+  const int hd = EXACT ? HD : a.hd;
+  if (!EXACT && hd % 8) {
+    for (int i = threadIdx.x; i < NK * HD; i += MMA_THREADS) {
+      const int r = i / HD, c = i % HD;
+      const bool ok = k0 + r < a.Sk && c < hd;
+      dst[r * ld<HD>() + c] =
+          ok ? src[((size_t)(b * a.Sk + k0 + r) * a.Hkv + hkv) * hd + c]
+             : __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
   constexpr int CH = HD / 8;
   for (int i = threadIdx.x; i < NK * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = k0 + r < a.Sk;
+    const int r = i / CH, c = i % CH * 8;
+    const bool ok = k0 + r < a.Sk && (EXACT || c < hd);
     const bf16* p =
-        ok ? src + ((size_t)(b * a.Sk + k0 + r) * a.Hkv + hkv) * HD + c * 8
-           : src;
-    cp_async16(dst + r * ld<HD>() + c * 8, p, ok);
+        ok ? src + ((size_t)(b * a.Sk + k0 + r) * a.Hkv + hkv) * hd + c : src;
+    cp_async16(dst + r * ld<HD>() + c, p, ok);
+  }
+}
+
+// Columns col and col + 1 of a bf16 output row of hd elements.  EXACT: one
+// 4-byte store; else one a column, none from hd on (the padding).
+template <bool EXACT>
+__device__ __forceinline__ void store_pair(bf16* row, int col, int hd, float x,
+                                           float y) {
+  if constexpr (EXACT) {
+    *reinterpret_cast<uint32_t*>(row + col) = pack_bf16(x, y);
+  } else {
+    if (col < hd) row[col] = __float2bfloat16_rn(x);
+    if (col + 1 < hd) row[col + 1] = __float2bfloat16_rn(y);
   }
 }
 

@@ -36,6 +36,14 @@ with no unmasked key averages V over all keys.  The backward masks
 explicitly, so such a row gets zero gradient, as in the Pallas backward.
 On the card, bf16 q, k, v (and the backward's do) must be 16-byte
 aligned: the bf16 kernels stage rows with 16-byte copies.
+
+The card takes every head dim from 1 to 256, as the Pallas kernels take
+any: the kernels are instantiated at the tile widths
+``KERNEL_HEAD_WIDTHS`` and a call runs the least that holds its head dim
+(:func:`kernel_width`), the extra columns zeros in shared memory only.
+A head dim equal to its width runs an instance written for it; one below
+it runs an instance that reads hd at run time, and stages rows an element
+at a time where hd % 8 != 0 (csrc/flash_mma.cuh).
 """
 from __future__ import annotations
 
@@ -48,10 +56,10 @@ from . import backend, work
 from .backend import on_card
 
 __all__ = ["NEG_INF", "pairs", "fwd_work", "bwd_dq_work", "bwd_dkv_work",
-           "DEFAULT_BLOCK_K", "KERNEL_HEAD_DIMS", "KERNEL_BWD_HEAD_DIMS",
+           "DEFAULT_BLOCK_K", "KERNEL_HEAD_WIDTHS", "KERNEL_MAX_HEAD_DIM",
            "KERNEL_MAX_GROUP", "flash_attention_fwd",
            "flash_attention_fwd_ref", "flash_attention_fwd_bf16_ref",
-           "kernel_block_k", "flash_attention_bwd",
+           "kernel_width", "kernel_block_k", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "flash_bwd_dq_bf16_ref",
            "flash_bwd_dkv_bf16_ref", "FlashAttention",
@@ -59,10 +67,12 @@ __all__ = ["NEG_INF", "pairs", "fwd_work", "bwd_dq_work", "bwd_dkv_work",
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 512
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
-# at hd 256 the bf16 kernels split the output columns over two blocks and
-# the f32 ones halve their key tile (csrc/flash_bwd.cu)
-KERNEL_BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the tile widths the kernels are instantiated at (FLASH_HEAD_WIDTHS in
+# csrc/flash_mma.cuh): every multiple of 16 up to 128, of 32 above it.
+# Above 128 the bf16 forward takes 32-key tiles, the bf16 backward splits
+# the output columns over two blocks and the f32 one halves its key tile.
+KERNEL_HEAD_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+KERNEL_MAX_HEAD_DIM = KERNEL_HEAD_WIDTHS[-1]
 KERNEL_MAX_GROUP = 64          # G query heads must fit the 64-row tile
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -198,9 +208,20 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
     return o.to(q.dtype).contiguous(), lse
 
 
+def kernel_width(hd: int) -> int:
+    """The tile width the kernels run at head dim ``hd``: the least of
+    ``KERNEL_HEAD_WIDTHS`` that holds it (``head_width`` in
+    csrc/flash_mma.cuh)."""
+    if not 1 <= hd <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernels take head_dim 1.."
+                         f"{KERNEL_MAX_HEAD_DIM}, got {hd}")
+    return next(w for w in KERNEL_HEAD_WIDTHS if w >= hd)
+
+
 def kernel_block_k(hd: int) -> int:
-    """Keys per KV tile of the bf16 forward kernel at head dim ``hd``."""
-    return 32 if hd >= 256 else 64
+    """Keys per KV tile of the bf16 forward kernel at head dim ``hd``: 32
+    at the widths above 128, else 64."""
+    return 32 if kernel_width(hd) > 128 else 64
 
 
 def flash_attention_fwd_bf16_ref(q, k, v, *, causal: bool = True,
@@ -217,7 +238,7 @@ def flash_attention_fwd_bf16_ref(q, k, v, *, causal: bool = True,
                     kernel_block_k(q.shape[3]))
 
 
-def _check(q, k, v, window, head_dims=KERNEL_HEAD_DIMS) -> None:
+def _check(q, k, v, window) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash attention: {name} must be a 4-D tensor")
@@ -243,9 +264,10 @@ def _check(q, k, v, window, head_dims=KERNEL_HEAD_DIMS) -> None:
     if window is not None and window < 1:
         raise ValueError(f"flash attention: window must be None or >= 1, "
                          f"got {window}")
-    if on_card(q) and (hd not in head_dims or H // Hkv > KERNEL_MAX_GROUP):
-        raise ValueError(f"flash attention kernel takes head_dim in "
-                         f"{head_dims} and at most "
+    if on_card(q) and (hd > KERNEL_MAX_HEAD_DIM
+                       or H // Hkv > KERNEL_MAX_GROUP):
+        raise ValueError(f"flash attention kernel takes head_dim 1.."
+                         f"{KERNEL_MAX_HEAD_DIM} and at most "
                          f"{KERNEL_MAX_GROUP} query heads per KV head, got "
                          f"hd={hd} G={H // Hkv}")
     # the bf16 kernels stage rows with 16-byte copies
@@ -426,7 +448,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def _check_bwd(q, k, v, o, lse, do, window) -> None:
-    _check(q, k, v, window, KERNEL_BWD_HEAD_DIMS)
+    _check(q, k, v, window)
     for name, t in (("o", o), ("do", do)):
         if (not isinstance(t, torch.Tensor) or t.shape != q.shape
                 or t.dtype != q.dtype or t.device != q.device

@@ -1,6 +1,7 @@
 """Move arrays between the JAX package and the PyTorch port through numpy,
 run the reference per rank of a (pod, data) or (pod, data, model) grid,
-and run its encoder on an f32 model.
+run its encoder on an f32 model, and fork the port's ranks from one
+server (``forked_ranks``, a fixture for the modules that start ranks).
 
 bf16 crosses as its uint16 bit pattern (numpy has no bf16), so values
 arrive bit for bit.  TF32 is switched off for the port's f32 products, so
@@ -11,12 +12,22 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec
 import numpy as np
+import pytest
 import torch
 
+import _torch_ranks
 from repro.optim.adamw import scatter_axes
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(scope="module", autouse=True)
+def forked_ranks():
+    """Autouse in every test module that imports it: the ranks that its
+    tests start (``run_ranks``, and ``train`` or ``serve`` on a grid) fork
+    from one preloaded server (``_torch_ranks.fork_ranks``)."""
+    _torch_ranks.fork_ranks()
 
 
 def jax_to_numpy(tree):

@@ -14,6 +14,7 @@ from repro_torch.core import Communicator
 from repro_torch.core import collectives as C
 from repro_torch.core import compression
 from repro_torch.core.topology import Level, Topology
+from repro_torch.launch import mesh
 from repro_torch.launch.mesh import grid_communicator, make_grid
 from repro_torch.launch.step import (device_batch, loss_and_grads,
                                     make_train_step)
@@ -25,6 +26,21 @@ from repro_torch.optim import adamw
 from repro_torch.tree import tree_map
 
 CPU = torch.device("cpu")
+# what the ranks' fork server imports once: the rank bodies below and the
+# port, torch._dynamo (a rank plans its sync under a fake-tensor mode) and
+# the train and serve entry points, which spawn ranks themselves
+PRELOAD = ("numpy", "torch._dynamo", "_torch_ranks",
+           "repro_torch.launch.train", "repro_torch.launch.serve")
+
+
+def fork_ranks() -> None:
+    """Fork the ranks of every later ``mesh.run_ranks`` of this process
+    (``train`` and ``serve`` on a grid included) from one server that
+    imported ``PRELOAD`` once, instead of spawning an interpreter a rank
+    that imports them all again (seconds a rank).  ``_torch_bridge``'s
+    fixture ``forked_ranks`` calls it for each test module that starts
+    ranks; the choice holds for the rest of the process."""
+    mesh.preload_ranks(*PRELOAD)
 
 
 def _t(a):

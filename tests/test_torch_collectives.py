@@ -24,6 +24,7 @@ import _torch_ranks as ranks
 from _torch_bridge import jax_to_numpy
 from repro.core import collectives as JC
 from repro.core import compression as JCOMP
+from repro_torch.launch import mesh
 from repro_torch.launch.mesh import run_ranks
 
 GRIDS = [(2, 2), (2, 1), (1, 2)]
@@ -48,8 +49,16 @@ def _inputs(pods, data, seed=0):
 
 @functools.lru_cache(maxsize=None)
 def _port(pods, data):
-    out = run_ranks(ranks.collectives, pods * data, "gloo",
-                    (pods, data, *_inputs(pods, data)), timeout=TIMEOUT)
+    # spawned ranks (a fresh interpreter each) even where another test
+    # module of this process forks them (``_torch_ranks.fork_ranks``):
+    # test_preloaded_ranks_compute_what_spawned_ones_do holds forked ranks
+    # to these
+    forked, mesh._PRELOADED[:] = mesh._PRELOADED[:], []
+    try:
+        out = run_ranks(ranks.collectives, pods * data, "gloo",
+                        (pods, data, *_inputs(pods, data)), timeout=TIMEOUT)
+    finally:
+        mesh._PRELOADED[:] = forked
     return {k: np.stack([o[k] for o in out]).reshape(
         (pods, data) + out[0][k].shape) for k in out[0]}
 

@@ -88,6 +88,14 @@ LSE_MIRROR_TOL = 1e-4
     (4, 128, 512, 16, 16, 64, False, None, 0),     # seamless cross
     (4, 512, 512, 32, 8, 128, True, None, 0),      # pixtral
     (4, 512, 512, 40, 8, 128, True, None, 0),      # llama4-scout: G = 5
+    # head dims between the tile widths: 80 (phi-2), 96 (phi-3-mini), 100
+    # (8-byte aligned rows), 48, 33 (odd), 200 (width 224)
+    (1, 2048, 2048, 32, 32, 80, True, None, 0),
+    (1, 2048, 2048, 32, 32, 96, True, None, 0),
+    (2, 333, 333, 8, 2, 100, True, 100, 0),
+    (1, 300, 300, 8, 8, 48, True, None, 0),
+    (1, 128, 384, 4, 1, 33, True, None, 256),
+    (1, 300, 300, 10, 1, 200, True, 128, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
@@ -116,9 +124,17 @@ def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(dev):
+    # every head dim up to 256 runs (48 against its plain version); 257
+    # and 512 are refused
     q, k, v = _inputs(1, 64, 64, 4, 2, 48, torch.float32, dev)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_fwd(q, k, v)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v)
+    torch.testing.assert_close(o, o_ref, atol=3e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=3e-5, rtol=1e-6)
+    for hd in (257, 512):
+        q, k, v = _inputs(1, 64, 64, 4, 2, hd, torch.float32, dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_fwd(q, k, v)
     q, k, v = _inputs(1, 64, 64, 4, 2, 64, torch.float16, dev)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention_fwd(q, k, v)
@@ -283,6 +299,13 @@ def test_serve_on_card_launches_the_kernel(dev):
     (1, 300, 300, 16, 8, 256, True, 100, 0),       # gemma3 local, G 2
     (1, 128, 384, 4, 4, 256, True, None, 256),     # continuation, G 1
     (1, 200, 300, 2, 2, 256, False, None, 0),      # non-causal, G 1
+    # head dims between the tile widths (test_flash_kernel_matches_plain)
+    (1, 2048, 2048, 32, 32, 80, True, None, 0),
+    (1, 2048, 2048, 32, 32, 96, True, None, 0),
+    (2, 333, 333, 8, 2, 100, True, 100, 0),
+    (1, 300, 300, 8, 8, 48, True, None, 0),
+    (1, 128, 384, 4, 1, 33, True, None, 256),
+    (1, 300, 300, 10, 1, 200, True, 128, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernels_match_plain(dev, B, Sq, Sk, H, Hkv, hd, causal,
@@ -328,7 +351,16 @@ def test_flash_autograd_on_card_matches_cpu(dev):
 
 
 def test_flash_bwd_rejects_what_it_cannot_take(dev):
-    for hd, G, dtype in ((512, 1, torch.float32), (48, 1, torch.float32),
+    # hd 48 runs against its plain version; 257 and 512 are refused
+    q, k, v = _inputs(1, 64, 64, 4, 2, 48, torch.float32, dev)
+    do = _inputs(1, 64, 64, 4, 4, 48, torch.float32, dev, seed=1)[0]
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
+    for hd, G, dtype in ((512, 1, torch.float32), (257, 1, torch.float32),
                          (64, 1, torch.float16), (64, 128, torch.float32)):
         q = torch.zeros(1, 64, G, hd, device=dev, dtype=dtype)
         k = torch.zeros(1, 64, 1, hd, device=dev, dtype=dtype)

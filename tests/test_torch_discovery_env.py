@@ -14,6 +14,7 @@ import tempfile
 import numpy as np
 import pytest
 
+from _torch_bridge import forked_ranks
 from repro.core import discovery as JD
 
 from repro_torch.core import discovery as TD

@@ -22,6 +22,7 @@ import torch
 
 import _torch_ranks as ranks
 
+from _torch_bridge import forked_ranks
 from repro import configs as jconfigs
 from repro.configs import shapes as JSH
 from repro.core import costmodel as JCM

@@ -43,7 +43,7 @@ import pytest
 import torch
 
 import _torch_ranks as ranks
-from _torch_bridge import jax_to_numpy, rank_opt
+from _torch_bridge import forked_ranks, jax_to_numpy, rank_opt
 from repro import configs as jconfigs
 from repro.checkpoint.manager import CheckpointManager as JaxCheckpoints
 from repro.core import Communicator as JComm
@@ -409,7 +409,11 @@ for name, kw in json.loads(sys.argv[1]).items():
 """
 
 
-def _start_reference():
+def _start_reference(cache_dir):
+    """The reference's runs of every case in one subprocess; its compiled
+    programs go to ``cache_dir``, new for the run, so that a case whose
+    programs an earlier case compiled loads them (on jax 0.4.x the cache
+    stays off, as ``conftest.run_with_devices`` keeps it)."""
     cases = {**PLANE, "f32": F32}
     cases = {k: {**COMMON, **v, "fail_at": {str(s): p for s, p in
                                             v["fail_at"].items()}}
@@ -417,6 +421,10 @@ def _start_reference():
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.path.join(REPO, "src"))
+    if hasattr(jax, "shard_map"):
+        env.update(JAX_COMPILATION_CACHE_DIR=cache_dir,
+                   JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0",
+                   JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="0")
     return subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
                              json.dumps(cases)], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env)
@@ -449,7 +457,7 @@ def _f32_params():
 @pytest.fixture(scope="module")
 def control_plane(tmp_path_factory):
     """The reference's runs in a subprocess, the port's meanwhile."""
-    proc = _start_reference()
+    proc = _start_reference(str(tmp_path_factory.mktemp("jax_cache")))
     try:
         ours = {}
         for name, kw in PLANE.items():

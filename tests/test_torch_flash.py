@@ -44,6 +44,17 @@ CASES = [   # B, Sq, Sk, Hkv, G, hd, causal, window, q_offset, block, dtype
     (1, 128, 256, 1, 2, 64, True, None, 128, 64, "float32"),
     # q positions 200..327 past Sk + window: fully masked rows too
     (1, 128, 256, 2, 1, 128, True, 64, 200, 64, "bfloat16"),
+    # head dims between the kernels' tile widths: run at the least width
+    # that holds them, rows 16-byte (72), 8-byte (100) or 2-byte (33)
+    # aligned; 200 at the widths above 128 (32-key tiles)
+    (1, 128, 128, 2, 1, 48, True, None, 0, 64, "bfloat16"),
+    (1, 128, 128, 1, 4, 72, True, None, 0, 64, "bfloat16"),
+    (1, 128, 128, 2, 1, 80, False, None, 0, 64, "float32"),
+    (1, 128, 256, 2, 2, 96, True, 48, 128, 64, "bfloat16"),
+    (1, 128, 128, 2, 1, 100, True, None, 0, 64, "float32"),
+    (1, 128, 128, 1, 2, 100, False, None, 0, 64, "bfloat16"),
+    (1, 128, 128, 1, 2, 33, True, None, 0, 64, "bfloat16"),
+    (1, 128, 128, 2, 1, 200, True, 40, 0, 64, "bfloat16"),
 ]
 
 
@@ -98,6 +109,8 @@ def test_flash_fwd_bf16_mirror_matches_pallas(B, Sq, Sk, Hkv, G, hd, causal,
         (1, 128, 128, 4, 2, 64, True, None, 0),
         (2, 100, 100, 4, 4, 32, False, None, 0),
         (1, 96, 96, 10, 1, 256, True, 40, 0),      # G = 10, 32-key tiles
+        (1, 96, 96, 4, 2, 200, True, 40, 0),       # width 224: 32-key tiles
+        (1, 100, 100, 4, 4, 72, True, None, 0),    # width 80: 64-key tiles
         (1, 128, 256, 4, 2, 16, True, 64, 300),    # fully masked rows
     ])
 def test_flash_fwd_bf16_mirror_is_plain_for_f32(B, Sq, Sk, H, Hkv, hd,
@@ -114,6 +127,19 @@ def test_flash_fwd_bf16_mirror_is_plain_for_f32(B, Sq, Sk, H, Hkv, hd,
     o, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
     torch.testing.assert_close(o_m, o, atol=TOL["float32"], rtol=0)
     torch.testing.assert_close(lse_m, lse, atol=TOL["float32"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("hd,width,block_k", [
+    (1, 16, 64), (16, 16, 64), (17, 32, 64), (33, 48, 64), (48, 48, 64),
+    (72, 80, 64), (96, 96, 64), (100, 112, 64), (128, 128, 64),
+    (129, 160, 32), (200, 224, 32), (256, 256, 32)])
+def test_kernel_width_and_tiles(hd, width, block_k):
+    """The tile width a head dim runs at (``head_width`` in
+    csrc/flash_mma.cuh: the least multiple of 16 up to 128, of 32 above)
+    and the bf16 forward's KV tile there, which the mirror takes."""
+    assert fa.kernel_width(hd) == width
+    assert width in fa.KERNEL_HEAD_WIDTHS
+    assert fa.kernel_block_k(hd) == block_k
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -158,6 +184,14 @@ def test_mha_reference_matches_jax(dtype, causal, window):
 def _bad(kind):
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
+    # on meta, which takes the card's checks: no head dim 0 or past 256,
+    # no more than 64 query heads a KV head
+    if kind.startswith("meta_"):
+        hd, H = {"meta_hd0": (0, 4), "meta_hd257": (257, 4),
+                 "meta_groups65": (64, 130)}[kind]
+        return (torch.zeros(1, 8, H, hd, device="meta"),
+                torch.zeros(1, 8, 2, hd, device="meta"),
+                torch.zeros(1, 8, 2, hd, device="meta"), None)
     if kind == "rank":
         return q[0], k, k, None
     if kind == "head_dim":
@@ -176,8 +210,22 @@ def _bad(kind):
 
 
 @pytest.mark.parametrize("kind", ["rank", "head_dim", "groups", "dtype",
-                                  "mixed", "layout", "window"])
+                                  "mixed", "layout", "window", "meta_hd0",
+                                  "meta_hd257", "meta_groups65"])
 def test_flash_wrapper_rejects_bad_inputs(kind):
     q, k, v, window = _bad(kind)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, k, v, window=window)
+
+
+@pytest.mark.parametrize("hd", [1, 33, 48, 100, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_takes_head_dims_to_256_on_the_card_path(hd, dtype):
+    """On meta (the card's checks, no data) every head dim 1..256 and G 64
+    is taken, forward and backward, with outputs of the kernels' shapes."""
+    q = torch.zeros(1, 8, 64, hd, device="meta", dtype=dtype)
+    k = torch.zeros(1, 8, 1, hd, device="meta", dtype=dtype)
+    o, lse = fa.flash_attention_fwd(q, k, k)
+    assert o.shape == q.shape and lse.shape == (1, 1, 64, 8)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, k, o, lse, q)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape

@@ -73,6 +73,15 @@ CASES = [
     (1, 128, 256, 2, 1, 64, True, 64, 200, "bfloat16", False),
     (1, 256, 256, 1, 4, 64, True, None, 0, "bfloat16", True),
     (1, 128, 128, 2, 2, 128, False, None, 0, "bfloat16", True),
+    # head dims between the kernels' tile widths (test_torch_flash.py)
+    (1, 128, 128, 2, 1, 48, True, None, 0, "bfloat16", True),
+    (1, 128, 128, 1, 4, 72, True, None, 0, "bfloat16", True),
+    (1, 128, 128, 2, 1, 80, False, None, 0, "float32", True),
+    (1, 128, 256, 2, 2, 96, True, 48, 128, "bfloat16", True),
+    (1, 128, 128, 2, 1, 100, True, None, 0, "float32", True),
+    (1, 128, 128, 1, 2, 100, False, None, 0, "bfloat16", True),
+    (1, 128, 128, 1, 2, 33, True, None, 0, "bfloat16", True),
+    (1, 128, 128, 2, 1, 200, True, 40, 0, "bfloat16", True),
 ]
 
 

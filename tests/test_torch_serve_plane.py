@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import jax
 
+from _torch_bridge import forked_ranks
 import repro.core as J
 from repro.configs import get_config as j_get_config
 from repro.core import discovery as JD

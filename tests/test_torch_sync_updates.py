@@ -35,7 +35,8 @@ import numpy as np
 import pytest
 
 import _torch_ranks as ranks
-from _torch_bridge import jax_to_numpy, model_cut, rank_opt, vmap_ranks
+from _torch_bridge import (forked_ranks, jax_to_numpy, model_cut, rank_opt,
+                           vmap_ranks)
 from repro.optim import adamw as jadamw
 from repro_torch.launch.mesh import run_ranks
 
@@ -232,9 +233,9 @@ def test_reference_norm_counts_a_replicated_leaf_on_each_model_rank():
         for model in (1, 2):
             local = {"norm": params["norm"], "w": jnp.zeros((2, 4 // model))}
             opt = jadamw.init_opt_state(local, cfg)
-            fn = vmap_ranks(lambda p, gr, o: jadamw.apply_updates(
+            fn = jax.jit(vmap_ranks(lambda p, gr, o: jadamw.apply_updates(
                 p, gr, o, cfg, None, 1, 1, mdims, model_axis="model"),
-                model=True)
+                model=True))
             lead = lambda t: jnp.broadcast_to(t, (1, 1, model) + t.shape)
             _, new = fn(jax.tree.map(lead, local),
                         {"norm": lead(g), "w": lead(local["w"])},

@@ -37,7 +37,7 @@ import pytest
 import torch
 
 import _torch_ranks
-from _torch_bridge import cast_tree, jax_to_numpy, numpy_to_torch
+from _torch_bridge import cast_tree, forked_ranks, jax_to_numpy, numpy_to_torch
 from jax import lax
 from repro.models import layers as JL
 from repro.models import transformer as JT
@@ -111,19 +111,22 @@ def runs():
     """Per model size: the configs, their reference weights (f32, numpy),
     the inputs (with the unsharded run's cache before each decode step),
     the unsharded run's results and the ranks'."""
-    out = {}
+    out, done = {}, {}      # a config of both sizes is set up once
     for model, names in CASES.items():
         cases, whole = [], {}
         for name in names:
-            cfg = _cfg(name)
-            jp = jax_to_numpy(cast_tree(
-                JT.init_model(jax.random.PRNGKey(0), cfg), jnp.float32))
-            ins = _inputs(cfg)
-            whole[name] = _torch_ranks.model_paths(
-                params_from_jax(jp, cfg, device="cpu"), cfg, ins)
-            ins.update(pools_before=whole[name].pop("pools_before"),
-                       caches_before=whole[name].pop("caches_before"))
-            cases.append((name, cfg, jp, ins))
+            if name not in done:
+                cfg = _cfg(name)
+                jp = jax_to_numpy(cast_tree(
+                    JT.init_model(jax.random.PRNGKey(0), cfg), jnp.float32))
+                ins = _inputs(cfg)
+                paths = _torch_ranks.model_paths(
+                    params_from_jax(jp, cfg, device="cpu"), cfg, ins)
+                ins.update(pools_before=paths.pop("pools_before"),
+                           caches_before=paths.pop("caches_before"))
+                done[name] = (name, cfg, jp, ins), paths
+            case, whole[name] = done[name]
+            cases.append(case)
         res = run_ranks(_torch_ranks.tp_ranks, model, "gloo",
                         args=(model, cases, _sp_cases()), timeout=600)
         out[model] = {"cases": {c[0]: c for c in cases}, "ranks": res,
@@ -138,36 +141,52 @@ def _jcache(cache):
             for ent in cache]
 
 
+_REFS = {}
+
+
 def _reference(case):
     """The reference's paged path, dense path and full forward on the same
     weights and tokens, one device; each decode step from the unsharded
-    port's cache of that step."""
+    port's cache of that step.  A config of both model sizes has the same
+    weights, inputs and unsharded caches on both, so it is computed once."""
     name, cfg, params, ins = case
+    if name not in _REFS:
+        _REFS[name] = _reference_paths(cfg, params, ins)
+    return _REFS[name]
+
+
+def _reference_paths(cfg, params, ins):
+    """``_reference``'s paths, each jitted once for its config (a decode
+    step compiles once for all its steps)."""
     jp = jax.tree.map(jnp.asarray, params)
     out = {}
     S_p, L_, BS = ins["S_p"], ins["L"], ins["BS"]
-    lg, cache, _ = JT.prefill(jp, cfg, {"tokens": jnp.asarray(ins["toks"])},
-                              S_p, last_pos=jnp.asarray([L_ - 1]),
-                              full_local_cache=True)
+    lg, cache, _ = jax.jit(lambda p, t, last: JT.prefill(
+        p, cfg, {"tokens": t}, S_p, last_pos=last, full_local_cache=True))(
+        jp, jnp.asarray(ins["toks"]), jnp.asarray([L_ - 1]))
     out["paged_prefill"] = np.asarray(lg)
     tables = jnp.arange(1, ins["max_blocks"] + 1)[None]
+    paged = jax.jit(lambda p, pools, tb, t, pos: JT.decode_step_paged(
+        p, cfg, pools, tb, t, pos))
     steps = []
     for i, t in enumerate(ins["forced"]):
-        lg, _ = JT.decode_step_paged(jp, cfg, _jcache(ins["pools_before"][i]),
-                                     tables, jnp.asarray(t)[None],
-                                     jnp.asarray([L_ + i]))
+        lg, _ = paged(jp, _jcache(ins["pools_before"][i]), tables,
+                      jnp.asarray(t)[None], jnp.asarray([L_ + i]))
         steps.append(np.asarray(lg))
     out["paged_steps"] = np.stack(steps)
     dense = jnp.asarray(ins["dense"])
-    lg, cache, S = JT.prefill(jp, cfg, {"tokens": dense}, ins["s_max"])
+    lg, cache, S = jax.jit(lambda p, t: JT.prefill(
+        p, cfg, {"tokens": t}, ins["s_max"]))(jp, dense)
     out["dense_prefill"] = np.asarray(lg)
+    step = jax.jit(lambda p, c, t, pos: JT.decode_step(p, cfg, c, t, pos))
     steps = []
     for i, t in enumerate(ins["dense_forced"]):
-        lg, _ = JT.decode_step(jp, cfg, _jcache(ins["caches_before"][i]),
-                               jnp.asarray(t), jnp.int32(S + i))
+        lg, _ = step(jp, _jcache(ins["caches_before"][i]), jnp.asarray(t),
+                     jnp.int32(S + i))
         steps.append(np.asarray(lg))
     out["dense_steps"] = np.stack(steps)
-    out["fwd"] = np.asarray(JT.model_fwd(jp, cfg, {"tokens": dense}))
+    out["fwd"] = np.asarray(jax.jit(lambda p, t: JT.model_fwd(
+        p, cfg, {"tokens": t}))(jp, dense))
     return out
 
 

@@ -41,7 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_bridge import jax_to_numpy
+from _torch_bridge import forked_ranks, jax_to_numpy
 from repro import configs as jconfigs
 from repro.launch import train as JTRAIN
 from repro.models import transformer as JT

@@ -57,7 +57,8 @@ import numpy as np
 import pytest
 
 import _torch_ranks as ranks
-from _torch_bridge import cast_tree, jax_to_numpy, ref_cut, ref_encoder_f32
+from _torch_bridge import (cast_tree, forked_ranks, jax_to_numpy, ref_cut,
+                           ref_encoder_f32)
 from repro import configs as jconfigs
 from repro.models import sharding as JSH
 from repro.models import transformer as JT

@@ -55,8 +55,8 @@ import pytest
 from jax.sharding import PartitionSpec
 
 import _torch_ranks as ranks
-from _torch_bridge import (cast_tree, jax_to_numpy, model_cut, rank_opt,
-                           ref_cut, ref_encoder_f32, vmap_ranks)
+from _torch_bridge import (cast_tree, forked_ranks, jax_to_numpy, model_cut,
+                           rank_opt, ref_cut, ref_encoder_f32, vmap_ranks)
 from repro.models import sharding as JSH
 from repro.models import transformer as JT
 from repro.optim import adamw as jadamw

@@ -35,7 +35,7 @@ import pytest
 import torch
 
 import _torch_ranks as ranks
-from _torch_bridge import ref_cut
+from _torch_bridge import forked_ranks, ref_cut
 from repro.models import sharding as JSH
 from repro.models import transformer as JT
 from repro_torch import configs

@@ -41,7 +41,7 @@ import pytest
 import torch
 
 import _torch_ranks as ranks
-from _torch_bridge import jax_to_numpy, numpy_to_torch
+from _torch_bridge import forked_ranks, jax_to_numpy, numpy_to_torch
 from repro.models import layers as JL
 from repro_torch import configs
 from repro_torch.configs.shapes import ShapeSpec

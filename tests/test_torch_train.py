@@ -44,8 +44,8 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 import _torch_ranks as ranks
-from _torch_bridge import (jax_to_numpy, rank_opt, ref_encoder_f32,
-                           vmap_ranks)
+from _torch_bridge import (forked_ranks, jax_to_numpy, rank_opt,
+                           ref_encoder_f32, vmap_ranks)
 from repro import configs as jconfigs
 from repro.checkpoint.manager import CheckpointManager as JaxCheckpoints
 from repro.compat import shard_map

@@ -40,7 +40,7 @@ import pytest
 import torch
 
 import _torch_ranks as ranks
-from _torch_bridge import jax_to_numpy, ref_encoder_f32
+from _torch_bridge import forked_ranks, jax_to_numpy, ref_encoder_f32
 from repro.configs.shapes import ShapeSpec as JaxShape
 from repro.data.pipeline import DataPipeline as JaxPipeline
 from repro.models import transformer as JT

@@ -39,7 +39,7 @@ import pytest
 import torch
 
 import _torch_ranks as ranks
-from _torch_bridge import jax_to_numpy
+from _torch_bridge import forked_ranks, jax_to_numpy
 from repro.configs.shapes import ShapeSpec as JaxShape
 from repro.data.pipeline import DataPipeline as JaxPipeline
 from repro.models import layers as JL

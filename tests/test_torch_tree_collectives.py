@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 import _torch_ranks as ranks
+from _torch_bridge import forked_ranks
 from repro.core import Communicator as JCommunicator
 from repro.core.topology import tpu_v5e_multipod
 from repro_torch.launch.mesh import run_ranks
