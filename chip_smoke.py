@@ -93,9 +93,10 @@ each phase checks and prints its part where it stands:
    blocks an SM holds) and its registers and spills (ptxas), one JSON
    line per shape; at 8 x 512 and 1 x 304 also its time at 1, 2 and 4
    blocks a head.  Each ``--parent-wkv LIB`` (a shared library built from
-   an earlier ``csrc/wkv.cu``) is held to the plain version there too and
-   timed in turns with the kernel (kernel, parents, the parents in
-   reverse, kernel);
+   an earlier ``csrc/wkv.cu``) is held to the plain version there too,
+   its o and state compared with the kernel's bit for bit
+   (``parent_bits_equal``), and timed in turns with the kernel (kernel,
+   parents, the parents in reverse, kernel);
 14. the RWKV-6 serving path: ``make_prefill_fn``/``make_decode_fn`` on
    rwkv6-1.6b at full width (24 layers, d 2048, random weights from a
    seed), a batch of 8 prompts of 512 tokens and one of 300, 16 greedy
@@ -412,8 +413,24 @@ each phase checks and prints its part where it stands:
    with the share of the work that padding to the tile width adds.  ``python3
    chip_smoke.py --phase-35`` builds the kernels, checks their SASS and
    runs it alone.
+36. The WKV kernel's other instances (run right after 15): head dims
+   80-256 at chunk 16 and chunks 1-64 at hd 64 (tests/test_torch_wkv.py's
+   cases), rwkv6-1.6b's 8 x 512 prefill widths with 16 heads of 128 and
+   8 of 256, and padded chunks and heads (``WKV_WIDE_SHAPES``) against
+   the plain version, o and the final state within WKV_TOL of their
+   scale; at each, o and the state bit for bit across n_split 1, 2, twice
+   the head's floor and the launcher's choice, and a padded chunk or head
+   bit for bit against the exact instance on the inputs padded by the
+   caller; each shape's time beside the plain version's and its bound,
+   its launch plan and its instance's registers and spills, one JSON line
+   each.  Then rwkv6-1.6b's widths with heads of 128 (16 heads), 2 layers
+   in f32, a 2 x 512 prefill and 4 greedy tokens through
+   ``make_prefill_fn``/``make_decode_fn`` held to the CPU as phase 15
+   holds hd 64's, its WKV launches counted (2, added to #7's line).
+   ``python3 chip_smoke.py --phase-36`` builds the kernels and runs it
+   alone.
 
-Phases 3, 4, 9 and 13 take their bounds from
+Phases 3, 4, 9, 13 and 36 take their bounds from
 ``repro_torch.core.costmodel.kernel_roofline`` (the H100's datasheet
 ceilings, ``H100`` for bf16 and ``H100_F32`` for f32) and the kernels'
 work from the port (``flash_attention.fwd_work``/``bwd_dq_work``/
@@ -573,6 +590,36 @@ WKV_SHAPES = [
     ("decay clip", 1, 512, 32, 64, "clip"),
     ("decay near 1", 1, 512, 32, 64, "one"),
 ]
+# phase 36: the instances beside (chunk 16, width 64): (name, B, S, H, hd,
+# chunk, decays): tests/test_torch_wkv.py's head dims 80-256 at chunk 16 and
+# chunks 1-64 at hd 64 (the decay clip only up to chunk 16), rwkv6-1.6b's
+# prefill widths with heads of 128 and of 256, and padded instances (a
+# chunk or a head below its instance's: hd 100 in chunks of 24, 72 in 12,
+# 200, 33 in chunks of 40, 7 in chunks of 5)
+WKV_WIDE_SHAPES = [
+    ("hd 80", 1, 32, 2, 80, 16, "model"),
+    ("hd 96", 1, 48, 1, 96, 16, "test"),
+    ("hd 128", 1, 32, 2, 128, 16, "clip"),
+    ("hd 256", 1, 32, 1, 256, 16, "model"),
+    ("chunk 1", 1, 32, 2, 64, 1, "clip"),
+    ("chunk 4", 2, 32, 1, 64, 4, "test"),
+    ("chunk 8", 1, 64, 2, 64, 8, "clip"),
+    ("chunk 12", 1, 48, 2, 64, 12, "model"),
+    ("chunk 32", 1, 96, 1, 64, 32, "test"),
+    ("chunk 32", 1, 128, 1, 64, 32, "model"),
+    ("chunk 64", 1, 128, 1, 64, 64, "model"),
+    ("chunk 64", 1, 128, 1, 64, 64, "test"),
+    ("rwkv6-1.6b prefill, 16 heads of 128", 8, 512, 16, 128, 16, "model"),
+    ("rwkv6-1.6b prefill, 8 heads of 256", 8, 512, 8, 256, 16, "model"),
+    ("hd 100 chunk 24", 2, 240, 3, 100, 24, "test"),
+    ("hd 72 chunk 12", 1, 96, 5, 72, 12, "model"),
+    ("hd 200", 1, 64, 2, 200, 16, "clip"),
+    ("hd 33 chunk 40", 2, 80, 2, 33, 40, "test"),
+    ("hd 7 chunk 5", 1, 40, 3, 7, 5, "model"),
+]
+# and rwkv6-1.6b's widths with heads of 128 (16 heads), 2 layers in f32: a
+# (batch, prompt) prefill and 4 greedy tokens, card against CPU
+RWKV_WIDE = dict(rwkv_head_dim=128, layers=2, batch=2, prompt=512)
 WKV_MAIN = 0            # the shape the RWKV-6 prefill gives the kernel
 WKV_TURNS = (0, 1)      # the shapes timed at each split and with parents
 # o and the final state, relative to max(1, max|ref|): the reference kernel
@@ -1649,19 +1696,132 @@ def ptxas_of(log: str, kernel: str) -> dict:
     return out
 
 
+def wkv_instance(plan: dict, hd: int) -> str:
+    """The ``ptxas_of`` key of the WKV instance a launch plan runs (rows by
+    16-byte copies where hd % 4 == 0: the inputs here are aligned)."""
+    return (f"wkv_kernel<{plan['chunk_width']}><{plan['head_width']}>"
+            f"<{int(plan['exact'])}><{4 if hd % 4 == 0 else 1}>")
+
+
+def pad_wkv_chunks(torch, ins, chunk, C):
+    """A pad step (zero r, k, v; w = 1) after each chunk's last, to C."""
+    r, k, v, w, u = ins
+    B, S, H, hd = r.shape
+    out = []
+    for t, fill in ((r, 0.0), (k, 0.0), (v, 0.0), (w, 1.0)):
+        x = torch.full((B, S // chunk, C, H, hd), fill, device=t.device)
+        x[:, :, :chunk] = t.reshape(B, S // chunk, chunk, H, hd)
+        out.append(x.reshape(B, -1, H, hd))
+    return out + [u]
+
+
+def pad_wkv_head(torch, ins, W):
+    """Zero columns past hd to W (w = 1 there)."""
+    F = torch.nn.functional
+    r, k, v, w, u = ins
+    pad = (0, W - r.shape[-1])
+    return [F.pad(t, pad) for t in (r, k, v)] + [F.pad(w, pad, value=1.0),
+                                                 F.pad(u, pad)]
+
+
+def wkv_width_phase(torch, kw, ptxas, get_config) -> int:
+    """36: the WKV kernel's instances beside (16, 64) against the plain
+    version (``WKV_WIDE_SHAPES``, o and the final state within WKV_TOL of
+    their scale); o and the state bit for bit across n_split 1, 2, twice
+    the head's floor and the launcher's choice (1 and 2 raised to the
+    floor above hd 64), and a padded
+    chunk or head against the exact instance on the inputs padded by the
+    caller; each shape's time beside the plain version's and its bound,
+    its launch and its instance's registers and spills.  Then
+    rwkv6-1.6b's widths with heads of 128 (``RWKV_WIDE``), card against
+    CPU as phase 15 holds them.  Returns that run's WKV launches."""
+    t0 = time.perf_counter()
+    for name, B, S, H, hd, chunk, decays in WKV_WIDE_SHAPES:
+        ins = wkv_inputs(torch, B, S, H, hd, decays, seed=36)
+        o, st = kw.wkv_chunked(*ins, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        o_ref, st_ref = kw.wkv_chunk_scan_ref(*ins, chunk)
+        errs = {}
+        for what, got, want in (("o", o, o_ref), ("S_fin", st, st_ref)):
+            err = (got - want).abs().max().item()
+            lim = WKV_TOL * max(1.0, want.abs().max().item())
+            if not (torch.isfinite(got).all() and err <= lim):
+                fail(f"phase 36 wkv {name} {what}: max abs err {err} > {lim}")
+            errs[what] = err
+        plan = kw.launch_plan(B, H, hd, chunk=chunk)
+        floor = kw.launch_plan(B, H, hd, 1, chunk=chunk)["n_split"]
+        splits = {}
+        for n in (1, 2, min(hd, 2 * floor), 0):
+            o_n, st_n = kw.wkv_chunked(*ins, chunk=chunk, return_state=True,
+                                       n_split=n)
+            torch.cuda.synchronize()
+            splits[n] = kw.launch_plan(B, H, hd, n, chunk=chunk)["n_split"]
+            if not (torch.equal(o_n, o) and torch.equal(st_n, st)):
+                fail(f"phase 36 wkv {name}: n_split {n} changes the bits")
+        C, W = plan["chunk_width"], plan["head_width"]
+        padded = []
+        if chunk != C:
+            po, ps = kw.wkv_chunked(*pad_wkv_chunks(torch, ins, chunk, C),
+                                    chunk=C, return_state=True)
+            po = po.reshape(B, S // chunk, C, H, hd)[:, :, :chunk]
+            if not (torch.equal(po.reshape(B, S, H, hd), o)
+                    and torch.equal(ps, st)):
+                fail(f"phase 36 wkv {name}: the padded chunk differs from "
+                     f"chunk {C} on the inputs padded by the caller")
+            padded.append(f"chunk {chunk} of {C}")
+        if hd != W:
+            po, ps = kw.wkv_chunked(*pad_wkv_head(torch, ins, W), chunk=chunk,
+                                    return_state=True)
+            if not (torch.equal(po[..., :hd], o)
+                    and torch.equal(ps[..., :hd, :hd], st)):
+                fail(f"phase 36 wkv {name}: the padded head differs from "
+                     f"width {W} on the inputs padded by the caller")
+            padded.append(f"head {hd} of {W}")
+        flops, nbytes = kw.work(B, S, H, hd, chunk)
+        rec = {"shape": name, "B": B, "S": S, "H": H, "hd": hd,
+               "chunk": chunk, "decays": decays,
+               "max_abs_err": max(errs.values()), "max_abs_err_o_S": errs,
+               "kernel_ms": cuda_ms(torch, lambda: kw.wkv_chunked(
+                   *ins, chunk=chunk, return_state=True), 20),
+               "plain_ms": cuda_ms(torch, lambda: kw.wkv_chunk_scan_ref(
+                   *ins, chunk), 3),
+               "flops": flops, "bytes": nbytes, "library_ms": None,
+               "launch": plan, "n_split_bits_equal": splits,
+               "padded_bits_equal_caller_padded": padded}
+        bound(flops, nbytes, "float32", rec)
+        key = wkv_instance(plan, hd)
+        rec["ptxas"] = {key: ptxas.get(key)}
+        print(json.dumps({"wkv_36": rec}), flush=True)
+    t_kernels = time.perf_counter() - t0
+    cfg = dataclasses.replace(
+        get_config("rwkv6-1.6b"), rwkv_head_dim=RWKV_WIDE["rwkv_head_dim"],
+        n_layers=RWKV_WIDE["layers"], pattern=("rwkv6",) * RWKV_WIDE["layers"])
+    rec = rwkv_answer(torch, get_config, cfg, RWKV_WIDE["batch"],
+                      RWKV_WIDE["prompt"], "rwkv6_hd128_f32_card_vs_cpu")
+    if rec["wkv_launches"] != cfg.n_layers:
+        fail(f"phase 36: the hd-128 prefill launched {rec['wkv_launches']} "
+             f"WKV kernels, expected {cfg.n_layers}")
+    print(json.dumps({"phase_36": {
+        "shapes": len(WKV_WIDE_SHAPES), "kernels_wall_s": t_kernels,
+        "wall_s": time.perf_counter() - t0}}), flush=True)
+    return rec["wkv_launches"]
+
+
 def parent_wkv(path):
     """An earlier WKV kernel's library, for timing in turns: its wkv_fwd
-    called as this one is (the launcher's choice where it takes n_split)."""
+    called as this one is (the launcher's choice where it takes n_split,
+    chunk 16 where it takes a chunk)."""
     lib = ctypes.CDLL(str(Path(path).resolve()))
     P, I = ctypes.c_void_p, ctypes.c_int
     split = hasattr(lib, "wkv_plan")
-    lib.wkv_fwd.argtypes = [P] * 7 + [I] * 5 + [P] + [I] * split
+    chunk = hasattr(lib, "wkv_supported")
+    lib.wkv_fwd.argtypes = [P] * 7 + [I] * (5 + chunk) + [P] + [I] * split
     lib.wkv_fwd.restype = I
 
     def run(torch, r, k, v, w, u, o, st):
         B, S, H, hd = r.shape
         err = lib.wkv_fwd(*[t.data_ptr() for t in (r, k, v, w, u, o, st)],
-                          B, S, H, hd, r.device.index,
+                          B, S, H, hd, *[16] * chunk, r.device.index,
                           torch.cuda.current_stream().cuda_stream,
                           *[0] * split)
         if err:
@@ -1710,7 +1870,8 @@ def wkv_phase(torch, kw, shape, ptxas, parents=None) -> dict:
     rec["kernel_gflops"] = flops / rec["kernel_ms"] / 1e6
     bound(flops, nbytes, "float32", rec)
     rec["launch"] = kw.launch_plan(B, H, hd)
-    rec["ptxas"] = ptxas
+    rec["ptxas"] = {wkv_instance(rec["launch"], hd): ptxas.get(
+        wkv_instance(rec["launch"], hd))}
     if parents is not None:
         rec["n_split_ms"] = {n: cuda_ms(torch, lambda: kw.wkv_chunked(
             *ins, return_state=True, n_split=n), 20) for n in (1, 2, 4)}
@@ -1726,6 +1887,8 @@ def wkv_phase(torch, kw, shape, ptxas, parents=None) -> dict:
                 err = (got - want).abs().max().item()
                 if not err <= WKV_TOL * max(1.0, want.abs().max().item()):
                     fail(f"the WKV kernel {lib}'s {what} misses by {err}")
+            rec.setdefault("parent_bits_equal", {})[lib] = bool(
+                torch.equal(o_p, o) and torch.equal(st_p, st))
             runs[lib] = lambda run=run: run(torch, *ins, o_p, st_p)
         if parents:
             order = list(runs) + list(runs)[::-1]
@@ -1800,9 +1963,10 @@ def leaf_errs(torch, got, want) -> tuple[dict, bool]:
             "differing": int((d > 0).sum().item())}, ok
 
 
-def rwkv_answer(torch, get_config) -> dict:
-    """rwkv6-1.6b at full width, 2 layers, f32: a 300-token prefill and 4
-    greedy steps on the card and on the CPU.  Each step runs on both from
+def rwkv_answer(torch, get_config, cfg=None, B=1, L=300,
+                tag="rwkv6_f32_card_vs_cpu") -> dict:
+    """rwkv6-1.6b at full width (or ``cfg``), 2 layers, f32: a (B, L)
+    prefill and 4 greedy steps on the card and on the CPU.  Each step runs on both from
     the CPU's cache and token, so every leaf is held to one step's
     rounding; x_tm and x_cm are stored in bf16, so a free run lets a row
     rounded the other way feed the next step and the two runs drift apart
@@ -1812,14 +1976,18 @@ def rwkv_answer(torch, get_config) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2,
-                              pattern=("rwkv6",) * 2)
+    from repro_torch.kernels import wkv as kw
+
+    cfg = cfg or dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2,
+                                     pattern=("rwkv6",) * 2)
     p_cpu = tree_map(lambda t: t.float(),
                      T.init_model(cfg, seed=0, device="cpu"))
     p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
-    prompt = torch.randint(0, cfg.vocab, (1, 300),
-                           generator=torch.Generator().manual_seed(300))
-    prefill, decode = make_prefill_fn(cfg, 304), make_decode_fn(cfg)
+    prompt = torch.randint(0, cfg.vocab, (B, L),
+                           generator=torch.Generator().manual_seed(L))
+    launches = kw.wkv_chunked.launches
+    prefill = make_prefill_fn(cfg, L + (-L) % 16)
+    decode = make_decode_fn(cfg)
     lg_c, cache_c, pos = prefill(p_cpu, {"tokens": prompt})
     lg_g, cache_g, _ = prefill(p_gpu, {"tokens": prompt.cuda()})
     free = cache_g
@@ -1850,8 +2018,10 @@ def rwkv_answer(torch, get_config) -> dict:
     rec["free_run_cache"] = {name: leaf_errs(torch, free[0][name],
                                              cache_c[0][name])[0]
                              for name in ("S", "x_tm", "x_cm")}
-    print(json.dumps({"rwkv6_f32_card_vs_cpu": {
-        "layers": 2, "prompt": 300, "decode_steps": 4,
+    rec["wkv_launches"] = kw.wkv_chunked.launches - launches
+    print(json.dumps({tag: {
+        "layers": cfg.n_layers, "batch": B, "prompt": L,
+        "rwkv_head_dim": cfg.rwkv_head_dim, "decode_steps": 4,
         "tolerance": RWKV_TOL, **rec}}), flush=True)
     if not rec["free_run_logits_max_rel_err"] <= RWKV_TOL:
         fail(f"rwkv6 f32 free-run logits differ by "
@@ -4960,6 +5130,9 @@ def main() -> None:
     ap.add_argument("--phase-35", action="store_true", help="build the "
                     "kernels, check their SASS, run phase 35 alone and "
                     "exit (no result line)")
+    ap.add_argument("--phase-36", action="store_true", help="build the "
+                    "kernels, run phase 36 alone and exit (no result "
+                    "line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not KERNELS.is_dir():
@@ -5029,6 +5202,12 @@ def main() -> None:
                           ("flash_bwd", "flash_bwd_dq_bf16"),
                           ("flash_bwd", "flash_bwd_dkv"),
                           ("flash_bwd", "flash_bwd_dkv_bf16"))}}), flush=True)
+    if args.phase_36:
+        t0 = time.perf_counter()
+        wkv_width_phase(torch, kw, wkv_ptxas, get_config)
+        print(json.dumps({"phase_36_alone_wall_s":
+                          time.perf_counter() - t0}), flush=True)
+        return
     if args.phase_34:
         t0 = time.perf_counter()
         flash_phase(torch, fa, SHAPES[-1])
@@ -5229,6 +5408,10 @@ def main() -> None:
     progress("15", t_start)
     # 15. the RWKV-6 answer: f32, the card against the CPU
     rwkv_answer(torch, get_config)
+
+    progress("36", t_start)
+    # 36. the WKV kernel at the other head dims and chunk lengths
+    wide_wkv = wkv_width_phase(torch, kw, wkv_ptxas, get_config)
 
     progress("16", t_start)
     # 16. the seven collectives by tree on eight ranks sharing the card;
@@ -5492,7 +5675,8 @@ def main() -> None:
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:32", wkv_recs[WKV_MAIN],
                 rwkv_counts["wkv"] + rwkv_train["wkv"]
-                + rwkv_answer_counts["wkv"] + tp_rs_counts["wkv"]),
+                + rwkv_answer_counts["wkv"] + tp_rs_counts["wkv"]
+                + wide_wkv),
     }
     for name, (_, _, _, n) in sources.items():
         if n < 1:

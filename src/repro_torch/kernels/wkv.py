@@ -8,10 +8,12 @@ copy of the reference model's ``layers._wkv_chunk_scan``, the oracle the
 Pallas kernel was written to replace and the function the reference's
 ``rwkv6_fwd`` calls.
 
-:func:`wkv_chunked` takes the plain version only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises, and counts each launch in
-``wkv_chunked.launches``; for a ``meta`` tensor (the dry run) it returns
-empty outputs of the kernel's shapes.  While a
+:func:`wkv_chunked` takes the plain version only for CPU tensors, at any
+chunk and head dim, as the reference does; for a CUDA tensor it launches
+the kernel where :func:`kernel_takes` the (head dim, chunk) pair (hd
+1-256 and chunk 1-64 with chunk x hd's width <= 4096) or raises, and
+counts each launch in ``wkv_chunked.launches``; for a ``meta`` tensor (the
+dry run) it returns empty outputs of the kernel's shapes.  While a
 ``kernels.work.WorkCounter`` is active it adds the kernel's :func:`work`
 on every device.  Unlike the Pallas wrapper it can also return the final
 state, the oracle's second result, which the prefill cache holds.
@@ -32,11 +34,19 @@ import torch
 
 from . import backend, work as _work
 
-__all__ = ["CHUNK", "KERNEL_MAX_HEAD_DIM", "WKV", "launch_plan", "wkv",
-           "wkv_chunk_scan_ref", "wkv_chunked", "work"]
+__all__ = ["CHUNK", "KERNEL_HEAD_WIDTHS", "KERNEL_MAX_CHUNK",
+           "KERNEL_MAX_HEAD_DIM", "KERNEL_MAX_TILE", "WKV", "kernel_takes",
+           "kernel_width", "launch_plan", "wkv", "wkv_chunk_scan_ref",
+           "wkv_chunked", "work"]
 
 CHUNK = 16
-KERNEL_MAX_HEAD_DIM = 64        # 4 hd threads a block, 16 state floats each
+# The kernel's head widths; a call runs the least that holds its head dim,
+# and a chunk length of 16, 32 or 64 that holds its chunk, where the tiles
+# (chunk x width) fit one block's shared memory (see csrc/wkv.cu)
+KERNEL_HEAD_WIDTHS = (64, 128, 256)
+KERNEL_MAX_CHUNK = 64
+KERNEL_MAX_HEAD_DIM = KERNEL_HEAD_WIDTHS[-1]
+KERNEL_MAX_TILE = 4096          # chunk x head width
 
 
 def work(B: int, S: int, H: int, hd: int, C: int = CHUNK,
@@ -99,6 +109,21 @@ def wkv_chunk_scan_ref(r, k, v, w, u, chunk: int):
     return o, state
 
 
+def kernel_width(hd: int) -> int:
+    """The head width of the instance that runs head dim ``hd``."""
+    return next((W for W in KERNEL_HEAD_WIDTHS if hd <= W),
+                KERNEL_HEAD_WIDTHS[-1])
+
+
+def kernel_takes(hd: int, chunk: int) -> bool:
+    """Whether the kernel takes head dim ``hd`` in chunks of ``chunk``:
+    hd 1-256 and chunk 1-64 with chunk x (hd's width) <= 4096, so every
+    chunk 1-16 at every hd and every chunk up to 64 at hd <= 64.  Only a
+    card's call is held to it; the plain version takes any."""
+    return (1 <= hd <= KERNEL_MAX_HEAD_DIM and 1 <= chunk <= KERNEL_MAX_CHUNK
+            and chunk * kernel_width(hd) <= KERNEL_MAX_TILE)
+
+
 def _check(r, k, v, w, u, chunk: int, n_split: int) -> None:
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
@@ -118,12 +143,15 @@ def _check(r, k, v, w, u, chunk: int, n_split: int) -> None:
         raise ValueError(f"wkv_chunked: u must be f32 ({H}, {hd}) on "
                          f"{r.device}, got {getattr(u, 'dtype', type(u))} "
                          f"{tuple(getattr(u, 'shape', ()))}")
-    if chunk != CHUNK or S % chunk:
-        raise ValueError(f"wkv_chunked needs chunk == {CHUNK} and S % chunk "
-                         f"== 0, got S={S} chunk={chunk}")
-    if not 1 <= hd <= KERNEL_MAX_HEAD_DIM:
-        raise ValueError(f"wkv_chunked takes head_dim 1..{KERNEL_MAX_HEAD_DIM}"
-                         f", got {hd}")
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"wkv_chunked needs chunk >= 1 and S % chunk == 0, "
+                         f"got S={S} chunk={chunk}")
+    if r.is_cuda and not kernel_takes(hd, chunk):
+        raise ValueError(
+            f"the WKV kernel takes head_dim 1..{KERNEL_MAX_HEAD_DIM} and "
+            f"chunk 1..{KERNEL_MAX_CHUNK} with chunk x head width <= "
+            f"{KERNEL_MAX_TILE} (widths {KERNEL_HEAD_WIDTHS}), got head_dim "
+            f"{hd} (width {kernel_width(hd)}) and chunk {chunk}")
     if not 0 <= n_split <= hd:
         raise ValueError(f"wkv_chunked takes n_split 0..{hd} (0: the "
                          f"launcher's choice), got {n_split}")
@@ -133,29 +161,36 @@ def _lib() -> ctypes.CDLL:
     lib = backend.load("wkv")
     if lib.wkv_fwd.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.wkv_fwd.argtypes = [ptr] * 7 + [i] * 5 + [ptr, i]
+        lib.wkv_fwd.argtypes = [ptr] * 7 + [i] * 6 + [ptr, i]
         lib.wkv_fwd.restype = ctypes.c_int
-        lib.wkv_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.wkv_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
         lib.wkv_plan.restype = ctypes.c_int
+        lib.wkv_supported.argtypes = [i, i]
+        lib.wkv_supported.restype = ctypes.c_int
         lib.wkv_error_string.argtypes = [i]
         lib.wkv_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def launch_plan(B: int, H: int, hd: int, n_split: int = 0,
-                device: int | None = None) -> dict:
-    """What the kernel launches for a (B, S, H, hd) call on a card:
-    blocks per head (``n_split``), blocks, threads and dynamic shared bytes
-    a block, and how many blocks an SM holds at once."""
+                device: int | None = None, *, chunk: int = CHUNK) -> dict:
+    """What the kernel launches for a (B, S, H, hd) call on a card in
+    chunks of ``chunk``: blocks per head (``n_split``), blocks, threads and
+    dynamic shared bytes a block, how many blocks an SM holds at once, and
+    the instance (its chunk length and head width, and whether it is the
+    exact one; inputs 16-byte aligned)."""
     dev = torch.cuda.current_device() if device is None else device
     lib = _lib()
-    out = (ctypes.c_int * 5)()
-    err = lib.wkv_plan(B, H, hd, n_split, dev, out)
+    out = (ctypes.c_int * 8)()
+    err = lib.wkv_plan(B, H, hd, chunk, n_split, dev, out)
     if err:
         raise RuntimeError(f"wkv_plan failed: "
                            f"{lib.wkv_error_string(err).decode()}")
-    return dict(zip(("n_split", "blocks", "threads", "smem_bytes",
-                     "blocks_per_sm"), out))
+    plan = dict(zip(("n_split", "blocks", "threads", "smem_bytes",
+                     "blocks_per_sm", "chunk_width", "head_width", "exact"),
+                    out))
+    plan["exact"] = bool(plan["exact"])
+    return plan
 
 
 def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
@@ -164,9 +199,12 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
     and with ``return_state`` also the final state (B,H,hd,hd) f32.
 
     S must divide by ``chunk`` (callers pad, as ``models.layers`` does).
-    ``n_split`` is a test hook: 0 lets the kernel's launcher choose how many
-    blocks share a head's value columns, 1..hd asks for that many; the
-    plain version ignores it (its columns are independent either way)."""
+    On the card (hd, chunk) must be one :func:`kernel_takes`; the plain
+    version takes any, as the reference does.  ``n_split`` is a test hook:
+    0 lets the kernel's launcher choose how many blocks share a head's
+    value columns, 1..hd asks for that many (raised to the head's floor
+    above hd 64); the plain version ignores it (its columns are
+    independent either way)."""
     _check(r, k, v, w, u, chunk, n_split)
     B, S, H, hd = r.shape
     job = work(B, S, H, hd, chunk, return_state)
@@ -187,7 +225,7 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = CHUNK,
     err = lib.wkv_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                       u.data_ptr(), o.data_ptr(),
                       None if state is None else state.data_ptr(),
-                      B, S, H, hd, r.device.index,
+                      B, S, H, hd, chunk, r.device.index,
                       torch.cuda.current_stream(r.device).cuda_stream,
                       n_split)
     if err:
@@ -202,36 +240,38 @@ wkv_chunked.launches = 0
 
 
 class WKV(torch.autograd.Function):
-    """:func:`wkv_chunked` forward, (o, the final state); the backward
-    recomputes the plain scan from the saved inputs and differentiates
-    it."""
+    """:func:`wkv_chunked` forward in chunks of ``chunk``, (o, the final
+    state); the backward recomputes the plain scan at the same chunk from
+    the saved inputs and differentiates it."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u):
+    def forward(ctx, r, k, v, w, u, chunk: int = CHUNK):
         ctx.save_for_backward(r, k, v, w, u)
         ctx.set_materialize_grads(False)
-        return wkv_chunked(r, k, v, w, u, return_state=True)
+        ctx.chunk = chunk
+        return wkv_chunked(r, k, v, w, u, chunk=chunk, return_state=True)
 
     @staticmethod
     def backward(ctx, g_o, g_state):
         ins = [t.detach().requires_grad_(need) for t, need in
                zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
-            outs = wkv_chunk_scan_ref(*ins, CHUNK)
+            outs = wkv_chunk_scan_ref(*ins, ctx.chunk)
         pairs = [(y, g) for y, g in zip(outs, (g_o, g_state))
                  if g is not None]
         got = iter(torch.autograd.grad(
             [y for y, _ in pairs], [t for t in ins if t.requires_grad],
             [g for _, g in pairs]))
-        return tuple(next(got) if t.requires_grad else None for t in ins)
+        return tuple(next(got) if t.requires_grad else None
+                     for t in ins) + (None,)
 
 
-def wkv(r, k, v, w, u, *, return_state: bool = False):
-    """:func:`wkv_chunked` at the default chunk, differentiable: with a
+def wkv(r, k, v, w, u, *, chunk: int = CHUNK, return_state: bool = False):
+    """:func:`wkv_chunked` in chunks of ``chunk``, differentiable: with a
     gradient to take (grad mode on and an input that requires it) through
     :class:`WKV`, else the wrapper alone, which saves nothing."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (r, k, v, w, u)):
-        o, state = WKV.apply(r, k, v, w, u)
+        o, state = WKV.apply(r, k, v, w, u, chunk)
         return (o, state) if return_state else o
-    return wkv_chunked(r, k, v, w, u, return_state=return_state)
+    return wkv_chunked(r, k, v, w, u, chunk=chunk, return_state=return_state)

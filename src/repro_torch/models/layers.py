@@ -1142,7 +1142,7 @@ def _rwkv_met(p, xs, sh: RwkvHeads, hd: int, tp):
 
 def _decay(w_pre):
     """The data-dependent decay ``exp(-exp(w))`` in f32; the clamp keeps
-    the factored chunk recurrence in f32 range for chunks of 16."""
+    the factored chunk recurrence in f32 range for chunks of up to 16."""
     return torch.exp(-torch.exp(torch.clamp(w_pre.float(), -8, 0.5)))
 
 
@@ -1155,9 +1155,12 @@ def _rwkv_out(p, o, g, sh: RwkvHeads, dtype):
     return (o * F.silu(g.float())).to(dtype) @ p["w_o"]
 
 
-def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False, tp=None):
+def rwkv6_fwd(p, cfg: ModelConfig, x, chunk: int = CHUNK,
+              return_state: bool = False, tp=None):
     """RWKV-6 time-mix sublayer (pre-norm handled by the caller).
-    x: (B,S,D).  With ``return_state`` also returns {"S": the WKV state
+    x: (B,S,D); the WKV recurrence runs in chunks of ``chunk`` steps, the
+    sequence padded to a multiple of it.  With ``return_state`` also
+    returns {"S": the WKV state
     (B,H,hd,hd) f32, "x_tm", "x_cm": x's last row}.  On a model axis
     ``tp``, the heads that this rank's columns of the column-parallel
     ``w_r``, ``w_k``, ``w_v``, ``w_g``, ``w_w`` meet (``sharding.rwkv_heads``:
@@ -1181,11 +1184,12 @@ def rwkv6_fwd(p, cfg: ModelConfig, x, return_state: bool = False, tp=None):
     w = _decay(w).reshape(B, S, H, hd)
     # pad the sequence to a chunk multiple: zero k adds nothing and w = 1
     # keeps the state unchanged, so the final state stays exact
-    pad = (-S) % CHUNK
+    pad = (-S) % chunk
     if pad:
         r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-    out = wkv(r, k, v, w, _rwkv_u(p, sh, tp), return_state=return_state)
+    out = wkv(r, k, v, w, _rwkv_u(p, sh, tp), chunk=chunk,
+              return_state=return_state)
     o, s_fin = out if return_state else (out, None)
     if pad:
         o = o[:, :S]

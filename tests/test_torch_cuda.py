@@ -700,7 +700,26 @@ def test_wkv_launcher_splits_only_where_sms_idle(dev):
         plan = kw.launch_plan(B, H, hd)
         assert plan["n_split"] == want and plan["blocks"] == B * H * want
         assert plan["threads"] == (4 * hd + 31) // 32 * 32
+        assert (plan["chunk_width"], plan["head_width"]) == (16, 64)
+        assert plan["exact"] == (hd == 64)
     assert kw.launch_plan(8, 32, 64)["blocks_per_sm"] * sms >= 8 * 32
+    # above hd 64 a column is held by W / 16 lanes of 16 rows, and a block
+    # by at most 512 threads (256 above chunk 16), so a head takes at
+    # least hd / 64 (width 128; hd / 32 above chunk 16) or hd / 32 (width
+    # 256) blocks
+    for B, H, hd, chunk in ((8, 16, 128, 16), (8, 8, 256, 16),
+                            (1, 1, 256, 16), (1, 4, 100, 24),
+                            (200, 2, 72, 32)):
+        lanes = kw.kernel_width(hd) // 16
+        cb = (512 if chunk <= 16 else 256) // lanes
+        floor = -(-hd // cb)
+        want = max(floor, min((hd + 15) // 16, max(1, sms // (B * H))))
+        plan = kw.launch_plan(B, H, hd, chunk=chunk)
+        assert plan["n_split"] == want and plan["blocks"] == B * H * want
+        assert plan["threads"] == lanes * cb and plan["blocks_per_sm"] >= 1
+        assert plan["head_width"] == kw.kernel_width(hd)
+        assert plan["chunk_width"] == (16 if chunk <= 16 else 32)
+        assert plan["exact"] == (hd in (128, 256) and chunk in (16, 32))
 
 
 def test_wkv_kernel_pad_leaves_state_exact(dev):
@@ -713,12 +732,114 @@ def test_wkv_kernel_pad_leaves_state_exact(dev):
 
 
 def test_wkv_kernel_refuses_what_it_cannot_take(dev):
+    """On the card the wrapper raises where ``kw.kernel_takes`` says no
+    (hd above 256, chunk x head width above 4096), naming the limits."""
     ins = _wkv_inputs(1, 64, 2, 16, "test", dev)
     with pytest.raises(ValueError, match="one cpu or cuda device"):
         kw.wkv_chunked(ins[0].cpu(), *ins[1:])
-    big = [torch.zeros(1, 16, 1, 128, device=dev) for _ in range(4)]
-    with pytest.raises(ValueError, match="head_dim"):
-        kw.wkv_chunked(*big, torch.zeros(1, 128, device=dev))
+    for hd, chunk in ((257, 16), (256, 17), (128, 33), (64, 65)):
+        big = [torch.zeros(1, 2 * chunk, 1, hd, device=dev)
+               for _ in range(4)]
+        with pytest.raises(ValueError, match="head_dim 1..256 and chunk "
+                           "1..64 with chunk x head width <= 4096"):
+            kw.wkv_chunked(*big, torch.zeros(1, hd, device=dev),
+                           chunk=chunk)
+
+
+# (B, S, H, hd, chunk, decays): tests/test_torch_wkv.py's WIDE_CASES and
+# rwkv6-1.6b's widths at hd 128 and 256, and padded instances (hd 100 in
+# chunks of 24, hd 72 in chunks of 12, hd 200, hd 33 in chunks of 40)
+WKV_WIDE = [(1, 32, 2, 80, 16, "model"), (1, 48, 1, 96, 16, "test"),
+            (1, 32, 2, 128, 16, "clip"), (1, 32, 1, 256, 16, "model"),
+            (1, 32, 2, 64, 1, "clip"), (2, 32, 1, 64, 4, "test"),
+            (1, 64, 2, 64, 8, "clip"), (1, 48, 2, 64, 12, "model"),
+            (1, 96, 1, 64, 32, "test"), (1, 128, 1, 64, 32, "model"),
+            (1, 128, 1, 64, 64, "model"), (1, 128, 1, 64, 64, "test"),
+            (8, 512, 16, 128, 16, "model"), (8, 512, 8, 256, 16, "model"),
+            (2, 240, 3, 100, 24, "test"), (1, 96, 5, 72, 12, "model"),
+            (1, 64, 2, 200, 16, "clip"), (2, 80, 2, 33, 40, "test")]
+
+
+def _wkv_pad_chunks(ins, chunk, C):
+    """A pad step (zero r, k, v; w = 1) after each chunk's last, to C."""
+    r, k, v, w, u = ins
+    B, S, H, hd = r.shape
+    out = []
+    for t, fill in ((r, 0.0), (k, 0.0), (v, 0.0), (w, 1.0)):
+        x = torch.full((B, S // chunk, C, H, hd), fill, device=t.device)
+        x[:, :, :chunk] = t.reshape(B, S // chunk, chunk, H, hd)
+        out.append(x.reshape(B, -1, H, hd))
+    return out + [u]
+
+
+def _wkv_pad_head(ins, W):
+    """Zero columns past hd to W (w = 1 there)."""
+    F = torch.nn.functional
+    r, k, v, w, u = ins
+    pad = (0, W - r.shape[-1])
+    return [F.pad(t, pad) for t in (r, k, v)] + [F.pad(w, pad, value=1.0),
+                                                 F.pad(u, pad)]
+
+
+@pytest.mark.parametrize("B,S,H,hd,chunk,decays", WKV_WIDE)
+def test_wkv_kernel_wide_matches_plain(dev, B, S, H, hd, chunk, decays):
+    """Every instance beside (16, 64) against the plain version; any
+    n_split gives the same bits (1, 2, twice the head's floor and the
+    launcher's choice; 1 and 2 are raised to the floor above hd 64, 32
+    columns a block at hd 256); a padded chunk or head equals the
+    exact instance on the inputs padded by the caller, bit for bit."""
+    ins = _wkv_inputs(B, S, H, hd, decays, dev, seed=7)
+    before = kw.wkv_chunked.launches
+    o, st = kw.wkv_chunked(*ins, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert kw.wkv_chunked.launches == before + 1
+    o_ref, st_ref = kw.wkv_chunk_scan_ref(*ins, chunk)
+    for got, want in ((o, o_ref), (st, st_ref)):
+        assert torch.isfinite(got).all()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    floor = kw.launch_plan(B, H, hd, 1, chunk=chunk)["n_split"]
+    for n in (1, 2, min(hd, 2 * floor)):
+        o_n, st_n = kw.wkv_chunked(*ins, chunk=chunk, return_state=True,
+                                   n_split=n)
+        assert torch.equal(o_n, o) and torch.equal(st_n, st), n
+    plan = kw.launch_plan(B, H, hd, chunk=chunk)
+    C, W = plan["chunk_width"], plan["head_width"]
+    if chunk != C:
+        po, ps = kw.wkv_chunked(*_wkv_pad_chunks(ins, chunk, C), chunk=C,
+                                return_state=True)
+        po = po.reshape(B, S // chunk, C, H, hd)[:, :, :chunk]
+        assert torch.equal(po.reshape(B, S, H, hd), o)
+        assert torch.equal(ps, st)
+    if hd != W:
+        po, ps = kw.wkv_chunked(*_wkv_pad_head(ins, W), chunk=chunk,
+                                return_state=True)
+        assert torch.equal(po[..., :hd], o)
+        assert torch.equal(ps[..., :hd, :hd], st)
+
+
+def test_wkv_function_at_chunk_8_launches_the_kernel(dev):
+    """``wkv`` at chunk 8 through autograd: one launch in chunks of 8 (o
+    within 1e-4 of the plain version), and its backward autograd through
+    the plain scan at chunk 8, equal to that graph's own bit for bit."""
+    ins = _wkv_inputs(2, 64, 3, 64, "test", dev, seed=8)
+    cots = [torch.randn(s, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(9)) for s in ((2, 64, 3, 64), (2, 3, 64, 64))]
+    a = [t.clone().requires_grad_(True) for t in ins]
+    b = [t.clone().requires_grad_(True) for t in ins]
+    before = kw.wkv_chunked.launches
+    o, st = kw.wkv(*a, chunk=8, return_state=True)
+    torch.cuda.synchronize()
+    assert kw.wkv_chunked.launches == before + 1
+    want_o, want_st = kw.wkv_chunk_scan_ref(*b, 8)
+    for got, want in ((o, want_o), (st, want_st)):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got.detach(), want.detach(), atol=tol,
+                                   rtol=0)
+    got = torch.autograd.grad([o, st], a, cots)
+    want = torch.autograd.grad([want_o, want_st], b, cots)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("B,S,H,hd,decays", [

@@ -20,7 +20,14 @@ Weights are the reference's initialisers, carried over by
   ``test_torch_model``; the state and the carried rows 5e-2 of their
   largest value (1.1e-2 measured).
 The greedy tokens agree in both.
+
+The time mix also at a head dim of 128 (the smoke config with d_model
+256, two heads) and in chunks of 8, where the port raised before, and its
+gradient at chunk 8 against ``jax.grad`` of the reference's, in f32 within
+1e-5 of max|g| (``test_torch_train_rwkv.py``'s tolerance at chunk 16).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -77,6 +84,58 @@ def test_rwkv6_fwd(S, dtype):
     _close(y, jy, dtype)
     _close(st["S"], jst["S"], dtype)
     _close(L.rwkv6_fwd(tp, cfg, tx), jy, dtype)
+
+
+def _variant(name, dtype):
+    """The smoke config and weights of ``name``: "hd128" (d_model 256,
+    two heads of 128) or "chunk8" (the smoke config), and its chunk."""
+    cfg = jconfigs.get_config("rwkv6_1p6b", smoke=True)
+    if name == "hd128":
+        cfg = dataclasses.replace(cfg, d_model=256, rwkv_head_dim=128)
+    jp = JL.init_rwkv6(KEY, cfg)
+    if dtype == "float32":
+        jp = cast_tree(jp, jnp.float32)
+    return cfg, jp, to_torch(jp), 8 if name == "chunk8" else 16
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["hd128", "chunk8"])
+def test_rwkv6_fwd_other_head_dims_and_chunks(name, dtype):
+    """The time mix with its state at hd 128 and in chunks of 8: 21
+    tokens, padded to the chunk, against the reference's."""
+    cfg, jp, tp, chunk = _variant(name, dtype)
+    jx, tx = _x((2, 21, cfg.d_model), dtype, seed=2)
+    y, st = L.rwkv6_fwd(tp, cfg, tx, chunk=chunk, return_state=True)
+    jy, jst = JL.rwkv6_fwd(jp, cfg, jx, chunk=chunk, return_state=True)
+    assert st["S"].shape == (2, cfg.d_model // cfg.rwkv_head_dim,
+                             cfg.rwkv_head_dim, cfg.rwkv_head_dim)
+    _close(y, jy, dtype)
+    _close(st["S"], jst["S"], dtype)
+
+
+@pytest.mark.parametrize("name", ["chunk8", "hd128"])
+def test_rwkv6_fwd_grad_other_chunks_matches_reference(name):
+    """The gradient of a scalar of the time mix (every parameter and the
+    input) through ``wkv`` at chunk 8 and at hd 128, against ``jax.grad``
+    of the reference's: 37 tokens, padded to 40 and 48."""
+    cfg, jp, _, chunk = _variant(name, "float32")
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32)
+    ct = rng.standard_normal(x.shape).astype(np.float32)
+    jg_p, jg_x = jax.grad(lambda p, x: jnp.sum(
+        JL.rwkv6_fwd(p, cfg, x, chunk=chunk) * ct), argnums=(0, 1))(
+            jp, jnp.asarray(x))
+    p = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
+         for k, v in jax_to_numpy(jp).items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = L.rwkv6_fwd(p, cfg, xt, chunk=chunk)
+    names = ["mix", "u", "w_g", "w_k", "w_o", "w_r", "w_v", "w_w"]
+    got = torch.autograd.grad((y * torch.from_numpy(ct)).sum(),
+                              [p[k] for k in names] + [xt])
+    for k, g, w in zip(names + ["x"], got, [jg_p[k] for k in names]
+                       + [jg_x]):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max(), k
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
